@@ -1,0 +1,62 @@
+"""RAFT of the PyTorch port against JAX RAFT at full width (basic encoders,
+radius 4, 4 levels) on 64x64 frames in float32, same weights (JAX init,
+moved across with load_jax_params). The JAX side runs both lookups the
+port's single lookup replaces: the fused Pallas kernel (interpret mode on
+the CPU) and the XLA default "fused". Tolerance rtol 1e-3 / atol 5e-3, the
+bar the JAX package meets against the PyTorch original
+(tests/test_model_parity.py:68)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from accflow_tpu.models.raft import RAFTConfig as JRAFTConfig
+from accflow_tpu.models.raft import init_raft as j_init_raft
+from accflow_tpu.models.raft import raft_forward as j_raft_forward
+from accflow_tpu.models.raft import raft_pairs_forward as j_raft_pairs_forward
+from accflow_tpu_torch.convert import load_jax_params
+from accflow_tpu_torch.models import build_flow_estimator
+
+TOL = dict(rtol=1e-3, atol=5e-3)
+ITERS = 3
+
+
+@pytest.fixture(scope="module")
+def setup():
+    params = j_init_raft(jax.random.PRNGKey(0), JRAFTConfig(compute_dtype="float32"))
+    est = build_flow_estimator("raft", compute_dtype="float32", device="cpu")
+    load_jax_params(est.model, params)
+    frames = np.random.default_rng(0).uniform(-1, 1, (3, 2, 64, 64, 3)).astype(np.float32)
+    return params, est, frames
+
+
+@pytest.mark.parametrize("lookup", ["pallas_fused", "fused"])
+def test_raft_pairs_forward(setup, lookup):
+    params, est, frames = setup
+    src, dst = (2, 2, 1), (1, 0, 0)
+    cfg = JRAFTConfig(compute_dtype="float32", corr_lookup=lookup)
+    ref = j_raft_pairs_forward(params, jnp.asarray(frames), src, dst, cfg,
+                               iters=ITERS, final_only=True)
+    out = est.pairs_fn(iters=ITERS)(frames, src, dst)
+    assert tuple(out.shape) == (6, 64, 64, 2)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_raft_forward_predictions(setup):
+    """Every-iteration upsampled predictions (final_only=False)."""
+    params, est, frames = setup
+    cfg = JRAFTConfig(compute_dtype="float32")
+    ref = j_raft_forward(params, jnp.asarray(frames[0]), jnp.asarray(frames[1]), cfg,
+                         iters=ITERS)
+    out = est.forward(frames[0], frames[1], iters=ITERS)
+    for key in ("flow_up", "predictions", "flow_low"):
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), **TOL,
+                                   err_msg=key)
+
+
+def test_build_flow_estimator_rejects():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        build_flow_estimator("gma", device="cpu")
+    with pytest.raises(TypeError):
+        build_flow_estimator("raft", device="cpu", scan_unroll=4)
