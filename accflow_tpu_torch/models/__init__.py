@@ -16,21 +16,23 @@ from accflow_tpu_torch.models.raft import (  # noqa: F401
     RAFT,
     RAFTConfig,
     init_raft,
+    raft_encode_frame,
+    raft_flow_pairs_from_features,
     raft_forward,
     raft_pairs_forward,
 )
 
 
 class FlowEstimator:
-    """A RAFT model with its forward entry points."""
+    """A RAFT model (full width or small) with its forward entry points."""
 
     def __init__(self, name: str, model: RAFT):
         self.name = name
         self.model = model
 
-    def forward(self, image1, image2, iters: Optional[int] = None,
+    def forward(self, image1, image2, iters: Optional[int] = None, flow_init=None,
                 final_only: bool = False) -> dict:
-        return raft_forward(self.model, image1, image2, iters, final_only)
+        return raft_forward(self.model, image1, image2, iters, flow_init, final_only)
 
     def pairs_fn(self, iters: Optional[int] = None, final_only: bool = True):
         """Closure (frames, src_idx, dst_idx) -> (P*N, H, W, 2) flows with
@@ -41,12 +43,40 @@ class FlowEstimator:
 
         return fn
 
+    def encode_frame_fn(self):
+        """Closure (image_batch) -> cacheable per-frame features
+        ({fmap, net, inp}) for the streaming state (streaming.py)."""
+        def fn(image):
+            return raft_encode_frame(self.model, image)
+
+        return fn
+
+    def pairs_from_features_fn(self, iters: Optional[int] = None,
+                               final_only: bool = True):
+        """Closure (src_feats, dst_fmaps, flow_init=None) -> (P*N, H, W, 2)
+        flows from precomputed features: the streaming step's OFE call."""
+        def fn(src, dst_fmaps, flow_init=None):
+            return raft_flow_pairs_from_features(self.model, src, dst_fmaps, iters,
+                                                 flow_init, final_only)
+
+        return fn
+
+    def flow_fn(self):
+        """Closure (image1, image2, flow_init=None) -> final full-res flow,
+        for AccFlow's warm-started stepwise OFE (AccFlowConfig.warm_start)."""
+        def fn(image1, image2, flow_init=None):
+            return self.forward(image1, image2, flow_init=flow_init,
+                                final_only=True)["flow_up"]
+
+        return fn
+
 
 def build_flow_estimator(name: str, compute_dtype: str = "bfloat16", device=None,
                          seed: int = 0, **cfg_overrides) -> FlowEstimator:
     """RAFT for any name containing "raft", with weights drawn from `seed`
     on `device` (default cuda; raises without a GPU unless device="cpu").
-    Extra kwargs override RAFTConfig fields; unknown ones raise."""
+    Extra kwargs override RAFTConfig fields (small=True for RAFT-small,
+    iters); unknown ones raise."""
     lname = name.lower()
     if "gma" in lname:
         raise NotImplementedError(

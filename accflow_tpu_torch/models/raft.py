@@ -1,14 +1,19 @@
 """RAFT optical-flow estimator (inference), counterpart of
-accflow_tpu/models/raft.py at the full width of the repo's RAFT: basic
-encoders (fnet 256 channels, instance norm; cnet 128 hidden + 128 context,
-frozen batch norm), radius 4, 4 levels.
+accflow_tpu/models/raft.py, in its two configurations:
+- full width (RAFTConfig()): basic encoders (fnet 256 channels, instance
+  norm; cnet 128 hidden + 128 context, frozen batch norm), radius 4, 4
+  levels, SepConvGRU, convex upsampling;
+- RAFT-small (RAFTConfig(small=True)): small encoders (fnet 128, instance
+  norm; cnet 96 hidden + 64 context, no norm), radius 3, 4 levels, a 3x3
+  ConvGRU, no mask head: flows are upsampled with upflow8.
 
-One iteration: the correlation window lookup (ops/corr_cuda.py: the CUDA
-kernel on the GPU, the plain gather on the CPU) gives the (Q, 324) motion
-encoder input (JAX's `pallas_fused` path) -> BasicMotionEncoder ->
-SepConvGRU -> FlowHead. Encoders and the update block run in the compute
-dtype; the pyramid products, coordinates and upsampling in float32, and
-the stored pyramid levels in the compute dtype.
+One iteration: the correlation window lookup gives the (Q, L*(2r+1)^2)
+motion encoder input -> motion encoder -> GRU -> FlowHead. Each
+configuration has one lookup: full RAFT the 4-level radius-4 kernel
+(ops/corr_cuda.py), RAFT-small the per-level kernel (ops/corr_level_cuda.py);
+both take the plain gather on the CPU. Encoders and the update block run in
+the compute dtype; the pyramid products, coordinates and upsampling in
+float32, and the stored pyramid levels in the compute dtype.
 
 Images are (N, H, W, 3) in [-1, 1]; flows (N, H, W, 2) in (x, y) order.
 Feature maps inside are NCHW, kept channels_last in memory.
@@ -23,28 +28,40 @@ import torch
 import torch.nn as nn
 
 from accflow_tpu_torch.device import resolve_device
-from accflow_tpu_torch.models.encoders import BasicEncoder
+from accflow_tpu_torch.models.encoders import BasicEncoder, SmallEncoder
 from accflow_tpu_torch.nn.layers import Conv2d, conv2d, init_weights, tf32
 from accflow_tpu_torch.ops.corr import build_corr_pyramid
 from accflow_tpu_torch.ops.corr_cuda import LEVELS, RADIUS, lookup_corr_fused
-from accflow_tpu_torch.ops.grids import coords_grid
+from accflow_tpu_torch.ops.corr_level_cuda import lookup_corr_level
+from accflow_tpu_torch.ops.grids import coords_grid, upflow8
 from accflow_tpu_torch.ops.upsample import convex_upsample
 
 
 @dataclasses.dataclass(frozen=True)
 class RAFTConfig:
-    """The full-width RAFT of the JAX package (RAFTConfig with small=False).
-    Its TPU-only knobs (corr_lookup, scan_unroll, scan_remat, stem_s2d,
-    corr_volume_dtype) are not carried over: the port has one lookup, and
-    the pyramid levels are stored in the compute dtype."""
+    """The JAX package's RAFTConfig: full width, or RAFT-small with
+    small=True, from which the widths and the radius follow. Its TPU-only
+    knobs (corr_lookup, scan_unroll, scan_remat, stem_s2d,
+    corr_volume_dtype) are not carried over: each configuration has one
+    lookup, and the pyramid levels are stored in the compute dtype."""
 
     iters: int = 12
     compute_dtype: str = "bfloat16"
+    small: bool = False
 
-    hidden_dim = 128  # class constants, not fields: RAFT-small is not ported
-    context_dim = 128
-    corr_levels = LEVELS  # both compiled into the lookup kernel
-    corr_radius = RADIUS
+    corr_levels = LEVELS  # a class constant: both lookup kernels are built for 4
+
+    @property
+    def hidden_dim(self) -> int:
+        return 96 if self.small else 128
+
+    @property
+    def context_dim(self) -> int:
+        return 64 if self.small else 128
+
+    @property
+    def corr_radius(self) -> int:
+        return 3 if self.small else RADIUS
 
     @property
     def dtype(self) -> torch.dtype:
@@ -149,13 +166,63 @@ class BasicUpdateBlock(nn.Module):
         return 0.25 * self.mask(net)
 
 
+class SmallMotionEncoder(nn.Module):
+    def __init__(self, corr_planes: int):
+        super().__init__()
+        self.convc1 = Conv2d(corr_planes, 96, 1)
+        self.convf1 = Conv2d(2, 64, 7)
+        self.convf2 = Conv2d(64, 32, 3)
+        self.conv = Conv2d(128, 80, 3)
+
+    def forward(self, flow, corr):
+        """flow (N, 2, H, W), corr (N, corr_planes, H, W) -> (N, 82, H, W)."""
+        cor = torch.relu(self.convc1(corr))
+        flo = torch.relu(self.convf2(torch.relu(self.convf1(flow))))
+        out = torch.relu(self.conv(torch.cat([cor, flo], dim=1)))
+        return torch.cat([out, flow], dim=1)
+
+
+class ConvGRU(nn.Module):
+    """3x3 ConvGRU (update.py:19-31)."""
+
+    def __init__(self, hidden_dim: int, input_dim: int):
+        super().__init__()
+        cat = hidden_dim + input_dim
+        self.convz = Conv2d(cat, hidden_dim, 3)
+        self.convr = Conv2d(cat, hidden_dim, 3)
+        self.convq = Conv2d(cat, hidden_dim, 3)
+
+    def forward(self, h, x):
+        hx = torch.cat([h, x], dim=1)
+        z = torch.sigmoid(self.convz(hx))
+        r = torch.sigmoid(self.convr(hx))
+        q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)))
+        return (1.0 - z) * h + z * q
+
+
+class SmallUpdateBlock(nn.Module):
+    """RAFT-small's update block: no mask head (update.py:99-113)."""
+
+    def __init__(self, cfg: RAFTConfig):
+        super().__init__()
+        self.encoder = SmallMotionEncoder(cfg.corr_planes)
+        self.gru = ConvGRU(cfg.hidden_dim, 82 + cfg.context_dim)
+        self.flow_head = FlowHead(cfg.hidden_dim, 128)
+
+
 class RAFT(nn.Module):
     def __init__(self, cfg: RAFTConfig = RAFTConfig()):
         super().__init__()
         self.cfg = cfg
-        self.fnet = BasicEncoder(256, "instance")
-        self.cnet = BasicEncoder(cfg.hidden_dim + cfg.context_dim, "batch")
-        self.update_block = BasicUpdateBlock(cfg)
+        planes = cfg.hidden_dim + cfg.context_dim
+        if cfg.small:
+            self.fnet = SmallEncoder(128, "instance")
+            self.cnet = SmallEncoder(planes, "none")
+            self.update_block = SmallUpdateBlock(cfg)
+        else:
+            self.fnet = BasicEncoder(256, "instance")
+            self.cnet = BasicEncoder(planes, "batch")
+            self.update_block = BasicUpdateBlock(cfg)
 
 
 def init_raft(cfg: RAFTConfig = RAFTConfig(), seed: int = 0, device=None) -> RAFT:
@@ -172,31 +239,48 @@ def raft_cnet(model: RAFT, images: torch.Tensor):
     return torch.tanh(out[:, :hd]), torch.relu(out[:, hd:])
 
 
-def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool):
+def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
+                 flow_init: Optional[torch.Tensor] = None):
     """The GRU refinement loop on a built pyramid. net/inp (N, C, h8, w8)
-    in the compute dtype. Returns {"flow_up", "flow_low"[, "predictions"]}."""
+    in the compute dtype; flow_init an optional (N, h8, w8, 2) warm start,
+    added to the coordinate grid in float32. Returns {"flow_up",
+    "flow_low"[, "predictions"]}."""
     cfg, ub = model.cfg, model.update_block
     cd = cfg.dtype
     n, _, h8, w8 = net.shape
     coords0 = coords_grid(n, h8, w8, device=net.device)
     coords1 = coords0.clone()
-    gru_step = ub.gru.fused_step(inp)
+    if flow_init is not None:
+        flow_init = torch.as_tensor(flow_init, dtype=torch.float32, device=net.device)
+        coords1 = (coords1 + flow_init).contiguous()
+    if cfg.small:
+        lookup = lookup_corr_level
+
+        def gru_step(h, motion):
+            return ub.gru(h, torch.cat([inp, motion], dim=1))
+
+        def upsample(flow, net):
+            return upflow8(flow)
+    else:
+        lookup = lookup_corr_fused
+        gru_step = ub.gru.fused_step(inp)
+
+        def upsample(flow, net):
+            return convex_upsample(flow, ub.upsample_mask(net).permute(0, 2, 3, 1))
     preds = []
     for _ in range(iters):
         flow = coords1 - coords0
-        corr = lookup_corr_fused(levels, coords1.view(-1, 2), cfg.corr_radius)
+        corr = lookup(levels, coords1.view(-1, 2), cfg.corr_radius)
         corr = corr.view(n, h8, w8, -1).permute(0, 3, 1, 2).to(cd)
         motion = ub.encoder(flow.permute(0, 3, 1, 2).to(cd), corr)
         net = gru_step(net, motion)
         delta = ub.flow_head(net)
         coords1 = (coords1 + delta.float().permute(0, 2, 3, 1)).contiguous()
         if not final_only:
-            mask = ub.upsample_mask(net).permute(0, 2, 3, 1)
-            preds.append(convex_upsample(coords1 - coords0, mask))
+            preds.append(upsample(coords1 - coords0, net))
     out = {"flow_low": coords1 - coords0}
     if final_only:
-        mask = ub.upsample_mask(net).permute(0, 2, 3, 1)
-        out["flow_up"] = convex_upsample(coords1 - coords0, mask)
+        out["flow_up"] = upsample(coords1 - coords0, net)
     else:
         out["flow_up"] = preds[-1]
         out["predictions"] = torch.stack(preds)
@@ -209,13 +293,14 @@ def _as_images(x, device) -> torch.Tensor:
 
 @torch.no_grad()
 def raft_forward(model: RAFT, image1, image2, iters: Optional[int] = None,
-                 final_only: bool = False):
-    """Flow image1 -> image2; images (N, H, W, 3). Returns flow_up
-    (N, H, W, 2) float32, flow_low (N, H/8, W/8, 2) and, unless
-    final_only, the per-iteration upsampled `predictions`."""
+                 flow_init=None, final_only: bool = False):
+    """Flow image1 -> image2; images (N, H, W, 3). flow_init: optional
+    (N, H/8, W/8, 2) warm start. Returns flow_up (N, H, W, 2) float32,
+    flow_low (N, H/8, W/8, 2) and, unless final_only, the per-iteration
+    upsampled `predictions`."""
     dev = next(model.parameters()).device
     frames = torch.stack([_as_images(image1, dev), _as_images(image2, dev)])
-    return _pairs(model, frames, (0,), (1,), iters, final_only)
+    return _pairs(model, frames, (0,), (1,), iters, final_only, flow_init)
 
 
 @torch.no_grad()
@@ -232,7 +317,7 @@ def raft_pairs_forward(model: RAFT, frames, src_idx, dst_idx,
                   final_only)["flow_up"]
 
 
-def _pairs(model, frames, src_idx, dst_idx, iters, final_only):
+def _pairs(model, frames, src_idx, dst_idx, iters, final_only, flow_init=None):
     cfg = model.cfg
     cd = cfg.dtype
     iters = cfg.iters if iters is None else iters
@@ -256,4 +341,40 @@ def _pairs(model, frames, src_idx, dst_idx, iters, final_only):
         sel = [spos[i] for i in src_idx]
         net = net_u.view(len(src_used), n, *net_u.shape[1:])[sel].flatten(0, 1)
         inp = inp_u.view(len(src_used), n, *inp_u.shape[1:])[sel].flatten(0, 1)
-        return raft_iterate(model, levels, net, inp, iters, final_only)
+        return raft_iterate(model, levels, net, inp, iters, final_only, flow_init)
+
+
+@torch.no_grad()
+def raft_encode_frame(model: RAFT, image) -> dict:
+    """Cacheable per-frame features for streaming (streaming.py): the fnet
+    map and the cnet (net, inp) state of (N, H, W, 3) frames. Both encoders
+    are per-sample (instance norm, frozen batch norm or none), so encoding
+    frames apart is exact against the batched encodes of _pairs."""
+    cd = model.cfg.dtype
+    x = to_nchw(_as_images(image, next(model.parameters()).device), cd)
+    with tf32(False):
+        fmap = model.fnet(x)
+        net, inp = raft_cnet(model, x)
+    return {"fmap": fmap, "net": net, "inp": inp}
+
+
+@torch.no_grad()
+def raft_flow_pairs_from_features(model: RAFT, src: dict, dst_fmaps,
+                                  iters: Optional[int] = None, flow_init=None,
+                                  final_only: bool = True) -> torch.Tensor:
+    """Pair flows src -> each of the P dst maps from precomputed features:
+    src is raft_encode_frame of the query frames, dst_fmaps a list of P
+    cached fnet maps (the streaming step encodes only the new frame).
+    flow_init: optional (P*N, H/8, W/8, 2) warm start. Returns flow_up
+    (P*N, H, W, 2), P-major."""
+    cfg = model.cfg
+    iters = cfg.iters if iters is None else iters
+    p = len(dst_fmaps)
+    with tf32(False):
+        levels = build_corr_pyramid(torch.cat([src["fmap"]] * p),
+                                    torch.cat(list(dst_fmaps)), cfg.corr_levels,
+                                    dtype=cfg.dtype)
+        net = torch.cat([src["net"]] * p)
+        inp = torch.cat([src["inp"]] * p)
+        return raft_iterate(model, levels, net, inp, iters, final_only,
+                            flow_init)["flow_up"]

@@ -5,35 +5,55 @@
 
 Phases, each of which ends the run with a non-zero exit code if it fails:
 1. the card's name and power limit (nvidia-smi);
-2. build the correlation lookup kernel from csrc/ with nvcc (timed);
-3. at the main path's lookup shape (Q = 22*64*64 queries, levels 64^2,
-   32^2, 16^2, 8^2, coords +-20 px around the grid), float32 and bfloat16
-   levels: the kernel against the plain lookup on the card, then the
-   median times of the kernel, the plain lookup and F.grid_sample per level
-   (the library yardstick; the port never calls it) beside the bound;
-4. the main path: AccFlow+RAFT clip inference, 7 frames of 512^2, batch 2,
+2. build both lookup kernels from csrc/ with nvcc, one process each,
+   started together (timed);
+3. kernel #1, the 4-level radius-4 lookup (csrc/corr_lookup.cu), at the
+   clip path's lookup shape (Q = 22*64*64 queries, levels 64^2, 32^2, 16^2,
+   8^2, coords +-20 px around the grid), float32 and bfloat16 levels: the
+   kernel against the plain lookup on the card, then the device times
+   (torch.profiler) of the kernel, the plain lookup and F.grid_sample per
+   level (the library yardstick; the port never calls it) beside the
+   bound, and the kernel's wall time per call back to back (CUDA events);
+4. kernel #2, the per-level lookup (csrc/corr_level_lookup.cu), the same
+   checks and times at the stream's shape (Q = 4*64*64, radius 3) and at
+   the clip path's shape (radius 4, beside kernel #1's time);
+5. the clip path: AccFlow+RAFT clip inference, 7 frames of 512^2, batch 2,
    12 RAFT iterations per pair, bfloat16 compute with float32 flow state,
-   weights from a seed; output shape, finiteness and 12 lookup launches
+   weights from a seed; output shape, finiteness and 12 kernel-#1 launches
    per forward are checked, frames/s and peak memory printed. Then a small
    clip in float32 (TF32 off) runs once on the GPU (through the kernel)
    and once on the CPU (through the plain lookup) with the same weights,
-   and the two must agree.
-Optional phases: --tile-sweep builds the kernel with 4, 8 and 16 queries
+   and the two must agree;
+6. the stream at full width (scripts/bench_stream.py's stream6 protocol:
+   512^2, batch 2, bfloat16 compute with float32 flow state, 6 OFE
+   iterations per step): reset on 3 frames, 2 warm-up pushes, 30 timed
+   pushes, for (a) RAFT-small + AccFlow hidden 128 (kernel #2) and (b) full
+   RAFT + AccFlow hidden 128 (kernel #1); ms per push, frames/s, peak
+   memory, output shape and finiteness, 6 launches per push;
+7. the trained drift fixture (tests/fixtures/drift_small_{ofe,acc}.npz:
+   RAFT-small, hidden-64 accumulator) streamed over the fixture's 36-frame
+   sequence in float32, TF32 off, on the GPU: the EPE(i) curve must meet
+   both bounds of tests/test_streaming.py:250-258; the same stream on the
+   CPU (plain lookup) must agree with it (DRIFT_REL, DRIFT_EPE_PX).
+Optional phases: --tile-sweep builds kernel #1 with 4, 8 and 16 queries
 per block and times them in turns (after phase 3); --profile prints where
-the device time of the main path's clip forward goes (torch.profiler).
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Without a GPU, or without the package
-beside it, the script exits non-zero and prints no result.
+the device time of the clip forward and of a stream push goes
+(torch.profiler). The line before the last is {"kernels": [...]}; the last
+line is {"ok": true, "device": {...}}. Without a GPU, or without the
+package beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -42,7 +62,11 @@ from torch.profiler import ProfilerActivity, profile
 
 try:
     from accflow_tpu_torch import models
-    from accflow_tpu_torch.ops import corr, corr_cuda
+    from accflow_tpu_torch.convert import load_jax_params, load_npz_tree
+    from accflow_tpu_torch.data.synthetic import make_long_sequence
+    from accflow_tpu_torch.nn.layers import tf32
+    from accflow_tpu_torch.ops import corr, corr_cuda, corr_level_cuda
+    from accflow_tpu_torch.streaming import StreamAccumulator
 except ImportError as e:  # this file alone, outside the repository
     sys.exit(f"chip_smoke: run from the repository root ({e})")
 
@@ -50,9 +74,13 @@ H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # float32 outside the tensor cores
 LOOKUP_TOL = 1e-4            # kernel vs plain lookup, max abs (see check_lookup)
 CLIP_REL = 1e-3              # GPU vs CPU clip: max abs diff / max |flow| (see small_clip)
+DRIFT_REL = 1e-3             # GPU vs CPU drift stream, first output (see drift_fixture)
+DRIFT_EPE_PX = 0.05          # GPU vs CPU drift stream, per-step EPE (see drift_fixture)
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
+KERNELS = (corr_cuda, corr_level_cuda)  # each wrapper's `launches` count
 TILES = (4, 8, 16)           # queries per block tried by --tile-sweep; 8 ships
 KINDS = (  # --profile: kind of a kernel, first match on its lower-cased name
-    ("corr lookup (this port's kernel)", ("corr_lookup",)),
+    ("corr lookup (this port's kernels)", ("corr_lookup", "level_lookup")),
     ("conv / GEMM (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "cudnn", "sm90_", "wgrad", "dgrad")),
     ("gather / index", ("index", "gather", "scatter")),
     ("softmax", ("softmax",)),
@@ -78,9 +106,10 @@ def smi(fields: str) -> str:
 
 
 def cuda_ms(fn, inner: int, rounds: int = 5) -> float:
-    """Device time of one call (CUDA events around `inner` back-to-back
-    calls, so the host's launch overhead overlaps the device's work),
-    median over `rounds`, after one warm-up call."""
+    """Wall time of one call as its caller sees it: CUDA events around
+    `inner` back-to-back calls, median over `rounds`, after one warm-up
+    call. Where a call's kernels are shorter than the host's work to issue
+    them, this times the host (see device_ms)."""
     fn()
     times = []
     for _ in range(rounds):
@@ -92,6 +121,36 @@ def cuda_ms(fn, inner: int, rounds: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def device_rows(prof, calls: int):
+    """(ms per call, launches per call, name) of each kernel in a profile
+    of `calls` calls."""
+    rows = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((dev_us / 1e3 / calls, evt.count // calls, evt.key))
+    return rows
+
+
+def device_ms(fn, calls: int) -> float:
+    """Device time of one call: the summed time of the kernels that `calls`
+    calls launch (torch.profiler), over `calls`, after one warm-up call.
+    It leaves out the host's time between launches, which at the stream's
+    lookup shape is longer than the kernel itself."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms = sum(r[0] for r in device_rows(prof, calls))
+    if not ms > 0:
+        fail("profile: the profiler saw no device time")
+    return ms
 
 
 def lookup_bound(levels, coords, radius: int = 4):
@@ -142,13 +201,13 @@ def grid_sample_lookup(levels, coords, radius: int = 4):
     return run, result
 
 
-def lookup_inputs():
-    """The main path's lookup shape: Q = 22*64*64 queries (11 pairs at batch
-    2, 512^2 frames), unit-normal float32 levels of 64^2, 32^2, 16^2, 8^2,
-    coords on the grid +-20 px."""
+def lookup_inputs(b: int):
+    """A lookup shape of the port: Q = b*64*64 queries (b pair-batches of
+    512^2 frames; 22 on the clip path, 4 in the stream), unit-normal float32
+    levels of 64^2, 32^2, 16^2, 8^2, coords on the grid +-20 px."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    b, h, w = 22, 64, 64
+    h, w = 64, 64
     q = b * h * w
     levels32 = [torch.randn((q, h >> l, w >> l), generator=gen, device=dev)
                 for l in range(4)]
@@ -159,32 +218,44 @@ def lookup_inputs():
     return levels32, coords
 
 
-def check_lookup(levels32, coords):
-    """Phase 3. The kernel shares one fractional offset over a window's 81
-    taps; the plain lookup recomputes x/2^l + (a - 4) per tap, whose float32
+def check_lookup(label: str, kernel, levels32, coords, radius: int, beside=None):
+    """Phases 3 and 4: `kernel(levels, coords)` against the plain lookup at
+    `radius`, then its time beside the plain lookup's, F.grid_sample's, the
+    bound and, when given, `beside(levels, coords)`'s (kernel #1 on the same
+    inputs). Times are device times (device_ms); the kernel's `wall_ms` is
+    the event timing of back-to-back calls, wrapper included. Both kernels
+    share one fractional offset over a window's taps;
+    the plain lookup recomputes x/2^l + (a - r) per tap, whose float32
     rounding (<= half an ulp of |x| <= ~100, i.e. <= 4e-6) times the maps'
     local slope (unit-normal values, |slope| <= ~8) stays below 1e-4."""
     rows = {}
     for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         levels = [lvl.to(dtype) for lvl in levels32]
-        got = corr_cuda.lookup_corr_fused(levels, coords)
-        ref = corr.lookup_corr_plain(levels, coords)
+        got = kernel(levels, coords)
+        ref = corr.lookup_corr_plain(levels, coords, radius)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
-        lib_run, lib_result = grid_sample_lookup(levels, coords)
+        lib_run, lib_result = grid_sample_lookup(levels, coords, radius)
         lib_err = float((lib_result() - ref).abs().max())
-        print(f"lookup {name}: kernel vs plain max abs {err:.3e} (tol {LOOKUP_TOL:g}); "
+        print(f"{label} {name}: kernel vs plain max abs {err:.3e} (tol {LOOKUP_TOL:g}); "
               f"grid_sample vs plain {lib_err:.3e}")
         if not err <= LOOKUP_TOL:
-            fail(f"lookup kernel disagrees with the plain lookup ({name}): {err}")
-        ms = cuda_ms(lambda: corr_cuda.lookup_corr_fused(levels, coords), 20)
-        plain_ms = cuda_ms(lambda: corr.lookup_corr_plain(levels, coords), 2, 3)
-        library_ms = cuda_ms(lib_run, 10)
-        bound_ms, bound_by, nbytes = lookup_bound(levels, coords)
-        print(f"lookup {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B at 3.35 TB/s)")
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=library_ms)
+            fail(f"{label}: kernel disagrees with the plain lookup ({name}): {err}")
+        ms = device_ms(lambda: kernel(levels, coords), 20)
+        wall_ms = cuda_ms(lambda: kernel(levels, coords), 20)
+        plain_ms = device_ms(lambda: corr.lookup_corr_plain(levels, coords, radius), 2)
+        library_ms = device_ms(lib_run, 10)
+        bound_ms, bound_by, nbytes = lookup_bound(levels, coords, radius)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms, wall_ms=wall_ms)
+        extra = ""
+        if beside is not None:
+            row["corr_lookup_ms"] = device_ms(lambda: beside(levels, coords), 20)
+            extra = f", kernel #1 {row['corr_lookup_ms']:.4f} ms"
+        print(f"{label} {name}: kernel {ms:.4f} ms ({wall_ms:.4f} ms per call back to back), "
+              f"plain {plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, bound {bound_ms:.4f} "
+              f"ms ({bound_by}: {nbytes} B at 3.35 TB/s){extra}")
+        rows[name] = row
         del levels, got, ref, lib_run, lib_result
     return rows
 
@@ -232,13 +303,7 @@ def profile_forward(forward, wall_ms: float, reps: int = 3) -> None:
             forward()
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3 / reps
-    rows = []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dev_us / 1e3 / reps, evt.count // reps, evt.key))
+    rows = device_rows(prof, reps)
     busy_ms = sum(r[0] for r in rows)
     if not busy_ms > 0:
         fail("profile: the profiler saw no device time")
@@ -267,8 +332,25 @@ def perturb_zero_conv(acc, seed: int) -> None:
             p.copy_(torch.randn(p.shape, generator=gen) * scale)
 
 
-def main_path(with_profile: bool):
-    """Phase 4: the clip forward at full size (and --profile's breakdown of
+def reset_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def expect_counts(path: str, kernel, expected: int) -> int:
+    """After a path's run from reset_counts(): `kernel` launched `expected`
+    times and every other kernel never. Returns the count."""
+    counts = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in KERNELS}
+    print(f"{path}: kernel launches {counts}")
+    for k in KERNELS:
+        want = expected if k is kernel else 0
+        if k.launches != want:
+            fail(f"{path}: {k.__name__} launched {k.launches} times, expected {want}")
+    return kernel.launches
+
+
+def clip_path(with_profile: bool):
+    """Phase 5: the clip forward at full size (and --profile's breakdown of
     it), then the small GPU-vs-CPU clip."""
     dev = torch.device("cuda")
     t, n, size = 7, 2, 512
@@ -289,24 +371,22 @@ def main_path(with_profile: bool):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reps = 5
-    corr_cuda.launches = 0
+    reset_counts()
     secs = []
     for _ in range(reps):
         t0 = time.perf_counter()
         out = forward()
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    launches = corr_cuda.launches
+    launches = expect_counts("clip path", corr_cuda, 12 * reps)
     peak = torch.cuda.max_memory_allocated()
     clocks = smi("clocks.sm,power.draw,temperature.gpu")
     if tuple(out.shape) != (t - 2, n, size, size, 2) or out.dtype != torch.float32:
         fail(f"main path output {tuple(out.shape)} {out.dtype}")
     if not bool(torch.isfinite(out).all()):
         fail("main path output is not finite")
-    if launches != 12 * reps:
-        fail(f"lookup kernel launched {launches} times in {reps} forwards, expected {12 * reps}")
     fps = n * t / statistics.median(secs)
-    print(f"main path: output {tuple(out.shape)} finite, |flow| mean {float(out.abs().mean()):.4f}; "
+    print(f"clip path: output {tuple(out.shape)} finite, |flow| mean {float(out.abs().mean()):.4f}; "
           f"{launches} lookup launches in {reps} forwards; median {statistics.median(secs) * 1e3:.2f} ms "
           f"per forward (runs {', '.join(f'{s * 1e3:.2f}' for s in secs)} ms) = {fps:.3f} frames/s; "
           f"peak memory {peak / 2**30:.3f} GiB; after the runs: SM clock, power, temperature {clocks}")
@@ -327,8 +407,6 @@ def small_clip() -> None:
     phase 3): 1.9e-7 max abs at |flow| max 0.15 on an H100 (PERF.md). The
     bar, CLIP_REL of the largest |flow|, leaves ~800x room for that and
     fails a lookup error that moves the flow by a thousandth of its size."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     clip = np.random.default_rng(3).uniform(-1, 1, (4, 1, 64, 64, 3)).astype(np.float32)
     outs = {}
     for where in ("cuda", "cpu"):
@@ -337,7 +415,8 @@ def small_clip() -> None:
         acc = models.init_accflow(cfg, seed=1, device="cpu")
         perturb_zero_conv(acc, 2)
         before = corr_cuda.launches
-        outs[where] = models.accflow_forward(acc.to(where), clip, est.pairs_fn()).cpu().numpy()
+        with tf32(False):
+            outs[where] = models.accflow_forward(acc.to(where), clip, est.pairs_fn()).cpu().numpy()
         print(f"small clip on {where}: {corr_cuda.launches - before} kernel launches")
         if (corr_cuda.launches > before) != (where == "cuda"):
             fail(f"small clip on {where} launched the kernel {corr_cuda.launches - before} times")
@@ -352,12 +431,167 @@ def small_clip() -> None:
         fail(f"small clip: GPU and CPU differ by {diff:.3e} > {tol:.3e}")
 
 
+def moving_frames(t: int, n: int, size: int, seed: int) -> torch.Tensor:
+    """(t, n, size, size, 3) frames in [-1, 1] on the card: a smooth random
+    texture per batch element, each frame shifted (torus wrap) by a
+    velocity of up to 4 px per frame redrawn every 6 frames, so warm starts
+    see real motion."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    coarse = torch.rand((n, 3, size // 8, size // 8), generator=gen, device=dev)
+    tex = F.interpolate(coarse, size=(size, size), mode="bilinear", align_corners=False)
+    tex = (tex + 0.05 * torch.randn(tex.shape, generator=gen, device=dev)).clamp(0, 1) * 2 - 1
+    vel = torch.randint(-4, 5, ((t + 5) // 6, n, 2), generator=gen, device=dev)
+    vel = vel.repeat_interleave(6, dim=0)[:t].cpu()
+    vel[0] = 0
+    cum = vel.cumsum(0).tolist()
+    frames = torch.stack([
+        torch.stack([torch.roll(tex[b], shifts=(cum[i][b][0], cum[i][b][1]), dims=(1, 2))
+                     for b in range(n)]) for i in range(t)])
+    return frames.permute(0, 1, 3, 4, 2).contiguous()
+
+
+def stream_path(label: str, small: bool, with_profile: bool):
+    """Phase 6: scripts/bench_stream.py's stream6 protocol through the
+    port's StreamAccumulator: 512^2, batch 2, bf16 compute, 6 OFE iterations
+    per step, AccFlow hidden 128 with its ZeroConv perturbed; reset on 3
+    frames, 2 warm-up pushes, 30 timed pushes (host clock around each push,
+    synchronised). Returns (kernel launches in the run, frames/s, median ms)."""
+    n, size, warm, timed, iters = 2, 512, 2, 30, 6
+    kernel = corr_level_cuda if small else corr_cuda
+    est = models.build_flow_estimator("raft", compute_dtype="bfloat16", small=small,
+                                      iters=iters, seed=0)
+    acc = models.init_accflow(models.AccFlowConfig(compute_dtype="bfloat16", warm_start=True),
+                              seed=1, device="cpu")
+    perturb_zero_conv(acc, 2)
+    sa = StreamAccumulator(est, acc.to("cuda"))
+    frames = moving_frames(3 + warm + timed, n, size, seed=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = sa.reset(frames[:3])
+    for i in range(3, 3 + warm):
+        out = sa.push(frames[i])
+    torch.cuda.synchronize()
+    before = kernel.launches
+    secs = []
+    for i in range(3 + warm, 3 + warm + timed):
+        t0 = time.perf_counter()
+        out = sa.push(frames[i])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    in_timed = kernel.launches - before
+    launches = expect_counts(f"stream {label}", kernel, 2 * iters + (warm + timed) * iters)
+    peak = torch.cuda.max_memory_allocated()
+    clocks = smi("clocks.sm,power.draw,temperature.gpu")
+    if tuple(out.shape) != (n, size, size, 2) or out.dtype != torch.float32:
+        fail(f"stream {label} output {tuple(out.shape)} {out.dtype}")
+    if not bool(torch.isfinite(out).all()):
+        fail(f"stream {label} output is not finite")
+    if in_timed != iters * timed:
+        fail(f"stream {label}: {in_timed} launches in {timed} pushes, expected {iters * timed}")
+    med = statistics.median(secs) * 1e3
+    fps = n * timed / sum(secs)
+    print(f"stream {label}: output {tuple(out.shape)} finite, |flow| mean "
+          f"{float(out.abs().mean()):.4f}; {in_timed} launches in {timed} pushes "
+          f"({in_timed / timed:g} per push; {launches} with reset and warm-up); median "
+          f"{med:.3f} ms per push (min {min(secs) * 1e3:.3f}, max {max(secs) * 1e3:.3f}) = "
+          f"{fps:.3f} frames/s; peak memory {peak / 2**30:.3f} GiB; "
+          f"after the runs: SM clock, power, temperature {clocks}")
+    if with_profile:
+        replay = itertools.cycle(frames[3:])
+        profile_forward(lambda: sa.push(next(replay)), med)
+    del est, acc, sa, frames, out
+    torch.cuda.empty_cache()
+    return launches, fps, med, peak
+
+
+def drift_run(where: str, seq):
+    """The fixture's stream on `where`, float32, TF32 off: outputs F_{i,0}
+    for i = 2..35 as (34, 64, 64, 2) numpy."""
+    est = models.build_flow_estimator("raft", compute_dtype="float32", small=True, iters=6,
+                                      device=where)
+    load_jax_params(est.model, load_npz_tree(str(FIXTURES / "drift_small_ofe.npz")))
+    acc = models.init_accflow(models.AccFlowConfig(hidden=64, compute_dtype="float32",
+                                                   warm_start=True), device=where)
+    load_jax_params(acc, load_npz_tree(str(FIXTURES / "drift_small_acc.npz")))
+    imgs = (2.0 * (seq["imgs"].astype(np.float32) / 255.0) - 1.0)[:, None]
+    sa = StreamAccumulator(est, acc)
+    with tf32(False):
+        outs = [sa.reset(imgs[:3])]
+        outs += [sa.push(imgs[i]) for i in range(3, imgs.shape[0])]
+    return torch.stack(outs)[:, 0].cpu().numpy()
+
+
+def drift_fixture():
+    """Phase 7: the trained RAFT-small (6 iterations) + hidden-64
+    accumulator streamed over the fixture's 36-frame sequence on the GPU
+    (kernel #2) and on the CPU (plain lookup).
+
+    Bounds on the GPU curve, tests/test_streaming.py:250-258: EPE(i) <=
+    1.5 x recorded + 0.5 at every step, and the mean of the last 6 <= 2 x
+    the mean of curve[2:8] + 1.
+    GPU vs CPU, both float32: they differ by summation order (cuDNN, the
+    splat's accumulation) and the kernel's shared fractional offset, ~1e-6
+    of the flow per step; the warm start carries each step's flow into the
+    next search, and a binary occlusion bit (mean error <= 1.0) or a
+    bilinear floor can flip at a pixel. Bars: the first output F_{2,0}
+    (before any warm start) within DRIFT_REL of the largest |flow|, as the
+    small clip; and |EPE_gpu(i) - EPE_cpu(i)| <= DRIFT_EPE_PX at every step
+    (about 1 % of the smallest recorded EPE, 2.97 px), room for a few
+    flipped pixels per step but not for a lookup error that moves the flow."""
+    seq = make_long_sequence(np.random.default_rng(77), 64, 64, 36, seg_len=6, max_v=1,
+                             fg=True, fg_max_v=2)
+    gt = seq["bflows"][1:35]
+    ref_curve = np.load(FIXTURES / "drift_small_epe.npy")
+    reset_counts()
+    gpu = drift_run("cuda", seq)
+    launches = expect_counts("drift fixture on the GPU", corr_level_cuda, 12 + 33 * 6)
+    cpu = drift_run("cpu", seq)
+    curves = {k: np.sqrt(((v - gt) ** 2).sum(-1)).mean(axis=(1, 2)) for k, v in
+              (("gpu", gpu), ("cpu", cpu))}
+    curve = curves["gpu"]
+    print("drift fixture EPE(i), i = 2..35, GPU: " + " ".join(f"{v:.4f}" for v in curve))
+    print("drift fixture EPE(i), i = 2..35, CPU: " + " ".join(f"{v:.4f}" for v in curves["cpu"]))
+    print("drift fixture EPE(i), recorded:        " + " ".join(f"{v:.4f}" for v in ref_curve))
+    early, late = float(curve[2:8].mean()), float(curve[-6:].mean())
+    worst = float((curve - (1.5 * ref_curve + 0.5)).max())
+    print(f"drift fixture bounds: max(curve - (1.5 x recorded + 0.5)) = {worst:.4f} (<= 0); "
+          f"late {late:.4f} <= 2 x early {early:.4f} + 1 = {2 * early + 1:.4f}")
+    if not (worst <= 0 and late <= 2 * early + 1):
+        fail("drift fixture: the GPU stream breaks the drift bounds")
+    first = float(np.abs(gpu[0] - cpu[0]).max())
+    first_tol = DRIFT_REL * float(np.abs(cpu[0]).max())
+    epe_gap = np.abs(curves["gpu"] - curves["cpu"])
+    print(f"drift fixture GPU vs CPU: F_2,0 max abs {first:.3e} (tol {first_tol:.3e}); "
+          f"per-step EPE gap max {epe_gap.max():.3e} px, mean {epe_gap.mean():.3e} px "
+          f"(tol {DRIFT_EPE_PX} px); flows max abs over all steps {np.abs(gpu - cpu).max():.3e}")
+    if not np.isfinite(gpu).all() or not first <= first_tol:
+        fail(f"drift fixture: first output GPU vs CPU {first:.3e} > {first_tol:.3e}")
+    if not epe_gap.max() <= DRIFT_EPE_PX:
+        fail(f"drift fixture: per-step EPE GPU vs CPU differs by {epe_gap.max():.3e} px")
+    return launches
+
+
+def build_kernels() -> None:
+    """Phase 2: one nvcc per source, started together."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(lambda k: k.build(), KERNELS))
+    print(f"built both kernels in {time.perf_counter() - t0:.2f} s")
+    for (lib, log) in built:
+        print(f"  {lib}")
+        for msg in log.splitlines():
+            if "registers" in msg or "error" in msg.lower():
+                print(f"    nvcc: {msg.strip()}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="print where the main path's device time goes")
+                    help="print where the clip forward's and a stream push's device time goes")
     ap.add_argument("--tile-sweep", action="store_true",
-                    help="time the lookup kernel at 4, 8 and 16 queries per block")
+                    help="time kernel #1 at 4, 8 and 16 queries per block")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -367,31 +601,46 @@ def main() -> int:
     print(line)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    build_kernels()
 
-    t0 = time.perf_counter()
-    lib, log = corr_cuda.build()
-    print(f"built {lib} in {time.perf_counter() - t0:.2f} s")
-    for msg in log.splitlines():
-        if "registers" in msg or "error" in msg.lower():
-            print(f"  nvcc: {msg.strip()}")
-
-    levels32, coords = lookup_inputs()
-    rows = check_lookup(levels32, coords)
+    levels32, coords = lookup_inputs(22)
+    rows1 = check_lookup("kernel #1 (radius 4, clip shape)", corr_cuda.lookup_corr_fused,
+                         levels32, coords, 4)
     if args.tile_sweep:
         tile_sweep(levels32, coords)
+    rows2_r4 = check_lookup(
+        "kernel #2 (radius 4, clip shape)",
+        lambda lv, c: corr_level_cuda.lookup_corr_level(lv, c, 4), levels32, coords, 4,
+        beside=corr_cuda.lookup_corr_fused)
+    del levels32, coords
+    levels32, coords = lookup_inputs(4)
+    rows2 = check_lookup("kernel #2 (radius 3, stream shape)",
+                         lambda lv, c: corr_level_cuda.lookup_corr_level(lv, c, 3),
+                         levels32, coords, 3)
     del levels32, coords
     torch.cuda.empty_cache()
-    launches, fps = main_path(args.profile)
-    print(f"frames/s {fps:.3f} on {line} (AccFlow+RAFT, 7x512^2, batch 2, 12 iters, bf16)")
 
-    main_row = rows["bfloat16"]  # the main path stores its levels in bf16
-    print(json.dumps({"kernels": [{
-        "name": "corr_lookup", "route": "cuda",
-        "source": "accflow_tpu_torch/csrc/corr_lookup.cu",
-        "replaces": "accflow_tpu/ops/corr_pallas.py:264",
-        "launches": launches, **main_row,
-        "levels_dtype": "bfloat16", "float32_levels": rows["float32"],
-    }]}))
+    launches1, fps = clip_path(args.profile)
+    print(f"frames/s {fps:.3f} on {line} (AccFlow+RAFT, 7x512^2, batch 2, 12 iters, bf16)")
+    launches2, fps_a, ms_a, _ = stream_path("(a) RAFT-small", True, args.profile)
+    _, fps_b, ms_b, _ = stream_path("(b) full RAFT", False, args.profile)
+    print(f"stream frames/s on {line} (512^2, batch 2, 6 iters, bf16): (a) RAFT-small "
+          f"{fps_a:.3f} ({ms_a:.3f} ms per push), (b) full RAFT {fps_b:.3f} ({ms_b:.3f} ms)")
+    drift_fixture()
+
+    print(json.dumps({"kernels": [
+        {"name": "corr_lookup", "route": "cuda",
+         "source": "accflow_tpu_torch/csrc/corr_lookup.cu",
+         "replaces": "accflow_tpu/ops/corr_pallas.py:264",
+         "launches": launches1, **rows1["bfloat16"],
+         "levels_dtype": "bfloat16", "float32_levels": rows1["float32"]},
+        {"name": "corr_level_lookup", "route": "cuda",
+         "source": "accflow_tpu_torch/csrc/corr_level_lookup.cu",
+         "replaces": "accflow_tpu/ops/corr_pallas.py:466",
+         "launches": launches2, **rows2["bfloat16"],
+         "levels_dtype": "bfloat16", "radius": 3, "float32_levels": rows2["float32"],
+         "radius4_clip_shape": rows2_r4},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,12 +13,24 @@ from accflow_tpu.nn import layers as j_layers
 from accflow_tpu.ops import deform as j_deform
 from accflow_tpu.ops import grids as j_grids
 from accflow_tpu.ops import occlusion as j_occ
+from accflow_tpu.ops import padding as j_padding
 from accflow_tpu.ops import sampling as j_sampling
+from accflow_tpu.ops import softsplat as j_softsplat
 from accflow_tpu.ops import upsample as j_upsample
+from accflow_tpu.ops import warmstart as j_warmstart
 from accflow_tpu_torch.convert import load_jax_params
-from accflow_tpu_torch.models.encoders import BasicEncoder
+from accflow_tpu_torch.models.encoders import BasicEncoder, BottleneckBlock, SmallEncoder
 from accflow_tpu_torch.nn import layers
-from accflow_tpu_torch.ops import deform, grids, occlusion, sampling, upsample
+from accflow_tpu_torch.ops import (
+    deform,
+    grids,
+    occlusion,
+    padding,
+    sampling,
+    softsplat,
+    upsample,
+    warmstart,
+)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -148,3 +160,85 @@ def test_basic_encoder(rng, norm_fn):
     # Not one op but a stack of 12 convs and norms: float32 summation order
     # compounds to ~2e-5 (observed), past the single-op 1e-5.
     _close(out.permute(0, 2, 3, 1), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("norm_fn", ["instance", "none"])
+def test_bottleneck_block(rng, norm_fn, stride):
+    """A strided block projects its input (16 -> 32 channels); a stride-1
+    block keeps the width, as every one in SmallEncoder does."""
+    cin = 32 if stride == 1 else 16
+    params = j_enc.init_bottleneck_block(jax.random.PRNGKey(5), cin, 32, norm_fn, stride)
+    x = rng.standard_normal((2, 12, 10, cin)).astype(np.float32)
+    ref = j_enc.bottleneck_block(params, jnp.asarray(x), norm_fn, stride)
+    blk = load_jax_params(BottleneckBlock(cin, 32, norm_fn, stride), params)
+    with torch.no_grad():
+        out = blk(_nchw(x))
+    _close(out.permute(0, 2, 3, 1), ref)
+
+
+@pytest.mark.parametrize("norm_fn", ["instance", "none"])
+def test_small_encoder(rng, norm_fn):
+    """RAFT-small's fnet (instance norm) and cnet (no norm)."""
+    params = j_enc.init_small_encoder(jax.random.PRNGKey(4), 40, norm_fn)
+    x = rng.uniform(-1, 1, (2, 32, 24, 3)).astype(np.float32)
+    ref = j_enc.small_encoder(params, jnp.asarray(x), norm_fn)
+    enc = load_jax_params(SmallEncoder(40, norm_fn), params)
+    with torch.no_grad():
+        out = enc(_nchw(x))
+    # A stack of 14 convs and 7 instance norms: float32 summation order
+    # compounds past 1e-5 on values near zero, so the absolute part of the
+    # 1e-5 bar is taken relative to the output's largest magnitude.
+    ref = np.asarray(ref)
+    _close(out.permute(0, 2, 3, 1), ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("mode", ["summation", "average", "linear", "softmax"])
+def test_softsplat(rng, mode):
+    """Flows up to +-3 px on a 9x11 grid: corners collide and leave the
+    image, so the scatter-add's accumulation and its dropped taps are hit."""
+    img = rng.standard_normal((2, 9, 11, 3)).astype(np.float32)
+    flow = rng.uniform(-3, 3, (2, 9, 11, 2)).astype(np.float32)
+    metric = rng.standard_normal((2, 9, 11, 1)).astype(np.float32)
+    m = mode in ("linear", "softmax")
+    if mode == "linear":
+        metric = np.abs(metric) + 0.1
+    ref = j_softsplat.softsplat(jnp.asarray(img), jnp.asarray(flow),
+                                jnp.asarray(metric) if m else None, mode=mode)
+    out = softsplat.softsplat(_t(img), _t(flow), _t(metric) if m else None, mode=mode)
+    _close(out, ref)
+
+
+def test_softsplat_rejects():
+    x = torch.zeros((1, 4, 4, 2))
+    with pytest.raises(ValueError, match="metric"):
+        softsplat.softsplat(x, x, mode="softmax")
+    with pytest.raises(ValueError, match="mode"):
+        softsplat.softsplat(x, x, mode="max")
+
+
+@pytest.mark.parametrize("advect", [False, True])
+def test_forward_splat_flow(rng, advect):
+    flow = rng.uniform(-2.5, 2.5, (2, 8, 10, 2)).astype(np.float32)
+    adv = rng.uniform(-2.5, 2.5, (2, 8, 10, 2)).astype(np.float32) if advect else None
+    ref = j_warmstart.forward_splat_flow(jnp.asarray(flow),
+                                         None if adv is None else jnp.asarray(adv))
+    _close(warmstart.forward_splat_flow(_t(flow), None if adv is None else _t(adv)), ref)
+
+
+def test_forward_interpolate_flow(rng):
+    flow = rng.uniform(-3, 3, (9, 12, 2)).astype(np.float32)
+    np.testing.assert_array_equal(warmstart.forward_interpolate_flow(flow),
+                                  j_warmstart.forward_interpolate_flow(flow))
+    far = np.full((4, 4, 2), 50.0, np.float32)  # every point leaves the image
+    assert not warmstart.forward_interpolate_flow(far).any()
+
+
+@pytest.mark.parametrize("mode", ["sintel", "kitti"])
+def test_input_padder(rng, mode):
+    x = rng.uniform(0, 255, (2, 3, 37, 50, 3)).astype(np.float32)
+    ours, ref = padding.InputPadder(x.shape, mode), j_padding.InputPadder(x.shape, mode)
+    padded = ours.pad_np(x)
+    np.testing.assert_array_equal(padded, ref.pad_np(x))
+    assert padded.shape[2] % 8 == 0 and padded.shape[3] % 8 == 0
+    np.testing.assert_array_equal(ours.unpad(padded), x)
