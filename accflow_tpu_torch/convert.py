@@ -10,12 +10,22 @@ The downsample norm exists once, under `downsample.1`, in both.
 
 Both directions walk the module tree by layer type, so every parameter and
 every tree leaf is accounted for: a leaf or parameter left over raises.
-This module needs numpy and torch only.
+
+Reference checkpoints (.pth, accflow_tpu/convert/torch_weights.py): the
+port's modules carry the reference's state_dict names, so a checkpoint loads
+onto them directly once the `module.` prefix of nn.DataParallel is stripped,
+AccFlow's frozen OFE (`ofe.*`) is split off, and the reference's second name
+for the downsample norm (`norm3` in ResidualBlock, `norm4` in
+BottleneckBlock, the same tensors as `downsample.1`) and
+`num_batches_tracked` are dropped. Any other key left over, or missing,
+raises. A .npz param tree (accflow_tpu.convert.store) loads through
+`load_jax_params`. This module needs numpy and torch only.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import os.path as osp
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -118,3 +128,86 @@ def load_npz_tree(path: str) -> Tree:
                 node = node.setdefault(part, {})
             node[parts[-1]] = np.array(data[key])
     return tree
+
+
+def strip_module_prefix(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    return {k.removeprefix("module."): v for k, v in state_dict.items()}
+
+
+def split_accflow_state(state_dict: Mapping[str, Any]):
+    """Split an AccFlow checkpoint into (ofe_state, acc_state)."""
+    ofe, acc = {}, {}
+    for k, v in state_dict.items():
+        if k.startswith("ofe."):
+            ofe[k[len("ofe."):]] = v
+        else:
+            acc[k] = v
+    return ofe, acc
+
+
+def _alias_of(key: str, own) -> bool:
+    """True for the reference's norm3/norm4 name of a downsample norm whose
+    `downsample.1` twin the module has."""
+    stem, _, leaf = key.rpartition(".")
+    prefix, _, norm = stem.rpartition(".")
+    if norm not in ("norm3", "norm4"):
+        return False
+    return (f"{prefix}.downsample.1.{leaf}" if prefix else f"downsample.1.{leaf}") in own
+
+
+@torch.no_grad()
+def load_reference_state_dict(module: nn.Module, state_dict: Mapping[str, Any]) -> nn.Module:
+    """Copy a reference state_dict (prefixes already stripped) into
+    `module` in place. Raises on a missing key, a key left over (beyond
+    the norm3/norm4 aliases and num_batches_tracked) or a shape mismatch."""
+    own = module.state_dict()
+    missing = sorted(set(own) - set(state_dict))
+    if missing:
+        raise KeyError(f"missing torch keys: {missing[:10]}")
+    leftover = sorted(k for k in state_dict if k not in own
+                      and not k.endswith("num_batches_tracked") and not _alias_of(k, own))
+    if leftover:
+        raise ValueError(f"unconsumed torch keys: {leftover[:10]}")
+    for k, dst in own.items():
+        src = torch.as_tensor(state_dict[k])
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{k}: shape {tuple(src.shape)} vs {tuple(dst.shape)}")
+    module.load_state_dict({k: torch.as_tensor(state_dict[k]) for k in own}, strict=True)
+    return module
+
+
+def load_torch_file(path: str) -> Dict[str, Any]:
+    """A .pth state_dict (optionally wrapped under "state_dict") as tensors,
+    through torch.load with weights_only=True."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return dict(sd)
+
+
+def load_flow_estimator_checkpoint(path: str, model: nn.Module) -> nn.Module:
+    """Load a raft-* checkpoint into the port's RAFT `model` in place: a
+    reference .pth or a .npz param tree."""
+    if path.endswith(".npz"):
+        return load_jax_params(model, load_npz_tree(path))
+    return load_reference_state_dict(model, strip_module_prefix(load_torch_file(path)))
+
+
+def load_accflow_checkpoint(path: str, acc: nn.Module, ofe: nn.Module):
+    """Load an acc+raft-* checkpoint into the port's AccFlow `acc` and its
+    RAFT `ofe` in place: a reference .pth (both under one state_dict, the
+    OFE under `ofe.`), or the .npz pair <stem>.acc.npz + <stem>.ofe.npz
+    (pass the stem or either file). Returns (acc, ofe)."""
+    if path.endswith(".npz") or not osp.exists(path):
+        stem = path
+        for suffix in (".acc.npz", ".ofe.npz", ".npz"):
+            stem = stem.removesuffix(suffix)
+        acc_path, ofe_path = stem + ".acc.npz", stem + ".ofe.npz"
+        if not (osp.exists(acc_path) and osp.exists(ofe_path)):
+            raise FileNotFoundError(
+                f"acc checkpoint {path!r} not found: expected a .pth file or the .npz "
+                f"pair ({acc_path} + {ofe_path})")
+        return (load_jax_params(acc, load_npz_tree(acc_path)),
+                load_jax_params(ofe, load_npz_tree(ofe_path)))
+    ofe_sd, acc_sd = split_accflow_state(strip_module_prefix(load_torch_file(path)))
+    return load_reference_state_dict(acc, acc_sd), load_reference_state_dict(ofe, ofe_sd)

@@ -24,7 +24,9 @@
 //      contiguous run of the output row.
 // The radius is a template parameter (3 and 4 instantiated), so every index
 // division is by a constant; the level count is RAFT's 4, as in
-// corr_lookup.cu.
+// corr_lookup.cu, unless the build sets another with -DCORR_LEVELS=n (the
+// one-level probe of chip_smoke.py, which stands in for the TPU probes of a
+// single level's lookup, scripts/probe_pallas_fused.py).
 //
 // Bound (H100 SXM, 3.35 TB/s): memory. At the stream's shape (2 pairs x
 // batch 2 at 512^2: Q = 16,384, radius 3, levels 64^2 .. 8^2, bf16) one
@@ -40,7 +42,10 @@
 
 namespace {
 
-constexpr int LEVELS = 4;
+#ifndef CORR_LEVELS
+#define CORR_LEVELS 4
+#endif
+constexpr int LEVELS = CORR_LEVELS;
 constexpr int QT = 16;  // queries per block
 constexpr int THREADS = 256;
 
@@ -144,9 +149,13 @@ int launch_radius(int radius, dim3 grid, cudaStream_t s, const float* coords,
 
 }  // namespace
 
+// The level count this library was built for.
+extern "C" int corr_level_lookup_levels() { return LEVELS; }
+
 // C interface (loaded with ctypes). dtype: 0 = float32 levels, 1 = bfloat16.
-// levels: 4 pointers to contiguous (q, hw[2l], hw[2l+1]) maps; coords:
-// contiguous (q, 2) float32; out: contiguous (q, 4*(2*radius+1)^2) float32.
+// levels: LEVELS pointers to contiguous (q, hw[2l], hw[2l+1]) maps; coords:
+// contiguous (q, 2) float32; out: contiguous (q, LEVELS*(2*radius+1)^2)
+// float32.
 // Launches on `stream`; returns cudaGetLastError() (0 = success), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int corr_level_lookup(int dtype, int radius, const float* coords,

@@ -1,15 +1,20 @@
-"""Synthetic long sequences with exact long-range ground truth, the port's
-own numpy copy of accflow_tpu/data/synthetic.py's `make_long_sequence` and
-its helpers (importing accflow_tpu.data pulls in jax). The copy draws from
-the generator in the same order, so a seed gives the same frames and flows
-bit for bit: the drift fixture's recorded EPE curve (tests/fixtures/
-drift_small_epe.npy) was measured on `make_long_sequence` of
-np.random.default_rng(77), 64^2, 36 frames, seg_len=6, max_v=1, fg=True,
-fg_max_v=2."""
+"""Synthetic clips and long sequences with exact ground truth, the port's
+own numpy copy of accflow_tpu/data/synthetic.py (importing accflow_tpu.data
+pulls in jax): `make_clip` and `write_synthetic_cvor` (CVO-style clips of a
+translating texture, the evaluation's stand-in for the CVO test set) and
+`make_long_sequence` with their helpers. The copy draws from the generator
+in the same order, so a seed gives the same frames and flows bit for bit:
+the drift fixture's recorded EPE curve (tests/fixtures/drift_small_epe.npy)
+was measured on `make_long_sequence` of np.random.default_rng(77), 64^2, 36
+frames, seg_len=6, max_v=1, fg=True, fg_max_v=2."""
 
 from __future__ import annotations
 
+import os.path as osp
+
 import numpy as np
+
+from accflow_tpu_torch.data.records import CVORWriter
 
 
 def _texture(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
@@ -18,6 +23,10 @@ def _texture(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
     up = np.kron(base, np.ones((4, 4, 1)))[:h, :w]
     noise = rng.uniform(-12, 12, size=(h, w, 3))
     return np.clip(up + noise, 0, 255).astype(np.float32)
+
+
+def _shift(img: np.ndarray, dy: int, dx: int) -> np.ndarray:
+    return np.roll(np.roll(img, dy, axis=0), dx, axis=1)
 
 
 def _segment_velocities(
@@ -37,6 +46,61 @@ def _segment_velocities(
     segs = (steps + seg_len - 1) // seg_len
     vs = rng.integers(-max_v, max_v + 1, size=(segs, 2))
     return np.repeat(vs, seg_len, axis=0)[:steps]
+
+
+def make_clip(rng: np.random.Generator, h: int, w: int, frames: int = 7, seg_len=None):
+    """One clip: frames + exact fflows/bflows/delta flows (HWC, channel-cat).
+
+    seg_len=None keeps a constant velocity per clip; an int redraws it
+    every seg_len frames (exact GT via cumulative integer shifts)."""
+    tex = _texture(rng, h, w)
+    vel = _segment_velocities(rng, frames, seg_len, max_v=3)  # (frames-1, 2)
+    cum = np.concatenate([np.zeros((1, 2), np.int64), np.cumsum(vel, axis=0)])
+    imgs = [_shift(tex, int(cum[t, 0]), int(cum[t, 1])).astype(np.uint8)
+            for t in range(frames)]
+
+    def flow(dy, dx):
+        f = np.empty((h, w, 2), np.float32)
+        f[..., 0] = dx
+        f[..., 1] = dy
+        return f
+
+    fflows = [flow(*cum[k]) for k in range(2, frames)]     # F0k
+    bflows = [flow(*(-cum[k])) for k in range(2, frames)]  # Fk0
+    dflows_f = [flow(*vel[t]) for t in range(frames - 1)]     # F_{t,t+1}
+    dflows_b = [flow(*(-vel[t])) for t in range(frames - 1)]  # F_{t+1,t}
+    return {
+        "imgs": np.concatenate(imgs, axis=-1),
+        "imgs_blur": np.concatenate(imgs, axis=-1),
+        "fflows": np.concatenate(fflows, axis=-1),
+        "bflows": np.concatenate(bflows, axis=-1),
+        "delta_fflows": np.concatenate(dflows_f, axis=-1),
+        "delta_bflows": np.concatenate(dflows_b, axis=-1),
+    }
+
+
+def key_specs(h: int, w: int, frames: int = 7) -> dict:
+    """CVOR key specs of a clip (records.py)."""
+    return {
+        "imgs": {"shape": (h, w, 3 * frames), "dtype": "uint8"},
+        "imgs_blur": {"shape": (h, w, 3 * frames), "dtype": "uint8"},
+        "fflows": {"shape": (h, w, 2 * (frames - 2)), "dtype": "uint16"},
+        "bflows": {"shape": (h, w, 2 * (frames - 2)), "dtype": "uint16"},
+        "delta_fflows": {"shape": (h, w, 2 * (frames - 1)), "dtype": "uint16"},
+        "delta_bflows": {"shape": (h, w, 2 * (frames - 1)), "dtype": "uint16"},
+    }
+
+
+def write_synthetic_cvor(root: str, num_train: int = 4, num_test: int = 2, h: int = 64,
+                         w: int = 64, frames: int = 7, seed: int = 0, seg_len=None) -> str:
+    """Create <root>/{train,test} CVOR datasets of make_clip clips drawn
+    from `seed`. Returns root."""
+    rng = np.random.default_rng(seed)
+    for sub, n in (("train", num_train), ("test", num_test)):
+        with CVORWriter(osp.join(root, sub), key_specs(h, w, frames)) as wr:
+            for _ in range(n):
+                wr.add(make_clip(rng, h, w, frames, seg_len=seg_len))
+    return root
 
 
 def _sample_wrap(tex: np.ndarray, ys: np.ndarray, xs: np.ndarray) -> np.ndarray:

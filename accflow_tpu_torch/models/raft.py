@@ -7,12 +7,19 @@ accflow_tpu/models/raft.py, in its two configurations:
   norm; cnet 96 hidden + 64 context, no norm), radius 3, 4 levels, a 3x3
   ConvGRU, no mask head: flows are upsampled with upflow8.
 
-One iteration: the correlation window lookup gives the (Q, L*(2r+1)^2)
-motion encoder input -> motion encoder -> GRU -> FlowHead. Each
-configuration has one lookup: full RAFT the 4-level radius-4 kernel
-(ops/corr_cuda.py), RAFT-small the per-level kernel (ops/corr_level_cuda.py);
-both take the plain gather on the CPU. Encoders and the update block run in
-the compute dtype; the pyramid products, coordinates and upsampling in
+One iteration: the correlation window lookup gives the motion encoder its
+input -> motion encoder -> GRU -> FlowHead. RAFTConfig.corr_lookup picks the
+lookup of full RAFT (ops/corr.py::normalize_corr_lookup):
+- "fused" (also spelled "mm" or "pallas_fused", one function in JAX): the
+  4-level radius-4 kernel (ops/corr_cuda.py), a (Q, 324) input to convc1;
+- "experimental:fused_bd" / "experimental:fused_bd2": the split lookup
+  (ops/corr.py::lookup_corr_split_v2), level 0 (0 and 1) through the
+  y_contract kernel (ops/corr_bd_cuda.py) and the rest through torch.bmm,
+  consumed per level by BasicMotionEncoder.forward_split.
+RAFT-small always takes the per-level kernel (ops/corr_level_cuda.py), as
+JAX maps every fused spelling to one flat lookup there. On the CPU each
+kernel is replaced by its plain version. Encoders and the update block run
+in the compute dtype; the pyramid products, coordinates and upsampling in
 float32, and the stored pyramid levels in the compute dtype.
 
 Images are (N, H, W, 3) in [-1, 1]; flows (N, H, W, 2) in (x, y) order.
@@ -30,7 +37,12 @@ import torch.nn as nn
 from accflow_tpu_torch.device import resolve_device
 from accflow_tpu_torch.models.encoders import BasicEncoder, SmallEncoder
 from accflow_tpu_torch.nn.layers import Conv2d, conv2d, init_weights, tf32
-from accflow_tpu_torch.ops.corr import build_corr_pyramid
+from accflow_tpu_torch.ops.corr import (
+    SPLIT_LOOKUPS,
+    build_corr_pyramid,
+    lookup_corr_split_v2,
+    normalize_corr_lookup,
+)
 from accflow_tpu_torch.ops.corr_cuda import LEVELS, RADIUS, lookup_corr_fused
 from accflow_tpu_torch.ops.corr_level_cuda import lookup_corr_level
 from accflow_tpu_torch.ops.grids import coords_grid, upflow8
@@ -40,16 +52,31 @@ from accflow_tpu_torch.ops.upsample import convex_upsample
 @dataclasses.dataclass(frozen=True)
 class RAFTConfig:
     """The JAX package's RAFTConfig: full width, or RAFT-small with
-    small=True, from which the widths and the radius follow. Its TPU-only
-    knobs (corr_lookup, scan_unroll, scan_remat, stem_s2d,
-    corr_volume_dtype) are not carried over: each configuration has one
-    lookup, and the pyramid levels are stored in the compute dtype."""
+    small=True, from which the widths and the radius follow. corr_lookup
+    selects full RAFT's lookup (module docstring; an unported spelling
+    raises here). Its TPU-only knobs (scan_unroll, scan_remat, stem_s2d,
+    corr_volume_dtype) are not carried over: the pyramid levels are stored
+    in the compute dtype."""
 
     iters: int = 12
     compute_dtype: str = "bfloat16"
     small: bool = False
+    corr_lookup: str = "fused"
 
-    corr_levels = LEVELS  # a class constant: both lookup kernels are built for 4
+    corr_levels = LEVELS  # a class constant: the lookup kernels are built for 4
+
+    def __post_init__(self):
+        normalize_corr_lookup(self.corr_lookup)
+
+    @property
+    def split_levels(self):
+        """The split lookup's per-level impls ("bd" on the first 1 or 2
+        levels, "mm" on the rest), or None for the all-levels kernel."""
+        impl = normalize_corr_lookup(self.corr_lookup)
+        if self.small or impl not in SPLIT_LOOKUPS:
+            return None
+        nbd = SPLIT_LOOKUPS[impl]
+        return ("bd",) * nbd + ("mm",) * (self.corr_levels - nbd)
 
     @property
     def hidden_dim(self) -> int:
@@ -88,7 +115,28 @@ class BasicMotionEncoder(nn.Module):
 
     def forward(self, flow, corr):
         """flow (N, 2, H, W), corr (N, corr_planes, H, W) -> (N, 128, H, W)."""
-        cor = torch.relu(self.convc2(torch.relu(self.convc1(corr))))
+        return self._tail(flow, self.convc1(corr))
+
+    def forward_split(self, flow, corr_levels):
+        """forward on the split lookup's per-level windows: corr_levels is a
+        list of L (N, H, W, 9, 9) windows [a, b] in the compute dtype. convc1
+        is 1x1, so convc1(cat(levels)) = bias + sum_l window_l . W_l, W_l
+        being convc1's input channels l*81 .. l*81+80 (a*9 + b order): the
+        same weight, split by level. The bias comes first, then each level's
+        product, each rounded to the compute dtype
+        (accflow_tpu/models/raft.py::basic_motion_encoder_split)."""
+        cd = corr_levels[0].dtype
+        n, h, w = corr_levels[0].shape[:3]
+        wc = self.convc1.weight.view(self.convc1.weight.shape[0], len(corr_levels), -1)
+        cor = self.convc1.bias.to(cd)
+        for l, part in enumerate(corr_levels):
+            cor = cor + part.reshape(n, h, w, -1) @ wc[:, l].t().to(cd)
+        cor = cor.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        return self._tail(flow, cor)
+
+    def _tail(self, flow, cor):
+        """The layers after convc1, on its pre-activation output `cor`."""
+        cor = torch.relu(self.convc2(torch.relu(cor)))
         flo = torch.relu(self.convf2(torch.relu(self.convf1(flow))))
         out = torch.relu(self.conv(torch.cat([cor, flo], dim=1)))
         return torch.cat([out, flow], dim=1)
@@ -267,12 +315,18 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
 
         def upsample(flow, net):
             return convex_upsample(flow, ub.upsample_mask(net).permute(0, 2, 3, 1))
+    split = cfg.split_levels
     preds = []
     for _ in range(iters):
         flow = coords1 - coords0
-        corr = lookup(levels, coords1.view(-1, 2), cfg.corr_radius)
-        corr = corr.view(n, h8, w8, -1).permute(0, 3, 1, 2).to(cd)
-        motion = ub.encoder(flow.permute(0, 3, 1, 2).to(cd), corr)
+        flow_cd = flow.permute(0, 3, 1, 2).to(cd)
+        if split is None:
+            corr = lookup(levels, coords1.view(-1, 2), cfg.corr_radius)
+            corr = corr.view(n, h8, w8, -1).permute(0, 3, 1, 2).to(cd)
+            motion = ub.encoder(flow_cd, corr)
+        else:
+            parts = lookup_corr_split_v2(levels, coords1, cfg.corr_radius, split, cd)
+            motion = ub.encoder.forward_split(flow_cd, [p.to(cd) for p in parts])
         net = gru_step(net, motion)
         delta = ub.flow_head(net)
         coords1 = (coords1 + delta.float().permute(0, 2, 3, 1)).contiguous()

@@ -15,6 +15,13 @@ index a carries the x offset (networks/raft/corr.py:32-38).
 
 `lookup_corr_plain` is the explicit 4-corner gather: the CPU path and the
 oracle of the CUDA kernel (ops/corr_cuda.py), which the GPU path runs.
+
+Split lookup (`lookup_corr_split_v2`, the `experimental:fused_bd[2]`
+spellings of `corr_lookup`): the same windows per level as (Q, 9, 9) arrays,
+each from two separable tent contractions, tmp = wy . corr3 over y and then
+wx . tmp over x. Level impl "bd" runs the y contraction through the
+y_contract kernel (ops/corr_bd_cuda.py), "mm" through torch.bmm. The motion
+encoder consumes them unflattened (BasicMotionEncoder.forward_split).
 """
 
 from __future__ import annotations
@@ -24,7 +31,41 @@ import math
 import torch
 
 from accflow_tpu_torch.nn.layers import tf32
+from accflow_tpu_torch.ops.corr_bd_cuda import y_contract
 from accflow_tpu_torch.ops.sampling import bilinear_sample
+
+# corr_lookup spellings (accflow_tpu/ops/corr.py:116-134): the live ones the
+# all-levels lookup serves, and the experimental split ones with their
+# number of "bd" levels (the rest "mm").
+FUSED_LOOKUPS = ("fused", "mm", "pallas_fused")
+SPLIT_LOOKUPS = {"fused_bd": 1, "fused_bd2": 2}
+
+
+def normalize_corr_lookup(spelling: str) -> str:
+    """The port's lookup for a `corr_lookup` spelling: "fused" for fused,
+    mm and pallas_fused (one function in JAX, one kernel here: kernel #1),
+    "fused_bd" / "fused_bd2" for experimental:fused_bd[2]. As in JAX, an
+    experimental variant needs its "experimental:" prefix (ValueError
+    without). auto, ondemand[:chunk] and the other variants raise
+    NotImplementedError: they are not ported."""
+    if spelling.startswith("experimental:"):
+        impl = spelling.split(":", 1)[1]
+        if impl in SPLIT_LOOKUPS:
+            return impl
+        raise NotImplementedError(
+            f"corr_lookup={spelling!r} is not ported to accflow_tpu_torch; "
+            f"ported: {' | '.join(FUSED_LOOKUPS)} | "
+            + " | ".join(f"experimental:{k}" for k in SPLIT_LOOKUPS))
+    if spelling in FUSED_LOOKUPS:
+        return "fused"
+    if spelling == "auto" or spelling.split(":", 1)[0] == "ondemand":
+        raise NotImplementedError(
+            f"corr_lookup={spelling!r} (the volume-free hi-res mode) is not ported "
+            "to accflow_tpu_torch yet (ROADMAP.md, queue 1 #11)")
+    raise ValueError(
+        f"corr_lookup={spelling!r} is an adjudicated experimental variant, not a "
+        f"supported impl: spell it 'experimental:{spelling}' to opt in. Supported: "
+        "fused | mm | ondemand[:chunk] | auto | pallas_fused")
 
 
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:
@@ -74,3 +115,73 @@ def lookup_corr_plain(levels, coords: torch.Tensor, radius: int = 4) -> torch.Te
         sampled = bilinear_sample(level.reshape(q, hl, wl, 1).float(), pts)
         outs.append(sampled.reshape(q, num * num))
     return torch.cat(outs, dim=-1)
+
+
+def window_weights(centers: torch.Tensor, size: int) -> torch.Tensor:
+    """Separable bilinear weights: centers (Q, K) -> (Q, K, size) float32,
+    weight[q, k, y] = max(0, 1 - |y - centers[q, k]|): grid_sample's
+    align_corners=True with zeros outside along one axis."""
+    ys = torch.arange(size, dtype=torch.float32, device=centers.device)
+    return torch.clamp(1.0 - torch.abs(ys - centers[..., None]), min=0.0)
+
+
+def _contract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched a @ b with float32 accumulation and output. Inputs of one
+    level type; bfloat16 values multiply exactly under TF32, so TF32 is
+    allowed for them and off for float32 (as build_corr_pyramid)."""
+    with tf32(a.dtype == torch.bfloat16):
+        return torch.bmm(a.float(), b.float())
+
+
+def _tents(corr3: torch.Tensor, cf: torch.Tensor, scale: float, radius: int):
+    """The x and y tent weights (Q, 2r+1, wl) and (Q, 2r+1, hl), float32."""
+    _, hl, wl = corr3.shape
+    num = 2 * radius + 1
+    delta = torch.linspace(-radius, radius, num, dtype=torch.float32, device=cf.device)
+    return (window_weights(cf[:, 0:1] / scale + delta, wl),
+            window_weights(cf[:, 1:2] / scale + delta, hl))
+
+
+def _level_window_mm(corr3, cf, scale: float, radius: int) -> torch.Tensor:
+    """One level's window from the two tent contractions: (Q, a, b) float32
+    (accflow_tpu/ops/corr.py::_level_window_mm). Weights and tmp take the
+    level's dtype, as in JAX."""
+    wx, wy = _tents(corr3, cf, scale, radius)
+    tmp = _contract(wy.to(corr3.dtype), corr3)  # (Q, b, wl)
+    return _contract(wx.to(corr3.dtype), tmp.to(corr3.dtype).transpose(1, 2))
+
+
+def _level_window_bd(corr3, cf, scale: float, radius: int, f32: bool) -> torch.Tensor:
+    """One level's window with the y contraction through the y_contract
+    kernel (accflow_tpu/ops/corr.py::_level_window_bd): wy and corr3 go in
+    float32 under float32 compute, else bfloat16; the x contraction as in
+    _level_window_mm."""
+    kd = torch.float32 if f32 else torch.bfloat16
+    wx, wy = _tents(corr3, cf, scale, radius)
+    tmp = y_contract(corr3.to(kd), wy.to(kd))  # (Q, b, wl) float32
+    return _contract(wx.to(corr3.dtype), tmp.to(corr3.dtype).transpose(1, 2))
+
+
+def lookup_corr_split_v2(levels, coords: torch.Tensor, radius: int = 4,
+                         level_impl=("bd", "mm", "mm", "mm"),
+                         compute_dtype=torch.float32) -> list:
+    """levels: list of (Q, hl, wl) maps; coords (B, H, W, 2) in level-0
+    pixels, Q = B*H*W. level_impl[i] ("bd" or "mm"; the last repeats) picks
+    level i's formulation. Returns one (B, H, W, 2r+1, 2r+1) float32 window
+    per level, indexed [a (x offset), b (y offset)]
+    (accflow_tpu/ops/corr.py::lookup_corr_split_v2)."""
+    b, h, w, _ = coords.shape
+    num = 2 * radius + 1
+    cf = coords.reshape(b * h * w, 2).float()
+    f32 = compute_dtype == torch.float32
+    outs = []
+    for i, level in enumerate(levels):
+        impl = level_impl[i] if i < len(level_impl) else level_impl[-1]
+        if impl == "mm":
+            out = _level_window_mm(level, cf, 2.0 ** i, radius)
+        elif impl == "bd":
+            out = _level_window_bd(level, cf, 2.0 ** i, radius, f32)
+        else:
+            raise ValueError(f"level impl {impl!r} is not ported (ported: bd, mm)")
+        outs.append(out.reshape(b, h, w, num, num))
+    return outs

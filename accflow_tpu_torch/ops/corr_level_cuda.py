@@ -10,7 +10,9 @@ RAFT keeps; RAFT-small always takes this one.
 
 `lookup_corr_level` takes CPU tensors to the plain lookup and CUDA tensors
 to the kernel, or raises. `launches` counts kernel launches and nothing
-else. Built at first use (ops/cuda_lib.py), never on import.
+else. Built at first use (ops/cuda_lib.py), never on import; `build` and
+`launch` also take a variant built for another level count
+("-DCORR_LEVELS=1": chip_smoke.py's one-level probe).
 """
 
 from __future__ import annotations
@@ -24,16 +26,17 @@ from accflow_tpu_torch.ops.corr import lookup_corr_plain
 
 SOURCE = cuda_lib.CSRC / "corr_level_lookup.cu"
 RADII = (3, 4)  # the instantiated template radii
-LEVELS = 4  # compiled into the kernel
+LEVELS = 4  # compiled into the kernel (the default build)
 
 launches = 0
 _lib = None
 
 
-def build() -> tuple[str, str]:
-    """Compile the kernel unless this source was built before. Returns
-    (library path, compiler output; empty when cached)."""
-    return cuda_lib.build(SOURCE)
+def build(*defines: str) -> tuple[str, str]:
+    """Compile the kernel (with extra `defines`, e.g. "-DCORR_LEVELS=1")
+    unless this source and these flags were built before. Returns (library
+    path, compiler output; empty when cached)."""
+    return cuda_lib.build(SOURCE, *defines)
 
 
 def load(path: str) -> ctypes.CDLL:
@@ -44,6 +47,8 @@ def load(path: str) -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int), ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.corr_level_lookup.restype = ctypes.c_int
+    lib.corr_level_lookup_levels.argtypes = []
+    lib.corr_level_lookup_levels.restype = ctypes.c_int
     return lib
 
 
@@ -73,15 +78,20 @@ def lookup_corr_level(levels, coords: torch.Tensor, radius: int) -> torch.Tensor
 
 def launch(lib: ctypes.CDLL, levels, coords: torch.Tensor, radius: int) -> torch.Tensor:
     """Run the kernel of `lib` (from `load`) on CUDA tensors that passed
-    `lookup_corr_level`'s checks; raises if the launch fails."""
+    `lookup_corr_level`'s checks (for as many levels as `lib` was built
+    for); raises if the level count differs or the launch fails."""
     global launches
+    n = len(levels)
+    if lib.corr_level_lookup_levels() != n:
+        raise ValueError(f"the library is built for {lib.corr_level_lookup_levels()} "
+                         f"levels, got {n}")
     q = coords.shape[0]
-    out = torch.empty((q, LEVELS * (2 * radius + 1) ** 2), dtype=torch.float32,
+    out = torch.empty((q, n * (2 * radius + 1) ** 2), dtype=torch.float32,
                       device=coords.device)
     if q == 0:
         return out
-    ptrs = (ctypes.c_void_p * LEVELS)(*[lvl.data_ptr() for lvl in levels])
-    hw = (ctypes.c_int * (2 * LEVELS))(*[d for lvl in levels for d in lvl.shape[1:]])
+    ptrs = (ctypes.c_void_p * n)(*[lvl.data_ptr() for lvl in levels])
+    hw = (ctypes.c_int * (2 * n))(*[d for lvl in levels for d in lvl.shape[1:]])
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.corr_level_lookup(cuda_lib.DTYPE_CODE[levels[0].dtype], radius,

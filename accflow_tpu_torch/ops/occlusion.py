@@ -1,11 +1,29 @@
-"""AccFlow's photometric occlusion (getOcc, networks/AccFlow_.py:127-135),
-counterpart of accflow_tpu/ops/occlusion.py."""
+"""Occlusion estimation, counterpart of accflow_tpu/ops/occlusion.py:
+- calc_occ_mask: bidirectional-consistency occlusion for evaluation
+  (test_cvo.py:53-78): thresh = 0.01*(|f| + |b|) + 0.5;
+- photometric_occ: AccFlow's getOcc (networks/AccFlow_.py:127-135)."""
 
 from __future__ import annotations
 
 import torch
 
 from accflow_tpu_torch.ops.sampling import backwarp
+
+
+def _length(x: torch.Tensor) -> torch.Tensor:
+    """Per-pixel L2 magnitude over the flow channel dim, keepdims."""
+    return torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+
+
+def calc_occ_mask(bflow: torch.Tensor, fflow: torch.Tensor):
+    """Bidirectional occlusion masks of a pair's backward and forward flows
+    (N, H, W, 2). Returns (occ_bw, occ_fw), float32 (N, H, W, 1) maps,
+    1 = occluded."""
+    mag = _length(fflow) + _length(bflow)
+    diff_fw = fflow + backwarp(bflow, fflow)
+    diff_bw = bflow + backwarp(fflow, bflow)
+    thresh = 0.01 * mag + 0.5
+    return (_length(diff_bw) > thresh).float(), (_length(diff_fw) > thresh).float()
 
 
 def photometric_occ(flow12, feat1, feat2, binary: bool = True) -> torch.Tensor:
