@@ -302,7 +302,8 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
         flow_init = torch.as_tensor(flow_init, dtype=torch.float32, device=net.device)
         coords1 = (coords1 + flow_init).contiguous()
     if cfg.small:
-        lookup = lookup_corr_level
+        def lookup(c):
+            return lookup_corr_level(levels, c, cfg.corr_radius).to(cd)
 
         def gru_step(h, motion):
             return ub.gru(h, torch.cat([inp, motion], dim=1))
@@ -310,7 +311,9 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
         def upsample(flow, net):
             return upflow8(flow)
     else:
-        lookup = lookup_corr_fused
+        def lookup(c):  # the kernel writes the compute dtype itself
+            return lookup_corr_fused(levels, c, cfg.corr_radius, out_dtype=cd)
+
         gru_step = ub.gru.fused_step(inp)
 
         def upsample(flow, net):
@@ -321,8 +324,7 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
         flow = coords1 - coords0
         flow_cd = flow.permute(0, 3, 1, 2).to(cd)
         if split is None:
-            corr = lookup(levels, coords1.view(-1, 2), cfg.corr_radius)
-            corr = corr.view(n, h8, w8, -1).permute(0, 3, 1, 2).to(cd)
+            corr = lookup(coords1.view(-1, 2)).view(n, h8, w8, -1).permute(0, 3, 1, 2)
             motion = ub.encoder(flow_cd, corr)
         else:
             parts = lookup_corr_split_v2(levels, coords1, cfg.corr_radius, split, cd)

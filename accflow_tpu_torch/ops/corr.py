@@ -26,6 +26,7 @@ encoder consumes them unflattened (BasicMotionEncoder.forward_split).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -99,10 +100,11 @@ def build_corr_pyramid(fmap1, fmap2, num_levels: int = 4, dtype=torch.float32):
     return levels
 
 
-def lookup_corr_plain(levels, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
+def lookup_corr_plain(levels, coords: torch.Tensor, radius: int = 4,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """levels: list of (Q, hl, wl); coords (Q, 2) float32 in level-0 pixels
-    -> (Q, L*(2r+1)^2) float32. Values are blended in float32 whatever the
-    levels' dtype (the kernel's arithmetic)."""
+    -> (Q, L*(2r+1)^2) in `out_dtype`. Values are blended in float32
+    whatever the levels' dtype (the kernel's arithmetic), then cast once."""
     num = 2 * radius + 1
     q = coords.shape[0]
     delta = torch.linspace(-radius, radius, num, dtype=torch.float32,
@@ -114,7 +116,7 @@ def lookup_corr_plain(levels, coords: torch.Tensor, radius: int = 4) -> torch.Te
         pts = coords.float().view(q, 1, 2) / (2.0 ** i) + offsets[None]
         sampled = bilinear_sample(level.reshape(q, hl, wl, 1).float(), pts)
         outs.append(sampled.reshape(q, num * num))
-    return torch.cat(outs, dim=-1)
+    return torch.cat(outs, dim=-1).to(out_dtype)
 
 
 def window_weights(centers: torch.Tensor, size: int) -> torch.Tensor:
@@ -125,12 +127,28 @@ def window_weights(centers: torch.Tensor, size: int) -> torch.Tensor:
     return torch.clamp(1.0 - torch.abs(ys - centers[..., None]), min=0.0)
 
 
+@contextlib.contextmanager
+def _float32_reduction():
+    """cuBLAS's bfloat16 GEMMs reduce in float32 inside the block: PyTorch's
+    `allow_bf16_reduced_precision_reduction` (process-wide, on by default)
+    lets them reduce split-K partial sums in bfloat16. Restored afterwards."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = prev
+
+
 def _contract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched a @ b with float32 accumulation and output. Inputs of one
-    level type; bfloat16 values multiply exactly under TF32, so TF32 is
-    allowed for them and off for float32 (as build_corr_pyramid)."""
-    with tf32(a.dtype == torch.bfloat16):
-        return torch.bmm(a.float(), b.float())
+    """Batched a @ b of one level type with float32 accumulation: float32
+    operands in full float32 (TF32 off), float32 out; bfloat16 operands as
+    they are (the bf16 GEMM, reduced-precision reductions off), out rounded
+    once to bfloat16, the type every caller takes next. No float32 copies
+    of the levels."""
+    with tf32(False), _float32_reduction():
+        return torch.bmm(a, b)
 
 
 def _tents(corr3: torch.Tensor, cf: torch.Tensor, scale: float, radius: int):
@@ -143,23 +161,23 @@ def _tents(corr3: torch.Tensor, cf: torch.Tensor, scale: float, radius: int):
 
 
 def _level_window_mm(corr3, cf, scale: float, radius: int) -> torch.Tensor:
-    """One level's window from the two tent contractions: (Q, a, b) float32
-    (accflow_tpu/ops/corr.py::_level_window_mm). Weights and tmp take the
-    level's dtype, as in JAX."""
+    """One level's window from the two tent contractions: (Q, a, b) in the
+    level's dtype (accflow_tpu/ops/corr.py::_level_window_mm). Weights and
+    tmp take the level's dtype, as in JAX."""
     wx, wy = _tents(corr3, cf, scale, radius)
     tmp = _contract(wy.to(corr3.dtype), corr3)  # (Q, b, wl)
-    return _contract(wx.to(corr3.dtype), tmp.to(corr3.dtype).transpose(1, 2))
+    return _contract(wx.to(corr3.dtype), tmp.transpose(1, 2))
 
 
 def _level_window_bd(corr3, cf, scale: float, radius: int, f32: bool) -> torch.Tensor:
     """One level's window with the y contraction through the y_contract
     kernel (accflow_tpu/ops/corr.py::_level_window_bd): wy and corr3 go in
-    float32 under float32 compute, else bfloat16; the x contraction as in
-    _level_window_mm."""
+    float32 under float32 compute, else bfloat16, and the kernel writes tmp
+    in the level's dtype; the x contraction as in _level_window_mm."""
     kd = torch.float32 if f32 else torch.bfloat16
     wx, wy = _tents(corr3, cf, scale, radius)
-    tmp = y_contract(corr3.to(kd), wy.to(kd))  # (Q, b, wl) float32
-    return _contract(wx.to(corr3.dtype), tmp.to(corr3.dtype).transpose(1, 2))
+    tmp = y_contract(corr3.to(kd), wy.to(kd), out_dtype=corr3.dtype)  # (Q, b, wl)
+    return _contract(wx.to(corr3.dtype), tmp.transpose(1, 2))
 
 
 def lookup_corr_split_v2(levels, coords: torch.Tensor, radius: int = 4,
@@ -167,8 +185,9 @@ def lookup_corr_split_v2(levels, coords: torch.Tensor, radius: int = 4,
                          compute_dtype=torch.float32) -> list:
     """levels: list of (Q, hl, wl) maps; coords (B, H, W, 2) in level-0
     pixels, Q = B*H*W. level_impl[i] ("bd" or "mm"; the last repeats) picks
-    level i's formulation. Returns one (B, H, W, 2r+1, 2r+1) float32 window
-    per level, indexed [a (x offset), b (y offset)]
+    level i's formulation. Returns one (B, H, W, 2r+1, 2r+1) window per
+    level in the levels' dtype (bfloat16 levels: float32 sums rounded once),
+    indexed [a (x offset), b (y offset)]
     (accflow_tpu/ops/corr.py::lookup_corr_split_v2)."""
     b, h, w, _ = coords.shape
     num = 2 * radius + 1

@@ -8,8 +8,11 @@ header says how it works and what bounds it. `y_contract_plain` is its plain
 twin: the CPU path and the kernel's oracle.
 
 `y_contract` takes CPU tensors to the plain twin and CUDA tensors to the
-kernel, or raises. `launches` counts kernel launches and nothing else.
-Built at first use (ops/cuda_lib.py), never on import.
+kernel, or raises. `out_dtype` (float32, the TPU kernel's, or bfloat16)
+is the output's type: bfloat16 is the float32 sums rounded once to
+nearest even, bit for bit the float32 output cast. `launches` counts
+kernel launches and nothing else. Built at first use (ops/cuda_lib.py),
+never on import.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from accflow_tpu_torch.ops import cuda_lib
 
 SOURCE = cuda_lib.CSRC / "corr_y_contract.cu"
 NUM = 9  # window taps per axis (radius 4), compiled into the kernel
+PATHS = ("narrow", "mma")  # the kernel's paths by corr_y_contract_path's code
 
 launches = 0
 _lib = None
@@ -37,20 +41,26 @@ def load(path: str) -> ctypes.CDLL:
     """The built library at `path`, with the C function's signature."""
     lib = ctypes.CDLL(path)
     lib.corr_y_contract.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.corr_y_contract.restype = ctypes.c_int
+    lib.corr_y_contract_path.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    lib.corr_y_contract_path.restype = ctypes.c_int
     return lib
 
 
-def y_contract_plain(corr3: torch.Tensor, wy: torch.Tensor) -> torch.Tensor:
-    """corr3 (Q, hl, wl), wy (Q, 9, hl) -> (Q, 9, wl) float32: the products
-    and sums in float32 (exact products of bfloat16 inputs)."""
-    return torch.einsum("qby,qyx->qbx", wy.float(), corr3.float())
+def y_contract_plain(corr3: torch.Tensor, wy: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """corr3 (Q, hl, wl), wy (Q, 9, hl) -> (Q, 9, wl) in `out_dtype`: the
+    products and sums in float32 (exact products of bfloat16 inputs), then
+    one cast."""
+    return torch.einsum("qby,qyx->qbx", wy.float(), corr3.float()).to(out_dtype)
 
 
-def _check(corr3: torch.Tensor, wy: torch.Tensor) -> None:
+def _check(corr3: torch.Tensor, wy: torch.Tensor, out_dtype: torch.dtype) -> None:
+    if out_dtype not in cuda_lib.DTYPE_CODE:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     if corr3.dim() != 3:
         raise ValueError(f"corr3 must be (Q, hl, wl), got {tuple(corr3.shape)}")
     q, hl, _ = corr3.shape
@@ -63,36 +73,47 @@ def _check(corr3: torch.Tensor, wy: torch.Tensor) -> None:
         raise ValueError(f"wy is on {wy.device}, corr3 on {corr3.device}")
 
 
-def y_contract(corr3: torch.Tensor, wy: torch.Tensor) -> torch.Tensor:
+def y_contract(corr3: torch.Tensor, wy: torch.Tensor,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """corr3 (Q, hl, wl), wy (Q, 9, hl), both float32 or both bfloat16 ->
-    (Q, 9, wl) float32. CPU tensors take the plain twin; CUDA tensors the
-    kernel."""
+    (Q, 9, wl) in `out_dtype` (float32 or bfloat16). CPU tensors take the
+    plain twin; CUDA tensors the kernel."""
     global _lib
-    _check(corr3, wy)
+    _check(corr3, wy, out_dtype)
     if corr3.device.type == "cpu":
-        return y_contract_plain(corr3, wy)
+        return y_contract_plain(corr3, wy, out_dtype)
     if corr3.device.type != "cuda":
         raise ValueError(f"no y contraction for device {corr3.device}")
     if _lib is None:
         _lib = load(build()[0])
-    return launch(_lib, corr3, wy)
+    return launch(_lib, corr3, wy, out_dtype)
 
 
-def launch(lib: ctypes.CDLL, corr3: torch.Tensor, wy: torch.Tensor) -> torch.Tensor:
+def path(lib: ctypes.CDLL, corr3: torch.Tensor) -> str:
+    """The kernel's path for `corr3` (a CUDA tensor): "mma" (tensor cores,
+    bfloat16 maps 8, 16, 32 or 64 wide at a 16-byte aligned address) or
+    "narrow" (element loads; every other shape, float32 maps among them)."""
+    return PATHS[lib.corr_y_contract_path(cuda_lib.DTYPE_CODE[corr3.dtype],
+                                          corr3.data_ptr(), corr3.shape[2])]
+
+
+def launch(lib: ctypes.CDLL, corr3: torch.Tensor, wy: torch.Tensor,
+           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Run the kernel of `lib` (from `load`) on CUDA tensors that passed
     `y_contract`'s checks; raises if they are not contiguous or the launch
     fails. An empty output launches nothing."""
     global launches
     q, hl, wl = corr3.shape
-    out = torch.empty((q, NUM, wl), dtype=torch.float32, device=corr3.device)
+    out = torch.empty((q, NUM, wl), dtype=out_dtype, device=corr3.device)
     if out.numel() == 0:
         return out
     if not (corr3.is_contiguous() and wy.is_contiguous()):
         raise ValueError("corr3 and wy must be contiguous")
     with torch.cuda.device(corr3.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.corr_y_contract(cuda_lib.DTYPE_CODE[corr3.dtype], corr3.data_ptr(),
-                                 wy.data_ptr(), q, hl, wl, out.data_ptr(), stream)
+        rc = lib.corr_y_contract(cuda_lib.DTYPE_CODE[corr3.dtype], cuda_lib.DTYPE_CODE[out_dtype],
+                                 corr3.data_ptr(), wy.data_ptr(), q, hl, wl, out.data_ptr(),
+                                 stream)
     if rc != 0:
         raise RuntimeError(f"corr_y_contract kernel launch failed: cudaError {rc}")
     launches += 1

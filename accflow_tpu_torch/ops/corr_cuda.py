@@ -10,9 +10,12 @@ is compiled on import.
 
 `lookup_corr_fused` takes CPU tensors to the plain lookup
 (ops/corr.py::lookup_corr_plain) and CUDA tensors to the kernel, or raises.
-`launches` counts kernel launches and nothing else. Radius (4) and level
-count (4) are compiled into the kernel; `build` and `launch` also take a
-variant built with other -D defines (chip_smoke.py's tile sweep).
+`out_dtype` (float32, the TPU kernel's, or bfloat16) is the output's type:
+bfloat16 is the float32 blend rounded once to nearest even, bit for bit the
+float32 output cast. `launches` counts kernel launches and nothing else.
+Radius (4) and level count (4) are compiled into the kernel; `build` and
+`launch` also take a variant built with other -D defines (chip_smoke.py's
+tile sweep over CORR_QT, the queries per block).
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ def load(path: str) -> ctypes.CDLL:
     """The built library at `path`, with the C function's signature."""
     lib = ctypes.CDLL(path)
     lib.corr_lookup.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_int), ctypes.c_longlong, ctypes.c_void_p,
         ctypes.c_void_p,
     ]
@@ -51,7 +54,9 @@ def load(path: str) -> ctypes.CDLL:
     return lib
 
 
-def _check(levels, coords: torch.Tensor, radius: int) -> None:
+def _check(levels, coords: torch.Tensor, radius: int, out_dtype: torch.dtype) -> None:
+    if out_dtype not in cuda_lib.DTYPE_CODE:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     if radius != RADIUS:
         raise ValueError(f"the lookup is built for radius {RADIUS}, got {radius}")
     if len(levels) != LEVELS:
@@ -59,27 +64,30 @@ def _check(levels, coords: torch.Tensor, radius: int) -> None:
     cuda_lib.check_lookup_operands(levels, coords)
 
 
-def lookup_corr_fused(levels, coords: torch.Tensor, radius: int = RADIUS) -> torch.Tensor:
+def lookup_corr_fused(levels, coords: torch.Tensor, radius: int = RADIUS,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """levels: list of 4 (Q, hl, wl) float32 or bfloat16 maps; coords (Q, 2)
-    float32 -> (Q, 324) float32 in the reference channel layout (see
-    ops/corr.py). CPU tensors take the plain lookup; CUDA tensors the kernel."""
+    float32 -> (Q, 324) in `out_dtype` (float32 or bfloat16), in the
+    reference channel layout (see ops/corr.py). CPU tensors take the plain
+    lookup; CUDA tensors the kernel."""
     global _lib
-    _check(levels, coords, radius)
+    _check(levels, coords, radius, out_dtype)
     if coords.device.type == "cpu":
-        return lookup_corr_plain(levels, coords, radius)
+        return lookup_corr_plain(levels, coords, radius, out_dtype)
     if coords.device.type != "cuda":
         raise ValueError(f"no lookup for device {coords.device}")
     if _lib is None:
         _lib = load(build()[0])
-    return launch(_lib, levels, coords)
+    return launch(_lib, levels, coords, out_dtype)
 
 
-def launch(lib: ctypes.CDLL, levels, coords: torch.Tensor) -> torch.Tensor:
+def launch(lib: ctypes.CDLL, levels, coords: torch.Tensor,
+           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Run the kernel of `lib` (from `load`) on CUDA tensors that passed
     `lookup_corr_fused`'s checks; raises if the launch fails."""
     global launches
     q = coords.shape[0]
-    out = torch.empty((q, LEVELS * (2 * RADIUS + 1) ** 2), dtype=torch.float32,
+    out = torch.empty((q, LEVELS * (2 * RADIUS + 1) ** 2), dtype=out_dtype,
                       device=coords.device)
     if q == 0:
         return out
@@ -87,8 +95,8 @@ def launch(lib: ctypes.CDLL, levels, coords: torch.Tensor) -> torch.Tensor:
     hw = (ctypes.c_int * (2 * LEVELS))(*[d for lvl in levels for d in lvl.shape[1:]])
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.corr_lookup(cuda_lib.DTYPE_CODE[levels[0].dtype], coords.data_ptr(), ptrs,
-                             hw, q, out.data_ptr(), stream)
+        rc = lib.corr_lookup(cuda_lib.DTYPE_CODE[levels[0].dtype], cuda_lib.DTYPE_CODE[out_dtype],
+                             coords.data_ptr(), ptrs, hw, q, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"corr_lookup kernel launch failed: cudaError {rc}")
     launches += 1

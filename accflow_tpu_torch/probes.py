@@ -48,12 +48,12 @@ def bound(nbytes: float, flops: float, flops_per_s: float):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def lookup_bound(levels, coords, radius: int = 4):
+def lookup_bound(levels, coords, radius: int = 4, out_elem: int = 4):
     """Least time for the window lookup on an H100: bytes it must move
-    (coords read, output written, and the patch cells inside each map that
-    these coords touch, read once) over 3.35 TB/s, against ~11 float32
-    operations per output over 67 TFLOP/s. Returns (ms, "bytes" |
-    "operations", bytes)."""
+    (coords read, output written at `out_elem` bytes an element, and the
+    patch cells inside each map that these coords touch, read once) over
+    3.35 TB/s, against ~11 float32 operations per output over 67 TFLOP/s.
+    Returns (ms, "bytes" | "operations", bytes)."""
     q, side = coords.shape[0], 2 * radius + 2
     elem = levels[0].element_size()
     cells = 0
@@ -66,7 +66,7 @@ def lookup_bound(levels, coords, radius: int = 4):
                 - o[:, 1].clamp(min=0)).clamp(0, side)
         cells += int((cols * rows).sum().item())
     n_out = q * len(levels) * (2 * radius + 1) ** 2
-    nbytes = q * 2 * 4 + n_out * 4 + cells * elem
+    nbytes = q * 2 * 4 + n_out * out_elem + cells * elem
     ms, by = bound(nbytes, n_out * 11, H100_F32_FLOPS)
     return ms, by, nbytes
 
@@ -99,14 +99,14 @@ def grid_sample_lookup(levels, coords, radius: int = 4):
     return run, result
 
 
-def y_contract_bound(corr3: torch.Tensor):
+def y_contract_bound(corr3: torch.Tensor, out_elem: int = 4):
     """Least time of the y contraction of (Q, hl, wl) maps on an H100: corr3
-    and wy (Q, 9, hl) read, (Q, 9, wl) float32 written; 2*9*hl*wl operations
-    per query at the inputs' rate (bfloat16 tensor cores, or float32).
-    Returns (ms, "bytes" | "operations", bytes)."""
+    and wy (Q, 9, hl) read, (Q, 9, wl) written at `out_elem` bytes an
+    element; 2*9*hl*wl operations per query at the inputs' rate (bfloat16
+    tensor cores, or float32). Returns (ms, "bytes" | "operations", bytes)."""
     q, hl, wl = corr3.shape
     elem = corr3.element_size()
-    nbytes = q * hl * wl * elem + q * 9 * hl * elem + q * 9 * wl * 4
+    nbytes = q * hl * wl * elem + q * 9 * hl * elem + q * 9 * wl * out_elem
     rate = H100_BF16_FLOPS if corr3.dtype == torch.bfloat16 else H100_F32_FLOPS
     ms, by = bound(nbytes, 2.0 * q * 9 * hl * wl, rate)
     return ms, by, nbytes

@@ -10,19 +10,26 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    floor kernel and the one-level build of #2 (the probes');
 3. kernel #1, the 4-level radius-4 lookup (csrc/corr_lookup.cu), at the
    clip path's lookup shape (Q = 22*64*64 queries, levels 64^2, 32^2, 16^2,
-   8^2, coords +-20 px around the grid), float32 and bfloat16 levels: the
-   kernel against the plain lookup on the card, then the device times
-   (device_ms: CUDA events, the card held by a spin kernel) of the kernel,
-   the plain lookup and F.grid_sample per level (the library yardstick;
-   the port never calls it) beside the bound, and the kernel's wall time
-   per call back to back (CUDA events);
+   8^2, coords +-20 px around the grid), float32 and bfloat16 levels, each
+   with float32 and bfloat16 output: the kernel against the plain lookup on
+   the card (a bfloat16 output also bit-equal to the kernel's float32
+   output cast), then the device times (device_ms: CUDA events, the card
+   held by a spin kernel) of the kernel, the plain lookup and F.grid_sample
+   per level (the library yardstick; the port never calls it) beside the
+   bound for that output type, and the kernel's wall time per call back to
+   back (CUDA events);
 4. kernel #2, the per-level lookup (csrc/corr_level_lookup.cu), the same
    checks and times at the stream's shape (Q = 4*64*64, radius 3) and at
    the clip path's shape (radius 4, beside kernel #1's time);
 4b. kernel #3, the y contraction (csrc/corr_y_contract.cu), at levels 0 and
    1 of the clip path's shape with the tent weights of its coords, float32
-   and bfloat16: the kernel against its plain twin, then the device times
-   of the kernel, the twin and torch.bmm beside the bound;
+   and bfloat16 in, float32 and bfloat16 out: the kernel against its plain
+   twin (a bfloat16 output also bit-equal to its float32 output cast), then
+   the device times of the kernel, the twin and torch.bmm beside the bound
+   for that output type; then the bfloat16 split lookup as
+   experimental:fused_bd2 runs it (kernel #3 on levels 0 and 1, cuBLAS's
+   bfloat16 GEMMs on all four) against the float32 split lookup on the same
+   levels (SPLIT_REL);
 4c. the probes (probes.py): #4 kernel #2 built for one level at level 0
    of the clip shape, #5 kernel #3 at scripts/probe_pallas_bd.py's shape,
    #6 the floor kernel over kernel #1's operands, beside kernel #1's time
@@ -94,6 +101,11 @@ except ImportError as e:  # this file alone, outside the repository
     sys.exit(f"chip_smoke: run from the repository root ({e})")
 
 LOOKUP_TOL = 1e-4            # kernel vs plain lookup, max abs (see check_lookup)
+# A bfloat16 output is the kernel's float32 value rounded once to nearest
+# even: it must equal the kernel's own float32 output cast bit for bit, and
+# it may differ from the plain float32 value by the float32 bar plus that
+# rounding, at most 2^-8 of the value (bfloat16 keeps 8 significant bits).
+BF16_ROUND = 2.0 ** -8
 SPIN_CYCLES = 2 * 10**8      # device_ms's first spin: ~0.1 s at the H100's 1.98 GHz
 # Kernel #3 vs its plain twin. float32 inputs: max abs 1e-4; both sum the
 # same float32 products over y in another order, ~1e-7 at |tmp| <= ~5.
@@ -102,6 +114,15 @@ SPIN_CYCLES = 2 * 10**8      # device_ms's first spin: ~0.1 s at the H100's 1.98
 # (~1e-7 relative), and the bar is relative because |tmp| scales with the maps.
 Y_TOL_F32 = 1e-4
 Y_REL_BF16 = 1e-3
+# Phase 4b's split windows, bfloat16 vs float32 on the same bfloat16-valued
+# levels, per element: |bf16 - f32| <= SPLIT_REL x A + 1e-6, A the window
+# of |levels| (the sum of |products| under the non-negative tents). The
+# bfloat16 path rounds wy, tmp, wx and the window once each, each by <= 2^-8
+# relative (BF16_ROUND) with float32 sums, so <= 4 x 2^-8 x A to first
+# order; the bar leaves one rounding more for the higher-order terms and the
+# float32 sums' order. Fixed before the check's first run on the card (on
+# the CPU at batch 2 the largest |bf16 - f32| / A was 1.19e-2).
+SPLIT_REL = 5 * BF16_ROUND
 CLIP_REL = 1e-3              # GPU vs CPU clip: max abs diff / max |flow| (see small_clip)
 DRIFT_REL = 1e-3             # GPU vs CPU drift stream, first output (see drift_fixture)
 DRIFT_EPE_PX = 0.05          # GPU vs CPU drift stream, per-step EPE (see drift_fixture)
@@ -117,7 +138,7 @@ DRIFT_EPE_PX = 0.05          # GPU vs CPU drift stream, per-step EPE (see drift_
 EVAL_EPE_REL = 0.02
 FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
 KERNELS = (corr_cuda, corr_level_cuda, corr_bd_cuda)  # each wrapper's `launches` count
-TILES = (4, 8, 16)           # queries per block tried by --tile-sweep; 8 ships
+TILES = (4, 8, 16)           # kernel #1's queries per block tried by --tile-sweep; 8 ships
 KINDS = (  # --profile: kind of a kernel, first match on its lower-cased name
     ("corr lookup (this port's kernels)", ("corr_lookup", "level_lookup", "y_contract")),
     ("conv / GEMM (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "cudnn", "sm90_", "wgrad", "dgrad")),
@@ -226,55 +247,92 @@ def lookup_inputs(b: int):
     return levels32, coords
 
 
-def check_lookup(label: str, kernel, levels32, coords, radius: int, beside=None):
-    """Phases 3 and 4: `kernel(levels, coords)` against the plain lookup at
-    `radius`, then its time beside the plain lookup's, F.grid_sample's, the
-    bound and, when given, `beside(levels, coords)`'s (kernel #1 on the same
-    inputs). Times are device times (device_ms); the kernel's `wall_ms` is
-    the event timing of back-to-back calls, wrapper included. Both kernels
-    share one fractional offset over a window's taps;
+def check_out(label: str, got, got32, ref, tol: float) -> float:
+    """`got` (a kernel's output in float32 or bfloat16) against the plain
+    float32 `ref`: max abs within `tol`, and for bfloat16 within `tol` +
+    BF16_ROUND x |ref| at every element and bit-equal to the kernel's own
+    float32 output `got32` cast. Returns the max abs difference."""
+    diff = (got.float() - ref).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if got.dtype == torch.float32:
+        if not err <= tol:
+            fail(f"{label}: kernel disagrees with its plain version: {err} > {tol}")
+        return err
+    if not torch.equal(got.view(torch.int16), got32.to(torch.bfloat16).view(torch.int16)):
+        fail(f"{label}: the bfloat16 output is not the float32 output cast bit for bit")
+    if not bool((diff <= tol + BF16_ROUND * ref.abs()).all()):
+        fail(f"{label}: kernel disagrees with its plain version beyond the bf16 rounding: {err}")
+    return err
+
+
+def out_name(dtype) -> str:
+    return "f32 out" if dtype == torch.float32 else "bf16 out"
+
+
+def check_lookup(label: str, kernel, levels32, coords, radius: int, beside=None,
+                 out_dtypes=(torch.float32,)):
+    """Phases 3 and 4: `kernel(levels, coords, out_dtype)` against the plain
+    lookup at `radius`, for each of `out_dtypes` (float32 first), then its
+    time beside the plain lookup's (with the same output type),
+    F.grid_sample's, the bound (with that output type's bytes) and, when
+    given, `beside(levels, coords)`'s (kernel #1 on the same inputs). Times
+    are device times (device_ms); the kernel's `wall_ms` is the event timing
+    of back-to-back calls, wrapper included. Both kernels share one
+    fractional offset over a window's taps;
     the plain lookup recomputes x/2^l + (a - r) per tap, whose float32
     rounding (<= half an ulp of |x| <= ~100, i.e. <= 4e-6) times the maps'
-    local slope (unit-normal values, |slope| <= ~8) stays below 1e-4."""
+    local slope (unit-normal values, |slope| <= ~8) stays below 1e-4.
+    A bfloat16 output is held as check_out says. Rows are keyed by the
+    levels' dtype, with ", bf16 out" for a bfloat16 output."""
     rows = {}
     for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         levels = [lvl.to(dtype) for lvl in levels32]
-        got = kernel(levels, coords)
         ref = corr.lookup_corr_plain(levels, coords, radius)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
         lib_run, lib_result = grid_sample_lookup(levels, coords, radius)
         lib_err = float((lib_result() - ref).abs().max())
-        print(f"{label} {name}: kernel vs plain max abs {err:.3e} (tol {LOOKUP_TOL:g}); "
-              f"grid_sample vs plain {lib_err:.3e}")
-        if not err <= LOOKUP_TOL:
-            fail(f"{label}: kernel disagrees with the plain lookup ({name}): {err}")
-        ms = device_ms(lambda: kernel(levels, coords), 20)
-        wall_ms = cuda_ms(lambda: kernel(levels, coords), 20)
-        plain_ms = device_ms(lambda: corr.lookup_corr_plain(levels, coords, radius), 2)
         library_ms = device_ms(lib_run, 10)
-        bound_ms, bound_by, nbytes = lookup_bound(levels, coords, radius)
-        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, library_ms=library_ms, wall_ms=wall_ms)
-        extra = ""
-        if beside is not None:
-            row["corr_lookup_ms"] = device_ms(lambda: beside(levels, coords), 20)
-            extra = f", kernel #1 {row['corr_lookup_ms']:.4f} ms"
-        print(f"{label} {name}: kernel {ms:.4f} ms ({wall_ms:.4f} ms per call back to back), "
-              f"plain {plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, bound {bound_ms:.4f} "
-              f"ms ({bound_by}: {nbytes} B at 3.35 TB/s){extra}")
-        rows[name] = row
-        del levels, got, ref, lib_run, lib_result
+        got32 = None
+        for out_dtype in out_dtypes:
+            on = out_name(out_dtype)
+            got = kernel(levels, coords, out_dtype)
+            torch.cuda.synchronize()
+            if out_dtype == torch.float32:
+                got32 = got
+            err = check_out(f"{label} {name} {on}", got, got32, ref, LOOKUP_TOL)
+            print(f"{label} {name}, {on}: kernel vs plain max abs {err:.3e} (tol {LOOKUP_TOL:g}"
+                  f"{'' if out_dtype == torch.float32 else ' + 2^-8 |plain|; bit-equal to the f32 output cast'}"
+                  f"); grid_sample vs plain {lib_err:.3e}")
+            ms = device_ms(lambda: kernel(levels, coords, out_dtype), 20)
+            wall_ms = cuda_ms(lambda: kernel(levels, coords, out_dtype), 20)
+            plain_ms = device_ms(
+                lambda: corr.lookup_corr_plain(levels, coords, radius, out_dtype), 2)
+            bound_ms, bound_by, nbytes = lookup_bound(levels, coords, radius,
+                                                      torch.tensor([], dtype=out_dtype).element_size())
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms, wall_ms=wall_ms)
+            extra = ""
+            if beside is not None:
+                row["corr_lookup_ms"] = device_ms(lambda: beside(levels, coords), 20)
+                extra = f", kernel #1 {row['corr_lookup_ms']:.4f} ms"
+            print(f"{label} {name}, {on}: kernel {ms:.4f} ms ({wall_ms:.4f} ms per call back to "
+                  f"back), plain {plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B at 3.35 TB/s) = "
+                  f"{100 * bound_ms / ms:.1f} % of bound{extra}")
+            rows[name if out_dtype == torch.float32 else f"{name}, bf16 out"] = row
+            del got
+        del levels, ref, lib_run, lib_result, got32
     return rows
 
 
 def check_y_contract(levels32, coords):
     """Phase 4b: kernel #3 at levels 0 and 1 of the clip shape: corr3 the
     level's unit-normal maps, wy the tent weights of the coords' y windows
-    (what _level_window_bd gives it), float32 and bfloat16. The kernel
-    against its plain twin (Y_TOL_F32, Y_REL_BF16), then device times of
-    the kernel, the twin and torch.bmm (the library yardstick, bf16 out)
-    beside the bound. Returns {level: {dtype: row}}."""
+    (what _level_window_bd gives it), float32 and bfloat16 in, float32 and
+    bfloat16 out. The kernel against its plain twin (Y_TOL_F32, Y_REL_BF16;
+    a bfloat16 output as check_out says), then device times of the kernel,
+    the twin (same output type) and torch.bmm (the library yardstick, which
+    writes the inputs' type) beside the bound (with the output type's
+    bytes). Returns {level: {"<in dtype>[, bf16 out]": row}}."""
     rows = {}
     delta = torch.linspace(-4, 4, 9, device=coords.device)
     with tf32(False):
@@ -283,32 +341,77 @@ def check_y_contract(levels32, coords):
             wy32 = corr.window_weights(coords[:, 1:2] / 2.0 ** l + delta, hl)
             for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
                 corr3, wy = levels32[l].to(dtype), wy32.to(dtype)
-                got = corr_bd_cuda.y_contract(corr3, wy)
+                path = corr_bd_cuda.path(corr_bd_cuda.load(corr_bd_cuda.build()[0]), corr3)
                 ref = corr_bd_cuda.y_contract_plain(corr3, wy)
                 lib_out = torch.bmm(wy, corr3)
                 torch.cuda.synchronize()
-                err = float((got - ref).abs().max())
                 scale = float(ref.abs().max())
                 tol = Y_TOL_F32 if dtype == torch.float32 else Y_REL_BF16 * scale
                 lib_err = float((lib_out.float() - ref).abs().max())
-                print(f"kernel #3 level {l} {name}: kernel vs plain max abs {err:.3e} "
-                      f"(tol {tol:.3e}, max |tmp| {scale:.3f}); torch.bmm vs plain {lib_err:.3e}")
-                if not err <= tol:
-                    fail(f"kernel #3 level {l} {name}: kernel disagrees with its plain twin: {err}")
-                ms = device_ms(lambda: corr_bd_cuda.y_contract(corr3, wy), 20)
-                wall_ms = cuda_ms(lambda: corr_bd_cuda.y_contract(corr3, wy), 20)
-                plain_ms = device_ms(lambda: corr_bd_cuda.y_contract_plain(corr3, wy), 5)
                 library_ms = device_ms(lambda: torch.bmm(wy, corr3), 20)
-                bound_ms, bound_by, nbytes = probes.y_contract_bound(corr3)
-                print(f"kernel #3 level {l} {name}: kernel {ms:.4f} ms ({wall_ms:.4f} ms per call "
-                      f"back to back), plain {plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms, "
-                      f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B at 3.35 TB/s) = "
-                      f"{100 * bound_ms / ms:.1f} % of bound")
-                rows.setdefault(f"level{l}", {})[name] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=library_ms, wall_ms=wall_ms)
-                del corr3, wy, got, ref, lib_out
+                got32 = None
+                for out_dtype in (torch.float32, torch.bfloat16):
+                    on = out_name(out_dtype)
+                    label = f"kernel #3 level {l} {name}, {on}"
+                    got = corr_bd_cuda.y_contract(corr3, wy, out_dtype)
+                    torch.cuda.synchronize()
+                    if out_dtype == torch.float32:
+                        got32 = got
+                    err = check_out(label, got, got32, ref, tol)
+                    print(f"{label} ({path} path): kernel vs plain max "
+                          f"abs {err:.3e} (tol {tol:.3e}, max |tmp| {scale:.3f}); torch.bmm vs "
+                          f"plain {lib_err:.3e}")
+                    ms = device_ms(lambda: corr_bd_cuda.y_contract(corr3, wy, out_dtype), 20)
+                    wall_ms = cuda_ms(lambda: corr_bd_cuda.y_contract(corr3, wy, out_dtype), 20)
+                    plain_ms = device_ms(
+                        lambda: corr_bd_cuda.y_contract_plain(corr3, wy, out_dtype), 5)
+                    bound_ms, bound_by, nbytes = probes.y_contract_bound(
+                        corr3, torch.tensor([], dtype=out_dtype).element_size())
+                    print(f"{label}: kernel {ms:.4f} ms ({wall_ms:.4f} ms per call back to "
+                          f"back), plain {plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms, bound "
+                          f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B at 3.35 TB/s) = "
+                          f"{100 * bound_ms / ms:.1f} % of bound")
+                    key = name if out_dtype == torch.float32 else f"{name}, bf16 out"
+                    rows.setdefault(f"level{l}", {})[key] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=library_ms, wall_ms=wall_ms,
+                        kernel_path=path)
+                    del got
+                del corr3, wy, got32, ref, lib_out
     return rows
+
+
+def check_split_windows(levels32, coords) -> float:
+    """Phase 4b, last: lookup_corr_split_v2 on bfloat16 levels at the clip
+    shape, levels 0 and 1 through kernel #3 and 2 and 3 through torch.bmm
+    (experimental:fused_bd2's split), every window bfloat16; against the
+    same function in float32 (TF32 off, every level through torch.bmm) on
+    the same levels as float32, under SPLIT_REL. Returns the largest
+    |bf16 - f32| / A."""
+    b, h, w = coords.shape[0] // 4096, 64, 64
+    c4 = coords.view(b, h, w, 2)
+    levels = [lvl.to(torch.bfloat16) for lvl in levels32]
+    as_f32 = [lvl.float() for lvl in levels]
+    with tf32(False):
+        got = corr.lookup_corr_split_v2(levels, c4, 4, ("bd", "bd", "mm", "mm"), torch.bfloat16)
+        ref = corr.lookup_corr_split_v2(as_f32, c4, 4, ("mm",), torch.float32)
+        mag = corr.lookup_corr_split_v2([lvl.abs() for lvl in as_f32], c4, 4, ("mm",),
+                                        torch.float32)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for l, (g, r, a) in enumerate(zip(got, ref, mag)):
+        if g.dtype != torch.bfloat16 or g.shape != r.shape:
+            fail(f"split windows level {l}: {g.dtype} {tuple(g.shape)}")
+        diff = (g.float() - r).abs()
+        ratio = float((diff / (a + 1e-6)).max())
+        print(f"split windows level {l} (bf16, {'kernel #3' if l < 2 else 'torch.bmm'}) vs "
+              f"float32: max abs {float(diff.max()):.3e}, max |diff| / A {ratio:.3e} "
+              f"(bar {SPLIT_REL:.3e} x A + 1e-6; max A {float(a.max()):.3f})")
+        if not bool((diff <= SPLIT_REL * a + 1e-6).all()):
+            fail(f"split windows level {l}: bf16 differs from float32 beyond the bar ({ratio})")
+        worst = max(worst, ratio)
+    del levels, as_f32, got, ref, mag
+    return worst
 
 
 def probe_launches() -> int:
@@ -361,9 +464,10 @@ def run_probes(levels32, coords, rows1):
 
 
 def tile_sweep(levels32, coords):
-    """--tile-sweep: the kernel built with each of TILES queries per block,
-    each checked against the plain lookup, timed in the order
-    4, 8, 16, 16, 8, 4 so that a drift of the card's clock cancels."""
+    """--tile-sweep: kernel #1 built with each of TILES queries per block,
+    each checked against the plain lookup, timed (float32 and bfloat16
+    output) in the order 4, 8, 16, 16, 8, 4 so that a drift of the card's
+    clock cancels."""
     libs = {}
     for qt in TILES:
         path, log = corr_cuda.build(f"-DCORR_QT={qt}")
@@ -373,14 +477,17 @@ def tile_sweep(levels32, coords):
     for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         levels = [lvl.to(dtype) for lvl in levels32]
         ref = corr.lookup_corr_plain(levels, coords)
-        times = {qt: [] for qt in TILES}
-        for qt in (*TILES, *reversed(TILES)):
-            err = float((corr_cuda.launch(libs[qt], levels, coords) - ref).abs().max())
-            if not err <= LOOKUP_TOL:
-                fail(f"tile sweep: QT={qt} disagrees with the plain lookup ({name}): {err}")
-            times[qt].append(cuda_ms(lambda: corr_cuda.launch(libs[qt], levels, coords), 20))
-        print(f"tile sweep {name}: " + "; ".join(
-            f"QT={qt} {', '.join(f'{t:.4f}' for t in ts)} ms" for qt, ts in times.items()))
+        for out_dtype in (torch.float32, torch.bfloat16):
+            times = {qt: [] for qt in TILES}
+            for qt in (*TILES, *reversed(TILES)):
+                got = corr_cuda.launch(libs[qt], levels, coords, out_dtype)
+                err = float((got.float() - ref).abs().max())
+                if not err <= LOOKUP_TOL + BF16_ROUND * float(ref.abs().max()):
+                    fail(f"tile sweep: QT={qt} disagrees with the plain lookup ({name}): {err}")
+                times[qt].append(device_ms(
+                    lambda: corr_cuda.launch(libs[qt], levels, coords, out_dtype), 20))
+            print(f"tile sweep {name} levels, {out_name(out_dtype)}: " + "; ".join(
+                f"QT={qt} {', '.join(f'{t:.4f}' for t in ts)} ms" for qt, ts in times.items()))
         del levels, ref
 
 
@@ -486,7 +593,7 @@ def clip_path(with_profile: bool):
     """Phase 5: the clip forward at full size (and --profile's breakdown of
     it), the same clip with the split lookup, then the small GPU-vs-CPU
     clip. Returns (kernel #1 launches, frames/s, kernel #3 launches,
-    frames/s with fused_bd)."""
+    frames/s with fused_bd, the small clip's GPU launches by lookup)."""
     dev = torch.device("cuda")
     t, n, size = 7, 2, 512
     acfg = models.AccFlowConfig(compute_dtype="bfloat16")
@@ -527,11 +634,11 @@ def clip_path(with_profile: bool):
           f"differ by max abs {gap:.3e} at |flow| max {float(out.abs().max()):.3e}")
     del est_bd, pairs_bd, acc, images, out, out_bd
     torch.cuda.empty_cache()
-    small_clip()
-    return launches, fps, launches_bd, fps_bd
+    small = small_clip()
+    return launches, fps, launches_bd, fps_bd, small
 
 
-def small_clip() -> None:
+def small_clip() -> dict:
     """A 4-frame 64^2 clip in float32, TF32 off, with the same seeds: on the
     GPU (through the kernels) and on the CPU (through the plain versions,
     the path tests/test_torch_*.py hold against JAX), with corr_lookup
@@ -543,9 +650,10 @@ def small_clip() -> None:
     room for that and fails a lookup error that moves the flow by a
     thousandth of its size; it holds GPU against CPU for both lookups and
     fused_bd against fused on the GPU (the same function, computed as
-    bilinear taps by kernel #1 and as tent contractions by kernel #3)."""
+    bilinear taps by kernel #1 and as tent contractions by kernel #3).
+    Returns each lookup's kernel launches on the GPU (float32 outputs)."""
     clip = np.random.default_rng(3).uniform(-1, 1, (4, 1, 64, 64, 3)).astype(np.float32)
-    outs = {}
+    outs, launches = {}, {}
     for lookup, kernel in (("fused", corr_cuda), ("experimental:fused_bd", corr_bd_cuda)):
         for where in ("cuda", "cpu"):
             est = models.build_flow_estimator("raft", compute_dtype="float32", device=where,
@@ -557,8 +665,10 @@ def small_clip() -> None:
             with tf32(False):
                 outs[lookup, where] = models.accflow_forward(
                     acc.to(where), clip, est.pairs_fn()).cpu().numpy()
-            expect_counts(f"small clip {lookup} on {where}", kernel,
-                          12 if where == "cuda" else 0)
+            n = expect_counts(f"small clip {lookup} on {where}", kernel,
+                              12 if where == "cuda" else 0)
+            if where == "cuda":
+                launches[lookup] = n
     for a, b in ((("fused", "cuda"), ("fused", "cpu")),
                  (("experimental:fused_bd", "cuda"), ("experimental:fused_bd", "cpu")),
                  (("experimental:fused_bd", "cuda"), ("fused", "cuda"))):
@@ -571,6 +681,7 @@ def small_clip() -> None:
             fail("small clip: the flow is zero or not finite, nothing to compare")
         if not diff <= tol:
             fail(f"small clip: {a} and {b} differ by {diff:.3e} > {tol:.3e}")
+    return launches
 
 
 def moving_frames(t: int, n: int, size: int, seed: int) -> torch.Tensor:
@@ -811,26 +922,28 @@ def main() -> int:
     build_kernels()
 
     levels32, coords = lookup_inputs(22)
-    rows1 = check_lookup("kernel #1 (radius 4, clip shape)", corr_cuda.lookup_corr_fused,
-                         levels32, coords, 4)
+    rows1 = check_lookup("kernel #1 (radius 4, clip shape)",
+                         lambda lv, c, o: corr_cuda.lookup_corr_fused(lv, c, 4, o),
+                         levels32, coords, 4, out_dtypes=(torch.float32, torch.bfloat16))
     if args.tile_sweep:
         tile_sweep(levels32, coords)
     rows2_r4 = check_lookup(
         "kernel #2 (radius 4, clip shape)",
-        lambda lv, c: corr_level_cuda.lookup_corr_level(lv, c, 4), levels32, coords, 4,
+        lambda lv, c, o: corr_level_cuda.lookup_corr_level(lv, c, 4), levels32, coords, 4,
         beside=corr_cuda.lookup_corr_fused)
     rows3 = check_y_contract(levels32, coords)
+    split_ratio = check_split_windows(levels32, coords)
     probe_rows = run_probes(levels32, coords, rows1["bfloat16"])
     del levels32, coords
     torch.cuda.empty_cache()
     levels32, coords = lookup_inputs(4)
     rows2 = check_lookup("kernel #2 (radius 3, stream shape)",
-                         lambda lv, c: corr_level_cuda.lookup_corr_level(lv, c, 3),
+                         lambda lv, c, o: corr_level_cuda.lookup_corr_level(lv, c, 3),
                          levels32, coords, 3)
     del levels32, coords
     torch.cuda.empty_cache()
 
-    launches1, fps, launches3_clip, fps_bd = clip_path(args.profile)
+    launches1, fps, launches3_clip, fps_bd, small = clip_path(args.profile)
     print(f"frames/s {fps:.3f} on {line} (AccFlow+RAFT, 7x512^2, batch 2, 12 iters, bf16); "
           f"{fps_bd:.3f} with experimental:fused_bd")
     launches2, fps_a, ms_a, _ = stream_path("(a) RAFT-small", True, args.profile)
@@ -840,13 +953,27 @@ def main() -> int:
     drift_fixture()
     evals = eval_phase()
 
+    # Kernels #1 and #3 have a row for each output type, each timed in the
+    # configuration whose launches it reports: corr_lookup and
+    # corr_y_contract are the bf16 main paths (bf16 levels or maps in, bf16
+    # out: the clip, stream and eval); the *_f32_out rows are float32 in and
+    # out, what the f32 small clip on the GPU launches (its maps are 8^2 at
+    # level 0; the rows' times are at the clip shape). The bf16-in, f32-out
+    # times, which no path launches, stand under "bfloat16_in".
     print(json.dumps({"kernels": [
         {"name": "corr_lookup", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:264",
-         "launches": launches1, **rows1["bfloat16"],
-         "levels_dtype": "bfloat16", "float32_levels": rows1["float32"],
+         "launches": launches1, "launches_in": "the clip path (5 forwards)",
+         **rows1["bfloat16, bf16 out"], "levels_dtype": "bfloat16", "out_dtype": "bfloat16",
          "eval_launches": evals["acc|raft", "fused"]["launches"]},
+        {"name": "corr_lookup_f32_out", "route": "cuda",
+         "source": "accflow_tpu_torch/csrc/corr_lookup.cu",
+         "replaces": "accflow_tpu/ops/corr_pallas.py:264",
+         "launches": small["fused"], "launches_in": "the f32 small clip on the GPU",
+         **rows1["float32"], "levels_dtype": "float32", "out_dtype": "float32",
+         "float32_levels_bf16_out": rows1["float32, bf16 out"],
+         "bfloat16_in": rows1["bfloat16"]},
         {"name": "corr_level_lookup", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_level_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:466",
@@ -857,10 +984,24 @@ def main() -> int:
          "source": "accflow_tpu_torch/csrc/corr_y_contract.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:343",
          "launches": evals["acc|raft", "experimental:fused_bd"]["launches"],
-         **rows3["level0"]["bfloat16"], "shape": "level 0 of the clip path, bfloat16 in",
-         "float32_inputs": rows3["level0"]["float32"], "level1": rows3["level1"],
+         "launches_in": "one acc|raft experimental:fused_bd eval batch",
+         **rows3["level0"]["bfloat16, bf16 out"],
+         "shape": "level 0 of the clip path, bfloat16 in", "out_dtype": "bfloat16",
+         "level1": rows3["level1"]["bfloat16, bf16 out"],
          "clip_launches": launches3_clip,
-         "fused_bd2_eval_launches": evals["acc|raft", "experimental:fused_bd2"]["launches"]},
+         "fused_bd2_eval_launches": evals["acc|raft", "experimental:fused_bd2"]["launches"],
+         "split_windows_max_diff_over_A": split_ratio},
+        {"name": "corr_y_contract_f32_out", "route": "cuda",
+         "source": "accflow_tpu_torch/csrc/corr_y_contract.cu",
+         "replaces": "accflow_tpu/ops/corr_pallas.py:343",
+         "launches": small["experimental:fused_bd"],
+         "launches_in": "the f32 small clip on the GPU, experimental:fused_bd",
+         **rows3["level0"]["float32"],
+         "shape": "level 0 of the clip path, float32 in", "out_dtype": "float32",
+         "level1": rows3["level1"]["float32"],
+         "float32_in_bf16_out": rows3["level0"]["float32, bf16 out"],
+         "bfloat16_in": {"level0": rows3["level0"]["bfloat16"],
+                         "level1": rows3["level1"]["bfloat16"]}},
         *probe_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -179,3 +179,75 @@ def test_corr_lookup_fence():
     assert RAFTConfig(corr_lookup="mm").split_levels is None
     # RAFT-small keeps its per-level kernel whatever the spelling.
     assert RAFTConfig(small=True, corr_lookup="experimental:fused_bd").split_levels is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_y_contract_bf16_out_is_the_f32_output_cast(dtype):
+    """out_dtype=bfloat16 rounds the float32 sums once: bit for bit the
+    float32 output cast; the CPU wrapper routes out_dtype to the twin."""
+    gen = torch.Generator().manual_seed(7)
+    corr = torch.randn((32, 12, 10), generator=gen).to(dtype)
+    wy = torch.randn((32, 9, 12), generator=gen).to(dtype)
+    f32 = corr_bd_cuda.y_contract_plain(corr, wy)
+    bf = corr_bd_cuda.y_contract_plain(corr, wy, torch.bfloat16)
+    assert bf.dtype == torch.bfloat16
+    assert torch.equal(bf.view(torch.int16), f32.to(torch.bfloat16).view(torch.int16))
+    before = corr_bd_cuda.launches
+    got = corr_bd_cuda.y_contract(corr, wy, torch.bfloat16)
+    assert torch.equal(got.view(torch.int16), bf.view(torch.int16))
+    assert corr_bd_cuda.launches == before
+    with pytest.raises(ValueError, match="out_dtype"):
+        corr_bd_cuda.y_contract(corr, wy, torch.float16)
+
+
+@pytest.mark.parametrize("out_elem", [4, 2])
+def test_y_contract_bound_counts_the_output_bytes(out_elem):
+    from accflow_tpu_torch import probes
+
+    corr = torch.zeros((10, 64, 32), dtype=torch.bfloat16)
+    ms, by, nbytes = probes.y_contract_bound(corr, out_elem)
+    assert nbytes == 10 * (64 * 32 * 2 + 9 * 64 * 2 + 9 * 32 * out_elem)
+    assert by == "bytes" and ms == pytest.approx(1e3 * nbytes / probes.H100_BYTES_PER_S)
+
+
+@pytest.mark.parametrize("level_impl", [("bd", "mm", "mm", "mm"), ("bd", "bd", "mm", "mm")])
+def test_lookup_corr_split_v2_bf16_matches_jax(rng, level_impl):
+    """bfloat16 levels: the port multiplies the bf16 operands as they are
+    (float32 sums, rounded once to bf16), JAX at default precision with
+    float32 output. Both round tmp to bf16 before the x contraction; the
+    port also rounds the window: <= 2^-8 of |window| apart from that, plus
+    tmp's rounding moved by a different summation order (one bf16 ulp of
+    |tmp|, carried through the 2-tap x blend). Bar: 2^-7 x max |window|."""
+    j_pyr, levels, coords = _pyramids(rng, 2, 16, 16, 16, 20)
+    j_bf = j_pyr._replace(levels=[l.astype(jnp.bfloat16) for l in j_pyr.levels])
+    ref = j_split_v2(j_bf, jnp.asarray(coords), 4, precision="default", level_impl=level_impl)
+    out = lookup_corr_split_v2([l.bfloat16() for l in levels], torch.from_numpy(coords), 4,
+                               level_impl, torch.bfloat16)
+    for o, r in zip(out, ref):
+        assert o.dtype == torch.bfloat16 and tuple(o.shape) == (2, 16, 16, 9, 9)
+        r = np.asarray(r).astype(np.float32)
+        np.testing.assert_allclose(o.float().numpy(), r, rtol=0,
+                                   atol=2.0 ** -7 * float(np.abs(r).max()))
+
+
+def test_contract_reduces_bf16_in_float32(monkeypatch):
+    """The split path's GEMMs run with cuBLAS's reduced-precision bfloat16
+    reductions off (float32 sums, as the docstring says) and TF32 off, and
+    both process-wide switches are restored afterwards."""
+    from accflow_tpu_torch.ops import corr as corr_mod
+
+    matmul = torch.backends.cuda.matmul
+    seen = []
+    real_bmm = torch.bmm
+
+    def spy(a, b):
+        seen.append((matmul.allow_bf16_reduced_precision_reduction, matmul.allow_tf32))
+        return real_bmm(a, b)
+
+    monkeypatch.setattr(matmul, "allow_bf16_reduced_precision_reduction", True)
+    monkeypatch.setattr(corr_mod.torch, "bmm", spy)
+    a = torch.ones((2, 9, 4), dtype=torch.bfloat16)
+    out = corr_mod._contract(a, torch.ones((2, 4, 3), dtype=torch.bfloat16))
+    assert out.dtype == torch.bfloat16 and bool((out == 4).all())
+    assert seen == [(False, False)]
+    assert matmul.allow_bf16_reduced_precision_reduction is True

@@ -153,3 +153,40 @@ def test_level_wrapper_rejects_what_the_kernel_does_not_take(rng):
     for lv, cc, r in bad:
         with pytest.raises(ValueError):
             corr_level_cuda.lookup_corr_level(lv, cc, r)
+
+
+def test_plain_lookup_bf16_out_is_the_f32_output_cast(rng):
+    """out_dtype=bfloat16 rounds the float32 blend once: bit for bit the
+    float32 output cast, for float32 and bfloat16 levels; the CPU wrapper
+    routes out_dtype to the plain lookup."""
+    _, levels, coords = _inputs(rng, 1, 8, 8, 8, 20)
+    c = torch.from_numpy(coords.reshape(-1, 2))
+    for lv in (levels, [l.bfloat16() for l in levels]):
+        f32 = lookup_corr_plain(lv, c)
+        bf = lookup_corr_plain(lv, c, 4, torch.bfloat16)
+        assert f32.dtype == torch.float32 and bf.dtype == torch.bfloat16
+        assert torch.equal(bf.view(torch.int16), f32.to(torch.bfloat16).view(torch.int16))
+        before = corr_cuda.launches
+        got = corr_cuda.lookup_corr_fused(lv, c, out_dtype=torch.bfloat16)
+        assert got.dtype == torch.bfloat16 and torch.equal(got.view(torch.int16),
+                                                           bf.view(torch.int16))
+        assert corr_cuda.launches == before
+    with pytest.raises(ValueError, match="out_dtype"):
+        corr_cuda.lookup_corr_fused(levels, c, out_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("out_elem", [4, 2])
+def test_lookup_bound_counts_the_output_bytes(out_elem):
+    """Coords 8 B and the output at `out_elem` bytes a value per query, plus
+    the patch cells inside each map: at (5.5, 5.5) on a 16^2 level 0 the
+    10x10 patch from (1, 1) lies inside; on level 1 (8^2) the patch from
+    (-2, -2) keeps 8 of its 10 rows and columns; levels 2 and 3 (4^2, 2^2)
+    are covered whole."""
+    from accflow_tpu_torch import probes
+
+    levels = [torch.zeros((1, 16 >> l, 16 >> l), dtype=torch.bfloat16) for l in range(4)]
+    coords = torch.tensor([[5.5, 5.5]])
+    ms, by, nbytes = probes.lookup_bound(levels, coords, 4, out_elem)
+    cells = 100 + 64 + 16 + 4
+    assert nbytes == 8 + 324 * out_elem + cells * 2
+    assert by == "bytes" and ms == pytest.approx(1e3 * nbytes / probes.H100_BYTES_PER_S)

@@ -202,3 +202,99 @@ def test_floor_kernel_matches_plain(dev, dtype, shape):
     np.testing.assert_allclose(got.cpu().numpy(),
                                probes.floor_plain(levels, coords).cpu().numpy(),
                                rtol=0, atol=2 * n * 2.0 ** -24 * float(abs_sum.max()))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16)
+
+
+def _assert_bf16_out(got, got32, ref, tol):
+    """A bfloat16 output: the kernel's float32 output cast bit for bit, and
+    within tol + 2^-8 |ref| of the plain float32 value (one rounding)."""
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(_bits(got), _bits(got32.to(torch.bfloat16)))
+    assert bool(((got.float() - ref).abs() <= tol + 2.0 ** -8 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 16), (1, 13, 7), (3, 5, 9), (1, 64, 64)])
+def test_kernel_bf16_out(dev, dtype, shape):
+    """16x16 and 64x64 maps take the chunk copies on every level, 13x7 and
+    5x9 element staging on their odd-width levels."""
+    levels, coords = _case(dev, *shape, spread=20, dtype=dtype)
+    got32 = corr_cuda.lookup_corr_fused(levels, coords)
+    before = corr_cuda.launches
+    got = corr_cuda.lookup_corr_fused(levels, coords, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert corr_cuda.launches == before + 1
+    ref = lookup_corr_plain(levels, coords)
+    np.testing.assert_allclose(got32.cpu().numpy(), ref.cpu().numpy(), **TOL)
+    _assert_bf16_out(got, got32, ref, TOL["atol"])
+
+
+def test_kernel_bf16_out_edges(dev):
+    """Zero-sized levels, far coords, a misaligned level view (element
+    staging) and an empty query set, with bfloat16 output."""
+    levels, coords = _case(dev, 2, 4, 4, spread=3)
+    got = corr_cuda.lookup_corr_fused(levels, coords, out_dtype=torch.bfloat16)
+    assert not got[:, 243:].any()
+    _assert_bf16_out(got, corr_cuda.lookup_corr_fused(levels, coords),
+                     lookup_corr_plain(levels, coords), TOL["atol"])
+    levels, coords = _case(dev, 1, 8, 8, spread=1)
+    coords[0] = torch.tensor([1e9, -1e9])
+    coords[1] = torch.tensor([-3e38, 5.0])
+    got = corr_cuda.lookup_corr_fused(levels, coords, out_dtype=torch.bfloat16)
+    assert not got[:2].any()
+    flat = torch.randn(levels[0].numel() + 1, device=dev)
+    shifted = [flat[1:].view(levels[0].shape)] + levels[1:]  # 4 bytes off 16
+    np.testing.assert_allclose(corr_cuda.lookup_corr_fused(shifted, coords).cpu().numpy(),
+                               lookup_corr_plain(shifted, coords).cpu().numpy(), **TOL)
+    before = corr_cuda.launches
+    got = corr_cuda.lookup_corr_fused([l[:0] for l in levels], coords[:0],
+                                      out_dtype=torch.bfloat16)
+    assert got.shape == (0, 324) and got.dtype == torch.bfloat16
+    assert corr_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,bf16_path", [
+    ((9, 64, 64), "mma"), ((37, 16, 8), "mma"), ((6, 70, 64), "mma"), ((5, 130, 32), "mma"),
+    ((3, 21, 16), "mma"), ((4, 8, 128), "narrow"), ((3, 72, 256), "narrow"),
+    ((11, 1, 1), "narrow"), ((3, 70, 33), "narrow"), ((7, 9, 300), "narrow"),
+    ((5, 3, 5), "narrow"),
+])
+def test_y_contract_paths_both_out_dtypes(dev, dtype, shape, bf16_path):
+    """bfloat16: the MMA path (maps 64, 32, 16, 8 wide; hl = 70, 130 and 21
+    not a multiple of the staged 64 rows or of 16, and 21 not of 8) and the
+    narrow path (128, 256, 1, 33 and 300 wide; a 3 x 5 map of 30 bytes).
+    float32: the narrow path at every shape. Both output types."""
+    q, hl, wl = shape
+    gen = torch.Generator().manual_seed(q + hl + wl)
+    corr3 = torch.randn((q, hl, wl), generator=gen).to(dtype).to(dev)
+    wy = torch.randn((q, 9, hl), generator=gen).to(dtype).to(dev)
+    lib = corr_bd_cuda.load(corr_bd_cuda.build()[0])
+    assert corr_bd_cuda.path(lib, corr3) == (bf16_path if dtype == torch.bfloat16 else "narrow")
+    ref = corr_bd_cuda.y_contract_plain(corr3, wy)
+    got32 = corr_bd_cuda.y_contract(corr3, wy)
+    before = corr_bd_cuda.launches
+    got = corr_bd_cuda.y_contract(corr3, wy, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert corr_bd_cuda.launches == before + 1
+    np.testing.assert_allclose(got32.cpu().numpy(), ref.cpu().numpy(), **TOL)
+    _assert_bf16_out(got, got32, ref, TOL["atol"])
+
+
+def test_y_contract_misaligned_view_takes_narrow_path(dev):
+    """A (Q, 8, 64) bfloat16 view 2 bytes off a 16-byte boundary: rows are
+    whole vectors but the base is not aligned, so the narrow path runs, not
+    the MMA one."""
+    flat = torch.randn(5 * 8 * 64 + 1, device=dev).to(torch.bfloat16)
+    corr3 = flat[1:].view(5, 8, 64)
+    wy = torch.randn((5, 9, 8), device=dev).to(torch.bfloat16)
+    assert corr_bd_cuda.path(corr_bd_cuda.load(corr_bd_cuda.build()[0]), corr3) == "narrow"
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = corr_bd_cuda.y_contract(corr3, wy, out_dtype)
+        ref = corr_bd_cuda.y_contract_plain(corr3, wy, out_dtype)
+        np.testing.assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(),
+                                   rtol=2.0 ** -8 if out_dtype == torch.bfloat16 else 0,
+                                   atol=1e-4)

@@ -10,6 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from accflow_tpu.models.raft import RAFTConfig as JRAFTConfig
 from accflow_tpu.models.raft import init_raft as j_init_raft
@@ -60,3 +61,31 @@ def test_build_flow_estimator_rejects():
         build_flow_estimator("gma", device="cpu")
     with pytest.raises(TypeError):
         build_flow_estimator("raft", device="cpu", scan_unroll=4)
+
+
+def test_bf16_lookup_writes_the_compute_dtype(monkeypatch):
+    """Under bfloat16 compute the GRU loop asks the lookup for bfloat16
+    output and casts nothing after it; the flow equals, bit for bit, the
+    loop that takes float32 windows and casts them (the plain lookup's
+    bfloat16 output is its float32 output cast)."""
+    from accflow_tpu_torch.models import raft as raft_mod
+
+    est = build_flow_estimator("raft", compute_dtype="bfloat16", device="cpu", seed=0)
+    frames = np.random.default_rng(1).uniform(-1, 1, (2, 1, 32, 32, 3)).astype(np.float32)
+    asked = []
+    fused = raft_mod.lookup_corr_fused
+
+    def spy(levels, coords, radius, out_dtype=torch.float32):
+        asked.append(out_dtype)
+        return fused(levels, coords, radius, out_dtype)
+
+    monkeypatch.setattr(raft_mod, "lookup_corr_fused", spy)
+    got = est.forward(frames[0], frames[1], iters=2, final_only=True)["flow_up"]
+    assert asked == [torch.bfloat16] * 2
+
+    def cast_after(levels, coords, radius, out_dtype=torch.float32):
+        return fused(levels, coords, radius).to(out_dtype)
+
+    monkeypatch.setattr(raft_mod, "lookup_corr_fused", cast_after)
+    ref = est.forward(frames[0], frames[1], iters=2, final_only=True)["flow_up"]
+    assert torch.equal(got, ref)
