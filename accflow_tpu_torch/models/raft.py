@@ -54,9 +54,20 @@ class RAFTConfig:
     """The JAX package's RAFTConfig: full width, or RAFT-small with
     small=True, from which the widths and the radius follow. corr_lookup
     selects full RAFT's lookup (module docstring; an unported spelling
-    raises here). Its TPU-only knobs (scan_unroll, scan_remat, stem_s2d,
-    corr_volume_dtype) are not carried over: the pyramid levels are stored
-    in the compute dtype."""
+    raises here). Its TPU-only knobs (scan_unroll, scan_remat, stem_s2d)
+    are not carried over.
+
+    JAX's corr_volume_dtype is a numerics choice, and the port makes it
+    differently: JAX stores the pyramid levels in float32 by default
+    (accflow_tpu/models/raft.py:64-67), the port in the compute dtype
+    (build_corr_pyramid's dtype in _pairs and
+    raft_flow_pairs_from_features). Under bfloat16 compute this barely
+    moves the flow: on the CPU, full RAFT at batch 2, 12 iterations, the
+    port's max |bf16 - JAX float32| went from 3.61e-2 (bfloat16 levels) to
+    3.80e-2 (float32 levels) at 64^2, and from 3.26e-2 to 3.16e-2 at 96^2,
+    against JAX's own bfloat16 error of 5.66e-2 and 6.61e-2 (ROADMAP.md,
+    queue 3). tests/test_torch_bf16.py holds the port's bfloat16 flow to
+    JAX's own bfloat16 error."""
 
     iters: int = 12
     compute_dtype: str = "bfloat16"
@@ -302,8 +313,8 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
         flow_init = torch.as_tensor(flow_init, dtype=torch.float32, device=net.device)
         coords1 = (coords1 + flow_init).contiguous()
     if cfg.small:
-        def lookup(c):
-            return lookup_corr_level(levels, c, cfg.corr_radius).to(cd)
+        def lookup(c):  # the kernel writes the compute dtype itself
+            return lookup_corr_level(levels, c, cfg.corr_radius, out_dtype=cd)
 
         def gru_step(h, motion):
             return ub.gru(h, torch.cat([inp, motion], dim=1))

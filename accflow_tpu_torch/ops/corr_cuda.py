@@ -2,7 +2,9 @@
 
 Replaces accflow_tpu/ops/corr_pallas.py::lookup_corr_fused (and the XLA
 "fused" lookup the JAX package defaults to). The kernel is
-csrc/corr_lookup.cu; its header says how it works and what bounds it.
+csrc/corr_lookup.cu, the window kernel of csrc/corr_window.cuh at radius 4
+(shared with ops/corr_level_cuda.py); their headers say how it works and
+what bounds it.
 
 Build: nvcc compiles the source for sm_90a at first use into a shared
 library with a C interface, which ctypes loads (ops/cuda_lib.py). Nothing

@@ -3,16 +3,20 @@ Hopper, at radius 3 or 4 over RAFT's 4 levels.
 
 Replaces accflow_tpu/ops/corr_pallas.py::lookup_corr_pallas, the TPU
 per-level kernel that RAFT-small reaches (`corr_lookup="experimental:pallas"`).
-The kernel is csrc/corr_level_lookup.cu; its header says how it works and
+The kernel is csrc/corr_level_lookup.cu, the window kernel of
+csrc/corr_window.cuh at radius 3 or 4; their headers say how it works and
 what bounds it. It computes what ops/corr.py::lookup_corr_plain computes:
 the same function as ops/corr_cuda.py's 4-level radius-4 kernel, which full
 RAFT keeps; RAFT-small always takes this one.
 
 `lookup_corr_level` takes CPU tensors to the plain lookup and CUDA tensors
-to the kernel, or raises. `launches` counts kernel launches and nothing
-else. Built at first use (ops/cuda_lib.py), never on import; `build` and
-`launch` also take a variant built for another level count
-("-DCORR_LEVELS=1": chip_smoke.py's one-level probe).
+to the kernel, or raises. `out_dtype` (float32, the TPU kernel's, or
+bfloat16) is the output's type: bfloat16 is the float32 blend rounded once
+to nearest even, bit for bit the float32 output cast. `launches` counts
+kernel launches and nothing else. Built at first use (ops/cuda_lib.py),
+never on import; `build` and `launch` also take a variant built with other
+-D defines ("-DCORR_LEVELS=1": chip_smoke.py's one-level probe;
+"-DCORR_QT=n": its tile sweep over the queries per block).
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ def load(path: str) -> ctypes.CDLL:
     """The built library at `path`, with the C function's signature."""
     lib = ctypes.CDLL(path)
     lib.corr_level_lookup.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_int), ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.corr_level_lookup.restype = ctypes.c_int
@@ -52,7 +56,9 @@ def load(path: str) -> ctypes.CDLL:
     return lib
 
 
-def _check(levels, coords: torch.Tensor, radius: int) -> None:
+def _check(levels, coords: torch.Tensor, radius: int, out_dtype: torch.dtype) -> None:
+    if out_dtype not in cuda_lib.DTYPE_CODE:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     if radius not in RADII:
         raise ValueError(f"the per-level lookup is built for radius {RADII}, got {radius}")
     if len(levels) != LEVELS:
@@ -60,23 +66,25 @@ def _check(levels, coords: torch.Tensor, radius: int) -> None:
     cuda_lib.check_lookup_operands(levels, coords)
 
 
-def lookup_corr_level(levels, coords: torch.Tensor, radius: int) -> torch.Tensor:
+def lookup_corr_level(levels, coords: torch.Tensor, radius: int,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """levels: list of 4 (Q, hl, wl) float32 or bfloat16 maps; coords (Q, 2)
-    float32 in level-0 pixels -> (Q, 4*(2r+1)^2) float32 in the reference
-    channel layout (see ops/corr.py). CPU tensors take the plain lookup;
-    CUDA tensors the kernel."""
+    float32 in level-0 pixels -> (Q, 4*(2r+1)^2) in `out_dtype` (float32 or
+    bfloat16), in the reference channel layout (see ops/corr.py). CPU
+    tensors take the plain lookup; CUDA tensors the kernel."""
     global _lib
-    _check(levels, coords, radius)
+    _check(levels, coords, radius, out_dtype)
     if coords.device.type == "cpu":
-        return lookup_corr_plain(levels, coords, radius)
+        return lookup_corr_plain(levels, coords, radius, out_dtype)
     if coords.device.type != "cuda":
         raise ValueError(f"no lookup for device {coords.device}")
     if _lib is None:
         _lib = load(build()[0])
-    return launch(_lib, levels, coords, radius)
+    return launch(_lib, levels, coords, radius, out_dtype)
 
 
-def launch(lib: ctypes.CDLL, levels, coords: torch.Tensor, radius: int) -> torch.Tensor:
+def launch(lib: ctypes.CDLL, levels, coords: torch.Tensor, radius: int,
+           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Run the kernel of `lib` (from `load`) on CUDA tensors that passed
     `lookup_corr_level`'s checks (for as many levels as `lib` was built
     for); raises if the level count differs or the launch fails."""
@@ -86,16 +94,16 @@ def launch(lib: ctypes.CDLL, levels, coords: torch.Tensor, radius: int) -> torch
         raise ValueError(f"the library is built for {lib.corr_level_lookup_levels()} "
                          f"levels, got {n}")
     q = coords.shape[0]
-    out = torch.empty((q, n * (2 * radius + 1) ** 2), dtype=torch.float32,
-                      device=coords.device)
+    out = torch.empty((q, n * (2 * radius + 1) ** 2), dtype=out_dtype, device=coords.device)
     if q == 0:
         return out
     ptrs = (ctypes.c_void_p * n)(*[lvl.data_ptr() for lvl in levels])
     hw = (ctypes.c_int * (2 * n))(*[d for lvl in levels for d in lvl.shape[1:]])
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.corr_level_lookup(cuda_lib.DTYPE_CODE[levels[0].dtype], radius,
-                                   coords.data_ptr(), ptrs, hw, q, out.data_ptr(), stream)
+        rc = lib.corr_level_lookup(cuda_lib.DTYPE_CODE[levels[0].dtype],
+                                   cuda_lib.DTYPE_CODE[out_dtype], radius, coords.data_ptr(),
+                                   ptrs, hw, q, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"corr_level_lookup kernel launch failed: cudaError {rc}")
     launches += 1

@@ -2,7 +2,8 @@
 
 Build: nvcc compiles a source from csrc/ for sm_90a into a shared library
 with a C interface, into `_build/` beside this package (named by a hash of
-source and flags, so an edited source rebuilds), and the wrapper loads it
+source, the headers of csrc/ and flags, so an edited source or header
+rebuilds), and the wrapper loads it
 with ctypes. Nothing is compiled on import: the CPU tests import the
 wrappers on a machine with no nvcc.
 """
@@ -40,7 +41,7 @@ def build(source: Path, *defines: str) -> tuple[str, str]:
     this source and these flags were built before. Returns (library path,
     compiler output; empty when cached)."""
     flags = (*NVCC_FLAGS, *defines)
-    src = source.read_bytes()
+    src = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{source.stem}-{tag}.so"
     if lib.exists():

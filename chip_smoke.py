@@ -19,8 +19,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    bound for that output type, and the kernel's wall time per call back to
    back (CUDA events);
 4. kernel #2, the per-level lookup (csrc/corr_level_lookup.cu), the same
-   checks and times at the stream's shape (Q = 4*64*64, radius 3) and at
-   the clip path's shape (radius 4, beside kernel #1's time);
+   checks and times, float32 and bfloat16 levels each with float32 and
+   bfloat16 output, at the stream's shape (Q = 4*64*64, radius 3) and at
+   the clip path's shape (radius 4, beside kernel #1's time with the same
+   output type);
 4b. kernel #3, the y contraction (csrc/corr_y_contract.cu), at levels 0 and
    1 of the clip path's shape with the tent weights of its coords, float32
    and bfloat16 in, float32 and bfloat16 out: the kernel against its plain
@@ -61,8 +63,9 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    fused and experimental:fused_bd: EPE all / vis / occ, seconds per batch,
    peak memory and launches (24 per batch; 48 with fused_bd2); each split
    lookup's EPEs within EVAL_EPE_REL of fused's.
-Optional phases: --tile-sweep builds kernel #1 with 4, 8 and 16 queries
-per block and times them in turns (after phase 3); --profile prints where
+Optional phases: --tile-sweep builds kernels #1 and #2 with 4, 8 and 16
+queries per block and times them in turns (#1 at the clip shape after phase
+3, #2 at the stream shape after phase 4); --profile prints where
 the device time of the clip forward (with fused and with
 experimental:fused_bd) and of a stream push goes (torch.profiler). The
 line before the last is {"kernels": [...]}; the last line is {"ok": true,
@@ -138,9 +141,9 @@ DRIFT_EPE_PX = 0.05          # GPU vs CPU drift stream, per-step EPE (see drift_
 EVAL_EPE_REL = 0.02
 FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
 KERNELS = (corr_cuda, corr_level_cuda, corr_bd_cuda)  # each wrapper's `launches` count
-TILES = (4, 8, 16)           # kernel #1's queries per block tried by --tile-sweep; 8 ships
+TILES = (4, 8, 16)           # queries per block of kernels #1 and #2 tried by --tile-sweep; 8 ships
 KINDS = (  # --profile: kind of a kernel, first match on its lower-cased name
-    ("corr lookup (this port's kernels)", ("corr_lookup", "level_lookup", "y_contract")),
+    ("corr lookup (this port's kernels)", ("corr_window", "y_contract")),
     ("conv / GEMM (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "cudnn", "sm90_", "wgrad", "dgrad")),
     ("gather / index", ("index", "gather", "scatter")),
     ("softmax", ("softmax",)),
@@ -275,7 +278,8 @@ def check_lookup(label: str, kernel, levels32, coords, radius: int, beside=None,
     lookup at `radius`, for each of `out_dtypes` (float32 first), then its
     time beside the plain lookup's (with the same output type),
     F.grid_sample's, the bound (with that output type's bytes) and, when
-    given, `beside(levels, coords)`'s (kernel #1 on the same inputs). Times
+    given, `beside(levels, coords, out_dtype)`'s (kernel #1 on the same
+    inputs). Times
     are device times (device_ms); the kernel's `wall_ms` is the event timing
     of back-to-back calls, wrapper included. Both kernels share one
     fractional offset over a window's taps;
@@ -312,7 +316,7 @@ def check_lookup(label: str, kernel, levels32, coords, radius: int, beside=None,
                        bound_by=bound_by, library_ms=library_ms, wall_ms=wall_ms)
             extra = ""
             if beside is not None:
-                row["corr_lookup_ms"] = device_ms(lambda: beside(levels, coords), 20)
+                row["corr_lookup_ms"] = device_ms(lambda: beside(levels, coords, out_dtype), 20)
                 extra = f", kernel #1 {row['corr_lookup_ms']:.4f} ms"
             print(f"{label} {name}, {on}: kernel {ms:.4f} ms ({wall_ms:.4f} ms per call back to "
                   f"back), plain {plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, bound "
@@ -463,30 +467,33 @@ def run_probes(levels32, coords, rows1):
     return out
 
 
-def tile_sweep(levels32, coords):
-    """--tile-sweep: kernel #1 built with each of TILES queries per block,
-    each checked against the plain lookup, timed (float32 and bfloat16
-    output) in the order 4, 8, 16, 16, 8, 4 so that a drift of the card's
-    clock cancels."""
+def tile_sweep(label: str, wrapper, run, levels32, coords, radius: int):
+    """--tile-sweep: a lookup kernel (`wrapper`: ops/corr_cuda.py or
+    ops/corr_level_cuda.py) built with each of TILES queries per block
+    (its builds run in parallel), each launched as `run(lib, levels,
+    out_dtype)`, checked against the plain lookup and timed (float32 and
+    bfloat16 output) in the order 4, 8, 16, 16, 8, 4 so that a drift of the
+    card's clock cancels."""
+    with ThreadPoolExecutor(len(TILES)) as pool:
+        built = list(pool.map(lambda qt: wrapper.build(f"-DCORR_QT={qt}"), TILES))
     libs = {}
-    for qt in TILES:
-        path, log = corr_cuda.build(f"-DCORR_QT={qt}")
-        libs[qt] = corr_cuda.load(path)
+    for qt, (path, log) in zip(TILES, built):
+        libs[qt] = wrapper.load(path)
         regs = [m.strip() for m in log.splitlines() if "registers" in m]
-        print(f"tile sweep: built QT={qt} {regs}")
+        print(f"tile sweep {label}: built QT={qt} {regs}")
     for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         levels = [lvl.to(dtype) for lvl in levels32]
-        ref = corr.lookup_corr_plain(levels, coords)
+        ref = corr.lookup_corr_plain(levels, coords, radius)
         for out_dtype in (torch.float32, torch.bfloat16):
             times = {qt: [] for qt in TILES}
             for qt in (*TILES, *reversed(TILES)):
-                got = corr_cuda.launch(libs[qt], levels, coords, out_dtype)
+                got = run(libs[qt], levels, out_dtype)
                 err = float((got.float() - ref).abs().max())
                 if not err <= LOOKUP_TOL + BF16_ROUND * float(ref.abs().max()):
-                    fail(f"tile sweep: QT={qt} disagrees with the plain lookup ({name}): {err}")
-                times[qt].append(device_ms(
-                    lambda: corr_cuda.launch(libs[qt], levels, coords, out_dtype), 20))
-            print(f"tile sweep {name} levels, {out_name(out_dtype)}: " + "; ".join(
+                    fail(f"tile sweep {label}: QT={qt} disagrees with the plain lookup "
+                         f"({name}): {err}")
+                times[qt].append(device_ms(lambda: run(libs[qt], levels, out_dtype), 20))
+            print(f"tile sweep {label} {name} levels, {out_name(out_dtype)}: " + "; ".join(
                 f"QT={qt} {', '.join(f'{t:.4f}' for t in ts)} ms" for qt, ts in times.items()))
         del levels, ref
 
@@ -909,7 +916,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="print where the clip forwards' and a stream push's device time goes")
     ap.add_argument("--tile-sweep", action="store_true",
-                    help="time kernel #1 at 4, 8 and 16 queries per block")
+                    help="time kernels #1 and #2 at 4, 8 and 16 queries per block")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -926,11 +933,13 @@ def main() -> int:
                          lambda lv, c, o: corr_cuda.lookup_corr_fused(lv, c, 4, o),
                          levels32, coords, 4, out_dtypes=(torch.float32, torch.bfloat16))
     if args.tile_sweep:
-        tile_sweep(levels32, coords)
+        tile_sweep("kernel #1", corr_cuda,
+                   lambda lib, lv, o: corr_cuda.launch(lib, lv, coords, o), levels32, coords, 4)
     rows2_r4 = check_lookup(
         "kernel #2 (radius 4, clip shape)",
-        lambda lv, c, o: corr_level_cuda.lookup_corr_level(lv, c, 4), levels32, coords, 4,
-        beside=corr_cuda.lookup_corr_fused)
+        lambda lv, c, o: corr_level_cuda.lookup_corr_level(lv, c, 4, o), levels32, coords, 4,
+        beside=lambda lv, c, o: corr_cuda.lookup_corr_fused(lv, c, 4, o),
+        out_dtypes=(torch.float32, torch.bfloat16))
     rows3 = check_y_contract(levels32, coords)
     split_ratio = check_split_windows(levels32, coords)
     probe_rows = run_probes(levels32, coords, rows1["bfloat16"])
@@ -938,8 +947,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     levels32, coords = lookup_inputs(4)
     rows2 = check_lookup("kernel #2 (radius 3, stream shape)",
-                         lambda lv, c, o: corr_level_cuda.lookup_corr_level(lv, c, 3),
-                         levels32, coords, 3)
+                         lambda lv, c, o: corr_level_cuda.lookup_corr_level(lv, c, 3, o),
+                         levels32, coords, 3, out_dtypes=(torch.float32, torch.bfloat16))
+    if args.tile_sweep:
+        tile_sweep("kernel #2", corr_level_cuda,
+                   lambda lib, lv, o: corr_level_cuda.launch(lib, lv, coords, 3, o),
+                   levels32, coords, 3)
     del levels32, coords
     torch.cuda.empty_cache()
 
@@ -950,7 +963,7 @@ def main() -> int:
     _, fps_b, ms_b, _ = stream_path("(b) full RAFT", False, args.profile)
     print(f"stream frames/s on {line} (512^2, batch 2, 6 iters, bf16): (a) RAFT-small "
           f"{fps_a:.3f} ({ms_a:.3f} ms per push), (b) full RAFT {fps_b:.3f} ({ms_b:.3f} ms)")
-    drift_fixture()
+    drift_launches = drift_fixture()
     evals = eval_phase()
 
     # Kernels #1 and #3 have a row for each output type, each timed in the
@@ -959,7 +972,10 @@ def main() -> int:
     # out: the clip, stream and eval); the *_f32_out rows are float32 in and
     # out, what the f32 small clip on the GPU launches (its maps are 8^2 at
     # level 0; the rows' times are at the clip shape). The bf16-in, f32-out
-    # times, which no path launches, stand under "bfloat16_in".
+    # times, which no path launches, stand under "bfloat16_in". Kernel #2
+    # likewise: corr_level_lookup is stream (a)'s (bf16 in and out, radius
+    # 3, the stream shape), corr_level_lookup_f32_out the f32 drift
+    # fixture's on the GPU (f32 in and out, timed at the stream shape).
     print(json.dumps({"kernels": [
         {"name": "corr_lookup", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_lookup.cu",
@@ -977,9 +993,17 @@ def main() -> int:
         {"name": "corr_level_lookup", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_level_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:466",
-         "launches": launches2, **rows2["bfloat16"],
-         "levels_dtype": "bfloat16", "radius": 3, "float32_levels": rows2["float32"],
+         "launches": launches2, "launches_in": "stream (a) (reset, 2 warm-up and 30 pushes)",
+         **rows2["bfloat16, bf16 out"], "levels_dtype": "bfloat16", "out_dtype": "bfloat16",
+         "radius": 3, "bfloat16_in_f32_out": rows2["bfloat16"],
+         "float32_levels": rows2["float32"],
+         "float32_levels_bf16_out": rows2["float32, bf16 out"],
          "radius4_clip_shape": rows2_r4},
+        {"name": "corr_level_lookup_f32_out", "route": "cuda",
+         "source": "accflow_tpu_torch/csrc/corr_level_lookup.cu",
+         "replaces": "accflow_tpu/ops/corr_pallas.py:466",
+         "launches": drift_launches, "launches_in": "the f32 drift fixture on the GPU",
+         **rows2["float32"], "levels_dtype": "float32", "out_dtype": "float32", "radius": 3},
         {"name": "corr_y_contract", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_y_contract.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:343",

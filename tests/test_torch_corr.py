@@ -175,6 +175,24 @@ def test_plain_lookup_bf16_out_is_the_f32_output_cast(rng):
         corr_cuda.lookup_corr_fused(levels, c, out_dtype=torch.float16)
 
 
+@pytest.mark.parametrize("radius", [3, 4])
+def test_level_wrapper_bf16_out_is_the_f32_output_cast(rng, radius):
+    """The per-level wrapper's out_dtype=bfloat16 on CPU tensors takes the
+    plain lookup and equals its float32 output cast bit for bit, for
+    float32 and bfloat16 levels; other output types raise."""
+    _, levels, coords = _inputs(rng, 1, 8, 8, 8, 20)
+    c = torch.from_numpy(coords.reshape(-1, 2))
+    for lv in (levels, [l.bfloat16() for l in levels]):
+        before = corr_level_cuda.launches
+        got = corr_level_cuda.lookup_corr_level(lv, c, radius, torch.bfloat16)
+        f32 = lookup_corr_plain(lv, c, radius)
+        assert got.dtype == torch.bfloat16 and got.shape == f32.shape
+        assert torch.equal(got.view(torch.int16), f32.to(torch.bfloat16).view(torch.int16))
+        assert corr_level_cuda.launches == before
+    with pytest.raises(ValueError, match="out_dtype"):
+        corr_level_cuda.lookup_corr_level(levels, c, radius, torch.float16)
+
+
 @pytest.mark.parametrize("out_elem", [4, 2])
 def test_lookup_bound_counts_the_output_bytes(out_elem):
     """Coords 8 B and the output at `out_elem` bytes a value per query, plus

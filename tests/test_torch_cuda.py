@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the GPU: the
 4-level radius-4 lookup (ops/corr_cuda.py), the per-level lookup
-(ops/corr_level_cuda.py, also built for one level), the y contraction of
-the split lookup (ops/corr_bd_cuda.py) and the floor kernel of the probes
+(ops/corr_level_cuda.py, also built for one level and with 4 and 16
+queries per block), both with float32 and bfloat16 output, the y
+contraction of the split lookup (ops/corr_bd_cuda.py) and the floor kernel of the probes
 (probes.py). Marked `cuda`; each test skips where there is no GPU (no
 kernel can run there). This file imports neither JAX nor the JAX package,
 so it runs on a machine with only torch:
@@ -298,3 +299,74 @@ def test_y_contract_misaligned_view_takes_narrow_path(dev):
         np.testing.assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(),
                                    rtol=2.0 ** -8 if out_dtype == torch.bfloat16 else 0,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("radius", corr_level_cuda.RADII)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 16), (1, 13, 7), (3, 5, 9), (1, 64, 64)])
+def test_level_kernel_both_out_dtypes(dev, radius, dtype, shape):
+    """The per-level kernel with float32 and bfloat16 output: 16x16 and
+    64x64 maps take the chunk copies on their wide levels, 13x7 and 5x9
+    element staging on their odd-width ones."""
+    levels, coords = _case(dev, *shape, spread=20, dtype=dtype)
+    ref = lookup_corr_plain(levels, coords, radius)
+    got32 = corr_level_cuda.lookup_corr_level(levels, coords, radius)
+    before = corr_level_cuda.launches
+    got = corr_level_cuda.lookup_corr_level(levels, coords, radius, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert corr_level_cuda.launches == before + 1
+    assert got.shape == got32.shape == (coords.shape[0], 4 * (2 * radius + 1) ** 2)
+    np.testing.assert_allclose(got32.cpu().numpy(), ref.cpu().numpy(), **TOL)
+    _assert_bf16_out(got, got32, ref, TOL["atol"])
+
+
+@pytest.mark.parametrize("radius", corr_level_cuda.RADII)
+def test_level_kernel_bf16_out_edges(dev, radius):
+    """Zero-sized levels, far coords, a misaligned level view (element
+    staging) and an empty query set, with bfloat16 output."""
+    taps = (2 * radius + 1) ** 2
+    levels, coords = _case(dev, 2, 4, 4, spread=3)
+    got = corr_level_cuda.lookup_corr_level(levels, coords, radius, torch.bfloat16)
+    assert not got[:, 3 * taps:].any()
+    _assert_bf16_out(got, corr_level_cuda.lookup_corr_level(levels, coords, radius),
+                     lookup_corr_plain(levels, coords, radius), TOL["atol"])
+    levels, coords = _case(dev, 1, 8, 8, spread=1)
+    coords[0] = torch.tensor([1e9, -1e9])
+    coords[1] = torch.tensor([-3e38, 5.0])
+    got = corr_level_cuda.lookup_corr_level(levels, coords, radius, torch.bfloat16)
+    assert not got[:2].any()
+    for dtype in (torch.float32, torch.bfloat16):
+        flat = torch.randn(levels[0].numel() + 1, device=dev).to(dtype)
+        shifted = [flat[1:].view(levels[0].shape)] + [l.to(dtype) for l in levels[1:]]
+        ref = lookup_corr_plain(shifted, coords, radius)
+        got32 = corr_level_cuda.lookup_corr_level(shifted, coords, radius)
+        np.testing.assert_allclose(got32.cpu().numpy(), ref.cpu().numpy(), **TOL)
+        _assert_bf16_out(corr_level_cuda.lookup_corr_level(shifted, coords, radius,
+                                                           torch.bfloat16),
+                         got32, ref, TOL["atol"])
+    before = corr_level_cuda.launches
+    got = corr_level_cuda.lookup_corr_level([l[:0] for l in levels], coords[:0], radius,
+                                            torch.bfloat16)
+    assert got.shape == (0, 4 * taps) and got.dtype == torch.bfloat16
+    assert corr_level_cuda.launches == before
+
+
+@pytest.mark.parametrize("defines", [("-DCORR_QT=4",), ("-DCORR_QT=16",),
+                                     ("-DCORR_LEVELS=1",), ("-DCORR_LEVELS=1", "-DCORR_QT=4")])
+def test_level_kernel_other_builds(dev, defines):
+    """The tile sweep's builds (4 and 16 queries per block) and the probes'
+    one-level build, both radii and output types; 57 queries leave a partial
+    last block. One level at 4 queries per block writes its bfloat16 output
+    element by element (4 x 81 or 4 x 49 values are no whole number of
+    16-byte vectors)."""
+    lib = corr_level_cuda.load(corr_level_cuda.build(*defines)[0])
+    nl = lib.corr_level_lookup_levels()
+    levels, coords = _case(dev, 1, 8, 8, spread=20, dtype=torch.bfloat16)
+    levels, coords = [l[:57] for l in levels[:nl]], coords[:57]
+    for radius in corr_level_cuda.RADII:
+        ref = lookup_corr_plain(levels, coords, radius)
+        got32 = corr_level_cuda.launch(lib, levels, coords, radius)
+        got = corr_level_cuda.launch(lib, levels, coords, radius, torch.bfloat16)
+        assert got.shape == (57, nl * (2 * radius + 1) ** 2)
+        np.testing.assert_allclose(got32.cpu().numpy(), ref.cpu().numpy(), **TOL)
+        _assert_bf16_out(got, got32, ref, TOL["atol"])

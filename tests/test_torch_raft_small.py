@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from accflow_tpu.models.raft import RAFTConfig as JRAFTConfig
 from accflow_tpu.models.raft import init_raft as j_init_raft
@@ -100,3 +101,32 @@ def test_pairs_from_features(is_small, small):
                                 iters=ITERS, flow_init=jnp.asarray(warm_init))
     assert tuple(warm.shape) == (2 * n,) + frames.shape[2:4] + (2,)
     np.testing.assert_allclose(warm.numpy(), np.asarray(ref), **TOL)
+
+
+def test_bf16_lookup_writes_the_compute_dtype(monkeypatch):
+    """Under bfloat16 compute the RAFT-small loop asks the per-level lookup
+    for bfloat16 output and casts nothing after it; the flow equals, bit for
+    bit, the loop that takes float32 windows and casts them (the plain
+    lookup's bfloat16 output is its float32 output cast)."""
+    from accflow_tpu_torch.models import raft as raft_mod
+
+    est = build_flow_estimator("raft", compute_dtype="bfloat16", device="cpu", seed=0,
+                               small=True)
+    frames = np.random.default_rng(1).uniform(-1, 1, (2, 1, 32, 32, 3)).astype(np.float32)
+    asked = []
+    level = raft_mod.lookup_corr_level
+
+    def spy(levels, coords, radius, out_dtype=torch.float32):
+        asked.append((radius, out_dtype))
+        return level(levels, coords, radius, out_dtype)
+
+    monkeypatch.setattr(raft_mod, "lookup_corr_level", spy)
+    got = est.forward(frames[0], frames[1], iters=2, final_only=True)["flow_up"]
+    assert asked == [(3, torch.bfloat16)] * 2
+
+    def cast_after(levels, coords, radius, out_dtype=torch.float32):
+        return level(levels, coords, radius).to(out_dtype)
+
+    monkeypatch.setattr(raft_mod, "lookup_corr_level", cast_after)
+    ref = est.forward(frames[0], frames[1], iters=2, final_only=True)["flow_up"]
+    assert torch.equal(got, ref)
