@@ -392,23 +392,31 @@ def _pairs(model, frames, src_idx, dst_idx, iters, final_only, flow_init=None):
     dst_idx = tuple(int(i) for i in dst_idx)
     k, n, h, w, _ = frames.shape
     p = len(src_idx)
+    # Frames and per-frame features are picked by concatenating views, not
+    # by indexing with Python lists: a list index becomes a host tensor
+    # copied to the device at run time, which a CUDA graph cannot capture.
     with tf32(False):
         used = sorted(set(src_idx) | set(dst_idx))
         pos = {f: i for i, f in enumerate(used)}
-        fmaps = model.fnet(to_nchw(frames[used].reshape(-1, h, w, 3), cd))
+        fmaps = model.fnet(to_nchw(_select(frames, used).reshape(-1, h, w, 3), cd))
         fmaps = fmaps.view(len(used), n, *fmaps.shape[1:])
-        fmap1 = fmaps[[pos[i] for i in src_idx]].flatten(0, 1)
-        fmap2 = fmaps[[pos[i] for i in dst_idx]].flatten(0, 1)
+        fmap1 = _select(fmaps, [pos[i] for i in src_idx]).flatten(0, 1)
+        fmap2 = _select(fmaps, [pos[i] for i in dst_idx]).flatten(0, 1)
         levels = build_corr_pyramid(fmap1, fmap2, cfg.corr_levels, dtype=cd)
         del fmaps, fmap1, fmap2
 
         src_used = sorted(set(src_idx))
         spos = {f: i for i, f in enumerate(src_used)}
-        net_u, inp_u = raft_cnet(model, to_nchw(frames[src_used].reshape(-1, h, w, 3), cd))
+        net_u, inp_u = raft_cnet(model, to_nchw(_select(frames, src_used).reshape(-1, h, w, 3), cd))
         sel = [spos[i] for i in src_idx]
-        net = net_u.view(len(src_used), n, *net_u.shape[1:])[sel].flatten(0, 1)
-        inp = inp_u.view(len(src_used), n, *inp_u.shape[1:])[sel].flatten(0, 1)
+        net = _select(net_u.view(len(src_used), n, *net_u.shape[1:]), sel).flatten(0, 1)
+        inp = _select(inp_u.view(len(src_used), n, *inp_u.shape[1:]), sel).flatten(0, 1)
         return raft_iterate(model, levels, net, inp, iters, final_only, flow_init)
+
+
+def _select(x: torch.Tensor, idx) -> torch.Tensor:
+    """x[idx] for a list of ints along dim 0, as one stack of views."""
+    return torch.stack([x[i] for i in idx])
 
 
 @torch.no_grad()

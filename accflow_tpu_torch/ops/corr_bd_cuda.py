@@ -7,12 +7,14 @@ the `experimental:fused_bd[2]` lookups run on pyramid levels 0 (and 1)
 header says how it works and what bounds it. `y_contract_plain` is its plain
 twin: the CPU path and the kernel's oracle.
 
-`y_contract` takes CPU tensors to the plain twin and CUDA tensors to the
-kernel, or raises. `out_dtype` (float32, the TPU kernel's, or bfloat16)
-is the output's type: bfloat16 is the float32 sums rounded once to
-nearest even, bit for bit the float32 output cast. `launches` counts
-kernel launches and nothing else. Built at first use (ops/cuda_lib.py),
-never on import.
+`y_contract` checks its operands and calls the torch op
+`accflow::y_contract` (`y_contract_op`): the plain twin on the CPU, the
+kernel on CUDA (or it raises), and a fake implementation for torch.export;
+a CUDA graph captures it as one dispatched op. `out_dtype` (float32, the
+TPU kernel's, or bfloat16) is the output's type: bfloat16 is the float32
+sums rounded once to nearest even, bit for bit the float32 output cast.
+`launches` counts kernel launches and nothing else (not a CUDA graph's
+replays). Built at first use (ops/cuda_lib.py), never on import.
 """
 
 from __future__ import annotations
@@ -78,15 +80,31 @@ def y_contract(corr3: torch.Tensor, wy: torch.Tensor,
     """corr3 (Q, hl, wl), wy (Q, 9, hl), both float32 or both bfloat16 ->
     (Q, 9, wl) in `out_dtype` (float32 or bfloat16). CPU tensors take the
     plain twin; CUDA tensors the kernel."""
-    global _lib
     _check(corr3, wy, out_dtype)
-    if corr3.device.type == "cpu":
-        return y_contract_plain(corr3, wy, out_dtype)
-    if corr3.device.type != "cuda":
+    if corr3.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no y contraction for device {corr3.device}")
+    return y_contract_op(corr3, wy, out_dtype)
+
+
+@torch.library.custom_op("accflow::y_contract", mutates_args=(), device_types="cpu",
+                         schema="(Tensor corr3, Tensor wy, ScalarType out_dtype) -> Tensor")
+def y_contract_op(corr3, wy, out_dtype):
+    """The op behind y_contract, on operands that passed its checks. CPU:
+    the plain twin."""
+    return y_contract_plain(corr3, wy, out_dtype)
+
+
+@y_contract_op.register_kernel("cuda")
+def _(corr3, wy, out_dtype):
+    global _lib
     if _lib is None:
         _lib = load(build()[0])
     return launch(_lib, corr3, wy, out_dtype)
+
+
+@y_contract_op.register_fake
+def _(corr3, wy, out_dtype):
+    return corr3.new_empty((corr3.shape[0], NUM, corr3.shape[2]), dtype=out_dtype)
 
 
 def path(lib: ctypes.CDLL, corr3: torch.Tensor) -> str:

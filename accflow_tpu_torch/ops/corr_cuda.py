@@ -10,11 +10,16 @@ Build: nvcc compiles the source for sm_90a at first use into a shared
 library with a C interface, which ctypes loads (ops/cuda_lib.py). Nothing
 is compiled on import.
 
-`lookup_corr_fused` takes CPU tensors to the plain lookup
-(ops/corr.py::lookup_corr_plain) and CUDA tensors to the kernel, or raises.
-`out_dtype` (float32, the TPU kernel's, or bfloat16) is the output's type:
-bfloat16 is the float32 blend rounded once to nearest even, bit for bit the
-float32 output cast. `launches` counts kernel launches and nothing else.
+`lookup_corr_fused` checks its operands and calls the torch op
+`accflow::corr_lookup` (`corr_lookup_op`), whose CPU implementation is the
+plain lookup (ops/corr.py::lookup_corr_plain) and whose CUDA
+implementation launches the kernel, or raises; its fake implementation
+gives the output's shape and dtype, so torch.export traces it and a CUDA
+graph captures it as one dispatched op. `out_dtype` (float32, the TPU
+kernel's, or bfloat16) is the output's type: bfloat16 is the float32 blend
+rounded once to nearest even, bit for bit the float32 output cast.
+`launches` counts kernel launches and nothing else (a CUDA graph's replay
+of a captured launch does not pass through Python and is not counted).
 Radius (4) and level count (4) are compiled into the kernel; `build` and
 `launch` also take a variant built with other -D defines (chip_smoke.py's
 tile sweep over CORR_QT, the queries per block).
@@ -72,15 +77,31 @@ def lookup_corr_fused(levels, coords: torch.Tensor, radius: int = RADIUS,
     float32 -> (Q, 324) in `out_dtype` (float32 or bfloat16), in the
     reference channel layout (see ops/corr.py). CPU tensors take the plain
     lookup; CUDA tensors the kernel."""
-    global _lib
     _check(levels, coords, radius, out_dtype)
-    if coords.device.type == "cpu":
-        return lookup_corr_plain(levels, coords, radius, out_dtype)
-    if coords.device.type != "cuda":
+    if coords.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no lookup for device {coords.device}")
+    return corr_lookup_op(list(levels), coords, out_dtype)
+
+
+@torch.library.custom_op("accflow::corr_lookup", mutates_args=(), device_types="cpu",
+                         schema="(Tensor[] levels, Tensor coords, ScalarType out_dtype) -> Tensor")
+def corr_lookup_op(levels, coords, out_dtype):
+    """The op behind lookup_corr_fused, on operands that passed its checks.
+    CPU: the plain lookup."""
+    return lookup_corr_plain(levels, coords, RADIUS, out_dtype)
+
+
+@corr_lookup_op.register_kernel("cuda")
+def _(levels, coords, out_dtype):
+    global _lib
     if _lib is None:
         _lib = load(build()[0])
     return launch(_lib, levels, coords, out_dtype)
+
+
+@corr_lookup_op.register_fake
+def _(levels, coords, out_dtype):
+    return coords.new_empty((coords.shape[0], LEVELS * (2 * RADIUS + 1) ** 2), dtype=out_dtype)
 
 
 def launch(lib: ctypes.CDLL, levels, coords: torch.Tensor,

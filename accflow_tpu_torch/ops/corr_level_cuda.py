@@ -9,12 +9,14 @@ what bounds it. It computes what ops/corr.py::lookup_corr_plain computes:
 the same function as ops/corr_cuda.py's 4-level radius-4 kernel, which full
 RAFT keeps; RAFT-small always takes this one.
 
-`lookup_corr_level` takes CPU tensors to the plain lookup and CUDA tensors
-to the kernel, or raises. `out_dtype` (float32, the TPU kernel's, or
-bfloat16) is the output's type: bfloat16 is the float32 blend rounded once
-to nearest even, bit for bit the float32 output cast. `launches` counts
-kernel launches and nothing else. Built at first use (ops/cuda_lib.py),
-never on import; `build` and `launch` also take a variant built with other
+`lookup_corr_level` checks its operands and calls the torch op
+`accflow::corr_level_lookup` (`corr_level_lookup_op`): the plain lookup on
+the CPU, the kernel on CUDA (or it raises), and a fake implementation for
+torch.export; a CUDA graph captures it as one dispatched op. `out_dtype`
+(float32, the TPU kernel's, or bfloat16) is the output's type: bfloat16 is
+the float32 blend rounded once to nearest even, bit for bit the float32
+output cast. `launches` counts kernel launches and nothing else (not a CUDA
+graph's replays). Built at first use (ops/cuda_lib.py), never on import; `build` and `launch` also take a variant built with other
 -D defines ("-DCORR_LEVELS=1": chip_smoke.py's one-level probe;
 "-DCORR_QT=n": its tile sweep over the queries per block).
 """
@@ -72,15 +74,33 @@ def lookup_corr_level(levels, coords: torch.Tensor, radius: int,
     float32 in level-0 pixels -> (Q, 4*(2r+1)^2) in `out_dtype` (float32 or
     bfloat16), in the reference channel layout (see ops/corr.py). CPU
     tensors take the plain lookup; CUDA tensors the kernel."""
-    global _lib
     _check(levels, coords, radius, out_dtype)
-    if coords.device.type == "cpu":
-        return lookup_corr_plain(levels, coords, radius, out_dtype)
-    if coords.device.type != "cuda":
+    if coords.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no lookup for device {coords.device}")
+    return corr_level_lookup_op(list(levels), coords, radius, out_dtype)
+
+
+@torch.library.custom_op(
+    "accflow::corr_level_lookup", mutates_args=(), device_types="cpu",
+    schema="(Tensor[] levels, Tensor coords, int radius, ScalarType out_dtype) -> Tensor")
+def corr_level_lookup_op(levels, coords, radius, out_dtype):
+    """The op behind lookup_corr_level, on operands that passed its checks.
+    CPU: the plain lookup."""
+    return lookup_corr_plain(levels, coords, radius, out_dtype)
+
+
+@corr_level_lookup_op.register_kernel("cuda")
+def _(levels, coords, radius, out_dtype):
+    global _lib
     if _lib is None:
         _lib = load(build()[0])
     return launch(_lib, levels, coords, radius, out_dtype)
+
+
+@corr_level_lookup_op.register_fake
+def _(levels, coords, radius, out_dtype):
+    return coords.new_empty((coords.shape[0], len(levels) * (2 * radius + 1) ** 2),
+                            dtype=out_dtype)
 
 
 def launch(lib: ctypes.CDLL, levels, coords: torch.Tensor, radius: int,

@@ -9,6 +9,11 @@ under `torch.use_deterministic_algorithms(True)`, which on the GPU takes
 PyTorch's sort-based accumulation instead of float atomics, so a splat is
 bit-reproducible run to run, as JAX's scatter-add is. The GPU's summation
 order still differs from the CPU's (float rounding, ~1 ulp per collision).
+The switch is process state, which neither torch.export nor a CUDA graph
+records, so the scatter is the torch op `accflow::splat_add` (`splat_add`):
+an exported program calls the op, whose implementation turns the switch on
+around the scatter wherever the program runs, and a CUDA graph captures the
+sort-based kernels the op chose.
 """
 
 from __future__ import annotations
@@ -31,7 +36,9 @@ def _deterministic():
         torch.use_deterministic_algorithms(prev, warn_only=prev_warn)
 
 
-def _splat_add(values: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+@torch.library.custom_op("accflow::splat_add", mutates_args=(),
+                         schema="(Tensor values, Tensor flow) -> Tensor")
+def splat_add(values, flow):
     """Bilinear scatter-add of `values` (B, H, W, C) along `flow`
     (B, H, W, 2) -> (B, H, W, C); corners outside the image are dropped."""
     b, h, w, c = values.shape
@@ -61,6 +68,11 @@ def _splat_add(values: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return out.view(b, h, w, c)
 
 
+@splat_add.register_fake
+def _(values, flow):
+    return torch.empty_like(values, memory_format=torch.contiguous_format)
+
+
 def softsplat(image: torch.Tensor, flow: torch.Tensor, metric=None,
               mode: str = "average", eps: float = 1e-7) -> torch.Tensor:
     """Forward-warp `image` (B, H, W, C) by `flow` (B, H, W, 2), float32.
@@ -69,7 +81,7 @@ def softsplat(image: torch.Tensor, flow: torch.Tensor, metric=None,
     (weight = exp(metric)); metric (B, H, W, 1) for the weighted modes."""
     image, flow = image.float(), flow.float()
     if mode == "summation":
-        return _splat_add(image, flow)
+        return splat_add(image, flow)
     if mode == "average":
         weight = image.new_ones(image.shape[:3] + (1,))
     elif mode in ("linear", "softmax"):
@@ -78,6 +90,6 @@ def softsplat(image: torch.Tensor, flow: torch.Tensor, metric=None,
         weight = metric.float() if mode == "linear" else torch.exp(metric.float())
     else:
         raise ValueError(f"unknown softsplat mode: {mode!r}")
-    num = _splat_add(image * weight, flow)
-    den = _splat_add(weight, flow)
+    num = splat_add(image * weight, flow)
+    den = splat_add(weight, flow)
     return num / (den + eps)

@@ -1,11 +1,14 @@
 """Stateful streaming: long-range flow over an unbounded video stream, one
 frame at a time, with warm-started OFE queries. Counterpart of
-accflow_tpu/streaming.py (its StableHLO export waits for the port's
-torch.export work, ROADMAP.md queue 1).
+accflow_tpu/streaming.py, its export included.
 
     acc = StreamAccumulator(est, accflow)   # est built with iters=6, say
     out0 = acc.reset(frames3)               # cold start on [I0, I1, I2] -> F_{2,0}
     out  = acc.push(frame)                  # each new frame I_i -> F_{i,0}
+
+    init_ep, step_ep = export_streaming(est, accflow, (N, H, W))
+    save_streaming_artifact(path, init_ep, step_ep)
+    stream = FlowStream(load_streaming_artifact(path))   # reset / push as above
 
 A `push` encodes only the new frame (1 fnet + 1 cnet + 1 context encode),
 runs one warm-started 2-pair GRU solve (I_i -> I_{i-1} and I_i -> I_0) from
@@ -26,18 +29,30 @@ Feature maps are NCHW in the compute dtype; flows NHWC float32.
 
 from __future__ import annotations
 
+import io
+import struct
 from typing import Optional
 
 import numpy as np
 import torch
 
 from accflow_tpu_torch.api import _as_frames
+from accflow_tpu_torch.device import resolve_device
+from accflow_tpu_torch.graphs import CudaGraphed
 from accflow_tpu_torch.models.accflow import AccFlow, _cell_from_ctx
 from accflow_tpu_torch.models.raft import to_nchw
 from accflow_tpu_torch.nn.layers import tf32
 from accflow_tpu_torch.ops.grids import downflow8
 from accflow_tpu_torch.ops.padding import InputPadder
 from accflow_tpu_torch.ops.warmstart import forward_splat_flow
+from accflow_tpu_torch.serving import (
+    Program,
+    cast_models,
+    compute_dtype,
+    export,
+    numerics,
+    program_on,
+)
 
 
 def make_streaming_fns(est, acc: AccFlow, ini_init: str = "ini"):
@@ -117,12 +132,18 @@ def make_pair_streaming_fns(est):
 
 
 class StreamAccumulator:
-    """Stateful wrapper around make_streaming_fns. Frames go to the
+    """Stateful wrapper around make_streaming_fns, whose step is compiled
+    as JAX jits it: on the card `push` replays a CUDA graph of step_fn
+    (graphs.py; captured on the first push of each frame shape, after
+    graphs.WARMUP eager runs), with the state copied into the graph's static
+    buffers and fresh tensors returned; on the CPU step_fn runs as it is.
+    `reset` runs init_fn eagerly, once per stream. Frames go to the
     accumulator's device; outputs and the state stay there between calls
     (no host round trips beyond the frame upload)."""
 
     def __init__(self, est, acc: AccFlow, ini_init: str = "ini"):
-        self._init, self._step = make_streaming_fns(est, acc, ini_init=ini_init)
+        self._init, step = make_streaming_fns(est, acc, ini_init=ini_init)
+        self._step = CudaGraphed(step)
         self._device = next(acc.parameters()).device
         self._state = None
 
@@ -146,8 +167,99 @@ class StreamAccumulator:
         return out
 
 
+_MAGIC = b"ACCFLOW-TORCH-STREAM1\n"  # not JAX's b"SFLOWSTRM1\n": its artifacts are refused
+
+
+def export_streaming(est, acc: AccFlow, frame_shape, weights_dtype=None,
+                     ini_init: str = "ini"):
+    """Export the streaming pipeline for frame_shape = (N, H, W), float32
+    frames on the models' device, as (init_program, step_program):
+    torch.export.ExportedPrograms of make_streaming_fns' init(frames3
+    (3, N, H, W, 3)) and step(state, frame (N, H, W, 3)), each with the
+    weights in it. The step's state signature is what the init program
+    produces, so a loader threads it blindly. The batch is concrete, as in
+    JAX. weights_dtype="bfloat16" halves the weights (serving.cast_weights)."""
+    est, acc = cast_models(est, acc, weights_dtype)
+    init_fn, step_fn = make_streaming_fns(est, acc, ini_init=ini_init)
+    n, h, w = frame_shape
+    frames3 = torch.zeros((3, n, h, w, 3), device=next(acc.parameters()).device)
+    init_ep = export(Program(init_fn, est.model, acc), (frames3,))
+    # The step's example state is the init program's own output: the
+    # shapes, dtypes and strides the step will be given.
+    with numerics(acc.cfg.dtype):
+        _, state = init_ep.module()(frames3)
+    step_ep = export(Program(step_fn, est.model, acc), (state, frames3[0]))
+    return init_ep, step_ep
+
+
+def save_streaming_artifact(path: str, init_ep, step_ep) -> None:
+    """One file in the JAX package's layout: a magic line, then the two
+    programs (torch.export.save), each as a little-endian u64 length and
+    its bytes."""
+    with open(path, "wb") as f:
+        f.write(_MAGIC)
+        for ep in (init_ep, step_ep):
+            buf = io.BytesIO()
+            torch.export.save(ep, buf)
+            f.write(struct.pack("<Q", len(buf.getvalue())))
+            f.write(buf.getvalue())
+
+
+def load_streaming_artifact(path: str, device=None) -> "StreamingArtifact":
+    """A saved streaming artifact on `device` (default cuda). Raises
+    ValueError for a file without this package's magic (a JAX artifact
+    among them)."""
+    device = resolve_device(device)
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(_MAGIC):
+        raise ValueError(f"{path}: not a streaming artifact of accflow_tpu_torch (bad magic)")
+    off, programs = len(_MAGIC), []
+    for _ in range(2):
+        (size,) = struct.unpack_from("<Q", data, off)
+        off += 8
+        programs.append(torch.export.load(io.BytesIO(data[off: off + size])))
+        off += size
+    return StreamingArtifact(*programs, device=device)
+
+
+class StreamingArtifact:
+    """A loaded streaming artifact: reset / push like StreamAccumulator,
+    with no model code or checkpoint. The state is an opaque tuple threaded
+    between the two programs. `push` replays a CUDA graph of the step
+    program on the card (graphs.py), `reset` runs the init program as it
+    is; both under serving.numerics."""
+
+    def __init__(self, init_ep, step_ep, device=None):
+        self._init, self._device = program_on(init_ep, device)
+        step, _ = program_on(step_ep, self._device)
+        self._step = CudaGraphed(step)
+        self._dtype = compute_dtype(step_ep)
+        self._state = None
+        inputs = init_ep.graph_signature.user_inputs
+        (spec,) = [node.meta["val"] for node in init_ep.graph.nodes
+                   if node.op == "placeholder" and node.name in inputs]
+        self.frame_shape = tuple(spec.shape[1:])  # (N, H, W, 3)
+
+    def _frames(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32, device=self._device)
+
+    def reset(self, frames3) -> torch.Tensor:
+        with numerics(self._dtype):
+            out, self._state = self._init(self._frames(frames3))
+        return out
+
+    def push(self, frame) -> torch.Tensor:
+        if self._state is None:
+            raise RuntimeError("push() before reset(): seed with 3 frames first")
+        with numerics(self._dtype):
+            out, self._state = self._step(self._state, self._frames(frame))
+        return out
+
+
 class FlowStream:
-    """User-facing stream over a StreamAccumulator: feed raw
+    """User-facing stream over a StreamAccumulator or a loaded
+    StreamingArtifact (`backend`, anything with reset and push): feed raw
     frames one at a time, get long-range flows F_{i,0} back as numpy.
     Handles [0, 255] -> [-1, 1] normalization, /8 padding and unpadding;
     buffers the first three frames (the cold start), so the first two

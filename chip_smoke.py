@@ -39,7 +39,14 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 5. the clip path: AccFlow+RAFT clip inference, 7 frames of 512^2, batch 2,
    12 RAFT iterations per pair, bfloat16 compute with float32 flow state,
    weights from a seed; output shape, finiteness and 12 kernel-#1 launches
-   per forward are checked, frames/s and peak memory printed; then the same
+   per forward are checked, frames/s and peak memory printed; one eager
+   forward runs under torch.cuda.set_sync_debug_mode("error") (no host
+   synchronisation); 5b: the same clip through graphs.CudaGraphed (warm-up
+   and capture timed apart, 5 timed replays, a profile of one replay for
+   its device busy time and lookup launches, the output against eager);
+   9a: the clip exported with bfloat16 weights (serving.export_serving),
+   saved, loaded for the card and run (export, save and load seconds,
+   size, time, the flows against eager under ARTIFACT_REL); then the same
    clip with corr_lookup="experimental:fused_bd" (12 kernel-#3 launches and
    no kernel-#1 launch per forward). Then a small clip in float32 (TF32
    off) runs on the GPU (through the kernels) and on the CPU (through the
@@ -49,13 +56,20 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    512^2, batch 2, bfloat16 compute with float32 flow state, 6 OFE
    iterations per step): reset on 3 frames, 2 warm-up pushes, 30 timed
    pushes, for (a) RAFT-small + AccFlow hidden 128 (kernel #2) and (b) full
-   RAFT + AccFlow hidden 128 (kernel #1); ms per push, frames/s, peak
-   memory, output shape and finiteness, 6 launches per push;
+   RAFT + AccFlow hidden 128 (kernel #1), first eagerly (ms per push,
+   frames/s, peak memory, output shape and finiteness, 6 launches per
+   push, one push under the sync debug mode "error"), then graphed
+   (StreamAccumulator: the same numbers, the first push's warm-up and
+   capture timed apart, a profile of one replay, each push against the
+   eager one); for (a), 9b: the stream exported with bfloat16 weights,
+   saved, loaded for the card and pushed the same frames (ARTIFACT_REL);
 7. the trained drift fixture (tests/fixtures/drift_small_{ofe,acc}.npz:
    RAFT-small, hidden-64 accumulator) streamed over the fixture's 36-frame
-   sequence in float32, TF32 off, on the GPU: the EPE(i) curve must meet
-   both bounds of tests/test_streaming.py:250-258; the same stream on the
-   CPU (plain lookup) must agree with it (DRIFT_REL, DRIFT_EPE_PX);
+   sequence in float32, TF32 off, on the GPU, eagerly and graphed: the
+   EPE(i) curve must meet both bounds of tests/test_streaming.py:250-258,
+   the graphed stream must agree with the eager one (DRIFT_REL), and the
+   same stream on the CPU (plain lookup) with the GPU's (DRIFT_REL,
+   DRIFT_EPE_PX);
 8. the CVO evaluation at full width (train/evaluate.py::evaluate_cvo): 10
    synthetic CVOR clips of 512^2 written to a temporary directory, batch 10
    (micro-batch 5), 12 iterations, bfloat16, acc|raft with fused,
@@ -67,15 +81,18 @@ Optional phases: --tile-sweep builds kernels #1 and #2 with 4, 8 and 16
 queries per block and times them in turns (#1 at the clip shape after phase
 3, #2 at the stream shape after phase 4); --profile prints where
 the device time of the clip forward (with fused and with
-experimental:fused_bd) and of a stream push goes (torch.profiler). The
-line before the last is {"kernels": [...]}; the last line is {"ok": true,
-"device": {...}}. Without a GPU, or without the package beside it, the
+experimental:fused_bd) and of a stream push, eager and graphed, goes
+(torch.profiler). A {"graphs": {...}} line holds the eager and graphed
+medians, busy times, launches per replay and peaks, and the artifacts'
+numbers, with the card's name and power limit. The line before the last is
+{"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Without a GPU, or without the package beside it, the
 script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import statistics
@@ -92,13 +109,19 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 try:
-    from accflow_tpu_torch import models, probes
+    from accflow_tpu_torch import graphs, models, probes, serving
     from accflow_tpu_torch.convert import load_jax_params, load_npz_tree, to_jax_params
     from accflow_tpu_torch.data.synthetic import make_long_sequence, write_synthetic_cvor
     from accflow_tpu_torch.nn.layers import tf32
     from accflow_tpu_torch.ops import corr, corr_bd_cuda, corr_cuda, corr_level_cuda
     from accflow_tpu_torch.probes import grid_sample_lookup, lookup_bound
-    from accflow_tpu_torch.streaming import StreamAccumulator
+    from accflow_tpu_torch.streaming import (
+        StreamAccumulator,
+        export_streaming,
+        load_streaming_artifact,
+        make_streaming_fns,
+        save_streaming_artifact,
+    )
     from accflow_tpu_torch.train.evaluate import evaluate_cvo
 except ImportError as e:  # this file alone, outside the repository
     sys.exit(f"chip_smoke: run from the repository root ({e})")
@@ -139,6 +162,16 @@ DRIFT_EPE_PX = 0.05          # GPU vs CPU drift stream, per-step EPE (see drift_
 # window (transposed offsets, a wrong level scale, a missing level) changes
 # the flow everywhere. Fixed before the phase's first run.
 EVAL_EPE_REL = 0.02
+# A loaded bfloat16 artifact (clip or stream) against the eager path on the
+# same inputs and weights: max abs <= ARTIFACT_REL x the largest |flow|. The
+# program runs the eager path's ops on weights stored in bfloat16, which the
+# bfloat16 path casts them to at use anyway (the frozen norms' init values
+# are exact in bfloat16); it differs only where serving.numerics differs
+# from the eager switches: cuBLAS's bfloat16 GEMMs (the deformable conv's)
+# reduce in float32, not in bfloat16 split-K partials. That moves a GEMM
+# output by ~2^-8 of its size at most, and the flow by less; a wrong
+# weight, op or lookup moves it everywhere. Fixed before the first run.
+ARTIFACT_REL = 1e-3
 FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
 KERNELS = (corr_cuda, corr_level_cuda, corr_bd_cuda)  # each wrapper's `launches` count
 TILES = (4, 8, 16)           # queries per block of kernels #1 and #2 tried by --tile-sweep; 8 ships
@@ -596,11 +629,128 @@ def time_clip(label: str, forward, kernel, shape):
     return launches, med, secs, out, peak
 
 
-def clip_path(with_profile: bool):
+def kernel_names(kernel) -> tuple:
+    """Substrings of the CUDA kernel names a wrapper launches (KINDS)."""
+    return ("y_contract",) if kernel is corr_bd_cuda else ("corr_window",)
+
+
+def replay_profile(fn, kernel):
+    """One call of `fn` (a CUDA graph's replay, which launches nothing
+    through the wrappers' counters) under torch.profiler: (device busy ms,
+    launches of `kernel`'s CUDA kernel, all kernel launches)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof, 1)
+    ours = sum(count for _, count, name in rows if any(k in name for k in kernel_names(kernel)))
+    return sum(r[0] for r in rows), ours, sum(r[1] for r in rows)
+
+
+def timed_runs(fn, reps: int):
+    """`reps` calls of `fn`, each synchronised: (seconds each, last output)."""
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs, out
+
+
+def graphed_clip(label: str, serve, images, eager_out, kernel, per_forward: int) -> dict:
+    """Phase 5b: `serve` (the eager clip function) through graphs.CudaGraphed:
+    the first call warms up and captures (timed apart), then 2 warm-up and 5
+    timed replays. The wrappers count the warm-ups' and the capture's
+    launches and none in the replays; a profile of one replay counts
+    `per_forward` launches of `kernel`'s CUDA kernel. The output against the
+    eager forward's on the same inputs: the same kernels, so bit-equal is
+    expected; held within CLIP_REL of the largest |flow|."""
+    run = graphs.CudaGraphed(serve)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    capture_s, _ = timed_runs(lambda: run(images), 1)
+    expected = per_forward * (graphs.WARMUP + 1)
+    expect_counts(f"{label}, warm-up and capture", kernel, expected)
+    timed_runs(lambda: run(images), 2)
+    secs, out = timed_runs(lambda: run(images), 5)
+    expect_counts(f"{label}, after 7 replays (none counted)", kernel, expected)
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved()
+    busy, ours, total = replay_profile(lambda: run(images), kernel)
+    if ours != per_forward:
+        fail(f"{label}: the profile of one replay saw {ours} launches of the lookup kernel, "
+             f"expected {per_forward}")
+    if tuple(out.shape) != tuple(eager_out.shape) or not bool(torch.isfinite(out).all()):
+        fail(f"{label}: output {tuple(out.shape)} or not finite")
+    diff, flow_max = float((out - eager_out).abs().max()), float(eager_out.abs().max())
+    if not diff <= CLIP_REL * flow_max:
+        fail(f"{label}: graphed differs from eager by {diff:.3e} > {CLIP_REL} x {flow_max:.3e}")
+    med = statistics.median(secs)
+    frames = images.shape[0] * images.shape[1]
+    print(f"{label}: median {med * 1e3:.2f} ms per forward (runs "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in secs)} ms) = {frames / med:.3f} frames/s; "
+          f"first call (2 warm-ups + capture) {capture_s[0]:.2f} s; one replay: device busy "
+          f"{busy:.2f} ms, {total} kernels, {ours} lookup launches; vs eager max abs {diff:.3e} "
+          f"({'bit-equal' if diff == 0 else 'not bit-equal'}; bar {CLIP_REL:g} x {flow_max:.3e}); "
+          f"peak memory {peak / 2**30:.3f} GiB, reserved {reserved / 2**30:.3f} GiB")
+    return dict(median_ms=med * 1e3, frames_per_s=frames / med, capture_s=capture_s[0],
+                busy_ms=busy, kernels_per_replay=total, launches_per_replay=ours,
+                max_abs_vs_eager=diff, peak_gib=peak / 2**30, reserved_gib=reserved / 2**30)
+
+
+def check_artifact(label: str, got, ref) -> float:
+    """A loaded artifact's outputs `got` against the eager path's `ref`
+    under ARTIFACT_REL; returns the max abs difference."""
+    diff, flow_max = float((got - ref).abs().max()), float(ref.abs().max())
+    print(f"{label}: vs eager max abs {diff:.3e} (bar {ARTIFACT_REL:g} x |flow| max "
+          f"{flow_max:.3e} = {ARTIFACT_REL * flow_max:.3e})")
+    if not bool(torch.isfinite(got).all()) or not diff <= ARTIFACT_REL * flow_max:
+        fail(f"{label}: the artifact differs from eager by {diff:.3e}")
+    return diff
+
+
+def clip_artifact(est, acc, images, eager_out, tmp: str) -> dict:
+    """Phase 9a: the clip exported at full width with bfloat16 weights
+    (serving.export_serving), saved, loaded for the card
+    (serving.load_artifact: a CUDA graph of the program) and run on the
+    clip path's images: export, save and load seconds, the file's size,
+    the first call (warm-ups and capture) and 5 timed calls, and the flows
+    against the eager forward's (ARTIFACT_REL)."""
+    path = str(Path(tmp) / "clip_bf16.pt2")
+    t0 = time.perf_counter()
+    exported = serving.export_serving(est, acc, tuple(images.shape), weights_dtype="bfloat16")
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serving.save_artifact(exported, path)
+    save_s = time.perf_counter() - t0
+    del exported
+    t0 = time.perf_counter()
+    fn = serving.load_artifact(path)
+    load_s = time.perf_counter() - t0
+    reset_counts()
+    first, _ = timed_runs(lambda: fn(images), 1)
+    expect_counts("clip artifact, warm-up and capture", corr_cuda, 12 * (graphs.WARMUP + 1))
+    secs, out = timed_runs(lambda: fn(images), 5)
+    diff = check_artifact("clip artifact (bf16 weights, 7x512^2, batch 2)", out, eager_out)
+    del fn
+    gc.collect()  # a loaded program's fx graph modules are reference cycles holding its weights
+    med = statistics.median(secs)
+    size = Path(path).stat().st_size
+    print(f"clip artifact: export {export_s:.2f} s, save {save_s:.2f} s, {size / 1e6:.1f} MB, "
+          f"load {load_s:.2f} s, first call {first[0]:.2f} s, median {med * 1e3:.2f} ms per "
+          f"forward ({14 / med:.3f} frames/s)")
+    return dict(export_s=export_s, save_s=save_s, load_s=load_s, mb=size / 1e6,
+                first_call_s=first[0], median_ms=med * 1e3, max_abs_vs_eager=diff)
+
+
+def clip_path(with_profile: bool, tmp: str):
     """Phase 5: the clip forward at full size (and --profile's breakdown of
-    it), the same clip with the split lookup, then the small GPU-vs-CPU
-    clip. Returns (kernel #1 launches, frames/s, kernel #3 launches,
-    frames/s with fused_bd, the small clip's GPU launches by lookup)."""
+    it), one eager forward under the sync debug mode "error", the same clip
+    graphed (5b) and as a loaded artifact (9a), the clip with the split
+    lookup, then the small GPU-vs-CPU clip. Returns (kernel #1 launches,
+    frames/s, kernel #3 launches, frames/s with fused_bd, the small clip's
+    GPU launches by lookup, {"graphed": ..., "artifact": ...})."""
     dev = torch.device("cuda")
     t, n, size = 7, 2, 512
     acfg = models.AccFlowConfig(compute_dtype="bfloat16")
@@ -616,10 +766,22 @@ def clip_path(with_profile: bool):
     def forward():
         return models.accflow_forward(acc, images, pairs)
 
-    launches, med, _, out, _ = time_clip("clip path", forward, corr_cuda, shape)
+    launches, med, _, out, eager_peak = time_clip("clip path", forward, corr_cuda, shape)
     fps = n * t / med
     if with_profile:
         profile_forward(forward, med * 1e3)
+    sync_free("clip path: one eager forward", forward)
+    torch.cuda.empty_cache()
+    extra = {"graphed": graphed_clip("clip path, graphed", serving.build_serving_fn(est, acc),
+                                     images, out, corr_cuda, 12)}
+    extra["graphed"]["eager_median_ms"], extra["graphed"]["eager_peak_gib"] = (
+        med * 1e3, eager_peak / 2**30)
+    print(f"clip path, same process on {smi('name,power.limit')}: eager median {med * 1e3:.2f} ms "
+          f"({fps:.3f} frames/s, peak {eager_peak / 2**30:.3f} GiB), graphed "
+          f"{extra['graphed']['median_ms']:.2f} ms ({extra['graphed']['frames_per_s']:.3f} "
+          f"frames/s, peak {extra['graphed']['peak_gib']:.3f} GiB)")
+    torch.cuda.empty_cache()
+    extra["artifact"] = clip_artifact(est, acc, images, out, tmp)
     del est, pairs
     torch.cuda.empty_cache()
 
@@ -642,7 +804,21 @@ def clip_path(with_profile: bool):
     del est_bd, pairs_bd, acc, images, out, out_bd
     torch.cuda.empty_cache()
     small = small_clip()
-    return launches, fps, launches_bd, fps_bd, small
+    return launches, fps, launches_bd, fps_bd, small, extra
+
+
+def sync_free(label: str, fn) -> None:
+    """`fn` once under torch.cuda.set_sync_debug_mode("error"): it fails on
+    any host synchronisation (a pageable host copy among them), which a
+    CUDA graph's capture could not hold."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"{label} under the sync debug mode 'error': no host synchronisation")
 
 
 def small_clip() -> dict:
@@ -711,12 +887,20 @@ def moving_frames(t: int, n: int, size: int, seed: int) -> torch.Tensor:
     return frames.permute(0, 1, 3, 4, 2).contiguous()
 
 
-def stream_path(label: str, small: bool, with_profile: bool):
-    """Phase 6: scripts/bench_stream.py's stream6 protocol through the
-    port's StreamAccumulator: 512^2, batch 2, bf16 compute, 6 OFE iterations
-    per step, AccFlow hidden 128 with its ZeroConv perturbed; reset on 3
-    frames, 2 warm-up pushes, 30 timed pushes (host clock around each push,
-    synchronised). Returns (kernel launches in the run, frames/s, median ms)."""
+def stream_path(label: str, small: bool, with_profile: bool, tmp=None) -> dict:
+    """Phase 6: scripts/bench_stream.py's stream6 protocol: 512^2, batch 2,
+    bf16 compute, 6 OFE iterations per step, AccFlow hidden 128 with its
+    ZeroConv perturbed; reset on 3 frames, 2 warm-up pushes, 30 timed
+    pushes (host clock around each push, synchronised), first eagerly
+    (make_streaming_fns' pair, the counters counting every launch), then one
+    eager push under the sync debug mode "error", then graphed
+    (StreamAccumulator: the first push warms up and captures, timed apart;
+    the counters count those launches and none in the replays; a profile of
+    one replay counts the kernel's launches) on the same frames, each push
+    held against the eager one (the same kernels: bit-equal expected, held
+    within CLIP_REL of the largest |flow|). With `tmp`, phase 9b: the
+    stream exported with bfloat16 weights, saved, loaded for the card and
+    run on the same frames (ARTIFACT_REL). Returns the numbers."""
     n, size, warm, timed, iters = 2, 512, 2, 30, 6
     kernel = corr_level_cuda if small else corr_cuda
     est = models.build_flow_estimator("raft", compute_dtype="bfloat16", small=small,
@@ -724,22 +908,24 @@ def stream_path(label: str, small: bool, with_profile: bool):
     acc = models.init_accflow(models.AccFlowConfig(compute_dtype="bfloat16", warm_start=True),
                               seed=1, device="cpu")
     perturb_zero_conv(acc, 2)
-    sa = StreamAccumulator(est, acc.to("cuda"))
+    acc = acc.to("cuda")
+    init, step = make_streaming_fns(est, acc)
     frames = moving_frames(3 + warm + timed, n, size, seed=4)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    out = sa.reset(frames[:3])
+    out, state = init(frames[:3])
     for i in range(3, 3 + warm):
-        out = sa.push(frames[i])
+        out, state = step(state, frames[i])
     torch.cuda.synchronize()
     before = kernel.launches
-    secs = []
+    secs, eager_outs = [], []
     for i in range(3 + warm, 3 + warm + timed):
         t0 = time.perf_counter()
-        out = sa.push(frames[i])
+        out, state = step(state, frames[i])
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
+        eager_outs.append(out)
     in_timed = kernel.launches - before
     launches = expect_counts(f"stream {label}", kernel, 2 * iters + (warm + timed) * iters)
     peak = torch.cuda.max_memory_allocated()
@@ -752,41 +938,141 @@ def stream_path(label: str, small: bool, with_profile: bool):
         fail(f"stream {label}: {in_timed} launches in {timed} pushes, expected {iters * timed}")
     med = statistics.median(secs) * 1e3
     fps = n * timed / sum(secs)
-    print(f"stream {label}: output {tuple(out.shape)} finite, |flow| mean "
+    print(f"stream {label}, eager: output {tuple(out.shape)} finite, |flow| mean "
           f"{float(out.abs().mean()):.4f}; {in_timed} launches in {timed} pushes "
           f"({in_timed / timed:g} per push; {launches} with reset and warm-up); median "
           f"{med:.3f} ms per push (min {min(secs) * 1e3:.3f}, max {max(secs) * 1e3:.3f}) = "
           f"{fps:.3f} frames/s; peak memory {peak / 2**30:.3f} GiB; "
           f"after the runs: SM clock, power, temperature {clocks}")
+    sync_free(f"stream {label}: one eager push", lambda: step(state, frames[3]))
     if with_profile:
         replay = itertools.cycle(frames[3:])
-        profile_forward(lambda: sa.push(next(replay)), med)
-    del est, acc, sa, frames, out
+        profile_forward(lambda: step(state, next(replay)), med)
+
+    sa = StreamAccumulator(est, acc)
     torch.cuda.empty_cache()
-    return launches, fps, med, peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sa.reset(frames[:3])
+    capture_s, _ = timed_runs(lambda: sa.push(frames[3]), 1)
+    for i in range(4, 3 + warm):
+        sa.push(frames[i])
+    g_secs, diffs = [], []
+    for j, i in enumerate(range(3 + warm, 3 + warm + timed)):
+        t0 = time.perf_counter()
+        g_out = sa.push(frames[i])
+        torch.cuda.synchronize()
+        g_secs.append(time.perf_counter() - t0)
+        diffs.append(float((g_out - eager_outs[j]).abs().max()))
+    expect_counts(f"stream {label}, graphed (reset, warm-ups and capture; replays uncounted)",
+                  kernel, 2 * iters + (graphs.WARMUP + 1) * iters)
+    g_peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved()
+    busy, ours, total = replay_profile(lambda: sa.push(frames[3]), kernel)
+    if ours != iters:
+        fail(f"stream {label}: the profile of one replay saw {ours} lookup launches, "
+             f"expected {iters}")
+    diff, flow_max = max(diffs), max(float(o.abs().max()) for o in eager_outs)
+    if not diff <= CLIP_REL * flow_max:
+        fail(f"stream {label}: graphed pushes differ from eager by {diff:.3e}")
+    g_med = statistics.median(g_secs) * 1e3
+    g_fps = n * timed / sum(g_secs)
+    print(f"stream {label}, graphed: median {g_med:.3f} ms per push (min "
+          f"{min(g_secs) * 1e3:.3f}, max {max(g_secs) * 1e3:.3f}) = {g_fps:.3f} frames/s; first "
+          f"push (2 warm-ups + capture) {capture_s[0]:.2f} s; one replay: device busy "
+          f"{busy:.3f} ms, {total} kernels, {ours} lookup launches; vs eager over {timed} "
+          f"pushes max abs {diff:.3e} ({'bit-equal' if diff == 0 else 'not bit-equal'}; bar "
+          f"{CLIP_REL:g} x {flow_max:.3e}); peak memory {g_peak / 2**30:.3f} GiB, reserved "
+          f"{reserved / 2**30:.3f} GiB")
+    if with_profile:
+        replay = itertools.cycle(frames[3:])
+        profile_forward(lambda: sa.push(next(replay)), g_med)
+    row = dict(eager_median_ms=med, eager_frames_per_s=fps, eager_peak_gib=peak / 2**30,
+               median_ms=g_med, frames_per_s=g_fps, capture_s=capture_s[0], busy_ms=busy,
+               kernels_per_replay=total, launches_per_replay=ours, max_abs_vs_eager=diff,
+               peak_gib=g_peak / 2**30, reserved_gib=reserved / 2**30, launches=launches)
+    del sa
+    torch.cuda.empty_cache()
+    if tmp is not None:
+        row["artifact"] = stream_artifact(est, acc, frames, eager_outs, tmp, warm)
+    del est, acc, frames, out, state, eager_outs
+    torch.cuda.empty_cache()
+    return row
 
 
-def drift_run(where: str, seq):
+def stream_artifact(est, acc, frames, eager_outs, tmp: str, warm: int) -> dict:
+    """Phase 9b: the stream exported at its shape with bfloat16 weights
+    (streaming.export_streaming), saved, loaded for the card
+    (load_streaming_artifact: the step program replayed from a CUDA graph),
+    reset on the same 3 frames and pushed the same frames: export, save and
+    load seconds, size, the timed pushes' median, and each timed push
+    against the eager one (ARTIFACT_REL)."""
+    path = str(Path(tmp) / "stream_bf16.bin")
+    t0 = time.perf_counter()
+    programs = export_streaming(est, acc, tuple(frames.shape[1:4]), weights_dtype="bfloat16")
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_streaming_artifact(path, *programs)
+    save_s = time.perf_counter() - t0
+    del programs
+    t0 = time.perf_counter()
+    art = load_streaming_artifact(path)
+    load_s = time.perf_counter() - t0
+    art.reset(frames[:3])
+    for i in range(3, 3 + warm):
+        art.push(frames[i])
+    secs, outs = [], []
+    for i in range(3 + warm, frames.shape[0]):
+        t0 = time.perf_counter()
+        outs.append(art.push(frames[i]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    diff = check_artifact(f"stream artifact (bf16 weights, {tuple(frames.shape[1:4])}, "
+                          f"{len(outs)} pushes)", torch.stack(outs), torch.stack(eager_outs))
+    del art
+    gc.collect()
+    med = statistics.median(secs) * 1e3
+    size = Path(path).stat().st_size
+    print(f"stream artifact: export {export_s:.2f} s, save {save_s:.2f} s, {size / 1e6:.1f} MB, "
+          f"load {load_s:.2f} s, median {med:.3f} ms per push")
+    return dict(export_s=export_s, save_s=save_s, load_s=load_s, mb=size / 1e6,
+                median_ms=med, max_abs_vs_eager=diff)
+
+
+def drift_run(where: str, seq, graphed: bool = True):
     """The fixture's stream on `where`, float32, TF32 off: outputs F_{i,0}
-    for i = 2..35 as (34, 64, 64, 2) numpy."""
+    for i = 2..35 as (34, 64, 64, 2) numpy, through StreamAccumulator (on
+    the card a CUDA graph of the step) or, with graphed=False, through
+    make_streaming_fns' eager pair."""
     est = models.build_flow_estimator("raft", compute_dtype="float32", small=True, iters=6,
                                       device=where)
     load_jax_params(est.model, load_npz_tree(str(FIXTURES / "drift_small_ofe.npz")))
     acc = models.init_accflow(models.AccFlowConfig(hidden=64, compute_dtype="float32",
                                                    warm_start=True), device=where)
     load_jax_params(acc, load_npz_tree(str(FIXTURES / "drift_small_acc.npz")))
-    imgs = (2.0 * (seq["imgs"].astype(np.float32) / 255.0) - 1.0)[:, None]
-    sa = StreamAccumulator(est, acc)
+    imgs = torch.from_numpy((2.0 * (seq["imgs"].astype(np.float32) / 255.0) - 1.0)[:, None])
+    imgs = imgs.to(where)
     with tf32(False):
-        outs = [sa.reset(imgs[:3])]
-        outs += [sa.push(imgs[i]) for i in range(3, imgs.shape[0])]
+        if graphed:
+            sa = StreamAccumulator(est, acc)
+            outs = [sa.reset(imgs[:3])] + [sa.push(imgs[i]) for i in range(3, imgs.shape[0])]
+        else:
+            init, step = make_streaming_fns(est, acc)
+            out, state = init(imgs[:3])
+            outs = [out]
+            for i in range(3, imgs.shape[0]):
+                out, state = step(state, imgs[i])
+                outs.append(out)
     return torch.stack(outs)[:, 0].cpu().numpy()
 
 
 def drift_fixture():
     """Phase 7: the trained RAFT-small (6 iterations) + hidden-64
     accumulator streamed over the fixture's 36-frame sequence on the GPU
-    (kernel #2) and on the CPU (plain lookup).
+    (kernel #2), eagerly and graphed (StreamAccumulator), and on the CPU
+    (plain lookup). The graphed stream against the eager one: the same
+    kernels, bit-equal expected, held within DRIFT_REL of the largest
+    |flow| over all 34 outputs.
 
     Bounds on the GPU curve, tests/test_streaming.py:250-258: EPE(i) <=
     1.5 x recorded + 0.5 at every step, and the mean of the last 6 <= 2 x
@@ -805,8 +1091,17 @@ def drift_fixture():
     gt = seq["bflows"][1:35]
     ref_curve = np.load(FIXTURES / "drift_small_epe.npy")
     reset_counts()
-    gpu = drift_run("cuda", seq)
+    gpu = drift_run("cuda", seq, graphed=False)
     launches = expect_counts("drift fixture on the GPU", corr_level_cuda, 12 + 33 * 6)
+    reset_counts()
+    graphed = drift_run("cuda", seq)
+    expect_counts("drift fixture on the GPU, graphed (reset, warm-ups and capture)",
+                  corr_level_cuda, 12 + (graphs.WARMUP + 1) * 6)
+    g_diff = float(np.abs(graphed - gpu).max())
+    print(f"drift fixture GPU graphed vs eager, 34 outputs: max abs {g_diff:.3e} "
+          f"({'bit-equal' if g_diff == 0 else 'not bit-equal'}; bar {DRIFT_REL:g} x |flow| max)")
+    if not g_diff <= DRIFT_REL * float(np.abs(gpu).max()):
+        fail(f"drift fixture: the graphed stream differs from the eager one by {g_diff:.3e}")
     cpu = drift_run("cpu", seq)
     curves = {k: np.sqrt(((v - gt) ** 2).sum(-1)).mean(axis=(1, 2)) for k, v in
               (("gpu", gpu), ("cpu", cpu))}
@@ -851,6 +1146,8 @@ def eval_phase():
             ("direct|raft", "fused", corr_cuda, 24),
             ("direct|raft", "experimental:fused_bd", corr_bd_cuda, 24))
     rows = {}
+    print(f"eval: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated before its runs "
+          "(earlier phases' tensors; in each run's peak)")
     with tempfile.TemporaryDirectory() as tmp:
         root = str(Path(tmp) / "cvor")
         t0 = time.perf_counter()
@@ -956,15 +1253,23 @@ def main() -> int:
     del levels32, coords
     torch.cuda.empty_cache()
 
-    launches1, fps, launches3_clip, fps_bd, small = clip_path(args.profile)
-    print(f"frames/s {fps:.3f} on {line} (AccFlow+RAFT, 7x512^2, batch 2, 12 iters, bf16); "
-          f"{fps_bd:.3f} with experimental:fused_bd")
-    launches2, fps_a, ms_a, _ = stream_path("(a) RAFT-small", True, args.profile)
-    _, fps_b, ms_b, _ = stream_path("(b) full RAFT", False, args.profile)
-    print(f"stream frames/s on {line} (512^2, batch 2, 6 iters, bf16): (a) RAFT-small "
-          f"{fps_a:.3f} ({ms_a:.3f} ms per push), (b) full RAFT {fps_b:.3f} ({ms_b:.3f} ms)")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches1, fps, launches3_clip, fps_bd, small, clip_extra = clip_path(args.profile, tmp)
+        print(f"frames/s {fps:.3f} on {line} (AccFlow+RAFT, 7x512^2, batch 2, 12 iters, bf16); "
+              f"{fps_bd:.3f} with experimental:fused_bd; graphed "
+              f"{clip_extra['graphed']['frames_per_s']:.3f}; loaded bf16 artifact "
+              f"{14 / clip_extra['artifact']['median_ms'] * 1e3:.3f}")
+        stream_a = stream_path("(a) RAFT-small", True, args.profile, tmp)
+    stream_b = stream_path("(b) full RAFT", False, args.profile)
+    print(f"stream frames/s on {line} (512^2, batch 2, 6 iters, bf16): (a) RAFT-small eager "
+          f"{stream_a['eager_frames_per_s']:.3f} ({stream_a['eager_median_ms']:.3f} ms per push), "
+          f"graphed {stream_a['frames_per_s']:.3f} ({stream_a['median_ms']:.3f} ms); (b) full "
+          f"RAFT eager {stream_b['eager_frames_per_s']:.3f} ({stream_b['eager_median_ms']:.3f} "
+          f"ms), graphed {stream_b['frames_per_s']:.3f} ({stream_b['median_ms']:.3f} ms)")
     drift_launches = drift_fixture()
     evals = eval_phase()
+    print(json.dumps({"graphs": {"card": line, "clip": clip_extra, "stream_a": stream_a,
+                                 "stream_b": stream_b}}))
 
     # Kernels #1 and #3 have a row for each output type, each timed in the
     # configuration whose launches it reports: corr_lookup and
@@ -993,7 +1298,8 @@ def main() -> int:
         {"name": "corr_level_lookup", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_level_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:466",
-         "launches": launches2, "launches_in": "stream (a) (reset, 2 warm-up and 30 pushes)",
+         "launches": stream_a["launches"],
+         "launches_in": "stream (a), eager (reset, 2 warm-up and 30 pushes)",
          **rows2["bfloat16, bf16 out"], "levels_dtype": "bfloat16", "out_dtype": "bfloat16",
          "radius": 3, "bfloat16_in_f32_out": rows2["bfloat16"],
          "float32_levels": rows2["float32"],

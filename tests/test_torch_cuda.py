@@ -3,7 +3,9 @@
 (ops/corr_level_cuda.py, also built for one level and with 4 and 16
 queries per block), both with float32 and bfloat16 output, the y
 contraction of the split lookup (ops/corr_bd_cuda.py) and the floor kernel of the probes
-(probes.py). Marked `cuda`; each test skips where there is no GPU (no
+(probes.py); the CUDA graphs of the stream step (StreamAccumulator) and of a
+loaded artifact (serving.py, streaming.py), and the splat's determinism.
+Marked `cuda`; each test skips where there is no GPU (no
 kernel can run there). This file imports neither JAX nor the JAX package,
 so it runs on a machine with only torch:
 
@@ -20,9 +22,17 @@ import numpy as np
 import pytest
 import torch
 
-from accflow_tpu_torch import probes
-from accflow_tpu_torch.ops import corr_bd_cuda, corr_cuda, corr_level_cuda
+from accflow_tpu_torch import graphs, probes, serving
+from accflow_tpu_torch.models import AccFlowConfig, build_flow_estimator, init_accflow
+from accflow_tpu_torch.ops import corr_bd_cuda, corr_cuda, corr_level_cuda, softsplat
 from accflow_tpu_torch.ops.corr import lookup_corr_plain, lookup_corr_split_v2
+from accflow_tpu_torch.streaming import (
+    StreamAccumulator,
+    export_streaming,
+    load_streaming_artifact,
+    make_streaming_fns,
+    save_streaming_artifact,
+)
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=0, atol=1e-4)
@@ -370,3 +380,135 @@ def test_level_kernel_other_builds(dev, defines):
         assert got.shape == (57, nl * (2 * radius + 1) ** 2)
         np.testing.assert_allclose(got32.cpu().numpy(), ref.cpu().numpy(), **TOL)
         _assert_bf16_out(got, got32, ref, TOL["atol"])
+
+
+def _stream_models(device, dtype: str):
+    """RAFT-small at 3 iterations under a hidden-32 warm-start accumulator
+    whose ZeroConv is drawn from a seed (so the deformable conv deforms)."""
+    est = build_flow_estimator("raft", compute_dtype=dtype, small=True, iters=3, device="cpu")
+    acc = init_accflow(AccFlowConfig(hidden=32, compute_dtype=dtype, warm_start=True),
+                       device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    zc = acc.accplus.conv2[4]
+    with torch.no_grad():
+        for p, scale in ((zc.conv.weight, 0.05), (zc.conv.bias, 0.5), (zc.scale, 0.1)):
+            p.copy_(torch.randn(p.shape, generator=gen) * scale)
+    est.model.to(device)
+    return est, acc.to(device)
+
+
+def _frames(device, t: int, n: int = 2, size: int = 64):
+    gen = torch.Generator().manual_seed(9)
+    return (torch.rand((t, n, size, size, 3), generator=gen) * 2 - 1).to(device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_push_equals_eager_step(dev, dtype):
+    """StreamAccumulator.push replays one CUDA graph of step_fn: 5 pushes
+    equal the eager step on the same state bit for bit (the graph replays
+    the kernels the eager step chose), the replays launch no kernel through
+    the wrappers, and a flow kept from push i is unchanged after later
+    pushes (outputs do not alias the graph's buffers)."""
+    est, acc = _stream_models(dev, dtype)
+    frames = _frames(dev, 8)
+    sa = StreamAccumulator(est, acc)
+    step = make_streaming_fns(est, acc)[1]
+    sa.reset(frames[:3])
+    state = sa.state
+    kept = []
+    for i in range(3, 8):
+        before = corr_level_cuda.launches
+        out = sa.push(frames[i])
+        ref, state = step(state, frames[i])
+        torch.cuda.synchronize()
+        # The eager step launches 3 (one per iteration); the first push also
+        # its warm-ups and capture, a replay nothing through the wrapper.
+        first = 3 * (graphs.WARMUP + 1) if i == 3 else 0
+        assert corr_level_cuda.launches == before + 3 + first
+        assert torch.equal(out, ref)
+        assert all(torch.equal(a, b) for a, b in zip(sa.state, state))
+        kept.append((out, out.clone()))
+    assert sa._step.captures == 1
+    assert all(torch.equal(a, b) for a, b in kept)
+
+
+def test_sync_free_eager_push_and_clip(dev):
+    """One eager push and one eager clip forward under the sync debug mode
+    "error": no host synchronisation (and no pageable host copy) on the
+    paths a CUDA graph captures."""
+    est, acc = _stream_models(dev, "bfloat16")
+    frames = _frames(dev, 4)
+    init, step = make_streaming_fns(est, acc)
+    _, state = init(frames[:3])
+    full = build_flow_estimator("raft", compute_dtype="bfloat16", iters=2, device=dev)
+    cold = init_accflow(AccFlowConfig(hidden=32, compute_dtype="bfloat16"), device=dev)
+    serve = serving.build_serving_fn(full, cold)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, frames[3])
+        serve(frames)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_splat_is_deterministic(dev):
+    """The splat's scatter (accflow::splat_add) with every source on a few
+    targets, run twice with the process's deterministic switch off: equal
+    bit for bit (float atomics would sum in another order each time)."""
+    gen = torch.Generator().manual_seed(4)
+    values = torch.randn((2, 64, 64, 8), generator=gen).to(dev)
+    flow = torch.rand((2, 64, 64, 2), generator=gen).to(dev)
+    flow[..., 0] += 32 - torch.arange(64.0, device=dev)  # every column lands on 32-33
+    assert not torch.are_deterministic_algorithms_enabled()
+    a, b = softsplat.splat_add(values, flow), softsplat.splat_add(values, flow)
+    assert torch.equal(a, b)
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+def test_cpu_artifact_moved_to_the_card(dev, tmp_path):
+    """A clip artifact exported on the CPU, loaded for the card: it runs
+    kernel #1 (the warm-up and capture launch it through the wrapper, the
+    replays launch none through it) and agrees with the CPU program within
+    1e-3 of the largest |flow| (float32 on both sides; summation order and
+    the kernel's shared fractional offset, as chip_smoke.py's small clip)."""
+    est = build_flow_estimator("raft", compute_dtype="float32", iters=2, device="cpu")
+    acc = init_accflow(AccFlowConfig(hidden=32, compute_dtype="float32"), device="cpu")
+    path = str(tmp_path / "clip.pt2")
+    serving.save_artifact(serving.export_serving(est, acc, (3, 1, 32, 32, 3)), path)
+    images = _frames("cpu", 3, 1, 32)
+    ref = serving.load_artifact(path, device="cpu")(images)
+    fn = serving.load_artifact(path, device=dev)
+    before = corr_cuda.launches
+    out = fn(images)
+    torch.cuda.synchronize()
+    assert corr_cuda.launches - before == 2 * (graphs.WARMUP + 1)  # 2 iterations a run
+    for _ in range(2):
+        again = fn(images)
+    torch.cuda.synchronize()
+    assert corr_cuda.launches - before == 6 and torch.equal(again, out)
+    assert out.device.type == "cuda"
+    diff = float((out.cpu() - ref).abs().max())
+    assert diff <= 1e-3 * float(ref.abs().max()), diff
+
+
+def test_streaming_artifact_on_the_card_is_deterministic(dev, tmp_path):
+    """Two runs of a loaded streaming artifact (reset and 4 pushes, the
+    warm start's splat in each step) are bit-equal, and within 1e-3 of the
+    largest |flow| of the live accumulator (bfloat16; the artifact runs
+    cuBLAS's bfloat16 GEMMs with float32 reductions, serving.numerics)."""
+    est, acc = _stream_models(dev, "bfloat16")
+    path = str(tmp_path / "stream.bin")
+    save_streaming_artifact(path, *export_streaming(est, acc, (2, 64, 64)))
+    art = load_streaming_artifact(path)
+    frames = _frames(dev, 7)
+
+    def run(s):
+        outs = [s.reset(frames[:3])] + [s.push(f) for f in frames[3:]]
+        return torch.stack(outs)
+
+    first, second = run(art), run(art)
+    assert torch.equal(first, second)
+    live = run(StreamAccumulator(est, acc))
+    assert float((first - live).abs().max()) <= 1e-3 * float(live.abs().max())

@@ -1,6 +1,8 @@
 """Ops and layers of the PyTorch port against their JAX counterparts, on
 the CPU in float32, same inputs from a numpy seed. Tolerance 1e-5: the two
-compute the same arithmetic, in possibly another summation order."""
+compute the same arithmetic, in possibly another summation order. Also the
+port's torch ops (accflow::*: kernels #1-#3 and the splat's scatter)
+under torch.library.opcheck, and the splat as torch.export records it."""
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,9 @@ from accflow_tpu_torch.convert import load_jax_params
 from accflow_tpu_torch.models.encoders import BasicEncoder, BottleneckBlock, SmallEncoder
 from accflow_tpu_torch.nn import layers
 from accflow_tpu_torch.ops import (
+    corr_bd_cuda,
+    corr_cuda,
+    corr_level_cuda,
     deform,
     grids,
     occlusion,
@@ -242,3 +247,53 @@ def test_input_padder(rng, mode):
     np.testing.assert_array_equal(padded, ref.pad_np(x))
     assert padded.shape[2] % 8 == 0 and padded.shape[3] % 8 == 0
     np.testing.assert_array_equal(ours.unpad(padded), x)
+
+
+def _op_case(name, rng):
+    """(op, args) of one of the port's torch ops at a small shape."""
+    q = 12
+    levels = [_t(rng.standard_normal((q, 8 >> l, 8 >> l)).astype(np.float32)) for l in range(4)]
+    coords = _t(rng.uniform(-2, 10, (q, 2)).astype(np.float32))
+    if name == "corr_lookup":
+        return corr_cuda.corr_lookup_op, (levels, coords, torch.float32)
+    if name == "corr_level_lookup":
+        bf16 = [lvl.bfloat16() for lvl in levels]
+        return corr_level_cuda.corr_level_lookup_op, (bf16, coords, 3, torch.bfloat16)
+    if name == "y_contract":
+        corr3 = _t(rng.standard_normal((q, 6, 5)).astype(np.float32))
+        wy = _t(rng.uniform(0, 1, (q, 9, 6)).astype(np.float32))
+        return corr_bd_cuda.y_contract_op, (corr3, wy, torch.float32)
+    values = _t(rng.standard_normal((2, 5, 6, 3)).astype(np.float32))
+    flow = _t(rng.uniform(-3, 3, (2, 5, 6, 2)).astype(np.float32))
+    return softsplat.splat_add, (values, flow)
+
+
+@pytest.mark.parametrize("name", ["corr_lookup", "corr_level_lookup", "y_contract", "splat_add"])
+def test_ops_pass_opcheck(rng, name):
+    """Schema, fake implementation (shape and dtype without running) and
+    the op under AOT dispatch with dynamic shapes, on the CPU."""
+    op, args = _op_case(name, rng)
+    torch.library.opcheck(op, args)
+
+
+def test_splat_survives_export(rng):
+    """torch.export records the splat's scatter as the op accflow::splat_add,
+    whose implementation turns the deterministic switch on around it wherever
+    the program runs (a plain index_put would run under whatever the
+    process has set); the program equals eager bit for bit, and the switch
+    is as it was afterwards."""
+    flow = _t(rng.uniform(-3, 3, (2, 6, 7, 2)).astype(np.float32))
+    advect = _t(rng.uniform(-3, 3, (2, 6, 7, 2)).astype(np.float32))
+
+    class Splat(torch.nn.Module):
+        def forward(self, f, a):
+            return warmstart.forward_splat_flow(f, a)
+
+    ep = torch.export.export(Splat(), (flow, advect), strict=False)
+    targets = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+    assert targets.count("accflow.splat_add.default") == 2  # numerator and weights
+    assert not any("index_put" in t for t in targets)
+    assert not torch.are_deterministic_algorithms_enabled()
+    out = ep.module()(flow, advect)
+    assert torch.equal(out, warmstart.forward_splat_flow(flow, advect))
+    assert not torch.are_deterministic_algorithms_enabled()

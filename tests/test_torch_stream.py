@@ -12,7 +12,13 @@ the JAX package's, on the CPU in float32:
 - the port's copy of make_long_sequence, bit for bit;
 - the trained drift fixture (tests/fixtures/drift_small_{ofe,acc}.npz)
   replayed through the port, under both bounds of
-  tests/test_streaming.py:250-258."""
+  tests/test_streaming.py:250-258;
+- the streaming export (export_streaming, save / load_streaming_artifact,
+  StreamingArtifact) at batch 1: reset and 2 pushes equal the live
+  StreamAccumulator exactly and JAX's StreamAccumulator at the stream bar;
+  FlowStream over the artifact returns unpadded flows; a file without the
+  port's magic (a JAX artifact among them) is refused; on the CPU the
+  accumulator's step runs as it is (no CUDA graph)."""
 
 from pathlib import Path
 
@@ -38,7 +44,16 @@ from accflow_tpu_torch.models import (
     build_flow_estimator,
     init_accflow,
 )
-from accflow_tpu_torch.streaming import FlowStream, StreamAccumulator, make_pair_streaming_fns
+from accflow_tpu_torch.streaming import (
+    FlowStream,
+    StreamAccumulator,
+    StreamingArtifact,
+    export_streaming,
+    load_streaming_artifact,
+    make_pair_streaming_fns,
+    make_streaming_fns,
+    save_streaming_artifact,
+)
 
 TOL = dict(rtol=2e-3, atol=2e-2)
 ITERS = 4
@@ -207,3 +222,69 @@ def test_drift_fixture_through_the_port():
     assert curve.shape == ref_curve.shape == (34,)
     assert (curve <= ref_curve * 1.5 + 0.5).all(), f"{curve} vs recorded {ref_curve}"
     assert curve[-6:].mean() <= 2.0 * curve[2:8].mean() + 1.0, curve
+
+
+def test_accumulator_step_on_the_cpu_is_step_fn(setup):
+    """On the CPU push runs make_streaming_fns' step as it is: no graph is
+    captured, and the output and state are step_fn's, bit for bit."""
+    s = setup
+    sa = StreamAccumulator(s["est"], s["acc"])
+    sa.reset(s["frames"][:3])
+    state = sa.state
+    out = sa.push(s["frames"][3])
+    step = make_streaming_fns(s["est"], s["acc"])[1]
+    ref, ref_state = step(state, torch.from_numpy(s["frames"][3]))
+    assert sa._step.captures == 0
+    assert torch.equal(out, ref) and all(torch.equal(a, b) for a, b in zip(sa.state, ref_state))
+
+
+@pytest.fixture(scope="module")
+def artifact(setup, tmp_path_factory):
+    """setup's weights with 2 OFE iterations (the export traces each one),
+    exported at batch 1 and saved; the JAX and port models beside it."""
+    s = setup
+    j_est = j_build_flow_estimator("raft", compute_dtype="float32", small=True, iters=2)
+    est = build_flow_estimator("raft", compute_dtype="float32", device="cpu", small=True,
+                               iters=2)
+    load_jax_params(est.model, s["ofe_params"])
+    programs = export_streaming(est, s["acc"], (1, 32, 32))
+    path = str(tmp_path_factory.mktemp("streaming") / "stream.bin")
+    save_streaming_artifact(path, *programs)
+    return dict(path=path, programs=programs, est=est, j_est=j_est)
+
+
+def test_streaming_artifact_equals_live_and_jax(setup, artifact):
+    s, a = setup, artifact
+    frames = s["frames"][:5, :1]
+    art = load_streaming_artifact(a["path"], device="cpu")
+    assert art.frame_shape == (1, 32, 32, 3)
+    with pytest.raises(RuntimeError, match="reset"):
+        art.push(frames[0])
+    out = _run(art, frames)
+    assert out.shape == (3, 1, 32, 32, 2) and np.isfinite(out).all()
+    np.testing.assert_array_equal(out, _run(StreamAccumulator(a["est"], s["acc"]), frames))
+    ref = _run(JStreamAccumulator(a["j_est"], s["acfg"], s["ofe_params"], s["acc_params"]),
+               jnp.asarray(frames))
+    np.testing.assert_allclose(out, ref, **TOL)
+
+
+def test_flow_stream_over_the_artifact(setup, artifact):
+    """30x29 uint8 frames pad to the artifact's 32x32; FlowStream returns
+    unpadded (30, 29, 2) flows, the live accumulator's exactly (the
+    programs as exported; the test above holds the saved file)."""
+    raw = np.random.default_rng(5).integers(0, 256, (5, 30, 29, 3)).astype(np.uint8)
+    art = FlowStream(StreamingArtifact(*artifact["programs"], device="cpu"))
+    live = FlowStream(StreamAccumulator(artifact["est"], setup["acc"]))
+    got, ref = [art.send(f) for f in raw], [live.send(f) for f in raw]
+    assert got[0] is None and got[1] is None
+    assert all(g.shape == (30, 29, 2) and g.dtype == np.float32 for g in got[2:])
+    np.testing.assert_array_equal(np.stack(got[2:]), np.stack(ref[2:]))
+
+
+@pytest.mark.parametrize("head", [b"SFLOWSTRM1\n", b"not an artifact"])
+def test_streaming_artifact_refuses_other_files(artifact, tmp_path, head):
+    """JAX's streaming magic (accflow_tpu/streaming.py) or none at all."""
+    path = tmp_path / "other.bin"
+    path.write_bytes(head + Path(artifact["path"]).read_bytes()[32:])
+    with pytest.raises(ValueError, match="bad magic"):
+        load_streaming_artifact(str(path), device="cpu")
