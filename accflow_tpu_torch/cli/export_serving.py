@@ -19,8 +19,9 @@ whose state has a concrete batch); --iters defaults to 12, or 6 with
 Where the port differs from the JAX CLI: --device (cuda by default, or
 cpu: the device the models are built and traced on) takes the place of
 --platforms; --scan_unroll has no counterpart, since the port's GRU loop is
-unrolled in Python; --ofe gma, --corr_lookup ondemand[:chunk] or auto and
---attn_chunk raise the port's "not ported yet" errors.
+unrolled in Python; --corr_lookup ondemand[:chunk], and auto beyond its
+budget, raise the port's "not ported yet" error. --corr_lookup auto and
+--attn_chunk -1 need a concrete --batch (as in JAX).
 """
 
 from __future__ import annotations
@@ -46,10 +47,11 @@ def main(argv=None):
                         "step programs) instead of the fixed-clip function")
     parser.add_argument("--compute-dtype", type=str, default="bfloat16")
     parser.add_argument("--corr_lookup", type=str, default="fused",
-                        help="correlation lookup: fused (also mm, pallas_fused) or "
+                        help="correlation lookup: fused (also mm, pallas_fused), auto or "
                         "experimental:fused_bd[2] (see RAFTConfig.corr_lookup)")
     parser.add_argument("--attn_chunk", type=int, default=0,
-                        help="gma only (not ported): nonzero raises")
+                        help="gma only: >0 recomputes the attention per chunk of query "
+                        "rows; -1 picks per shape; 0 (default) stores the (HW)^2 matrix")
     parser.add_argument("--weights_dtype", type=str, default=None,
                         choices=["float32", "bfloat16"],
                         help="storage dtype of the weights in the artifact; bfloat16 "
@@ -57,10 +59,6 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
     parser.add_argument("--out", type=str, required=True)
     args = parser.parse_args(argv)
-    if args.attn_chunk:
-        raise NotImplementedError(
-            "attn_chunk belongs to GMA, which is not ported to accflow_tpu_torch yet "
-            "(ROADMAP.md, queue 1 #8)")
     if args.streaming and not args.batch:
         parser.error("--streaming needs a concrete --batch (the state is shape-specialised); "
                      "got --batch 0")
@@ -69,7 +67,8 @@ def main(argv=None):
 
     iters = args.iters if args.iters is not None else (6 if args.streaming else 12)
     est = build_flow_estimator(args.ofe, compute_dtype=args.compute_dtype, iters=iters,
-                               corr_lookup=args.corr_lookup, device=args.device)
+                               corr_lookup=args.corr_lookup, attn_chunk=args.attn_chunk,
+                               device=args.device)
     acc = init_accflow(AccFlowConfig(compute_dtype=args.compute_dtype), device=args.device)
     if args.acc_ckpt:
         from accflow_tpu_torch.convert import load_accflow_checkpoint

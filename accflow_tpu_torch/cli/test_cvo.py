@@ -31,10 +31,12 @@ def main(argv=None):
     parser.add_argument("--iters", type=int, default=12)
     parser.add_argument("--compute-dtype", type=str, default="bfloat16")
     parser.add_argument("--corr_lookup", type=str, default="fused",
-                        help="correlation lookup: fused (also mm, pallas_fused) or "
+                        help="correlation lookup: fused (also mm, pallas_fused), auto or "
                         "experimental:fused_bd[2] (see RAFTConfig.corr_lookup)")
     parser.add_argument("--attn_chunk", type=int, default=0,
-                        help="gma only (not ported): >0 raises")
+                        help="gma only: >0 recomputes the attention per chunk of query "
+                        "rows instead of storing the (HW)^2 matrix; -1 picks per shape; "
+                        "0 (default) stores it")
     parser.add_argument("--scan_unroll", type=int, default=1,
                         help="the JAX package's GRU-scan unroll; the port runs its GRU "
                         "loop eagerly and takes only 1")

@@ -5,7 +5,10 @@ A JAX tree is nested dicts of arrays whose paths mirror the reference's
 torch module names. Per layer:
 - conv {w (kh, kw, I, O), b}        <-> Conv2d weight (O, I, kh, kw), bias;
 - ZeroConv2d {w, b, scale (C,)}     <-> conv.weight, conv.bias, scale (1, C, 1, 1);
-- BatchNorm {scale, bias, mean, var} <-> weight, bias, running_mean, running_var.
+- BatchNorm {scale, bias, mean, var} <-> weight, bias, running_mean, running_var;
+- Embedding {emb (num, dim)}        <-> weight (GMA's RelPosEmb tables);
+- a bare parameter (GMA's Aggregate `gamma`) is a leaf of its module's
+  subtree under its own name.
 The downsample norm exists once, under `downsample.1`, in both.
 
 Both directions walk the module tree by layer type, so every parameter and
@@ -17,8 +20,9 @@ onto them directly once the `module.` prefix of nn.DataParallel is stripped,
 AccFlow's frozen OFE (`ofe.*`) is split off, and the reference's second name
 for the downsample norm (`norm3` in ResidualBlock, `norm4` in
 BottleneckBlock, the same tensors as `downsample.1`) and
-`num_batches_tracked` are dropped. Any other key left over, or missing,
-raises. A .npz param tree (accflow_tpu.convert.store) loads through
+`num_batches_tracked` and GMA's `rel_ind` buffer (RelPosEmb's index matrix,
+no weights) are dropped. Any other key left over, or missing, raises. A
+.npz param tree (accflow_tpu.convert.store) loads through
 `load_jax_params`. This module needs numpy and torch only.
 """
 
@@ -31,20 +35,26 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from accflow_tpu_torch.nn.layers import BatchNorm2d, Conv2d, ZeroConv2d
+from accflow_tpu_torch.nn.layers import BatchNorm2d, Conv2d, Embedding, ZeroConv2d
+
+_LAYERS = (Conv2d, BatchNorm2d, Embedding)
 
 Tree = Dict[str, Any]
 
 
 def _layers(module: nn.Module):
-    """(dotted path, layer) for every parameterised layer; the conv inside
-    a ZeroConv2d belongs to it."""
+    """(dotted path, layer) for every parameterised layer, and for every
+    other module that holds a parameter of its own (a bare leaf); the conv
+    inside a ZeroConv2d belongs to it."""
     owned = set()
     for path, sub in module.named_modules():
         if isinstance(sub, ZeroConv2d):
             owned.add(f"{path}.conv" if path else "conv")
             yield path, sub
-        elif isinstance(sub, (Conv2d, BatchNorm2d)) and path not in owned:
+        elif isinstance(sub, _LAYERS):
+            if path not in owned:
+                yield path, sub
+        elif any(True for _ in sub.parameters(recurse=False)):
             yield path, sub
 
 
@@ -59,6 +69,10 @@ def _leaves(layer: nn.Module) -> Dict[str, tuple]:
     if isinstance(layer, BatchNorm2d):
         return {"scale": (layer.weight, *same), "bias": (layer.bias, *same),
                 "mean": (layer.running_mean, *same), "var": (layer.running_var, *same)}
+    if isinstance(layer, Embedding):
+        return {"emb": (layer.weight, *same)}
+    if not isinstance(layer, Conv2d):  # bare parameters
+        return {name: (p, *same) for name, p in layer.named_parameters(recurse=False)}
     out = {"w": (layer.weight, *hwio)}
     if layer.bias is not None:
         out["b"] = (layer.bias, *same)
@@ -72,10 +86,10 @@ def to_jax_params(module: nn.Module) -> Tree:
         node = tree
         for part in path.split(".")[:-1]:
             node = node.setdefault(part, {})
-        node[path.split(".")[-1]] = {
-            leaf: np.array(to_jax(t.detach().cpu().numpy()), order="C")  # a copy
+        node.setdefault(path.split(".")[-1], {}).update({
+            leaf: np.array(to_jax(t.detach().float().cpu().numpy()), order="C")  # a copy
             for leaf, (t, _, to_jax) in _leaves(layer).items()
-        }
+        })
     return tree
 
 
@@ -91,8 +105,9 @@ def load_jax_params(module: nn.Module, tree: Tree) -> nn.Module:
                 raise KeyError(f"JAX tree has no subtree for layer {path!r}")
             node = node[part]
         targets = _leaves(layer)
-        if set(node) != set(targets):
-            raise KeyError(f"{path}: JAX leaves {sorted(node)} vs layer {sorted(targets)}")
+        missing = set(targets) - set(node)
+        if missing:
+            raise KeyError(f"{path}: JAX tree lacks leaves {sorted(missing)}")
         for leaf, (dst, to_torch, _) in targets.items():
             src = np.array(to_torch(np.asarray(node[leaf], dtype=np.float32)), order="C")
             if tuple(src.shape) != tuple(dst.shape):
@@ -130,6 +145,13 @@ def load_npz_tree(path: str) -> Tree:
     return tree
 
 
+def save_npz_tree(path: str, tree: Tree) -> None:
+    """Write a param tree as accflow_tpu.convert.store.save_params does
+    (one .npz of slash-joined leaf paths), for load_npz_tree and the
+    checkpoint loaders of both packages."""
+    np.savez(path, **_flatten(tree))
+
+
 def strip_module_prefix(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     return {k.removeprefix("module."): v for k, v in state_dict.items()}
 
@@ -165,7 +187,8 @@ def load_reference_state_dict(module: nn.Module, state_dict: Mapping[str, Any]) 
     if missing:
         raise KeyError(f"missing torch keys: {missing[:10]}")
     leftover = sorted(k for k in state_dict if k not in own
-                      and not k.endswith("num_batches_tracked") and not _alias_of(k, own))
+                      and not k.endswith(("num_batches_tracked", "rel_ind"))
+                      and not _alias_of(k, own))
     if leftover:
         raise ValueError(f"unconsumed torch keys: {leftover[:10]}")
     for k, dst in own.items():
@@ -186,18 +209,18 @@ def load_torch_file(path: str) -> Dict[str, Any]:
 
 
 def load_flow_estimator_checkpoint(path: str, model: nn.Module) -> nn.Module:
-    """Load a raft-* checkpoint into the port's RAFT `model` in place: a
-    reference .pth or a .npz param tree."""
+    """Load a raft-* or gma-* checkpoint into the port's RAFT or GMA
+    `model` in place: a reference .pth or a .npz param tree."""
     if path.endswith(".npz"):
         return load_jax_params(model, load_npz_tree(path))
     return load_reference_state_dict(model, strip_module_prefix(load_torch_file(path)))
 
 
 def load_accflow_checkpoint(path: str, acc: nn.Module, ofe: nn.Module):
-    """Load an acc+raft-* checkpoint into the port's AccFlow `acc` and its
-    RAFT `ofe` in place: a reference .pth (both under one state_dict, the
-    OFE under `ofe.`), or the .npz pair <stem>.acc.npz + <stem>.ofe.npz
-    (pass the stem or either file). Returns (acc, ofe)."""
+    """Load an acc+raft-* or acc+gma-* checkpoint into the port's AccFlow
+    `acc` and its RAFT or GMA `ofe` in place: a reference .pth (both under
+    one state_dict, the OFE under `ofe.`), or the .npz pair <stem>.acc.npz +
+    <stem>.ofe.npz (pass the stem or either file). Returns (acc, ofe)."""
     if path.endswith(".npz") or not osp.exists(path):
         stem = path
         for suffix in (".acc.npz", ".ofe.npz", ".npz"):

@@ -12,6 +12,9 @@ input -> motion encoder -> GRU -> FlowHead. RAFTConfig.corr_lookup picks the
 lookup of full RAFT (ops/corr.py::normalize_corr_lookup):
 - "fused" (also spelled "mm" or "pallas_fused", one function in JAX): the
   4-level radius-4 kernel (ops/corr_cuda.py), a (Q, 324) input to convc1;
+- "auto": "fused" while the stored pyramid fits ops/corr.py's budget
+  (resolve_auto_lookup, checked per shape in each entry point; beyond it
+  NotImplementedError);
 - "experimental:fused_bd" / "experimental:fused_bd2": the split lookup
   (ops/corr.py::lookup_corr_split_v2), level 0 (0 and 1) through the
   y_contract kernel (ops/corr_bd_cuda.py) and the rest through torch.bmm,
@@ -42,6 +45,7 @@ from accflow_tpu_torch.ops.corr import (
     build_corr_pyramid,
     lookup_corr_split_v2,
     normalize_corr_lookup,
+    resolve_auto_lookup,
 )
 from accflow_tpu_torch.ops.corr_cuda import LEVELS, RADIUS, lookup_corr_fused
 from accflow_tpu_torch.ops.corr_level_cuda import lookup_corr_level
@@ -212,11 +216,14 @@ class FlowHead(nn.Module):
 
 
 class BasicUpdateBlock(nn.Module):
-    def __init__(self, cfg: RAFTConfig):
+    """gru_input: the GRU's input channels beside the hidden state (context
+    + motion, 128 + hidden; GMA's update block adds its aggregated motion)."""
+
+    def __init__(self, cfg: RAFTConfig, gru_input: Optional[int] = None):
         super().__init__()
         hd = cfg.hidden_dim
         self.encoder = BasicMotionEncoder(cfg.corr_planes)
-        self.gru = SepConvGRU(hd, 128 + hd)
+        self.gru = SepConvGRU(hd, 128 + hd if gru_input is None else gru_input)
         self.flow_head = FlowHead(hd, 256)
         self.mask = nn.Sequential(Conv2d(128, 256, 3), nn.ReLU(), Conv2d(256, 64 * 9, 1))
 
@@ -299,11 +306,13 @@ def raft_cnet(model: RAFT, images: torch.Tensor):
 
 
 def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
-                 flow_init: Optional[torch.Tensor] = None):
+                 flow_init: Optional[torch.Tensor] = None, aggregate=None):
     """The GRU refinement loop on a built pyramid. net/inp (N, C, h8, w8)
     in the compute dtype; flow_init an optional (N, h8, w8, 2) warm start,
-    added to the coordinate grid in float32. Returns {"flow_up",
-    "flow_low"[, "predictions"]}."""
+    added to the coordinate grid in float32. aggregate: GMA's global
+    motion, motion (N, 128, h8, w8) -> (N, 128, h8, w8), whose output joins
+    the motion features in the GRU's input (models/gma.py::gma_iterate).
+    Returns {"flow_up", "flow_low"[, "predictions"]}."""
     cfg, ub = model.cfg, model.update_block
     cd = cfg.dtype
     n, _, h8, w8 = net.shape
@@ -340,6 +349,8 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
         else:
             parts = lookup_corr_split_v2(levels, coords1, cfg.corr_radius, split, cd)
             motion = ub.encoder.forward_split(flow_cd, [p.to(cd) for p in parts])
+        if aggregate is not None:
+            motion = torch.cat([motion, aggregate(motion)], dim=1)
         net = gru_step(net, motion)
         delta = ub.flow_head(net)
         coords1 = (coords1 + delta.float().permute(0, 2, 3, 1)).contiguous()
@@ -386,32 +397,51 @@ def raft_pairs_forward(model: RAFT, frames, src_idx, dst_idx,
 
 def _pairs(model, frames, src_idx, dst_idx, iters, final_only, flow_init=None):
     cfg = model.cfg
-    cd = cfg.dtype
     iters = cfg.iters if iters is None else iters
+    n = frames.shape[1]
+    with tf32(False):
+        levels, net_u, inp_u, sel = _encode_pairs(model, frames, src_idx, dst_idx)
+        return raft_iterate(model, levels, gather_pairs(net_u, sel, n),
+                            gather_pairs(inp_u, sel, n), iters, final_only, flow_init)
+
+
+def _encode_pairs(model, frames, src_idx, dst_idx):
+    """The encodes of the pair queries (src_idx[i] -> dst_idx[i]) on frames
+    (K, N, H, W, 3), each used frame fnet-encoded once and each source frame
+    cnet-encoded once. Returns (levels, net_u, inp_u, sel): the pyramid of
+    the P*N pairs (P-major), the cnet state of the S unique source frames
+    ((S*N, C, h8, w8) each) and, per pair, the index of its source among
+    them (gather_pairs picks the pairs' rows). Checks corr_lookup "auto"
+    against the budget at this shape (resolve_auto_lookup)."""
+    cfg = model.cfg
+    cd = cfg.dtype
     src_idx = tuple(int(i) for i in src_idx)
     dst_idx = tuple(int(i) for i in dst_idx)
     k, n, h, w, _ = frames.shape
-    p = len(src_idx)
+    resolve_auto_lookup(cfg.corr_lookup, len(src_idx) * n, h // 8, w // 8,
+                        cfg.corr_levels, cd)
     # Frames and per-frame features are picked by concatenating views, not
     # by indexing with Python lists: a list index becomes a host tensor
     # copied to the device at run time, which a CUDA graph cannot capture.
-    with tf32(False):
-        used = sorted(set(src_idx) | set(dst_idx))
-        pos = {f: i for i, f in enumerate(used)}
-        fmaps = model.fnet(to_nchw(_select(frames, used).reshape(-1, h, w, 3), cd))
-        fmaps = fmaps.view(len(used), n, *fmaps.shape[1:])
-        fmap1 = _select(fmaps, [pos[i] for i in src_idx]).flatten(0, 1)
-        fmap2 = _select(fmaps, [pos[i] for i in dst_idx]).flatten(0, 1)
-        levels = build_corr_pyramid(fmap1, fmap2, cfg.corr_levels, dtype=cd)
-        del fmaps, fmap1, fmap2
+    used = sorted(set(src_idx) | set(dst_idx))
+    pos = {f: i for i, f in enumerate(used)}
+    fmaps = model.fnet(to_nchw(_select(frames, used).reshape(-1, h, w, 3), cd))
+    fmaps = fmaps.view(len(used), n, *fmaps.shape[1:])
+    fmap1 = _select(fmaps, [pos[i] for i in src_idx]).flatten(0, 1)
+    fmap2 = _select(fmaps, [pos[i] for i in dst_idx]).flatten(0, 1)
+    levels = build_corr_pyramid(fmap1, fmap2, cfg.corr_levels, dtype=cd)
+    del fmaps, fmap1, fmap2
 
-        src_used = sorted(set(src_idx))
-        spos = {f: i for i, f in enumerate(src_used)}
-        net_u, inp_u = raft_cnet(model, to_nchw(_select(frames, src_used).reshape(-1, h, w, 3), cd))
-        sel = [spos[i] for i in src_idx]
-        net = _select(net_u.view(len(src_used), n, *net_u.shape[1:]), sel).flatten(0, 1)
-        inp = _select(inp_u.view(len(src_used), n, *inp_u.shape[1:]), sel).flatten(0, 1)
-        return raft_iterate(model, levels, net, inp, iters, final_only, flow_init)
+    src_used = sorted(set(src_idx))
+    spos = {f: i for i, f in enumerate(src_used)}
+    net_u, inp_u = raft_cnet(model, to_nchw(_select(frames, src_used).reshape(-1, h, w, 3), cd))
+    return levels, net_u, inp_u, [spos[i] for i in src_idx]
+
+
+def gather_pairs(x_u: torch.Tensor, sel, n: int) -> torch.Tensor:
+    """Rows of the unique source frames (S*N, ...) -> the pairs' (P*N, ...):
+    pair i takes source sel[i]'s N rows."""
+    return _select(x_u.view(-1, n, *x_u.shape[1:]), sel).flatten(0, 1)
 
 
 def _select(x: torch.Tensor, idx) -> torch.Tensor:
@@ -445,6 +475,8 @@ def raft_flow_pairs_from_features(model: RAFT, src: dict, dst_fmaps,
     cfg = model.cfg
     iters = cfg.iters if iters is None else iters
     p = len(dst_fmaps)
+    n, _, h8, w8 = src["fmap"].shape
+    resolve_auto_lookup(cfg.corr_lookup, p * n, h8, w8, cfg.corr_levels, cfg.dtype)
     with tf32(False):
         levels = build_corr_pyramid(torch.cat([src["fmap"]] * p),
                                     torch.cat(list(dst_fmaps)), cfg.corr_levels,

@@ -3,8 +3,8 @@
 Each layer is a functional form (what the tests hold against JAX) plus a
 small `nn.Module` that owns its parameters under the reference torch
 `state_dict` names (`weight`, `bias`, `running_mean`, `running_var`,
-ZeroConv2d's `conv.*` and `scale`), so `convert.py` maps them 1:1 onto the
-JAX param tree.
+ZeroConv2d's `conv.*` and `scale`, Embedding's `weight`), so `convert.py`
+maps them 1:1 onto the JAX param tree.
 
 Parameters are kept in float32 and cast to the input's dtype at each call,
 as the JAX `conv2d` does: the compute dtype is a property of the
@@ -14,7 +14,8 @@ Initialisers reproduce the JAX package's (which reproduce torch's), drawn
 from a `torch.Generator` passed to `reset_parameters`:
 - "torch": weight and bias U(-1/sqrt(fan_in), +1/sqrt(fan_in));
 - "kaiming_normal_out": weight N(0, 2/fan_out), bias as "torch";
-- "zeros".
+- "zeros";
+and Embedding's table N(0, 1).
 """
 
 from __future__ import annotations
@@ -168,6 +169,20 @@ class ZeroConv2d(nn.Module):
 
     def forward(self, x):
         return zero_conv2d(x, self.conv.weight, self.conv.bias, self.scale)
+
+
+class Embedding(nn.Module):
+    """A lookup table `weight` (num, dim), N(0, 1) at init as nn.Embedding
+    (GMA's RelPosEmb tables, rel_height / rel_width); indexed directly by
+    its user."""
+
+    def __init__(self, num: int, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num, dim))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.weight.normal_(0.0, 1.0, generator=generator)
 
 
 def make_norm(norm_fn: str, num_features: int) -> nn.Module:

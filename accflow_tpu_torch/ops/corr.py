@@ -45,9 +45,10 @@ SPLIT_LOOKUPS = {"fused_bd": 1, "fused_bd2": 2}
 def normalize_corr_lookup(spelling: str) -> str:
     """The port's lookup for a `corr_lookup` spelling: "fused" for fused,
     mm and pallas_fused (one function in JAX, one kernel here: kernel #1),
+    "auto" for auto (resolve_auto_lookup picks per shape),
     "fused_bd" / "fused_bd2" for experimental:fused_bd[2]. As in JAX, an
     experimental variant needs its "experimental:" prefix (ValueError
-    without). auto, ondemand[:chunk] and the other variants raise
+    without). ondemand[:chunk] and the other variants raise
     NotImplementedError: they are not ported."""
     if spelling.startswith("experimental:"):
         impl = spelling.split(":", 1)[1]
@@ -55,11 +56,13 @@ def normalize_corr_lookup(spelling: str) -> str:
             return impl
         raise NotImplementedError(
             f"corr_lookup={spelling!r} is not ported to accflow_tpu_torch; "
-            f"ported: {' | '.join(FUSED_LOOKUPS)} | "
+            f"ported: {' | '.join(FUSED_LOOKUPS)} | auto | "
             + " | ".join(f"experimental:{k}" for k in SPLIT_LOOKUPS))
     if spelling in FUSED_LOOKUPS:
         return "fused"
-    if spelling == "auto" or spelling.split(":", 1)[0] == "ondemand":
+    if spelling == "auto":
+        return spelling
+    if spelling.split(":", 1)[0] == "ondemand":
         raise NotImplementedError(
             f"corr_lookup={spelling!r} (the volume-free hi-res mode) is not ported "
             "to accflow_tpu_torch yet (ROADMAP.md, queue 1 #11)")
@@ -67,6 +70,64 @@ def normalize_corr_lookup(spelling: str) -> str:
         f"corr_lookup={spelling!r} is an adjudicated experimental variant, not a "
         f"supported impl: spell it 'experimental:{spelling}' to opt in. Supported: "
         "fused | mm | ondemand[:chunk] | auto | pallas_fused")
+
+
+# Stored-volume budget of corr_lookup="auto" (and of GMA's attn_chunk=-1),
+# JAX's value (accflow_tpu/ops/corr.py:136-143), sized there for a 16 GB
+# chip. Re-deriving it for the H100's 80 GB waits for the volume-free
+# lookup it would switch to (ROADMAP.md, queue 1 #11).
+AUTO_VOLUME_BYTES = 4 << 30
+
+
+def stored_volume_bytes(batch: int, h8: int, w8: int, num_levels: int = 4,
+                        dtype=torch.float32) -> int:
+    """Bytes of the stored pyramid (build_corr_pyramid) for `batch` pairs
+    of h8 x w8 feature maps: B*H8*W8 queries times the sum of hl*wl over
+    the levels, in `dtype`. These are logical bytes, as the card's memory
+    holds the levels. JAX counts the TPU's layout, whose minor dim is
+    padded to 128 lanes, up to ~2.8x more (accflow_tpu/ops/corr.py:145-162),
+    so "auto" switches at larger shapes here: at the CVO-6 clip shape
+    (22 pairs of 64 x 64, float32) JAX counts 5.5 GB and picks ondemand,
+    the port 2.0 GB and picks fused."""
+    k, hl, wl = 0, h8, w8
+    for _ in range(num_levels):
+        k += hl * wl
+        hl, wl = hl // 2, wl // 2
+    return batch * h8 * w8 * k * dtype.itemsize
+
+
+def resolve_auto_lookup(spelling: str, batch: int, h8: int, w8: int,
+                        num_levels: int = 4, dtype=torch.float32) -> str:
+    """corr_lookup "auto" for `batch` pairs of h8 x w8 feature maps:
+    "fused" while stored_volume_bytes fits AUTO_VOLUME_BYTES; beyond it
+    JAX picks the volume-free ondemand lookup, which is not ported, so this
+    raises NotImplementedError. Other spellings pass through. A symbolic
+    batch (an export with a symbolic batch) cannot be sized: ValueError,
+    as in JAX."""
+    if spelling != "auto":
+        return spelling
+    if not isinstance(batch, int):
+        raise ValueError(
+            "corr_lookup='auto' needs a concrete batch to size the stored volume, "
+            f"got symbolic {batch!r}: pick an explicit impl ('fused', ...) for an "
+            "export with a symbolic batch")
+    nbytes = stored_volume_bytes(batch, h8, w8, num_levels, dtype)
+    if nbytes <= AUTO_VOLUME_BYTES:
+        return "fused"
+    raise NotImplementedError(
+        f"corr_lookup='auto': the stored volume of {batch} x {h8} x {w8} needs {nbytes} "
+        f"bytes, over the {AUTO_VOLUME_BYTES}-byte budget, where JAX switches to the "
+        "volume-free ondemand lookup, which is not ported to accflow_tpu_torch yet "
+        "(ROADMAP.md, queue 1 #11)")
+
+
+def _divisor_chunk(total: int, chunk: int) -> int:
+    """The largest divisor of `total` that is <= the requested chunk
+    (accflow_tpu/ops/corr.py:210-215)."""
+    chunk = max(1, min(int(chunk), total))
+    while total % chunk:
+        chunk -= 1
+    return chunk
 
 
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:

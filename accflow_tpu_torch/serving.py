@@ -78,7 +78,7 @@ def cast_models(est: FlowEstimator, acc: AccFlow, weights_dtype):
     for None."""
     if weights_dtype is None:
         return est, acc
-    return (FlowEstimator(est.name, cast_weights(est.model, weights_dtype)),
+    return (FlowEstimator(est.name, cast_weights(est.model, weights_dtype), est.iters),
             cast_weights(acc, weights_dtype))
 
 
@@ -172,7 +172,12 @@ def load_artifact(path, device=None):
     callable (images (T, N, H, W, 3), array or tensor) -> (T-2, N, H, W, 2)
     float32 flows on that device, replayed from CUDA graphs on the card."""
     dev = resolve_device(device)
-    exported = load_exported(path)
+    return serve_exported(load_exported(path), dev)
+
+
+def serve_exported(exported: torch.export.ExportedProgram, device=None):
+    """load_artifact's callable for a loaded clip program."""
+    dev = resolve_device(device)
     dtype = compute_dtype(exported)
     module, dev = program_on(exported, dev)
     run = CudaGraphed(module)

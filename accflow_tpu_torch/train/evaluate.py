@@ -1,5 +1,6 @@
 """CVO evaluation (reference test_cvo.py), counterpart of
-accflow_tpu/train/evaluate.py's `cal_epe` and `evaluate_cvo`.
+accflow_tpu/train/evaluate.py's `cal_epe`, `evaluate_cvo` and
+`evaluate_sequence`, for RAFT and GMA (`acc|raft`, `direct|gma`, ...).
 
 Protocol (BASELINE.md):
 - CVO-{end} (end = 6): the flow from frame `end` back to frame 0 on the CVO
@@ -83,10 +84,11 @@ def evaluate_cvo(
     device=None,
 ):
     """Run the CVO-{end} protocol. model_name: e.g. "direct|raft",
-    "acc|raft" (test_cvo.py:118). Weights: `params` / `acc_params` as
+    "acc|gma" (test_cvo.py:118). Weights: `params` / `acc_params` as
     JAX-layout param trees (what convert.to_jax_params and the JAX package
     give), else the checkpoints (a reference .pth or .npz; an acc checkpoint
-    holds the OFE too), else drawn from seeds 0 (RAFT) and 1 (AccFlow).
+    holds the OFE too), else drawn from seeds 0 (the estimator) and 1
+    (AccFlow). attn_chunk: GMA's (GMAConfig.attn_chunk; dropped for RAFT).
     Returns {"all", "occ", "vis"} mean EPEs.
 
     micro_batch: samples per model call (default: the largest divisor of
@@ -96,15 +98,12 @@ def evaluate_cvo(
     for k = end-1 .. 0, each solve initialised from the previous interval's
     1/8-res flow. data_parallel is a no-op on one device (multi-GPU waits
     for ROADMAP.md queue 1 #12). device: cuda unless given."""
-    if attn_chunk:
-        raise NotImplementedError(
-            "attn_chunk belongs to GMA, which is not ported to accflow_tpu_torch yet "
-            "(ROADMAP.md, queue 1 #8)")
     del data_parallel  # one device
     dev = resolve_device(device)
     use_acc = "acc" in model_name.split("|")[0]
     est = build_flow_estimator(model_name, compute_dtype=compute_dtype, device=dev,
-                               corr_lookup=corr_lookup, iters=iters)
+                               corr_lookup=corr_lookup, iters=iters,
+                               attn_chunk=int(attn_chunk))
     acc = None
     if use_acc:
         acc = init_accflow(AccFlowConfig(compute_dtype=compute_dtype, ofe_iters=iters,
@@ -164,3 +163,23 @@ def evaluate_cvo(
     with open(result_file, "a+") as f:
         f.write(line)
     return result
+
+
+def evaluate_sequence(est, frames, iters: int = 12, warm_start: bool = True) -> torch.Tensor:
+    """Consecutive-pair flows over a frame sequence with upstream RAFT's
+    warm start (networks/raft/utils/utils.py:31-63 semantics, the splat on
+    the device: ops/warmstart.py), accflow_tpu/train/evaluate.py's
+    evaluate_sequence. frames (T, N, H, W, 3) in [-1, 1], on the
+    estimator's device or the host. Returns (T-1, N, H, W, 2) float32 flows
+    [f_{0->1}, ..., f_{T-2 -> T-1}]; with warm_start each solve starts from
+    the previous 1/8-res flow advected along itself."""
+    from accflow_tpu_torch.ops.warmstart import forward_splat_flow
+
+    out = est.forward(frames[0], frames[1], iters=iters, final_only=True)
+    flows = [out["flow_up"]]
+    for i in range(1, frames.shape[0] - 1):
+        init = forward_splat_flow(out["flow_low"]) if warm_start else None
+        out = est.forward(frames[i], frames[i + 1], iters=iters, flow_init=init,
+                          final_only=True)
+        flows.append(out["flow_up"])
+    return torch.stack(flows)

@@ -76,17 +76,41 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    experimental:fused_bd and experimental:fused_bd2 and direct|raft with
    fused and experimental:fused_bd: EPE all / vis / occ, seconds per batch,
    peak memory and launches (24 per batch; 48 with fused_bd2); each split
-   lookup's EPEs within EVAL_EPE_REL of fused's.
+   lookup's EPEs within EVAL_EPE_REL of fused's; acc|gma and direct|gma
+   with fused (24 kernel-#1 launches per batch);
+6c. stream (c): phase 6's protocol with GMA (gamma from seed 3; kernel #1,
+   6 launches per push), every graphed push bit-equal to the eager one;
+10. the GMA clip: AccFlow+GMA on the clip path's frames and accumulator (7
+   x 512^2, batch 2, 11 pair queries, 12 iterations, bf16, dense
+   attention), eager and graphed as phases 5 and 5b (12 kernel-#1 launches
+   per forward, graphed against eager, peak memory, --profile's
+   breakdown), then the attention's pieces timed alone (similarity,
+   softmax, cast, gather to the pairs, one iteration's aggregate GEMM)
+   beside their byte bounds; 10b: the small clip with GMA (kernels #1 and
+   #3 against the CPU, as phase 5's);
+11. chunked attention: one GMA pair forward at 512^2, batch 2, with
+   attn_chunk=1024 against dense (CLIP_REL), time and peak of both;
+12. FlowPipeline on random weights, acc+raft and acc+gma, on HWC uint8
+   frames at the Sintel size 436 x 1024: long_range on 7 frames against
+   accflow_forward on the padded clip, pair_flow, occlusion, pairs with
+   a warm start, 30 frames of stream(), each call's seconds; 12b:
+   ArtifactPipeline on phase 9a's bf16 clip artifact against long_range
+   on the batch it fills (ARTIFACT_REL);
+13. the demo CLI in its own process (--mode long --ofe gma --no_viz, the
+   7 frames as .bin files, phase 12's GMA weights as an .npz checkpoint):
+   its .flo files against phase 12's long_range (CLIP_REL).
 Optional phases: --tile-sweep builds kernels #1 and #2 with 4, 8 and 16
 queries per block and times them in turns (#1 at the clip shape after phase
 3, #2 at the stream shape after phase 4); --profile prints where
 the device time of the clip forward (with fused and with
-experimental:fused_bd) and of a stream push, eager and graphed, goes
-(torch.profiler). A {"graphs": {...}} line holds the eager and graphed
-medians, busy times, launches per replay and peaks, and the artifacts'
-numbers, with the card's name and power limit. The line before the last is
-{"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Without a GPU, or without the package beside it, the
-script exits non-zero and prints no result.
+experimental:fused_bd, and with GMA) and of a stream push, eager and
+graphed, goes (torch.profiler). A {"graphs": {...}} line holds the eager
+and graphed medians, busy times, launches per replay and peaks, and the
+artifacts' numbers, with the card's name and power limit; a {"gma": {...}}
+line the numbers of phases 6c and 8's GMA runs and 10-13. The line before
+the last is {"kernels": [...]}; the last line is {"ok": true, "device":
+{...}}. Without a GPU, or without the package beside it, the script exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -109,11 +133,21 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 try:
-    from accflow_tpu_torch import graphs, models, probes, serving
-    from accflow_tpu_torch.convert import load_jax_params, load_npz_tree, to_jax_params
+    from accflow_tpu_torch import ArtifactPipeline, FlowPipeline, graphs, models, probes, serving
+    from accflow_tpu_torch.api import _as_frames
+    from accflow_tpu_torch.convert import (
+        load_jax_params,
+        load_npz_tree,
+        save_npz_tree,
+        to_jax_params,
+    )
     from accflow_tpu_torch.data.synthetic import make_long_sequence, write_synthetic_cvor
+    from accflow_tpu_torch.models import gma
+    from accflow_tpu_torch.models.raft import gather_pairs, raft_cnet, to_nchw
     from accflow_tpu_torch.nn.layers import tf32
     from accflow_tpu_torch.ops import corr, corr_bd_cuda, corr_cuda, corr_level_cuda
+    from accflow_tpu_torch.ops.occlusion import calc_occ_mask
+    from accflow_tpu_torch.ops.padding import InputPadder
     from accflow_tpu_torch.probes import grid_sample_lookup, lookup_bound
     from accflow_tpu_torch.streaming import (
         StreamAccumulator,
@@ -123,6 +157,7 @@ try:
         save_streaming_artifact,
     )
     from accflow_tpu_torch.train.evaluate import evaluate_cvo
+    from accflow_tpu_torch.utils.frame_io import read_flow
 except ImportError as e:  # this file alone, outside the repository
     sys.exit(f"chip_smoke: run from the repository root ({e})")
 
@@ -172,12 +207,15 @@ EVAL_EPE_REL = 0.02
 # output by ~2^-8 of its size at most, and the flow by less; a wrong
 # weight, op or lookup moves it everywhere. Fixed before the first run.
 ARTIFACT_REL = 1e-3
-FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
+REPO = Path(__file__).resolve().parent
+FIXTURES = REPO / "tests" / "fixtures"
 KERNELS = (corr_cuda, corr_level_cuda, corr_bd_cuda)  # each wrapper's `launches` count
 TILES = (4, 8, 16)           # queries per block of kernels #1 and #2 tried by --tile-sweep; 8 ships
 KINDS = (  # --profile: kind of a kernel, first match on its lower-cased name
     ("corr lookup (this port's kernels)", ("corr_window", "y_contract")),
-    ("conv / GEMM (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "cudnn", "sm90_", "wgrad", "dgrad")),
+    ("conv (cuDNN)", ("fprop", "implicit", "conv", "cudnn", "wgrad", "dgrad")),
+    ("GEMM (cuBLAS: pyramid, GMA attention and aggregate, split lookup)",
+     ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
     ("gather / index", ("index", "gather", "scatter")),
     ("softmax", ("softmax",)),
     ("reduction", ("reduce",)),
@@ -579,6 +617,35 @@ def perturb_zero_conv(acc, seed: int) -> None:
             p.copy_(torch.randn(p.shape, generator=gen) * scale)
 
 
+def perturb_gamma(model, seed: int) -> None:
+    """GMA's aggregator starts with gamma = 0, which switches its global
+    motion branch off; draw it from `seed`, U(2, 4), so the run aggregates."""
+    gen = torch.Generator().manual_seed(seed)
+    gamma = model.update_block.aggregator.gamma
+    with torch.no_grad():
+        gamma.copy_(torch.rand(gamma.shape, generator=gen) * 2 + 2)
+
+
+def clip_inputs(t: int = 7, n: int = 2, size: int = 512):
+    """The clip path's accumulator (AccFlow hidden 128, bf16, seed 1, its
+    ZeroConv drawn from seed 2) and frames (uniform in [-1, 1] from seed 0),
+    on the card."""
+    acc = models.init_accflow(models.AccFlowConfig(compute_dtype="bfloat16"), seed=1,
+                              device="cpu")
+    perturb_zero_conv(acc, 2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.empty((t, n, size, size, 3), device="cuda").uniform_(-1, 1, generator=gen)
+    return acc.to("cuda"), images
+
+
+def gma_estimator(**kw):
+    """GMA from seed 0 on the card, bf16 unless told, gamma from seed 3."""
+    kw.setdefault("compute_dtype", "bfloat16")
+    est = models.build_flow_estimator("gma", seed=0, **kw)
+    perturb_gamma(est.model, 3)
+    return est
+
+
 def reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
@@ -751,17 +818,11 @@ def clip_path(with_profile: bool, tmp: str):
     lookup, then the small GPU-vs-CPU clip. Returns (kernel #1 launches,
     frames/s, kernel #3 launches, frames/s with fused_bd, the small clip's
     GPU launches by lookup, {"graphed": ..., "artifact": ...})."""
-    dev = torch.device("cuda")
     t, n, size = 7, 2, 512
-    acfg = models.AccFlowConfig(compute_dtype="bfloat16")
-    acc = models.init_accflow(acfg, seed=1, device="cpu")
-    perturb_zero_conv(acc, 2)
-    acc = acc.to(dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    images = torch.empty((t, n, size, size, 3), device=dev).uniform_(-1, 1, generator=gen)
+    acc, images = clip_inputs(t, n, size)
     shape = (t - 2, n, size, size, 2)
     est = models.build_flow_estimator("raft", compute_dtype="bfloat16", seed=0)
-    pairs = est.pairs_fn(iters=acfg.ofe_iters)
+    pairs = est.pairs_fn(iters=acc.cfg.ofe_iters)
 
     def forward():
         return models.accflow_forward(acc, images, pairs)
@@ -787,7 +848,7 @@ def clip_path(with_profile: bool, tmp: str):
 
     est_bd = models.build_flow_estimator("raft", compute_dtype="bfloat16", seed=0,
                                          corr_lookup="experimental:fused_bd")
-    pairs_bd = est_bd.pairs_fn(iters=acfg.ofe_iters)
+    pairs_bd = est_bd.pairs_fn(iters=acc.cfg.ofe_iters)
 
     def forward_bd():
         return models.accflow_forward(acc, images, pairs_bd)
@@ -821,8 +882,9 @@ def sync_free(label: str, fn) -> None:
     print(f"{label} under the sync debug mode 'error': no host synchronisation")
 
 
-def small_clip() -> dict:
-    """A 4-frame 64^2 clip in float32, TF32 off, with the same seeds: on the
+def small_clip(ofe: str = "raft") -> dict:
+    """A 4-frame 64^2 clip in float32, TF32 off, with the same seeds (and,
+    with ofe="gma" in phase 10b, GMA's gamma from seed 3): on the
     GPU (through the kernels) and on the CPU (through the plain versions,
     the path tests/test_torch_*.py hold against JAX), with corr_lookup
     fused and experimental:fused_bd. Both sides are float32 and differ
@@ -839,8 +901,10 @@ def small_clip() -> dict:
     outs, launches = {}, {}
     for lookup, kernel in (("fused", corr_cuda), ("experimental:fused_bd", corr_bd_cuda)):
         for where in ("cuda", "cpu"):
-            est = models.build_flow_estimator("raft", compute_dtype="float32", device=where,
+            est = models.build_flow_estimator(ofe, compute_dtype="float32", device=where,
                                               seed=0, corr_lookup=lookup)
+            if ofe == "gma":
+                perturb_gamma(est.model, 3)
             cfg = models.AccFlowConfig(compute_dtype="float32")
             acc = models.init_accflow(cfg, seed=1, device="cpu")
             perturb_zero_conv(acc, 2)
@@ -848,7 +912,7 @@ def small_clip() -> dict:
             with tf32(False):
                 outs[lookup, where] = models.accflow_forward(
                     acc.to(where), clip, est.pairs_fn()).cpu().numpy()
-            n = expect_counts(f"small clip {lookup} on {where}", kernel,
+            n = expect_counts(f"small clip {ofe} {lookup} on {where}", kernel,
                               12 if where == "cuda" else 0)
             if where == "cuda":
                 launches[lookup] = n
@@ -858,12 +922,12 @@ def small_clip() -> dict:
         diff = float(np.abs(outs[a] - outs[b]).max())
         flow_max = float(np.abs(outs[b]).max())
         tol = CLIP_REL * flow_max
-        print(f"small clip {a[0]} on {a[1]} vs {b[0]} on {b[1]}: max abs {diff:.3e}, "
+        print(f"small clip {ofe} {a[0]} on {a[1]} vs {b[0]} on {b[1]}: max abs {diff:.3e}, "
               f"|flow| max {flow_max:.3e} (tol {CLIP_REL:g} x |flow| max = {tol:.3e})")
         if not flow_max > 0 or not np.isfinite(outs[a]).all():
-            fail("small clip: the flow is zero or not finite, nothing to compare")
+            fail(f"small clip {ofe}: the flow is zero or not finite, nothing to compare")
         if not diff <= tol:
-            fail(f"small clip: {a} and {b} differ by {diff:.3e} > {tol:.3e}")
+            fail(f"small clip {ofe}: {a} and {b} differ by {diff:.3e} > {tol:.3e}")
     return launches
 
 
@@ -887,7 +951,8 @@ def moving_frames(t: int, n: int, size: int, seed: int) -> torch.Tensor:
     return frames.permute(0, 1, 3, 4, 2).contiguous()
 
 
-def stream_path(label: str, small: bool, with_profile: bool, tmp=None) -> dict:
+def stream_path(label: str, small: bool, with_profile: bool, tmp=None, ofe: str = "raft",
+                bit_equal: bool = False) -> dict:
     """Phase 6: scripts/bench_stream.py's stream6 protocol: 512^2, batch 2,
     bf16 compute, 6 OFE iterations per step, AccFlow hidden 128 with its
     ZeroConv perturbed; reset on 3 frames, 2 warm-up pushes, 30 timed
@@ -900,11 +965,16 @@ def stream_path(label: str, small: bool, with_profile: bool, tmp=None) -> dict:
     held against the eager one (the same kernels: bit-equal expected, held
     within CLIP_REL of the largest |flow|). With `tmp`, phase 9b: the
     stream exported with bfloat16 weights, saved, loaded for the card and
-    run on the same frames (ARTIFACT_REL). Returns the numbers."""
+    run on the same frames (ARTIFACT_REL). ofe="gma" (stream (c), phase
+    6c) runs GMA with its gamma from seed 3; bit_equal fails the phase
+    unless every graphed push equals the eager one bit for bit. Returns the
+    numbers."""
     n, size, warm, timed, iters = 2, 512, 2, 30, 6
     kernel = corr_level_cuda if small else corr_cuda
-    est = models.build_flow_estimator("raft", compute_dtype="bfloat16", small=small,
+    est = models.build_flow_estimator(ofe, compute_dtype="bfloat16", small=small,
                                       iters=iters, seed=0)
+    if ofe == "gma":
+        perturb_gamma(est.model, 3)
     acc = models.init_accflow(models.AccFlowConfig(compute_dtype="bfloat16", warm_start=True),
                               seed=1, device="cpu")
     perturb_zero_conv(acc, 2)
@@ -973,7 +1043,7 @@ def stream_path(label: str, small: bool, with_profile: bool, tmp=None) -> dict:
         fail(f"stream {label}: the profile of one replay saw {ours} lookup launches, "
              f"expected {iters}")
     diff, flow_max = max(diffs), max(float(o.abs().max()) for o in eager_outs)
-    if not diff <= CLIP_REL * flow_max:
+    if not diff <= CLIP_REL * flow_max or (bit_equal and diff != 0):
         fail(f"stream {label}: graphed pushes differ from eager by {diff:.3e}")
     g_med = statistics.median(g_secs) * 1e3
     g_fps = n * timed / sum(g_secs)
@@ -1131,20 +1201,25 @@ def drift_fixture():
 def eval_phase():
     """Phase 8: the CVO evaluation at full width on synthetic CVOR clips
     (10 of 512^2, written to a temporary directory): one warm-up call, then
-    acc|raft with fused, fused_bd and fused_bd2 and direct|raft with fused
-    and fused_bd, batch 10 (micro-batch 5), 12 iterations, bfloat16, RAFT
-    from seed 0 and AccFlow from seed 1 with its ZeroConv perturbed. Returns
-    {(model, lookup): row}."""
+    acc|raft with fused, fused_bd and fused_bd2, direct|raft with fused
+    and fused_bd, and acc|gma and direct|gma with fused, batch 10
+    (micro-batch 5), 12 iterations, bfloat16, RAFT and GMA from seed 0
+    (GMA's gamma from seed 3) and AccFlow from seed 1 with its ZeroConv
+    perturbed. Returns {(model, lookup): row}."""
     clips, batch, n_batches = 10, 10, 1
     acc = models.init_accflow(models.AccFlowConfig(compute_dtype="bfloat16"), seed=1,
                               device="cpu")
     perturb_zero_conv(acc, 2)
     acc_tree = to_jax_params(acc)
-    del acc
+    gma_est = models.build_flow_estimator("gma", seed=0, device="cpu")
+    perturb_gamma(gma_est.model, 3)
+    gma_tree = to_jax_params(gma_est.model)
+    del acc, gma_est
     runs = (("acc|raft", "fused", corr_cuda, 24), ("acc|raft", "experimental:fused_bd", corr_bd_cuda, 24),
             ("acc|raft", "experimental:fused_bd2", corr_bd_cuda, 48),
             ("direct|raft", "fused", corr_cuda, 24),
-            ("direct|raft", "experimental:fused_bd", corr_bd_cuda, 24))
+            ("direct|raft", "experimental:fused_bd", corr_bd_cuda, 24),
+            ("acc|gma", "fused", corr_cuda, 24), ("direct|gma", "fused", corr_cuda, 24))
     rows = {}
     print(f"eval: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated before its runs "
           "(earlier phases' tensors; in each run's peak)")
@@ -1158,6 +1233,7 @@ def eval_phase():
         def run(model, lookup):
             return evaluate_cvo(model, root, batch=batch, iters=12, compute_dtype="bfloat16",
                                 corr_lookup=lookup, acc_params=acc_tree, device="cuda",
+                                params=gma_tree if "gma" in model else None,
                                 result_file=str(Path(tmp) / "result.txt"))
 
         run("acc|raft", "fused")  # warm-up: cuDNN algorithm choice at batch 5
@@ -1179,7 +1255,7 @@ def eval_phase():
             rows[model, lookup] = dict(res, s_per_batch=secs, peak_gib=peak / 2**30,
                                        launches=launches)
     for model, lookup, _, _ in runs:
-        if lookup == "fused":
+        if lookup == "fused":  # the GMA runs have no split-lookup twin here
             continue
         ref, got = rows[model, "fused"], rows[model, lookup]
         for k in ("all", "vis", "occ"):
@@ -1190,6 +1266,289 @@ def eval_phase():
                 fail(f"eval {model}: {lookup} EPE {k} {got[k]} differs from fused's "
                      f"{ref[k]} by more than {bar}")
     return rows
+
+
+def attention_parts(est, images) -> dict:
+    """Phase 10, the attention's pieces at the GMA clip's shapes, each
+    timed alone (device_ms): the similarity of the 12 unique source images
+    (6 source frames x batch 2; (12, 4096, 4096) float32, TF32 on bf16
+    values), the float32 softmax, its cast to bf16, the gather to the 22
+    pairs, and one iteration's aggregate GEMM (22 x 4096 x 4096 bf16 by
+    (4096, 128) bf16, float32 reductions), each beside its byte bound
+    (inputs read once, the output written once, at 3.35 TB/s)."""
+    model = est.model
+    t, n = images.shape[:2]
+    sel = [s - 1 for s in tuple(range(2, t)) * 2 + (1,)]  # the clip's 11 pair queries
+    with torch.no_grad(), tf32(False):
+        _, inp = raft_cnet(model, to_nchw(images[1:].reshape(-1, *images.shape[2:]),
+                                          torch.bfloat16))  # source frames 1 .. t-1
+        q, k = (gma._heads(x, 1).float() for x in model.att.to_qk(inp).split(128, dim=1))
+        sim = gma._similarity(q, k, True)
+        soft = torch.softmax(sim, dim=-1)
+        attn = soft.to(torch.bfloat16)
+        attn_p = gather_pairs(attn, sel, n)
+        v = torch.randn((attn_p.shape[0], 1, attn_p.shape[-1], 128), device="cuda",
+                        dtype=torch.bfloat16)
+        hw = sim.shape[-1]
+
+        def aggregate_gemm():
+            with corr._float32_reduction():
+                return torch.matmul(attn_p, v)
+
+        rows = {}
+        for name, fn, nbytes in (
+                ("similarity", lambda: gma._similarity(q, k, True),
+                 q.numel() * 4 * 2 + sim.numel() * 4),
+                ("softmax", lambda: torch.softmax(sim, dim=-1), sim.numel() * 8),
+                ("cast to bf16", lambda: soft.to(torch.bfloat16), sim.numel() * 6),
+                ("gather to the pairs", lambda: gather_pairs(attn, sel, n), attn_p.numel() * 4),
+                ("aggregate GEMM, one iteration", aggregate_gemm,
+                 attn_p.numel() * 2 + v.numel() * 4)):
+            ms = device_ms(fn, 5)
+            rows[name] = dict(ms=ms, bound_ms=nbytes / 3.35e9)
+            print(f"GMA attention, {name}: {ms:.4f} ms, byte bound {nbytes / 3.35e9:.4f} ms "
+                  f"({nbytes} B)")
+        print(f"GMA attention: {len(sel) * n} pairs of {hw} queries from {q.shape[0]} source "
+              f"images; per clip forward: similarity + softmax + cast + gather "
+              f"{sum(rows[k]['ms'] for k in list(rows)[:4]):.3f} ms once, aggregate GEMM "
+              f"12 x {rows['aggregate GEMM, one iteration']['ms']:.4f} ms")
+    del sim, soft, attn, attn_p, v, q, k, inp
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gma_clip_path(with_profile: bool) -> dict:
+    """Phase 10: AccFlow+GMA on the CVO-6 protocol at full width, the clip
+    path's frames and accumulator (7 x 512^2, batch 2, 11 pair queries, 12
+    iterations, bf16, dense attention: GMAConfig's attn_chunk 0), GMA from
+    seed 0 with its gamma from seed 3: 2 warm-up and 5 timed eager forwards
+    (12 kernel-#1 launches each, output checked, peak memory), --profile's
+    breakdown, one eager forward under the sync debug mode "error", then the
+    same clip graphed (graphed_clip: 2 warm-up and 5 timed replays, the
+    output against eager), then the attention's pieces (attention_parts).
+    Returns the numbers."""
+    t, n, size = 7, 2, 512
+    acc, images = clip_inputs(t, n, size)
+    est = gma_estimator()
+    pairs = est.pairs_fn(iters=12)
+
+    def forward():
+        return models.accflow_forward(acc, images, pairs)
+
+    launches, med, _, out, peak = time_clip("GMA clip", forward, corr_cuda, (t - 2, n, size,
+                                                                              size, 2))
+    if with_profile:
+        profile_forward(forward, med * 1e3)
+    sync_free("GMA clip: one eager forward", forward)
+    torch.cuda.empty_cache()
+    graphed = graphed_clip("GMA clip, graphed", serving.build_serving_fn(est, acc), images, out,
+                           corr_cuda, 12)
+    torch.cuda.empty_cache()
+    parts = attention_parts(est, images)
+    print(f"GMA clip, same process on {smi('name,power.limit')}: eager median {med * 1e3:.2f} ms "
+          f"({n * t / med:.3f} frames/s, peak {peak / 2**30:.3f} GiB), graphed "
+          f"{graphed['median_ms']:.2f} ms ({graphed['frames_per_s']:.3f} frames/s, busy "
+          f"{graphed['busy_ms']:.2f} ms, peak {graphed['peak_gib']:.3f} GiB)")
+    del est, pairs, acc, images, out
+    torch.cuda.empty_cache()
+    return dict(eager_median_ms=med * 1e3, eager_frames_per_s=n * t / med,
+                eager_peak_gib=peak / 2**30, launches=launches, graphed=graphed,
+                attention=parts)
+
+
+def chunked_attention() -> dict:
+    """Phase 11: one GMA pair forward (final only) at 512^2, batch 2, 12
+    iterations, bf16, with attn_chunk=1024 (four chunks of query rows
+    recomputed at every aggregate) against dense attention (attn_chunk 0),
+    the same weights and images: 2 warm-up and 5 timed calls each, peak
+    memory each, and the flows within CLIP_REL of the largest |flow| (each
+    row's softmax sees every key in both; they differ by the GEMMs'
+    summation order over row blocks, then bf16 rounding)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    i1, i2 = torch.empty((2, 2, 512, 512, 3), device="cuda").uniform_(-1, 1, generator=gen)
+    rows, outs = {}, {}
+    for chunk in (0, 1024):
+        est = gma_estimator(attn_chunk=chunk)
+
+        def fwd():
+            return est.forward(i1, i2, final_only=True)["flow_up"]
+
+        timed_runs(fwd, 2)
+        torch.cuda.reset_peak_memory_stats()
+        secs, outs[chunk] = timed_runs(fwd, 5)
+        rows[chunk] = dict(median_ms=statistics.median(secs) * 1e3,
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del est
+        torch.cuda.empty_cache()
+    diff, flow_max = float((outs[1024] - outs[0]).abs().max()), float(outs[0].abs().max())
+    print(f"GMA pair forward 512^2 batch 2: dense {rows[0]['median_ms']:.2f} ms (peak "
+          f"{rows[0]['peak_gib']:.3f} GiB), attn_chunk=1024 {rows[1024]['median_ms']:.2f} ms "
+          f"(peak {rows[1024]['peak_gib']:.3f} GiB); chunked vs dense max abs {diff:.3e} (bar "
+          f"{CLIP_REL:g} x |flow| max {flow_max:.3e})")
+    if not flow_max > 0 or not diff <= CLIP_REL * flow_max:
+        fail(f"chunked attention differs from dense by {diff:.3e}")
+    return dict(dense=rows[0], chunk1024=rows[1024], max_abs=diff, flow_max=flow_max)
+
+
+def sintel_frames(t: int, seed: int) -> np.ndarray:
+    """(t, 436, 1024, 3) uint8 HWC frames at the Sintel size (not /8
+    divisible in height): moving_frames at 1024^2, the top 436 rows."""
+    f = moving_frames(t, 1, 1024, seed)[:, 0, :436]
+    return ((f + 1) * 127.5).round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def api_call(label: str, fn, reps: int = 2):
+    """`reps` calls of fn (the first warms up); prints and returns (seconds
+    of the last, its output)."""
+    secs, out = timed_runs(fn, reps)
+    print(f"FlowPipeline {label}: {secs[-1] * 1e3:.2f} ms per call (first {secs[0] * 1e3:.2f})")
+    return secs[-1], out
+
+
+def pipeline_phase(tmp: str, graphed_clip_ms: float) -> dict:
+    """Phase 12: FlowPipeline.from_checkpoint("acc+raft") and ("acc+gma")
+    on random weights (seeds 0 and 1, the ZeroConv from seed 2, GMA's gamma
+    from seed 3), bf16, 12 iterations, corr_lookup "auto" and attn_chunk -1
+    (resolved per shape), on HWC uint8 frames at the Sintel size 436 x 1024
+    (padded to 440 x 1024): long_range on 7 frames against accflow_forward
+    on the padded clip, cropped (the same ops: bit-equal expected, held
+    within CLIP_REL of the largest |flow|); pair_flow against pairs()' first
+    (cold) flow; occlusion against the estimator's batched two-direction
+    solve and calc_occ_mask of it; pairs(warm_start=True) over the 7
+    frames; 30 frames of stream() (a CUDA graph per push). Each call's
+    seconds (the second call), beside the graphed clip's. Then phase 12b:
+    ArtifactPipeline on the clip path's bf16 artifact (7 x 512^2, batch 2),
+    fed one batch of uint8 frames, which it fills to two, against the RAFT
+    pipeline's long_range on that filled batch (ARTIFACT_REL). Returns the numbers and, for the demo
+    phase, the GMA pipeline's long_range and its frames."""
+    frames = sintel_frames(30, seed=6)
+    clip7 = frames[:7]
+    rows, keep = {}, {}
+    for name in ("acc+raft", "acc+gma"):
+        pipe = FlowPipeline.from_checkpoint(name)
+        perturb_zero_conv(pipe.acc, 2)
+        if "gma" in name:
+            perturb_gamma(pipe.est.model, 3)
+        row = {}
+        reset_counts()
+        row["long_range_s"], lr = api_call(f"{name} long_range, 7 frames",
+                                           lambda: pipe.long_range(clip7))
+        expect_counts(f"FlowPipeline {name} long_range (2 calls)", corr_cuda, 24)
+        padder = InputPadder((7, 1, 436, 1024, 3))
+        padded = padder.pad_np(_as_frames(clip7, False, "many")[0])
+        ref = padder.unpad(models.accflow_forward(pipe.acc, padded, pipe.est.pairs_fn(iters=12)))
+        ref = ref[:, 0].float().cpu().numpy()
+        diff, flow_max = float(np.abs(lr - ref).max()), float(np.abs(ref).max())
+        print(f"FlowPipeline {name} long_range vs accflow_forward on the padded clip: max abs "
+              f"{diff:.3e} ({'bit-equal' if diff == 0 else 'not bit-equal'}; bar {CLIP_REL:g} x "
+              f"{flow_max:.3e}); output {lr.shape}")
+        if lr.shape != (5, 436, 1024, 2) or not flow_max > 0 or not diff <= CLIP_REL * flow_max:
+            fail(f"FlowPipeline {name}: long_range {lr.shape} differs from accflow_forward by "
+                 f"{diff:.3e}")
+        row["long_range_vs_accflow_forward"] = diff
+        row["pair_flow_s"], pf = api_call(f"{name} pair_flow", lambda: pipe.pair_flow(frames[0],
+                                                                                      frames[1]))
+        row["occlusion_s"], (of, occ) = api_call(
+            f"{name} occlusion", lambda: pipe.occlusion(frames[0], frames[1]))
+        row["pairs_s"], prs = api_call(f"{name} pairs, 7 frames, warm start",
+                                       lambda: pipe.pairs(clip7, warm_start=True))
+        # occlusion solves both directions as one batch of 2, so its flow is
+        # held against that batched solve (bf16 convs round differently at
+        # another batch) and its mask against calc_occ_mask of it.
+        pad1 = InputPadder((1, 436, 1024, 3))
+        p1, p2 = (pad1.pad_np(_as_frames(f, False)[0]) for f in frames[:2])
+        both = pipe.est.forward(np.concatenate([p1, p2]), np.concatenate([p2, p1]),
+                                final_only=True)["flow_up"]
+        occ_ref = pad1.unpad(calc_occ_mask(both[1:], both[:1])[1])[0].cpu().numpy()
+        of_ref = pad1.unpad(both[:1])[0].float().cpu().numpy()
+        gaps = (float(np.abs(prs[0] - pf).max()), float(np.abs(of - of_ref).max()))
+        same_occ = float(np.mean(occ == occ_ref))
+        print(f"FlowPipeline {name}: pair_flow vs pairs()[0] max abs {gaps[0]:.3e}; occlusion's "
+              f"flow vs the batched two-direction solve {gaps[1]:.3e}, its mask equal to "
+              f"calc_occ_mask's on {100 * same_occ:.2f} % of pixels; occluded share "
+              f"{float(occ.mean()):.4f}")
+        if (pf.shape != (436, 1024, 2) or prs.shape != (6, 436, 1024, 2)
+                or occ.shape != (436, 1024, 1) or not set(np.unique(occ)) <= {0.0, 1.0}
+                or not all(np.isfinite(x).all() for x in (pf, prs, of))
+                or not gaps[0] <= CLIP_REL * float(np.abs(pf).max())
+                or not gaps[1] <= CLIP_REL * float(np.abs(of_ref).max()) or same_occ < 0.99):
+            fail(f"FlowPipeline {name}: pair_flow / occlusion / pairs disagree or are malformed")
+        stream = pipe.stream()
+        secs, outs = [], []
+        for f in frames:
+            t0 = time.perf_counter()
+            outs.append(stream.send(f))
+            secs.append(time.perf_counter() - t0)
+        if any(o is not None for o in outs[:2]) or not all(
+                o.shape == (436, 1024, 2) and np.isfinite(o).all() for o in outs[2:]):
+            fail(f"FlowPipeline {name}: stream outputs malformed")
+        row["stream_send_median_ms"] = statistics.median(secs[5:]) * 1e3
+        print(f"FlowPipeline {name} stream: 30 frames, send() median "
+              f"{row['stream_send_median_ms']:.2f} ms over frames 6-30 (first push, warm-ups "
+              f"and capture {secs[3] * 1e3:.1f} ms); the graphed clip (7 x 512^2, batch 2) "
+              f"{graphed_clip_ms:.2f} ms")
+        rows[name] = row
+        keep[name] = (pipe, lr)
+        del stream
+    torch.cuda.empty_cache()
+
+    f512 = ((moving_frames(7, 1, 512, seed=7)[:, 0] + 1) * 127.5).round().clamp(0, 255)
+    f512 = f512.to(torch.uint8).cpu().numpy()
+    apipe = ArtifactPipeline(str(Path(tmp) / "clip_bf16.pt2"))
+    reset_counts()
+    art_s, got = api_call("ArtifactPipeline long_range (bf16 clip artifact, 1 of batch 2)",
+                          lambda: apipe.long_range(f512))
+    expect_counts("ArtifactPipeline (warm-ups and capture; replays uncounted)", corr_cuda,
+                  12 * (graphs.WARMUP + 1))
+    # The artifact fills its batch of 2 with the clip twice; long_range on
+    # that batch is the like-for-like reference (bf16 convs round
+    # differently at batch 1).
+    ref = keep["acc+raft"][0].long_range(np.stack([f512, f512], axis=1))[:, 0]
+    diff = check_artifact("ArtifactPipeline vs FlowPipeline acc+raft long_range on the filled "
+                          "batch", torch.from_numpy(got), torch.from_numpy(ref))
+    rows["artifact"] = dict(long_range_s=art_s, max_abs_vs_pipeline=diff)
+    del apipe
+    gc.collect()
+    pipe_gma, lr_gma = keep.pop("acc+gma")
+    keep.clear()
+    torch.cuda.empty_cache()
+    return rows, pipe_gma, lr_gma, clip7
+
+
+def demo_phase(tmp: str, pipe, lr, clip7) -> dict:
+    """Phase 13: `python -m accflow_tpu_torch.cli.demo --mode long --ofe gma
+    --no_viz` in its own process on the 7 Sintel-size frames written as .bin
+    numpy files (read_gen's np.load branch, passed by name), with the GMA
+    pipeline's weights handed over as an .npz checkpoint (save_npz_tree):
+    its .flo files, read back, against that pipeline's long_range on the
+    same frames (the same kernels: bit-equal expected; CLIP_REL)."""
+    d = Path(tmp) / "demo"
+    d.mkdir()
+    files = []
+    for i, f in enumerate(clip7):
+        files.append(str(d / f"frame_{i:03d}.bin"))
+        with open(files[-1], "wb") as fh:
+            np.save(fh, f)
+    stem = str(d / "acc+gma")
+    save_npz_tree(stem + ".ofe.npz", to_jax_params(pipe.est.model))
+    save_npz_tree(stem + ".acc.npz", to_jax_params(pipe.acc))
+    out = d / "out"
+    cmd = [sys.executable, "-m", "accflow_tpu_torch.cli.demo", "--frames", *files, "--mode",
+           "long", "--ofe", "gma", "--acc_ckpt", stem, "--no_viz", "--out", str(out)]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=str(REPO))
+    secs = time.perf_counter() - t0
+    print("demo: " + " | ".join(run.stdout.strip().splitlines()[-3:]))
+    if run.returncode != 0:
+        fail(f"demo exited {run.returncode}: {run.stderr[-2000:]}")
+    got = np.stack([read_flow(str(out / f"frame_{i:03d}_to_frame_000.flo")) for i in range(2, 7)])
+    diff, flow_max = float(np.abs(got - lr).max()), float(np.abs(lr).max())
+    print(f"demo --mode long --ofe gma, 7 frames 436 x 1024: {secs:.1f} s for the process; "
+          f".flo vs FlowPipeline.long_range max abs {diff:.3e} "
+          f"({'bit-equal' if diff == 0 else 'not bit-equal'}; bar {CLIP_REL:g} x {flow_max:.3e})")
+    if got.shape != lr.shape or not diff <= CLIP_REL * flow_max:
+        fail(f"demo: its flows differ from FlowPipeline.long_range by {diff:.3e}")
+    return dict(process_s=secs, max_abs_vs_pipeline=diff)
 
 
 def build_kernels() -> None:
@@ -1260,7 +1619,18 @@ def main() -> int:
               f"{clip_extra['graphed']['frames_per_s']:.3f}; loaded bf16 artifact "
               f"{14 / clip_extra['artifact']['median_ms'] * 1e3:.3f}")
         stream_a = stream_path("(a) RAFT-small", True, args.profile, tmp)
+        gma_row = gma_clip_path(args.profile)
+        gma_small = small_clip("gma")
+        chunked = chunked_attention()
+        api_rows, pipe_gma, lr_gma, clip7 = pipeline_phase(
+            tmp, clip_extra["graphed"]["median_ms"])
+        demo_row = demo_phase(tmp, pipe_gma, lr_gma, clip7)
+        del pipe_gma
+        torch.cuda.empty_cache()
+    print(f"GMA frames/s on {line} (AccFlow+GMA, 7x512^2, batch 2, 12 iters, bf16): eager "
+          f"{gma_row['eager_frames_per_s']:.3f}, graphed {gma_row['graphed']['frames_per_s']:.3f}")
     stream_b = stream_path("(b) full RAFT", False, args.profile)
+    stream_c = stream_path("(c) GMA", False, False, ofe="gma", bit_equal=True)
     print(f"stream frames/s on {line} (512^2, batch 2, 6 iters, bf16): (a) RAFT-small eager "
           f"{stream_a['eager_frames_per_s']:.3f} ({stream_a['eager_median_ms']:.3f} ms per push), "
           f"graphed {stream_a['frames_per_s']:.3f} ({stream_a['median_ms']:.3f} ms); (b) full "
@@ -1270,6 +1640,11 @@ def main() -> int:
     evals = eval_phase()
     print(json.dumps({"graphs": {"card": line, "clip": clip_extra, "stream_a": stream_a,
                                  "stream_b": stream_b}}))
+    print(json.dumps({"gma": {
+        "card": line, "clip": gma_row, "small_clip_launches": gma_small,
+        "chunked_attention": chunked, "stream_c": stream_c,
+        "eval": {f"{m} {lk}": evals[m, lk] for m, lk in evals if "gma" in m},
+        "pipeline": api_rows, "demo": demo_row}}))
 
     # Kernels #1 and #3 have a row for each output type, each timed in the
     # configuration whose launches it reports: corr_lookup and
@@ -1287,11 +1662,14 @@ def main() -> int:
          "replaces": "accflow_tpu/ops/corr_pallas.py:264",
          "launches": launches1, "launches_in": "the clip path (5 forwards)",
          **rows1["bfloat16, bf16 out"], "levels_dtype": "bfloat16", "out_dtype": "bfloat16",
-         "eval_launches": evals["acc|raft", "fused"]["launches"]},
+         "eval_launches": evals["acc|raft", "fused"]["launches"],
+         "gma_clip_launches": gma_row["launches"], "stream_c_launches": stream_c["launches"],
+         "gma_eval_launches": evals["acc|gma", "fused"]["launches"]},
         {"name": "corr_lookup_f32_out", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:264",
          "launches": small["fused"], "launches_in": "the f32 small clip on the GPU",
+         "gma_small_clip_launches": gma_small["fused"],
          **rows1["float32"], "levels_dtype": "float32", "out_dtype": "float32",
          "float32_levels_bf16_out": rows1["float32, bf16 out"],
          "bfloat16_in": rows1["bfloat16"]},
@@ -1326,6 +1704,7 @@ def main() -> int:
          "replaces": "accflow_tpu/ops/corr_pallas.py:343",
          "launches": small["experimental:fused_bd"],
          "launches_in": "the f32 small clip on the GPU, experimental:fused_bd",
+         "gma_small_clip_launches": gma_small["experimental:fused_bd"],
          **rows3["level0"]["float32"],
          "shape": "level 0 of the clip path, float32 in", "out_dtype": "float32",
          "level1": rows3["level1"]["float32"],

@@ -33,6 +33,7 @@ from accflow_tpu_torch.ops.corr import (
     build_corr_pyramid,
     lookup_corr_split_v2,
     normalize_corr_lookup,
+    resolve_auto_lookup,
     window_weights,
 )
 
@@ -162,6 +163,7 @@ def test_raft_forward_split_lookup_matches_jax(raft_setup, lookup):
 @pytest.mark.parametrize("spelling,want", [
     ("fused", "fused"), ("mm", "fused"), ("pallas_fused", "fused"),
     ("experimental:fused_bd", "fused_bd"), ("experimental:fused_bd2", "fused_bd2"),
+    ("auto", "auto"),
 ])
 def test_normalize_corr_lookup(spelling, want):
     assert normalize_corr_lookup(spelling) == want
@@ -170,9 +172,14 @@ def test_normalize_corr_lookup(spelling, want):
 def test_corr_lookup_fence():
     with pytest.raises(ValueError, match="experimental:fused_bd"):
         RAFTConfig(corr_lookup="fused_bd")
-    for spelling in ("auto", "ondemand", "ondemand:4096"):
+    for spelling in ("ondemand", "ondemand:4096"):
         with pytest.raises(NotImplementedError, match="queue 1 #11"):
             RAFTConfig(corr_lookup=spelling)
+    # "auto" is kernel #1's lookup within the stored volume's budget and
+    # raises beyond it, where JAX picks the unported ondemand lookup.
+    assert RAFTConfig(corr_lookup="auto").split_levels is None
+    with pytest.raises(NotImplementedError, match="queue 1 #11"):
+        resolve_auto_lookup("auto", 64, 64, 64)
     with pytest.raises(NotImplementedError, match="not ported"):
         RAFTConfig(corr_lookup="experimental:packed2")
     assert RAFTConfig(corr_lookup="experimental:fused_bd2").split_levels == ("bd", "bd", "mm", "mm")

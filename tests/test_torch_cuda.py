@@ -4,7 +4,9 @@
 queries per block), both with float32 and bfloat16 output, the y
 contraction of the split lookup (ops/corr_bd_cuda.py) and the floor kernel of the probes
 (probes.py); the CUDA graphs of the stream step (StreamAccumulator) and of a
-loaded artifact (serving.py, streaming.py), and the splat's determinism.
+loaded artifact (serving.py, streaming.py), and the splat's determinism;
+GMA's small clip on the GPU against the CPU with kernels #1 and #3, and
+FlowPipeline on the GPU.
 Marked `cuda`; each test skips where there is no GPU (no
 kernel can run there). This file imports neither JAX nor the JAX package,
 so it runs on a machine with only torch:
@@ -23,7 +25,12 @@ import pytest
 import torch
 
 from accflow_tpu_torch import graphs, probes, serving
-from accflow_tpu_torch.models import AccFlowConfig, build_flow_estimator, init_accflow
+from accflow_tpu_torch.models import (
+    AccFlowConfig,
+    accflow_forward,
+    build_flow_estimator,
+    init_accflow,
+)
 from accflow_tpu_torch.ops import corr_bd_cuda, corr_cuda, corr_level_cuda, softsplat
 from accflow_tpu_torch.ops.corr import lookup_corr_plain, lookup_corr_split_v2
 from accflow_tpu_torch.streaming import (
@@ -512,3 +519,54 @@ def test_streaming_artifact_on_the_card_is_deterministic(dev, tmp_path):
     assert torch.equal(first, second)
     live = run(StreamAccumulator(est, acc))
     assert float((first - live).abs().max()) <= 1e-3 * float(live.abs().max())
+
+
+@pytest.mark.parametrize("lookup,kernel", [("fused", corr_cuda),
+                                           ("experimental:fused_bd", corr_bd_cuda)])
+def test_gma_small_clip_gpu_matches_cpu(dev, lookup, kernel):
+    """AccFlow+GMA on a 4-frame 64^2 clip in float32 (TF32 off), gamma drawn
+    nonzero: on the GPU through the kernel (2 launches: 2 iterations of one
+    batched pair call) against the CPU's plain versions, within 1e-3 of the
+    largest |flow| (summation order and the kernels' shared fractional
+    offset, as chip_smoke.py's small clips)."""
+    from accflow_tpu_torch.nn.layers import tf32
+
+    clip = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (4, 1, 64, 64, 3))
+                            .astype(np.float32))
+    outs = {}
+    for where in ("cpu", dev):
+        est = build_flow_estimator("gma", compute_dtype="float32", device="cpu", iters=2,
+                                   corr_lookup=lookup)
+        with torch.no_grad():
+            est.model.update_block.aggregator.gamma.fill_(3.0)
+        est.model.to(where)
+        acc = init_accflow(AccFlowConfig(hidden=32, compute_dtype="float32"), device=where)
+        before = kernel.launches
+        with tf32(False):
+            outs[str(where)] = accflow_forward(acc, clip, est.pairs_fn()).cpu()
+        assert kernel.launches - before == (2 if where == dev else 0)
+    ref = outs["cpu"]
+    diff = float((outs[str(dev)] - ref).abs().max())
+    assert diff <= 1e-3 * float(ref.abs().max()), diff
+
+
+def test_flow_pipeline_on_the_gpu(dev):
+    """FlowPipeline on the card by default: pair_flow, long_range and a
+    stream on 36x44 uint8 frames (padded to 40x48), float32."""
+    from accflow_tpu_torch import FlowPipeline
+
+    frames = np.random.default_rng(0).integers(0, 255, (4, 36, 44, 3), dtype=np.uint8)
+    pipe = FlowPipeline.from_checkpoint("acc+gma", compute_dtype="float32", iters=2)
+    assert next(pipe.est.model.parameters()).device.type == "cuda"
+    before = corr_cuda.launches
+    flow = pipe.pair_flow(frames[0], frames[1])
+    assert flow.shape == (36, 44, 2) and np.isfinite(flow).all()
+    assert corr_cuda.launches - before == 2
+    cpu = FlowPipeline.from_checkpoint("acc+gma", compute_dtype="float32", iters=2,
+                                       device="cpu")
+    ref = cpu.long_range(frames[:3])
+    got = pipe.long_range(frames[:3])
+    assert float(np.abs(got - ref).max()) <= 1e-3 * float(np.abs(ref).max()) + 1e-5
+    stream = pipe.stream(iters=2)
+    outs = [stream.send(f) for f in frames]
+    assert outs[1] is None and outs[3].shape == (36, 44, 2)

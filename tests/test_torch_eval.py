@@ -226,10 +226,45 @@ def test_evaluate_cvo_acc_split_lookup_matches_fused(cvor_root, tmp_path):
 
 
 def test_evaluate_cvo_rejects(cvor_root):
-    with pytest.raises(NotImplementedError, match="queue 1 #8"):
-        evaluate_cvo("direct|raft", cvor_root, attn_chunk=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="GMA"):
-        evaluate_cvo("direct|gma", cvor_root, device="cpu")
+    """What the port still refuses: an unknown estimator and the volume-free
+    lookup (ROADMAP.md, queue 1 #11). GMA and attn_chunk, refused before
+    GMA was ported, are held against JAX by test_evaluate_cvo_gma_matches_jax."""
+    with pytest.raises(NotImplementedError, match="unknown flow estimator"):
+        evaluate_cvo("direct|flownet", cvor_root, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 #11"):
+        evaluate_cvo("direct|gma", cvor_root, corr_lookup="ondemand", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def gma_trees():
+    """GMA (gamma drawn nonzero) and AccFlow (ZeroConv drawn) JAX trees."""
+    from accflow_tpu.models.accflow import AccFlowConfig as JAccFlowConfig
+    from accflow_tpu.models.accflow import init_accflow as j_init_accflow
+    from accflow_tpu.models.gma import GMAConfig as JGMAConfig
+    from accflow_tpu.models.gma import init_gma as j_init_gma
+
+    rng = np.random.default_rng(12)
+    gma_tree = j_init_gma(jax.random.PRNGKey(0), JGMAConfig(compute_dtype="float32"))
+    gma_tree["update_block"]["aggregator"]["gamma"] = jnp.full((1,), 3.0, jnp.float32)
+    acc_tree = j_init_accflow(jax.random.PRNGKey(1), JAccFlowConfig(compute_dtype="float32"))
+    zc = acc_tree["accplus"]["conv2"]["4"]
+    zc["w"] = jnp.asarray(rng.standard_normal(zc["w"].shape) * 0.05, jnp.float32)
+    zc["scale"] = jnp.asarray(rng.uniform(-0.1, 0.1, zc["scale"].shape), jnp.float32)
+    return gma_tree, acc_tree
+
+
+@pytest.mark.parametrize("model,attn_chunk", [("acc|gma", 0), ("direct|gma", 16)])
+def test_evaluate_cvo_gma_matches_jax(cvor_root, gma_trees, tmp_path, model, attn_chunk):
+    """evaluate_cvo with GMA (acc: the pair queries and the cells; direct
+    with chunked attention, attn_chunk threaded through) against JAX's."""
+    gma_tree, acc_tree = gma_trees
+    kw = dict(split="clean", batch=2, iters=2, compute_dtype="float32", params=gma_tree,
+              acc_params=acc_tree, attn_chunk=attn_chunk)
+    ref = j_evaluate_cvo(model, cvor_root, result_file=str(tmp_path / "j.txt"), **kw)
+    got = evaluate_cvo(model, cvor_root, device="cpu", result_file=str(tmp_path / "t.txt"), **kw)
+    for k in ref:
+        np.testing.assert_allclose(got[k], ref[k], **EPE_TOL, err_msg=k)
+    assert f"AVG EPE {model}" in (tmp_path / "t.txt").read_text()
 
 
 def _reference_state_dict(module, prefix=""):

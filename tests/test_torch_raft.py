@@ -12,12 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from accflow_tpu.models.gma import GMAConfig as JGMAConfig
+from accflow_tpu.models.gma import gma_forward as j_gma_forward
+from accflow_tpu.models.gma import init_gma as j_init_gma
 from accflow_tpu.models.raft import RAFTConfig as JRAFTConfig
 from accflow_tpu.models.raft import init_raft as j_init_raft
 from accflow_tpu.models.raft import raft_forward as j_raft_forward
 from accflow_tpu.models.raft import raft_pairs_forward as j_raft_pairs_forward
 from accflow_tpu_torch.convert import load_jax_params
-from accflow_tpu_torch.models import build_flow_estimator
+from accflow_tpu_torch.models import RAFTConfig, build_flow_estimator
 
 TOL = dict(rtol=1e-3, atol=5e-3)
 ITERS = 3
@@ -57,10 +60,27 @@ def test_raft_forward_predictions(setup):
 
 
 def test_build_flow_estimator_rejects():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_flow_estimator("gma", device="cpu")
+    """An unknown name and a knob neither family knows raise; a knob of the
+    other family is dropped (attn_chunk on a RAFT build, small on a GMA
+    build), as JAX's _cfg_for does; and "gma" builds GMA, held against
+    JAX's gma_forward (its gamma drawn nonzero, so the global branch is on)."""
+    with pytest.raises(NotImplementedError, match="unknown flow estimator"):
+        build_flow_estimator("flownet", device="cpu")
     with pytest.raises(TypeError):
         build_flow_estimator("raft", device="cpu", scan_unroll=4)
+    with pytest.raises(TypeError):
+        build_flow_estimator("gma", device="cpu", scan_remat="dots")
+    assert build_flow_estimator("raft", device="cpu", attn_chunk=64).cfg == RAFTConfig()
+    tree = j_init_gma(jax.random.PRNGKey(3), JGMAConfig(compute_dtype="float32"))
+    tree["update_block"]["aggregator"]["gamma"] = jnp.full((1,), 3.0, jnp.float32)
+    est = build_flow_estimator("Acc+GMA-cvo", compute_dtype="float32", device="cpu", small=True)
+    load_jax_params(est.model, tree)
+    frames = np.random.default_rng(4).uniform(-1, 1, (2, 1, 32, 32, 3)).astype(np.float32)
+    ref = j_gma_forward(tree, jnp.asarray(frames[0]), jnp.asarray(frames[1]),
+                        JGMAConfig(compute_dtype="float32"), iters=2, final_only=True)
+    out = est.forward(frames[0], frames[1], iters=2, final_only=True)
+    for key in ("flow_up", "flow_low"):
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), **TOL, err_msg=key)
 
 
 def test_bf16_lookup_writes_the_compute_dtype(monkeypatch):

@@ -179,11 +179,18 @@ def test_cli_exports_an_artifact_that_runs(tmp_path):
 
 
 @pytest.mark.parametrize("args,err", [
-    (["--ofe", "gma"], NotImplementedError),
+    (["--ofe", "gma", "--corr_lookup", "experimental:packed2"], NotImplementedError),
     (["--corr_lookup", "ondemand:16"], NotImplementedError),
-    (["--attn_chunk", "64"], NotImplementedError),
+    # "auto" beyond the stored volume's budget (3 pairs of 136 x 136 float32
+    # maps: 5.5 GB), where JAX picks the unported ondemand lookup.
+    (["--corr_lookup", "auto", "--size", "1088", "--frames", "3", "--batch", "1",
+      "--compute-dtype", "float32"], NotImplementedError),
     (["--streaming", "--batch", "0"], SystemExit),
 ])
 def test_cli_refuses(tmp_path, args, err):
+    """What the CLI refuses: spellings that are not ported, "auto" beyond
+    its budget, a streaming export with a symbolic batch. (--ofe gma and
+    --attn_chunk, refused before GMA was ported, export in
+    tests/test_torch_demo.py.)"""
     with pytest.raises(err):
         cli.main(["--device", "cpu", "--size", "32", "--out", str(tmp_path / "x.pt2"), *args])

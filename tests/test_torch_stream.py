@@ -2,8 +2,9 @@
 the JAX package's, on the CPU in float32:
 - StreamAccumulator (RAFT-small at 4 iterations + a hidden-32 accumulator
   with a perturbed ZeroConv, 6 frames of 32x32, batch 2) against JAX's
-  StreamAccumulator in both ini_init modes and against the port's own warm-started clip forward
-  (accflow_forward with warm_start=True); rtol 2e-3 / atol 2e-2, the bar the
+  StreamAccumulator in both ini_init modes, and with GMA (acc+gma), and
+  against the port's own warm-started clip forward (accflow_forward with
+  warm_start=True); rtol 2e-3 / atol 2e-2, the bar the
   JAX package meets against the PyTorch original
   (tests/test_model_parity.py:143);
 - FlowStream.send on frames whose size is not a multiple of 8, and its
@@ -107,6 +108,28 @@ def test_stream_matches_jax(setup, ini_init):
     fmap_n, fmap_prev, cn, c_prev, carry, dflow, flow_ini = sa.state
     assert tuple(fmap_n.shape) == (2, 128, 4, 4) and tuple(cn.shape) == (2, 32, 4, 4)
     assert all(tuple(f.shape) == (2, 4, 4, 2) for f in (carry, dflow, flow_ini))
+
+
+def test_stream_gma_matches_jax():
+    """StreamAccumulator with GMA (acc+gma: the attention of each new frame
+    built once for both of its pair queries) against JAX's, 5 frames of
+    32x32, batch 1, 3 iterations; gamma drawn nonzero."""
+    rng = np.random.default_rng(13)
+    j_est = j_build_flow_estimator("gma", compute_dtype="float32", iters=3)
+    ofe_params = j_est.init(jax.random.PRNGKey(0))
+    ofe_params["update_block"]["aggregator"]["gamma"] = jnp.full((1,), 3.0, jnp.float32)
+    acfg = JAccFlowConfig(hidden=32, compute_dtype="float32", warm_start=True)
+    acc_params = _perturb_zero_conv(j_init_accflow(jax.random.PRNGKey(1), acfg), rng)
+    frames = rng.uniform(-1, 1, (5, 1, 32, 32, 3)).astype(np.float32)
+    ref = _run(JStreamAccumulator(j_est, acfg, ofe_params, acc_params), jnp.asarray(frames))
+    est = build_flow_estimator("gma", compute_dtype="float32", device="cpu", iters=3)
+    load_jax_params(est.model, ofe_params)
+    acc = init_accflow(AccFlowConfig(hidden=32, compute_dtype="float32", warm_start=True),
+                       device="cpu")
+    load_jax_params(acc, acc_params)
+    out = _run(StreamAccumulator(est, acc), frames)
+    assert out.shape == (3, 1, 32, 32, 2) and np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, **TOL)
 
 
 def test_stream_matches_warm_clip_forward(setup):
