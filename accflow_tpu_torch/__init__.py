@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of accflow_tpu: AccFlow long-range flow inference over
-RAFT or GMA, streaming, CVO evaluation and the FlowPipeline inference API.
+RAFT or GMA, streaming, CVO evaluation, the FlowPipeline inference API and
+accumulator training.
 
 The JAX package `accflow_tpu` is the reference; module paths here mirror
 it (`nn/`, `ops/`, `models/`, `data/`, `train/`, `cli/`, `convert.py`) so
@@ -9,6 +10,7 @@ never jax or accflow_tpu.
 Entry points (`FlowPipeline`, `models.build_flow_estimator`,
 `models.init_raft`, `models.init_gma`, `models.init_accflow`,
 `train.evaluate.evaluate_cvo`, `cli.test_cvo`, `cli.demo`,
+`train.engine.train_acc`, `cli.train_acc`,
 `serving.load_artifact`, `streaming.load_streaming_artifact`,
 `cli.export_serving`) place models on the GPU by default and raise when
 none is present, unless the caller passes ``device="cpu"``.

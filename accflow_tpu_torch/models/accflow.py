@@ -1,6 +1,7 @@
-"""AccFlow: occlusion-aware backward accumulation of long-range flow
-(inference), counterpart of accflow_tpu/models/accflow.py: the fused-OFE
-path (`_accflow_forward_fused`) and the warm-started stepwise path
+"""AccFlow: occlusion-aware backward accumulation of long-range flow,
+counterpart of accflow_tpu/models/accflow.py: the fused-OFE path
+(`_accflow_forward_fused`) for inference (`accflow_forward`) and training
+(`accflow_train_forward`), and the warm-started stepwise path
 (`_accflow_forward_warmstart`, AccFlowConfig.warm_start), whose cell on
 precomputed context features (`_cell_from_ctx`) the streaming step shares.
 
@@ -16,14 +17,30 @@ carry-dependent cell modules in the sequential loop. The warm-started
 forward queries the OFE step by step, each step's queries starting from the
 previous step's flows advected into the new frame. Cell modules run in the
 compute dtype; OFE flows, occlusion maps and decoder outputs are float32.
+
+Training (train/engine.py) differentiates the fused path with respect to
+the accumulator's weights and detaches what JAX detaches: the frozen
+estimator's flows (computed under no_grad, so its lookup kernel runs with
+no autograd graph), the occlusion and error maps, and the carry entering
+each cell (truncated backpropagation through the recurrence). The context
+encoder trains through AccPlus's and Blending's context inputs.
+AccFlowConfig.remat recomputes each cell in the backward pass. The cold
+stepwise path and the forward (F0N) direction are not ported (ROADMAP.md
+#6).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from accflow_tpu_torch.device import resolve_device
 from accflow_tpu_torch.models.encoders import BasicEncoder
@@ -40,14 +57,23 @@ from accflow_tpu_torch.ops.warmstart import forward_splat_flow
 class AccFlowConfig:
     """hidden: cell width. ofe_iters: GRU iterations of the OFE queries
     (what callers pass to FlowEstimator.pairs_fn). warm_start: the
-    warm-started stepwise path (accflow_forward's `ofe`). The JAX config's
-    other fields select paths this port does not carry (the cold stepwise
-    path, forward direction, remat, acc_unroll, stem_s2d)."""
+    warm-started stepwise path (accflow_forward's `ofe`). remat, in
+    training: False stores every cell's activations; True or "full"
+    recomputes each cell in the backward pass from its inputs; "dots" keeps
+    the outputs of its convolutions and matmuls and recomputes the rest.
+    The JAX config's other fields select paths this port does not carry
+    (the cold stepwise path and forward direction, ROADMAP.md #6;
+    acc_unroll and stem_s2d, TPU knobs)."""
 
     hidden: int = 128
     ofe_iters: int = 12
     compute_dtype: str = "bfloat16"
     warm_start: bool = False
+    remat: "bool | str" = False
+
+    def __post_init__(self):
+        if self.remat not in (False, True, "full", "dots"):
+            raise ValueError(f"remat must be False, True, 'full' or 'dots', got {self.remat!r}")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -205,6 +231,43 @@ def _accflow_forward_warmstart(model: AccFlow, ofe, images: torch.Tensor) -> tor
     return torch.stack(outs)
 
 
+_SAVED_BY_DOTS = {  # what remat="dots" keeps: JAX's checkpoint_dots
+    torch.ops.aten.convolution.default,
+    torch.ops.aten.mm.default,
+    torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default,
+    torch.ops.aten.baddbmm.default,
+}
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    if op in _SAVED_BY_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, remat):
+    """AccFlowConfig.remat applied to a cell (JAX's _remat_wrap): with
+    autograd recording, False runs it as it is, True / "full" under
+    torch.utils.checkpoint (nothing stored but its inputs), "dots" under a
+    selective checkpoint that keeps conv and matmul outputs."""
+    if not remat or not torch.is_grad_enabled():
+        return fn
+    if remat == "dots":
+        ctx_fn = functools.partial(create_selective_checkpoint_contexts, _keep_dots)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False, context_fn=ctx_fn)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
+def _clip_images(model: AccFlow, images) -> torch.Tensor:
+    dev = next(model.parameters()).device
+    images = torch.as_tensor(images, dtype=torch.float32, device=dev)
+    if images.shape[0] < 3:
+        raise ValueError("AccFlow needs at least 3 frames")
+    return images
+
+
 @torch.no_grad()
 def accflow_forward(model: AccFlow, images, ofe_pairs=None, ofe=None) -> torch.Tensor:
     """Accumulate long-range flow over a clip.
@@ -215,25 +278,38 @@ def accflow_forward(model: AccFlow, images, ofe_pairs=None, ofe=None) -> torch.T
     flow_init=None) -> (N, H, W, 2) flows (FlowEstimator.flow_fn), for the
     warm-started path (cfg.warm_start). Returns (T-2, N, H, W, 2) float32:
     [F_{2,0}, ..., F_{T-1,0}]."""
-    cd = model.cfg.dtype
-    dev = next(model.parameters()).device
-    images = torch.as_tensor(images, dtype=torch.float32, device=dev)
-    t, n, h, w, _ = images.shape
-    if t < 3:
-        raise ValueError("AccFlow needs at least 3 frames")
+    images = _clip_images(model, images)
     if model.cfg.warm_start:
         if ofe is None:
             raise ValueError("warm_start needs ofe=FlowEstimator.flow_fn()")
         return _accflow_forward_warmstart(model, ofe, images)
     if ofe_pairs is None:
         raise ValueError("the fused path needs ofe_pairs=FlowEstimator.pairs_fn()")
+    return _accflow_forward_fused(model, images, ofe_pairs)
+
+
+def accflow_train_forward(model: AccFlow, images, ofe_pairs) -> torch.Tensor:
+    """accflow_forward's fused path with autograd recording the accumulator
+    (the training forward of accflow_tpu/models/accflow.py's
+    `_accflow_forward_fused`): the same outputs, differentiable with
+    respect to `model`'s weights; the frozen estimator's flows, the
+    occlusion and error maps and each cell's incoming carry are detached.
+    `ofe_pairs` as accflow_forward's (FlowEstimator.pairs_fn)."""
+    if model.cfg.warm_start:
+        raise ValueError("training runs the fused path; warm_start is an inference path")
+    return _accflow_forward_fused(model, _clip_images(model, images), ofe_pairs)
+
+
+def _accflow_forward_fused(model: AccFlow, images: torch.Tensor, ofe_pairs) -> torch.Tensor:
+    cd = model.cfg.dtype
+    t, n, h, w, _ = images.shape
     s, h8, w8 = t - 2, h // 8, w // 8
 
     # One batched OFE call, pair order [dflow_2..dflow_{T-1} | ini_2..ini_{T-1}
     # | seed] (accflow.py:574-575).
     src_idx = tuple(range(2, t)) + tuple(range(2, t)) + (1,)
     dst_idx = tuple(range(1, t - 1)) + (0,) * s + (0,)
-    flows = downflow8(ofe_pairs(images, src_idx, dst_idx))
+    flows = downflow8(ofe_pairs(images, src_idx, dst_idx)).detach()
     dflows, inis, seed = flows[: s * n], flows[s * n: 2 * s * n], flows[2 * s * n:]
 
     with tf32(False):
@@ -250,18 +326,21 @@ def accflow_forward(model: AccFlow, images, ofe_pairs=None, ofe=None) -> torch.T
             ctx32[0].expand(s, n, h8, w8, c_dim).reshape(s * n, h8, w8, c_dim),
             binary=False,
         )
-        o = to_nchw(o, cd).view(s, n, 1, h8, w8)
-        emap = to_nchw(emap, cd).view(s, n, c_dim, h8, w8)
+        o = to_nchw(o, cd).view(s, n, 1, h8, w8).detach()
+        emap = to_nchw(emap, cd).view(s, n, c_dim, h8, w8).detach()
 
         enc = model.flow_encoder(to_nchw(torch.cat([inis, dflows]), cd))
         f_inis = enc[: s * n].view(s, n, *enc.shape[1:])
         dfs = enc[s * n:].view(s, n, *enc.shape[1:])
 
+        def cell(carry, f_ini, df, o_i, emap_i, c_i):
+            f = model.flow_encoder(to_nchw(carry.detach(), cd))
+            f_acc = model.accplus(df, f, o_i, c_i)
+            return model.flow_decoder(model.blending(f_ini, f_acc, emap_i))
+
+        cell = _remat_wrap(cell, model.cfg.remat)
         carry, outs = seed, []
         for i in range(s):
-            f = model.flow_encoder(to_nchw(carry, cd))
-            f_acc = model.accplus(dfs[i], f, o[i], ctx[i + 2])
-            f_fuse = model.blending(f_inis[i], f_acc, emap[i])
-            carry, out = model.flow_decoder(f_fuse)
+            carry, out = cell(carry, f_inis[i], dfs[i], o[i], emap[i], ctx[i + 2])
             outs.append(out)
         return torch.stack(outs)

@@ -107,6 +107,9 @@ def _(corr3, wy, out_dtype):
     return corr3.new_empty((corr3.shape[0], NUM, corr3.shape[2]), dtype=out_dtype)
 
 
+cuda_lib.refuse_autograd(y_contract_op, "accflow::y_contract")
+
+
 def path(lib: ctypes.CDLL, corr3: torch.Tensor) -> str:
     """The kernel's path for `corr3` (a CUDA tensor): "mma" (tensor cores,
     bfloat16 maps 8, 16, 32 or 64 wide at a 16-byte aligned address) or

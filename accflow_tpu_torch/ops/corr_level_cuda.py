@@ -103,6 +103,9 @@ def _(levels, coords, radius, out_dtype):
                             dtype=out_dtype)
 
 
+cuda_lib.refuse_autograd(corr_level_lookup_op, "accflow::corr_level_lookup")
+
+
 def launch(lib: ctypes.CDLL, levels, coords: torch.Tensor, radius: int,
            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Run the kernel of `lib` (from `load`) on CUDA tensors that passed

@@ -1,4 +1,5 @@
-"""Building the port's CUDA sources and checking the lookups' operands.
+"""Building the port's CUDA sources, checking the lookups' operands, and
+refusing autograd through the kernels' ops.
 
 Build: nvcc compiles a source from csrc/ for sm_90a into a shared library
 with a C interface, into `_build/` beside this package (named by a hash of
@@ -75,3 +76,23 @@ def check_lookup_operands(levels, coords: torch.Tensor) -> None:
             raise ValueError(f"level {i} is on {lvl.device}, coords on {coords.device}")
         if not lvl.is_contiguous():
             raise ValueError(f"level {i} must be contiguous")
+
+
+def refuse_autograd(op, name: str) -> None:
+    """Make a call of the custom op `op` (`name`, e.g. "accflow::corr_lookup")
+    raise when autograd would record it: grad mode on and an input that
+    requires grad. The kernels have no backward (neither had the TPU
+    kernels, accflow_tpu/ops/corr_pallas.py:71-73); the estimator runs them
+    frozen, under no_grad. Without this, PyTorch would run the forward and
+    fail only in backward()."""
+    def setup_context(ctx, inputs, output):
+        raise RuntimeError(
+            f"{name} has no backward: the lookup kernels serve inference and the "
+            "frozen estimator of accumulator training, under torch.no_grad(). A "
+            "gradient through the correlation lookup is fine_tune's, not yet ported "
+            "(ROADMAP.md, fine-tune)")
+
+    def backward(ctx, grad):
+        raise AssertionError("unreachable: setup_context refuses")
+
+    op.register_autograd(backward, setup_context=setup_context)

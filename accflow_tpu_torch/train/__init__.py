@@ -1,2 +1,3 @@
-"""Evaluation of the port (counterpart of accflow_tpu/train): the CVO
-protocol (evaluate.py) and the batch helpers it needs (engine.py)."""
+"""Training and evaluation of the port (counterpart of accflow_tpu/train):
+accumulator training (engine.py, with loss.py, optim.py, accum.py and
+checkpoint.py) and the CVO protocol (evaluate.py)."""

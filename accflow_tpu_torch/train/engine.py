@@ -1,13 +1,63 @@
-"""Batch helpers of accflow_tpu/train/engine.py that evaluation needs:
-`to_clip`, `to_flow_seq`, `pad_batch`. The rest of that engine is training
-(not ported; ROADMAP.md, queue 1 #10)."""
+"""Accumulator training engine, the port's counterpart of
+accflow_tpu/train/engine.py (reference train_acc.py), and the batch helpers
+that evaluation shares (`to_clip`, `to_flow_seq`, `pad_batch`).
+
+Recipe (configs/AccRAFT*.yml, train_acc.py):
+- data: CVO clean+final, keys ["bflows"], random 256^2 crop, batch
+  batch_per_gpu, shuffled, last partial batch dropped;
+- a frozen estimator (RAFT or GMA) from flow_pretrained, the AccFlow
+  modules trained;
+- AdamW(lr, wdecay, eps) + linear OneCycle over num_steps+100, gradient
+  clip 1.0, per-step noise augmentation (train_acc.py:216-220, with its
+  clamp-to-[0,255]-then-renormalize quirk);
+- periodic validation on CVO-test clean, latest and best-k checkpoints,
+  flow PNGs of chosen validation samples.
+
+On the card the step runs eagerly on one GPU: the frozen estimator under
+no_grad (its correlation lookups are kernel #1, or #2 for RAFT-small),
+the accumulator's forward and backward through PyTorch's own ops, bf16
+compute with float32 master weights and float32 flow state. JAX jits the
+whole step; graphing it is ROADMAP.md's open item.
+"""
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+import os.path as osp
+import struct
+import zlib
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from accflow_tpu_torch.convert import load_flow_estimator_checkpoint, load_jax_params
+from accflow_tpu_torch.data.cvo import BatchIterator, fetch_train_dataset, fetch_valid_dataset
+from accflow_tpu_torch.data.prefetch import device_prefetch
+from accflow_tpu_torch.device import resolve_device
+from accflow_tpu_torch.models import build_flow_estimator
+from accflow_tpu_torch.models.accflow import (
+    AccFlow,
+    AccFlowConfig,
+    accflow_forward,
+    accflow_train_forward,
+    init_accflow,
+)
+from accflow_tpu_torch.nn.layers import tf32
+from accflow_tpu_torch.train.accum import accumulate_grads
+from accflow_tpu_torch.train.checkpoint import CheckpointManager
+from accflow_tpu_torch.train.loss import sequence_loss_acc
+from accflow_tpu_torch.train.optim import Optimizer, make_optimizer
+from accflow_tpu_torch.utils.flow_viz import flow_to_image
+from accflow_tpu_torch.utils.logging import Timer, count_parameters, get_timestamp, setup_logger
+
+
+class TrainState(NamedTuple):
+    """What train_acc returns: the trained accumulator, its optimizer and
+    the step count."""
+    model: AccFlow
+    optimizer: Optimizer
+    step: int
 
 
 def to_clip(imgs, frames: Optional[int] = None) -> torch.Tensor:
@@ -39,3 +89,261 @@ def pad_batch(batch: dict, size: int):
     pad = size - n
     return {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)], axis=0)
             for k, v in batch.items()}, n
+
+
+def noise_from_draws(stdv: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
+    """The reference's noise (train_acc.py:216-220) from its draws: stdv
+    ~ U[0, 5) and a unit normal per pixel; the noise is clamped to
+    [0, 255] and then renormalized with 2x/255 - 1, which shifts the
+    baseline by -1 and keeps only the positive lobe. Faithful to the
+    reference, which trained its released checkpoints this way."""
+    return 2.0 * (torch.clamp(stdv * normal, 0.0, 255.0) / 255.0) - 1.0
+
+
+def reference_noise(gen: torch.Generator, frame_shape) -> torch.Tensor:
+    """One step's noise (N, H, W, 3) float32, drawn from `gen` on its
+    device: stdv, then the normals."""
+    stdv = torch.rand((), generator=gen, device=gen.device) * 5.0
+    normal = torch.randn(tuple(frame_shape), generator=gen, device=gen.device)
+    return noise_from_draws(stdv, normal)
+
+
+def build_acc_model(opt, device=None):
+    """(estimator, AccFlowConfig) from an experiment name like Acc+RAFT-cvo
+    (RAFT, or GMA for a name with "gma"), the estimator's weights from seed
+    0 on `device`. direction "forward" (the F0N ablation) is not ported."""
+    direction = opt.get("direction", "backward")
+    if direction == "forward":
+        raise NotImplementedError("direction: forward (the F0N ablation) is not ported "
+                                  "(ROADMAP.md #6)")
+    if direction != "backward":
+        raise ValueError(f"unknown accumulation direction: {direction!r}")
+    cd = opt.get("compute_dtype", "bfloat16")
+    est = build_flow_estimator(
+        opt.exp_name, compute_dtype=cd, device=device,
+        small=bool(opt.get("small", False)),
+        corr_lookup=opt.get("corr_lookup", "fused"),
+        attn_chunk=int(opt.get("attn_chunk", 0)),
+    )
+    acfg = AccFlowConfig(compute_dtype=cd, hidden=int(opt.get("acc_hidden", 128)),
+                         remat=opt.get("remat", False))
+    return est, acfg
+
+
+def make_acc_train_step(est, model: AccFlow, optimizer: Optimizer, add_noise: bool,
+                        grad_accum: int = 1):
+    """(train_step, valid_step) for the accumulator `model` against the
+    frozen estimator `est`.
+
+    train_step(imgs (N, H, W, 3T), label_flows (N, H, W, 2S), gen=None) ->
+    (loss, metrics), device tensors: one optimizer update; with add_noise
+    the step's noise is drawn from the torch.Generator `gen`. Forward and
+    backward run under one TF32 setting, off (what the forward's blocks
+    set), so that no backward conv of a float32 step runs in TF32.
+    valid_step(imgs, label_flows) -> (per-sample EPE (N,), last output
+    (N, H, W, 2)), under no_grad."""
+    pairs = est.pairs_fn()
+
+    def loss_fn(images, labels):
+        return sequence_loss_acc(accflow_train_forward(model, images, pairs), labels)
+
+    def train_step(imgs, label_flows, gen: Optional[torch.Generator] = None):
+        images = to_clip(imgs)
+        labels = to_flow_seq(label_flows)
+        if add_noise:
+            images = images + reference_noise(gen, images.shape[1:])[None]
+        optimizer.zero_grad()
+        with tf32(False):
+            loss, metrics = accumulate_grads(loss_fn, grad_accum, images, labels, axis=1)
+        optimizer.step()
+        return loss, metrics
+
+    def valid_step(imgs, label_flows):
+        outs = accflow_forward(model, to_clip(imgs), ofe_pairs=pairs)
+        labels = to_flow_seq(label_flows)
+        # Per-sample EPE of the last accumulated flow, so the engine can
+        # aggregate over padded validation batches.
+        epe = torch.sqrt(torch.sum((outs[-1] - labels[-1]) ** 2, dim=-1))
+        return epe.mean(dim=(1, 2)), outs[-1]
+
+    return train_step, valid_step
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def save_flow_png(flow_nhwc: np.ndarray, path: str) -> None:
+    """The first flow of (N, H, W, 2) as a colour-wheel PNG (8-bit RGB),
+    written with zlib and struct."""
+    img = np.ascontiguousarray(flow_to_image(np.asarray(flow_nhwc[0])), dtype=np.uint8)
+    h, w, _ = img.shape
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))  # filter 0 per row
+    os.makedirs(osp.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(_png_chunk(b"IDAT", zlib.compress(raw)))
+        f.write(_png_chunk(b"IEND", b""))
+
+
+def _checkpoint(model: AccFlow, optimizer: Optimizer, step: int) -> dict:
+    return {"model": model.state_dict(), **optimizer.state_dict(), "step": step}
+
+
+def train_acc(opt, max_steps: Optional[int] = None, tb=None, device=None) -> TrainState:
+    """Train the AccFlow accumulator on one device (cuda unless `device`
+    names another; without a GPU it raises unless device="cpu"). `opt`
+    mirrors configs/Acc*.yml plus `dataset_root` (CVOR data) and optional
+    `ofe_params` (a JAX-layout numpy tree) or `flow_pretrained` (a
+    reference .pth or a .npz tree). max_steps stops early. Returns the
+    TrainState.
+
+    tb: an optional utils.tb.TBLogger receiving train/{loss,epe,lr} at every
+    log point and val/epe at every validation (`use_tb: true` in opt builds
+    one on log_dir)."""
+    dev = resolve_device(device)
+    batch = opt.batch_per_gpu
+    seed = opt.get("seed", 0)
+
+    # Debug-name frequency override (train_acc.py:33-35).
+    if "debug" in str(opt.exp_name).lower():
+        opt["valid_freq"] = 10
+        opt["log_freq"] = 1
+    log_dir = opt.get("log_dir", f"./logs/{opt.exp_name}")
+    ckpt_dir = opt.get("ckpt_dir", f"./checkpoints/{opt.exp_name}")
+    if opt.get("resume") is None:
+        # Archive stale run dirs (train_acc.py:39-45): logs and checkpoints.
+        for d in (log_dir, ckpt_dir):
+            if osp.isdir(d):
+                os.rename(d, d + "_archived_" + get_timestamp())
+    os.makedirs(log_dir, exist_ok=True)
+    logger = setup_logger("accflow_torch", log_dir, "train_" + opt.exp_name, tofile=True)
+    own_tb = tb is None and bool(opt.get("use_tb"))
+    if own_tb:
+        from accflow_tpu_torch.utils.tb import TBLogger
+
+        tb = TBLogger(osp.join(log_dir, "tb"))
+
+    flow_key = "bflows"  # backward accumulation trains against [F_{k,0}]
+    train_dst = fetch_train_dataset(opt.dataset_root, [flow_key], crop_size=opt.image_size,
+                                    split="clean+final")
+    valid_dst = fetch_valid_dataset(opt.dataset_root, [flow_key], split="clean")
+    sample_per_epoch = len(train_dst) // batch + 1
+    num_steps = sample_per_epoch * opt.epochs
+    logger.info("Train on %d samples, batch %d on %s, %d iters/epoch, %d total",
+                len(train_dst), batch, dev, sample_per_epoch, num_steps)
+
+    # Frozen OFE + trainable accumulator.
+    est, acfg = build_acc_model(opt, device=dev)
+    if opt.get("ofe_params") is not None:
+        load_jax_params(est.model, opt.ofe_params)
+    elif opt.get("flow_pretrained"):
+        load_flow_estimator_checkpoint(opt.flow_pretrained, est.model)
+        logger.info("Loaded frozen OFE from %s", opt.flow_pretrained)
+    else:
+        logger.info("WARNING: frozen OFE uses random init (no flow_pretrained)")
+    est.model.requires_grad_(False)
+
+    model = init_accflow(acfg, seed=seed, device=dev)
+    logger.info("Parameter Count: trainable: %d, frozen (OFE): %d",
+                count_parameters(model), count_parameters(est.model))
+    optimizer = make_optimizer(model.parameters(), opt.lr, num_steps, opt.wdecay,
+                               opt.epsilon, opt.clip)
+    train_step, valid_step = make_acc_train_step(
+        est, model, optimizer, opt.add_noise, grad_accum=int(opt.get("grad_accum", 1)))
+    ckpt = CheckpointManager(ckpt_dir, keep=4)
+
+    current_step = 0
+    if opt.get("resume") is not None:
+        # resume (train_acc.py:27-32): "auto" -> the latest saved step; an
+        # int -> that numbered checkpoint.
+        state = ckpt.restore(None if str(opt.resume) == "auto" else int(opt.resume))
+        model.load_state_dict(state["model"])
+        optimizer.load_state_dict(state)
+        current_step = int(state["step"])
+        logger.info("Resumed from step %d", current_step)
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    timer = Timer()
+    losses, epes = [], []
+    best_val_epe = 1e10
+    best_val_step = current_step
+    start_epoch = current_step // sample_per_epoch
+    stop = False
+
+    for epoch in range(start_epoch, opt.epochs):
+        if stop:
+            break
+        it = BatchIterator(train_dst, batch, shuffle=True, drop_last=True, seed=seed,
+                           epoch=epoch)
+        timer.tick()
+        for batch_t in device_prefetch(iter(it), depth=2, device=dev):
+            current_step += 1
+            loss, metrics = train_step(batch_t["imgs"], batch_t[flow_key], gen)
+            losses.append(float(loss))
+            epes.append(float(metrics["epe"]))
+            timer.tick()
+
+            if current_step % opt.log_freq == 0 or current_step < 25:
+                avg_time = timer.get_average_and_reset()
+                eta_h = avg_time * (num_steps - current_step) / 3600
+                avg_loss = sum(losses) / len(losses)
+                avg_epe = sum(epes) / len(epes)
+                lr_now = optimizer.lr
+                logger.info(
+                    "<epoch:%2d, iter:%6d, t:%.2fs, eta:%.2fh, loss:%.3f, epe:%.3f, lr:%.2e>",
+                    epoch, current_step, avg_time, eta_h, avg_loss, avg_epe, lr_now,
+                )
+                if tb is not None:
+                    tb.write_dict({"train/loss": avg_loss, "train/epe": avg_epe,
+                                   "train/lr": lr_now}, current_step)
+                losses, epes = [], []
+
+            if current_step % opt.valid_freq == 0 or current_step == num_steps - 1:
+                epes_sum, epes_n = 0.0, 0
+                # visual_samples indexes SAMPLES of the validation set
+                # (train_acc.py:283-289 dumps dataset sample i, not batch i).
+                visual = sorted(set(opt.get("visual_samples", [])))
+                val_last = {}
+                vit = BatchIterator(valid_dst, batch, shuffle=False, drop_last=False)
+                for vb in vit:
+                    vb, n_valid = pad_batch(vb, batch)
+                    vb = {k: torch.as_tensor(v).to(dev) for k, v in vb.items()}
+                    per_sample, flow_last = valid_step(vb["imgs"], vb[flow_key])
+                    epes_sum += float(per_sample[:n_valid].sum())
+                    base = epes_n
+                    epes_n += n_valid
+                    want = [i for i in visual if base <= i < base + n_valid]
+                    if want:
+                        flow_np = flow_last.cpu().numpy()
+                        for i in want:
+                            val_last[i] = flow_np[i - base: i - base + 1]
+                epe = epes_sum / max(epes_n, 1)
+                state = _checkpoint(model, optimizer, current_step)
+                ckpt.save(current_step, state)  # `latest` (train_acc.py:268)
+                if epe <= best_val_epe:
+                    best_val_epe, best_val_step = epe, current_step
+                    for index in visual:
+                        if index in val_last:
+                            save_flow_png(val_last[index], osp.join(
+                                log_dir, "val/im%03d/%06d.png" % (index, current_step)))
+                    # Numbered best-EPE save, pruned oldest-first
+                    # (train_acc.py:291-301).
+                    ckpt.save_best(current_step, state)
+                logger.info("Validation EPE: %.3f, best: %.3f (step %d)",
+                            epe, best_val_epe, best_val_step)
+                if tb is not None:
+                    tb.write_dict({"val/epe": epe}, current_step)
+
+            if max_steps is not None and current_step >= max_steps:
+                stop = True
+                break
+
+    # final.pth (train_acc.py:311)
+    ckpt.save_final(max(current_step, 1), _checkpoint(model, optimizer, current_step))
+    if own_tb:
+        tb.close()
+    logger.info("Finish training")
+    return TrainState(model, optimizer, current_step)

@@ -98,7 +98,25 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    on the batch it fills (ARTIFACT_REL);
 13. the demo CLI in its own process (--mode long --ofe gma --no_viz, the
    7 frames as .bin files, phase 12's GMA weights as an .npz checkpoint):
-   its .flo files against phase 12's long_range (CLIP_REL).
+   its .flo files against phase 12's long_range (CLIP_REL);
+14. accumulator training (train/engine.py::train_acc) with
+   configs/AccRAFT.yml as shipped (batch 6, 256^2 crops of 7-frame clips,
+   bf16, hidden 128, noise, lr 1.2e-4; the frozen RAFT at 12 iterations
+   from seed 0 on kernel #1) on 24 + 6 synthetic CVOR clips of 256^2:
+   kernel #1 against the plain lookup at the step's lookup shape (Q =
+   66*32*32, maps 32^2..4^2; LOOKUP_TOL); (a) 13 steps with a validation at step 10, then resume "auto" for 2
+   more: every loss finite, 12 kernel-#1 launches per step and per
+   validation batch, no plain lookup, the checkpoints and the visual PNG on
+   disk, the resumed count going on from 13; ms per step (median of steps
+   3-12, the validation's step left out), clips/s, peak memory; one step's
+   forward and backward under the sync debug mode "error";
+   configs/AccGMA.yml for 4 steps (GMA frozen on kernel #1); (b) one step
+   at 64^2 in float32 on the GPU against the CPU (TRAIN_* bars); (c) remat
+   "full" and "dots" and grad_accum 2 against the plain step at full width
+   in bf16, with their peaks (MEMORY_REL_BF16; grad_accum by
+   ACCUM_F32_RATIO against the f32 step), and at (b)'s size in float32
+   (MEMORY_REL_F32);
+   with --profile, the device time of a train step and of its frozen RAFT.
 Optional phases: --tile-sweep builds kernels #1 and #2 with 4, 8 and 16
 queries per block and times them in turns (#1 at the clip shape after phase
 3, #2 at the stream shape after phase 4); --profile prints where
@@ -107,7 +125,8 @@ experimental:fused_bd, and with GMA) and of a stream push, eager and
 graphed, goes (torch.profiler). A {"graphs": {...}} line holds the eager
 and graphed medians, busy times, launches per replay and peaks, and the
 artifacts' numbers, with the card's name and power limit; a {"gma": {...}}
-line the numbers of phases 6c and 8's GMA runs and 10-13. The line before
+line the numbers of phases 6c and 8's GMA runs and 10-13, and a
+{"train": {...}} line phase 14's. The line before
 the last is {"kernels": [...]}; the last line is {"ok": true, "device":
 {...}}. Without a GPU, or without the package beside it, the script exits
 non-zero and prints no result.
@@ -141,6 +160,7 @@ try:
         save_npz_tree,
         to_jax_params,
     )
+    from accflow_tpu_torch.data.cvo import BatchIterator, fetch_train_dataset
     from accflow_tpu_torch.data.synthetic import make_long_sequence, write_synthetic_cvor
     from accflow_tpu_torch.models import gma
     from accflow_tpu_torch.models.raft import gather_pairs, raft_cnet, to_nchw
@@ -156,7 +176,13 @@ try:
         make_streaming_fns,
         save_streaming_artifact,
     )
+    from accflow_tpu_torch.models.accflow import accflow_train_forward
+    from accflow_tpu_torch.train import engine
+    from accflow_tpu_torch.train.accum import accumulate_grads
+    from accflow_tpu_torch.train.checkpoint import CheckpointManager
     from accflow_tpu_torch.train.evaluate import evaluate_cvo
+    from accflow_tpu_torch.train.loss import sequence_loss_acc
+    from accflow_tpu_torch.utils.config import parse_options
     from accflow_tpu_torch.utils.frame_io import read_flow
 except ImportError as e:  # this file alone, outside the repository
     sys.exit(f"chip_smoke: run from the repository root ({e})")
@@ -207,6 +233,32 @@ EVAL_EPE_REL = 0.02
 # output by ~2^-8 of its size at most, and the flow by less; a wrong
 # weight, op or lookup moves it everywhere. Fixed before the first run.
 ARTIFACT_REL = 1e-3
+# Phase 14b, one train step on the GPU (kernel #1, cuDNN) against the CPU
+# (plain lookup, CPU convs), float32, TF32 off: the loss within TRAIN_LOSS_REL
+# relative, the gradients within TRAIN_GRAD_REL in global relative L2, held
+# over the context encoder's leaves and over the others apart, so that a
+# TF32 backward confined to the context encoder (~1e-3) cannot hide in the
+# whole vector. Both sides differ by summation order (~1e-7 relative per
+# op), which moves the loss by ~1e-6 and the gradients by ~1e-6 in L2.
+# Phase 14c: options that change what the backward stores (remat) or splits
+# (grad_accum) against the plain step, global relative L2 of the whole
+# gradient vector: MEMORY_REL_F32 at 14b's size in float32, MEMORY_REL_BF16
+# at full width in bfloat16 for remat (the same kernels recomputed). In
+# bfloat16 a step's gradients depend on the batch its kernels see: on an
+# H100 the frozen estimator's flows at grad_accum's micro-batch of 3 move
+# the plain step's gradients by 9.5e-4 alone, and each micro-batch's
+# backward rounds its own bfloat16 gradients (one bfloat16 rounding of the
+# gradient vector: 1.6e-3), so grad_accum 2 lies 1.27e-3 from the plain
+# step. It is held to the float32 step instead: its gradients may lie no
+# further than ACCUM_F32_RATIO times the bfloat16 plain step's from the
+# float32 plain step on the same batch (a missing or twice-scaled
+# micro-batch moves them by ~1/2 or more); memory_options prints those
+# readings beside it.
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL = 1e-4
+MEMORY_REL_F32 = 1e-5
+MEMORY_REL_BF16 = 1e-3
+ACCUM_F32_RATIO = 1.2
 REPO = Path(__file__).resolve().parent
 FIXTURES = REPO / "tests" / "fixtures"
 KERNELS = (corr_cuda, corr_level_cuda, corr_bd_cuda)  # each wrapper's `launches` count
@@ -304,13 +356,13 @@ def device_ms(fn, calls: int) -> float:
          "than the spin that was to hold the card")
 
 
-def lookup_inputs(b: int):
-    """A lookup shape of the port: Q = b*64*64 queries (b pair-batches of
-    512^2 frames; 22 on the clip path, 4 in the stream), unit-normal float32
-    levels of 64^2, 32^2, 16^2, 8^2, coords on the grid +-20 px."""
+def lookup_inputs(b: int, h: int = 64, w: int = 64):
+    """A lookup shape of the port: Q = b*h*w queries (b pair-batches of
+    8h x 8w frames; 22 of 512^2 on the clip path, 4 in the stream, 66 of
+    256^2 in a train step), unit-normal float32 levels of h x w down to
+    h/8 x w/8, coords on the grid +-20 px."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    h, w = 64, 64
     q = b * h * w
     levels32 = [torch.randn((q, h >> l, w >> l), generator=gen, device=dev)
                 for l in range(4)]
@@ -1551,6 +1603,396 @@ def demo_phase(tmp: str, pipe, lr, clip7) -> dict:
     return dict(process_s=secs, max_abs_vs_pipeline=diff)
 
 
+class StepProbe:
+    """Phase 14's view into train_acc, without changing it: while active it
+    wraps engine.make_acc_train_step so that each train step records its
+    start time, its kernel-#1 launches and its loss tensor, and each
+    validation batch its launches. The plain lookups are wrapped too, to
+    count their calls (none is allowed on the card)."""
+
+    def __init__(self):
+        self.starts, self.launches, self.losses, self.valid_launches = [], [], [], []
+        self.plain_calls = 0
+
+    def __enter__(self):
+        self._make = engine.make_acc_train_step
+        self._plain = corr_cuda.lookup_corr_plain, corr_level_cuda.lookup_corr_plain
+
+        def make(*a, **k):
+            step, valid = self._make(*a, **k)
+
+            def probed_step(imgs, flows, gen=None):
+                self.starts.append(time.perf_counter())
+                n0 = corr_cuda.launches
+                loss, metrics = step(imgs, flows, gen)
+                self.launches.append(corr_cuda.launches - n0)
+                self.losses.append(loss)
+                return loss, metrics
+
+            def probed_valid(imgs, flows):
+                n0 = corr_cuda.launches
+                out = valid(imgs, flows)
+                self.valid_launches.append(corr_cuda.launches - n0)
+                return out
+
+            return probed_step, probed_valid
+
+        def counted(plain):
+            def fn(*a, **k):
+                self.plain_calls += 1
+                return plain(*a, **k)
+            return fn
+
+        engine.make_acc_train_step = make
+        corr_cuda.lookup_corr_plain = counted(self._plain[0])
+        corr_level_cuda.lookup_corr_plain = counted(self._plain[1])
+        return self
+
+    def __exit__(self, *exc):
+        engine.make_acc_train_step = self._make
+        corr_cuda.lookup_corr_plain, corr_level_cuda.lookup_corr_plain = self._plain
+
+
+class TBStub:
+    """A TBLogger stand-in that keeps what train_acc writes."""
+
+    def __init__(self):
+        self.writes = []
+
+    def write_dict(self, scalars, step=None):
+        self.writes.append((dict(scalars), step))
+
+
+def train_opts(config: str, root: str, run_dir: Path, **over):
+    """configs/<config> as shipped (batch 6, 256^2, bf16, hidden 128, noise,
+    lr 1.2e-4), with the data, the run's directories, the validation cadence
+    and the visual samples set for this phase; no flow_pretrained file
+    exists here, so the frozen estimator keeps its seed-0 weights."""
+    opt = parse_options(str(REPO / "configs" / config))
+    opt.update(dataset_root=root, log_dir=str(run_dir / "logs"), ckpt_dir=str(run_dir / "ckpt"),
+               flow_pretrained=None, visual_samples=[0], seed=0, **over)
+    return opt
+
+
+def train_run(label: str, opt, steps: int, from_step: int = 3) -> dict:
+    """train_acc under a StepProbe from zeroed counts, up to step `steps`:
+    every loss finite, 12 kernel-#1 launches per step and per validation
+    batch, no other kernel, no plain lookup. Seconds per step: the median
+    interval between step starts over steps from_step .. steps-1, leaving
+    out the steps a validation follows. Returns the run's numbers."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tb = TBStub()
+    reset_counts()
+    t0 = time.perf_counter()
+    with StepProbe() as probe:
+        state = engine.train_acc(opt, max_steps=steps, tb=tb)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n = len(probe.starts)
+    expect_counts(f"train {label}", corr_cuda, 12 * (n + len(probe.valid_launches)))
+    losses = [float(l) for l in probe.losses]
+    if probe.plain_calls:
+        fail(f"train {label}: the plain lookup ran {probe.plain_calls} times on the card")
+    if set(probe.launches) != {12} or set(probe.valid_launches) - {12}:
+        fail(f"train {label}: kernel #1 launches per step {probe.launches}, per validation "
+             f"batch {probe.valid_launches}; expected 12 each")
+    if not all(np.isfinite(losses)):
+        fail(f"train {label}: losses not finite {losses}")
+    first = state.step - n + 1
+    per_step = [b - a for i, (a, b) in enumerate(zip(probe.starts, probe.starts[1:]), first)
+                if i >= from_step and i % opt.valid_freq]
+    med = statistics.median(per_step)
+    val = [s["val/epe"] for s, _ in tb.writes if "val/epe" in s]
+    batch = opt.batch_per_gpu
+    print(f"train {label}: steps {first}..{state.step} in {secs:.2f} s (with set-up, "
+          f"validation, checkpoints); median {med * 1e3:.2f} ms per step over "
+          f"{len(per_step)} steps = {batch / med:.3f} clips/s (batch {batch}, "
+          f"{opt.image_size[0]}x{opt.image_size[1]}, 7 frames); peak memory "
+          f"{peak / 2**30:.3f} GiB; kernel #1 {probe.launches[0]} launches per step, "
+          f"{probe.valid_launches[:1]} per validation batch; plain lookup calls "
+          f"{probe.plain_calls}")
+    print(f"train {label}: losses {', '.join(f'{l:.4f}' for l in losses)}; validation "
+          f"EPE {val}")
+    return dict(state=state, steps=n, last_step=state.step, s_total=secs,
+                ms_per_step=med * 1e3, ms_steps=[t * 1e3 for t in per_step],
+                clips_per_s=batch / med, peak_gib=peak / 2**30, losses=losses,
+                val_epe=val, launches_per_step=probe.launches[0],
+                launches_per_valid_batch=(probe.valid_launches or [None])[0],
+                launches=corr_cuda.launches, plain_calls=probe.plain_calls)
+
+
+def one_step_grads(pairs, model, images, labels, grad_accum: int = 1):
+    """One step's loss and gradients (no update), TF32 off, as
+    engine.make_acc_train_step computes them, with the frozen estimator's
+    `pairs` (FlowEstimator.pairs_fn): {name: float32 CPU grad}."""
+    model.zero_grad(set_to_none=True)
+    with tf32(False):
+        loss, _ = accumulate_grads(
+            lambda im, lb: sequence_loss_acc(accflow_train_forward(model, im, pairs), lb),
+            grad_accum, images, labels, axis=1)
+    return float(loss), {k: p.grad.detach().float().cpu() for k, p in model.named_parameters()}
+
+
+def rel_l2(got: dict, ref: dict, keys=None) -> float:
+    keys = list(ref) if keys is None else keys
+    num = sum(float(((got[k] - ref[k]) ** 2).sum()) for k in keys)
+    return (num / sum(float((ref[k] ** 2).sum()) for k in keys)) ** 0.5
+
+
+def bf16_rounded(grads: dict) -> dict:
+    return {k: g.to(torch.bfloat16).float() for k, g in grads.items()}
+
+
+def bf16_share(grads: dict) -> float:
+    """The share of the gradient elements that are bfloat16 values."""
+    same = sum(int((r == grads[k]).sum()) for k, r in bf16_rounded(grads).items())
+    return same / sum(g.numel() for g in grads.values())
+
+
+def micro_batch_pairs(pairs, k: int):
+    """`pairs` run on k micro-batches of the clip (axis 1) and the flows put
+    back in its (P*N, H, W, 2) order: the frozen estimator at grad_accum's
+    batch, for a plain step of the accumulator."""
+    def fn(images, src, dst):
+        parts = [pairs(part, src, dst) for part in images.chunk(k, dim=1)]
+        return torch.cat([f.view(len(src), -1, *f.shape[1:]) for f in parts], 1).flatten(0, 1)
+
+    return fn
+
+
+def small_train_batch(where: str):
+    """Phase 14b's batch: 2 clips of 4 frames at 64^2 (uint8 values) and
+    their 2 label flows, from seed 5, on `where`."""
+    rng = np.random.default_rng(5)
+    imgs = rng.integers(0, 256, (2, 64, 64, 12)).astype(np.float32)
+    labels = (4.0 * rng.standard_normal((2, 64, 64, 4))).astype(np.float32)
+    return (engine.to_clip(torch.from_numpy(imgs)).to(where),
+            engine.to_flow_seq(torch.from_numpy(labels)).to(where))
+
+
+def small_train_models(where: str, **cfg):
+    """RAFT at 4 iterations from seed 0 and AccFlow hidden 32 from seed 1
+    with its ZeroConv from seed 2, float32, on `where`."""
+    est = models.build_flow_estimator("raft", compute_dtype="float32", iters=4, seed=0,
+                                      device=where)
+    acc = models.init_accflow(models.AccFlowConfig(hidden=32, compute_dtype="float32", **cfg),
+                              seed=1, device="cpu")
+    perturb_zero_conv(acc, 2)
+    return est, acc.to(where)
+
+
+def train_gpu_vs_cpu() -> dict:
+    """Phase 14b: one train step's loss and gradients at 64^2, T=4, batch
+    2, RAFT at 4 iterations, hidden 32, float32, TF32 off, from the same
+    init and batch: the GPU through kernel #1 (4 launches) against the CPU
+    through the plain lookup (TRAIN_* bars)."""
+    out = {}
+    for where in ("cuda", "cpu"):
+        est, acc = small_train_models(where)
+        images, labels = small_train_batch(where)
+        reset_counts()
+        out[where] = one_step_grads(est.pairs_fn(), acc, images, labels)
+        expect_counts(f"train step 64^2 on {where}", corr_cuda, 4 if where == "cuda" else 0)
+    (loss_g, g), (loss_c, c) = out["cuda"], out["cpu"]
+    ctx = [k for k in c if k.startswith("context.")]
+    rest = [k for k in c if k not in ctx]
+    row = dict(loss_gpu=loss_g, loss_cpu=loss_c, loss_rel=abs(loss_g - loss_c) / abs(loss_c),
+               grad_rel_l2=rel_l2(g, c, rest), context_grad_rel_l2=rel_l2(g, c, ctx),
+               all_grad_rel_l2=rel_l2(g, c))
+    print(f"train step 64^2 GPU vs CPU: loss {loss_g:.7f} vs {loss_c:.7f} (relative "
+          f"{row['loss_rel']:.3e}, bar {TRAIN_LOSS_REL:g}); gradient relative L2 outside the "
+          f"context encoder {row['grad_rel_l2']:.3e}, context encoder "
+          f"{row['context_grad_rel_l2']:.3e} (bar {TRAIN_GRAD_REL:g} each), whole vector "
+          f"{row['all_grad_rel_l2']:.3e}")
+    if not (row["loss_rel"] <= TRAIN_LOSS_REL and row["grad_rel_l2"] <= TRAIN_GRAD_REL
+            and row["context_grad_rel_l2"] <= TRAIN_GRAD_REL):
+        fail(f"train step 64^2: GPU and CPU disagree {row}")
+    return row
+
+
+def memory_options(root: str) -> dict:
+    """Phase 14c: remat "full" and "dots" and grad_accum 2 against the plain
+    step, each one step's gradients from the same init and batch: at full
+    width (the recipe's first training batch, batch 6, 256^2, bf16, hidden
+    128, RAFT at 12 iterations) with each one's peak memory, then at 14b's
+    size in float32. Bars: MEMORY_REL_F32 in float32; in bfloat16
+    MEMORY_REL_BF16 for remat against the plain step, and ACCUM_F32_RATIO
+    for grad_accum against the float32 plain step. Beside grad_accum's bar it
+    prints what shows its cause: the share of each step's gradient elements
+    that are bfloat16 values, the size of one bfloat16 rounding of its
+    gradient vector, and its distance from a plain step whose frozen flows
+    come from micro-batches of its size (the estimator's batch left out)."""
+    rows = {}
+    opts = (("plain", {}, 1), ("remat full", {"remat": "full"}, 1),
+            ("remat dots", {"remat": "dots"}, 1), ("grad_accum 2", {}, 2))
+    it = BatchIterator(fetch_train_dataset(root, ["bflows"], crop_size=256), 6,
+                       shuffle=True, drop_last=True, seed=0, epoch=0)
+    batch = next(iter(it))
+    images = engine.to_clip(torch.from_numpy(batch["imgs"]).cuda())
+    labels = engine.to_flow_seq(torch.from_numpy(batch["bflows"]).cuda())
+
+    def accumulator(dtype: str, **cfg):
+        acc = models.init_accflow(models.AccFlowConfig(compute_dtype=dtype, **cfg), seed=1,
+                                  device="cpu")
+        perturb_zero_conv(acc, 2)
+        return acc.cuda()
+
+    est = models.build_flow_estimator("raft", compute_dtype="float32", seed=0)
+    _, g32 = one_step_grads(est.pairs_fn(), accumulator("float32"), images, labels)
+    est = models.build_flow_estimator("raft", compute_dtype="bfloat16", seed=0)
+    grads = {}
+    for name, cfg, k in opts:
+        acc = accumulator("bfloat16", **cfg)
+        one_step_grads(est.pairs_fn(), acc, images, labels, k)  # warm-up: cuDNN's choices
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads[name] = one_step_grads(est.pairs_fn(), acc, images, labels, k)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        rel = rel_l2(grads[name], grads["plain"])
+        rows[name] = dict(loss=loss, peak_gib=peak / 2**30, above_weights_gib=(peak - base) / 2**30,
+                          ms=secs * 1e3, grad_rel_l2_vs_plain=rel)
+        print(f"train memory option {name} (full width, bf16): loss {loss:.5f}, forward + "
+              f"backward {secs * 1e3:.2f} ms, peak {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} "
+              f"above what was allocated before), gradients vs plain relative L2 {rel:.3e}"
+              + ("" if k > 1 else f" (bar {MEMORY_REL_BF16:g})"))
+        if k == 1 and not rel <= MEMORY_REL_BF16:
+            fail(f"train memory option {name}: gradients differ from the plain step's by {rel}")
+        del acc
+    plain_f32 = rel_l2(grads["plain"], g32)
+    rows["plain"]["bf16_vs_f32_grad_rel_l2"] = plain_f32
+    accum = grads["grad_accum 2"]
+    _, split = one_step_grads(micro_batch_pairs(est.pairs_fn(), 2), accumulator("bfloat16"),
+                              images, labels)
+    row = rows["grad_accum 2"]
+    row.update(vs_f32_grad_rel_l2=rel_l2(accum, g32), bar=ACCUM_F32_RATIO * plain_f32,
+               vs_plain_ofe_micro_batched=rel_l2(accum, split),
+               plain_ofe_micro_batched_vs_plain=rel_l2(split, grads["plain"]),
+               bf16_share_plain=bf16_share(grads["plain"]), bf16_share=bf16_share(accum),
+               one_bf16_rounding=rel_l2(bf16_rounded(accum), accum))
+    print(f"train memory option grad_accum 2 (full width, bf16): gradients vs the f32 plain "
+          f"step relative L2 {row['vs_f32_grad_rel_l2']:.3e}, the bf16 plain step's "
+          f"{plain_f32:.3e} (bar {ACCUM_F32_RATIO:g}x that: {row['bar']:.3e}); vs a plain step "
+          f"whose frozen flows come from micro-batches of 3 {row['vs_plain_ofe_micro_batched']:.3e} "
+          f"(that step vs plain {row['plain_ofe_micro_batched_vs_plain']:.3e}); gradient "
+          f"elements that are bf16 values: plain {row['bf16_share_plain']:.4f}, grad_accum 2 "
+          f"{row['bf16_share']:.4f}; one bf16 rounding of its gradient vector "
+          f"{row['one_bf16_rounding']:.3e}")
+    if not row["vs_f32_grad_rel_l2"] <= row["bar"]:
+        fail(f"train memory option grad_accum 2: gradients {row['vs_f32_grad_rel_l2']} from the "
+             f"f32 step's, over {row['bar']}")
+    del est, images, labels, split, accum
+    torch.cuda.empty_cache()
+    images, labels = small_train_batch("cuda")
+    small = {}
+    for name, cfg, k in opts:
+        est, acc = small_train_models("cuda", **cfg)
+        _, small[name] = one_step_grads(est.pairs_fn(), acc, images, labels, k)
+        rel = rel_l2(small[name], small["plain"])
+        rows[name]["f32_64px_grad_rel_l2_vs_plain"] = rel
+        print(f"train memory option {name} (64^2, float32): gradients vs plain relative L2 "
+              f"{rel:.3e} (bar {MEMORY_REL_F32:g})")
+        if not rel <= MEMORY_REL_F32:
+            fail(f"train memory option {name} in float32: gradients differ from the plain "
+                 f"step's by {rel}")
+    return rows
+
+
+def profile_train_step(est, state, batch, wall_ms: float) -> None:
+    """--profile: the device time of one train step (engine.make_acc_train_step's,
+    noise on, the AdamW update included) and of its frozen estimator's
+    pair call alone, by kind of kernel."""
+    step, _ = engine.make_acc_train_step(est, state.model, state.optimizer, add_noise=True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    imgs, flows = (torch.from_numpy(batch[k]).cuda() for k in ("imgs", "bflows"))
+    print("profile: one AccRAFT train step (batch 6, 256^2, bf16)")
+    profile_forward(lambda: step(imgs, flows, gen), wall_ms)
+    images, pairs = engine.to_clip(imgs), est.pairs_fn()
+    t = images.shape[0]
+    src = tuple(range(2, t)) * 2 + (1,)
+    dst = tuple(range(1, t - 1)) + (0,) * (t - 2) + (0,)
+    secs, _ = timed_runs(lambda: pairs(images, src, dst), 5)
+    print("profile: its frozen RAFT alone (66 pairs, 12 iterations, no_grad)")
+    profile_forward(lambda: pairs(images, src, dst), statistics.median(secs) * 1e3)
+
+
+def train_phase(tmp: str, with_profile: bool = False) -> dict:
+    """Phase 14: accumulator training (train/engine.py::train_acc) at the
+    AccRAFT recipe's full width (configs/AccRAFT.yml as shipped: batch 6,
+    256^2 crops of 7-frame clips, bf16, hidden 128, noise on, lr 1.2e-4,
+    frozen RAFT at 12 iterations on kernel #1) on 24 synthetic CVOR
+    training clips (48 samples over clean+final) and 6 test clips of 256^2:
+    kernel #1 against the plain lookup at the step's lookup shape (Q =
+    66*32*32, maps of 32^2 down to 4^2, whose 4-wide bfloat16 rows stage
+    element by element); (a) 13 steps with a validation at step 10 (visual sample 0, latest and
+    best checkpoints), then resume "auto" for 2 more, the count going on
+    from 13; one step's forward and backward under the sync debug mode
+    "error"; configs/AccGMA.yml for 4 steps (GMA frozen on kernel #1);
+    (b) train_gpu_vs_cpu; (c) memory_options. with_profile: profile_train_step."""
+    levels32, coords = lookup_inputs(66, 32, 32)
+    lookup_rows = check_lookup("kernel #1 (radius 4, train shape)",
+                               lambda lv, c, o: corr_cuda.lookup_corr_fused(lv, c, 4, o),
+                               levels32, coords, 4, out_dtypes=(torch.float32, torch.bfloat16))
+    del levels32, coords
+    torch.cuda.empty_cache()
+    root = str(Path(tmp) / "cvor_train")
+    t0 = time.perf_counter()
+    write_synthetic_cvor(root, num_train=24, num_test=6, h=256, w=256)
+    print(f"train: wrote 24 + 6 synthetic CVOR clips of 256^2 in {time.perf_counter() - t0:.2f} s")
+    run_dir = Path(tmp) / "train_raft"
+    opt = train_opts("AccRAFT.yml", root, run_dir, valid_freq=10)
+    raft = train_run("AccRAFT", opt, 13)
+    ckpt = CheckpointManager(opt.ckpt_dir)
+    files = sorted(str(p.relative_to(run_dir)) for p in run_dir.rglob("*") if p.is_file())
+    print(f"train AccRAFT: files {files}")
+    if ckpt.latest_step() != 13 or ckpt.best_steps() != [10]:
+        fail(f"train AccRAFT: checkpoints latest {ckpt.latest_step()}, best {ckpt.best_steps()}")
+    if not (run_dir / "logs" / "val" / "im000" / "000010.png").is_file():
+        fail("train AccRAFT: no visual sample PNG at step 10")
+    resumed = train_run("AccRAFT resumed", train_opts("AccRAFT.yml", root, run_dir,
+                                                      valid_freq=10, resume="auto"), 15)
+    if resumed["last_step"] != 15 or resumed["steps"] != 2:
+        fail(f"train AccRAFT resume: {resumed['steps']} steps to step {resumed['last_step']}, "
+             "expected 2 to step 15")
+    print("train AccRAFT resume: restored step 13, ran steps 14 and 15")
+    state = resumed.pop("state")
+    raft.pop("state")
+
+    est, _ = engine.build_acc_model(opt, device="cuda")
+    it = BatchIterator(fetch_train_dataset(root, ["bflows"], crop_size=256), 6,
+                              shuffle=True, drop_last=True, seed=0, epoch=0)
+    batch = next(iter(it))
+    images = engine.to_clip(torch.from_numpy(batch["imgs"]).cuda())
+    labels = engine.to_flow_seq(torch.from_numpy(batch["bflows"]).cuda())
+
+    def forward_backward():
+        with tf32(False):
+            loss, _ = sequence_loss_acc(accflow_train_forward(state.model, images, est.pairs_fn()),
+                                        labels)
+            loss.backward()
+
+    sync_free("train step forward + backward (AccRAFT, batch 6, 256^2)", forward_backward)
+    if with_profile:
+        profile_train_step(est, state, batch, raft["ms_per_step"])
+    del est, state, images, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gma_opt = train_opts("AccGMA.yml", root, Path(tmp) / "train_gma")
+    gma = train_run("AccGMA", gma_opt, 4, from_step=2)
+    gma.pop("state")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(lookup_train_shape=lookup_rows, accraft=raft, resumed=resumed, files=files,
+                accgma=gma,
+                gpu_vs_cpu=train_gpu_vs_cpu(), memory_options=memory_options(root))
+
+
 def build_kernels() -> None:
     """Phase 2: one nvcc per source (and per build of a source), started
     together."""
@@ -1638,6 +2080,13 @@ def main() -> int:
           f"ms), graphed {stream_b['frames_per_s']:.3f} ({stream_b['median_ms']:.3f} ms)")
     drift_launches = drift_fixture()
     evals = eval_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        train = train_phase(tmp, args.profile)
+    print(f"train on {line}: AccRAFT {train['accraft']['ms_per_step']:.2f} ms per step "
+          f"({train['accraft']['clips_per_s']:.3f} clips/s, peak "
+          f"{train['accraft']['peak_gib']:.3f} GiB); AccGMA "
+          f"{train['accgma']['ms_per_step']:.2f} ms per step "
+          f"({train['accgma']['clips_per_s']:.3f} clips/s, peak {train['accgma']['peak_gib']:.3f} GiB)")
     print(json.dumps({"graphs": {"card": line, "clip": clip_extra, "stream_a": stream_a,
                                  "stream_b": stream_b}}))
     print(json.dumps({"gma": {
@@ -1645,6 +2094,7 @@ def main() -> int:
         "chunked_attention": chunked, "stream_c": stream_c,
         "eval": {f"{m} {lk}": evals[m, lk] for m, lk in evals if "gma" in m},
         "pipeline": api_rows, "demo": demo_row}}))
+    print(json.dumps({"train": {"card": line, **train}}))
 
     # Kernels #1 and #3 have a row for each output type, each timed in the
     # configuration whose launches it reports: corr_lookup and
@@ -1664,7 +2114,14 @@ def main() -> int:
          **rows1["bfloat16, bf16 out"], "levels_dtype": "bfloat16", "out_dtype": "bfloat16",
          "eval_launches": evals["acc|raft", "fused"]["launches"],
          "gma_clip_launches": gma_row["launches"], "stream_c_launches": stream_c["launches"],
-         "gma_eval_launches": evals["acc|gma", "fused"]["launches"]},
+         "gma_eval_launches": evals["acc|gma", "fused"]["launches"],
+         "train_launches": train["accraft"]["launches"],
+         "train_launches_in": f"AccRAFT training, {train['accraft']['steps']} steps and a "
+                              "validation batch",
+         "train_launches_per_step": train["accraft"]["launches_per_step"],
+         "train_launches_per_validation_batch": train["accraft"]["launches_per_valid_batch"],
+         "gma_train_launches": train["accgma"]["launches"],
+         "train_shape": train["lookup_train_shape"]},
         {"name": "corr_lookup_f32_out", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:264",

@@ -5,8 +5,9 @@ queries per block), both with float32 and bfloat16 output, the y
 contraction of the split lookup (ops/corr_bd_cuda.py) and the floor kernel of the probes
 (probes.py); the CUDA graphs of the stream step (StreamAccumulator) and of a
 loaded artifact (serving.py, streaming.py), and the splat's determinism;
-GMA's small clip on the GPU against the CPU with kernels #1 and #3, and
-FlowPipeline on the GPU.
+GMA's small clip on the GPU against the CPU with kernels #1 and #3,
+FlowPipeline on the GPU, and one accumulator train step on the GPU against
+the CPU and its kernel-#1 launches.
 Marked `cuda`; each test skips where there is no GPU (no
 kernel can run there). This file imports neither JAX nor the JAX package,
 so it runs on a machine with only torch:
@@ -570,3 +571,72 @@ def test_flow_pipeline_on_the_gpu(dev):
     stream = pipe.stream(iters=2)
     outs = [stream.send(f) for f in frames]
     assert outs[1] is None and outs[3].shape == (36, 44, 2)
+
+
+def _train_case(where, **cfg):
+    """64^2, T=4, batch 2: RAFT at 4 iterations from seed 0, AccFlow hidden
+    32 from seed 1 with its ZeroConv drawn from seed 2, float32, on `where`,
+    and a batch (uint8-valued clips, label flows) from seed 5."""
+    est = build_flow_estimator("raft", compute_dtype="float32", iters=4, device=where)
+    acc = init_accflow(AccFlowConfig(hidden=32, compute_dtype="float32", **cfg), device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    zc = acc.accplus.conv2[4]
+    with torch.no_grad():
+        for p, scale in ((zc.conv.weight, 0.05), (zc.conv.bias, 0.5), (zc.scale, 0.1)):
+            p.copy_(torch.randn(p.shape, generator=gen) * scale)
+    rng = np.random.default_rng(5)
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 12)).astype(np.float32))
+    labels = torch.from_numpy((4 * rng.standard_normal((2, 64, 64, 4))).astype(np.float32))
+    return est, acc.to(where), imgs.to(where), labels.to(where)
+
+
+def test_train_step_gpu_matches_cpu(dev):
+    """One step's loss and gradients on the card (kernel #1, cuDNN) against
+    the CPU (plain lookup), float32, TF32 off: loss within 1e-5 relative,
+    gradients within 1e-4 in global relative L2, held over the context
+    encoder's leaves and over the rest apart, so that a TF32 backward
+    confined to one part cannot hide in the whole vector (chip_smoke.py's
+    TRAIN_* bars)."""
+    from accflow_tpu_torch.models.accflow import accflow_train_forward
+    from accflow_tpu_torch.nn.layers import tf32
+    from accflow_tpu_torch.train.engine import to_clip, to_flow_seq
+    from accflow_tpu_torch.train.loss import sequence_loss_acc
+
+    out = {}
+    for where in ("cpu", dev):
+        est, acc, imgs, labels = _train_case(where)
+        before = corr_cuda.launches
+        with tf32(False):
+            loss, _ = sequence_loss_acc(
+                accflow_train_forward(acc, to_clip(imgs), est.pairs_fn()), to_flow_seq(labels))
+            loss.backward()
+        assert corr_cuda.launches - before == (4 if where == dev else 0)
+        out[str(where)] = float(loss), {k: p.grad.cpu() for k, p in acc.named_parameters()}
+    (loss_g, g), (loss_c, c) = out[str(dev)], out["cpu"]
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+
+    def rel(keys):
+        num = sum(float(((g[k] - c[k]) ** 2).sum()) for k in keys)
+        return (num / sum(float((c[k] ** 2).sum()) for k in keys)) ** 0.5
+
+    ctx = [k for k in c if k.startswith("context.")]
+    assert rel([k for k in c if k not in ctx]) <= 1e-4
+    assert rel(ctx) <= 1e-4
+
+
+def test_train_step_launches_kernel_1_per_iteration(dev):
+    """engine.make_acc_train_step on the card: one batched pair call of the
+    frozen RAFT per step, so kernel #1 launches once per GRU iteration (4),
+    and the update moves the accumulator's weights."""
+    from accflow_tpu_torch.train.engine import make_acc_train_step
+    from accflow_tpu_torch.train.optim import make_optimizer
+
+    est, acc, imgs, labels = _train_case(dev)
+    before_w = [p.detach().clone() for p in acc.parameters()]
+    step, _ = make_acc_train_step(est, acc, make_optimizer(acc.parameters(), 1e-4, 10),
+                                  add_noise=True)
+    before = corr_cuda.launches
+    loss, metrics = step(imgs, labels, torch.Generator(device=dev).manual_seed(1))
+    assert corr_cuda.launches - before == 4
+    assert torch.isfinite(loss) and torch.isfinite(metrics["epe"])
+    assert any(not torch.equal(a, b) for a, b in zip(before_w, acc.parameters()))
