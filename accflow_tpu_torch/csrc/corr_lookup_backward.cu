@@ -1,0 +1,35 @@
+// Backward of the correlation window lookups for Hopper (sm_90a): the
+// gradient of kernel #1 (corr_lookup.cu: 4 levels, radius 4) and of kernel
+// #2 (corr_level_lookup.cu: 4 levels, radius 3 or 4) with respect to the
+// pyramid levels. The kernel is corr_window_backward.cuh's, whose header
+// says what it computes, what it stands for in JAX (XLA's autodiff of the
+// "fused" lookup; the TPU kernels have none), how it works and what bounds
+// it; this file is its two C entries, one library.
+
+#include "corr_window_backward.cuh"
+
+// C interface (loaded with ctypes). dtype: the levels' type, which the
+// gradients take (0 = float32, 1 = bfloat16); grad_dtype: the window
+// gradient's (0 = float32, 1 = bfloat16). coords: contiguous (q, 2)
+// float32; grad_out: contiguous (q, 4*(2*radius+1)^2); grads: 4 pointers
+// to contiguous (q, hw[2l], hw[2l+1]) outputs, every element written.
+// Launches on `stream`; returns cudaGetLastError() (0 = success), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+extern "C" int corr_lookup_backward(int dtype, int grad_dtype, const float* coords,
+                                    const void* grad_out, void* const* grads, const int* hw,
+                                    long long q, void* stream) {
+  return window_backward<4, 4>(dtype, grad_dtype, coords, grad_out, grads, hw, q,
+                               static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int corr_level_lookup_backward(int dtype, int grad_dtype, int radius,
+                                          const float* coords, const void* grad_out,
+                                          void* const* grads, const int* hw, long long q,
+                                          void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (radius == 3)
+    return window_backward<3, 4>(dtype, grad_dtype, coords, grad_out, grads, hw, q, s);
+  if (radius == 4)
+    return window_backward<4, 4>(dtype, grad_dtype, coords, grad_out, grads, hw, q, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -20,6 +20,7 @@ from accflow_tpu_torch.models.gma import (  # noqa: F401
     gma_flow_pairs_from_features,
     gma_forward,
     gma_pairs_forward,
+    gma_train_forward,
     init_gma,
 )
 from accflow_tpu_torch.models.raft import (  # noqa: F401
@@ -30,13 +31,16 @@ from accflow_tpu_torch.models.raft import (  # noqa: F401
     raft_flow_pairs_from_features,
     raft_forward,
     raft_pairs_forward,
+    raft_train_forward,
 )
 
 # Each family's entry points: forward, pairs_forward, encode_frame,
-# flow_pairs_from_features (one contract for both).
+# flow_pairs_from_features, train_forward (one contract for both).
 _ENTRY_POINTS = {
-    RAFT: (raft_forward, raft_pairs_forward, raft_encode_frame, raft_flow_pairs_from_features),
-    GMA: (gma_forward, gma_pairs_forward, gma_encode_frame, gma_flow_pairs_from_features),
+    RAFT: (raft_forward, raft_pairs_forward, raft_encode_frame, raft_flow_pairs_from_features,
+           raft_train_forward),
+    GMA: (gma_forward, gma_pairs_forward, gma_encode_frame, gma_flow_pairs_from_features,
+          gma_train_forward),
 }
 
 
@@ -50,14 +54,23 @@ class FlowEstimator:
         self.model = model
         self.iters = iters
         (self._forward, self._pairs_forward, self._encode_frame,
-         self._pairs_from_features) = _ENTRY_POINTS[type(model)]
+         self._pairs_from_features, self._train_forward) = _ENTRY_POINTS[type(model)]
 
     @property
     def cfg(self):
         return self.model.cfg
 
     def forward(self, image1, image2, iters: Optional[int] = None, flow_init=None,
-                final_only: bool = False) -> dict:
+                final_only: bool = False, train: bool = False, remat: str = "none") -> dict:
+        """Flow image1 -> image2 (raft_forward's contract). train=True is
+        torch's model.train() for fine-tuning (JAX's forward with
+        train=True): autograd records the forward, the context encoder's
+        BatchNorm normalises with the batch's statistics and keeps its
+        running-statistics updates (nn.layers.collect_bn_updates), and
+        remat ("none", "dots", "full") checkpoints each GRU iteration."""
+        if train:
+            return self._train_forward(self.model, image1, image2, self._iters(iters),
+                                       flow_init, final_only, remat)
         return self._forward(self.model, image1, image2, self._iters(iters), flow_init,
                              final_only)
 

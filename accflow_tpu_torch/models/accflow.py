@@ -32,20 +32,15 @@ stepwise path and the forward (F0N) direction are not ported (ROADMAP.md
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import (
-    CheckpointPolicy,
-    checkpoint,
-    create_selective_checkpoint_contexts,
-)
 
 from accflow_tpu_torch.device import resolve_device
 from accflow_tpu_torch.models.encoders import BasicEncoder
 from accflow_tpu_torch.models.raft import to_nchw
 from accflow_tpu_torch.nn.layers import Conv2d, ZeroConv2d, init_weights, tf32
+from accflow_tpu_torch.nn.remat import remat_wrap
 from accflow_tpu_torch.ops.deform import deform_conv3x3
 from accflow_tpu_torch.ops.grids import downflow8
 from accflow_tpu_torch.ops.occlusion import photometric_occ
@@ -231,35 +226,6 @@ def _accflow_forward_warmstart(model: AccFlow, ofe, images: torch.Tensor) -> tor
     return torch.stack(outs)
 
 
-_SAVED_BY_DOTS = {  # what remat="dots" keeps: JAX's checkpoint_dots
-    torch.ops.aten.convolution.default,
-    torch.ops.aten.mm.default,
-    torch.ops.aten.bmm.default,
-    torch.ops.aten.addmm.default,
-    torch.ops.aten.baddbmm.default,
-}
-
-
-def _keep_dots(ctx, op, *args, **kwargs):
-    del ctx, args, kwargs
-    if op in _SAVED_BY_DOTS:
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
-
-
-def _remat_wrap(fn, remat):
-    """AccFlowConfig.remat applied to a cell (JAX's _remat_wrap): with
-    autograd recording, False runs it as it is, True / "full" under
-    torch.utils.checkpoint (nothing stored but its inputs), "dots" under a
-    selective checkpoint that keeps conv and matmul outputs."""
-    if not remat or not torch.is_grad_enabled():
-        return fn
-    if remat == "dots":
-        ctx_fn = functools.partial(create_selective_checkpoint_contexts, _keep_dots)
-        return lambda *a: checkpoint(fn, *a, use_reentrant=False, context_fn=ctx_fn)
-    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
-
-
 def _clip_images(model: AccFlow, images) -> torch.Tensor:
     dev = next(model.parameters()).device
     images = torch.as_tensor(images, dtype=torch.float32, device=dev)
@@ -338,7 +304,7 @@ def _accflow_forward_fused(model: AccFlow, images: torch.Tensor, ofe_pairs) -> t
             f_acc = model.accplus(df, f, o_i, c_i)
             return model.flow_decoder(model.blending(f_ini, f_acc, emap_i))
 
-        cell = _remat_wrap(cell, model.cfg.remat)
+        cell = remat_wrap(cell, model.cfg.remat)
         carry, outs = seed, []
         for i in range(s):
             carry, out = cell(carry, f_inis[i], dfs[i], o[i], emap[i], ctx[i + 2])

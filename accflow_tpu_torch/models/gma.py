@@ -1,5 +1,5 @@
-"""GMA (global motion aggregation) optical-flow estimator (inference),
-counterpart of accflow_tpu/models/gma.py (reference networks/gma/).
+"""GMA (global motion aggregation) optical-flow estimator, counterpart of
+accflow_tpu/models/gma.py (reference networks/gma/).
 
 GMA is full-width RAFT plus one attention over the context features:
 - Attention: q, k from one bias-free 1x1 conv on the context `inp`,
@@ -16,7 +16,10 @@ GMA is full-width RAFT plus one attention over the context features:
 
 The GRU loop, the lookups (kernel #1 for "fused" and "auto", kernel #3 under
 experimental:fused_bd[2]) and the upsampling are raft.py's (raft_iterate),
-given the aggregation as its hook; the encodes are raft.py's as well.
+given the aggregation as its hook; the encodes are raft.py's as well, and
+so is the training forward's contract (gma_train_forward: raft.py's
+raft_train_forward, with the attention and the aggregate recorded by
+autograd as plain torch ops, which JAX computes outside any kernel too).
 
 Numerics (JAX's, accflow_tpu/models/gma.py:228-330): the similarity is
 float32; with bfloat16-valued q and k TF32 is exact and allowed (as
@@ -50,6 +53,7 @@ from accflow_tpu_torch.models.raft import (
     RAFTConfig,
     _as_images,
     _encode_pairs,
+    check_trainable_lookup,
     gather_pairs,
     raft_encode_frame,
     raft_iterate,
@@ -306,23 +310,35 @@ def _gather_attn(attn, sel, n: int):
 
 
 def gma_iterate(model: GMA, levels, net, inp, attn, iters: int, final_only: bool,
-                flow_init: Optional[torch.Tensor] = None) -> dict:
+                flow_init: Optional[torch.Tensor] = None, remat: str = "none") -> dict:
     """raft_iterate with the aggregation of `attn` in every iteration."""
     agg = model.update_block.aggregator
     return raft_iterate(model, levels, net, inp, iters, final_only, flow_init,
-                        aggregate=lambda motion: aggregate(agg, attn, motion))
+                        aggregate=lambda motion: aggregate(agg, attn, motion), remat=remat)
 
 
-def _pairs(model: GMA, frames, src_idx, dst_idx, iters, final_only, flow_init=None):
+def _pairs(model: GMA, frames, src_idx, dst_idx, iters, final_only, flow_init=None,
+           train: bool = False, remat: str = "none"):
     cfg = model.cfg
     iters = cfg.iters if iters is None else iters
     _, n, h, w, _ = frames.shape
     chunk = _attn_chunk(cfg, len(src_idx) * n, h // 8, w // 8)
     with tf32(False):
-        levels, net_u, inp_u, sel = _encode_pairs(model, frames, src_idx, dst_idx)
+        levels, net_u, inp_u, sel = _encode_pairs(model, frames, src_idx, dst_idx, train)
         attn = _gather_attn(attention(model, inp_u, chunk), sel, n)
         return gma_iterate(model, levels, gather_pairs(net_u, sel, n),
-                           gather_pairs(inp_u, sel, n), attn, iters, final_only, flow_init)
+                           gather_pairs(inp_u, sel, n), attn, iters, final_only, flow_init,
+                           remat)
+
+
+def gma_train_forward(model: GMA, image1, image2, iters: Optional[int] = None, flow_init=None,
+                      final_only: bool = False, remat: str = "none") -> dict:
+    """gma_forward for training, the contract of raft_train_forward."""
+    check_trainable_lookup(model.cfg)
+    dev = next(model.parameters()).device
+    frames = torch.stack([_as_images(image1, dev), _as_images(image2, dev)])
+    return _pairs(model, frames, (0,), (1,), iters, final_only, flow_init, train=True,
+                  remat=remat)
 
 
 @torch.no_grad()

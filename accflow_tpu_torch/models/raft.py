@@ -1,5 +1,5 @@
-"""RAFT optical-flow estimator (inference), counterpart of
-accflow_tpu/models/raft.py, in its two configurations:
+"""RAFT optical-flow estimator, counterpart of accflow_tpu/models/raft.py,
+in its two configurations:
 - full width (RAFTConfig()): basic encoders (fnet 256 channels, instance
   norm; cnet 128 hidden + 128 context, frozen batch norm), radius 4, 4
   levels, SepConvGRU, convex upsampling;
@@ -27,6 +27,17 @@ float32, and the stored pyramid levels in the compute dtype.
 
 Images are (N, H, W, 3) in [-1, 1]; flows (N, H, W, 2) in (x, y) order.
 Feature maps inside are NCHW, kept channels_last in memory.
+
+Inference (raft_forward and the other entry points) runs under no_grad.
+raft_train_forward is fine-tuning's forward (JAX's forward with
+train=True): autograd records it, the cnet's BatchNorm normalises with the
+batch's statistics and keeps its running-statistics updates
+(nn.layers.collect_bn_updates), the pyramid is stored in float32 (JAX's
+default corr_volume_dtype), so that the levels' gradient sums its
+iterations in float32, and the lookups' backward is the backward kernel
+(ops/corr_backward_cuda.py). The coordinates are detached at the top of
+every iteration, as JAX's stop_gradient; `remat` checkpoints each
+iteration (JAX's scan_remat).
 """
 
 from __future__ import annotations
@@ -39,7 +50,8 @@ import torch.nn as nn
 
 from accflow_tpu_torch.device import resolve_device
 from accflow_tpu_torch.models.encoders import BasicEncoder, SmallEncoder
-from accflow_tpu_torch.nn.layers import Conv2d, conv2d, init_weights, tf32
+from accflow_tpu_torch.nn.layers import Conv2d, batch_statistics, conv2d, init_weights, tf32
+from accflow_tpu_torch.nn.remat import remat_wrap
 from accflow_tpu_torch.ops.corr import (
     SPLIT_LOOKUPS,
     build_corr_pyramid,
@@ -58,8 +70,8 @@ class RAFTConfig:
     """The JAX package's RAFTConfig: full width, or RAFT-small with
     small=True, from which the widths and the radius follow. corr_lookup
     selects full RAFT's lookup (module docstring; an unported spelling
-    raises here). Its TPU-only knobs (scan_unroll, scan_remat, stem_s2d)
-    are not carried over.
+    raises here). Its TPU-only knobs (scan_unroll, stem_s2d) are not
+    carried over; scan_remat is raft_train_forward's `remat` argument.
 
     JAX's corr_volume_dtype is a numerics choice, and the port makes it
     differently: JAX stores the pyramid levels in float32 by default
@@ -298,21 +310,28 @@ def init_raft(cfg: RAFTConfig = RAFTConfig(), seed: int = 0, device=None) -> RAF
     return init_weights(RAFT(cfg), seed).to(dev).eval()
 
 
-def raft_cnet(model: RAFT, images: torch.Tensor):
-    """Context encoder on NCHW images -> (net, inp) initial state."""
-    out = model.cnet(images)
+def raft_cnet(model: RAFT, images: torch.Tensor, train: bool = False):
+    """Context encoder on NCHW images -> (net, inp) initial state. train:
+    its BatchNorm layers normalise with the batch's statistics and keep
+    their running-statistics updates (nn.layers.batch_statistics)."""
+    with batch_statistics(model.cnet, train):
+        out = model.cnet(images)
     hd = model.cfg.hidden_dim
     return torch.tanh(out[:, :hd]), torch.relu(out[:, hd:])
 
 
 def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
-                 flow_init: Optional[torch.Tensor] = None, aggregate=None):
+                 flow_init: Optional[torch.Tensor] = None, aggregate=None,
+                 remat: str = "none"):
     """The GRU refinement loop on a built pyramid. net/inp (N, C, h8, w8)
     in the compute dtype; flow_init an optional (N, h8, w8, 2) warm start,
     added to the coordinate grid in float32. aggregate: GMA's global
     motion, motion (N, 128, h8, w8) -> (N, 128, h8, w8), whose output joins
     the motion features in the GRU's input (models/gma.py::gma_iterate).
-    Returns {"flow_up", "flow_low"[, "predictions"]}."""
+    The coordinates are detached at the top of every iteration (JAX's
+    stop_gradient). remat ("none", "dots" or "full", nn.remat.remat_wrap)
+    checkpoints each iteration under autograd. Returns {"flow_up",
+    "flow_low"[, "predictions"]}."""
     cfg, ub = model.cfg, model.update_block
     cd = cfg.dtype
     n, _, h8, w8 = net.shape
@@ -339,8 +358,8 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
         def upsample(flow, net):
             return convex_upsample(flow, ub.upsample_mask(net).permute(0, 2, 3, 1))
     split = cfg.split_levels
-    preds = []
-    for _ in range(iters):
+
+    def iteration(net, coords1):
         flow = coords1 - coords0
         flow_cd = flow.permute(0, 3, 1, 2).to(cd)
         if split is None:
@@ -354,8 +373,15 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
         net = gru_step(net, motion)
         delta = ub.flow_head(net)
         coords1 = (coords1 + delta.float().permute(0, 2, 3, 1)).contiguous()
-        if not final_only:
-            preds.append(upsample(coords1 - coords0, net))
+        if final_only:
+            return net, coords1
+        return net, coords1, upsample(coords1 - coords0, net)
+
+    iteration = remat_wrap(iteration, remat)
+    preds = []
+    for _ in range(iters):
+        net, coords1, *pred = iteration(net, coords1.detach())
+        preds += pred
     out = {"flow_low": coords1 - coords0}
     if final_only:
         out["flow_up"] = upsample(coords1 - coords0, net)
@@ -395,31 +421,61 @@ def raft_pairs_forward(model: RAFT, frames, src_idx, dst_idx,
                   final_only)["flow_up"]
 
 
-def _pairs(model, frames, src_idx, dst_idx, iters, final_only, flow_init=None):
+def check_trainable_lookup(cfg) -> None:
+    """Raise NotImplementedError for a lookup without a backward: the split
+    lookups (kernel #3's backward is not ported, ROADMAP.md #16)."""
+    if cfg.split_levels is not None:
+        raise NotImplementedError(
+            f"corr_lookup={cfg.corr_lookup!r} has no backward: training through it needs "
+            "kernel #3's backward, which is not ported (ROADMAP.md, queue 1 #16); train with "
+            "corr_lookup 'fused'")
+
+
+def raft_train_forward(model: RAFT, image1, image2, iters: Optional[int] = None,
+                       flow_init=None, final_only: bool = False, remat: str = "none"):
+    """raft_forward for training (JAX's forward with train=True): autograd
+    records it; the cnet's BatchNorm uses the batch's statistics and keeps
+    its running-statistics updates for collect_bn_updates; the pyramid is
+    stored in float32; remat ("none", "dots", "full") checkpoints each GRU
+    iteration. The split lookups (experimental:fused_bd[2]) need kernel #3's
+    backward, which is not ported: NotImplementedError."""
+    check_trainable_lookup(model.cfg)
+    dev = next(model.parameters()).device
+    frames = torch.stack([_as_images(image1, dev), _as_images(image2, dev)])
+    return _pairs(model, frames, (0,), (1,), iters, final_only, flow_init, train=True,
+                  remat=remat)
+
+
+def _pairs(model, frames, src_idx, dst_idx, iters, final_only, flow_init=None,
+           train: bool = False, remat: str = "none"):
     cfg = model.cfg
     iters = cfg.iters if iters is None else iters
     n = frames.shape[1]
     with tf32(False):
-        levels, net_u, inp_u, sel = _encode_pairs(model, frames, src_idx, dst_idx)
+        levels, net_u, inp_u, sel = _encode_pairs(model, frames, src_idx, dst_idx, train)
         return raft_iterate(model, levels, gather_pairs(net_u, sel, n),
-                            gather_pairs(inp_u, sel, n), iters, final_only, flow_init)
+                            gather_pairs(inp_u, sel, n), iters, final_only, flow_init,
+                            remat=remat)
 
 
-def _encode_pairs(model, frames, src_idx, dst_idx):
+def _encode_pairs(model, frames, src_idx, dst_idx, train: bool = False):
     """The encodes of the pair queries (src_idx[i] -> dst_idx[i]) on frames
     (K, N, H, W, 3), each used frame fnet-encoded once and each source frame
     cnet-encoded once. Returns (levels, net_u, inp_u, sel): the pyramid of
     the P*N pairs (P-major), the cnet state of the S unique source frames
     ((S*N, C, h8, w8) each) and, per pair, the index of its source among
     them (gather_pairs picks the pairs' rows). Checks corr_lookup "auto"
-    against the budget at this shape (resolve_auto_lookup)."""
+    against the budget at this shape (resolve_auto_lookup). train: the
+    cnet's BatchNorm in batch-statistics mode and the levels in float32
+    (raft_train_forward); else the levels take the compute dtype."""
     cfg = model.cfg
     cd = cfg.dtype
+    level_dtype = torch.float32 if train else cd
     src_idx = tuple(int(i) for i in src_idx)
     dst_idx = tuple(int(i) for i in dst_idx)
     k, n, h, w, _ = frames.shape
     resolve_auto_lookup(cfg.corr_lookup, len(src_idx) * n, h // 8, w // 8,
-                        cfg.corr_levels, cd)
+                        cfg.corr_levels, level_dtype)
     # Frames and per-frame features are picked by concatenating views, not
     # by indexing with Python lists: a list index becomes a host tensor
     # copied to the device at run time, which a CUDA graph cannot capture.
@@ -429,12 +485,13 @@ def _encode_pairs(model, frames, src_idx, dst_idx):
     fmaps = fmaps.view(len(used), n, *fmaps.shape[1:])
     fmap1 = _select(fmaps, [pos[i] for i in src_idx]).flatten(0, 1)
     fmap2 = _select(fmaps, [pos[i] for i in dst_idx]).flatten(0, 1)
-    levels = build_corr_pyramid(fmap1, fmap2, cfg.corr_levels, dtype=cd)
+    levels = build_corr_pyramid(fmap1, fmap2, cfg.corr_levels, dtype=level_dtype)
     del fmaps, fmap1, fmap2
 
     src_used = sorted(set(src_idx))
     spos = {f: i for i, f in enumerate(src_used)}
-    net_u, inp_u = raft_cnet(model, to_nchw(_select(frames, src_used).reshape(-1, h, w, 3), cd))
+    net_u, inp_u = raft_cnet(model, to_nchw(_select(frames, src_used).reshape(-1, h, w, 3), cd),
+                             train)
     return levels, net_u, inp_u, [spos[i] for i in src_idx]
 
 

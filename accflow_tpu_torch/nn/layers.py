@@ -76,6 +76,28 @@ def batch_norm(x, weight, bias, running_mean, running_var, eps: float = 1e-5):
     return x * scale.to(x.dtype).view(1, -1, 1, 1) + shift.to(x.dtype).view(1, -1, 1, 1)
 
 
+def batch_norm_train(x, weight, bias, running_mean, running_var, eps: float = 1e-5,
+                     momentum: float = 0.1):
+    """Train-mode BatchNorm2d (accflow_tpu/nn/layers.py::batch_norm with
+    train=True): x normalised with its batch's statistics over (N, H, W),
+    taken in float32 with the biased variance, the affine map applied in
+    float32 and the result cast to x's dtype. Returns (y, new_mean,
+    new_var): the running statistics moved by `momentum` towards the
+    batch's, running_var with the unbiased variance, detached. They are
+    returned, not applied: a train step applies them once, after its update
+    (collect_bn_updates / apply_bn_updates), and F.batch_norm's in-place
+    update would move them once per micro-batch."""
+    xf = x.float()
+    var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    with torch.no_grad():
+        new_mean = (1.0 - momentum) * running_mean + momentum * mean
+        new_var = (1.0 - momentum) * running_var + momentum * var * (n / max(n - 1, 1))
+    scale = weight * torch.rsqrt(var + eps)
+    shift = bias - mean * scale
+    return (xf * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)).to(x.dtype), new_mean, new_var
+
+
 def zero_conv2d(x, weight, bias, scale):
     """ZeroConv2d (networks/modules.py:81-97): conv3x3(x) * exp(3 * scale);
     scale broadcasts over channels ((C,) or (1, C, 1, 1))."""
@@ -123,9 +145,14 @@ class Conv2d(nn.Module):
 
 
 class BatchNorm2d(nn.Module):
-    """Frozen BatchNorm2d: parameters `weight`/`bias`, buffers
+    """BatchNorm2d: parameters `weight`/`bias`, buffers
     `running_mean`/`running_var` (the reference's names, without
-    `num_batches_tracked`, which eval mode never reads)."""
+    `num_batches_tracked`, which neither mode reads). By default it is
+    frozen and applies the running statistics, whatever torch's training
+    flag says; with `batch_stats` set (`batch_statistics`) it applies the
+    batch's, as torch's model.train() does, and keeps the moved running
+    statistics in `new_stats` until collect_bn_updates takes them. AdamW
+    never sees the buffers: they are not parameters."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -133,6 +160,8 @@ class BatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.batch_stats = False
+        self.new_stats = None
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -143,8 +172,51 @@ class BatchNorm2d(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x):
-        return batch_norm(x, self.weight, self.bias, self.running_mean,
-                          self.running_var)
+        if not self.batch_stats:
+            return batch_norm(x, self.weight, self.bias, self.running_mean,
+                              self.running_var)
+        y, mean, var = batch_norm_train(x, self.weight, self.bias, self.running_mean,
+                                        self.running_var)
+        self.new_stats = (mean, var)
+        return y
+
+
+@contextlib.contextmanager
+def batch_statistics(module: nn.Module, enabled: bool = True):
+    """With `enabled`, the BatchNorm2d layers of `module` normalise with
+    their batch's statistics within the block (torch's model.train(), what
+    the reference fine-tunes with), and are frozen again afterwards. The
+    other layers have no training mode."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.batch_stats = enabled
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.batch_stats = False
+
+
+def collect_bn_updates(model: nn.Module) -> dict:
+    """Take the moved running statistics that BatchNorm2d layers of `model`
+    kept from their last forward under batch_statistics: {layer name: (mean,
+    var)} (accflow_tpu/nn/layers.py::collect_bn_updates)."""
+    out = {}
+    for name, m in model.named_modules():
+        if isinstance(m, BatchNorm2d) and m.new_stats is not None:
+            out[name] = m.new_stats
+            m.new_stats = None
+    return out
+
+
+@torch.no_grad()
+def apply_bn_updates(model: nn.Module, updates: dict) -> None:
+    """Write collect_bn_updates' statistics into the layers' buffers
+    (accflow_tpu/nn/layers.py::apply_bn_updates)."""
+    for name, (mean, var) in updates.items():
+        m = model.get_submodule(name)
+        m.running_mean.copy_(mean)
+        m.running_var.copy_(var)
 
 
 class InstanceNorm2d(nn.Module):
@@ -187,7 +259,7 @@ class Embedding(nn.Module):
 
 def make_norm(norm_fn: str, num_features: int) -> nn.Module:
     """The encoders' norm modes: "instance" and "none" carry no parameters
-    (and so no state_dict keys), "batch" is frozen BatchNorm2d."""
+    (and so no state_dict keys), "batch" is BatchNorm2d."""
     if norm_fn == "batch":
         return BatchNorm2d(num_features)
     if norm_fn == "instance":

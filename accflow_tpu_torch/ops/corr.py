@@ -15,6 +15,10 @@ index a carries the x offset (networks/raft/corr.py:32-38).
 
 `lookup_corr_plain` is the explicit 4-corner gather: the CPU path and the
 oracle of the CUDA kernel (ops/corr_cuda.py), which the GPU path runs.
+`lookup_corr_plain_backward` is its gradient with respect to the levels:
+the CPU path of the lookup ops' backward and the oracle of the backward
+kernel (ops/corr_backward_cuda.py), held against torch.autograd.grad of
+lookup_corr_plain and against JAX's gradient by the tests.
 
 Split lookup (`lookup_corr_split_v2`, the `experimental:fused_bd[2]`
 spellings of `corr_lookup`): the same windows per level as (Q, 9, 9) arrays,
@@ -33,7 +37,7 @@ import torch
 
 from accflow_tpu_torch.nn.layers import tf32
 from accflow_tpu_torch.ops.corr_bd_cuda import y_contract
-from accflow_tpu_torch.ops.sampling import bilinear_sample
+from accflow_tpu_torch.ops.sampling import bilinear_sample, bilinear_sample_backward
 
 # corr_lookup spellings (accflow_tpu/ops/corr.py:116-134): the live ones the
 # all-levels lookup serves, and the experimental split ones with their
@@ -178,6 +182,30 @@ def lookup_corr_plain(levels, coords: torch.Tensor, radius: int = 4,
         sampled = bilinear_sample(level.reshape(q, hl, wl, 1).float(), pts)
         outs.append(sampled.reshape(q, num * num))
     return torch.cat(outs, dim=-1).to(out_dtype)
+
+
+def lookup_corr_plain_backward(grad_out: torch.Tensor, coords: torch.Tensor, level_shapes,
+                               radius: int = 4, dtype: torch.dtype = torch.float32) -> list:
+    """The gradient of lookup_corr_plain with respect to its levels:
+    grad_out (Q, L*(2r+1)^2), the gradient of the lookup's output; coords
+    (Q, 2) float32; level_shapes the L (hl, wl); dtype the levels'. Each
+    level's window is bilinear_sample at lookup_corr_plain's points, so its
+    gradient is bilinear_sample_backward at the same points: what
+    torch.autograd.grad of lookup_corr_plain gives (in another summation
+    order), written out because a custom op's kernel, where the CPU op runs
+    this, runs with autograd off. Returns L (Q, hl, wl) gradients in
+    `dtype` (bfloat16 levels: the float32 sums rounded once). Coords get no
+    gradient, as JAX stops it."""
+    num = 2 * radius + 1
+    q = coords.shape[0]
+    delta = torch.linspace(-radius, radius, num, dtype=torch.float32, device=coords.device)
+    offsets = torch.stack([delta.repeat_interleave(num), delta.repeat(num)], -1)
+    g = grad_out.float().view(q, len(level_shapes), num * num, 1)
+    grads = []
+    for i, (hl, wl) in enumerate(level_shapes):
+        pts = coords.float().view(q, 1, 2) / (2.0 ** i) + offsets[None]
+        grads.append(bilinear_sample_backward(g[:, i], pts, hl, wl, dtype).view(q, hl, wl))
+    return grads
 
 
 def window_weights(centers: torch.Tensor, size: int) -> torch.Tensor:

@@ -20,8 +20,8 @@ kernel's, or bfloat16) is the output's type: bfloat16 is the float32 blend
 rounded once to nearest even, bit for bit the float32 output cast.
 `launches` counts kernel launches and nothing else (a CUDA graph's replay
 of a captured launch does not pass through Python and is not counted).
-The op has no backward: a call that autograd would record raises
-(cuda_lib.refuse_autograd), as do the other lookup ops'.
+Its backward is the backward kernel's op `accflow::corr_lookup_backward`
+(ops/corr_backward_cuda.py): the levels' gradient, the coords none.
 Radius (4) and level count (4) are compiled into the kernel; `build` and
 `launch` also take a variant built with other -D defines (chip_smoke.py's
 tile sweep over CORR_QT, the queries per block).
@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from accflow_tpu_torch.ops import cuda_lib
+from accflow_tpu_torch.ops import corr_backward_cuda, cuda_lib
 from accflow_tpu_torch.ops.corr import lookup_corr_plain
 
 SOURCE = cuda_lib.CSRC / "corr_lookup.cu"
@@ -106,7 +106,8 @@ def _(levels, coords, out_dtype):
     return coords.new_empty((coords.shape[0], LEVELS * (2 * RADIUS + 1) ** 2), dtype=out_dtype)
 
 
-cuda_lib.refuse_autograd(corr_lookup_op, "accflow::corr_lookup")
+corr_backward_cuda.register_autograd(corr_lookup_op, corr_backward_cuda.corr_lookup_backward_op,
+                                     "accflow::corr_lookup", radius=RADIUS)
 
 
 def launch(lib: ctypes.CDLL, levels, coords: torch.Tensor,

@@ -16,7 +16,8 @@ torch.export; a CUDA graph captures it as one dispatched op. `out_dtype`
 (float32, the TPU kernel's, or bfloat16) is the output's type: bfloat16 is
 the float32 blend rounded once to nearest even, bit for bit the float32
 output cast. `launches` counts kernel launches and nothing else (not a CUDA
-graph's replays). Built at first use (ops/cuda_lib.py), never on import; `build` and `launch` also take a variant built with other
+graph's replays). Its backward is the backward kernel's op
+`accflow::corr_level_lookup_backward` (ops/corr_backward_cuda.py). Built at first use (ops/cuda_lib.py), never on import; `build` and `launch` also take a variant built with other
 -D defines ("-DCORR_LEVELS=1": chip_smoke.py's one-level probe;
 "-DCORR_QT=n": its tile sweep over the queries per block).
 """
@@ -27,7 +28,7 @@ import ctypes
 
 import torch
 
-from accflow_tpu_torch.ops import cuda_lib
+from accflow_tpu_torch.ops import corr_backward_cuda, cuda_lib
 from accflow_tpu_torch.ops.corr import lookup_corr_plain
 
 SOURCE = cuda_lib.CSRC / "corr_level_lookup.cu"
@@ -103,7 +104,9 @@ def _(levels, coords, radius, out_dtype):
                             dtype=out_dtype)
 
 
-cuda_lib.refuse_autograd(corr_level_lookup_op, "accflow::corr_level_lookup")
+corr_backward_cuda.register_autograd(corr_level_lookup_op,
+                                     corr_backward_cuda.corr_level_lookup_backward_op,
+                                     "accflow::corr_level_lookup")
 
 
 def launch(lib: ctypes.CDLL, levels, coords: torch.Tensor, radius: int,

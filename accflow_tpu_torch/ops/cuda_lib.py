@@ -1,5 +1,5 @@
 """Building the port's CUDA sources, checking the lookups' operands, and
-refusing autograd through the kernels' ops.
+refusing autograd through kernel #3's op.
 
 Build: nvcc compiles a source from csrc/ for sm_90a into a shared library
 with a C interface, into `_build/` beside this package (named by a hash of
@@ -79,18 +79,18 @@ def check_lookup_operands(levels, coords: torch.Tensor) -> None:
 
 
 def refuse_autograd(op, name: str) -> None:
-    """Make a call of the custom op `op` (`name`, e.g. "accflow::corr_lookup")
+    """Make a call of the custom op `op` (`name`, "accflow::y_contract")
     raise when autograd would record it: grad mode on and an input that
-    requires grad. The kernels have no backward (neither had the TPU
-    kernels, accflow_tpu/ops/corr_pallas.py:71-73); the estimator runs them
-    frozen, under no_grad. Without this, PyTorch would run the forward and
-    fail only in backward()."""
+    requires grad. Kernel #3 has no backward (neither had the TPU kernel,
+    accflow_tpu/ops/corr_pallas.py:71-73); it serves inference and the
+    frozen estimator of accumulator training, under no_grad. Without this,
+    PyTorch would run the forward and fail only in backward(). (The lookup
+    ops #1 and #2 have a backward kernel: ops/corr_backward_cuda.py.)"""
     def setup_context(ctx, inputs, output):
         raise RuntimeError(
-            f"{name} has no backward: the lookup kernels serve inference and the "
-            "frozen estimator of accumulator training, under torch.no_grad(). A "
-            "gradient through the correlation lookup is fine_tune's, not yet ported "
-            "(ROADMAP.md, fine-tune)")
+            f"{name} has no backward: a fine_tune with corr_lookup "
+            "experimental:fused_bd[2] needs kernel #3's backward, which is not ported "
+            "(ROADMAP.md, queue 1 #16); fine-tune with corr_lookup 'fused'")
 
     def backward(ctx, grad):
         raise AssertionError("unreachable: setup_context refuses")

@@ -44,6 +44,36 @@ def bilinear_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return out.reshape(out_shape)
 
 
+def bilinear_sample_backward(grad: torch.Tensor, coords: torch.Tensor, h: int, w: int,
+                             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The gradient of bilinear_sample(img, coords) with respect to img
+    (B, h, w, C), for the output's gradient grad (B, ..., C): the transpose
+    of the four masked corner gathers, each tap's weighted gradient added
+    into its pixel in float32 (what autograd of bilinear_sample computes, in
+    another summation order), cast once to `dtype`."""
+    b, c = grad.shape[0], grad.shape[-1]
+    out = torch.zeros((b * h * w, c), dtype=torch.float32, device=grad.device)
+    if h == 0 or w == 0:
+        return out.view(b, h, w, c).to(dtype)
+    pts = coords.float().reshape(*grad.shape[:-1], 2).flatten(1, -2)
+    x, y = pts[..., 0], pts[..., 1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    g = grad.float().flatten(1, -2)
+    base = (torch.arange(b, device=grad.device) * (h * w)).view(b, 1)
+
+    def tap(xi, yi, weight):
+        valid = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+        idx = base + yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long()
+        out.index_add_(0, idx.reshape(-1), (g * (weight * valid).unsqueeze(-1)).reshape(-1, c))
+
+    tap(x0, y0, (1.0 - fx) * (1.0 - fy))
+    tap(x0 + 1.0, y0, fx * (1.0 - fy))
+    tap(x0, y0 + 1.0, (1.0 - fx) * fy)
+    tap(x0 + 1.0, y0 + 1.0, fx * fy)
+    return out.view(b, h, w, c).to(dtype)
+
+
 def backwarp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Backward-warp (B, H, W, C) by flow (B, H, W, 2): out(p) = image(p + flow)."""
     b, h, w, _ = image.shape

@@ -71,12 +71,10 @@ def lookup_bound(levels, coords, radius: int = 4, out_elem: int = 4):
     return ms, by, nbytes
 
 
-def grid_sample_lookup(levels, coords, radius: int = 4):
-    """The same windows through F.grid_sample, one call per level (the
-    library yardstick of the lookups; the port never calls it): grid
-    (Q, 9, 9, 2) with [q, a, b] at (x/2^l + a - r, y/2^l + b - r), so the
-    flattened (9, 9) output is the a*9 + b channel order. Returns (run,
-    result): run() launches the calls, result() gives (Q, L*81) float32."""
+def _window_grids(levels, coords, radius: int):
+    """grid_sample's grids of the lookup's windows: per level (Q, 2r+1,
+    2r+1, 2) with [q, a, b] at (x/2^l + a - r, y/2^l + b - r), normalised
+    for align_corners, in the level's dtype."""
     num = 2 * radius + 1
     d = torch.arange(-radius, radius + 1, device=coords.device, dtype=torch.float32)
     grids = []
@@ -87,6 +85,16 @@ def grid_sample_lookup(levels, coords, radius: int = 4):
         gy = (c[:, 1, None, None] + d[None, None, :]).expand(-1, num, num)
         g = torch.stack([2 * gx / (wl - 1) - 1, 2 * gy / (hl - 1) - 1], dim=-1)
         grids.append(g.to(lvl.dtype).contiguous())
+    return grids
+
+
+def grid_sample_lookup(levels, coords, radius: int = 4):
+    """The same windows through F.grid_sample, one call per level (the
+    library yardstick of the lookups; the port never calls it): grid
+    (Q, 9, 9, 2) with [q, a, b] at (x/2^l + a - r, y/2^l + b - r), so the
+    flattened (9, 9) output is the a*9 + b channel order. Returns (run,
+    result): run() launches the calls, result() gives (Q, L*81) float32."""
+    grids = _window_grids(levels, coords, radius)
     inputs = [lvl.unsqueeze(1) for lvl in levels]
 
     def run():
@@ -97,6 +105,44 @@ def grid_sample_lookup(levels, coords, radius: int = 4):
         return torch.cat([o.reshape(o.shape[0], -1).float() for o in run()], dim=1)
 
     return run, result
+
+
+def grid_sample_lookup_backward(levels, coords, grad_out: torch.Tensor, radius: int = 4):
+    """The lookup's gradient with respect to the levels through grid_sample's
+    backward with respect to its input (aten.grid_sampler_2d_backward, one
+    call per level, the window gradient cast to the level's dtype): the
+    library yardstick of the backward kernel, which the port never calls.
+    Returns (run, result): run() launches the calls, result() gives the L
+    (Q, hl, wl) gradients in float32."""
+    num = 2 * radius + 1
+    q = coords.shape[0]
+    grids = _window_grids(levels, coords, radius)
+    grads = [grad_out[:, l * num * num:(l + 1) * num * num].reshape(q, 1, num, num)
+             .to(lvl.dtype).contiguous() for l, lvl in enumerate(levels)]
+    inputs = [lvl.unsqueeze(1) for lvl in levels]
+
+    def run():
+        return [torch.ops.aten.grid_sampler_2d_backward(g, x, grid, 0, 0, True, [True, False])[0]
+                for g, x, grid in zip(grads, inputs, grids)]
+
+    def result():
+        return [o[:, 0].float() for o in run()]
+
+    return run, result
+
+
+def lookup_backward_bound(grad_out: torch.Tensor, coords: torch.Tensor, level_shapes,
+                          level_elem: int = 4):
+    """Least time of the lookup's backward on an H100: the window gradient
+    and the coords read once, the dense level gradients (Q * sum(hl * wl)
+    elements of `level_elem` bytes) written once, over 3.35 TB/s, against 7
+    float32 operations per window gradient element (4 products, 3 sums)
+    over 67 TFLOP/s. Returns (ms, "bytes" | "operations", bytes)."""
+    q = coords.shape[0]
+    cells = sum(int(h) * int(w) for h, w in level_shapes)
+    nbytes = grad_out.numel() * grad_out.element_size() + q * 2 * 4 + q * cells * level_elem
+    ms, by = bound(nbytes, 7 * grad_out.numel(), H100_F32_FLOPS)
+    return ms, by, nbytes
 
 
 def y_contract_bound(corr3: torch.Tensor, out_elem: int = 4):

@@ -53,9 +53,10 @@ from accflow_tpu_torch.utils.logging import Timer, count_parameters, get_timesta
 
 
 class TrainState(NamedTuple):
-    """What train_acc returns: the trained accumulator, its optimizer and
-    the step count."""
-    model: AccFlow
+    """What train_acc (and finetune.fine_tune) returns: the trained model
+    (the accumulator; the estimator's module), its optimizer and the step
+    count."""
+    model: torch.nn.Module
     optimizer: Optimizer
     step: int
 
@@ -154,7 +155,7 @@ def make_acc_train_step(est, model: AccFlow, optimizer: Optimizer, add_noise: bo
             images = images + reference_noise(gen, images.shape[1:])[None]
         optimizer.zero_grad()
         with tf32(False):
-            loss, metrics = accumulate_grads(loss_fn, grad_accum, images, labels, axis=1)
+            loss, metrics, _ = accumulate_grads(loss_fn, grad_accum, images, labels, axis=1)
         optimizer.step()
         return loss, metrics
 
@@ -188,7 +189,10 @@ def save_flow_png(flow_nhwc: np.ndarray, path: str) -> None:
         f.write(_png_chunk(b"IEND", b""))
 
 
-def _checkpoint(model: AccFlow, optimizer: Optimizer, step: int) -> dict:
+def checkpoint_state(model: torch.nn.Module, optimizer: Optimizer, step: int) -> dict:
+    """What a training checkpoint holds (train/checkpoint.py): the model's
+    state_dict under the reference's names, the optimizer's and the
+    schedule's state, and the step."""
     return {"model": model.state_dict(), **optimizer.state_dict(), "step": step}
 
 
@@ -321,7 +325,7 @@ def train_acc(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
                         for i in want:
                             val_last[i] = flow_np[i - base: i - base + 1]
                 epe = epes_sum / max(epes_n, 1)
-                state = _checkpoint(model, optimizer, current_step)
+                state = checkpoint_state(model, optimizer, current_step)
                 ckpt.save(current_step, state)  # `latest` (train_acc.py:268)
                 if epe <= best_val_epe:
                     best_val_epe, best_val_step = epe, current_step
@@ -342,7 +346,7 @@ def train_acc(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
                 break
 
     # final.pth (train_acc.py:311)
-    ckpt.save_final(max(current_step, 1), _checkpoint(model, optimizer, current_step))
+    ckpt.save_final(max(current_step, 1), checkpoint_state(model, optimizer, current_step))
     if own_tb:
         tb.close()
     logger.info("Finish training")

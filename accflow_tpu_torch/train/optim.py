@@ -30,7 +30,13 @@ class Optimizer:
 
     def step(self) -> None:
         """Clip the gradients to global norm `clip`, update, advance the
-        schedule."""
+        schedule. A parameter that no loss reached (GMA's positional tables
+        under content-only attention) gets a zero gradient first: optax
+        updates every leaf, AdamW's decay included, where torch's AdamW
+        skips a parameter without a gradient."""
+        for p in self.params():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         torch.nn.utils.clip_grad_norm_(self.params(), self.clip)
         self.optimizer.step()
         self.scheduler.step()

@@ -116,7 +116,29 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    in bf16, with their peaks (MEMORY_REL_BF16; grad_accum by
    ACCUM_F32_RATIO against the f32 step), and at (b)'s size in float32
    (MEMORY_REL_F32);
-   with --profile, the device time of a train step and of its frozen RAFT.
+   with --profile, the device time of a train step and of its frozen RAFT;
+15. estimator fine-tuning (train/finetune.py::fine_tune) with
+   configs/RAFT.yml as shipped (full RAFT, batch 6, 256^2 pairs chosen by
+   select_pair, 12 iterations, bf16 with float32 flow state and a float32
+   pyramid, noise, gamma 0.85, AdamW 1.2e-4, OneCycle, clip 1.0, remat
+   "dots"; weights from seed 0) on phase 14's synthetic CVOR clips: (a)
+   kernels #1 and #2 (radius 3) at the step's lookup shape as phases 3 and
+   4 check them, then the lookups' backward kernel (csrc/corr_lookup_backward.cu) against the plain
+   backward at the step's lookup shape (Q = 6*32*32, maps 32^2..4^2): kernel
+   #1's entry with float32 levels and bfloat16, float32 window gradients and
+   with bfloat16 levels, kernel #2's at radius 3, coords on a 1/256 grid
+   (BWD_REL), at the path's coords (LOOKUP_TOL) and far off the maps
+   (zeros), each timed beside the plain backward, grid_sample's backward and
+   the bound; (b) 13 steps with a validation at step 10, then resume "auto"
+   for 2 more: 12 kernel-#1 and 12 backward-kernel launches per step, 20
+   kernel-#1 launches per validation batch, no plain lookup or backward, ms
+   per step (median of steps 3-12, the validation's step left out), clips/s,
+   peak memory; configs/GMA.yml for 4 steps; RAFT-small (small: true,
+   kernel #2 and its backward) for 4; (c) one step's forward and backward
+   under the sync debug mode "error"; (d) one 64^2 float32 step on the GPU
+   against the CPU (TRAIN_*, FT_STATS_REL); (e) remat "none", "full" and
+   "dots" at full width: ms per step, peak, gradients against "none"; with
+   --profile, the device time of one step by kind.
 Optional phases: --tile-sweep builds kernels #1 and #2 with 4, 8 and 16
 queries per block and times them in turns (#1 at the clip shape after phase
 3, #2 at the stream shape after phase 4); --profile prints where
@@ -126,7 +148,8 @@ graphed, goes (torch.profiler). A {"graphs": {...}} line holds the eager
 and graphed medians, busy times, launches per replay and peaks, and the
 artifacts' numbers, with the card's name and power limit; a {"gma": {...}}
 line the numbers of phases 6c and 8's GMA runs and 10-13, and a
-{"train": {...}} line phase 14's. The line before
+{"train": {...}} line phase 14's, a {"finetune": {...}} line phase 15's. The
+line before
 the last is {"kernels": [...]}; the last line is {"ok": true, "device":
 {...}}. Without a GPU, or without the package beside it, the script exits
 non-zero and prints no result.
@@ -164,11 +187,22 @@ try:
     from accflow_tpu_torch.data.synthetic import make_long_sequence, write_synthetic_cvor
     from accflow_tpu_torch.models import gma
     from accflow_tpu_torch.models.raft import gather_pairs, raft_cnet, to_nchw
-    from accflow_tpu_torch.nn.layers import tf32
-    from accflow_tpu_torch.ops import corr, corr_bd_cuda, corr_cuda, corr_level_cuda
+    from accflow_tpu_torch.nn.layers import BatchNorm2d, Conv2d, InstanceNorm2d, tf32
+    from accflow_tpu_torch.ops import (
+        corr,
+        corr_backward_cuda,
+        corr_bd_cuda,
+        corr_cuda,
+        corr_level_cuda,
+    )
     from accflow_tpu_torch.ops.occlusion import calc_occ_mask
     from accflow_tpu_torch.ops.padding import InputPadder
-    from accflow_tpu_torch.probes import grid_sample_lookup, lookup_bound
+    from accflow_tpu_torch.probes import (
+        grid_sample_lookup,
+        grid_sample_lookup_backward,
+        lookup_backward_bound,
+        lookup_bound,
+    )
     from accflow_tpu_torch.streaming import (
         StreamAccumulator,
         export_streaming,
@@ -180,8 +214,10 @@ try:
     from accflow_tpu_torch.train import engine
     from accflow_tpu_torch.train.accum import accumulate_grads
     from accflow_tpu_torch.train.checkpoint import CheckpointManager
+    from accflow_tpu_torch.train import finetune as ft
     from accflow_tpu_torch.train.evaluate import evaluate_cvo
-    from accflow_tpu_torch.train.loss import sequence_loss_acc
+    from accflow_tpu_torch.train.loss import sequence_loss_acc, sequence_loss_raft
+    from accflow_tpu_torch.train.optim import make_optimizer
     from accflow_tpu_torch.utils.config import parse_options
     from accflow_tpu_torch.utils.frame_io import read_flow
 except ImportError as e:  # this file alone, outside the repository
@@ -256,12 +292,41 @@ ARTIFACT_REL = 1e-3
 # readings beside it.
 TRAIN_LOSS_REL = 1e-5
 TRAIN_GRAD_REL = 1e-4
+# Phase 15a, the backward kernel against the plain backward at coords on a
+# 1/256 grid: both then blend with bit-equal weights and differ only by
+# summation order, so float32 gradients agree within BWD_REL of each element
+# plus 1e-6 of the largest; a bfloat16 gradient is the kernel's float32 one
+# rounded once (bit-equal to it cast), within BF16_ROUND of the plain one.
+# At the path's own coords the plain backward recomputes the fractional
+# offset per tap, as the forward does: LOOKUP_TOL, for the same reason.
+BWD_REL = 1e-5
+# Phase 15d, one fine-tune step at 64^2 in float32 on the GPU (kernel #1, its
+# backward kernel, cuDNN) against the CPU (the plain lookup and backward),
+# TF32 off: the loss within TRAIN_LOSS_REL relative, the gradients within
+# TRAIN_GRAD_REL in relative L2 over the fnet, the cnet and the update block
+# apart, each running-statistics buffer within FT_STATS_REL of its largest
+# |value| (float32 means over the batch in another summation order; an
+# element's own relative error is unbounded where a channel's mean is ~0).
+FT_STATS_REL = 1e-5
+# A ReLU input within TIE_REL of its tensor's median |value| of zero is a tie
+# that either package's rounding may put on either side of the kink; one
+# such element took the other side on the GPU than on the CPU in 15d (the
+# fnet's layer2.1.norm2 output, -1.06e-6 on the CPU and +1.41e-6 on the GPU
+# at a median of 0.67, which moved the fnet's gradient by 1.75e-4 in L2), so
+# 15d's CPU run takes the GPU's value at each tie (tie_hooks) and counts them.
+TIE_REL = 1e-5
 MEMORY_REL_F32 = 1e-5
 MEMORY_REL_BF16 = 1e-3
 ACCUM_F32_RATIO = 1.2
 REPO = Path(__file__).resolve().parent
 FIXTURES = REPO / "tests" / "fixtures"
-KERNELS = (corr_cuda, corr_level_cuda, corr_bd_cuda)  # each wrapper's `launches` count
+COUNTERS = (  # each kernel wrapper's launch count: (kernel, module, attribute)
+    ("corr_lookup", corr_cuda, "launches"),
+    ("corr_level_lookup", corr_level_cuda, "launches"),
+    ("y_contract", corr_bd_cuda, "launches"),
+    ("corr_lookup_backward", corr_backward_cuda, "launches"),
+    ("corr_level_lookup_backward", corr_backward_cuda, "level_launches"),
+)
 TILES = (4, 8, 16)           # queries per block of kernels #1 and #2 tried by --tile-sweep; 8 ships
 KINDS = (  # --profile: kind of a kernel, first match on its lower-cased name
     ("corr lookup (this port's kernels)", ("corr_window", "y_contract")),
@@ -699,19 +764,25 @@ def gma_estimator(**kw):
 
 
 def reset_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    for _, module, attr in COUNTERS:
+        setattr(module, attr, 0)
 
 
-def expect_counts(path: str, kernel, expected: int) -> int:
-    """After a path's run from reset_counts(): `kernel` launched `expected`
-    times and every other kernel never. Returns the count."""
-    counts = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in KERNELS}
+def launch_counts() -> dict:
+    return {name: getattr(module, attr) for name, module, attr in COUNTERS}
+
+
+def expect_counts(path: str, kernel, expected: int, **others: int) -> int:
+    """After a path's run from reset_counts(): `kernel` (a forward kernel's
+    wrapper module) launched `expected` times, each kernel named in `others`
+    (a COUNTERS name) as often as given there, and every other kernel never.
+    Returns `kernel`'s count."""
+    counts = launch_counts()
     print(f"{path}: kernel launches {counts}")
-    for k in KERNELS:
-        want = expected if k is kernel else 0
-        if k.launches != want:
-            fail(f"{path}: {k.__name__} launched {k.launches} times, expected {want}")
+    for name, module, attr in COUNTERS:
+        want = expected if (module is kernel and attr == "launches") else others.get(name, 0)
+        if counts[name] != want:
+            fail(f"{path}: {name} launched {counts[name]} times, expected {want}")
     return kernel.launches
 
 
@@ -1604,35 +1675,50 @@ def demo_phase(tmp: str, pipe, lr, clip7) -> dict:
 
 
 class StepProbe:
-    """Phase 14's view into train_acc, without changing it: while active it
-    wraps engine.make_acc_train_step so that each train step records its
-    start time, its kernel-#1 launches and its loss tensor, and each
-    validation batch its launches. The plain lookups are wrapped too, to
+    """Phases 14's and 15's view into a training loop, without changing
+    it: while active it wraps the factory `module.factory`
+    (engine.make_acc_train_step, finetune.make_finetune_step) so that each
+    train step records its start time, its kernel-#1 forward and backward
+    launches and its loss tensor, and each validation batch its forward
+    launches. The plain lookups and the plain backward are wrapped too, to
     count their calls (none is allowed on the card)."""
 
-    def __init__(self):
-        self.starts, self.launches, self.losses, self.valid_launches = [], [], [], []
+    PLAIN = ((corr_cuda, "lookup_corr_plain"), (corr_level_cuda, "lookup_corr_plain"),
+             (corr_backward_cuda, "lookup_corr_plain_backward"))
+
+    def __init__(self, module, factory: str):
+        self.module, self.factory = module, factory
+        self.starts, self.losses = [], []
+        self.steps, self.valid = [], []  # each call's launches: {COUNTERS name: n}
         self.plain_calls = 0
 
+    @property
+    def launches(self) -> list:
+        return [c["corr_lookup"] for c in self.steps]
+
+    @property
+    def valid_launches(self) -> list:
+        return [c["corr_lookup"] for c in self.valid]
+
     def __enter__(self):
-        self._make = engine.make_acc_train_step
-        self._plain = corr_cuda.lookup_corr_plain, corr_level_cuda.lookup_corr_plain
+        self._make = getattr(self.module, self.factory)
+        self._plain = [getattr(m, name) for m, name in self.PLAIN]
 
         def make(*a, **k):
             step, valid = self._make(*a, **k)
 
-            def probed_step(imgs, flows, gen=None):
+            def probed_step(*args):
                 self.starts.append(time.perf_counter())
-                n0 = corr_cuda.launches
-                loss, metrics = step(imgs, flows, gen)
-                self.launches.append(corr_cuda.launches - n0)
+                c0 = launch_counts()
+                loss, metrics = step(*args)
+                self.steps.append({k: v - c0[k] for k, v in launch_counts().items()})
                 self.losses.append(loss)
                 return loss, metrics
 
-            def probed_valid(imgs, flows):
-                n0 = corr_cuda.launches
-                out = valid(imgs, flows)
-                self.valid_launches.append(corr_cuda.launches - n0)
+            def probed_valid(*args):
+                c0 = launch_counts()
+                out = valid(*args)
+                self.valid.append({k: v - c0[k] for k, v in launch_counts().items()})
                 return out
 
             return probed_step, probed_valid
@@ -1643,14 +1729,15 @@ class StepProbe:
                 return plain(*a, **k)
             return fn
 
-        engine.make_acc_train_step = make
-        corr_cuda.lookup_corr_plain = counted(self._plain[0])
-        corr_level_cuda.lookup_corr_plain = counted(self._plain[1])
+        setattr(self.module, self.factory, make)
+        for (m, name), plain in zip(self.PLAIN, self._plain):
+            setattr(m, name, counted(plain))
         return self
 
     def __exit__(self, *exc):
-        engine.make_acc_train_step = self._make
-        corr_cuda.lookup_corr_plain, corr_level_cuda.lookup_corr_plain = self._plain
+        setattr(self.module, self.factory, self._make)
+        for (m, name), plain in zip(self.PLAIN, self._plain):
+            setattr(m, name, plain)
 
 
 class TBStub:
@@ -1685,7 +1772,7 @@ def train_run(label: str, opt, steps: int, from_step: int = 3) -> dict:
     tb = TBStub()
     reset_counts()
     t0 = time.perf_counter()
-    with StepProbe() as probe:
+    with StepProbe(engine, "make_acc_train_step") as probe:
         state = engine.train_acc(opt, max_steps=steps, tb=tb)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -1729,7 +1816,7 @@ def one_step_grads(pairs, model, images, labels, grad_accum: int = 1):
     `pairs` (FlowEstimator.pairs_fn): {name: float32 CPU grad}."""
     model.zero_grad(set_to_none=True)
     with tf32(False):
-        loss, _ = accumulate_grads(
+        loss, _, _ = accumulate_grads(
             lambda im, lb: sequence_loss_acc(accflow_train_forward(model, im, pairs), lb),
             grad_accum, images, labels, axis=1)
     return float(loss), {k: p.grad.detach().float().cpu() for k, p in model.named_parameters()}
@@ -1993,11 +2080,366 @@ def train_phase(tmp: str, with_profile: bool = False) -> dict:
                 gpu_vs_cpu=train_gpu_vs_cpu(), memory_options=memory_options(root))
 
 
+def check_backward(label: str, op, radius: int, levels32, coords, cases) -> dict:
+    """Phase 15a: the backward kernel's op `op` (accflow::corr_lookup_backward
+    or accflow::corr_level_lookup_backward) against the plain backward at
+    `radius`, for each (levels dtype, window-gradient dtype) of `cases`:
+    at coords on a 1/256 grid (BWD_REL; a bfloat16 result also bit-equal to
+    the kernel's float32 result cast), at the path's own coords (LOOKUP_TOL)
+    and far off every map (all zeros); then its device time beside the plain
+    backward's, grid_sample's backward with respect to its input (the
+    library yardstick; the port never calls it) and the bound. Rows keyed
+    "<levels> levels, <grad> grad"."""
+    q = coords.shape[0]
+    shapes = [tuple(lvl.shape[1:]) for lvl in levels32]
+    hw = [d for hw_l in shapes for d in hw_l]
+    gen = torch.Generator(device=coords.device).manual_seed(1)
+    grad32 = torch.randn((q, len(shapes) * (2 * radius + 1) ** 2), generator=gen,
+                         device=coords.device)
+    on_grid = (torch.round(coords * 256) / 256).contiguous()
+    far = (coords + 1e4).contiguous()
+    rows = {}
+    for level_dtype, grad_dtype in cases:
+        key = f"{str(level_dtype)[6:]} levels, {str(grad_dtype)[6:]} grad"
+        grad = grad32.to(grad_dtype)
+        ref = corr.lookup_corr_plain_backward(grad, on_grid, shapes, radius)
+        got32 = op(grad, on_grid, hw, radius, torch.float32)
+        got = op(grad, on_grid, hw, radius, level_dtype)
+        torch.cuda.synchronize()
+        scale = max(float(r.abs().max()) for r in ref)
+        err = max(float((g.float() - r).abs().max()) for g, r in zip(got, ref))
+        for g, g32, r in zip(got, got32, ref):
+            if level_dtype == torch.bfloat16 and not torch.equal(
+                    g.view(torch.int16), g32.to(torch.bfloat16).view(torch.int16)):
+                fail(f"{label} {key}: the bfloat16 result is not the float32 result cast")
+            rel = BWD_REL if level_dtype == torch.float32 else BF16_ROUND
+            if not bool(((g.float() - r).abs() <= rel * r.abs() + 1e-6 * scale).all()):
+                fail(f"{label} {key}: kernel disagrees with the plain backward: {err}")
+        ref_p = corr.lookup_corr_plain_backward(grad, coords, shapes, radius)
+        got_p = op(grad, coords, hw, radius, level_dtype)
+        err_p = max(float((g.float() - r).abs().max()) for g, r in zip(got_p, ref_p))
+        bf = 0.0 if level_dtype == torch.float32 else BF16_ROUND
+        if not all(bool(((g.float() - r).abs() <= LOOKUP_TOL + bf * r.abs()).all())
+                   for g, r in zip(got_p, ref_p)):
+            fail(f"{label} {key}: kernel disagrees with the plain backward at the path's coords: "
+                 f"{err_p}")
+        if any(float(g.abs().max()) != 0 for g in op(grad, far, hw, radius, level_dtype)):
+            fail(f"{label} {key}: coords far off the maps gave a nonzero gradient")
+        levels = [lvl.to(level_dtype) for lvl in levels32]
+        lib_run, lib_result = grid_sample_lookup_backward(levels, coords, grad, radius)
+        lib_err = max(float((g - r).abs().max()) for g, r in zip(lib_result(), ref_p))
+        ms = device_ms(lambda: op(grad, coords, hw, radius, level_dtype), 20)
+        wall_ms = cuda_ms(lambda: op(grad, coords, hw, radius, level_dtype), 20)
+        plain_ms = device_ms(
+            lambda: corr.lookup_corr_plain_backward(grad, coords, shapes, radius, level_dtype), 2)
+        library_ms = device_ms(lib_run, 10)
+        bound_ms, bound_by, nbytes = lookup_backward_bound(
+            grad, coords, shapes, torch.tensor([], dtype=level_dtype).element_size())
+        print(f"{label} {key}: kernel vs plain max abs {err:.3e} on grid coords (bar {BWD_REL:g} "
+              f"relative + 1e-6 x {scale:.3e}), {err_p:.3e} at the path's coords (bar "
+              f"{LOOKUP_TOL:g}), far coords all zero; grid_sample backward vs plain {lib_err:.3e}")
+        print(f"{label} {key}: kernel {ms:.4f} ms ({wall_ms:.4f} ms per call back to back), plain "
+              f"{plain_ms:.4f} ms, grid_sample backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {nbytes} B at 3.35 TB/s) = {100 * bound_ms / ms:.1f} % of bound")
+        rows[key] = dict(max_abs_err=err, max_abs_err_path_coords=err_p, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                         wall_ms=wall_ms, library_max_abs_vs_plain=lib_err)
+        del got, got32, ref, ref_p, got_p, lib_run, lib_result, levels
+    return rows
+
+
+def finetune_run(label: str, opt, steps: int, from_step: int = 3, small: bool = False) -> dict:
+    """fine_tune under a StepProbe from zeroed counts, up to step `steps`:
+    every loss finite; per step TRAIN_ITERS launches of the forward kernel
+    (#1, or #2 for RAFT-small) and as many of its backward kernel, per
+    validation batch VALID_ITERS forward launches, no other kernel, no plain
+    lookup or plain backward. Seconds per step as train_run measures them.
+    Returns the run's numbers."""
+    fwd, bwd = ("corr_level_lookup", "corr_level_lookup_backward") if small else (
+        "corr_lookup", "corr_lookup_backward")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tb = TBStub()
+    reset_counts()
+    t0 = time.perf_counter()
+    with StepProbe(ft, "make_finetune_step") as probe:
+        state = ft.fine_tune(opt, max_steps=steps, tb=tb)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n, nv = len(probe.starts), len(probe.valid)
+    want_step = {fwd: ft.TRAIN_ITERS, bwd: ft.TRAIN_ITERS}
+    want_valid = {fwd: ft.VALID_ITERS}
+    expect_counts(f"fine-tune {label}", corr_level_cuda if small else corr_cuda,
+                  ft.TRAIN_ITERS * n + ft.VALID_ITERS * nv, **{bwd: ft.TRAIN_ITERS * n})
+    for c in probe.steps:
+        if {k: v for k, v in c.items() if v} != want_step:
+            fail(f"fine-tune {label}: launches in a step {c}, expected {want_step}")
+    for c in probe.valid:
+        if {k: v for k, v in c.items() if v} != want_valid:
+            fail(f"fine-tune {label}: launches in a validation batch {c}, expected {want_valid}")
+    if probe.plain_calls:
+        fail(f"fine-tune {label}: the plain lookup or backward ran {probe.plain_calls} times")
+    losses = [float(l) for l in probe.losses]
+    if not all(np.isfinite(losses)):
+        fail(f"fine-tune {label}: losses not finite {losses}")
+    first = state.step - n + 1
+    per_step = [b - a for i, (a, b) in enumerate(zip(probe.starts, probe.starts[1:]), first)
+                if i >= from_step and i % opt.valid_freq]
+    med = statistics.median(per_step)
+    val = [s["val/epe"] for s, _ in tb.writes if "val/epe" in s]
+    batch = opt.batch_per_gpu
+    print(f"fine-tune {label}: steps {first}..{state.step} in {secs:.2f} s (with set-up, "
+          f"validation, checkpoints); median {med * 1e3:.2f} ms per step over {len(per_step)} "
+          f"steps = {batch / med:.3f} clips/s (batch {batch}, {opt.image_size[0]}x"
+          f"{opt.image_size[1]} pairs); peak memory {peak / 2**30:.3f} GiB; per step {fwd} "
+          f"{want_step[fwd]} and {bwd} {want_step[bwd]} launches, {fwd} {ft.VALID_ITERS} per "
+          f"validation batch ({nv}); plain calls {probe.plain_calls}")
+    print(f"fine-tune {label}: losses {', '.join(f'{l:.4f}' for l in losses)}; validation "
+          f"EPE {val}")
+    return dict(state=state, steps=n, last_step=state.step, s_total=secs, ms_per_step=med * 1e3,
+                ms_steps=[t * 1e3 for t in per_step], clips_per_s=batch / med,
+                peak_gib=peak / 2**30, losses=losses, val_epe=val,
+                launches_per_step=want_step, launches_per_valid_batch=want_valid,
+                valid_batches=nv, launches=launch_counts(), plain_calls=probe.plain_calls)
+
+
+def finetune_step_parts(opt, root: str):
+    """The recipe's estimator (seed 0) and its first training pair (the
+    engine's first batch and select_pair draw) on the card."""
+    est = ft.build_estimator(opt, device="cuda")
+    it = BatchIterator(fetch_train_dataset(root, ft.ALL_FLOW_KEYS, crop_size=opt.image_size),
+                       opt.batch_per_gpu, shuffle=True, drop_last=True, seed=0, epoch=0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(iter(it)).items()}
+    return est, ft.select_pair(batch, np.random.default_rng(2))
+
+
+def tie_hooks(model, recorded=None):
+    """Forward hooks on `model`'s convs and norms, whose outputs hold its
+    ReLU inputs. Without `recorded`, each call's output is kept (float32, on
+    the CPU) in the returned dict under the module's name. With another
+    run's record, each call's output takes that run's value wherever the two
+    lie on opposite sides of zero, each within TIE_REL of its tensor's
+    median |value|: a ReLU input in a tie, which either rounding may put on
+    either side of the kink; the gradient passes unchanged. Returns (record,
+    ties: (module, call, elements) per call that had one, hook handles)."""
+    rec, ties, handles = {}, [], []
+    for name, m in model.named_modules():
+        if not isinstance(m, (Conv2d, InstanceNorm2d, BatchNorm2d)):
+            continue
+
+        def hook(mod, inputs, out, name=name):
+            calls = rec.setdefault(name, [])
+            calls.append(out.detach().float().cpu() if recorded is None else None)
+            if recorded is None:
+                return None
+            o, other = out.detach().float(), recorded[name][len(calls) - 1].to(out.device)
+            tie = ((o * other < 0) & (o.abs() <= TIE_REL * o.abs().median())
+                   & (other.abs() <= TIE_REL * other.abs().median()))
+            if not bool(tie.any()):
+                return None
+            ties.append((name, len(calls) - 1, int(tie.sum())))
+            return out + ((other - o) * tie).to(out.dtype).detach()
+
+        handles.append(m.register_forward_hook(hook))
+    return rec, ties, handles
+
+
+def finetune_gpu_vs_cpu() -> dict:
+    """Phase 15d: one fine-tune step (make_finetune_step: 12 iterations,
+    noise off, remat "dots") of full RAFT from seed 0 at 64^2, batch 2,
+    float32, TF32 off, on the GPU (kernel #1 and its backward kernel, 12
+    launches each) and on the CPU (the plain lookup and backward): loss,
+    gradients over the fnet, the cnet and the update block apart, and each
+    running-statistics buffer after the step (TRAIN_LOSS_REL,
+    TRAIN_GRAD_REL, FT_STATS_REL). The CPU run takes the GPU's ReLU inputs at their ties
+    (tie_hooks, TIE_REL); their count is printed."""
+    rng = np.random.default_rng(5)
+    img1, img2 = (rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8) for _ in range(2))
+    label = (4 * rng.standard_normal((2, 64, 64, 2))).astype(np.float32)
+    out = {}
+    recorded = None
+    for where in ("cuda", "cpu"):
+        est = models.build_flow_estimator("raft", compute_dtype="float32", seed=0, device=where)
+        rec, ties, _ = tie_hooks(est.model, recorded)
+        opt = make_optimizer(est.model.parameters(), 1e-4, 10)
+        grads = {}
+        update = opt.step
+
+        def step(update=update, grads=grads, est=est):
+            grads.update({k: p.grad.detach().float().cpu().clone()
+                          for k, p in est.model.named_parameters()})
+            update()
+
+        opt.step = step
+        train_step, _ = ft.make_finetune_step(est, opt, add_noise=False, gamma=0.85)
+        reset_counts()
+        loss, _ = train_step(*(torch.from_numpy(a).to(where) for a in (img1, img2, label)))
+        n = 12 if where == "cuda" else 0
+        expect_counts(f"fine-tune step 64^2 on {where}", corr_cuda, n, corr_lookup_backward=n)
+        stats = {k: v.float().cpu() for k, v in est.model.state_dict().items() if "running" in k}
+        out[where] = float(loss), grads, stats
+        recorded = rec
+    (loss_g, g, s_g), (loss_c, c, s_c) = out["cuda"], out["cpu"]
+    row = dict(loss_gpu=loss_g, loss_cpu=loss_c, loss_rel=abs(loss_g - loss_c) / abs(loss_c),
+               relu_ties=ties)
+    for part in ("fnet", "cnet", "update_block"):
+        row[f"{part}_grad_rel_l2"] = rel_l2(g, c, [k for k in c if k.startswith(part + ".")])
+    row["stats_max_rel"] = max(float((s_g[k] - s_c[k]).abs().max() / s_c[k].abs().max())
+                               for k in s_c)
+    print(f"fine-tune step 64^2 GPU vs CPU: loss {loss_g:.7f} vs {loss_c:.7f} (relative "
+          f"{row['loss_rel']:.3e}, bar {TRAIN_LOSS_REL:g}); gradient relative L2 fnet "
+          f"{row['fnet_grad_rel_l2']:.3e}, cnet {row['cnet_grad_rel_l2']:.3e}, update block "
+          f"{row['update_block_grad_rel_l2']:.3e} (bar {TRAIN_GRAD_REL:g} each); running "
+          f"statistics max relative {row['stats_max_rel']:.3e} (bar {FT_STATS_REL:g}); ReLU "
+          f"inputs in a tie, taken from the GPU run: {ties}")
+    if not (row["loss_rel"] <= TRAIN_LOSS_REL and row["stats_max_rel"] <= FT_STATS_REL
+            and all(row[f"{p}_grad_rel_l2"] <= TRAIN_GRAD_REL
+                    for p in ("fnet", "cnet", "update_block"))):
+        fail(f"fine-tune step 64^2: GPU and CPU disagree {row}")
+    return row
+
+
+def finetune_remat_options(opt, root: str) -> dict:
+    """Phase 15e: remat "none", "full" and "dots" (the recipe's default) in
+    make_finetune_step at the recipe's full width: each from the seed-0
+    estimator on the first training pair, 2 warm-up steps, then 5 timed
+    steps (host clock to a synchronise; median), the peak memory of those,
+    kernel #1's forward launches per step, and the first step's gradients
+    against "none"'s (MEMORY_REL_BF16: the same kernels, recomputed)."""
+    rows, ref = {}, None
+    for remat in ("none", "full", "dots"):
+        est, (img1, img2, label) = finetune_step_parts(opt, root)
+        optimizer = make_optimizer(est.model.parameters(), 1e-4, 100)
+        grads = {}
+        update = optimizer.step
+
+        def step_keeping(update=update, grads=grads, est=est):
+            if not grads:
+                grads.update({k: p.grad.detach().float().clone()
+                              for k, p in est.model.named_parameters() if p.grad is not None})
+            update()
+
+        optimizer.step = step_keeping
+        step, _ = ft.make_finetune_step(est, optimizer, add_noise=False, gamma=0.85, remat=remat)
+        step(img1, img2, label)
+        step(img1, img2, label)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = launch_counts()
+        secs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step(img1, img2, label)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        fwd = (launch_counts()["corr_lookup"] - c0["corr_lookup"]) // 5
+        ref = grads if ref is None else ref
+        rel = rel_l2(grads, ref)
+        rows[remat] = dict(ms_per_step=statistics.median(secs) * 1e3,
+                           ms_steps=[t * 1e3 for t in secs],
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                           lookup_launches_per_step=fwd, grad_rel_l2_vs_none=rel)
+        print(f"fine-tune remat {remat} (RAFT, batch 6, 256^2, bf16): median "
+              f"{rows[remat]['ms_per_step']:.2f} ms per step over 5, peak "
+              f"{rows[remat]['peak_gib']:.3f} GiB, kernel #1 {fwd} forward launches per step, "
+              f"first step's gradients vs none relative L2 {rel:.3e} (bar {MEMORY_REL_BF16:g})")
+        if not rel <= MEMORY_REL_BF16:
+            fail(f"fine-tune remat {remat}: gradients differ from remat none's by {rel}")
+        del est, optimizer, step, grads, img1, img2, label
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def finetune_phase(root: str, tmp: str, with_profile: bool = False) -> dict:
+    """Phase 15: estimator fine-tuning (train/finetune.py::fine_tune) with
+    configs/RAFT.yml as shipped (full RAFT, batch 6, 256^2 pairs, 12
+    iterations, bf16 with float32 flow state and float32 pyramid, noise,
+    gamma 0.85, AdamW at 1.2e-4 with OneCycle and clip 1.0, remat "dots";
+    flow_pretrained unset: the weights from seed 0) on phase 14's synthetic
+    CVOR clips: (a) kernels #1 and #2 (radius 3) against the plain lookup at
+    the step's lookup shape (Q = 6*32*32, maps 32^2 .. 4^2: float32 levels,
+    float32 and bfloat16 output, and bfloat16 levels), then the backward
+    kernel against the plain backward at that shape: kernel #1's entry
+    with float32 levels and a bfloat16 window gradient (the step's), float32
+    and bfloat16 gradients, bfloat16 levels; kernel #2's at radius 3;
+    (b) 13 steps with a validation at step 10, then resume "auto" for 2 more;
+    configs/GMA.yml for 4 steps; RAFT-small (RAFT.yml with small: true, kernel
+    #2 and its backward) for 4; (c) one step's forward and backward under the
+    sync debug mode "error"; (d) finetune_gpu_vs_cpu; (e) finetune_remat_options.
+    with_profile: the device time of one step by kind."""
+    levels32, coords = lookup_inputs(6, 32, 32)
+    f32, bf16 = torch.float32, torch.bfloat16
+    fwd1 = check_lookup("kernel #1 (radius 4, fine-tune shape)",
+                        lambda lv, c, o: corr_cuda.lookup_corr_fused(lv, c, 4, o),
+                        levels32, coords, 4, out_dtypes=(f32, bf16))
+    fwd2 = check_lookup("kernel #2 (radius 3, fine-tune shape)",
+                        lambda lv, c, o: corr_level_cuda.lookup_corr_level(lv, c, 3, o),
+                        levels32, coords, 3, out_dtypes=(f32, bf16))
+    bwd1 = check_backward("backward kernel #1 entry (radius 4, fine-tune shape)",
+                          corr_backward_cuda.corr_lookup_backward_op, 4, levels32, coords,
+                          ((f32, bf16), (f32, f32), (bf16, bf16)))
+    bwd2 = check_backward("backward kernel #2 entry (radius 3, fine-tune shape)",
+                          corr_backward_cuda.corr_level_lookup_backward_op, 3, levels32, coords,
+                          ((f32, bf16), (bf16, bf16)))
+    del levels32, coords
+    torch.cuda.empty_cache()
+    run_dir = Path(tmp) / "finetune_raft"
+    opt = train_opts("RAFT.yml", root, run_dir, valid_freq=10)
+    raft = finetune_run("RAFT", opt, 13)
+    ckpt = CheckpointManager(opt.ckpt_dir)
+    if ckpt.latest_step() != 13 or ckpt.best_steps() != [10] or raft["valid_batches"] != 1:
+        fail(f"fine-tune RAFT: checkpoints latest {ckpt.latest_step()}, best {ckpt.best_steps()}, "
+             f"validation batches {raft['valid_batches']}")
+    resumed = finetune_run("RAFT resumed", train_opts("RAFT.yml", root, run_dir, valid_freq=10,
+                                                      resume="auto"), 15)
+    if resumed["last_step"] != 15 or resumed["steps"] != 2:
+        fail(f"fine-tune RAFT resume: {resumed['steps']} steps to step {resumed['last_step']}, "
+             "expected 2 to step 15")
+    print("fine-tune RAFT resume: restored step 13, ran steps 14 and 15")
+    raft.pop("state")
+    resumed.pop("state")
+
+    est, (img1, img2, label) = finetune_step_parts(opt, root)
+    i1, i2 = (2.0 * (x.float() / 255.0) - 1.0 for x in (img1, img2))
+
+    def forward_backward():
+        with tf32(False):
+            out = est.forward(i1, i2, iters=ft.TRAIN_ITERS, train=True, remat="dots")
+            sequence_loss_raft(out["predictions"], label.float(), 0.85)[0].backward()
+
+    sync_free("fine-tune step forward + backward (RAFT, batch 6, 256^2)", forward_backward)
+    if with_profile:
+        step, _ = ft.make_finetune_step(est, make_optimizer(est.model.parameters(), 1e-4, 10),
+                                        add_noise=True, gamma=0.85)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        print("profile: one RAFT fine-tune step (batch 6, 256^2, bf16, remat dots)")
+        profile_forward(lambda: step(img1, img2, label, gen), raft["ms_per_step"])
+    del est, img1, img2, label, i1, i2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gma = finetune_run("GMA", train_opts("GMA.yml", root, Path(tmp) / "finetune_gma"), 4,
+                       from_step=2)
+    gma.pop("state")
+    small = finetune_run("RAFT-small", train_opts("RAFT.yml", root, Path(tmp) / "finetune_small",
+                                                  small=True), 4, from_step=2, small=True)
+    small.pop("state")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(lookup_kernel_1=fwd1, lookup_kernel_2=fwd2, backward_kernel_1=bwd1,
+                backward_kernel_2=bwd2, raft=raft, resumed=resumed,
+                gma=gma, raft_small=small, gpu_vs_cpu=finetune_gpu_vs_cpu(),
+                remat_options=finetune_remat_options(opt, root))
+
+
 def build_kernels() -> None:
     """Phase 2: one nvcc per source (and per build of a source), started
     together."""
     builds = (corr_cuda.build, corr_level_cuda.build, corr_bd_cuda.build,
-              probes.build_floor, lambda: corr_level_cuda.build("-DCORR_LEVELS=1"))
+              corr_backward_cuda.build, probes.build_floor,
+              lambda: corr_level_cuda.build("-DCORR_LEVELS=1"))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         built = list(pool.map(lambda b: b(), builds))
@@ -2082,11 +2524,16 @@ def main() -> int:
     evals = eval_phase()
     with tempfile.TemporaryDirectory() as tmp:
         train = train_phase(tmp, args.profile)
+        finetune = finetune_phase(str(Path(tmp) / "cvor_train"), tmp, args.profile)
     print(f"train on {line}: AccRAFT {train['accraft']['ms_per_step']:.2f} ms per step "
           f"({train['accraft']['clips_per_s']:.3f} clips/s, peak "
           f"{train['accraft']['peak_gib']:.3f} GiB); AccGMA "
           f"{train['accgma']['ms_per_step']:.2f} ms per step "
           f"({train['accgma']['clips_per_s']:.3f} clips/s, peak {train['accgma']['peak_gib']:.3f} GiB)")
+    print(f"fine-tune on {line}: " + "; ".join(
+        f"{name} {finetune[key]['ms_per_step']:.2f} ms per step ({finetune[key]['clips_per_s']:.3f} "
+        f"clips/s, peak {finetune[key]['peak_gib']:.3f} GiB)"
+        for name, key in (("RAFT", "raft"), ("GMA", "gma"), ("RAFT-small", "raft_small"))))
     print(json.dumps({"graphs": {"card": line, "clip": clip_extra, "stream_a": stream_a,
                                  "stream_b": stream_b}}))
     print(json.dumps({"gma": {
@@ -2095,6 +2542,7 @@ def main() -> int:
         "eval": {f"{m} {lk}": evals[m, lk] for m, lk in evals if "gma" in m},
         "pipeline": api_rows, "demo": demo_row}}))
     print(json.dumps({"train": {"card": line, **train}}))
+    print(json.dumps({"finetune": {"card": line, **finetune}}))
 
     # Kernels #1 and #3 have a row for each output type, each timed in the
     # configuration whose launches it reports: corr_lookup and
@@ -2121,7 +2569,11 @@ def main() -> int:
          "train_launches_per_step": train["accraft"]["launches_per_step"],
          "train_launches_per_validation_batch": train["accraft"]["launches_per_valid_batch"],
          "gma_train_launches": train["accgma"]["launches"],
-         "train_shape": train["lookup_train_shape"]},
+         "train_shape": train["lookup_train_shape"],
+         "finetune_launches": finetune["raft"]["launches"]["corr_lookup"],
+         "finetune_launches_in": f"RAFT fine-tune, {finetune['raft']['steps']} steps and a "
+                                 "validation batch (float32 levels, bfloat16 out)",
+         "finetune_shape": finetune["lookup_kernel_1"]},
         {"name": "corr_lookup_f32_out", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:264",
@@ -2139,7 +2591,10 @@ def main() -> int:
          "radius": 3, "bfloat16_in_f32_out": rows2["bfloat16"],
          "float32_levels": rows2["float32"],
          "float32_levels_bf16_out": rows2["float32, bf16 out"],
-         "radius4_clip_shape": rows2_r4},
+         "radius4_clip_shape": rows2_r4,
+         "finetune_launches": finetune["raft_small"]["launches"]["corr_level_lookup"],
+         "finetune_launches_in": "RAFT-small fine-tune, 4 steps (float32 levels, bfloat16 out)",
+         "finetune_shape": finetune["lookup_kernel_2"]},
         {"name": "corr_level_lookup_f32_out", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_level_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:466",
@@ -2168,6 +2623,30 @@ def main() -> int:
          "float32_in_bf16_out": rows3["level0"]["float32, bf16 out"],
          "bfloat16_in": {"level0": rows3["level0"]["bfloat16"],
                          "level1": rows3["level1"]["bfloat16"]}},
+        {"name": "corr_lookup_backward", "route": "cuda",
+         "source": "accflow_tpu_torch/csrc/corr_lookup_backward.cu",
+         "replaces": "accflow_tpu/ops/corr.py:997",
+         "replaces_note": "no TPU kernel: the gradient XLA derives for the fused lookup "
+                          "(lookup_corr) in JAX's fine-tune step; the Pallas kernels have none",
+         "launches": finetune["raft"]["launches"]["corr_lookup_backward"],
+         "launches_in": f"RAFT fine-tune, {finetune['raft']['steps']} steps",
+         **finetune["backward_kernel_1"]["float32 levels, bfloat16 grad"],
+         "levels_dtype": "float32", "grad_dtype": "bfloat16", "radius": 4,
+         "shape": "Q = 6*32*32, maps 32^2 .. 4^2",
+         "gma_launches": finetune["gma"]["launches"]["corr_lookup_backward"],
+         "other_dtypes": {k: v for k, v in finetune["backward_kernel_1"].items()
+                          if k != "float32 levels, bfloat16 grad"}},
+        {"name": "corr_level_lookup_backward", "route": "cuda",
+         "source": "accflow_tpu_torch/csrc/corr_lookup_backward.cu",
+         "replaces": "accflow_tpu/ops/corr.py:997",
+         "replaces_note": "no TPU kernel: the gradient XLA derives for RAFT-small's lookup "
+                          "(lookup_corr at radius 3) in JAX's fine-tune step",
+         "launches": finetune["raft_small"]["launches"]["corr_level_lookup_backward"],
+         "launches_in": f"RAFT-small fine-tune, {finetune['raft_small']['steps']} steps",
+         **finetune["backward_kernel_2"]["float32 levels, bfloat16 grad"],
+         "levels_dtype": "float32", "grad_dtype": "bfloat16", "radius": 3,
+         "shape": "Q = 6*32*32, maps 32^2 .. 4^2",
+         "bfloat16_levels": finetune["backward_kernel_2"]["bfloat16 levels, bfloat16 grad"]},
         *probe_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ contraction of the split lookup (ops/corr_bd_cuda.py) and the floor kernel of th
 loaded artifact (serving.py, streaming.py), and the splat's determinism;
 GMA's small clip on the GPU against the CPU with kernels #1 and #3,
 FlowPipeline on the GPU, and one accumulator train step on the GPU against
-the CPU and its kernel-#1 launches.
+the CPU and its kernel-#1 launches; the lookups' backward kernel
+(ops/corr_backward_cuda.py) against the plain backward, and one fine-tune
+step on the GPU against the CPU with its launches.
 Marked `cuda`; each test skips where there is no GPU (no
 kernel can run there). This file imports neither JAX nor the JAX package,
 so it runs on a machine with only torch:
@@ -32,8 +34,19 @@ from accflow_tpu_torch.models import (
     build_flow_estimator,
     init_accflow,
 )
-from accflow_tpu_torch.ops import corr_bd_cuda, corr_cuda, corr_level_cuda, softsplat
-from accflow_tpu_torch.ops.corr import lookup_corr_plain, lookup_corr_split_v2
+from accflow_tpu_torch.nn.layers import BatchNorm2d, Conv2d, InstanceNorm2d
+from accflow_tpu_torch.ops import (
+    corr_backward_cuda,
+    corr_bd_cuda,
+    corr_cuda,
+    corr_level_cuda,
+    softsplat,
+)
+from accflow_tpu_torch.ops.corr import (
+    lookup_corr_plain,
+    lookup_corr_plain_backward,
+    lookup_corr_split_v2,
+)
 from accflow_tpu_torch.streaming import (
     StreamAccumulator,
     export_streaming,
@@ -640,3 +653,189 @@ def test_train_step_launches_kernel_1_per_iteration(dev):
     assert corr_cuda.launches - before == 4
     assert torch.isfinite(loss) and torch.isfinite(metrics["epe"])
     assert any(not torch.equal(a, b) for a, b in zip(before_w, acc.parameters()))
+
+
+def _backward_case(dev, shape, spread, radius, grad_dtype, dyadic: bool, seed=0):
+    """_case's coords (on a 1/256 grid when dyadic) and a unit-normal window
+    gradient (Q, 4*(2r+1)^2) in grad_dtype; returns (grad_out, coords, hw,
+    shapes)."""
+    levels, coords = _case(dev, *shape, spread, seed=seed)
+    if dyadic:
+        coords = torch.round(coords * 256) / 256
+    gen = torch.Generator().manual_seed(seed + 1)
+    cols = corr_cuda.LEVELS * (2 * radius + 1) ** 2
+    grad = torch.randn((coords.shape[0], cols), generator=gen).to(grad_dtype).to(dev)
+    shapes = [tuple(lvl.shape[1:]) for lvl in levels]
+    return grad, coords.contiguous(), [d for hw in shapes for d in hw], shapes
+
+
+def _backward_op(radius):
+    if radius == 4:
+        return corr_backward_cuda.corr_lookup_backward_op
+    return corr_backward_cuda.corr_level_lookup_backward_op
+
+
+@pytest.mark.parametrize("radius", [4, 3])
+@pytest.mark.parametrize("level_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 16), (1, 13, 7), (6, 4, 4)])
+def test_backward_kernel_matches_plain(dev, radius, level_dtype, grad_dtype, shape):
+    """The backward kernel (radius 4: kernel #1's entry; 3: kernel #2's)
+    against lookup_corr_plain_backward, coords on a 1/256 grid +-20 px
+    (both then blend with the same weights bit for bit and differ by
+    summation order): float32 levels rtol 1e-5, atol 1e-6 x the largest
+    |grad|; bfloat16 levels bit-equal to the kernel's float32 result cast
+    and within its rounding of the plain one. Every map element is written
+    (zeros outside the windows), the 4-wide maps of (6, 4, 4) included."""
+    grad, coords, hw, shapes = _backward_case(dev, shape, 20, radius, grad_dtype, True)
+    op = _backward_op(radius)
+    ref = lookup_corr_plain_backward(grad, coords, shapes, radius)
+    got32 = op(grad, coords, hw, radius, torch.float32)
+    got = op(grad, coords, hw, radius, level_dtype)
+    torch.cuda.synchronize()
+    scale = max(float(r.abs().max()) for r in ref if r.numel())
+    for g, g32, r in zip(got, got32, ref):
+        assert g.dtype == level_dtype and g.shape == r.shape
+        if level_dtype == torch.float32:
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6 * scale)
+        else:
+            assert torch.equal(g.view(torch.int16), g32.to(torch.bfloat16).view(torch.int16))
+            assert bool(((g.float() - r).abs() <= 1e-6 * scale + 2 ** -8 * r.abs()).all())
+
+
+@pytest.mark.parametrize("radius", [4, 3])
+def test_backward_kernel_edges(dev, radius):
+    """Random (not grid) coords: within 1e-4 of the plain backward (the
+    plain version recomputes the fractional offset per tap, as in the
+    forward); coords far off every map give zero gradients; zero-sized
+    levels give empty ones; an empty query set launches nothing."""
+    op = _backward_op(radius)
+    grad, coords, hw, shapes = _backward_case(dev, (2, 16, 16), 20, radius, torch.float32, False)
+    for g, r in zip(op(grad, coords, hw, radius, torch.float32),
+                    lookup_corr_plain_backward(grad, coords, shapes, radius)):
+        torch.testing.assert_close(g, r, **TOL)
+    far = coords + 1e4
+    assert all(float(g.abs().max()) == 0 for g in op(grad, far, hw, radius, torch.float32))
+    grad, coords, hw, shapes = _backward_case(dev, (1, 4, 4), 2, radius, torch.float32, True)
+    assert shapes[3] == (0, 0)
+    for g, r in zip(op(grad, coords, hw, radius, torch.float32),
+                    lookup_corr_plain_backward(grad, coords, shapes, radius)):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
+    before = (corr_backward_cuda.launches, corr_backward_cuda.level_launches)
+    empty = op(grad[:0], coords[:0], hw, radius, torch.float32)
+    assert [tuple(g.shape) for g in empty] == [(0, *s) for s in shapes]
+    assert (corr_backward_cuda.launches, corr_backward_cuda.level_launches) == before
+
+
+@pytest.mark.parametrize("op", ["corr_lookup", "corr_level_lookup"])
+def test_lookup_ops_backward_through_the_kernel(dev, op):
+    """autograd through the lookup ops on the card: one backward-kernel
+    launch per backward, the plain backward's gradient (float32 levels,
+    bfloat16 window), and coords that require grad raise."""
+    levels, coords = _case(dev, 2, 16, 16, 20)
+    levels = [lvl.requires_grad_(True) for lvl in levels]
+    if op == "corr_lookup":
+        call, radius = corr_cuda.lookup_corr_fused, 4
+    else:
+        call, radius = lambda lv, c, r, o: corr_level_cuda.lookup_corr_level(lv, c, r, o), 3
+    out = call(levels, coords, radius, torch.bfloat16)
+    cot = torch.randn(out.shape, device=dev).to(torch.bfloat16)
+    before = corr_backward_cuda.launches + corr_backward_cuda.level_launches
+    grads = torch.autograd.grad(out, levels, cot)
+    assert corr_backward_cuda.launches + corr_backward_cuda.level_launches == before + 1
+    ref = lookup_corr_plain_backward(cot, coords, [lvl.shape[1:] for lvl in levels], radius)
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g, r, **TOL)
+    with pytest.raises(RuntimeError, match="coords require grad"):
+        call(levels, coords.requires_grad_(True), radius, torch.bfloat16)
+
+
+TIE_REL = 1e-5  # chip_smoke.py's: a ReLU input this close to zero is a tie
+
+def tie_hooks(model, recorded=None):
+    """Forward hooks on `model`'s convs and norms, whose outputs hold its
+    ReLU inputs. Without `recorded`, each call's output is kept (float32, on
+    the CPU) in the returned dict under the module's name. With another
+    run's record, each call's output takes that run's value wherever the two
+    lie on opposite sides of zero, each within TIE_REL of its tensor's
+    median |value|: a ReLU input in a tie, which either rounding may put on
+    either side of the kink; the gradient passes unchanged. Returns (record,
+    ties: (module, call, elements) per call that had one, hook handles)."""
+    rec, ties, handles = {}, [], []
+    for name, m in model.named_modules():
+        if not isinstance(m, (Conv2d, InstanceNorm2d, BatchNorm2d)):
+            continue
+
+        def hook(mod, inputs, out, name=name):
+            calls = rec.setdefault(name, [])
+            calls.append(out.detach().float().cpu() if recorded is None else None)
+            if recorded is None:
+                return None
+            o, other = out.detach().float(), recorded[name][len(calls) - 1].to(out.device)
+            tie = ((o * other < 0) & (o.abs() <= TIE_REL * o.abs().median())
+                   & (other.abs() <= TIE_REL * other.abs().median()))
+            if not bool(tie.any()):
+                return None
+            ties.append((name, len(calls) - 1, int(tie.sum())))
+            return out + ((other - o) * tie).to(out.dtype).detach()
+
+        handles.append(m.register_forward_hook(hook))
+    return rec, ties, handles
+
+
+def _finetune_case(where):
+    """Full RAFT from seed 0, float32, and a 64^2 batch of 2 (uint8 values,
+    label flows) from seed 5, on `where`, with make_finetune_step's step
+    (12 iterations, noise off, remat "dots")."""
+    from accflow_tpu_torch.train.finetune import make_finetune_step
+    from accflow_tpu_torch.train.optim import make_optimizer
+
+    est = build_flow_estimator("raft", compute_dtype="float32", device=where)
+    rng = np.random.default_rng(5)
+    img1, img2 = (torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8)).to(where)
+                  for _ in range(2))
+    label = torch.from_numpy((4 * rng.standard_normal((2, 64, 64, 2))).astype(np.float32)).to(where)
+    opt = make_optimizer(est.model.parameters(), 1e-4, 10)
+    grads = {}
+    update = opt.step
+
+    def step():
+        grads.update({k: p.grad.detach().cpu().clone() for k, p in est.model.named_parameters()
+                      if p.grad is not None})
+        update()
+
+    opt.step = step
+    train_step, _ = make_finetune_step(est, opt, add_noise=False, gamma=0.85)
+    return est, train_step, (img1, img2, label), grads
+
+
+def test_finetune_step_gpu_matches_cpu(dev):
+    """One fine-tune step on the card (kernel #1 and its backward kernel,
+    cuDNN) against the CPU (the plain lookup and backward), float32, TF32
+    off: loss within 1e-5 relative, gradients within 1e-4 in relative L2
+    over the fnet, the cnet and the update block apart, each running-
+    statistics buffer within 1e-5 of its largest |value| (chip_smoke.py's
+    bars); 12 forward and 12 backward kernel
+    launches, no other lookup kernel. The CPU run takes the GPU's ReLU
+    inputs where the two lie in a tie (tie_hooks): at this seed one, in the
+    fnet's layer2.1.norm2 output (-1.06e-6 on the CPU, +1.41e-6 on the GPU,
+    median 0.67), moved the fnet's gradient by 1.75e-4 in L2."""
+    out = {}
+    recorded = None
+    for where in (dev, "cpu"):
+        est, train_step, batch, grads = _finetune_case(where)
+        recorded = tie_hooks(est.model, recorded)[0]
+        before = (corr_cuda.launches, corr_backward_cuda.launches)
+        loss, _ = train_step(*batch)
+        after = (corr_cuda.launches, corr_backward_cuda.launches)
+        assert [a - b for a, b in zip(after, before)] == ([12, 12] if where == dev else [0, 0])
+        stats = {k: v.cpu() for k, v in est.model.state_dict().items() if "running" in k}
+        out[str(where)] = float(loss), grads, stats
+    (loss_g, g, s_g), (loss_c, c, s_c) = out[str(dev)], out["cpu"]
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for part in ("fnet.", "cnet.", "update_block."):
+        keys = [k for k in c if k.startswith(part)]
+        num = sum(float(((g[k] - c[k]) ** 2).sum()) for k in keys)
+        assert (num / sum(float((c[k] ** 2).sum()) for k in keys)) ** 0.5 <= 1e-4, part
+    for k in s_c:  # each buffer within 1e-5 of its largest |value|
+        assert float((s_g[k] - s_c[k]).abs().max()) <= 1e-5 * float(s_c[k].abs().max()), k

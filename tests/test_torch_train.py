@@ -25,7 +25,7 @@ where the sampler's coordinate derivative has two one-sided values).
 - remat and grad_accum against the plain step; the learning rates against
   onecycle_linear; the noise against JAX's formula on the same draws;
 - checkpoints, resume, PNGs, TB, train_acc end to end, the CLI, the config
-  reader, and the kernels' refusal of autograd.
+  reader, kernel #3's refusal of autograd and the lookup ops' gradients.
 """
 
 import copy
@@ -58,6 +58,7 @@ from accflow_tpu_torch.models import AccFlowConfig, build_flow_estimator, init_a
 from accflow_tpu_torch.models.accflow import FlowDecoder, FlowEncoder, accflow_train_forward
 from accflow_tpu_torch.nn.layers import init_weights
 from accflow_tpu_torch.ops import corr_bd_cuda, corr_cuda, corr_level_cuda, deform, sampling, upsample
+from accflow_tpu_torch.ops.corr import lookup_corr_plain_backward
 from accflow_tpu_torch.train import engine
 from accflow_tpu_torch.train.accum import accumulate_grads
 from accflow_tpu_torch.train.checkpoint import CheckpointManager
@@ -165,7 +166,7 @@ def _port_grads(pair, model, imgs, labels, grad_accum=1):
     """One step's loss and gradients of the port (no update)."""
     pairs = pair["est"].pairs_fn()
     model.zero_grad(set_to_none=True)
-    loss, _ = accumulate_grads(
+    loss, _, _ = accumulate_grads(
         lambda im, lb: sequence_loss_acc(accflow_train_forward(model, im, pairs), lb),
         grad_accum, engine.to_clip(imgs), engine.to_flow_seq(labels), axis=1)
     return float(loss), _leaves(_grad_tree(model))
@@ -560,22 +561,40 @@ def test_config_reader_refuses(text):
 
 @pytest.mark.parametrize("op", ["corr_lookup", "corr_level_lookup", "y_contract"])
 def test_kernel_ops_refuse_autograd(op):
-    """The lookup kernels have no backward: a call that autograd would
-    record raises, naming fine_tune; under no_grad the same call runs."""
+    """Kernel #3 has no backward: a call of its op that autograd would
+    record raises, naming fine_tune; under no_grad the same call runs. The
+    lookup ops #1 and #2 have one (the backward kernel's ops): their
+    gradient with respect to the levels is lookup_corr_plain_backward's
+    (rtol 1e-6), the op's value under autograd is its value under no_grad,
+    and coords that require grad raise."""
     gen = torch.Generator().manual_seed(0)
     levels = [torch.randn((6, 8 >> i, 8 >> i), generator=gen) for i in range(4)]
     coords = torch.rand((6, 2), generator=gen) * 7
+    if op == "y_contract":
+        wy = torch.rand((6, corr_bd_cuda.NUM, 8), generator=gen)
+        with torch.no_grad():
+            want = corr_bd_cuda.y_contract(levels[0], wy)
+        levels[0].requires_grad_(True)
+        with pytest.raises(RuntimeError, match="fine_tune"):
+            corr_bd_cuda.y_contract(levels[0], wy)
+        with torch.no_grad():
+            assert torch.equal(corr_bd_cuda.y_contract(levels[0], wy), want)
+        return
+    radius = 4 if op == "corr_lookup" else 3
     if op == "corr_lookup":
         call = lambda lv, c: corr_cuda.lookup_corr_fused(lv, c)  # noqa: E731
-    elif op == "corr_level_lookup":
-        call = lambda lv, c: corr_level_cuda.lookup_corr_level(lv, c, 3)  # noqa: E731
     else:
-        wy = torch.rand((6, corr_bd_cuda.NUM, 8), generator=gen)
-        call = lambda lv, c: corr_bd_cuda.y_contract(lv[0], wy)  # noqa: E731
+        call = lambda lv, c: corr_level_cuda.lookup_corr_level(lv, c, radius)  # noqa: E731
     with torch.no_grad():
         want = call(levels, coords)
-    levels[0].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="fine_tune"):
-        call(levels, coords)
-    with torch.no_grad():
-        assert torch.equal(call(levels, coords), want)
+    for lvl in levels:
+        lvl.requires_grad_(True)
+    out = call(levels, coords)
+    assert torch.equal(out.detach(), want)
+    cot = torch.randn(out.shape, generator=gen)
+    grads = torch.autograd.grad(out, levels, cot)
+    ref = lookup_corr_plain_backward(cot, coords, [lvl.shape[1:] for lvl in levels], radius)
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g, r, rtol=1e-6, atol=0)
+    with pytest.raises(RuntimeError, match="coords require grad"):
+        call(levels, coords.requires_grad_(True))
