@@ -423,12 +423,13 @@ def raft_pairs_forward(model: RAFT, frames, src_idx, dst_idx,
 
 def check_trainable_lookup(cfg) -> None:
     """Raise NotImplementedError for a lookup without a backward: the split
-    lookups (kernel #3's backward is not ported, ROADMAP.md #16)."""
+    lookups (kernel #3 has no backward, nor has the reference's Pallas
+    y_contract_bd; ROADMAP.md #16)."""
     if cfg.split_levels is not None:
         raise NotImplementedError(
-            f"corr_lookup={cfg.corr_lookup!r} has no backward: training through it needs "
-            "kernel #3's backward, which is not ported (ROADMAP.md, queue 1 #16); train with "
-            "corr_lookup 'fused'")
+            f"corr_lookup={cfg.corr_lookup!r} has no backward: kernel #3 has none, and "
+            "neither has the reference's y_contract_bd, which JAX cannot differentiate "
+            "either (ROADMAP.md, queue 3, #16); train with corr_lookup 'fused'")
 
 
 def raft_train_forward(model: RAFT, image1, image2, iters: Optional[int] = None,
@@ -437,8 +438,8 @@ def raft_train_forward(model: RAFT, image1, image2, iters: Optional[int] = None,
     records it; the cnet's BatchNorm uses the batch's statistics and keeps
     its running-statistics updates for collect_bn_updates; the pyramid is
     stored in float32; remat ("none", "dots", "full") checkpoints each GRU
-    iteration. The split lookups (experimental:fused_bd[2]) need kernel #3's
-    backward, which is not ported: NotImplementedError."""
+    iteration. The split lookups (experimental:fused_bd[2]) have no
+    backward, as in the reference: NotImplementedError."""
     check_trainable_lookup(model.cfg)
     dev = next(model.parameters()).device
     frames = torch.stack([_as_images(image1, dev), _as_images(image2, dev)])

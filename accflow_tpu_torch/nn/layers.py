@@ -212,7 +212,8 @@ def collect_bn_updates(model: nn.Module) -> dict:
 @torch.no_grad()
 def apply_bn_updates(model: nn.Module, updates: dict) -> None:
     """Write collect_bn_updates' statistics into the layers' buffers
-    (accflow_tpu/nn/layers.py::apply_bn_updates)."""
+    (accflow_tpu/nn/layers.py::apply_bn_updates), in place: a train step
+    captured in a CUDA graph moves them on every replay."""
     for name, (mean, var) in updates.items():
         m = model.get_submodule(name)
         m.running_mean.copy_(mean)

@@ -3,6 +3,11 @@ JAX's jax.checkpoint policies: AccFlowConfig.remat wraps each accumulation
 cell (models/accflow.py), the estimators' train forward each GRU iteration
 (models/raft.py::raft_iterate, JAX's scan_remat). It changes what the
 backward stores and recomputes, not the gradients.
+
+No remat'd block draws random numbers (a train step's noise is drawn before
+the forward), so the checkpoints run with preserve_rng_state=False, which
+is exact: they neither read nor set the devices' RNG state, which a CUDA
+graph capture of the step (graphs.CudaGraphedStep) would refuse.
 """
 
 from __future__ import annotations
@@ -48,5 +53,6 @@ def remat_wrap(fn, remat):
         return fn
     if remat == "dots":
         ctx_fn = functools.partial(create_selective_checkpoint_contexts, _keep_dots)
-        return lambda *a: checkpoint(fn, *a, use_reentrant=False, context_fn=ctx_fn)
-    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False, context_fn=ctx_fn,
+                                     preserve_rng_state=False)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False, preserve_rng_state=False)

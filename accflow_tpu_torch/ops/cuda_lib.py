@@ -88,9 +88,9 @@ def refuse_autograd(op, name: str) -> None:
     ops #1 and #2 have a backward kernel: ops/corr_backward_cuda.py.)"""
     def setup_context(ctx, inputs, output):
         raise RuntimeError(
-            f"{name} has no backward: a fine_tune with corr_lookup "
-            "experimental:fused_bd[2] needs kernel #3's backward, which is not ported "
-            "(ROADMAP.md, queue 1 #16); fine-tune with corr_lookup 'fused'")
+            f"{name} has no backward, and neither has the reference's y_contract_bd: a "
+            "fine_tune with corr_lookup experimental:fused_bd[2] cannot run in either "
+            "package (ROADMAP.md, queue 3, #16); fine-tune with corr_lookup 'fused'")
 
     def backward(ctx, grad):
         raise AssertionError("unreachable: setup_context refuses")

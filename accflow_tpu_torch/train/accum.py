@@ -9,7 +9,9 @@ of train/loss.py with k dividing the batch, the gradients equal the full
 batch's up to float32 summation order. Train-mode BatchNorm normalises
 each micro-batch with its own statistics (the reference's DataParallel
 semantics, as in JAX), and the running-statistics updates the
-micro-batches keep are averaged, for the step to apply once.
+micro-batches keep are averaged, for the step to apply once. Nothing here
+reads a device value on the host, so a CUDA graph of the train step
+(graphs.CudaGraphedStep) holds the k micro-batches unrolled.
 """
 
 from __future__ import annotations

@@ -13,11 +13,14 @@ Recipe (configs/AccRAFT*.yml, train_acc.py):
 - periodic validation on CVO-test clean, latest and best-k checkpoints,
   flow PNGs of chosen validation samples.
 
-On the card the step runs eagerly on one GPU: the frozen estimator under
-no_grad (its correlation lookups are kernel #1, or #2 for RAFT-small),
-the accumulator's forward and backward through PyTorch's own ops, bf16
-compute with float32 master weights and float32 flow state. JAX jits the
-whole step; graphing it is ROADMAP.md's open item.
+On the card the step runs on one GPU: the frozen estimator under no_grad
+(its correlation lookups are kernel #1, or #2 for RAFT-small), the
+accumulator's forward and backward through PyTorch's own ops, bf16 compute
+with float32 master weights and float32 flow state. As JAX jits the whole
+step, train_acc replays it from a CUDA graph (graphs.CudaGraphedStep: the
+noise draw, forward, backward, clip and AdamW update in the graph, the
+schedule's advance and the loss read outside) and its validation step too
+(graphs.CudaGraphed); on the CPU both run eagerly.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from accflow_tpu_torch import graphs
 from accflow_tpu_torch.convert import load_flow_estimator_checkpoint, load_jax_params
 from accflow_tpu_torch.data.cvo import BatchIterator, fetch_train_dataset, fetch_valid_dataset
 from accflow_tpu_torch.data.prefetch import device_prefetch
@@ -131,8 +135,20 @@ def build_acc_model(opt, device=None):
     return est, acfg
 
 
+def graph_steps(make_update, valid_step, optimizer: Optimizer, graphed: bool):
+    """(train_step, valid_step) of a step factory: with `graphed`, the
+    update make_update(optimizer.update) in graphs.CudaGraphedStep with the
+    schedule's advance after each call, and valid_step in
+    graphs.CudaGraphed (both run eagerly on CPU tensors); else the eager
+    make_update(optimizer.step) and valid_step."""
+    if graphed:
+        return (graphs.CudaGraphedStep(make_update(optimizer.update), after=optimizer.advance),
+                graphs.CudaGraphed(valid_step))
+    return make_update(optimizer.step), valid_step
+
+
 def make_acc_train_step(est, model: AccFlow, optimizer: Optimizer, add_noise: bool,
-                        grad_accum: int = 1):
+                        grad_accum: int = 1, graphed: bool = False):
     """(train_step, valid_step) for the accumulator `model` against the
     frozen estimator `est`.
 
@@ -142,22 +158,26 @@ def make_acc_train_step(est, model: AccFlow, optimizer: Optimizer, add_noise: bo
     backward run under one TF32 setting, off (what the forward's blocks
     set), so that no backward conv of a float32 step runs in TF32.
     valid_step(imgs, label_flows) -> (per-sample EPE (N,), last output
-    (N, H, W, 2)), under no_grad."""
+    (N, H, W, 2)), under no_grad. graphed: the two as train_acc runs them,
+    replayed from CUDA graphs on CUDA tensors (graph_steps)."""
     pairs = est.pairs_fn()
 
     def loss_fn(images, labels):
         return sequence_loss_acc(accflow_train_forward(model, images, pairs), labels)
 
-    def train_step(imgs, label_flows, gen: Optional[torch.Generator] = None):
-        images = to_clip(imgs)
-        labels = to_flow_seq(label_flows)
-        if add_noise:
-            images = images + reference_noise(gen, images.shape[1:])[None]
-        optimizer.zero_grad()
-        with tf32(False):
-            loss, metrics, _ = accumulate_grads(loss_fn, grad_accum, images, labels, axis=1)
-        optimizer.step()
-        return loss, metrics
+    def make_update(finish):
+        def train_step(imgs, label_flows, gen: Optional[torch.Generator] = None):
+            images = to_clip(imgs)
+            labels = to_flow_seq(label_flows)
+            if add_noise:
+                images = images + reference_noise(gen, images.shape[1:])[None]
+            optimizer.zero_grad()
+            with tf32(False):
+                loss, metrics, _ = accumulate_grads(loss_fn, grad_accum, images, labels, axis=1)
+            finish()
+            return loss, metrics
+
+        return train_step
 
     def valid_step(imgs, label_flows):
         outs = accflow_forward(model, to_clip(imgs), ofe_pairs=pairs)
@@ -167,7 +187,7 @@ def make_acc_train_step(est, model: AccFlow, optimizer: Optimizer, add_noise: bo
         epe = torch.sqrt(torch.sum((outs[-1] - labels[-1]) ** 2, dim=-1))
         return epe.mean(dim=(1, 2)), outs[-1]
 
-    return train_step, valid_step
+    return graph_steps(make_update, valid_step, optimizer, graphed)
 
 
 def _png_chunk(kind: bytes, data: bytes) -> bytes:
@@ -256,7 +276,8 @@ def train_acc(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
     optimizer = make_optimizer(model.parameters(), opt.lr, num_steps, opt.wdecay,
                                opt.epsilon, opt.clip)
     train_step, valid_step = make_acc_train_step(
-        est, model, optimizer, opt.add_noise, grad_accum=int(opt.get("grad_accum", 1)))
+        est, model, optimizer, opt.add_noise, grad_accum=int(opt.get("grad_accum", 1)),
+        graphed=True)
     ckpt = CheckpointManager(ckpt_dir, keep=4)
 
     current_step = 0

@@ -16,6 +16,10 @@ Protocol (BASELINE.md):
 Batches stream from the CVOR reader through `device_prefetch`; each batch
 runs in micro-batches (one model call each) while the metrics follow
 `batch` exactly, the padded trailing batch counted by its valid samples.
+A micro-batch's call (the clip to its flow, the occlusion mask and the
+per-sample EPEs) replays a CUDA graph on the card (graphs.CudaGraphed, as
+JAX jits eval_batch); padding and the micro-batch divisor give it one
+signature, and the EPEs are read back outside the graph.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from accflow_tpu_torch.convert import (
 from accflow_tpu_torch.data.cvo import BatchIterator, fetch_valid_dataset
 from accflow_tpu_torch.data.prefetch import device_prefetch
 from accflow_tpu_torch.device import resolve_device
+from accflow_tpu_torch.graphs import CudaGraphed
 from accflow_tpu_torch.models import (
     AccFlowConfig,
     accflow_forward,
@@ -117,6 +122,7 @@ def evaluate_cvo(
     if use_acc and acc_params is not None:
         load_jax_params(acc, acc_params)
 
+    @CudaGraphed
     @torch.no_grad()
     def eval_batch(imgs, bflows, fflows):
         images = to_clip(imgs, frames)[: end + 1].to(dev)
@@ -146,7 +152,7 @@ def evaluate_cvo(
     padded = (pad_batch(b, batch) for b in it)
     for b, n_valid in device_prefetch(padded, depth=2, device=dev):
         for m0 in range(0, n_valid, micro_batch):
-            mb = {k: v[m0: m0 + micro_batch] for k, v in b.items()}
+            mb = {k: torch.as_tensor(v[m0: m0 + micro_batch]) for k, v in b.items()}
             epes = eval_batch(mb["imgs"], mb["bflows"], mb["fflows"])
             nv = min(n_valid - m0, micro_batch)
             for out, e in zip((alls, occs, viss), epes):

@@ -14,12 +14,16 @@ Recipe (configs/RAFT.yml, GMA.yml):
 - validation: the flow imgs[-1] -> imgs[0] at 20 iterations against
   bflows[-1], capped at valid_sample + 1 samples.
 
-On the card the step runs eagerly on one GPU, bf16 compute with float32
-master weights and float32 flow state; the pyramid is float32, and the
-lookup's forward and backward are kernel #1 and its backward kernel (kernel
-#2 and its backward for RAFT-small). Each GRU iteration is checkpointed as
-JAX's scan_remat ("dots" by default). JAX jits the step; graphing it is
-ROADMAP.md's open item #15.
+On the card the step runs on one GPU, bf16 compute with float32 master
+weights and float32 flow state; the pyramid is float32, and the lookup's
+forward and backward are kernel #1 and its backward kernel (kernel #2 and
+its backward for RAFT-small). Each GRU iteration is checkpointed as JAX's
+scan_remat ("dots" by default). As JAX jits the step, fine_tune replays it
+from a CUDA graph (engine.graph_steps: the noise draw, forward, remat's
+recompute, backward, clip, AdamW update and the BatchNorm write-back in
+the graph; select_pair's host choice arrives as the step's inputs, so one
+graph serves every pair) and its validation step too; on the CPU both run
+eagerly.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from accflow_tpu_torch.train.checkpoint import CheckpointManager
 from accflow_tpu_torch.train.engine import (
     TrainState,
     checkpoint_state,
+    graph_steps,
     pad_batch,
     reference_noise,
 )
@@ -83,7 +88,7 @@ def _normalize(img) -> torch.Tensor:
 
 
 def make_finetune_step(est: FlowEstimator, optimizer: Optimizer, add_noise: bool, gamma: float,
-                       grad_accum: int = 1, remat: str = "dots"):
+                       grad_accum: int = 1, remat: str = "dots", graphed: bool = False):
     """(train_step, valid_step) of JAX's make_finetune_step for the
     estimator `est`.
 
@@ -98,25 +103,30 @@ def make_finetune_step(est: FlowEstimator, optimizer: Optimizer, add_noise: bool
     TF32. valid_step(imgs (N, H, W, 3T), bflows (N, H, W, 2S)) -> (per-sample
     EPE (N,), flow (N, H, W, 2)): imgs[-1] -> imgs[0] at VALID_ITERS
     iterations against bflows[-1], BatchNorm on its running statistics,
-    under no_grad."""
+    under no_grad. graphed: the two as fine_tune runs them, replayed from
+    CUDA graphs on CUDA tensors (engine.graph_steps)."""
     model = est.model
 
     def loss_fn(i1, i2, label):
         out = est.forward(i1, i2, iters=TRAIN_ITERS, train=True, remat=remat)
         return sequence_loss_raft(out["predictions"], label, gamma)
 
-    def train_step(img1, img2, label, gen: Optional[torch.Generator] = None):
-        i1, i2 = _normalize(img1), _normalize(img2)
-        if add_noise:
-            noise = reference_noise(gen, i1.shape)
-            i1, i2 = i1 + noise, i2 + noise
-        optimizer.zero_grad()
-        with tf32(False):
-            loss, metrics, bn_updates = accumulate_grads(
-                loss_fn, grad_accum, i1, i2, torch.as_tensor(label).float(), axis=0, model=model)
-        optimizer.step()
-        apply_bn_updates(model, bn_updates)
-        return loss, metrics
+    def make_update(finish):
+        def train_step(img1, img2, label, gen: Optional[torch.Generator] = None):
+            i1, i2 = _normalize(img1), _normalize(img2)
+            if add_noise:
+                noise = reference_noise(gen, i1.shape)
+                i1, i2 = i1 + noise, i2 + noise
+            optimizer.zero_grad()
+            with tf32(False):
+                loss, metrics, bn_updates = accumulate_grads(
+                    loss_fn, grad_accum, i1, i2, torch.as_tensor(label).float(), axis=0,
+                    model=model)
+            finish()
+            apply_bn_updates(model, bn_updates)
+            return loss, metrics
+
+        return train_step
 
     def valid_step(imgs, bflows):
         imgs = torch.as_tensor(imgs)
@@ -128,7 +138,7 @@ def make_finetune_step(est: FlowEstimator, optimizer: Optimizer, add_noise: bool
         epe = torch.sqrt(torch.sum((flow - label) ** 2, dim=-1))
         return epe.mean(dim=(1, 2)), flow
 
-    return train_step, valid_step
+    return graph_steps(make_update, valid_step, optimizer, graphed)
 
 
 def run_validation(valid_step, valid_dst, batch: int, device, valid_sample: int = 500):
@@ -155,8 +165,9 @@ def build_estimator(opt, device=None) -> FlowEstimator:
     else GMA) with its weights from `init_params` (a JAX-layout numpy
     tree), `flow_pretrained` (a reference .pth or an .npz tree) or the
     seed, on `device`. A lookup without a backward raises: the split
-    lookups (experimental:fused_bd[2], ROADMAP.md #16) here, ondemand (#11)
-    in the config."""
+    lookups (experimental:fused_bd[2]: kernel #3 has none, nor has the
+    reference's y_contract_bd, ROADMAP.md #16) here, ondemand (#11) in the
+    config."""
     est = build_flow_estimator(
         opt.exp_name, compute_dtype=opt.get("compute_dtype", "bfloat16"), device=device,
         seed=opt.get("seed", 0), small=bool(opt.get("small", False)),
@@ -223,7 +234,7 @@ def fine_tune(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
                                opt.epsilon, opt.clip)
     train_step, valid_step = make_finetune_step(
         est, optimizer, opt.add_noise, gamma, grad_accum=int(opt.get("grad_accum", 1)),
-        remat=opt.get("scan_remat", "dots"))
+        remat=opt.get("scan_remat", "dots"), graphed=True)
     ckpt = CheckpointManager(ckpt_dir, keep=4)
     current_step = 0
     if opt.get("resume") is not None:

@@ -75,9 +75,13 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    (micro-batch 5), 12 iterations, bfloat16, acc|raft with fused,
    experimental:fused_bd and experimental:fused_bd2 and direct|raft with
    fused and experimental:fused_bd: EPE all / vis / occ, seconds per batch,
-   peak memory and launches (24 per batch; 48 with fused_bd2); each split
-   lookup's EPEs within EVAL_EPE_REL of fused's; acc|gma and direct|gma
-   with fused (24 kernel-#1 launches per batch);
+   peak memory and launches; each split lookup's EPEs within EVAL_EPE_REL
+   of fused's; acc|gma and direct|gma with fused. Each micro-batch call
+   replays a CUDA graph (graphs.CudaGraphed): the first call's 2 warm-ups
+   and capture are counted (12 launches each, 24 with fused_bd2) and timed
+   apart from the replay; each run is repeated eagerly (24 launches per
+   batch, 48 with fused_bd2), and its EPEs must equal the graphed ones bit
+   for bit;
 6c. stream (c): phase 6's protocol with GMA (gamma from seed 3; kernel #1,
    6 launches per push), every graphed push bit-equal to the eager one;
 10. the GMA clip: AccFlow+GMA on the clip path's frames and accumulator (7
@@ -104,18 +108,31 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    bf16, hidden 128, noise, lr 1.2e-4; the frozen RAFT at 12 iterations
    from seed 0 on kernel #1) on 24 + 6 synthetic CVOR clips of 256^2:
    kernel #1 against the plain lookup at the step's lookup shape (Q =
-   66*32*32, maps 32^2..4^2; LOOKUP_TOL); (a) 13 steps with a validation at step 10, then resume "auto" for 2
-   more: every loss finite, 12 kernel-#1 launches per step and per
-   validation batch, no plain lookup, the checkpoints and the visual PNG on
-   disk, the resumed count going on from 13; ms per step (median of steps
-   3-12, the validation's step left out), clips/s, peak memory; one step's
-   forward and backward under the sync debug mode "error";
-   configs/AccGMA.yml for 4 steps (GMA frozen on kernel #1); (b) one step
-   at 64^2 in float32 on the GPU against the CPU (TRAIN_* bars); (c) remat
-   "full" and "dots" and grad_accum 2 against the plain step at full width
-   in bf16, with their peaks (MEMORY_REL_BF16; grad_accum by
-   ACCUM_F32_RATIO against the f32 step), and at (b)'s size in float32
-   (MEMORY_REL_F32);
+   66*32*32, maps 32^2..4^2; LOOKUP_TOL); (a) 13 steps with a validation
+   at step 10, then resume "auto" for 5 more, the steps and the validation
+   replayed from CUDA graphs (graphs.CudaGraphedStep: noise, forward,
+   backward, clip and AdamW in the graph): every loss finite, the steps 2
+   eager, the capture, then replays, one capture each (the resumed run
+   captures again, and AdamW's count and the schedule go on to 18), 12
+   kernel-#1 launches counted per eager or captured step and per
+   validation warm-up and capture, none in a replay, 12 in the profile of
+   the last replay (its device busy time and idle share), no plain lookup,
+   the checkpoints and the visual PNG on disk; ms per replayed step (the
+   validation's step left out), clips/s, peak memory; one step's forward
+   and backward under the sync debug mode "error"; configs/AccGMA.yml for
+   6 steps (GMA frozen on kernel #1); (b) one step at 64^2 in float32 on
+   the GPU against the CPU (TRAIN_* bars); (c) remat "full" and "dots" and
+   grad_accum 2 against the plain step at full width in bf16, with their
+   peaks (MEMORY_REL_BF16; grad_accum by ACCUM_F32_RATIO against the f32
+   step), and at (b)'s size in float32 (MEMORY_REL_F32); (d) GRAPH_STEPS
+   steps eager and graphed from the same init, batches and generator:
+   eager and graphed ms per step, the capture call, peaks, one replay's
+   profile, one eager step and one replay (updates included) under the
+   sync debug mode "error", the graphed validation step bit-equal to the
+   eager one; then two eager runs and a graphed one under torch's
+   deterministic algorithms, the graphed run held to the eager runs'
+   spread (GRAPH_SPREAD, GRAPH_FLOOR: losses, parameters, AdamW's
+   moments);
    with --profile, the device time of a train step and of its frozen RAFT;
 15. estimator fine-tuning (train/finetune.py::fine_tune) with
    configs/RAFT.yml as shipped (full RAFT, batch 6, 256^2 pairs chosen by
@@ -130,15 +147,19 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    (BWD_REL), at the path's coords (LOOKUP_TOL) and far off the maps
    (zeros), each timed beside the plain backward, grid_sample's backward and
    the bound; (b) 13 steps with a validation at step 10, then resume "auto"
-   for 2 more: 12 kernel-#1 and 12 backward-kernel launches per step, 20
-   kernel-#1 launches per validation batch, no plain lookup or backward, ms
-   per step (median of steps 3-12, the validation's step left out), clips/s,
-   peak memory; configs/GMA.yml for 4 steps; RAFT-small (small: true,
-   kernel #2 and its backward) for 4; (c) one step's forward and backward
-   under the sync debug mode "error"; (d) one 64^2 float32 step on the GPU
-   against the CPU (TRAIN_*, FT_STATS_REL); (e) remat "none", "full" and
-   "dots" at full width: ms per step, peak, gradients against "none"; with
-   --profile, the device time of one step by kind.
+   for 5 more, graphed as phase 14's (the BatchNorm write-back in the
+   graph too): 12 kernel-#1 and 12 backward-kernel launches counted per
+   eager or captured step and seen in the profile of a replay, 20 kernel-#1
+   launches per validation warm-up and capture, no plain lookup or
+   backward, ms per replayed step, clips/s, peak memory; configs/GMA.yml
+   for 6 steps; RAFT-small (small: true, kernel #2 and its backward) for
+   6; (c) one step's forward and backward under the sync debug mode
+   "error"; (d) one 64^2 float32 step on the GPU against the CPU (TRAIN_*,
+   FT_STATS_REL); (e) remat "none", "full" and "dots" at full width, eager:
+   ms per step, peak, gradients against "none"; (f) phase 14d's graphed
+   against eager steps for each remat mode (the BatchNorm buffers held
+   too; the validation step with "dots"); with --profile, the device time
+   of one step by kind.
 Optional phases: --tile-sweep builds kernels #1 and #2 with 4, 8 and 16
 queries per block and times them in turns (#1 at the clip shape after phase
 3, #2 at the stream shape after phase 4); --profile prints where
@@ -148,7 +169,9 @@ graphed, goes (torch.profiler). A {"graphs": {...}} line holds the eager
 and graphed medians, busy times, launches per replay and peaks, and the
 artifacts' numbers, with the card's name and power limit; a {"gma": {...}}
 line the numbers of phases 6c and 8's GMA runs and 10-13, and a
-{"train": {...}} line phase 14's, a {"finetune": {...}} line phase 15's. The
+{"train": {...}} line phase 14's, a {"finetune": {...}} line phase 15's
+(graphed and eager ms per step, busy time, idle share, peaks, capture
+calls, the graphed-vs-eager distances beside their bars). The
 line before
 the last is {"kernels": [...]}; the last line is {"ok": true, "device":
 {...}}. Without a GPU, or without the package beside it, the script exits
@@ -158,6 +181,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import itertools
 import json
@@ -215,7 +239,7 @@ try:
     from accflow_tpu_torch.train.accum import accumulate_grads
     from accflow_tpu_torch.train.checkpoint import CheckpointManager
     from accflow_tpu_torch.train import finetune as ft
-    from accflow_tpu_torch.train.evaluate import evaluate_cvo
+    from accflow_tpu_torch.train import evaluate
     from accflow_tpu_torch.train.loss import sequence_loss_acc, sequence_loss_raft
     from accflow_tpu_torch.train.optim import make_optimizer
     from accflow_tpu_torch.utils.config import parse_options
@@ -318,6 +342,31 @@ TIE_REL = 1e-5
 MEMORY_REL_F32 = 1e-5
 MEMORY_REL_BF16 = 1e-3
 ACCUM_F32_RATIO = 1.2
+# Phases 14d and 15f, GRAPH_STEPS graphed train steps (graphs.CudaGraphedStep)
+# against as many eager ones from the same init, inputs and generator. The
+# backward sums in no fixed order, so eager runs differ (train_acc's losses
+# part in the 7th digit). Worse for a bar, with torch's
+# defaults each run of tests/test_torch_cuda.py's 64^2 f32 accumulator
+# step, eager or graphed, falls on one of two outcomes 1.25e-5 apart in
+# the parameters after 5 steps (torch.backends.cudnn.deterministic removes
+# the split), so a few eager runs cannot bound a graphed one
+# (three plain runs, then two plain and one nudged by a float32 rounding,
+# each failed that way on the card). Under torch's deterministic
+# algorithms (warn only) eager and graphed runs of that step repeat bit
+# for bit (8 of 8 calls). So the graphed run is held there: each step's
+# loss and each state group (parameters, AdamW's moments, BatchNorm
+# buffers, in relative L2) against the first of two eager runs within
+# GRAPH_SPREAD times their distance plus GRAPH_FLOOR (a few float32
+# roundings: a loss is read to one ulp, 1e-7 of it). The times, peaks and
+# profiles are taken with torch's defaults, as the engines run, and the
+# graphed run's distance from eager there is printed beside it. Deliberate
+# faults (stale input buffers, the schedule not advanced, the BatchNorm
+# write-back left out, the generator not registered) moved that step's
+# losses by 1e-3 to 5e-2 and its buffers by 0.21, or raised. The
+# validation and eval steps have no backward: bit-equal.
+GRAPH_STEPS = 8  # 2 eager (graphs.WARMUP), the capture replayed once, 5 replays
+GRAPH_SPREAD = 2.0
+GRAPH_FLOOR = 1e-6
 REPO = Path(__file__).resolve().parent
 FIXTURES = REPO / "tests" / "fixtures"
 COUNTERS = (  # each kernel wrapper's launch count: (kernel, module, attribute)
@@ -694,6 +743,21 @@ def kind_of(name: str) -> str:
     return "other"
 
 
+def print_by_kind(title: str, rows) -> dict:
+    """device_rows summed by kind_of their kernel names, printed under
+    `title`, largest first; returns {kind: [ms, launches]}."""
+    busy_ms = sum(r[0] for r in rows)
+    by_kind: dict[str, list] = {}
+    for ms, count, name in rows:
+        acc = by_kind.setdefault(kind_of(name), [0.0, 0])
+        acc[0] += ms
+        acc[1] += count
+    print(title)
+    for kind, (ms, count) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f} %  {count:6d} launches  {kind}")
+    return by_kind
+
+
 def profile_forward(forward, wall_ms: float, reps: int = 3) -> None:
     """--profile: device time of `forward` by kind of kernel and the top
     kernels, per forward; the busy share is the summed device time over
@@ -711,14 +775,7 @@ def profile_forward(forward, wall_ms: float, reps: int = 3) -> None:
         fail("profile: the profiler saw no device time")
     print(f"profile: {wall_ms:.2f} ms per forward ({prof_ms:.2f} ms under the profiler); "
           f"device busy {busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f} % of the unprofiled forward")
-    by_kind: dict[str, list] = {}
-    for ms, count, name in rows:
-        acc = by_kind.setdefault(kind_of(name), [0.0, 0])
-        acc[0] += ms
-        acc[1] += count
-    print("profile: device time by kind, per forward:")
-    for kind, (ms, count) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f} %  {count:6d} launches  {kind}")
+    print_by_kind("profile: device time by kind, per forward:", rows)
     print("profile: top kernels, per forward:")
     for ms, count, name in sorted(rows, reverse=True)[:25]:
         print(f"  {ms:9.3f} ms {count:6d}x  {name[:110]}")
@@ -828,13 +885,18 @@ def replay_profile(fn, kernel):
     """One call of `fn` (a CUDA graph's replay, which launches nothing
     through the wrappers' counters) under torch.profiler: (device busy ms,
     launches of `kernel`'s CUDA kernel, all kernel launches)."""
+    rows = profile_rows(fn)
+    ours = sum(count for _, count, name in rows if any(k in name for k in kernel_names(kernel)))
+    return sum(r[0] for r in rows), ours, sum(r[1] for r in rows)
+
+
+def profile_rows(fn):
+    """device_rows of one call of `fn` under torch.profiler."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = device_rows(prof, 1)
-    ours = sum(count for _, count, name in rows if any(k in name for k in kernel_names(kernel)))
-    return sum(r[0] for r in rows), ours, sum(r[1] for r in rows)
+    return device_rows(prof, 1)
 
 
 def timed_runs(fn, reps: int):
@@ -1321,6 +1383,39 @@ def drift_fixture():
     return launches
 
 
+class EvalGraphs:
+    """Phase 8's view into evaluate_cvo's graph: while active,
+    evaluate.CudaGraphed is a subclass that keeps each instance and times
+    each call to its end (synchronised: the first call warms up, captures
+    and replays), or with eager=True the identity, so that the same run
+    goes eagerly for the comparison."""
+
+    def __init__(self, eager: bool = False):
+        self.eager, self.made, self.calls = eager, [], []
+
+    def __enter__(self):
+        self._cls = evaluate.CudaGraphed
+        probe = self
+
+        class Timed(graphs.CudaGraphed):
+            def __init__(self, fn):
+                super().__init__(fn)
+                probe.made.append(self)
+
+            def __call__(self, *args):
+                t0 = time.perf_counter()
+                out = super().__call__(*args)
+                torch.cuda.synchronize()
+                probe.calls.append(time.perf_counter() - t0)
+                return out
+
+        evaluate.CudaGraphed = (lambda fn: fn) if self.eager else Timed
+        return self
+
+    def __exit__(self, *exc):
+        evaluate.CudaGraphed = self._cls
+
+
 def eval_phase():
     """Phase 8: the CVO evaluation at full width on synthetic CVOR clips
     (10 of 512^2, written to a temporary directory): one warm-up call, then
@@ -1328,7 +1423,12 @@ def eval_phase():
     and fused_bd, and acc|gma and direct|gma with fused, batch 10
     (micro-batch 5), 12 iterations, bfloat16, RAFT and GMA from seed 0
     (GMA's gamma from seed 3) and AccFlow from seed 1 with its ZeroConv
-    perturbed. Returns {(model, lookup): row}."""
+    perturbed. Each micro-batch replays evaluate_cvo's CUDA graph (the
+    first call warms up WARMUP times, captures and replays: its launches
+    are counted WARMUP + 1 times, the second call's none); the first
+    call's and the replay's seconds apart (EvalGraphs); then the same run
+    eagerly, whose EPEs the graphed ones must equal bit for bit. Returns
+    {(model, lookup): row}."""
     clips, batch, n_batches = 10, 10, 1
     acc = models.init_accflow(models.AccFlowConfig(compute_dtype="bfloat16"), seed=1,
                               device="cpu")
@@ -1338,11 +1438,12 @@ def eval_phase():
     perturb_gamma(gma_est.model, 3)
     gma_tree = to_jax_params(gma_est.model)
     del acc, gma_est
-    runs = (("acc|raft", "fused", corr_cuda, 24), ("acc|raft", "experimental:fused_bd", corr_bd_cuda, 24),
-            ("acc|raft", "experimental:fused_bd2", corr_bd_cuda, 48),
-            ("direct|raft", "fused", corr_cuda, 24),
-            ("direct|raft", "experimental:fused_bd", corr_bd_cuda, 24),
-            ("acc|gma", "fused", corr_cuda, 24), ("direct|gma", "fused", corr_cuda, 24))
+    # (model, lookup, kernel, launches per micro-batch call)
+    runs = (("acc|raft", "fused", corr_cuda, 12), ("acc|raft", "experimental:fused_bd", corr_bd_cuda, 12),
+            ("acc|raft", "experimental:fused_bd2", corr_bd_cuda, 24),
+            ("direct|raft", "fused", corr_cuda, 12),
+            ("direct|raft", "experimental:fused_bd", corr_bd_cuda, 12),
+            ("acc|gma", "fused", corr_cuda, 12), ("direct|gma", "fused", corr_cuda, 12))
     rows = {}
     print(f"eval: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated before its runs "
           "(earlier phases' tensors; in each run's peak)")
@@ -1354,29 +1455,50 @@ def eval_phase():
               f"{time.perf_counter() - t0:.2f} s")
 
         def run(model, lookup):
-            return evaluate_cvo(model, root, batch=batch, iters=12, compute_dtype="bfloat16",
-                                corr_lookup=lookup, acc_params=acc_tree, device="cuda",
-                                params=gma_tree if "gma" in model else None,
-                                result_file=str(Path(tmp) / "result.txt"))
+            return evaluate.evaluate_cvo(
+                model, root, batch=batch, iters=12, compute_dtype="bfloat16",
+                corr_lookup=lookup, acc_params=acc_tree, device="cuda",
+                params=gma_tree if "gma" in model else None,
+                result_file=str(Path(tmp) / "result.txt"))
 
         run("acc|raft", "fused")  # warm-up: cuDNN algorithm choice at batch 5
         for model, lookup, kernel, want in runs:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_counts()
-            t0 = time.perf_counter()
-            res = run(model, lookup)
-            torch.cuda.synchronize()
-            secs = (time.perf_counter() - t0) / n_batches
-            launches = expect_counts(f"eval {model} {lookup}", kernel, want * n_batches)
-            peak = torch.cuda.max_memory_allocated()
-            if not all(np.isfinite(v) for v in res.values()):
+            out = {}
+            for mode in ("graphed", "eager"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                t0 = time.perf_counter()
+                with EvalGraphs(eager=mode == "eager") as probe:
+                    res = run(model, lookup)
+                torch.cuda.synchronize()
+                secs = (time.perf_counter() - t0) / n_batches
+                calls = 2 * n_batches  # micro-batches
+                counted = want * ((graphs.WARMUP + 1) if mode == "graphed" else calls)
+                launches = expect_counts(f"eval {model} {lookup} {mode}", kernel, counted)
+                if mode == "graphed" and ([g.captures for g in probe.made] != [1]
+                                          or len(probe.calls) != calls):
+                    fail(f"eval {model} {lookup}: captures {[g.captures for g in probe.made]}, "
+                         f"{len(probe.calls)} calls")
+                out[mode] = dict(res, s_per_batch=secs, peak_gib=torch.cuda.max_memory_allocated()
+                                 / 2**30, launches=launches, call_s=probe.calls)
+            res, ref = out["graphed"], out["eager"]
+            if not all(np.isfinite(res[k]) for k in ("all", "vis", "occ")):
                 fail(f"eval {model} {lookup}: EPE not finite {res}")
+            if any(res[k] != ref[k] for k in ("all", "vis", "occ")):
+                fail(f"eval {model} {lookup}: graphed EPEs {res} differ from eager {ref}")
             print(f"eval {model} {lookup}: EPE all {res['all']:.4f} vis {res['vis']:.4f} "
-                  f"occ {res['occ']:.4f}; {secs:.3f} s per batch of {batch} (micro-batch 5); "
-                  f"peak memory {peak / 2**30:.3f} GiB; {launches} launches")
-            rows[model, lookup] = dict(res, s_per_batch=secs, peak_gib=peak / 2**30,
-                                       launches=launches)
+                  f"occ {res['occ']:.4f} (graphed, bit-equal to eager); {res['s_per_batch']:.3f} s "
+                  f"per batch of {batch} (micro-batch 5) graphed: first call (2 warm-ups, capture, "
+                  f"replay) {res['call_s'][0]:.3f} s, replay {res['call_s'][1] * 1e3:.2f} ms; eager "
+                  f"{ref['s_per_batch']:.3f} s per batch; peak memory graphed "
+                  f"{res['peak_gib']:.3f} GiB, eager {ref['peak_gib']:.3f} GiB; launches counted "
+                  f"{res['launches']} graphed, {ref['launches']} eager")
+            rows[model, lookup] = dict(res, eager_s_per_batch=ref["s_per_batch"],
+                                       eager_peak_gib=ref["peak_gib"],
+                                       eager_launches=ref["launches"],
+                                       capture_call_s=res["call_s"][0],
+                                       replay_ms=res["call_s"][1] * 1e3)
     for model, lookup, _, _ in runs:
         if lookup == "fused":  # the GMA runs have no split-lookup twin here
             continue
@@ -1677,28 +1799,27 @@ def demo_phase(tmp: str, pipe, lr, clip7) -> dict:
 class StepProbe:
     """Phases 14's and 15's view into a training loop, without changing
     it: while active it wraps the factory `module.factory`
-    (engine.make_acc_train_step, finetune.make_finetune_step) so that each
-    train step records its start time, its kernel-#1 forward and backward
-    launches and its loss tensor, and each validation batch its forward
-    launches. The plain lookups and the plain backward are wrapped too, to
-    count their calls (none is allowed on the card)."""
+    (engine.make_acc_train_step, finetune.make_finetune_step, which the
+    engines call with graphed=True) so that each train step records its
+    start time, its kernel launches as the wrappers count them, its loss
+    tensor and its kind ("eager" for a graphed step's warm-ups, "capture",
+    "replay"), and each validation batch its launches and kind ("capture":
+    the warm-ups, the capture and one replay; "replay"). The train step
+    numbered `profile_at` (1-based in this run) runs under torch.profiler
+    (a replay: its kernels, which no counter sees). The plain lookups and
+    the plain backward are wrapped too, to count their calls (none is
+    allowed on the card)."""
 
     PLAIN = ((corr_cuda, "lookup_corr_plain"), (corr_level_cuda, "lookup_corr_plain"),
              (corr_backward_cuda, "lookup_corr_plain_backward"))
 
-    def __init__(self, module, factory: str):
-        self.module, self.factory = module, factory
-        self.starts, self.losses = [], []
+    def __init__(self, module, factory: str, profile_at=None):
+        self.module, self.factory, self.profile_at = module, factory, profile_at
+        self.starts, self.losses, self.kinds, self.valid_kinds = [], [], [], []
         self.steps, self.valid = [], []  # each call's launches: {COUNTERS name: n}
         self.plain_calls = 0
-
-    @property
-    def launches(self) -> list:
-        return [c["corr_lookup"] for c in self.steps]
-
-    @property
-    def valid_launches(self) -> list:
-        return [c["corr_lookup"] for c in self.valid]
+        self.profile_rows = None
+        self.train_step = self.valid_step = None
 
     def __enter__(self):
         self._make = getattr(self.module, self.factory)
@@ -1706,19 +1827,30 @@ class StepProbe:
 
         def make(*a, **k):
             step, valid = self._make(*a, **k)
+            self.train_step, self.valid_step = step, valid
 
             def probed_step(*args):
                 self.starts.append(time.perf_counter())
-                c0 = launch_counts()
-                loss, metrics = step(*args)
+                c0, e0, k0 = launch_counts(), step.eager_calls, step.captures
+                if len(self.starts) == self.profile_at:
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        loss, metrics = step(*args)
+                        torch.cuda.synchronize()
+                    self.profile_rows = device_rows(prof, 1)
+                else:
+                    loss, metrics = step(*args)
                 self.steps.append({k: v - c0[k] for k, v in launch_counts().items()})
+                self.kinds.append("eager" if step.eager_calls > e0 else
+                                  "capture" if step.captures > k0 else "replay")
                 self.losses.append(loss)
                 return loss, metrics
 
             def probed_valid(*args):
-                c0 = launch_counts()
+                c0, k0 = launch_counts(), valid.captures
                 out = valid(*args)
                 self.valid.append({k: v - c0[k] for k, v in launch_counts().items()})
+                self.valid_kinds.append("capture" if valid.captures > k0 else "replay")
                 return out
 
             return probed_step, probed_valid
@@ -1738,6 +1870,48 @@ class StepProbe:
         setattr(self.module, self.factory, self._make)
         for (m, name), plain in zip(self.PLAIN, self._plain):
             setattr(m, name, plain)
+
+    def check_graphs(self, label: str, per_call: dict, per_valid: dict) -> dict:
+        """The run's graphs: its steps were graphs.WARMUP eager ones, the
+        capture, then replays, with `per_call` launches ({COUNTERS name: n})
+        in each eager and capture call and none counted in a replay; its
+        validation batches a capture (graphs.WARMUP + 1 times `per_valid`)
+        then replays; one capture of each step; the profiled replay launched
+        the forward and backward kernels as often as `per_call` says (by the
+        CUDA kernels' names). Returns the profiled replay's numbers."""
+        want = ["eager"] * graphs.WARMUP + ["capture"] + ["replay"] * (len(self.kinds) - 3)
+        if self.kinds != want:
+            fail(f"{label}: steps ran as {self.kinds}, expected {want}")
+        if self.valid_kinds and self.valid_kinds != ["capture"] + ["replay"] * (
+                len(self.valid_kinds) - 1):
+            fail(f"{label}: validation batches ran as {self.valid_kinds}")
+        for kind, c in zip(self.kinds, self.steps):
+            got = {k: v for k, v in c.items() if v}
+            if got != (per_call if kind != "replay" else {}):
+                fail(f"{label}: launches counted in a {kind} step {got}, expected "
+                     f"{per_call if kind != 'replay' else {}}")
+        cap = {k: v * (graphs.WARMUP + 1) for k, v in per_valid.items()}
+        for kind, c in zip(self.valid_kinds, self.valid):
+            got = {k: v for k, v in c.items() if v}
+            if got != (cap if kind == "capture" else {}):
+                fail(f"{label}: launches counted in a {kind} validation batch {got}")
+        if self.train_step.captures != 1 or self.valid_step.captures != (1 if self.valid else 0):
+            fail(f"{label}: captures {self.train_step.captures} (train step), "
+                 f"{self.valid_step.captures} (validation)")
+        rows = self.profile_rows or []
+        fwd = sum(n for _, n, name in rows if "corr_window_kernel" in name)
+        bwd = sum(n for _, n, name in rows if "corr_window_backward_kernel" in name)
+        want_fwd = sum(v for k, v in per_call.items() if not k.endswith("_backward"))
+        want_bwd = sum(v for k, v in per_call.items() if k.endswith("_backward"))
+        if (fwd, bwd) != (want_fwd, want_bwd):
+            fail(f"{label}: the profile of one replay saw {fwd} forward and {bwd} backward "
+                 f"lookup launches, expected {want_fwd} and {want_bwd}")
+        busy = sum(r[0] for r in rows)
+        if not busy > 0:
+            fail(f"{label}: the profile of one replay saw no device time")
+        kinds = print_by_kind(f"{label}: one replay's device time by kind:", rows)
+        return dict(busy_ms=busy, kernels=sum(r[1] for r in rows), lookup_launches=fwd,
+                    backward_launches=bwd, by_kind=kinds)
 
 
 class TBStub:
@@ -1761,53 +1935,231 @@ def train_opts(config: str, root: str, run_dir: Path, **over):
     return opt
 
 
-def train_run(label: str, opt, steps: int, from_step: int = 3) -> dict:
-    """train_acc under a StepProbe from zeroed counts, up to step `steps`:
-    every loss finite, 12 kernel-#1 launches per step and per validation
-    batch, no other kernel, no plain lookup. Seconds per step: the median
-    interval between step starts over steps from_step .. steps-1, leaving
-    out the steps a validation follows. Returns the run's numbers."""
+def check_resumed(label: str, run: dict, state) -> None:
+    """A resume "auto" after 13 steps ran 5 more (WARMUP eager, a capture,
+    replays) and its AdamW count and schedule went on from 13 to 18."""
+    opt = state.optimizer
+    counts = {float(v["step"]) for v in opt.optimizer.state.values()}
+    if (run["last_step"], run["steps"], counts, opt.scheduler.last_epoch) != (18, 5, {18.0}, 18):
+        fail(f"{label} resume: {run['steps']} steps to step {run['last_step']}, AdamW counts "
+             f"{counts}, schedule at {opt.scheduler.last_epoch}; expected 5 to 18")
+    print(f"{label} resume: restored step 13, ran steps 14..18 as {', '.join(run['kinds'])} "
+          "(captured again); AdamW's count and the schedule at 18")
+
+
+def engine_run(label: str, opt, steps: int, finetune: bool = False, small: bool = False) -> dict:
+    """train_acc (or with `finetune`, fine_tune) under a StepProbe from
+    zeroed counts, up to step `steps`, its steps and validation batches
+    replayed from CUDA graphs (StepProbe.check_graphs): every loss finite;
+    per eager or captured step 12 launches of the forward kernel (#1, or #2
+    for RAFT-small) and, fine-tuning, as many of its backward kernel, per
+    validation batch 12 (fine-tuning: VALID_ITERS = 20) forward launches
+    times WARMUP + 1 at its capture, none counted in a replay, and as many
+    seen in the profile of the last step (a replay); no other kernel, no
+    plain lookup or backward. Seconds per step: the median interval between
+    step starts over the replays but the last (profiled) one, leaving out
+    the steps a validation follows. The idle share is 1 - the profiled
+    replay's device busy time / that median. Returns the run's numbers."""
+    fwd, bwd = ("corr_level_lookup", "corr_level_lookup_backward") if small else (
+        "corr_lookup", "corr_lookup_backward")
+    module, factory, run = ((ft, "make_finetune_step", ft.fine_tune) if finetune else
+                            (engine, "make_acc_train_step", engine.train_acc))
+    per_call = {fwd: 12, bwd: 12} if finetune else {fwd: 12}
+    per_valid = {fwd: ft.VALID_ITERS if finetune else 12}
+    what = "fine-tune" if finetune else "train"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tb = TBStub()
     reset_counts()
     t0 = time.perf_counter()
-    with StepProbe(engine, "make_acc_train_step") as probe:
-        state = engine.train_acc(opt, max_steps=steps, tb=tb)
+    first = int(opt.get("resume") is not None and CheckpointManager(opt.ckpt_dir).latest_step()
+                or 0) + 1
+    with StepProbe(module, factory, profile_at=steps - first + 1) as probe:
+        state = run(opt, max_steps=steps, tb=tb)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    n = len(probe.starts)
-    expect_counts(f"train {label}", corr_cuda, 12 * (n + len(probe.valid_launches)))
-    losses = [float(l) for l in probe.losses]
+    n, nv = len(probe.starts), len(probe.valid)
+    if state.step - n + 1 != first:
+        fail(f"{what} {label}: ran steps {state.step - n + 1}..{state.step}, expected from {first}")
+    replay = probe.check_graphs(f"{what} {label}", per_call, per_valid)
+    graphed_calls = graphs.WARMUP + 1
+    expect_counts(f"{what} {label}", corr_level_cuda if small else corr_cuda,
+                  12 * graphed_calls + per_valid[fwd] * graphed_calls * min(nv, 1),
+                  **({bwd: 12 * graphed_calls} if finetune else {}))
     if probe.plain_calls:
-        fail(f"train {label}: the plain lookup ran {probe.plain_calls} times on the card")
-    if set(probe.launches) != {12} or set(probe.valid_launches) - {12}:
-        fail(f"train {label}: kernel #1 launches per step {probe.launches}, per validation "
-             f"batch {probe.valid_launches}; expected 12 each")
+        fail(f"{what} {label}: the plain lookup or backward ran {probe.plain_calls} times")
+    losses = [float(l) for l in probe.losses]
     if not all(np.isfinite(losses)):
-        fail(f"train {label}: losses not finite {losses}")
-    first = state.step - n + 1
+        fail(f"{what} {label}: losses not finite {losses}")
     per_step = [b - a for i, (a, b) in enumerate(zip(probe.starts, probe.starts[1:]), first)
-                if i >= from_step and i % opt.valid_freq]
-    med = statistics.median(per_step)
+                if probe.kinds[i - first] == "replay" and i % opt.valid_freq]
+    med = statistics.median(per_step) if per_step else float("nan")
+    replay["idle_share"] = 1.0 - replay["busy_ms"] / (med * 1e3)
     val = [s["val/epe"] for s, _ in tb.writes if "val/epe" in s]
     batch = opt.batch_per_gpu
-    print(f"train {label}: steps {first}..{state.step} in {secs:.2f} s (with set-up, "
-          f"validation, checkpoints); median {med * 1e3:.2f} ms per step over "
-          f"{len(per_step)} steps = {batch / med:.3f} clips/s (batch {batch}, "
-          f"{opt.image_size[0]}x{opt.image_size[1]}, 7 frames); peak memory "
-          f"{peak / 2**30:.3f} GiB; kernel #1 {probe.launches[0]} launches per step, "
-          f"{probe.valid_launches[:1]} per validation batch; plain lookup calls "
-          f"{probe.plain_calls}")
-    print(f"train {label}: losses {', '.join(f'{l:.4f}' for l in losses)}; validation "
+    print(f"{what} {label}: steps {first}..{state.step} in {secs:.2f} s (with set-up, "
+          f"validation, checkpoints) as {', '.join(probe.kinds)}; median {med * 1e3:.2f} ms per "
+          f"replayed step over {len(per_step)} = {batch / med:.3f} clips/s (batch {batch}, "
+          f"{opt.image_size[0]}x{opt.image_size[1]}); peak memory {peak / 2**30:.3f} GiB; one "
+          f"replay: device busy {replay['busy_ms']:.2f} ms (idle {100 * replay['idle_share']:.1f} "
+          f"% of the median), {replay['kernels']} kernels, {replay['lookup_launches']} forward "
+          f"and {replay['backward_launches']} backward lookup launches; counted per eager or "
+          f"captured step {per_call}, per validation capture "
+          f"{ {k: v * graphed_calls for k, v in per_valid.items()} } ({nv} validation batches, "
+          f"{probe.valid_kinds}); plain calls {probe.plain_calls}")
+    print(f"{what} {label}: losses {', '.join(f'{l:.4f}' for l in losses)}; validation "
           f"EPE {val}")
-    return dict(state=state, steps=n, last_step=state.step, s_total=secs,
+    return dict(state=state, steps=n, last_step=state.step, s_total=secs, kinds=probe.kinds,
                 ms_per_step=med * 1e3, ms_steps=[t * 1e3 for t in per_step],
-                clips_per_s=batch / med, peak_gib=peak / 2**30, losses=losses,
-                val_epe=val, launches_per_step=probe.launches[0],
-                launches_per_valid_batch=(probe.valid_launches or [None])[0],
-                launches=corr_cuda.launches, plain_calls=probe.plain_calls)
+                clips_per_s=batch / med, peak_gib=peak / 2**30, losses=losses, val_epe=val,
+                launches_per_step=per_call, launches_per_valid_batch=per_valid,
+                valid_batches=nv, replay=replay, launches=launch_counts(),
+                plain_calls=probe.plain_calls)
+
+
+def train_state(model, optimizer) -> dict:
+    """Parameters, AdamW's moments and the buffers (BatchNorm running
+    statistics), copies, by group; groups without tensors left out."""
+    named = list(model.named_parameters())
+    st = optimizer.optimizer.state
+    groups = {"parameters": {k: p.detach().clone() for k, p in named},
+              "exp_avg": {k: st[p]["exp_avg"].clone() for k, p in named},
+              "exp_avg_sq": {k: st[p]["exp_avg_sq"].clone() for k, p in named},
+              "buffers": {k: b.clone() for k, b in model.named_buffers()}}
+    return {g: v for g, v in groups.items() if v}
+
+
+def run_steps(build, graphed: bool, inputs) -> dict:
+    """build(graphed) -> (model, optimizer, train_step, valid_step,
+    eager_valid_step), made afresh; one train step per tuple of `inputs`,
+    noise from a card generator seeded 1, each step timed to its loss read
+    (host clock, as the engines read it). Returns the run."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, optimizer, step, valid, eager_valid = build(graphed)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    losses, secs = [], []
+    for args in inputs:
+        t0 = time.perf_counter()
+        losses.append(float(step(*args, gen)[0]))
+        secs.append(time.perf_counter() - t0)
+    return dict(model=model, optimizer=optimizer, step=step, valid=valid,
+                eager_valid=eager_valid, gen=gen, losses=losses, secs=secs,
+                peak=torch.cuda.max_memory_allocated(), state=train_state(model, optimizer))
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (warn only: an op without one runs
+    as it is) within the block."""
+    was, warn_only = (torch.are_deterministic_algorithms_enabled(),
+                      torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+
+
+def distances(run, ref) -> dict:
+    """Each step's loss gap and each state group's relative L2 of `run`
+    from `ref`."""
+    return dict(loss_gaps=[abs(a - b) for a, b in zip(run["losses"], ref["losses"])],
+                **{g: rel_l2(run["state"][g], ref["state"][g]) for g in ref["state"]})
+
+
+def graph_vs_eager(label: str, build, inputs, per_call: dict, valid_inputs=()) -> dict:
+    """Phases 14d and 15f: GRAPH_STEPS train steps on `inputs` from the same
+    init (build, as run_steps takes it) and generator, eagerly (the step
+    make_*_step returns) and graphed (graphed=True, the engines' step:
+    graphs.WARMUP eager steps, the capture replayed once, replays), with
+    torch's default numerics: ms per step (eager: steps 2 on; graphed: the
+    replays, steps 4 on), the capture call, each run's peak, the graphed
+    run's distance from eager (a reading); WARMUP eager calls and one
+    capture, AdamW's count, the learning rate and the generator's state as
+    eager's; one more replay under torch.profiler (device busy, idle share
+    of the replay median, the forward and backward lookup launches, which
+    must match `per_call`); one more eager step and one more replay,
+    updates included, under the sync debug mode "error"; with
+    `valid_inputs`, the graphed validation step against the eager one on
+    the graphed run's model, bit-equal (its first call warms up and
+    captures). Then, under torch's deterministic algorithms, two eager runs
+    and a graphed one: each step's loss and each state group of the graphed
+    run against the first eager run's within GRAPH_SPREAD x the eager runs'
+    distance + GRAPH_FLOOR."""
+    e1, g = run_steps(build, False, inputs), run_steps(build, True, inputs)
+    row = {"steps": len(inputs), "default_numerics": distances(g, e1)}
+    step, opt_g, opt_e = g["step"], g["optimizer"], e1["optimizer"]
+    counts = {float(v["step"]) for v in opt_g.optimizer.state.values()}
+    if (step.eager_calls, step.captures) != (graphs.WARMUP, 1) or counts != {float(len(inputs))} \
+            or opt_g.lr != opt_e.lr or not torch.equal(g["gen"].get_state(), e1["gen"].get_state()):
+        fail(f"{label} graphed: eager calls {step.eager_calls}, captures {step.captures}, AdamW "
+             f"counts {counts}, lr {opt_g.lr} vs {opt_e.lr}, generator as eager's "
+             f"{torch.equal(g['gen'].get_state(), e1['gen'].get_state())}")
+    eager_ms = statistics.median(e1["secs"][1:]) * 1e3
+    graphed_ms = statistics.median(g["secs"][graphs.WARMUP + 1:]) * 1e3
+    rows = profile_rows(lambda: step(*inputs[0], g["gen"]))
+    busy = sum(r[0] for r in rows)
+    fwd = sum(n for _, n, name in rows if "corr_window_kernel" in name)
+    bwd = sum(n for _, n, name in rows if "corr_window_backward_kernel" in name)
+    want = (sum(v for k, v in per_call.items() if not k.endswith("_backward")),
+            sum(v for k, v in per_call.items() if k.endswith("_backward")))
+    if (fwd, bwd) != want or not busy > 0:
+        fail(f"{label} graphed: one replay's profile saw {fwd} forward and {bwd} backward "
+             f"lookup launches, {busy} ms busy; expected {want}")
+    sync_free(f"{label} eager step, update included", lambda: e1["step"](*inputs[0], e1["gen"]))
+    sync_free(f"{label} graphed step (a replay)", lambda: step(*inputs[0], g["gen"]))
+    for i, args in enumerate(valid_inputs):
+        got, ref = g["valid"](*args), g["eager_valid"](*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            fail(f"{label}: graphed validation batch {i} differs from eager")
+    if valid_inputs and g["valid"].captures != 1:
+        fail(f"{label}: validation captures {g['valid'].captures}")
+    row.update(eager_ms=eager_ms, graphed_ms=graphed_ms, eager_ms_steps=[t * 1e3 for t in e1["secs"]],
+               graphed_ms_steps=[t * 1e3 for t in g["secs"]],
+               capture_call_s=g["secs"][graphs.WARMUP], busy_ms=busy,
+               idle_share=1.0 - busy / graphed_ms, kernels_per_replay=sum(r[1] for r in rows),
+               lookup_launches_per_replay=fwd, backward_launches_per_replay=bwd,
+               eager_peak_gib=e1["peak"] / 2**30, graphed_peak_gib=g["peak"] / 2**30,
+               valid_bit_equal=len(valid_inputs))
+    del e1, g, step, opt_g, opt_e
+    with deterministic():
+        d1, d2, dg = (run_steps(build, graphed, inputs) for graphed in (False, False, True))
+    spread, got = distances(d2, d1), distances(dg, d1)
+    held = {"loss": dict(gaps=got["loss_gaps"], eager_spread=spread["loss_gaps"])}
+    if not all(gap <= GRAPH_SPREAD * sp + GRAPH_FLOOR * abs(b)
+               for gap, sp, b in zip(got["loss_gaps"], spread["loss_gaps"], d1["losses"])):
+        fail(f"{label} graphed (deterministic algorithms): losses {dg['losses']} vs eager "
+             f"{d1['losses']} and {d2['losses']}")
+    for group in d1["state"]:
+        bar = GRAPH_SPREAD * spread[group] + GRAPH_FLOOR
+        held[group] = dict(graphed_vs_eager=got[group], eager_spread=spread[group], bar=bar)
+        if not got[group] <= bar:
+            fail(f"{label} graphed (deterministic algorithms): {group} {got[group]:.3e} from "
+                 f"eager, over {bar:.3e}")
+    row["deterministic"] = held
+    print(f"{label}: eager {eager_ms:.2f} ms per step, graphed {graphed_ms:.2f} ms (replays; "
+          f"the capture call {row['capture_call_s']:.2f} s); one replay: device busy {busy:.2f} "
+          f"ms (idle {100 * row['idle_share']:.1f} %), {row['kernels_per_replay']} kernels, "
+          f"{fwd} forward and {bwd} backward lookup launches; peak eager "
+          f"{row['eager_peak_gib']:.3f} GiB, graphed {row['graphed_peak_gib']:.3f} GiB"
+          + (f"; {len(valid_inputs)} validation batches bit-equal" if valid_inputs else ""))
+    dflt = row["default_numerics"]
+    print(f"{label}: graphed vs eager over {len(inputs)} steps with torch's defaults (a "
+          f"reading): loss gaps {', '.join(f'{x:.2e}' for x in dflt['loss_gaps'])}; "
+          + "; ".join(f"{k} {v:.3e}" for k, v in dflt.items() if k != "loss_gaps"))
+    print(f"{label}: graphed vs eager under deterministic algorithms: loss gaps "
+          f"{', '.join(f'{x:.2e}' for x in got['loss_gaps'])} (eager run-to-run "
+          f"{', '.join(f'{x:.2e}' for x in spread['loss_gaps'])}); "
+          + "; ".join(f"{k} {v['graphed_vs_eager']:.3e} (eager {v['eager_spread']:.3e}, bar "
+                      f"{v['bar']:.3e})" for k, v in held.items() if "bar" in v))
+    del d1, d2, dg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 def one_step_grads(pairs, model, images, labels, grad_accum: int = 1):
@@ -2033,7 +2385,7 @@ def train_phase(tmp: str, with_profile: bool = False) -> dict:
     print(f"train: wrote 24 + 6 synthetic CVOR clips of 256^2 in {time.perf_counter() - t0:.2f} s")
     run_dir = Path(tmp) / "train_raft"
     opt = train_opts("AccRAFT.yml", root, run_dir, valid_freq=10)
-    raft = train_run("AccRAFT", opt, 13)
+    raft = engine_run("AccRAFT", opt, 13)
     ckpt = CheckpointManager(opt.ckpt_dir)
     files = sorted(str(p.relative_to(run_dir)) for p in run_dir.rglob("*") if p.is_file())
     print(f"train AccRAFT: files {files}")
@@ -2041,13 +2393,10 @@ def train_phase(tmp: str, with_profile: bool = False) -> dict:
         fail(f"train AccRAFT: checkpoints latest {ckpt.latest_step()}, best {ckpt.best_steps()}")
     if not (run_dir / "logs" / "val" / "im000" / "000010.png").is_file():
         fail("train AccRAFT: no visual sample PNG at step 10")
-    resumed = train_run("AccRAFT resumed", train_opts("AccRAFT.yml", root, run_dir,
-                                                      valid_freq=10, resume="auto"), 15)
-    if resumed["last_step"] != 15 or resumed["steps"] != 2:
-        fail(f"train AccRAFT resume: {resumed['steps']} steps to step {resumed['last_step']}, "
-             "expected 2 to step 15")
-    print("train AccRAFT resume: restored step 13, ran steps 14 and 15")
+    resumed = engine_run("AccRAFT resumed", train_opts("AccRAFT.yml", root, run_dir,
+                                                       valid_freq=10, resume="auto"), 18)
     state = resumed.pop("state")
+    check_resumed("train AccRAFT", resumed, state)
     raft.pop("state")
 
     est, _ = engine.build_acc_model(opt, device="cuda")
@@ -2071,13 +2420,68 @@ def train_phase(tmp: str, with_profile: bool = False) -> dict:
     torch.cuda.empty_cache()
 
     gma_opt = train_opts("AccGMA.yml", root, Path(tmp) / "train_gma")
-    gma = train_run("AccGMA", gma_opt, 4, from_step=2)
+    gma = engine_run("AccGMA", gma_opt, 6)
     gma.pop("state")
     gc.collect()
     torch.cuda.empty_cache()
     return dict(lookup_train_shape=lookup_rows, accraft=raft, resumed=resumed, files=files,
-                accgma=gma,
+                accgma=gma, graphed=acc_graph_runs(opt, root),
                 gpu_vs_cpu=train_gpu_vs_cpu(), memory_options=memory_options(root))
+
+
+def acc_graph_runs(opt, root: str) -> dict:
+    """Phase 14d: graph_vs_eager for the AccRAFT recipe's step (the frozen
+    RAFT of build_acc_model, the accumulator from seed 0, make_optimizer as
+    train_acc builds it, noise on) on the first GRAPH_STEPS training
+    batches of epoch 0, the validation step on the first 3 of them."""
+    est, acfg = engine.build_acc_model(opt, device="cuda")
+    est.model.requires_grad_(False)
+    it = BatchIterator(fetch_train_dataset(root, ["bflows"], crop_size=opt.image_size),
+                       opt.batch_per_gpu, shuffle=True, drop_last=True, seed=0, epoch=0)
+    inputs = [tuple(torch.from_numpy(b[k]).cuda() for k in ("imgs", "bflows"))
+              for b in itertools.islice(iter(it), GRAPH_STEPS)]
+
+    def build(graphed):
+        model = models.init_accflow(acfg, seed=0, device="cuda")
+        optimizer = make_optimizer(model.parameters(), opt.lr, 100, opt.wdecay, opt.epsilon,
+                                   opt.clip)
+        steps = engine.make_acc_train_step(est, model, optimizer, opt.add_noise, graphed=graphed)
+        eager_valid = engine.make_acc_train_step(est, model, optimizer, opt.add_noise)[1]
+        return model, optimizer, *steps, eager_valid
+
+    return graph_vs_eager("train AccRAFT steps", build, inputs, {"corr_lookup": 12},
+                          valid_inputs=inputs[:3])
+
+
+def finetune_graph_runs(opt, root: str) -> dict:
+    """Phase 15f: graph_vs_eager for the RAFT.yml recipe's step (full RAFT
+    from seed 0, noise on, gamma 0.85) in each remat mode, on the pairs
+    select_pair draws (seed 2) from the first GRAPH_STEPS training batches
+    of epoch 0 (remat "full" runs the lookup's forward again in the
+    backward: 24 launches a step); with "dots", the validation step on the
+    first 3 batches."""
+    it = BatchIterator(fetch_train_dataset(root, ft.ALL_FLOW_KEYS, crop_size=opt.image_size),
+                       opt.batch_per_gpu, shuffle=True, drop_last=True, seed=0, epoch=0)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b in itertools.islice(iter(it), GRAPH_STEPS)]
+    rng = np.random.default_rng(2)
+    inputs = [ft.select_pair(b, rng) for b in batches]
+    rows = {}
+    for remat in ("none", "full", "dots"):
+        kw = dict(add_noise=opt.add_noise, gamma=opt.get("gamma", 0.85), remat=remat)
+
+        def build(graphed, kw=kw):
+            est = ft.build_estimator(opt, device="cuda")
+            optimizer = make_optimizer(est.model.parameters(), opt.lr, 100, opt.wdecay,
+                                       opt.epsilon, opt.clip)
+            steps = ft.make_finetune_step(est, optimizer, graphed=graphed, **kw)
+            return est.model, optimizer, *steps, ft.make_finetune_step(est, optimizer, **kw)[1]
+
+        rows[remat] = graph_vs_eager(
+            f"fine-tune RAFT remat {remat} steps", build, inputs,
+            {"corr_lookup": 24 if remat == "full" else 12, "corr_lookup_backward": 12},
+            valid_inputs=[(b["imgs"], b["bflows"]) for b in batches[:3]] if remat == "dots" else ())
+    return rows
 
 
 def check_backward(label: str, op, radius: int, levels32, coords, cases) -> dict:
@@ -2146,62 +2550,6 @@ def check_backward(label: str, op, radius: int, levels32, coords, cases) -> dict
                          wall_ms=wall_ms, library_max_abs_vs_plain=lib_err)
         del got, got32, ref, ref_p, got_p, lib_run, lib_result, levels
     return rows
-
-
-def finetune_run(label: str, opt, steps: int, from_step: int = 3, small: bool = False) -> dict:
-    """fine_tune under a StepProbe from zeroed counts, up to step `steps`:
-    every loss finite; per step TRAIN_ITERS launches of the forward kernel
-    (#1, or #2 for RAFT-small) and as many of its backward kernel, per
-    validation batch VALID_ITERS forward launches, no other kernel, no plain
-    lookup or plain backward. Seconds per step as train_run measures them.
-    Returns the run's numbers."""
-    fwd, bwd = ("corr_level_lookup", "corr_level_lookup_backward") if small else (
-        "corr_lookup", "corr_lookup_backward")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    tb = TBStub()
-    reset_counts()
-    t0 = time.perf_counter()
-    with StepProbe(ft, "make_finetune_step") as probe:
-        state = ft.fine_tune(opt, max_steps=steps, tb=tb)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    n, nv = len(probe.starts), len(probe.valid)
-    want_step = {fwd: ft.TRAIN_ITERS, bwd: ft.TRAIN_ITERS}
-    want_valid = {fwd: ft.VALID_ITERS}
-    expect_counts(f"fine-tune {label}", corr_level_cuda if small else corr_cuda,
-                  ft.TRAIN_ITERS * n + ft.VALID_ITERS * nv, **{bwd: ft.TRAIN_ITERS * n})
-    for c in probe.steps:
-        if {k: v for k, v in c.items() if v} != want_step:
-            fail(f"fine-tune {label}: launches in a step {c}, expected {want_step}")
-    for c in probe.valid:
-        if {k: v for k, v in c.items() if v} != want_valid:
-            fail(f"fine-tune {label}: launches in a validation batch {c}, expected {want_valid}")
-    if probe.plain_calls:
-        fail(f"fine-tune {label}: the plain lookup or backward ran {probe.plain_calls} times")
-    losses = [float(l) for l in probe.losses]
-    if not all(np.isfinite(losses)):
-        fail(f"fine-tune {label}: losses not finite {losses}")
-    first = state.step - n + 1
-    per_step = [b - a for i, (a, b) in enumerate(zip(probe.starts, probe.starts[1:]), first)
-                if i >= from_step and i % opt.valid_freq]
-    med = statistics.median(per_step)
-    val = [s["val/epe"] for s, _ in tb.writes if "val/epe" in s]
-    batch = opt.batch_per_gpu
-    print(f"fine-tune {label}: steps {first}..{state.step} in {secs:.2f} s (with set-up, "
-          f"validation, checkpoints); median {med * 1e3:.2f} ms per step over {len(per_step)} "
-          f"steps = {batch / med:.3f} clips/s (batch {batch}, {opt.image_size[0]}x"
-          f"{opt.image_size[1]} pairs); peak memory {peak / 2**30:.3f} GiB; per step {fwd} "
-          f"{want_step[fwd]} and {bwd} {want_step[bwd]} launches, {fwd} {ft.VALID_ITERS} per "
-          f"validation batch ({nv}); plain calls {probe.plain_calls}")
-    print(f"fine-tune {label}: losses {', '.join(f'{l:.4f}' for l in losses)}; validation "
-          f"EPE {val}")
-    return dict(state=state, steps=n, last_step=state.step, s_total=secs, ms_per_step=med * 1e3,
-                ms_steps=[t * 1e3 for t in per_step], clips_per_s=batch / med,
-                peak_gib=peak / 2**30, losses=losses, val_epe=val,
-                launches_per_step=want_step, launches_per_valid_batch=want_valid,
-                valid_batches=nv, launches=launch_counts(), plain_calls=probe.plain_calls)
 
 
 def finetune_step_parts(opt, root: str):
@@ -2387,19 +2735,15 @@ def finetune_phase(root: str, tmp: str, with_profile: bool = False) -> dict:
     torch.cuda.empty_cache()
     run_dir = Path(tmp) / "finetune_raft"
     opt = train_opts("RAFT.yml", root, run_dir, valid_freq=10)
-    raft = finetune_run("RAFT", opt, 13)
+    raft = engine_run("RAFT", opt, 13, finetune=True)
     ckpt = CheckpointManager(opt.ckpt_dir)
     if ckpt.latest_step() != 13 or ckpt.best_steps() != [10] or raft["valid_batches"] != 1:
         fail(f"fine-tune RAFT: checkpoints latest {ckpt.latest_step()}, best {ckpt.best_steps()}, "
              f"validation batches {raft['valid_batches']}")
-    resumed = finetune_run("RAFT resumed", train_opts("RAFT.yml", root, run_dir, valid_freq=10,
-                                                      resume="auto"), 15)
-    if resumed["last_step"] != 15 or resumed["steps"] != 2:
-        fail(f"fine-tune RAFT resume: {resumed['steps']} steps to step {resumed['last_step']}, "
-             "expected 2 to step 15")
-    print("fine-tune RAFT resume: restored step 13, ran steps 14 and 15")
+    resumed = engine_run("RAFT resumed", train_opts("RAFT.yml", root, run_dir, valid_freq=10,
+                                                    resume="auto"), 18, finetune=True)
+    check_resumed("fine-tune RAFT", resumed, resumed.pop("state"))
     raft.pop("state")
-    resumed.pop("state")
 
     est, (img1, img2, label) = finetune_step_parts(opt, root)
     i1, i2 = (2.0 * (x.float() / 255.0) - 1.0 for x in (img1, img2))
@@ -2420,18 +2764,19 @@ def finetune_phase(root: str, tmp: str, with_profile: bool = False) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    gma = finetune_run("GMA", train_opts("GMA.yml", root, Path(tmp) / "finetune_gma"), 4,
-                       from_step=2)
+    gma = engine_run("GMA", train_opts("GMA.yml", root, Path(tmp) / "finetune_gma"), 6,
+                     finetune=True)
     gma.pop("state")
-    small = finetune_run("RAFT-small", train_opts("RAFT.yml", root, Path(tmp) / "finetune_small",
-                                                  small=True), 4, from_step=2, small=True)
+    small = engine_run("RAFT-small", train_opts("RAFT.yml", root, Path(tmp) / "finetune_small",
+                                                small=True), 6, finetune=True, small=True)
     small.pop("state")
     gc.collect()
     torch.cuda.empty_cache()
     return dict(lookup_kernel_1=fwd1, lookup_kernel_2=fwd2, backward_kernel_1=bwd1,
                 backward_kernel_2=bwd2, raft=raft, resumed=resumed,
                 gma=gma, raft_small=small, gpu_vs_cpu=finetune_gpu_vs_cpu(),
-                remat_options=finetune_remat_options(opt, root))
+                remat_options=finetune_remat_options(opt, root),
+                graphed=finetune_graph_runs(opt, root))
 
 
 def build_kernels() -> None:
@@ -2525,15 +2870,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         train = train_phase(tmp, args.profile)
         finetune = finetune_phase(str(Path(tmp) / "cvor_train"), tmp, args.profile)
-    print(f"train on {line}: AccRAFT {train['accraft']['ms_per_step']:.2f} ms per step "
-          f"({train['accraft']['clips_per_s']:.3f} clips/s, peak "
-          f"{train['accraft']['peak_gib']:.3f} GiB); AccGMA "
+    print(f"train on {line} (graphed, train_acc): AccRAFT {train['accraft']['ms_per_step']:.2f} "
+          f"ms per step ({train['accraft']['clips_per_s']:.3f} clips/s, peak "
+          f"{train['accraft']['peak_gib']:.3f} GiB, idle "
+          f"{100 * train['accraft']['replay']['idle_share']:.1f} %); AccGMA "
           f"{train['accgma']['ms_per_step']:.2f} ms per step "
-          f"({train['accgma']['clips_per_s']:.3f} clips/s, peak {train['accgma']['peak_gib']:.3f} GiB)")
-    print(f"fine-tune on {line}: " + "; ".join(
+          f"({train['accgma']['clips_per_s']:.3f} clips/s, peak {train['accgma']['peak_gib']:.3f} GiB)"
+          f"; steps alone: eager {train['graphed']['eager_ms']:.2f} ms, graphed "
+          f"{train['graphed']['graphed_ms']:.2f} ms, busy {train['graphed']['busy_ms']:.2f} ms")
+    print(f"fine-tune on {line} (graphed, fine_tune): " + "; ".join(
         f"{name} {finetune[key]['ms_per_step']:.2f} ms per step ({finetune[key]['clips_per_s']:.3f} "
         f"clips/s, peak {finetune[key]['peak_gib']:.3f} GiB)"
-        for name, key in (("RAFT", "raft"), ("GMA", "gma"), ("RAFT-small", "raft_small"))))
+        for name, key in (("RAFT", "raft"), ("GMA", "gma"), ("RAFT-small", "raft_small")))
+        + "; RAFT steps alone, eager / graphed / busy ms: " + ", ".join(
+            f"{remat} {r['eager_ms']:.2f} / {r['graphed_ms']:.2f} / {r['busy_ms']:.2f}"
+            for remat, r in finetune["graphed"].items()))
     print(json.dumps({"graphs": {"card": line, "clip": clip_extra, "stream_a": stream_a,
                                  "stream_b": stream_b}}))
     print(json.dumps({"gma": {
@@ -2563,16 +2914,22 @@ def main() -> int:
          "eval_launches": evals["acc|raft", "fused"]["launches"],
          "gma_clip_launches": gma_row["launches"], "stream_c_launches": stream_c["launches"],
          "gma_eval_launches": evals["acc|gma", "fused"]["launches"],
-         "train_launches": train["accraft"]["launches"],
-         "train_launches_in": f"AccRAFT training, {train['accraft']['steps']} steps and a "
-                              "validation batch",
+         "eval_launches_in": "one acc|raft fused eval batch, graphed: a micro-batch call's "
+                             "2 warm-ups and its capture counted, the replay not",
+         "train_launches": train["accraft"]["launches"]["corr_lookup"],
+         "train_launches_in": f"AccRAFT training, {train['accraft']['steps']} graphed steps "
+                              "and a validation batch: 2 eager steps, the capture and the "
+                              "validation's 2 warm-ups and capture counted, replays not",
          "train_launches_per_step": train["accraft"]["launches_per_step"],
          "train_launches_per_validation_batch": train["accraft"]["launches_per_valid_batch"],
-         "gma_train_launches": train["accgma"]["launches"],
+         "train_launches_per_replay": train["accraft"]["replay"]["lookup_launches"],
+         "gma_train_launches": train["accgma"]["launches"]["corr_lookup"],
          "train_shape": train["lookup_train_shape"],
          "finetune_launches": finetune["raft"]["launches"]["corr_lookup"],
-         "finetune_launches_in": f"RAFT fine-tune, {finetune['raft']['steps']} steps and a "
-                                 "validation batch (float32 levels, bfloat16 out)",
+         "finetune_launches_in": f"RAFT fine-tune, {finetune['raft']['steps']} graphed steps "
+                                 "and a validation batch (float32 levels, bfloat16 out), "
+                                 "counted as in training",
+         "finetune_launches_per_replay": finetune["raft"]["replay"]["lookup_launches"],
          "finetune_shape": finetune["lookup_kernel_1"]},
         {"name": "corr_lookup_f32_out", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_lookup.cu",
@@ -2593,7 +2950,8 @@ def main() -> int:
          "float32_levels_bf16_out": rows2["float32, bf16 out"],
          "radius4_clip_shape": rows2_r4,
          "finetune_launches": finetune["raft_small"]["launches"]["corr_level_lookup"],
-         "finetune_launches_in": "RAFT-small fine-tune, 4 steps (float32 levels, bfloat16 out)",
+         "finetune_launches_in": "RAFT-small fine-tune, 6 graphed steps (float32 levels, "
+                                 "bfloat16 out): 2 eager steps and the capture counted",
          "finetune_shape": finetune["lookup_kernel_2"]},
         {"name": "corr_level_lookup_f32_out", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_level_lookup.cu",
@@ -2604,7 +2962,8 @@ def main() -> int:
          "source": "accflow_tpu_torch/csrc/corr_y_contract.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:343",
          "launches": evals["acc|raft", "experimental:fused_bd"]["launches"],
-         "launches_in": "one acc|raft experimental:fused_bd eval batch",
+         "launches_in": "one acc|raft experimental:fused_bd eval batch, graphed: a "
+                        "micro-batch call's 2 warm-ups and its capture counted",
          **rows3["level0"]["bfloat16, bf16 out"],
          "shape": "level 0 of the clip path, bfloat16 in", "out_dtype": "bfloat16",
          "level1": rows3["level1"]["bfloat16, bf16 out"],
@@ -2629,7 +2988,9 @@ def main() -> int:
          "replaces_note": "no TPU kernel: the gradient XLA derives for the fused lookup "
                           "(lookup_corr) in JAX's fine-tune step; the Pallas kernels have none",
          "launches": finetune["raft"]["launches"]["corr_lookup_backward"],
-         "launches_in": f"RAFT fine-tune, {finetune['raft']['steps']} steps",
+         "launches_in": f"RAFT fine-tune, {finetune['raft']['steps']} graphed steps: 2 eager "
+                        "steps and the capture counted, replays not",
+         "launches_per_replay": finetune["raft"]["replay"]["backward_launches"],
          **finetune["backward_kernel_1"]["float32 levels, bfloat16 grad"],
          "levels_dtype": "float32", "grad_dtype": "bfloat16", "radius": 4,
          "shape": "Q = 6*32*32, maps 32^2 .. 4^2",
@@ -2642,7 +3003,9 @@ def main() -> int:
          "replaces_note": "no TPU kernel: the gradient XLA derives for RAFT-small's lookup "
                           "(lookup_corr at radius 3) in JAX's fine-tune step",
          "launches": finetune["raft_small"]["launches"]["corr_level_lookup_backward"],
-         "launches_in": f"RAFT-small fine-tune, {finetune['raft_small']['steps']} steps",
+         "launches_in": f"RAFT-small fine-tune, {finetune['raft_small']['steps']} graphed "
+                        "steps: 2 eager steps and the capture counted, replays not",
+         "launches_per_replay": finetune["raft_small"]["replay"]["backward_launches"],
          **finetune["backward_kernel_2"]["float32 levels, bfloat16 grad"],
          "levels_dtype": "float32", "grad_dtype": "bfloat16", "radius": 3,
          "shape": "Q = 6*32*32, maps 32^2 .. 4^2",

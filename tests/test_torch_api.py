@@ -31,6 +31,19 @@ from accflow_tpu_torch.ops.occlusion import calc_occ_mask
 from accflow_tpu_torch.ops.padding import InputPadder
 from accflow_tpu_torch.train.evaluate import evaluate_sequence
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs, restored after.
+    The tests run in several worker processes on one machine; with torch's
+    default of a thread per core in each, they oversubscribe its cores
+    (tests/test_torch_train.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 H, W = 36, 44  # pads to 40x48
 TOL = dict(rtol=1e-3, atol=5e-3)
 ACC_TOL = dict(rtol=2e-3, atol=2e-2)

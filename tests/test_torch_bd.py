@@ -37,6 +37,19 @@ from accflow_tpu_torch.ops.corr import (
     window_weights,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs, restored after.
+    The tests run in several worker processes on one machine; with torch's
+    default of a thread per core in each, they oversubscribe its cores
+    (tests/test_torch_train.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BF16 = {"float32": (np.float32, torch.float32, 1e-5),
         "bfloat16": (jnp.bfloat16, torch.bfloat16, 1e-4)}
 

@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from accflow_tpu.models import build_flow_estimator as j_build_flow_estimator
 from accflow_tpu.models.accflow import AccFlowConfig as JAccFlowConfig
@@ -33,6 +34,19 @@ from accflow_tpu_torch.models import (
     build_flow_estimator,
     init_accflow,
 )
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs, restored after.
+    The tests run in several worker processes on one machine; with torch's
+    default of a thread per core in each, they oversubscribe its cores
+    (tests/test_torch_train.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ITERS = 4
 SRC, DST = (2, 2, 1), (1, 0, 0)  # AccFlow's three pair queries at T = 3

@@ -19,6 +19,19 @@ from accflow_tpu.models.raft import init_raft as j_init_raft
 from accflow_tpu_torch.convert import load_jax_params, load_npz_tree, to_jax_params
 from accflow_tpu_torch.models import AccFlowConfig, RAFTConfig, init_accflow, init_raft
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs, restored after.
+    The tests run in several worker processes on one machine; with torch's
+    default of a thread per core in each, they oversubscribe its cores
+    (tests/test_torch_train.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FIXTURE_ACC = str(Path(__file__).parent / "fixtures" / "drift_small_acc.npz")  # trained, hidden 64
 FIXTURE_OFE = str(Path(__file__).parent / "fixtures" / "drift_small_ofe.npz")  # trained RAFT-small
 

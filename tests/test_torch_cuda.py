@@ -9,7 +9,10 @@ GMA's small clip on the GPU against the CPU with kernels #1 and #3,
 FlowPipeline on the GPU, and one accumulator train step on the GPU against
 the CPU and its kernel-#1 launches; the lookups' backward kernel
 (ops/corr_backward_cuda.py) against the plain backward, and one fine-tune
-step on the GPU against the CPU with its launches.
+step on the GPU against the CPU with its launches; the graphed train,
+validation and eval steps (graphs.CudaGraphedStep, graphs.CudaGraphed)
+against the eager ones, sync-free, once captured per signature, and
+captured again after a resume.
 Marked `cuda`; each test skips where there is no GPU (no
 kernel can run there). This file imports neither JAX nor the JAX package,
 so it runs on a machine with only torch:
@@ -839,3 +842,238 @@ def test_finetune_step_gpu_matches_cpu(dev):
         assert (num / sum(float((c[k] ** 2).sum()) for k in keys)) ** 0.5 <= 1e-4, part
     for k in s_c:  # each buffer within 1e-5 of its largest |value|
         assert float((s_g[k] - s_c[k]).abs().max()) <= 1e-5 * float(s_c[k].abs().max()), k
+
+
+def _graph_case(dev, kind: str, graphed: bool, n: int = 2, seed: int = 5):
+    """A train step built afresh from seeds on the card and 3 batches of `n`
+    samples: kind "acc" is make_acc_train_step's (_train_case's frozen RAFT
+    at 4 iterations and AccFlow hidden 32, noise on); "none", "full" and
+    "dots" make_finetune_step's for full RAFT from seed 0 (12 iterations,
+    the cnet's BatchNorm on the batch's statistics, noise on, gamma 0.85)
+    with that remat. float32 at 64^2. Returns (model, optimizer,
+    train_step, valid_step, batches, valid_batches)."""
+    from accflow_tpu_torch.train.engine import make_acc_train_step
+    from accflow_tpu_torch.train.finetune import make_finetune_step
+    from accflow_tpu_torch.train.optim import make_optimizer
+
+    rng = np.random.default_rng(seed)
+
+    def draw(shape, uint8=False):
+        a = (rng.integers(0, 256, shape).astype(np.uint8) if uint8
+             else (4 * rng.standard_normal(shape)).astype(np.float32))
+        return torch.from_numpy(a).to(dev)
+
+    clips = [draw((n, 64, 64, 12), True) for _ in range(4)]
+    flows = [draw((n, 64, 64, 4)) for _ in range(4)]
+    if kind == "acc":
+        est, model, _, _ = _train_case(dev)
+        optimizer = make_optimizer(model.parameters(), 1e-4, 10)
+        steps = make_acc_train_step(est, model, optimizer, add_noise=True, graphed=graphed)
+        batches = [(c.float(), f) for c, f in zip(clips[:3], flows[:3])]
+        return (model, optimizer, *steps, batches, batches)
+    est = build_flow_estimator("raft", compute_dtype="float32", seed=0, device=dev)
+    optimizer = make_optimizer(est.model.parameters(), 1e-4, 10)
+    steps = make_finetune_step(est, optimizer, add_noise=True, gamma=0.85, remat=kind,
+                               graphed=graphed)
+    batches = [(c[..., :3], c[..., 3:6], f[..., :2]) for c, f in zip(clips[:3], flows[:3])]
+    return (est.model, optimizer, *steps, batches, list(zip(clips[:3], flows[:3])))
+
+
+def _train_state(model, optimizer) -> dict:
+    """Parameters, AdamW's moments and the buffers (BatchNorm running
+    statistics), float32 copies, by group."""
+    named = list(model.named_parameters())
+    st = optimizer.optimizer.state
+    return {"parameters": {k: p.detach().clone() for k, p in named},
+            "exp_avg": {k: st[p]["exp_avg"].clone() for k, p in named},
+            "exp_avg_sq": {k: st[p]["exp_avg_sq"].clone() for k, p in named},
+            "buffers": {k: b.clone() for k, b in model.named_buffers()}}
+
+
+def _run_steps(dev, kind, graphed, steps: int = 5):
+    """`steps` calls of _graph_case's train step (the batches cycled, noise
+    from a generator seeded 11): (losses, state, train_step, optimizer,
+    generator state)."""
+    model, optimizer, step, _, batches, _ = _graph_case(dev, kind, graphed)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    losses = [float(step(*batches[i % len(batches)], gen)[0]) for i in range(steps)]
+    return losses, _train_state(model, optimizer), step, optimizer, gen.get_state()
+
+
+@pytest.fixture
+def deterministic():
+    """torch's deterministic algorithms (warn only: an op without one runs
+    as it is) while a test runs, restored after. With torch's defaults each
+    run of _graph_case's accumulator step, eager or graphed, falls on one
+    of two outcomes 1.25e-5 apart in the parameters after 5 steps on the
+    card (cuDNN's deterministic mode removes the split), so a few eager
+    runs cannot bound a graphed one; in this mode eager runs and graphed
+    runs repeat bit for bit (8 of 8 calls)."""
+    was, warn_only = (torch.are_deterministic_algorithms_enabled(),
+                      torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(was, warn_only=warn_only)
+
+
+def _rel_l2(a: dict, b: dict) -> float:
+    num = sum(float(((a[k].double() - b[k].double()) ** 2).sum()) for k in b)
+    return (num / max(sum(float((b[k].double() ** 2).sum()) for k in b), 1e-30)) ** 0.5
+
+
+def _assert_within_eager_spread(graphed, eager):
+    """A graphed run (losses, state) against the first of two eager runs,
+    within twice their distance plus 1e-6 (a few float32 roundings: a loss
+    is read to one ulp, 1e-7 of it): losses step by step (relative), each
+    state group in relative L2 (chip_smoke.py's GRAPH_SPREAD and
+    GRAPH_FLOOR). Under `deterministic` the eager runs agree bit for bit,
+    so the graphed run must too, up to the floor."""
+    (lg, sg), (l1, s1), (l2, s2) = graphed, *eager
+    for i, (a, b, c) in enumerate(zip(lg, l1, l2)):
+        assert abs(a - b) <= 2 * abs(c - b) + 1e-6 * abs(b), (i, lg, l1, l2)
+    for group in s1:
+        got, spread = _rel_l2(sg[group], s1[group]), _rel_l2(s2[group], s1[group])
+        assert got <= 2 * spread + 1e-6, (group, got, spread)
+
+
+@pytest.mark.parametrize("kind", ["acc", "none", "full", "dots"])
+def test_graphed_train_steps_match_eager(dev, deterministic, kind):
+    """5 graphed steps (graphs.CudaGraphedStep: 2 eager, the capture replayed
+    once, 2 replays) against 5 eager steps from the same init, batches and
+    generator, for train_acc's step and for fine_tune's in each remat mode:
+    losses, parameters, AdamW's moments and the BatchNorm buffers within the
+    spread of two eager runs, under torch's deterministic algorithms
+    (_assert_within_eager_spread, `deterministic`); the step ran
+    eagerly WARMUP times and was captured once; AdamW's step count, the
+    learning rate and the generator's state are eager's."""
+    eager = [_run_steps(dev, kind, False) for _ in range(2)]
+    e1, g = eager[0], _run_steps(dev, kind, True)
+    _assert_within_eager_spread(g[:2], [e[:2] for e in eager])
+    step, optimizer = g[2], g[3]
+    assert step.eager_calls == graphs.WARMUP and step.captures == 1
+    counts = {float(s["step"]) for s in optimizer.optimizer.state.values()}
+    assert counts == {5.0} and optimizer.scheduler.last_epoch == 5
+    assert optimizer.lr == e1[3].lr
+    assert torch.equal(g[4], e1[4])
+
+
+@pytest.mark.parametrize("kind", ["acc", "dots"])
+def test_graphed_valid_steps_bit_equal_eager(dev, kind):
+    """The validation step replayed from a CUDA graph (graphs.CudaGraphed,
+    as train_acc and fine_tune run it) against the eager one on the same
+    model, over 3 batches (warm-ups and capture, then replays): bit-equal."""
+    _, _, _, valid, _, inputs = _graph_case(dev, kind, True)
+    eager = _graph_case(dev, kind, False)[3]
+    for x in inputs:
+        got, want = valid(*x), eager(*x)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert valid.captures == 1
+
+
+def test_graphed_step_captures_once_per_signature(dev):
+    """A second batch size is a second signature: WARMUP eager calls and one
+    capture each, none again for a signature seen before."""
+    _, _, step, _, batches, _ = _graph_case(dev, "acc", True)
+    small = _graph_case(dev, "acc", False, n=1)[4]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for b in batches + batches[:1]:
+        step(*b, gen)
+    assert (step.captures, step.eager_calls) == (1, graphs.WARMUP)
+    for b in small + batches[:1]:
+        step(*b, gen)
+    assert (step.captures, step.eager_calls) == (2, 2 * graphs.WARMUP)
+
+
+def test_graphed_step_refuses_what_it_cannot_key(dev):
+    """On the card a graphed step takes tensors, torch.Generators and None,
+    on one device."""
+    wrapped = graphs.CudaGraphedStep(lambda *a: a[0])
+    x = torch.ones(1, device=dev)
+    with pytest.raises(TypeError, match="tensors, torch.Generators and None"):
+        wrapped(x, 3)
+    with pytest.raises(ValueError, match="one device"):
+        wrapped(x, torch.ones(1))
+    with pytest.raises(ValueError, match="one device"):
+        wrapped(x, torch.Generator())
+    assert wrapped.captures == 0 and wrapped.eager_calls == 0
+
+
+@pytest.mark.parametrize("kind", ["acc", "dots"])
+def test_whole_train_step_is_sync_free(dev, kind):
+    """One eager step, its update included (clip, capturable AdamW, the
+    schedule's in-place write, the BatchNorm write-back, the noise draw),
+    and one graphed replay under torch.cuda.set_sync_debug_mode("error")."""
+    _, _, eager, _, batches, _ = _graph_case(dev, kind, False)
+    _, _, graphed, _, _, _ = _graph_case(dev, kind, True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for b in batches:
+        eager(*b, gen)
+        graphed(*b, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager(*batches[0], gen)
+        graphed(*batches[0], gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert graphed.captures == 1
+
+
+def test_resume_then_capture_again(dev, deterministic):
+    """3 graphed steps, the model's, optimizer's and generator's state saved
+    through torch.save and loaded into a fresh step (as train_acc's resume
+    does, before any step), 3 more graphed steps (WARMUP eager ones and a
+    capture again): losses and state against 6 uninterrupted graphed steps
+    within the spread of two such runs (under `deterministic`); AdamW's
+    count goes on to 6."""
+    import io
+
+    runs = [_run_steps(dev, "acc", True, steps=6)[:2] for _ in range(2)]
+    model, optimizer, step, _, batches, _ = _graph_case(dev, "acc", True)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    losses = [float(step(*batches[i], gen)[0]) for i in range(3)]
+    saved = io.BytesIO()
+    torch.save({"model": model.state_dict(), **optimizer.state_dict(), "gen": gen.get_state()},
+               saved)
+    saved.seek(0)
+    state = torch.load(saved, map_location="cpu")
+    model, optimizer, step, _, batches, _ = _graph_case(dev, "acc", True)
+    model.load_state_dict(state["model"])
+    optimizer.load_state_dict(state)
+    gen = torch.Generator(device=dev)
+    gen.set_state(state["gen"])
+    losses += [float(step(*batches[i % 3], gen)[0]) for i in range(3, 6)]
+    assert (step.captures, step.eager_calls) == (1, graphs.WARMUP)
+    assert {float(s["step"]) for s in optimizer.optimizer.state.values()} == {6.0}
+    assert optimizer.scheduler.last_epoch == 6
+    _assert_within_eager_spread((losses, _train_state(model, optimizer)), runs)
+
+
+@pytest.mark.parametrize("model_name", ["acc|raft", "direct|raft"])
+def test_graphed_evaluate_cvo_bit_equal_eager(dev, tmp_path, monkeypatch, model_name):
+    """evaluate_cvo on the card replays one CUDA graph per micro-batch
+    signature (4 synthetic 64^2 clips, batch 4, micro-batch 2, 2
+    iterations, float32): its EPEs bit-equal to the same run with the
+    graph wrapper taken out."""
+    from accflow_tpu_torch.data.synthetic import write_synthetic_cvor
+    from accflow_tpu_torch.train import evaluate
+
+    root = write_synthetic_cvor(str(tmp_path / "cvor"), num_train=0, num_test=4)
+    made = []
+
+    class Recorded(graphs.CudaGraphed):
+        def __init__(self, fn):
+            super().__init__(fn)
+            made.append(self)
+
+    def run():
+        return evaluate.evaluate_cvo(model_name, root, batch=4, micro_batch=2, iters=2,
+                                     compute_dtype="float32", device=dev,
+                                     result_file=str(tmp_path / "result.txt"))
+
+    monkeypatch.setattr(evaluate, "CudaGraphed", Recorded)
+    graphed = run()
+    assert [g.captures for g in made] == [1]
+    monkeypatch.setattr(evaluate, "CudaGraphed", lambda fn: fn)
+    assert run() == graphed

@@ -14,6 +14,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from accflow_tpu.cli import demo as j_demo
 from accflow_tpu.utils.frame_io import read_flow as j_read_flow
@@ -21,6 +22,19 @@ from accflow_tpu_torch.cli import demo
 from accflow_tpu_torch.cli import export_serving
 from accflow_tpu_torch.utils.frame_io import read_flow
 from test_torch_api import write_checkpoints
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs, restored after.
+    The tests run in several worker processes on one machine; with torch's
+    default of a thread per core in each, they oversubscribe its cores
+    (tests/test_torch_train.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SIZE = 36  # pads to 40
 TOL = dict(rtol=1e-3, atol=5e-3)

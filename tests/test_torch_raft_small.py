@@ -24,6 +24,19 @@ from accflow_tpu.models.raft import raft_pairs_forward as j_raft_pairs_forward
 from accflow_tpu_torch.convert import load_jax_params
 from accflow_tpu_torch.models import build_flow_estimator
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs, restored after.
+    The tests run in several worker processes on one machine; with torch's
+    default of a thread per core in each, they oversubscribe its cores
+    (tests/test_torch_train.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-3, atol=5e-3)
 ITERS = 3
 

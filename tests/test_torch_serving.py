@@ -38,6 +38,19 @@ from accflow_tpu_torch.graphs import CudaGraphed
 from accflow_tpu_torch.models import AccFlowConfig, build_flow_estimator, init_accflow
 from accflow_tpu_torch.ops.corr_level_cuda import lookup_corr_level
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs, restored after.
+    The tests run in several worker processes on one machine; with torch's
+    default of a thread per core in each, they oversubscribe its cores
+    (tests/test_torch_train.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-3, atol=2e-2)
 ITERS = 2
 CLIP = (3, 1, 32, 32, 3)

@@ -56,6 +56,19 @@ from accflow_tpu_torch.streaming import (
     save_streaming_artifact,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs, restored after.
+    The tests run in several worker processes on one machine; with torch's
+    default of a thread per core in each, they oversubscribe its cores
+    (tests/test_torch_train.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-3, atol=2e-2)
 ITERS = 4
 FIXTURES = Path(__file__).parent / "fixtures"
