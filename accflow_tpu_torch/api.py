@@ -24,9 +24,9 @@ The pipeline packages the protocol around the models: the preprocess
 are taken); pass normalized=True for frames already in [-1, 1]. Results are
 float32 numpy arrays. The default corr_lookup="auto" and attn_chunk=-1
 pick per shape (ops/corr.py::resolve_auto_lookup,
-models/gma.py::resolve_auto_attn_chunk); beyond the stored volume's budget
-"auto" raises, since the volume-free lookup is not ported (ROADMAP.md,
-queue 1 #11).
+models/gma.py::resolve_auto_attn_chunk): beyond the stored volume's budget
+"auto" takes the volume-free "ondemand" lookup, so frames of any size run
+(2560x1440 and up, where no stored pyramid fits the card).
 """
 
 from __future__ import annotations

@@ -222,10 +222,10 @@ def main(argv=None):
                         "--warm_start)")
     parser.add_argument("--corr_lookup", type=str, default="auto",
                         help="correlation lookup (ops/corr.py). Default "
-                        "'auto': the stored-volume kernel while the volume "
-                        "fits its budget (beyond it JAX's volume-free "
-                        "'ondemand' mode, not ported: an error); or fused, "
-                        "experimental:fused_bd[2]")
+                        "'auto': the stored volume while it fits its "
+                        "budget, the volume-free 'ondemand' mode past "
+                        "that, so any frame size runs; or force fused, "
+                        "ondemand[:chunk], experimental:fused_bd[2]")
     parser.add_argument("--attn_chunk", type=int, default=-1,
                         help="gma only: >0 recomputes attention per query "
                         "chunk instead of storing the (HW)^2 matrix; "

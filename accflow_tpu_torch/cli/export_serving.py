@@ -19,8 +19,8 @@ whose state has a concrete batch); --iters defaults to 12, or 6 with
 Where the port differs from the JAX CLI: --device (cuda by default, or
 cpu: the device the models are built and traced on) takes the place of
 --platforms; --scan_unroll has no counterpart, since the port's GRU loop is
-unrolled in Python; --corr_lookup ondemand[:chunk], and auto beyond its
-budget, raise the port's "not ported yet" error. --corr_lookup auto and
+unrolled in Python. --corr_lookup ondemand[:chunk] bakes the volume-free
+hi-res lookup into the artifact, as JAX's does; --corr_lookup auto and
 --attn_chunk -1 need a concrete --batch (as in JAX).
 """
 
@@ -47,8 +47,9 @@ def main(argv=None):
                         "step programs) instead of the fixed-clip function")
     parser.add_argument("--compute-dtype", type=str, default="bfloat16")
     parser.add_argument("--corr_lookup", type=str, default="fused",
-                        help="correlation lookup: fused (also mm, pallas_fused), auto or "
-                        "experimental:fused_bd[2] (see RAFTConfig.corr_lookup)")
+                        help="correlation lookup: fused (also mm, pallas_fused), auto, "
+                        "ondemand[:chunk] (bakes the volume-free hi-res mode into the "
+                        "artifact) or experimental:fused_bd[2] (see RAFTConfig.corr_lookup)")
     parser.add_argument("--attn_chunk", type=int, default=0,
                         help="gma only: >0 recomputes the attention per chunk of query "
                         "rows; -1 picks per shape; 0 (default) stores the (HW)^2 matrix")

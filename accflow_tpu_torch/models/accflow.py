@@ -1,37 +1,48 @@
-"""AccFlow: occlusion-aware backward accumulation of long-range flow,
-counterpart of accflow_tpu/models/accflow.py: the fused-OFE path
-(`_accflow_forward_fused`) for inference (`accflow_forward`) and training
-(`accflow_train_forward`), and the warm-started stepwise path
-(`_accflow_forward_warmstart`, AccFlowConfig.warm_start), whose cell on
-precomputed context features (`_cell_from_ctx`) the streaming step shares.
+"""AccFlow: occlusion-aware accumulation of long-range flow, counterpart
+of accflow_tpu/models/accflow.py, with all of its paths for inference
+(`accflow_forward`) and training (`accflow_train_forward`):
+- backward (the paper's model, [F_{2,0} .. F_{T-1,0}]): the fused-OFE path
+  (`_accflow_forward_fused`, the default), the cold stepwise path
+  (`_accflow_forward_stepwise`, AccFlowConfig.fused_ofe=False) and the
+  warm-started stepwise path (`_accflow_forward_warmstart`,
+  AccFlowConfig.warm_start), whose cell on precomputed context features
+  (`_cell_from_ctx`) the streaming step shares;
+- forward (the F0N ablation, AccFlowConfig.direction="forward",
+  [F_{0,2} .. F_{0,T-1}]): fused (`_accflow_forward_f0n_fused`) and
+  stepwise (`_accflow_forward_f0n`). The same cell with the roles swapped
+  (the deformable conv warps the encoded local flow by offsets conditioned
+  on the encoded carry), so the weights are the same tree; at T=3 it is the
+  backward accumulation of the reversed clip.
 
 Modules (networks/AccFlow_.py): FlowEncoder (:48-65), FlowDecoder (:13-45,
 convex 8x upsampling), the context BasicEncoder (norm "none"), AccPlus
 (:68-109: conv stacks and a modulated 3x3 deformable conv whose 18 offsets
 and 9 sigmoid masks come from a ZeroConv2d) and Blending (:112-124).
 
-The fused forward queries every OFE pair of the clip in one batched
-estimator call, computes the context features, occlusion and error maps
-and the flow encodings of the queried flows once, and runs only the
-carry-dependent cell modules in the sequential loop. The warm-started
-forward queries the OFE step by step, each step's queries starting from the
-previous step's flows advected into the new frame. Cell modules run in the
+The fused forwards query every OFE pair of the clip in one batched
+estimator call, compute the context features, the maps that do not depend
+on the carry and the flow encodings of the queried flows once, and run only
+the carry-dependent cell modules in the sequential loop (F0N's occlusion
+map is of the carry, so it stays in the loop). The stepwise forwards query
+the OFE step by step; the warm-started one starts each step's queries from
+the previous step's flows advected into the new frame. Cell modules run in the
 compute dtype; OFE flows, occlusion maps and decoder outputs are float32.
 
-Training (train/engine.py) differentiates the fused path with respect to
-the accumulator's weights and detaches what JAX detaches: the frozen
-estimator's flows (computed under no_grad, so its lookup kernel runs with
-no autograd graph), the occlusion and error maps, and the carry entering
-each cell (truncated backpropagation through the recurrence). The context
-encoder trains through AccPlus's and Blending's context inputs.
-AccFlowConfig.remat recomputes each cell in the backward pass. The cold
-stepwise path and the forward (F0N) direction are not ported (ROADMAP.md
-#6).
+Training (train/engine.py) differentiates a path (fused or stepwise, in
+either direction) with respect to the accumulator's weights and detaches
+what JAX detaches: the frozen estimator's flows (computed under no_grad, so
+its lookup kernel runs with no autograd graph), the occlusion and error
+maps, and the carry entering each cell (truncated backpropagation through
+the recurrence). The context encoder trains through AccPlus's and
+Blending's context inputs. AccFlowConfig.remat recomputes each cell in the
+backward pass (the stepwise paths' cell modules; their OFE queries carry no
+gradient and are not recomputed).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn as nn
@@ -52,23 +63,31 @@ from accflow_tpu_torch.ops.warmstart import forward_splat_flow
 class AccFlowConfig:
     """hidden: cell width. ofe_iters: GRU iterations of the OFE queries
     (what callers pass to FlowEstimator.pairs_fn). warm_start: the
-    warm-started stepwise path (accflow_forward's `ofe`). remat, in
-    training: False stores every cell's activations; True or "full"
-    recomputes each cell in the backward pass from its inputs; "dots" keeps
-    the outputs of its convolutions and matmuls and recomputes the rest.
-    The JAX config's other fields select paths this port does not carry
-    (the cold stepwise path and forward direction, ROADMAP.md #6;
-    acc_unroll and stem_s2d, TPU knobs)."""
+    warm-started stepwise path (accflow_forward's `ofe`; backward only).
+    fused_ofe: the fused path (one batched OFE call, accflow_forward's
+    `ofe_pairs`), else the cold stepwise one (`ofe`). direction: "backward"
+    (F_{i,0}) or "forward" (F0N, F_{0,i}); an unknown one, or "forward"
+    with warm_start, raises ValueError. remat, in training: False stores
+    every cell's activations; True or "full" recomputes each cell in the
+    backward pass from its inputs; "dots" keeps the outputs of its
+    convolutions and matmuls and recomputes the rest. The JAX config's
+    acc_unroll and stem_s2d are TPU knobs, not carried over."""
 
     hidden: int = 128
     ofe_iters: int = 12
     compute_dtype: str = "bfloat16"
     warm_start: bool = False
     remat: "bool | str" = False
+    fused_ofe: bool = True
+    direction: str = "backward"
 
     def __post_init__(self):
         if self.remat not in (False, True, "full", "dots"):
             raise ValueError(f"remat must be False, True, 'full' or 'dots', got {self.remat!r}")
+        if self.direction not in ("backward", "forward"):
+            raise ValueError(f"unknown accumulation direction: {self.direction!r}")
+        if self.direction == "forward" and self.warm_start:
+            raise ValueError("warm_start is a backward-direction feature")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -171,16 +190,17 @@ def _cell_from_ctx(model: AccFlow, dflow, flow_ini, f2n, c1, c2, cn):
     F_{i-1,0}) and context features c1/c2/cn of frames i, i-1, 0
     ((N, C, h8, w8), compute dtype). The context encoder is a per-sample
     conv stack, so streaming (streaming.py) caches c2/cn and encodes only
-    the new frame. Returns (carry (N, h8, w8, 2), flow (N, H, W, 2)), float32."""
+    the new frame. The occlusion and error maps are detached, as JAX stops
+    them. Returns (carry (N, h8, w8, 2), flow (N, H, W, 2)), float32."""
     cd = model.cfg.dtype
     n = dflow.shape[0]
     with tf32(False):
         enc = model.flow_encoder(to_nchw(torch.cat([flow_ini, dflow, f2n]), cd))
         f_ini, df, f = enc[:n], enc[n: 2 * n], enc[2 * n:]
         c1_32 = _nhwc32(c1)
-        o = photometric_occ(dflow, c1_32, _nhwc32(c2))
+        o = photometric_occ(dflow, c1_32, _nhwc32(c2)).detach()
         f_acc = model.accplus(df, f, to_nchw(o, cd), c1)
-        emap = photometric_occ(flow_ini, c1_32, _nhwc32(cn), binary=False)
+        emap = photometric_occ(flow_ini, c1_32, _nhwc32(cn), binary=False).detach()
         f_fuse = model.blending(f_ini, f_acc, to_nchw(emap, cd))
         return model.flow_decoder(f_fuse)
 
@@ -192,6 +212,52 @@ def _cell_modules(model: AccFlow, dflow, flow_ini, f2n, i1, i2, i_n):
     with tf32(False):
         ctx = model.context(to_nchw(torch.cat([i1, i2, i_n]), model.cfg.dtype))
     return _cell_from_ctx(model, dflow, flow_ini, f2n, ctx[:n], ctx[n: 2 * n], ctx[2 * n:])
+
+
+def _accflow_forward_stepwise(model: AccFlow, ofe, images: torch.Tensor) -> torch.Tensor:
+    """Cold stepwise accumulation (accflow_tpu/models/accflow.py:296-324,
+    680-697, AccFlow_.py:177-201): step i queries the OFE for its own pairs,
+    I_i -> I_{i-1} and I_i -> I_0 (and, on the first step, the seed
+    I_1 -> I_0), then runs the cell. `ofe` is FlowEstimator.flow_fn()."""
+    i_n = images[0]
+    cell = remat_wrap(functools.partial(_cell_modules, model), model.cfg.remat)
+    carry, outs = None, []
+    for i in range(2, images.shape[0]):
+        i1, i2 = images[i], images[i - 1]
+        if carry is None:
+            flows = downflow8(ofe(torch.cat([i1, i1, i2]), torch.cat([i2, i_n, i_n])))
+            dflow, flow_ini, carry = flows.detach().chunk(3)
+        else:
+            flows = downflow8(ofe(torch.cat([i1, i1]), torch.cat([i2, i_n])))
+            dflow, flow_ini = flows.detach().chunk(2)
+        carry, out = cell(dflow, flow_ini, carry.detach(), i1, i2, i_n)
+        outs.append(out)
+    return torch.stack(outs)
+
+
+def _accflow_forward_f0n(model: AccFlow, ofe, images: torch.Tensor) -> torch.Tensor:
+    """Stepwise forward accumulation, [F_{0,2} .. F_{0,T-1}]
+    (accflow_tpu/models/accflow.py:391-458): the cell with the roles
+    swapped, F_{0,i}(x) = F_{0,i-1}(x) + f_{i-1,i}(x + F_{0,i-1}(x)). Slots
+    of _cell_modules: dflow <- the carry F_{0,i-1} (its occlusion between
+    frames 0 and i-1), flow_ini <- the direct flow F_{0,i} (the blending's
+    alternative), f2n <- the local flow f_{i-1,i} (the deformable conv's
+    operand), frames (0, i-1, i). The first step's OFE call also seeds the
+    carry F_{0,1}. `ofe` is FlowEstimator.flow_fn()."""
+    i0 = images[0]
+    flows = downflow8(ofe(torch.cat([i0, i0, images[1]]),
+                          torch.cat([images[1], images[2], images[2]])))
+    seed, direct, local = flows.detach().chunk(3)
+    carry, out = _cell_modules(model, seed, direct, local, i0, images[1], images[2])
+    outs = [out]
+    cell = remat_wrap(functools.partial(_cell_modules, model), model.cfg.remat)
+    for i in range(3, images.shape[0]):
+        i2, i_n = images[i - 1], images[i]
+        flows = downflow8(ofe(torch.cat([i0, i2]), torch.cat([i_n, i_n])))
+        direct, local = flows.detach().chunk(2)
+        carry, out = cell(carry.detach(), direct, local, i0, i2, i_n)
+        outs.append(out)
+    return torch.stack(outs)
 
 
 def _accflow_forward_warmstart(model: AccFlow, ofe, images: torch.Tensor) -> torch.Tensor:
@@ -234,39 +300,55 @@ def _clip_images(model: AccFlow, images) -> torch.Tensor:
     return images
 
 
+def _dispatch(model: AccFlow, images: torch.Tensor, ofe_pairs, ofe) -> torch.Tensor:
+    """The path of model.cfg (direction, warm_start, fused_ofe), given the
+    OFE closure it takes (accflow_tpu/models/accflow.py:644-697)."""
+    cfg = model.cfg
+    forward = cfg.direction == "forward"
+    if cfg.warm_start:
+        if ofe is None:
+            raise ValueError("warm_start needs ofe=FlowEstimator.flow_fn()")
+        return _accflow_forward_warmstart(model, ofe, images)
+    if cfg.fused_ofe:
+        if ofe_pairs is None:
+            raise ValueError("the fused path needs ofe_pairs=FlowEstimator.pairs_fn()")
+        path = _accflow_forward_f0n_fused if forward else _accflow_forward_fused
+        return path(model, ofe_pairs, images)
+    if ofe is None:
+        raise ValueError("the stepwise path (fused_ofe=False) needs ofe=FlowEstimator.flow_fn()")
+    return (_accflow_forward_f0n if forward else _accflow_forward_stepwise)(model, ofe, images)
+
+
 @torch.no_grad()
 def accflow_forward(model: AccFlow, images, ofe_pairs=None, ofe=None) -> torch.Tensor:
     """Accumulate long-range flow over a clip.
 
     images: (T, N, H, W, 3) frames [I0 .. I_{T-1}] in [-1, 1], T >= 3.
     ofe_pairs: (frames, src_idx, dst_idx) -> (P*N, H, W, 2) pair flows
-    (FlowEstimator.pairs_fn), for the fused path. ofe: (image1, image2,
+    (FlowEstimator.pairs_fn), for the fused paths. ofe: (image1, image2,
     flow_init=None) -> (N, H, W, 2) flows (FlowEstimator.flow_fn), for the
-    warm-started path (cfg.warm_start). Returns (T-2, N, H, W, 2) float32:
-    [F_{2,0}, ..., F_{T-1,0}]."""
-    images = _clip_images(model, images)
+    stepwise paths (cfg.fused_ofe=False, cfg.warm_start). Returns
+    (T-2, N, H, W, 2) float32: [F_{2,0}, ..., F_{T-1,0}], or with
+    cfg.direction="forward" [F_{0,2}, ..., F_{0,T-1}]."""
+    return _dispatch(model, _clip_images(model, images), ofe_pairs, ofe)
+
+
+def accflow_train_forward(model: AccFlow, images, ofe_pairs, ofe=None) -> torch.Tensor:
+    """accflow_forward with autograd recording the accumulator (the
+    training forward of accflow_tpu/models/accflow.py's accflow_forward
+    under jax.grad): the same outputs, differentiable with respect to
+    `model`'s weights, on the path of model.cfg (fused or stepwise, either
+    direction); the frozen estimator's flows, the occlusion and error maps
+    and each cell's incoming carry are detached. `ofe_pairs` and `ofe` as
+    accflow_forward's."""
     if model.cfg.warm_start:
-        if ofe is None:
-            raise ValueError("warm_start needs ofe=FlowEstimator.flow_fn()")
-        return _accflow_forward_warmstart(model, ofe, images)
-    if ofe_pairs is None:
-        raise ValueError("the fused path needs ofe_pairs=FlowEstimator.pairs_fn()")
-    return _accflow_forward_fused(model, images, ofe_pairs)
+        raise ValueError("training runs the fused or the cold stepwise path; warm_start is an "
+                         "inference path")
+    return _dispatch(model, _clip_images(model, images), ofe_pairs, ofe)
 
 
-def accflow_train_forward(model: AccFlow, images, ofe_pairs) -> torch.Tensor:
-    """accflow_forward's fused path with autograd recording the accumulator
-    (the training forward of accflow_tpu/models/accflow.py's
-    `_accflow_forward_fused`): the same outputs, differentiable with
-    respect to `model`'s weights; the frozen estimator's flows, the
-    occlusion and error maps and each cell's incoming carry are detached.
-    `ofe_pairs` as accflow_forward's (FlowEstimator.pairs_fn)."""
-    if model.cfg.warm_start:
-        raise ValueError("training runs the fused path; warm_start is an inference path")
-    return _accflow_forward_fused(model, _clip_images(model, images), ofe_pairs)
-
-
-def _accflow_forward_fused(model: AccFlow, images: torch.Tensor, ofe_pairs) -> torch.Tensor:
+def _accflow_forward_fused(model: AccFlow, ofe_pairs, images: torch.Tensor) -> torch.Tensor:
+    """Fused-OFE backward accumulation (accflow_tpu/models/accflow.py:553-641)."""
     cd = model.cfg.dtype
     t, n, h, w, _ = images.shape
     s, h8, w8 = t - 2, h // 8, w // 8
@@ -308,5 +390,54 @@ def _accflow_forward_fused(model: AccFlow, images: torch.Tensor, ofe_pairs) -> t
         carry, outs = seed, []
         for i in range(s):
             carry, out = cell(carry, f_inis[i], dfs[i], o[i], emap[i], ctx[i + 2])
+            outs.append(out)
+        return torch.stack(outs)
+
+
+def _accflow_forward_f0n_fused(model: AccFlow, ofe_pairs, images: torch.Tensor) -> torch.Tensor:
+    """Fused-OFE forward accumulation (accflow_tpu/models/accflow.py:461-550;
+    slots as _accflow_forward_f0n): one batched OFE call for the direct
+    flows F_{0,i}, the local flows f_{i-1,i} and the seed F_{0,1}; the
+    context, the error maps of the direct flows and the flow encodings once.
+    The occlusion map of the carry between frames 0 and i-1 stays in the
+    loop."""
+    cd = model.cfg.dtype
+    t, n, h, w, _ = images.shape
+    s, h8, w8 = t - 2, h // 8, w // 8
+
+    # Pair order [direct_2..direct_{T-1} | local_2..local_{T-1} | seed]
+    # (accflow.py:478-479).
+    src_idx = (0,) * s + tuple(range(1, t - 1)) + (0,)
+    dst_idx = tuple(range(2, t)) + tuple(range(2, t)) + (1,)
+    flows = downflow8(ofe_pairs(images, src_idx, dst_idx)).detach()
+    directs, locals_, seed = flows[: s * n], flows[s * n: 2 * s * n], flows[2 * s * n:]
+
+    with tf32(False):
+        ctx = model.context(to_nchw(images.reshape(t * n, h, w, 3), cd))
+        ctx = ctx.view(t, n, *ctx.shape[1:])  # (T, N, C, h8, w8)
+        ctx32 = ctx.float().permute(0, 1, 3, 4, 2)  # (T, N, h8, w8, C)
+        c_dim = ctx32.shape[-1]
+        c0, c0_32 = ctx[0], ctx32[0]
+
+        emap = photometric_occ(
+            directs, c0_32.expand(s, n, h8, w8, c_dim).reshape(s * n, h8, w8, c_dim),
+            ctx32[2:].reshape(s * n, h8, w8, c_dim), binary=False)
+        emap = to_nchw(emap, cd).view(s, n, c_dim, h8, w8).detach()
+
+        enc = model.flow_encoder(to_nchw(torch.cat([directs, locals_]), cd))
+        f_dirs = enc[: s * n].view(s, n, *enc.shape[1:])
+        f_locs = enc[s * n:].view(s, n, *enc.shape[1:])
+
+        def cell(carry, f_dir, f_loc, emap_i, c_prev32):
+            carry = carry.detach()
+            f = model.flow_encoder(to_nchw(carry, cd))
+            o = photometric_occ(carry, c0_32, c_prev32).detach()
+            f_acc = model.accplus(f, f_loc, to_nchw(o, cd), c0)
+            return model.flow_decoder(model.blending(f_dir, f_acc, emap_i))
+
+        cell = remat_wrap(cell, model.cfg.remat)
+        carry, outs = seed, []
+        for i in range(s):
+            carry, out = cell(carry, f_dirs[i], f_locs[i], emap[i], ctx32[i + 1])
             outs.append(out)
         return torch.stack(outs)

@@ -14,8 +14,8 @@ GMA is full-width RAFT plus one attention over the context features:
 - GMAUpdateBlock: RAFT's update block whose GRU input is [inp, motion,
   aggregated motion] (128 * 3 channels).
 
-The GRU loop, the lookups (kernel #1 for "fused" and "auto", kernel #3 under
-experimental:fused_bd[2]) and the upsampling are raft.py's (raft_iterate),
+The GRU loop, the lookups (kernel #1 for "fused", "ondemand" and "auto",
+kernel #3 under experimental:fused_bd[2]) and the upsampling are raft.py's (raft_iterate),
 given the aggregation as its hook; the encodes are raft.py's as well, and
 so is the training forward's contract (gma_train_forward: raft.py's
 raft_train_forward, with the attention and the aggregate recorded by
@@ -33,8 +33,9 @@ attn_chunk > 0 keeps q and k instead of the (HW, HW) matrix and recomputes
 softmax(q_c k^T) v per chunk of query rows at every aggregate (a Python loop
 over chunks of plain matmuls): each row's softmax sees every key, so it
 equals the dense path row for row in O(chunk * HW) memory. -1 (auto) picks
-dense while the attention and the stored pyramid fit ops/corr.py's budget,
-chunks of 1024 (rounded down to a divisor of HW) beyond.
+dense while the attention and the stored pyramid (none under the
+volume-free ondemand lookup) fit ops/corr.py's budget, chunks of 1024
+(rounded down to a divisor of HW) beyond.
 """
 
 from __future__ import annotations
@@ -60,9 +61,10 @@ from accflow_tpu_torch.models.raft import (
 )
 from accflow_tpu_torch.nn.layers import Conv2d, Embedding, init_weights, tf32
 from accflow_tpu_torch.ops.corr import (
+    OnDemandCorr,
     _divisor_chunk,
     _float32_reduction,
-    build_corr_pyramid,
+    build_corr_operands,
     normalize_corr_lookup,
     resolve_auto_lookup,
     stored_volume_bytes,
@@ -203,12 +205,14 @@ def resolve_auto_attn_chunk(attn_chunk: int, batch: int, heads: int, h8: int, w8
     return 0 if attn_bytes + reserved_bytes <= corr_ops.AUTO_VOLUME_BYTES else 1024
 
 
-def _attn_chunk(cfg: GMAConfig, batch: int, h8: int, w8: int) -> int:
+def _attn_chunk(cfg: GMAConfig, batch: int, h8: int, w8: int, levels) -> int:
     """cfg.attn_chunk for `batch` pairs at this shape, auto resolved beside
-    the stored pyramid."""
+    the stored pyramid, or beside nothing when `levels` are the volume-free
+    lookup's operands (accflow_tpu/models/gma.py:394-412)."""
+    reserved = 0 if isinstance(levels, OnDemandCorr) else stored_volume_bytes(
+        batch, h8, w8, cfg.corr_levels, cfg.dtype)
     return resolve_auto_attn_chunk(
-        cfg.attn_chunk, batch, cfg.num_heads, h8, w8,
-        reserved_bytes=stored_volume_bytes(batch, h8, w8, cfg.corr_levels, cfg.dtype),
+        cfg.attn_chunk, batch, cfg.num_heads, h8, w8, reserved_bytes=reserved,
         compute_dtype=cfg.dtype, positional=cfg.positional)
 
 
@@ -322,9 +326,9 @@ def _pairs(model: GMA, frames, src_idx, dst_idx, iters, final_only, flow_init=No
     cfg = model.cfg
     iters = cfg.iters if iters is None else iters
     _, n, h, w, _ = frames.shape
-    chunk = _attn_chunk(cfg, len(src_idx) * n, h // 8, w // 8)
     with tf32(False):
         levels, net_u, inp_u, sel = _encode_pairs(model, frames, src_idx, dst_idx, train)
+        chunk = _attn_chunk(cfg, len(src_idx) * n, h // 8, w // 8, levels)
         attn = _gather_attn(attention(model, inp_u, chunk), sel, n)
         return gma_iterate(model, levels, gather_pairs(net_u, sel, n),
                            gather_pairs(inp_u, sel, n), attn, iters, final_only, flow_init,
@@ -381,11 +385,12 @@ def gma_flow_pairs_from_features(model: GMA, src: dict, dst_fmaps,
     iters = cfg.iters if iters is None else iters
     p = len(dst_fmaps)
     n, _, h8, w8 = src["fmap"].shape
-    resolve_auto_lookup(cfg.corr_lookup, p * n, h8, w8, cfg.corr_levels, cfg.dtype)
-    chunk = _attn_chunk(cfg, p * n, h8, w8)
+    lookup = resolve_auto_lookup(normalize_corr_lookup(cfg.corr_lookup), p * n, h8, w8,
+                                 cfg.corr_levels, cfg.dtype)
     with tf32(False):
-        levels = build_corr_pyramid(torch.cat([src["fmap"]] * p), torch.cat(list(dst_fmaps)),
-                                    cfg.corr_levels, dtype=cfg.dtype)
+        levels = build_corr_operands(torch.cat([src["fmap"]] * p), torch.cat(list(dst_fmaps)),
+                                     cfg.corr_levels, lookup, dtype=cfg.dtype)
+        chunk = _attn_chunk(cfg, p * n, h8, w8, levels)
         attn = _gather_attn(attention(model, src["inp"], chunk), [0] * p, n)
         net = torch.cat([src["net"]] * p)
         inp = torch.cat([src["inp"]] * p)

@@ -12,15 +12,19 @@ input -> motion encoder -> GRU -> FlowHead. RAFTConfig.corr_lookup picks the
 lookup of full RAFT (ops/corr.py::normalize_corr_lookup):
 - "fused" (also spelled "mm" or "pallas_fused", one function in JAX): the
   4-level radius-4 kernel (ops/corr_cuda.py), a (Q, 324) input to convc1;
-- "auto": "fused" while the stored pyramid fits ops/corr.py's budget
-  (resolve_auto_lookup, checked per shape in each entry point; beyond it
-  NotImplementedError);
+- "ondemand[:chunk]": the volume-free lookup (ops/corr.py::
+  lookup_corr_on_demand): features, not the volume, are stored, and every
+  iteration rebuilds each chunk's rows and reads them with kernel #1 (#2 for
+  RAFT-small), so high resolutions fit the card;
+- "auto": "fused" while the stored pyramid fits ops/corr.py's budget,
+  "ondemand" beyond it (resolve_auto_lookup, per shape in each entry point);
 - "experimental:fused_bd" / "experimental:fused_bd2": the split lookup
   (ops/corr.py::lookup_corr_split_v2), level 0 (0 and 1) through the
   y_contract kernel (ops/corr_bd_cuda.py) and the rest through torch.bmm,
   consumed per level by BasicMotionEncoder.forward_split.
-RAFT-small always takes the per-level kernel (ops/corr_level_cuda.py), as
-JAX maps every fused spelling to one flat lookup there. On the CPU each
+RAFT-small takes the per-level kernel (ops/corr_level_cuda.py) on the
+stored pyramid or under ondemand, as JAX maps every other spelling to one
+flat lookup there. On the CPU each
 kernel is replaced by its plain version. Encoders and the update block run
 in the compute dtype; the pyramid products, coordinates and upsampling in
 float32, and the stored pyramid levels in the compute dtype.
@@ -32,10 +36,10 @@ Inference (raft_forward and the other entry points) runs under no_grad.
 raft_train_forward is fine-tuning's forward (JAX's forward with
 train=True): autograd records it, the cnet's BatchNorm normalises with the
 batch's statistics and keeps its running-statistics updates
-(nn.layers.collect_bn_updates), the pyramid is stored in float32 (JAX's
-default corr_volume_dtype), so that the levels' gradient sums its
-iterations in float32, and the lookups' backward is the backward kernel
-(ops/corr_backward_cuda.py). The coordinates are detached at the top of
+(nn.layers.collect_bn_updates), the pyramid is stored (or, under
+ondemand, rebuilt) in float32 (JAX's default corr_volume_dtype), so that
+the levels' gradient sums its iterations in float32, and the lookups'
+backward is the backward kernel (ops/corr_backward_cuda.py). The coordinates are detached at the top of
 every iteration, as JAX's stop_gradient; `remat` checkpoints each
 iteration (JAX's scan_remat).
 """
@@ -54,7 +58,9 @@ from accflow_tpu_torch.nn.layers import Conv2d, batch_statistics, conv2d, init_w
 from accflow_tpu_torch.nn.remat import remat_wrap
 from accflow_tpu_torch.ops.corr import (
     SPLIT_LOOKUPS,
-    build_corr_pyramid,
+    OnDemandCorr,
+    build_corr_operands,
+    lookup_corr_on_demand,
     lookup_corr_split_v2,
     normalize_corr_lookup,
     resolve_auto_lookup,
@@ -323,8 +329,10 @@ def raft_cnet(model: RAFT, images: torch.Tensor, train: bool = False):
 def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
                  flow_init: Optional[torch.Tensor] = None, aggregate=None,
                  remat: str = "none"):
-    """The GRU refinement loop on a built pyramid. net/inp (N, C, h8, w8)
-    in the compute dtype; flow_init an optional (N, h8, w8, 2) warm start,
+    """The GRU refinement loop on a built pyramid, or on the volume-free
+    lookup's operands (OnDemandCorr from build_corr_operands, their chunk
+    set outside the loop). net/inp (N, C, h8, w8) in the compute
+    dtype; flow_init an optional (N, h8, w8, 2) warm start,
     added to the coordinate grid in float32. aggregate: GMA's global
     motion, motion (N, 128, h8, w8) -> (N, 128, h8, w8), whose output joins
     the motion features in the GRU's input (models/gma.py::gma_iterate).
@@ -340,19 +348,23 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
     if flow_init is not None:
         flow_init = torch.as_tensor(flow_init, dtype=torch.float32, device=net.device)
         coords1 = (coords1 + flow_init).contiguous()
-    if cfg.small:
+    if isinstance(levels, OnDemandCorr):
+        def lookup(c):  # kernel #1 (#2 for RAFT-small) on each chunk's rows
+            return lookup_corr_on_demand(levels, c.view(n, h8, w8, 2), cfg.corr_radius,
+                                         out_dtype=cd).view(n * h8 * w8, -1)
+    elif cfg.small:
         def lookup(c):  # the kernel writes the compute dtype itself
             return lookup_corr_level(levels, c, cfg.corr_radius, out_dtype=cd)
-
+    else:
+        def lookup(c):  # the kernel writes the compute dtype itself
+            return lookup_corr_fused(levels, c, cfg.corr_radius, out_dtype=cd)
+    if cfg.small:
         def gru_step(h, motion):
             return ub.gru(h, torch.cat([inp, motion], dim=1))
 
         def upsample(flow, net):
             return upflow8(flow)
     else:
-        def lookup(c):  # the kernel writes the compute dtype itself
-            return lookup_corr_fused(levels, c, cfg.corr_radius, out_dtype=cd)
-
         gru_step = ub.gru.fused_step(inp)
 
         def upsample(flow, net):
@@ -424,7 +436,8 @@ def raft_pairs_forward(model: RAFT, frames, src_idx, dst_idx,
 def check_trainable_lookup(cfg) -> None:
     """Raise NotImplementedError for a lookup without a backward: the split
     lookups (kernel #3 has no backward, nor has the reference's Pallas
-    y_contract_bd; ROADMAP.md #16)."""
+    y_contract_bd; ROADMAP.md #16). The stored and the volume-free
+    (ondemand) lookups train through the backward kernel."""
     if cfg.split_levels is not None:
         raise NotImplementedError(
             f"corr_lookup={cfg.corr_lookup!r} has no backward: kernel #3 has none, and "
@@ -465,18 +478,19 @@ def _encode_pairs(model, frames, src_idx, dst_idx, train: bool = False):
     cnet-encoded once. Returns (levels, net_u, inp_u, sel): the pyramid of
     the P*N pairs (P-major), the cnet state of the S unique source frames
     ((S*N, C, h8, w8) each) and, per pair, the index of its source among
-    them (gather_pairs picks the pairs' rows). Checks corr_lookup "auto"
-    against the budget at this shape (resolve_auto_lookup). train: the
-    cnet's BatchNorm in batch-statistics mode and the levels in float32
-    (raft_train_forward); else the levels take the compute dtype."""
+    them (gather_pairs picks the pairs' rows). corr_lookup "auto" is
+    resolved at this shape (resolve_auto_lookup): the levels are the stored
+    pyramid or the volume-free lookup's operands (build_corr_operands).
+    train: the cnet's BatchNorm in batch-statistics mode and the levels in
+    float32 (raft_train_forward); else the levels take the compute dtype."""
     cfg = model.cfg
     cd = cfg.dtype
     level_dtype = torch.float32 if train else cd
     src_idx = tuple(int(i) for i in src_idx)
     dst_idx = tuple(int(i) for i in dst_idx)
     k, n, h, w, _ = frames.shape
-    resolve_auto_lookup(cfg.corr_lookup, len(src_idx) * n, h // 8, w // 8,
-                        cfg.corr_levels, level_dtype)
+    lookup = resolve_auto_lookup(normalize_corr_lookup(cfg.corr_lookup), len(src_idx) * n,
+                                 h // 8, w // 8, cfg.corr_levels, level_dtype)
     # Frames and per-frame features are picked by concatenating views, not
     # by indexing with Python lists: a list index becomes a host tensor
     # copied to the device at run time, which a CUDA graph cannot capture.
@@ -486,7 +500,7 @@ def _encode_pairs(model, frames, src_idx, dst_idx, train: bool = False):
     fmaps = fmaps.view(len(used), n, *fmaps.shape[1:])
     fmap1 = _select(fmaps, [pos[i] for i in src_idx]).flatten(0, 1)
     fmap2 = _select(fmaps, [pos[i] for i in dst_idx]).flatten(0, 1)
-    levels = build_corr_pyramid(fmap1, fmap2, cfg.corr_levels, dtype=level_dtype)
+    levels = build_corr_operands(fmap1, fmap2, cfg.corr_levels, lookup, dtype=level_dtype)
     del fmaps, fmap1, fmap2
 
     src_used = sorted(set(src_idx))
@@ -534,11 +548,11 @@ def raft_flow_pairs_from_features(model: RAFT, src: dict, dst_fmaps,
     iters = cfg.iters if iters is None else iters
     p = len(dst_fmaps)
     n, _, h8, w8 = src["fmap"].shape
-    resolve_auto_lookup(cfg.corr_lookup, p * n, h8, w8, cfg.corr_levels, cfg.dtype)
+    lookup = resolve_auto_lookup(normalize_corr_lookup(cfg.corr_lookup), p * n, h8, w8,
+                                 cfg.corr_levels, cfg.dtype)
     with tf32(False):
-        levels = build_corr_pyramid(torch.cat([src["fmap"]] * p),
-                                    torch.cat(list(dst_fmaps)), cfg.corr_levels,
-                                    dtype=cfg.dtype)
+        levels = build_corr_operands(torch.cat([src["fmap"]] * p), torch.cat(list(dst_fmaps)),
+                                     cfg.corr_levels, lookup, dtype=cfg.dtype)
         net = torch.cat([src["net"]] * p)
         inp = torch.cat([src["inp"]] * p)
         return raft_iterate(model, levels, net, inp, iters, final_only,

@@ -26,16 +26,29 @@ each from two separable tent contractions, tmp = wy . corr3 over y and then
 wx . tmp over x. Level impl "bd" runs the y contraction through the
 y_contract kernel (ops/corr_bd_cuda.py), "mm" through torch.bmm. The motion
 encoder consumes them unflattened (BasicMotionEncoder.forward_split).
+
+Volume-free lookup (`corr_lookup="ondemand[:chunk]"`, the hi-res mode,
+accflow_tpu/ops/corr.py:107-461): the operands store features, not the
+volume (`OnDemandCorr`: f1 (B, H*W, C) float32 and f2 pooled per level), and
+every lookup rebuilds each query chunk's rows (B*chunk, hl, wl) per level
+with `_corr_rows`, the code build_corr_pyramid runs, then reads the windows
+through the lookup kernels: #1 at radius 4 (full RAFT, GMA), #2 at radius 3
+(RAFT-small). Peak memory is one chunk's rows. JAX's choice between a
+"bqyx" and a "bqk" einsum for the rows (and the environment variables that
+set it and OD_AUTO_BYTES) is a TPU layout choice: here the rows are
+row-major (Q, hl, wl) either way, and nothing is read from the environment.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+from typing import NamedTuple
 
 import torch
 
 from accflow_tpu_torch.nn.layers import tf32
+from accflow_tpu_torch.nn.remat import remat_wrap
 from accflow_tpu_torch.ops.corr_bd_cuda import y_contract
 from accflow_tpu_torch.ops.sampling import bilinear_sample, bilinear_sample_backward
 
@@ -46,41 +59,59 @@ FUSED_LOOKUPS = ("fused", "mm", "pallas_fused")
 SPLIT_LOOKUPS = {"fused_bd": 1, "fused_bd2": 2}
 
 
+def is_ondemand(spelling: str) -> bool:
+    """True for the volume-free lookup's spelling "ondemand[:chunk]"."""
+    return spelling.split(":", 1)[0] == "ondemand"
+
+
 def normalize_corr_lookup(spelling: str) -> str:
     """The port's lookup for a `corr_lookup` spelling: "fused" for fused,
     mm and pallas_fused (one function in JAX, one kernel here: kernel #1),
-    "auto" for auto (resolve_auto_lookup picks per shape),
+    "auto" for auto (resolve_auto_lookup picks per shape), the spelling
+    itself for ondemand[:chunk] (whose suffix is checked here: ValueError
+    for a suffix that is not a positive int, as JAX raises at build time),
     "fused_bd" / "fused_bd2" for experimental:fused_bd[2]. As in JAX, an
     experimental variant needs its "experimental:" prefix (ValueError
-    without). ondemand[:chunk] and the other variants raise
-    NotImplementedError: they are not ported."""
+    without); the other experimental variants raise NotImplementedError."""
     if spelling.startswith("experimental:"):
         impl = spelling.split(":", 1)[1]
         if impl in SPLIT_LOOKUPS:
             return impl
         raise NotImplementedError(
             f"corr_lookup={spelling!r} is not ported to accflow_tpu_torch; "
-            f"ported: {' | '.join(FUSED_LOOKUPS)} | auto | "
+            f"ported: {' | '.join(FUSED_LOOKUPS)} | auto | ondemand[:chunk] | "
             + " | ".join(f"experimental:{k}" for k in SPLIT_LOOKUPS))
     if spelling in FUSED_LOOKUPS:
         return "fused"
     if spelling == "auto":
         return spelling
-    if spelling.split(":", 1)[0] == "ondemand":
-        raise NotImplementedError(
-            f"corr_lookup={spelling!r} (the volume-free hi-res mode) is not ported "
-            "to accflow_tpu_torch yet (ROADMAP.md, queue 1 #11)")
+    if is_ondemand(spelling):
+        ondemand_chunk(spelling)
+        return spelling
     raise ValueError(
         f"corr_lookup={spelling!r} is an adjudicated experimental variant, not a "
         f"supported impl: spell it 'experimental:{spelling}' to opt in. Supported: "
         "fused | mm | ondemand[:chunk] | auto | pallas_fused")
 
 
-# Stored-volume budget of corr_lookup="auto" (and of GMA's attn_chunk=-1),
-# JAX's value (accflow_tpu/ops/corr.py:136-143), sized there for a 16 GB
-# chip. Re-deriving it for the H100's 80 GB waits for the volume-free
-# lookup it would switch to (ROADMAP.md, queue 1 #11).
-AUTO_VOLUME_BYTES = 4 << 30
+# Stored-volume budget of corr_lookup="auto" (and of GMA's attn_chunk=-1):
+# beyond it "auto" picks the volume-free lookup. JAX's 4 GiB was sized for
+# a 16 GB chip (accflow_tpu/ops/corr.py:136-143). This one is the largest
+# stored pyramid whose whole peak, the float32 transient of level 0
+# included, stays within 3/4 of an H100's memory, from the peaks that
+# chip_smoke.py (phase 16c) measured for FlowPipeline.long_range (acc+raft,
+# bf16, 7 frames: 11 pairs) with "fused" on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (79.18 GiB): 13.476 GiB at 1280x720 (a stored pyramid V of
+# 5.635 GiB) and 66.033 GiB at 1920x1080 (V 28.479 GiB). The line through
+# them, peak = 2.3007 V + 0.511 GiB, reaches 3/4 of the card at V = 25.589
+# GiB; rounded down to 25 GiB. So "auto" stores the pyramid at 720p and
+# takes the volume-free lookup from 1080p up (PERF.md).
+AUTO_VOLUME_BYTES = 25 << 30
+
+# Live-rows budget of the AUTO ondemand chunk: float32 bytes of one
+# chunk's rebuilt rows over all levels, across the batch (JAX's value,
+# accflow_tpu/ops/corr.py:218-223). Up to it the lookup runs one chunk.
+OD_AUTO_BYTES = 4 << 30
 
 
 def stored_volume_bytes(batch: int, h8: int, w8: int, num_levels: int = 4,
@@ -103,26 +134,39 @@ def stored_volume_bytes(batch: int, h8: int, w8: int, num_levels: int = 4,
 def resolve_auto_lookup(spelling: str, batch: int, h8: int, w8: int,
                         num_levels: int = 4, dtype=torch.float32) -> str:
     """corr_lookup "auto" for `batch` pairs of h8 x w8 feature maps:
-    "fused" while stored_volume_bytes fits AUTO_VOLUME_BYTES; beyond it
-    JAX picks the volume-free ondemand lookup, which is not ported, so this
-    raises NotImplementedError. Other spellings pass through. A symbolic
-    batch (an export with a symbolic batch) cannot be sized: ValueError,
-    as in JAX."""
+    "fused" while stored_volume_bytes fits AUTO_VOLUME_BYTES, the
+    volume-free "ondemand" beyond it (the budget alone decides; nothing
+    falls back on an out-of-memory error). Other spellings pass through. A
+    symbolic batch (an export with a symbolic batch) cannot be sized:
+    ValueError, as in JAX."""
     if spelling != "auto":
         return spelling
     if not isinstance(batch, int):
         raise ValueError(
             "corr_lookup='auto' needs a concrete batch to size the stored volume, "
-            f"got symbolic {batch!r}: pick an explicit impl ('fused', ...) for an "
-            "export with a symbolic batch")
+            f"got symbolic {batch!r}: pick an explicit impl ('fused', 'ondemand', ...) "
+            "for an export with a symbolic batch")
     nbytes = stored_volume_bytes(batch, h8, w8, num_levels, dtype)
-    if nbytes <= AUTO_VOLUME_BYTES:
-        return "fused"
-    raise NotImplementedError(
-        f"corr_lookup='auto': the stored volume of {batch} x {h8} x {w8} needs {nbytes} "
-        f"bytes, over the {AUTO_VOLUME_BYTES}-byte budget, where JAX switches to the "
-        "volume-free ondemand lookup, which is not ported to accflow_tpu_torch yet "
-        "(ROADMAP.md, queue 1 #11)")
+    return "fused" if nbytes <= AUTO_VOLUME_BYTES else "ondemand"
+
+
+def ondemand_chunk(spelling: str, default: int = 0) -> int:
+    """The ":chunk" suffix of an ondemand spelling; `default` (0, AUTO:
+    sized per shape by _auto_chunk) for a bare "ondemand". ValueError for a
+    suffix that is not an int or not positive (a chunk of 1 would serialise
+    the lookup per query)."""
+    if ":" not in spelling:
+        return default
+    suffix = spelling.split(":", 1)[1]
+    try:
+        chunk = int(suffix)
+    except ValueError:
+        raise ValueError(f"bad ondemand chunk suffix {suffix!r} in corr_lookup={spelling!r}; "
+                         "expected 'ondemand' or 'ondemand:<int>'") from None
+    if chunk <= 0:
+        raise ValueError(f"ondemand chunk must be positive, got {chunk} in "
+                         f"corr_lookup={spelling!r}")
+    return chunk
 
 
 def _divisor_chunk(total: int, chunk: int) -> int:
@@ -134,6 +178,13 @@ def _divisor_chunk(total: int, chunk: int) -> int:
     return chunk
 
 
+def _auto_chunk(b: int, q: int, key_elems: int) -> int:
+    """The largest divisor of q whose float32 rows (b * chunk * key_elems)
+    fit OD_AUTO_BYTES, and at least 256 queries."""
+    fit = OD_AUTO_BYTES // max(4 * b * key_elems, 1)
+    return _divisor_chunk(q, max(int(fit), 256))
+
+
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     """Exact 2x2/stride-2 average pool over H, W of (B, C, H, W); an odd
     last row/column is dropped, and a size-1 axis pools to size 0."""
@@ -143,26 +194,147 @@ def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(3, 5))
 
 
+def _corr_rows(f1: torch.Tensor, f2: torch.Tensor, inv_sqrt_c: float, dtype) -> torch.Tensor:
+    """One level's rows for queries f1 (B, Q, C) float32 against keys f2
+    (B, C, hl, wl) float32: <f1, f2> / sqrt(C) as a float32 torch.bmm under
+    the caller's TF32 setting, scaled after the product, then cast to
+    `dtype` -> (B*Q, hl, wl). The stored pyramid and the volume-free
+    lookup's chunks both build their rows here. Where no gradient is
+    recorded the scale is applied in place (the same rounding), so that
+    the float32 transient is one product, not two."""
+    b, c, hl, wl = f2.shape
+    corr = torch.bmm(f1, f2.reshape(b, c, hl * wl))
+    corr = corr * inv_sqrt_c if corr.requires_grad else corr.mul_(inv_sqrt_c)
+    return corr.reshape(b * f1.shape[1], hl, wl).to(dtype)
+
+
+def _pooled_keys(fmap2: torch.Tensor, num_levels: int) -> list:
+    """fmap2 (B, C, H, W) in float32, then average-pooled 2x per level."""
+    f2 = fmap2.float()
+    levels = [f2]
+    for _ in range(num_levels - 1):
+        levels.append(avg_pool2(levels[-1]))
+    return levels
+
+
+def _bf16_valued(fmap1, fmap2) -> bool:
+    """With bfloat16 features the float32 products are exact under TF32 (10
+    mantissa bits hold the 7 of bf16), so TF32 is allowed: the counterpart
+    of JAX's corr_precision="default". With float32 features it is off."""
+    return fmap1.dtype == torch.bfloat16 and fmap2.dtype == torch.bfloat16
+
+
 def build_corr_pyramid(fmap1, fmap2, num_levels: int = 4, dtype=torch.float32):
     """fmap1, fmap2 (B, C, H, W) -> list of num_levels (B*H*W, hl, wl) maps.
 
-    The products run in float32. With bfloat16 features the float32 matmul
-    is exact under TF32 (10 mantissa bits hold the 7 of bf16), so TF32 is
-    allowed then — the counterpart of JAX's corr_precision="default". With
-    float32 features TF32 is off. `dtype` is the stored levels' type."""
+    The products run in float32 (_corr_rows), TF32 allowed for bfloat16
+    features only (_bf16_valued). `dtype` is the stored levels' type."""
     b, c, h, w = fmap1.shape
-    bf16_valued = fmap1.dtype == torch.bfloat16 and fmap2.dtype == torch.bfloat16
     f1 = fmap1.float().reshape(b, c, h * w).transpose(1, 2)  # (B, HW, C)
-    f2 = fmap2.float()
+    with tf32(_bf16_valued(fmap1, fmap2)):
+        return [_corr_rows(f1, f2, 1.0 / math.sqrt(c), dtype)
+                for f2 in _pooled_keys(fmap2, num_levels)]
+
+
+class OnDemandCorr(NamedTuple):
+    """The volume-free lookup's operands: features, not the volume
+    (accflow_tpu/ops/corr.py::OnDemandCorr, and OnDemandChunks once chunk
+    is set). f1 (B, H1*W1, C) float32 queries, unscaled; f2_levels per
+    level the pooled keys (B, C, hl, wl) float32 (JAX keeps (B, hl*wl, C):
+    the port's row product takes them channels first, as
+    build_corr_pyramid does); h1, w1 the query map; dtype the rows' type
+    before the lookup (the stored levels' type); tf32 whether the row
+    products may run in TF32 (bfloat16 features); chunk the queries per
+    chunk, fixed once outside the GRU loop by prepare_ondemand_chunks, or 0
+    while unset. A chunk's queries are a view of f1,
+    f1[:, i*chunk:(i+1)*chunk], which torch.bmm takes as it is: where JAX
+    hoists a chunk-major copy of f1 out of its loop, nothing is copied."""
+
+    f1: torch.Tensor
+    f2_levels: tuple
+    h1: int
+    w1: int
+    dtype: torch.dtype = torch.float32
+    tf32: bool = False
+    chunk: int = 0
+
+
+def build_corr_on_demand(fmap1, fmap2, num_levels: int = 4, dtype=torch.float32) -> OnDemandCorr:
+    """fmap1, fmap2 (B, C, H, W) -> OnDemandCorr: f1 in float32 (as
+    build_corr_pyramid lays it out) and the pooled keys, with no product
+    yet (it moves into every lookup)."""
+    b, c, h, w = fmap1.shape
+    f1 = fmap1.float().reshape(b, c, h * w).transpose(1, 2)
+    return OnDemandCorr(f1, tuple(_pooled_keys(fmap2, num_levels)), h, w, dtype,
+                        _bf16_valued(fmap1, fmap2))
+
+
+def prepare_ondemand_chunks(od: OnDemandCorr, chunk: int) -> OnDemandCorr:
+    """od with its chunk set: `chunk` queries (0: AUTO, _auto_chunk),
+    rounded down to a divisor of H1*W1."""
+    b, q, _ = od.f1.shape
+    if chunk == 0:
+        chunk = _auto_chunk(b, q, sum(f2.shape[-2] * f2.shape[-1] for f2 in od.f2_levels))
+    return od._replace(chunk=_divisor_chunk(q, chunk))
+
+
+def build_corr_operands(fmap1, fmap2, num_levels: int, spelling: str, dtype=torch.float32):
+    """What a resolved `corr_lookup` spelling consumes: the volume-free
+    lookup's operands with their chunk set (OnDemandCorr) for
+    "ondemand[:chunk]", the stored pyramid (a list of levels) for every
+    other. `dtype` is the levels' type, or the rows' before the
+    lookup."""
+    if is_ondemand(spelling):
+        return prepare_ondemand_chunks(build_corr_on_demand(fmap1, fmap2, num_levels, dtype),
+                                       ondemand_chunk(spelling))
+    return build_corr_pyramid(fmap1, fmap2, num_levels, dtype)
+
+
+def lookup_corr_on_demand(od, coords: torch.Tensor, radius: int = 4, chunk: int = 0,
+                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The windows of lookup_corr_plain without a stored volume: coords
+    (B, H1, W1, 2) float32 in level-0 pixels -> (B, H1, W1, L*(2r+1)^2) in
+    `out_dtype`. For each chunk of queries (the same chunk of every image)
+    the rows (B*chunk, hl, wl) per level are rebuilt (_corr_rows, what
+    build_corr_pyramid stores, cast to od.dtype) and read by the lookup
+    kernel: #1 (ops/corr_cuda.py) at radius 4, #2 (ops/corr_level_cuda.py)
+    otherwise; on CPU tensors their plain versions. Under autograd the
+    gradient flows through the kernels' backward into the rows and through
+    the products into f1 and the pooled keys; with more than one chunk
+    each chunk's body is recomputed in the backward pass (nn.remat, as JAX
+    checkpoints its lax.map body), so the backward stores no volume either.
+    The loop over chunks has static shapes and no host sync (a CUDA graph
+    captures it).
+
+    od: OnDemandCorr; its own chunk holds once set (prepare_ondemand_chunks),
+    else `chunk` queries per chunk (0: AUTO, one chunk while the float32
+    rows fit OD_AUTO_BYTES; rounded down to a divisor of H1*W1)."""
+    # The kernels' wrappers import this module (their plain versions).
+    from accflow_tpu_torch.ops.corr_cuda import RADIUS, lookup_corr_fused
+    from accflow_tpu_torch.ops.corr_level_cuda import lookup_corr_level
+
+    if not od.chunk:
+        od = prepare_ondemand_chunks(od, chunk)
+    b, h, w, _ = coords.shape
+    chunk, c = od.chunk, od.f1.shape[-1]
+    nch = h * w // chunk
     inv_sqrt_c = 1.0 / math.sqrt(c)
-    levels = []
-    with tf32(bf16_valued):
-        for _ in range(num_levels):
-            hl, wl = f2.shape[-2:]
-            corr = torch.bmm(f1, f2.reshape(b, c, hl * wl)) * inv_sqrt_c
-            levels.append(corr.reshape(b * h * w, hl, wl).to(dtype))
-            f2 = avg_pool2(f2)
-    return levels
+    lookup = lookup_corr_fused if radius == RADIUS else lookup_corr_level
+
+    def one_chunk(f1c, cc):
+        with tf32(od.tf32):
+            rows = [_corr_rows(f1c, f2, inv_sqrt_c, od.dtype) for f2 in od.f2_levels]
+        return lookup(rows, cc, radius, out_dtype=out_dtype)
+
+    cf = coords.reshape(b, h * w, 2).float()
+    if nch == 1:
+        return one_chunk(od.f1, cf.reshape(b * h * w, 2)).view(b, h, w, -1)
+    one_chunk = remat_wrap(one_chunk, "full")
+    cs = cf.view(b, nch, chunk, 2).transpose(0, 1).contiguous()  # (nch, B, chunk, 2)
+    outs = [one_chunk(od.f1[:, i * chunk:(i + 1) * chunk], cs[i].view(b * chunk, 2))
+            for i in range(nch)]
+    out = torch.stack(outs).view(nch, b, chunk, -1).transpose(0, 1)
+    return out.reshape(b, h, w, -1)
 
 
 def lookup_corr_plain(levels, coords: torch.Tensor, radius: int = 4,

@@ -3,7 +3,8 @@ accflow_tpu/train/engine.py (reference train_acc.py), and the batch helpers
 that evaluation shares (`to_clip`, `to_flow_seq`, `pad_batch`).
 
 Recipe (configs/AccRAFT*.yml, train_acc.py):
-- data: CVO clean+final, keys ["bflows"], random 256^2 crop, batch
+- data: CVO clean+final, keys ["bflows"] (["fflows"] for `direction:
+  forward`, the F0N ablation of configs/AccRAFT-F0N.yml), random 256^2 crop, batch
   batch_per_gpu, shuffled, last partial batch dropped;
 - a frozen estimator (RAFT or GMA) from flow_pretrained, the AccFlow
   modules trained;
@@ -116,22 +117,18 @@ def reference_noise(gen: torch.Generator, frame_shape) -> torch.Tensor:
 def build_acc_model(opt, device=None):
     """(estimator, AccFlowConfig) from an experiment name like Acc+RAFT-cvo
     (RAFT, or GMA for a name with "gma"), the estimator's weights from seed
-    0 on `device`. direction "forward" (the F0N ablation) is not ported."""
-    direction = opt.get("direction", "backward")
-    if direction == "forward":
-        raise NotImplementedError("direction: forward (the F0N ablation) is not ported "
-                                  "(ROADMAP.md #6)")
-    if direction != "backward":
-        raise ValueError(f"unknown accumulation direction: {direction!r}")
+    0 on `device`. `direction` "forward" selects the F0N ablation; an
+    unknown direction raises ValueError before any model is built."""
     cd = opt.get("compute_dtype", "bfloat16")
+    acfg = AccFlowConfig(compute_dtype=cd, hidden=int(opt.get("acc_hidden", 128)),
+                         remat=opt.get("remat", False),
+                         direction=opt.get("direction", "backward"))
     est = build_flow_estimator(
         opt.exp_name, compute_dtype=cd, device=device,
         small=bool(opt.get("small", False)),
         corr_lookup=opt.get("corr_lookup", "fused"),
         attn_chunk=int(opt.get("attn_chunk", 0)),
     )
-    acfg = AccFlowConfig(compute_dtype=cd, hidden=int(opt.get("acc_hidden", 128)),
-                         remat=opt.get("remat", False))
     return est, acfg
 
 
@@ -150,7 +147,8 @@ def graph_steps(make_update, valid_step, optimizer: Optimizer, graphed: bool):
 def make_acc_train_step(est, model: AccFlow, optimizer: Optimizer, add_noise: bool,
                         grad_accum: int = 1, graphed: bool = False):
     """(train_step, valid_step) for the accumulator `model` against the
-    frozen estimator `est`.
+    frozen estimator `est`, on the path of model.cfg (the fused paths take
+    its pairs_fn, the stepwise ones its flow_fn).
 
     train_step(imgs (N, H, W, 3T), label_flows (N, H, W, 2S), gen=None) ->
     (loss, metrics), device tensors: one optimizer update; with add_noise
@@ -159,11 +157,12 @@ def make_acc_train_step(est, model: AccFlow, optimizer: Optimizer, add_noise: bo
     set), so that no backward conv of a float32 step runs in TF32.
     valid_step(imgs, label_flows) -> (per-sample EPE (N,), last output
     (N, H, W, 2)), under no_grad. graphed: the two as train_acc runs them,
-    replayed from CUDA graphs on CUDA tensors (graph_steps)."""
-    pairs = est.pairs_fn()
+    replayed from CUDA graphs on CUDA tensors (graph_steps). label_flows
+    are the direction's: bflows [F_{k,0}], or fflows [F_{0,k}] forward."""
+    pairs, ofe = est.pairs_fn(), est.flow_fn()
 
     def loss_fn(images, labels):
-        return sequence_loss_acc(accflow_train_forward(model, images, pairs), labels)
+        return sequence_loss_acc(accflow_train_forward(model, images, pairs, ofe), labels)
 
     def make_update(finish):
         def train_step(imgs, label_flows, gen: Optional[torch.Generator] = None):
@@ -180,7 +179,7 @@ def make_acc_train_step(est, model: AccFlow, optimizer: Optimizer, add_noise: bo
         return train_step
 
     def valid_step(imgs, label_flows):
-        outs = accflow_forward(model, to_clip(imgs), ofe_pairs=pairs)
+        outs = accflow_forward(model, to_clip(imgs), ofe_pairs=pairs, ofe=ofe)
         labels = to_flow_seq(label_flows)
         # Per-sample EPE of the last accumulated flow, so the engine can
         # aggregate over padded validation batches.
@@ -250,7 +249,10 @@ def train_acc(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
 
         tb = TBLogger(osp.join(log_dir, "tb"))
 
-    flow_key = "bflows"  # backward accumulation trains against [F_{k,0}]
+    # Backward accumulation trains against bflows [F_{k,0}], the forward
+    # (F0N) ablation against fflows [F_{0,k}]: each aligns with its
+    # direction's output list.
+    flow_key = "fflows" if opt.get("direction") == "forward" else "bflows"
     train_dst = fetch_train_dataset(opt.dataset_root, [flow_key], crop_size=opt.image_size,
                                     split="clean+final")
     valid_dst = fetch_valid_dataset(opt.dataset_root, [flow_key], split="clean")

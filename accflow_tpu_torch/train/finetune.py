@@ -166,8 +166,8 @@ def build_estimator(opt, device=None) -> FlowEstimator:
     tree), `flow_pretrained` (a reference .pth or an .npz tree) or the
     seed, on `device`. A lookup without a backward raises: the split
     lookups (experimental:fused_bd[2]: kernel #3 has none, nor has the
-    reference's y_contract_bd, ROADMAP.md #16) here, ondemand (#11) in the
-    config."""
+    reference's y_contract_bd, ROADMAP.md #16). The stored and the
+    volume-free (ondemand[:chunk]) lookups train."""
     est = build_flow_estimator(
         opt.exp_name, compute_dtype=opt.get("compute_dtype", "bfloat16"), device=device,
         seed=opt.get("seed", 0), small=bool(opt.get("small", False)),

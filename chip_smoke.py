@@ -159,7 +159,28 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    ms per step, peak, gradients against "none"; (f) phase 14d's graphed
    against eager steps for each remat mode (the BatchNorm buffers held
    too; the validation step with "dots"); with --profile, the device time
-   of one step by kind.
+   of one step by kind;
+16. the volume-free lookup (corr_lookup "ondemand[:chunk]": each chunk's
+   rows rebuilt every iteration and read by kernel #1, #2 for RAFT-small):
+   (a) small clips at 64^2, f32, TF32 off, ondemand:16 on the GPU against
+   the CPU and against fused, for RAFT, GMA and RAFT-small (CLIP_REL; 48
+   launches per forward); (b) the 7x512^2 batch-2 bf16 clip with fused,
+   ondemand (one chunk) and ondemand:1024 (4 chunks), eager and graphed,
+   against fused (CLIP_REL), ms per forward, peak, 12 launches per chunk
+   and forward; (c) FlowPipeline.long_range (acc+raft, 7 frames) at
+   1280x720 and 1920x1080 with fused and ondemand (seconds, peak; ondemand
+   against fused), the stored-volume budget derived from the fused peaks
+   and AUTO_VOLUME_BYTES held under it, what "auto" picks at 512^2 ..
+   1440p, and 2560x1440 through "auto" (it must take ondemand) with
+   acc+raft and acc+gma; (d) fine_tune with RAFT.yml and corr_lookup
+   ondemand, graphed, 6 steps, and a 64^2 f32 step with ondemand:16 on the
+   GPU against the CPU (phase 15d's bars; launches as the CPU's plain calls);
+17. AccFlow's forward (F0N) direction and cold stepwise path: (a) train_acc
+   with configs/AccRAFT-F0N.yml as shipped (labels from fflows), graphed,
+   13 steps; (b) the 64^2 f32 F0N train step on the GPU against the CPU
+   (TRAIN_* bars); (c) the 7x512^2 bf16 clip: F0N fused against F0N
+   stepwise, the cold backward stepwise path against the fused one
+   (CLIP_REL).
 Optional phases: --tile-sweep builds kernels #1 and #2 with 4, 8 and 16
 queries per block and times them in turns (#1 at the clip shape after phase
 3, #2 at the stream shape after phase 4); --profile prints where
@@ -171,7 +192,8 @@ artifacts' numbers, with the card's name and power limit; a {"gma": {...}}
 line the numbers of phases 6c and 8's GMA runs and 10-13, and a
 {"train": {...}} line phase 14's, a {"finetune": {...}} line phase 15's
 (graphed and eager ms per step, busy time, idle share, peaks, capture
-calls, the graphed-vs-eager distances beside their bars). The
+calls, the graphed-vs-eager distances beside their bars), an
+{"ondemand": {...}} line phase 16's and an {"f0n": {...}} line phase 17's. The
 line before
 the last is {"kernels": [...]}; the last line is {"ok": true, "device":
 {...}}. Without a GPU, or without the package beside it, the script exits
@@ -364,6 +386,21 @@ ACCUM_F32_RATIO = 1.2
 # write-back left out, the generator not registered) moved that step's
 # losses by 1e-3 to 5e-2 and its buffers by 0.21, or raised. The
 # validation and eval steps have no backward: bit-equal.
+# Phase 17c, a stepwise AccFlow path (F0N's, the cold backward one) against
+# its fused path on the 7x512^2 clip. They compute one function: in float32
+# with TF32 off the two agree within CLIP_REL of the largest |flow| (2.3e-6
+# of it on an H100). In bfloat16 they do not run the same kernels: the
+# stepwise paths query the estimator 5 times with batches of 6 and 4 pairs,
+# the fused ones once with 22, and cuDNN and cuBLAS may take other algorithms
+# at other batches, whose bfloat16 roundings the 12 GRU iterations carry
+# on. On an NVIDIA H100 80GB HBM3 (700 W) this check at 1e-3 of the largest
+# |flow| read 1.503e-3 (F0N) and 1.544e-3 (cold) against 1.675e-4, while the
+# fused clip run as two batch-1 clips lies 1.839e-3 from itself at batch 2,
+# and every one of these bfloat16 runs lies 3.9-4.1e-3 from float32. So the
+# bfloat16 stepwise clip is held to BATCH_SPREAD times that batch-1-vs-2
+# distance of the fused clip, measured in the same run; the float32 bar
+# holds the function.
+BATCH_SPREAD = 2.0
 GRAPH_STEPS = 8  # 2 eager (graphs.WARMUP), the capture replayed once, 5 replays
 GRAPH_SPREAD = 2.0
 GRAPH_FLOOR = 1e-6
@@ -843,11 +880,12 @@ def expect_counts(path: str, kernel, expected: int, **others: int) -> int:
     return kernel.launches
 
 
-def time_clip(label: str, forward, kernel, shape):
+def time_clip(label: str, forward, kernel, shape, per_forward: int = 12):
     """Two warm-up forwards (cuDNN algorithm choice, allocator growth), then
-    5 timed ones: `kernel` must launch 12 times per forward and no other
-    kernel at all; the output must be float32 of `shape` and finite.
-    Returns (launches, median seconds, seconds, output, peak bytes)."""
+    5 timed ones: `kernel` must launch `per_forward` times per forward (12,
+    or 12 per chunk of the volume-free lookup) and no other kernel at all;
+    the output must be float32 of `shape` and finite. Returns (launches,
+    median seconds, seconds, output, peak bytes)."""
     for _ in range(2):
         forward()
     torch.cuda.synchronize()
@@ -860,7 +898,7 @@ def time_clip(label: str, forward, kernel, shape):
         out = forward()
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    launches = expect_counts(label, kernel, 12 * reps)
+    launches = expect_counts(label, kernel, per_forward * reps)
     peak = torch.cuda.max_memory_allocated()
     clocks = smi("clocks.sm,power.draw,temperature.gpu")
     if tuple(out.shape) != shape or out.dtype != torch.float32:
@@ -2222,32 +2260,34 @@ def small_train_models(where: str, **cfg):
     return est, acc.to(where)
 
 
-def train_gpu_vs_cpu() -> dict:
-    """Phase 14b: one train step's loss and gradients at 64^2, T=4, batch
-    2, RAFT at 4 iterations, hidden 32, float32, TF32 off, from the same
-    init and batch: the GPU through kernel #1 (4 launches) against the CPU
-    through the plain lookup (TRAIN_* bars)."""
+def train_gpu_vs_cpu(direction: str = "backward") -> dict:
+    """Phase 14b (17b with direction "forward": the F0N step): one train
+    step's loss and gradients at 64^2, T=4, batch 2, RAFT at 4 iterations,
+    hidden 32, float32, TF32 off, from the same init and batch: the GPU
+    through kernel #1 (4 launches) against the CPU through the plain lookup
+    (TRAIN_* bars)."""
     out = {}
+    label = "train step 64^2" + (" F0N" if direction == "forward" else "")
     for where in ("cuda", "cpu"):
-        est, acc = small_train_models(where)
+        est, acc = small_train_models(where, direction=direction)
         images, labels = small_train_batch(where)
         reset_counts()
         out[where] = one_step_grads(est.pairs_fn(), acc, images, labels)
-        expect_counts(f"train step 64^2 on {where}", corr_cuda, 4 if where == "cuda" else 0)
+        expect_counts(f"{label} on {where}", corr_cuda, 4 if where == "cuda" else 0)
     (loss_g, g), (loss_c, c) = out["cuda"], out["cpu"]
     ctx = [k for k in c if k.startswith("context.")]
     rest = [k for k in c if k not in ctx]
     row = dict(loss_gpu=loss_g, loss_cpu=loss_c, loss_rel=abs(loss_g - loss_c) / abs(loss_c),
                grad_rel_l2=rel_l2(g, c, rest), context_grad_rel_l2=rel_l2(g, c, ctx),
                all_grad_rel_l2=rel_l2(g, c))
-    print(f"train step 64^2 GPU vs CPU: loss {loss_g:.7f} vs {loss_c:.7f} (relative "
+    print(f"{label} GPU vs CPU: loss {loss_g:.7f} vs {loss_c:.7f} (relative "
           f"{row['loss_rel']:.3e}, bar {TRAIN_LOSS_REL:g}); gradient relative L2 outside the "
           f"context encoder {row['grad_rel_l2']:.3e}, context encoder "
           f"{row['context_grad_rel_l2']:.3e} (bar {TRAIN_GRAD_REL:g} each), whole vector "
           f"{row['all_grad_rel_l2']:.3e}")
     if not (row["loss_rel"] <= TRAIN_LOSS_REL and row["grad_rel_l2"] <= TRAIN_GRAD_REL
             and row["context_grad_rel_l2"] <= TRAIN_GRAD_REL):
-        fail(f"train step 64^2: GPU and CPU disagree {row}")
+        fail(f"{label}: GPU and CPU disagree {row}")
     return row
 
 
@@ -2593,11 +2633,14 @@ def tie_hooks(model, recorded=None):
     return rec, ties, handles
 
 
-def finetune_gpu_vs_cpu() -> dict:
-    """Phase 15d: one fine-tune step (make_finetune_step: 12 iterations,
-    noise off, remat "dots") of full RAFT from seed 0 at 64^2, batch 2,
-    float32, TF32 off, on the GPU (kernel #1 and its backward kernel, 12
-    launches each) and on the CPU (the plain lookup and backward): loss,
+def finetune_gpu_vs_cpu(corr_lookup: str = "fused") -> dict:
+    """Phase 15d (16d with corr_lookup "ondemand:16": 4 chunks, each
+    rebuilt in the backward pass): one fine-tune step (make_finetune_step:
+    12 iterations, noise off, remat "dots") of full RAFT from seed 0 at
+    64^2, batch 2, float32, TF32 off, on the GPU (kernel #1 and its
+    backward kernel, 12 launches each under "fused"; as many as the CPU run
+    calls the plain lookup and backward under ondemand) and on the CPU (the
+    plain lookup and backward): loss,
     gradients over the fnet, the cnet and the update block apart, and each
     running-statistics buffer after the step (TRAIN_LOSS_REL,
     TRAIN_GRAD_REL, FT_STATS_REL). The CPU run takes the GPU's ReLU inputs at their ties
@@ -2605,10 +2648,13 @@ def finetune_gpu_vs_cpu() -> dict:
     rng = np.random.default_rng(5)
     img1, img2 = (rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8) for _ in range(2))
     label = (4 * rng.standard_normal((2, 64, 64, 2))).astype(np.float32)
-    out = {}
+    out, calls = {}, {}
     recorded = None
+    what = "fine-tune step 64^2" + ("" if corr_lookup == "fused" else f" {corr_lookup}")
+    plain = [(corr_cuda, "lookup_corr_plain"), (corr_backward_cuda, "lookup_corr_plain_backward")]
     for where in ("cuda", "cpu"):
-        est = models.build_flow_estimator("raft", compute_dtype="float32", seed=0, device=where)
+        est = models.build_flow_estimator("raft", compute_dtype="float32", seed=0, device=where,
+                                          corr_lookup=corr_lookup)
         rec, ties, _ = tie_hooks(est.model, recorded)
         opt = make_optimizer(est.model.parameters(), 1e-4, 10)
         grads = {}
@@ -2622,20 +2668,38 @@ def finetune_gpu_vs_cpu() -> dict:
         opt.step = step
         train_step, _ = ft.make_finetune_step(est, opt, add_noise=False, gamma=0.85)
         reset_counts()
-        loss, _ = train_step(*(torch.from_numpy(a).to(where) for a in (img1, img2, label)))
-        n = 12 if where == "cuda" else 0
-        expect_counts(f"fine-tune step 64^2 on {where}", corr_cuda, n, corr_lookup_backward=n)
+        originals = [getattr(m, name) for m, name in plain]
+        calls[where] = {name: 0 for _, name in plain}
+        for (m, name), fn in zip(plain, originals):
+            def counted(*a, fn=fn, name=name, seen=calls[where], **k):
+                seen[name] += 1
+                return fn(*a, **k)
+            setattr(m, name, counted)
+        try:
+            loss, _ = train_step(*(torch.from_numpy(a).to(where) for a in (img1, img2, label)))
+        finally:
+            for (m, name), fn in zip(plain, originals):
+                setattr(m, name, fn)
+        if where == "cuda":
+            gpu_counts = launch_counts()
         stats = {k: v.float().cpu() for k, v in est.model.state_dict().items() if "running" in k}
         out[where] = float(loss), grads, stats
         recorded = rec
+    fwd, bwd = calls["cpu"].values()
+    want = {k: 0 for k in gpu_counts} | {"corr_lookup": fwd, "corr_lookup_backward": bwd}
+    print(f"{what}: GPU kernel launches {gpu_counts}, CPU plain calls {fwd} lookups and {bwd} "
+          f"backwards, GPU plain calls {calls['cuda']}")
+    if (gpu_counts != want or any(calls["cuda"].values()) or not (bwd >= 12 and fwd >= bwd)
+            or (corr_lookup == "fused" and (fwd, bwd) != (12, 12))):
+        fail(f"{what}: GPU launches {gpu_counts}, expected the CPU's {want}")
     (loss_g, g, s_g), (loss_c, c, s_c) = out["cuda"], out["cpu"]
     row = dict(loss_gpu=loss_g, loss_cpu=loss_c, loss_rel=abs(loss_g - loss_c) / abs(loss_c),
-               relu_ties=ties)
+               relu_ties=ties, launches=gpu_counts)
     for part in ("fnet", "cnet", "update_block"):
         row[f"{part}_grad_rel_l2"] = rel_l2(g, c, [k for k in c if k.startswith(part + ".")])
     row["stats_max_rel"] = max(float((s_g[k] - s_c[k]).abs().max() / s_c[k].abs().max())
                                for k in s_c)
-    print(f"fine-tune step 64^2 GPU vs CPU: loss {loss_g:.7f} vs {loss_c:.7f} (relative "
+    print(f"{what} GPU vs CPU: loss {loss_g:.7f} vs {loss_c:.7f} (relative "
           f"{row['loss_rel']:.3e}, bar {TRAIN_LOSS_REL:g}); gradient relative L2 fnet "
           f"{row['fnet_grad_rel_l2']:.3e}, cnet {row['cnet_grad_rel_l2']:.3e}, update block "
           f"{row['update_block_grad_rel_l2']:.3e} (bar {TRAIN_GRAD_REL:g} each); running "
@@ -2644,7 +2708,7 @@ def finetune_gpu_vs_cpu() -> dict:
     if not (row["loss_rel"] <= TRAIN_LOSS_REL and row["stats_max_rel"] <= FT_STATS_REL
             and all(row[f"{p}_grad_rel_l2"] <= TRAIN_GRAD_REL
                     for p in ("fnet", "cnet", "update_block"))):
-        fail(f"fine-tune step 64^2: GPU and CPU disagree {row}")
+        fail(f"{what}: GPU and CPU disagree {row}")
     return row
 
 
@@ -2779,6 +2843,340 @@ def finetune_phase(root: str, tmp: str, with_profile: bool = False) -> dict:
                 graphed=finetune_graph_runs(opt, root))
 
 
+def ondemand_small_clips() -> dict:
+    """Phase 16a: small_clip's 4-frame 64^2 clip (float32, TF32 off, the
+    same seeds) with corr_lookup "ondemand:16" (4 chunks of 16 queries per
+    lookup) on the GPU against the same on the CPU (the plain lookups on
+    each chunk's rows), and against "fused" on the GPU, for full RAFT and
+    GMA (kernel #1) and RAFT-small (kernel #2, radius 3): CLIP_REL of the
+    largest |flow|; 12 x 4 launches per forward under ondemand:16. Returns
+    the GPU launches of each."""
+    clip = np.random.default_rng(3).uniform(-1, 1, (4, 1, 64, 64, 3)).astype(np.float32)
+    rows = {}
+    for label, name, kw, kernel in (("RAFT", "raft", {}, corr_cuda),
+                                    ("GMA", "gma", {}, corr_cuda),
+                                    ("RAFT-small", "raft", {"small": True}, corr_level_cuda)):
+        outs = {}
+        for lookup, where in (("ondemand:16", "cuda"), ("ondemand:16", "cpu"), ("fused", "cuda")):
+            est = models.build_flow_estimator(name, compute_dtype="float32", device=where,
+                                              seed=0, corr_lookup=lookup, **kw)
+            if name == "gma":
+                perturb_gamma(est.model, 3)
+            acc = models.init_accflow(models.AccFlowConfig(compute_dtype="float32"), seed=1,
+                                      device="cpu")
+            perturb_zero_conv(acc, 2)
+            reset_counts()
+            with tf32(False):
+                outs[lookup, where] = models.accflow_forward(
+                    acc.to(where), clip, est.pairs_fn()).cpu().numpy()
+            per = 48 if lookup == "ondemand:16" else 12
+            n = expect_counts(f"small clip {label} {lookup} on {where}", kernel,
+                              per if where == "cuda" else 0)
+            if where == "cuda":
+                rows[f"{label} {lookup}"] = n
+        for other in (("ondemand:16", "cpu"), ("fused", "cuda")):
+            got, ref = outs["ondemand:16", "cuda"], outs[other]
+            diff, flow_max = float(np.abs(got - ref).max()), float(np.abs(ref).max())
+            print(f"small clip {label} ondemand:16 on cuda vs {other[0]} on {other[1]}: max abs "
+                  f"{diff:.3e}, |flow| max {flow_max:.3e} (bar {CLIP_REL:g} x |flow| max)")
+            rows[f"{label} vs {other[0]} on {other[1]}"] = diff
+            if not flow_max > 0 or not np.isfinite(got).all() or not diff <= CLIP_REL * flow_max:
+                fail(f"small clip {label} ondemand:16: differs from {other} by {diff:.3e}")
+    return rows
+
+
+def ondemand_clip() -> dict:
+    """Phase 16b: the clip path (7 x 512^2, batch 2, 12 iterations, bf16,
+    phase 5's seeds) with corr_lookup "fused", "ondemand" (AUTO: one chunk
+    of 4096 queries) and "ondemand:1024" (4 chunks), eager (time_clip: 12
+    kernel-#1 launches per chunk and forward) and, for the volume-free
+    lookups, graphed (graphed_clip) and one forward under the sync debug
+    mode "error": each against the fused forward within CLIP_REL of the
+    largest |flow|; ms per forward and peak memory of each."""
+    t, n, size = 7, 2, 512
+    acc, images = clip_inputs(t, n, size)
+    shape = (t - 2, n, size, size, 2)
+    rows, ref = {}, None
+    for lookup, chunks in (("fused", 1), ("ondemand", 1), ("ondemand:1024", 4)):
+        est = models.build_flow_estimator("raft", compute_dtype="bfloat16", seed=0,
+                                          corr_lookup=lookup)
+        pairs = est.pairs_fn(iters=acc.cfg.ofe_iters)
+
+        def forward(pairs=pairs):
+            return models.accflow_forward(acc, images, pairs)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches, med, _, out, peak = time_clip(f"clip path, {lookup}", forward, corr_cuda,
+                                                shape, per_forward=12 * chunks)
+        row = dict(chunks=chunks, ms_per_forward=med * 1e3, peak_gib=peak / 2**30,
+                   launches=launches)
+        if ref is None:
+            ref = out
+        else:
+            diff, flow_max = float((out - ref).abs().max()), float(ref.abs().max())
+            print(f"clip path, {lookup} vs fused: max abs {diff:.3e} "
+                  f"({'bit-equal' if diff == 0 else 'not bit-equal'}; bar {CLIP_REL:g} x "
+                  f"{flow_max:.3e})")
+            if not diff <= CLIP_REL * flow_max:
+                fail(f"clip path, {lookup}: differs from fused by {diff:.3e}")
+            row["max_abs_vs_fused"] = diff
+            sync_free(f"clip path, {lookup}: one eager forward", forward)
+            torch.cuda.empty_cache()
+            row["graphed"] = graphed_clip(f"clip path, {lookup}, graphed",
+                                          serving.build_serving_fn(est, acc), images, out,
+                                          corr_cuda, 12 * chunks)
+        rows[lookup] = row
+        del est, pairs, out
+    del acc, images, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def video_frames(t: int, h: int, w: int, seed: int) -> np.ndarray:
+    """(t, h, w, 3) uint8 HWC frames of a moving texture (moving_frames at
+    max(h, w)^2, cropped)."""
+    f = moving_frames(t, 1, max(h, w), seed)[:, 0, :h, :w]
+    return ((f + 1) * 127.5).round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def hires_call(label: str, pipe, frames, chunks: int, reps: int = 2):
+    """`reps` FlowPipeline.long_range calls on `frames` from zeroed counts
+    and peak: 12 kernel-#1 launches per chunk and call, finite flows of the
+    frames' size. Returns (seconds of the last call, peak bytes, flows)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    secs, out = timed_runs(lambda: pipe.long_range(frames), reps)
+    peak = torch.cuda.max_memory_allocated()
+    expect_counts(label, corr_cuda, 12 * chunks * reps)
+    t, h, w, _ = frames.shape
+    if out.shape != (t - 2, h, w, 2) or not np.isfinite(out).all():
+        fail(f"{label}: long_range output {out.shape} malformed or not finite")
+    print(f"{label}: {secs[-1]:.3f} s per call (first {secs[0]:.3f} s), peak memory "
+          f"{peak / 2**30:.3f} GiB, {chunks} chunk(s) per lookup, {12 * chunks * reps} kernel-#1 "
+          f"launches in {reps} calls, |flow| max {float(np.abs(out).max()):.3e}")
+    return secs[-1], peak, out
+
+
+def od_chunks(lookup: str, pairs: int, h8: int, w8: int) -> int:
+    """Chunks per lookup of a resolved spelling for `pairs` pairs of h8 x w8
+    maps: 1 for fused, else as ops/corr.py cuts them (its own code, run on
+    shapes only)."""
+    if not corr.is_ondemand(lookup):
+        return 1
+    fmap = torch.empty((pairs, 1, h8, w8), device="meta")
+    od = corr.prepare_ondemand_chunks(corr.build_corr_on_demand(fmap, fmap),
+                                      corr.ondemand_chunk(lookup))
+    return h8 * w8 // od.chunk
+
+
+def hires_phase() -> dict:
+    """Phase 16c: FlowPipeline.long_range (acc+raft, bf16, 12 iterations,
+    phase 12's seeds) on 7 uint8 frames of a moving texture: at 1280x720
+    and 1920x1080 with corr_lookup "fused" and "ondemand" (seconds per call,
+    peak memory; ondemand against fused within CLIP_REL), from which the
+    stored-volume budget is derived: the peak is fitted as a line in the
+    stored pyramid's bytes V (bf16, 11 pairs) through the two fused
+    readings, and the budget is the V whose peak is 3/4 of the card's
+    memory; ops/corr.py's AUTO_VOLUME_BYTES must not exceed it. Then "auto"
+    at 2560x1440 (no stored pyramid fits: 90 GiB), which must take the
+    volume-free lookup (the launches say so), with acc+raft and acc+gma
+    (attn_chunk -1, gamma from seed 3; one call): seconds, peak (under the
+    card's memory), chunks. Prints what "auto" picks at 512^2, 720p, 1080p
+    and 1440p."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    rows, vols, peaks = {}, {}, {}
+    for w, h in ((1280, 720), (1920, 1080)):
+        frames = video_frames(7, h, w, seed=8)
+        outs = {}
+        for lookup in ("fused", "ondemand"):
+            pipe = FlowPipeline.from_checkpoint("acc+raft", corr_lookup=lookup)
+            perturb_zero_conv(pipe.acc, 2)
+            chunks = od_chunks(lookup, 11, h // 8, w // 8)
+            secs, peak, outs[lookup] = hires_call(f"FlowPipeline long_range {w}x{h} {lookup}",
+                                                  pipe, frames, chunks)
+            rows[f"{w}x{h} {lookup}"] = dict(s_per_call=secs, peak_gib=peak / 2**30,
+                                             chunks=chunks, launches=24 * chunks)
+            del pipe
+        diff, flow_max = (float(np.abs(outs["ondemand"] - outs["fused"]).max()),
+                          float(np.abs(outs["fused"]).max()))
+        print(f"FlowPipeline long_range {w}x{h}: ondemand vs fused max abs {diff:.3e} (bar "
+              f"{CLIP_REL:g} x {flow_max:.3e})")
+        if not diff <= CLIP_REL * flow_max:
+            fail(f"long_range {w}x{h}: ondemand differs from fused by {diff:.3e}")
+        rows[f"{w}x{h} ondemand"]["max_abs_vs_fused"] = diff
+        vols[h] = corr.stored_volume_bytes(11, h // 8, w // 8, dtype=torch.bfloat16)
+        peaks[h] = rows[f"{w}x{h} fused"]["peak_gib"] * 2**30
+    slope = (peaks[1080] - peaks[720]) / (vols[1080] - vols[720])
+    base = peaks[720] - slope * vols[720]
+    budget = (0.75 * total - base) / slope
+    derived = dict(card_bytes=total, volume_bytes={str(k): v for k, v in vols.items()},
+                   fused_peak_bytes={str(k): v for k, v in peaks.items()},
+                   peak_per_volume_byte=slope, base_bytes=base, budget_bytes=budget,
+                   auto_volume_bytes=corr.AUTO_VOLUME_BYTES)
+    print(f"stored-volume budget on {smi('name,power.limit')} ({total / 2**30:.2f} GiB): fused "
+          f"peak = {slope:.4f} x V + {base / 2**30:.3f} GiB through 720p (V "
+          f"{vols[720] / 2**30:.3f} GiB, peak {peaks[720] / 2**30:.3f}) and 1080p (V "
+          f"{vols[1080] / 2**30:.3f} GiB, peak {peaks[1080] / 2**30:.3f}); 3/4 of the card holds "
+          f"V <= {budget / 2**30:.3f} GiB; AUTO_VOLUME_BYTES = "
+          f"{corr.AUTO_VOLUME_BYTES / 2**30:.3f} GiB")
+    if not corr.AUTO_VOLUME_BYTES <= budget:
+        fail(f"AUTO_VOLUME_BYTES {corr.AUTO_VOLUME_BYTES} exceeds the derived budget {budget:.0f}")
+    picks = {}
+    for label, pairs, w, h in (("512^2 (CVO clip, batch 2)", 22, 512, 512),
+                               ("512^2", 11, 512, 512), ("1280x720", 11, 1280, 720),
+                               ("1920x1080", 11, 1920, 1080), ("2560x1440", 11, 2560, 1440)):
+        pick = corr.resolve_auto_lookup("auto", pairs, h // 8, w // 8, dtype=torch.bfloat16)
+        vol = corr.stored_volume_bytes(pairs, h // 8, w // 8, dtype=torch.bfloat16)
+        picks[label] = dict(pick=pick, volume_gib=vol / 2**30,
+                            chunks=od_chunks(pick, pairs, h // 8, w // 8))
+        print(f"auto at {label}, {pairs} pairs: stored pyramid {vol / 2**30:.3f} GiB -> {pick} "
+              f"({picks[label]['chunks']} chunk(s))")
+    if picks["2560x1440"]["pick"] != "ondemand":
+        fail("auto does not pick ondemand at 2560x1440")
+    frames = video_frames(7, 1440, 2560, seed=9)
+    chunks = picks["2560x1440"]["chunks"]
+    for name, reps in (("acc+raft", 2), ("acc+gma", 1)):
+        pipe = FlowPipeline.from_checkpoint(name)
+        perturb_zero_conv(pipe.acc, 2)
+        if "gma" in name:
+            perturb_gamma(pipe.est.model, 3)
+        secs, peak, _ = hires_call(f"FlowPipeline {name} long_range 2560x1440 auto", pipe,
+                                   frames, chunks, reps)
+        if not peak < total:
+            fail(f"{name} at 2560x1440: peak {peak} over the card's {total}")
+        rows[f"2560x1440 auto {name}"] = dict(s_per_call=secs, peak_gib=peak / 2**30,
+                                              chunks=chunks, calls=reps,
+                                              launches=12 * chunks * reps)
+        del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rows=rows, budget=derived, auto_picks=picks)
+
+
+def finetune_ondemand(root: str, tmp: str) -> dict:
+    """Phase 16d: fine_tune with configs/RAFT.yml as shipped but for
+    corr_lookup "ondemand" (AUTO: one chunk of the 256^2 step's 1024
+    queries, rebuilt in float32 each iteration), graphed, 6 steps
+    (engine_run: 12 kernel-#1 and 12 backward-kernel launches per eager or
+    captured step): ms per step and peak beside phase 15's fused run; then
+    finetune_gpu_vs_cpu with "ondemand:16" (4 chunks, each recomputed in
+    the backward pass)."""
+    opt = train_opts("RAFT.yml", root, Path(tmp) / "finetune_ondemand",
+                     corr_lookup="ondemand")
+    run = engine_run("RAFT ondemand", opt, 6, finetune=True)
+    run.pop("state")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(raft=run, gpu_vs_cpu=finetune_gpu_vs_cpu("ondemand:16"))
+
+
+def accflow_clip(label: str, acc_kw: dict, est, images, per_forward: int):
+    """One AccFlow clip forward in est's compute dtype (accumulator hidden
+    128 from seed 1, its ZeroConv from seed 2, configured by acc_kw) with
+    est's pairs_fn and flow_fn, TF32 off where the port keeps it off, after
+    one warm-up: `per_forward` kernel-#1 launches, finite output. Returns
+    (seconds, output)."""
+    acc = models.init_accflow(models.AccFlowConfig(compute_dtype=est.cfg.compute_dtype,
+                                                   **acc_kw), seed=1, device="cpu")
+    perturb_zero_conv(acc, 2)
+    acc = acc.cuda()
+
+    def forward():
+        with tf32(False):
+            return models.accflow_forward(acc, images, ofe_pairs=est.pairs_fn(),
+                                          ofe=est.flow_fn())
+
+    if est.cfg.compute_dtype == "bfloat16":
+        forward()  # a warm-up for the timed call; the float32 clip is not timed twice
+    reset_counts()
+    secs, out = timed_runs(forward, 1)
+    expect_counts(label, corr_cuda, per_forward)
+    if not bool(torch.isfinite(out).all()):
+        fail(f"{label}: output not finite")
+    print(f"{label}: {secs[0] * 1e3:.2f} ms per forward, output {tuple(out.shape)}, "
+          f"{per_forward} kernel-#1 launches")
+    return secs[0], out
+
+
+def f0n_clips() -> dict:
+    """Phase 17c: the 7x512^2 batch-2 clip (12 iterations) through F0N fused
+    (12 launches) and stepwise (5 OFE calls: 60), and the backward fused
+    (12) and cold stepwise (60) paths, in float32 (TF32 off) and bfloat16:
+    each stepwise path against its fused one, in float32 within CLIP_REL of
+    the largest |flow|, in bfloat16 within BATCH_SPREAD times the distance
+    between the bfloat16 fused clip at batch 2 and the same two clips at
+    batch 1 (see BATCH_SPREAD)."""
+    _, images = clip_inputs()
+    cases = (("F0N fused", dict(direction="forward"), 12),
+             ("F0N stepwise", dict(direction="forward", fused_ofe=False), 60),
+             ("backward fused", {}, 12),
+             ("backward cold stepwise", dict(fused_ofe=False), 60))
+    rows, outs = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        est = models.build_flow_estimator("raft", compute_dtype=dtype, seed=0)
+        for label, kw, per in cases:
+            secs, outs[label, dtype] = accflow_clip(f"clip 7x512^2 {label} {dtype}", kw, est,
+                                                    images, per)
+            rows[f"{label} {dtype}"] = dict(ms_per_forward=secs * 1e3, launches=per)
+        if dtype == "bfloat16":
+            halves = [accflow_clip(f"clip 7x512^2 backward fused bfloat16, clip {i} alone", {},
+                                   est, images[:, i:i + 1].contiguous(), 12)[1]
+                      for i in range(2)]
+            outs["backward fused, batch 1", dtype] = torch.cat(halves, dim=1)
+        del est
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def dist(a, b):
+        got, ref = outs[a], outs[b]
+        diff, flow_max = float((got - ref).abs().max()), float(ref.abs().max())
+        print(f"clip 7x512^2 {a[0]} {a[1]} vs {b[0]} {b[1]}: max abs {diff:.3e} "
+              f"({'bit-equal' if diff == 0 else 'not bit-equal'}), |flow| max {flow_max:.3e}, "
+              f"ratio {diff / flow_max:.3e}")
+        return diff, flow_max
+
+    floor = dist(("backward fused, batch 1", "bfloat16"), ("backward fused", "bfloat16"))[0]
+    rows["backward fused bfloat16"]["batch_1_vs_2"] = floor
+    for a, b in (("F0N stepwise", "F0N fused"), ("backward cold stepwise", "backward fused")):
+        diff, flow_max = dist((a, "float32"), (b, "float32"))
+        rows[f"{a} float32"]["max_abs_vs_fused"] = diff
+        if not diff <= CLIP_REL * flow_max:
+            fail(f"clip {a} float32: differs from {b} by {diff:.3e} > {CLIP_REL} x {flow_max:.3e}")
+        diff = dist((a, "bfloat16"), (b, "bfloat16"))[0]
+        rows[f"{a} bfloat16"]["max_abs_vs_fused"] = diff
+        print(f"clip 7x512^2 {a} bfloat16: {diff:.3e} from {b} (bar {BATCH_SPREAD:g} x the fused "
+              f"clip's batch-1-vs-2 distance {floor:.3e})")
+        if not diff <= BATCH_SPREAD * floor:
+            fail(f"clip {a} bfloat16: differs from {b} by {diff:.3e} > {BATCH_SPREAD} x {floor:.3e}")
+        for c in (a, b):
+            rows[f"{c} bfloat16"]["max_abs_vs_float32"] = dist((c, "bfloat16"), (b, "float32"))[0]
+    del images, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def f0n_phase(root: str, tmp: str) -> dict:
+    """Phase 17: AccFlow's forward (F0N) direction and cold stepwise path.
+    (a) train_acc with configs/AccRAFT-F0N.yml as shipped (direction
+    forward, labels from fflows; batch 6, 256^2, bf16, noise, frozen RAFT on
+    kernel #1), graphed, 13 steps with a validation at step 10, as phase
+    14's AccRAFT run; (b) train_gpu_vs_cpu for the F0N step (TRAIN_* bars);
+    (c) f0n_clips."""
+    opt = train_opts("AccRAFT-F0N.yml", root, Path(tmp) / "train_f0n", valid_freq=10)
+    if opt.direction != "forward":
+        fail(f"configs/AccRAFT-F0N.yml: direction {opt.direction!r}")
+    run = engine_run("AccRAFT-F0N", opt, 13)
+    run.pop("state")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(train=run, gpu_vs_cpu=train_gpu_vs_cpu(direction="forward"), clips=f0n_clips())
+
+
 def build_kernels() -> None:
     """Phase 2: one nvcc per source (and per build of a source), started
     together."""
@@ -2869,7 +3267,11 @@ def main() -> int:
     evals = eval_phase()
     with tempfile.TemporaryDirectory() as tmp:
         train = train_phase(tmp, args.profile)
-        finetune = finetune_phase(str(Path(tmp) / "cvor_train"), tmp, args.profile)
+        root = str(Path(tmp) / "cvor_train")
+        finetune = finetune_phase(root, tmp, args.profile)
+        ondemand = dict(small_clips=ondemand_small_clips(), clip=ondemand_clip(),
+                        hires=hires_phase(), finetune=finetune_ondemand(root, tmp))
+        f0n = f0n_phase(root, tmp)
     print(f"train on {line} (graphed, train_acc): AccRAFT {train['accraft']['ms_per_step']:.2f} "
           f"ms per step ({train['accraft']['clips_per_s']:.3f} clips/s, peak "
           f"{train['accraft']['peak_gib']:.3f} GiB, idle "
@@ -2885,6 +3287,21 @@ def main() -> int:
         + "; RAFT steps alone, eager / graphed / busy ms: " + ", ".join(
             f"{remat} {r['eager_ms']:.2f} / {r['graphed_ms']:.2f} / {r['busy_ms']:.2f}"
             for remat, r in finetune["graphed"].items()))
+    hires = ondemand["hires"]["rows"]
+    print(f"ondemand on {line}: clip 7x512^2 batch 2 eager " + ", ".join(
+        f"{lk} {r['ms_per_forward']:.2f} ms (peak {r['peak_gib']:.3f} GiB)"
+        for lk, r in ondemand["clip"].items()) + "; long_range " + ", ".join(
+        f"{k} {r['s_per_call']:.3f} s (peak {r['peak_gib']:.3f} GiB)" for k, r in hires.items())
+        + f"; fine-tune RAFT ondemand {ondemand['finetune']['raft']['ms_per_step']:.2f} ms per "
+        f"step (peak {ondemand['finetune']['raft']['peak_gib']:.3f} GiB; fused "
+        f"{finetune['raft']['ms_per_step']:.2f} ms, {finetune['raft']['peak_gib']:.3f} GiB)")
+    print(f"F0N on {line}: train AccRAFT-F0N {f0n['train']['ms_per_step']:.2f} ms per step "
+          f"({f0n['train']['clips_per_s']:.3f} clips/s, peak {f0n['train']['peak_gib']:.3f} GiB, "
+          f"idle {100 * f0n['train']['replay']['idle_share']:.1f} %; AccRAFT "
+          f"{train['accraft']['ms_per_step']:.2f} ms); clip 7x512^2 " + ", ".join(
+              f"{k} {c['ms_per_forward']:.2f} ms" for k, c in f0n["clips"].items()))
+    print(json.dumps({"ondemand": {"card": line, **ondemand}}, default=str))
+    print(json.dumps({"f0n": {"card": line, **f0n}}, default=str))
     print(json.dumps({"graphs": {"card": line, "clip": clip_extra, "stream_a": stream_a,
                                  "stream_b": stream_b}}))
     print(json.dumps({"gma": {
@@ -2930,7 +3347,18 @@ def main() -> int:
                                  "and a validation batch (float32 levels, bfloat16 out), "
                                  "counted as in training",
          "finetune_launches_per_replay": finetune["raft"]["replay"]["lookup_launches"],
-         "finetune_shape": finetune["lookup_kernel_1"]},
+         "finetune_shape": finetune["lookup_kernel_1"],
+         "ondemand_clip_launches": {lk: r["launches"] for lk, r in ondemand["clip"].items()},
+         "ondemand_clip_launches_in": "5 eager forwards of the 7x512^2 clip each (12 per "
+                                      "chunk and forward)",
+         "hires_launches": {k: r["launches"] for k, r in hires.items()},
+         "finetune_ondemand_launches": ondemand["finetune"]["raft"]["launches"]["corr_lookup"],
+         "finetune_ondemand_launches_in": "RAFT fine-tune with corr_lookup ondemand, 6 graphed "
+                                          "steps, counted as in training",
+         "f0n_train_launches": f0n["train"]["launches"]["corr_lookup"],
+         "f0n_train_launches_in": "AccRAFT-F0N training, 13 graphed steps and a validation "
+                                  "batch, counted as in training",
+         "f0n_clip_launches": {k: c["launches"] for k, c in f0n["clips"].items()}},
         {"name": "corr_lookup_f32_out", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:264",
@@ -2952,7 +3380,8 @@ def main() -> int:
          "finetune_launches": finetune["raft_small"]["launches"]["corr_level_lookup"],
          "finetune_launches_in": "RAFT-small fine-tune, 6 graphed steps (float32 levels, "
                                  "bfloat16 out): 2 eager steps and the capture counted",
-         "finetune_shape": finetune["lookup_kernel_2"]},
+         "finetune_shape": finetune["lookup_kernel_2"],
+         "ondemand_small_clip_launches": ondemand["small_clips"]["RAFT-small ondemand:16"]},
         {"name": "corr_level_lookup_f32_out", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_level_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:466",
@@ -2995,6 +3424,9 @@ def main() -> int:
          "levels_dtype": "float32", "grad_dtype": "bfloat16", "radius": 4,
          "shape": "Q = 6*32*32, maps 32^2 .. 4^2",
          "gma_launches": finetune["gma"]["launches"]["corr_lookup_backward"],
+         "finetune_ondemand_launches":
+             ondemand["finetune"]["raft"]["launches"]["corr_lookup_backward"],
+         "finetune_ondemand_64_launches": ondemand["finetune"]["gpu_vs_cpu"]["launches"],
          "other_dtypes": {k: v for k, v in finetune["backward_kernel_1"].items()
                           if k != "float32 levels, bfloat16 grad"}},
         {"name": "corr_level_lookup_backward", "route": "cuda",

@@ -21,7 +21,10 @@ widths chip_smoke.py runs:
   batch 6, 12 iterations, bf16: the metrics as floats;
 - train_acc: configs/AccRAFT.yml as shipped on 12 synthetic 256^2 clips, 3
   steps from seed 0, noise on: the losses as floats and the sha256 of the
-  trained weights.
+  trained weights;
+- fine_tune: configs/RAFT.yml as shipped on the same clips, 3 steps from
+  seed 0: the losses and the sha256 of the trained weights and buffers
+  (fine_tune, and so this entry, exists since estimator fine-tuning).
 
 The last line is one JSON object with these entries and the card's name.
 """
@@ -45,6 +48,7 @@ from accflow_tpu_torch.convert import to_jax_params  # noqa: E402
 from accflow_tpu_torch.data.synthetic import write_synthetic_cvor  # noqa: E402
 from accflow_tpu_torch.streaming import make_streaming_fns  # noqa: E402
 from accflow_tpu_torch.train import engine  # noqa: E402
+from accflow_tpu_torch.train import finetune  # noqa: E402
 from accflow_tpu_torch.train.evaluate import evaluate_cvo  # noqa: E402
 from accflow_tpu_torch.utils.config import parse_options  # noqa: E402
 
@@ -108,30 +112,34 @@ def main() -> int:
         torch.cuda.empty_cache()
         root = str(Path(tmp) / "cvor256")
         write_synthetic_cvor(root, num_train=12, num_test=2, h=256, w=256)
-        opt = parse_options(str(ROOT / "configs" / "AccRAFT.yml"))
-        opt.update(dataset_root=root, log_dir=str(Path(tmp) / "logs"),
-                   ckpt_dir=str(Path(tmp) / "ckpt"), flow_pretrained=None, visual_samples=[],
-                   seed=0, valid_freq=1000)
-        losses = []
-        make = engine.make_acc_train_step
+        for key, module, factory, run, config in (
+                ("train", engine, "make_acc_train_step", engine.train_acc, "AccRAFT.yml"),
+                ("finetune", finetune, "make_finetune_step", finetune.fine_tune, "RAFT.yml")):
+            opt = parse_options(str(ROOT / "configs" / config))
+            opt.update(dataset_root=root, log_dir=str(Path(tmp) / key / "logs"),
+                       ckpt_dir=str(Path(tmp) / key / "ckpt"), flow_pretrained=None,
+                       visual_samples=[], seed=0, valid_freq=1000)
+            losses = []
+            make = getattr(module, factory)
 
-        def recording(*a, **k):
-            step, valid = make(*a, **k)
+            def recording(*a, make=make, losses=losses, **k):
+                step, valid = make(*a, **k)
 
-            def rec(*args):
-                loss, metrics = step(*args)
-                losses.append(float(loss))
-                return loss, metrics
+                def rec(*args):
+                    loss, metrics = step(*args)
+                    losses.append(float(loss))
+                    return loss, metrics
 
-            return rec, valid
+                return rec, valid
 
-        engine.make_acc_train_step = recording
-        try:
-            state = engine.train_acc(opt, max_steps=3)
-        finally:
-            engine.make_acc_train_step = make
-        out["train_losses"] = losses
-        out["train_weights"] = sha(*state.model.state_dict().values())
+            setattr(module, factory, recording)
+            try:
+                state = run(opt, max_steps=3)
+            finally:
+                setattr(module, factory, make)
+            out[f"{key}_losses"] = losses
+            out[f"{key}_weights"] = sha(*state.model.state_dict().values())
+            torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0
 

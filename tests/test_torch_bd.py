@@ -176,7 +176,7 @@ def test_raft_forward_split_lookup_matches_jax(raft_setup, lookup):
 @pytest.mark.parametrize("spelling,want", [
     ("fused", "fused"), ("mm", "fused"), ("pallas_fused", "fused"),
     ("experimental:fused_bd", "fused_bd"), ("experimental:fused_bd2", "fused_bd2"),
-    ("auto", "auto"),
+    ("auto", "auto"), ("ondemand", "ondemand"), ("ondemand:4096", "ondemand:4096"),
 ])
 def test_normalize_corr_lookup(spelling, want):
     assert normalize_corr_lookup(spelling) == want
@@ -185,14 +185,16 @@ def test_normalize_corr_lookup(spelling, want):
 def test_corr_lookup_fence():
     with pytest.raises(ValueError, match="experimental:fused_bd"):
         RAFTConfig(corr_lookup="fused_bd")
+    # The volume-free lookup runs kernel #1 on rebuilt rows, not the split
+    # lookup; a bad chunk suffix raises as JAX's does.
     for spelling in ("ondemand", "ondemand:4096"):
-        with pytest.raises(NotImplementedError, match="queue 1 #11"):
-            RAFTConfig(corr_lookup=spelling)
-    # "auto" is kernel #1's lookup within the stored volume's budget and
-    # raises beyond it, where JAX picks the unported ondemand lookup.
+        assert RAFTConfig(corr_lookup=spelling).split_levels is None
+    with pytest.raises(ValueError, match="must be positive"):
+        RAFTConfig(corr_lookup="ondemand:0")
+    # "auto" is kernel #1's stored lookup within the stored volume's budget
+    # and the volume-free ondemand lookup beyond it, as in JAX.
     assert RAFTConfig(corr_lookup="auto").split_levels is None
-    with pytest.raises(NotImplementedError, match="queue 1 #11"):
-        resolve_auto_lookup("auto", 64, 64, 64)
+    assert resolve_auto_lookup("auto", 11, 180, 320, dtype=torch.bfloat16) == "ondemand"
     with pytest.raises(NotImplementedError, match="not ported"):
         RAFTConfig(corr_lookup="experimental:packed2")
     assert RAFTConfig(corr_lookup="experimental:fused_bd2").split_levels == ("bd", "bd", "mm", "mm")

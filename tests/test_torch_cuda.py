@@ -1077,3 +1077,54 @@ def test_graphed_evaluate_cvo_bit_equal_eager(dev, tmp_path, monkeypatch, model_
     assert [g.captures for g in made] == [1]
     monkeypatch.setattr(evaluate, "CudaGraphed", lambda fn: fn)
     assert run() == graphed
+
+
+@pytest.mark.parametrize("radius,chunk", [(4, 0), (4, 64), (3, 0), (3, 37)])
+def test_ondemand_lookup_matches_plain_and_launches_per_chunk(dev, radius, chunk):
+    """The volume-free lookup on the card (each chunk's rows rebuilt and read
+    by kernel #1 at radius 4, #2 at radius 3) against the plain lookup on
+    the CPU's stored pyramid: one launch per chunk (16x16 maps: 256 queries,
+    AUTO one chunk, 64 four, 37 rounds down to 32: eight)."""
+    from accflow_tpu_torch.nn.layers import tf32
+    from accflow_tpu_torch.ops import corr
+
+    gen = torch.Generator().manual_seed(1)
+    f1, f2 = (torch.randn((2, 16, 16, 16), generator=gen) for _ in range(2))
+    ys, xs = torch.meshgrid(torch.arange(16), torch.arange(16), indexing="ij")
+    coords = (torch.stack([xs, ys], -1).float() + (torch.rand((2, 16, 16, 2), generator=gen)
+                                                   * 40 - 20)).contiguous()
+    ref = lookup_corr_plain(corr.build_corr_pyramid(f1, f2, 4), coords.reshape(-1, 2), radius)
+    kernel = corr_cuda if radius == 4 else corr_level_cuda
+    before = kernel.launches
+    with tf32(False):
+        od = corr.build_corr_on_demand(f1.to(dev), f2.to(dev), 4)
+        got = corr.lookup_corr_on_demand(od, coords.to(dev), radius, chunk)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 256 // corr.prepare_ondemand_chunks(od, chunk).chunk
+    np.testing.assert_allclose(got.reshape(-1, ref.shape[1]).cpu().numpy(), ref.numpy(), **TOL)
+
+
+def test_ondemand_clip_gpu_matches_cpu_and_is_graphed(dev):
+    """A 64^2 clip with corr_lookup ondemand:16 (4 chunks) on the GPU against
+    the CPU (f32, TF32 off) within 1e-3 of the largest |flow|, and its CUDA
+    graph (serving.build_serving_fn) bit-equal to the eager GPU run."""
+    from accflow_tpu_torch.nn.layers import tf32
+
+    clip = np.random.default_rng(3).uniform(-1, 1, (4, 1, 64, 64, 3)).astype(np.float32)
+    outs = {}
+    for where in ("cuda", "cpu"):
+        est = build_flow_estimator("raft", compute_dtype="float32", iters=3, device=where,
+                                   corr_lookup="ondemand:16")
+        acc = init_accflow(AccFlowConfig(hidden=32, compute_dtype="float32"), device=where)
+        with tf32(False):
+            outs[where] = accflow_forward(acc, clip, est.pairs_fn()).cpu()
+            if where == "cuda":
+                graphed = graphs.CudaGraphed(serving.build_serving_fn(est, acc))
+                images = torch.from_numpy(clip).to(dev)
+                for _ in range(3):
+                    replay = graphed(images)
+                assert graphed.captures == 1
+                assert torch.equal(replay.cpu(), outs[where])
+    flow_max = float(outs["cpu"].abs().max())
+    assert flow_max > 0
+    assert float((outs["cuda"] - outs["cpu"]).abs().max()) <= 1e-3 * flow_max

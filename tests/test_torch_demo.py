@@ -7,8 +7,9 @@ held against JAX's demo on the same frames: pair flows at rtol 1e-3 /
 atol 5e-3, long-range flows at rtol 2e-3 / atol 2e-2. The artifact modes
 run programs that the port's export CLI writes (a GMA clip with chunked
 attention and a symbolic batch; a RAFT stream) and equal the port's live
-modes within 1e-4. JAX's ondemand case has no counterpart: the volume-free
-lookup is not ported (ROADMAP.md, queue 1 #11)."""
+modes within 1e-4. The pairs mode also runs with --corr_lookup ondemand:8
+(the volume-free lookup: at 40x40, 5 chunks of 5 queries) against JAX's demo
+with the same lookup (tests/test_demo.py:52-66)."""
 
 import os
 
@@ -83,6 +84,13 @@ def test_demo_pairs_mode(env):
         np.testing.assert_allclose(_flo(out, name + ".flo"), j_read_flow(
             os.path.join(jout, name + ".flo")), **TOL)
         assert os.path.exists(os.path.join(out, name + ".png"))  # the colour wheel
+
+
+def test_demo_pairs_ondemand_lookup(env):
+    out, jout = _run(env, "pairs_od", ["--ofe_ckpt", env["raft"] + ".ofe.npz", "--corr_lookup",
+                                       "ondemand:8", "--no_viz"])
+    name = "frame_000_to_frame_001.flo"
+    np.testing.assert_allclose(_flo(out, name), j_read_flow(os.path.join(jout, name)), **TOL)
 
 
 def test_demo_occ_mode(env):

@@ -239,13 +239,15 @@ def test_evaluate_cvo_acc_split_lookup_matches_fused(cvor_root, tmp_path):
 
 
 def test_evaluate_cvo_rejects(cvor_root):
-    """What the port still refuses: an unknown estimator and the volume-free
-    lookup (ROADMAP.md, queue 1 #11). GMA and attn_chunk, refused before
-    GMA was ported, are held against JAX by test_evaluate_cvo_gma_matches_jax."""
+    """What the port refuses: an unknown estimator and a volume-free lookup
+    with a bad chunk suffix (as JAX does). GMA and attn_chunk, refused before
+    GMA was ported, are held against JAX by test_evaluate_cvo_gma_matches_jax,
+    and the volume-free lookup, refused before it was ported, by
+    tests/test_torch_ondemand.py::test_evaluate_cvo_ondemand_matches_jax."""
     with pytest.raises(NotImplementedError, match="unknown flow estimator"):
         evaluate_cvo("direct|flownet", cvor_root, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 #11"):
-        evaluate_cvo("direct|gma", cvor_root, corr_lookup="ondemand", device="cpu")
+    with pytest.raises(ValueError, match="must be positive"):
+        evaluate_cvo("direct|gma", cvor_root, corr_lookup="ondemand:0", device="cpu")
 
 
 @pytest.fixture(scope="module")

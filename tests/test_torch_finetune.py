@@ -585,21 +585,27 @@ def test_cli_fine_tunes_from_a_config(tmp_path, cvor):
 
 @pytest.mark.parametrize("lookup,match", [("experimental:fused_bd", "#16"),
                                           ("experimental:fused_bd2", "#16"),
-                                          ("ondemand", "#11")])
+                                          ("ondemand", None)])
 def test_lookups_without_a_backward_raise(tmp_path, lookup, match):
     """A fine-tune through a lookup with no backward raises before any
     step, naming its ROADMAP item: the split lookups need kernel #3's
-    backward (#16), ondemand is not ported (#11); the train forward raises
-    the same for the split lookups."""
+    backward (#16); the train forward raises the same for them. The
+    volume-free ondemand lookup, which raised before it was ported, builds
+    and differentiates into the features (its step is held against JAX by
+    tests/test_torch_ondemand.py)."""
     opt = _opts(tmp_path, "unused", small=False, corr_lookup=lookup)
+    est = build_flow_estimator("raft", compute_dtype="float32", corr_lookup=lookup,
+                               device="cpu")
+    img = np.zeros((1, 64, 64, 3), np.float32)
+    if match is None:
+        assert ft.build_estimator(opt, device="cpu").cfg.corr_lookup == lookup
+        est.forward(img, img + 0.5, iters=1, train=True)["flow_up"].sum().backward()
+        assert est.model.fnet.conv1.weight.grad.abs().sum() > 0
+        return
     with pytest.raises(NotImplementedError, match=match):
         ft.build_estimator(opt, device="cpu")
-    if lookup != "ondemand":
-        est = build_flow_estimator("raft", compute_dtype="float32", corr_lookup=lookup,
-                                   device="cpu")
-        img = np.zeros((1, 64, 64, 3), np.float32)
-        with pytest.raises(NotImplementedError, match=match):
-            est.forward(img, img, iters=1, train=True)
+    with pytest.raises(NotImplementedError, match=match):
+        est.forward(img, img, iters=1, train=True)
 
 
 @pytest.mark.parametrize("op", ["corr_lookup", "corr_level_lookup", "corr_lookup_backward",

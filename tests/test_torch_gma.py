@@ -180,10 +180,14 @@ def test_fused_bd_matches_fused(setup):
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-4)
 
 
-def test_resolve_auto_attn_chunk():
+def test_resolve_auto_attn_chunk(monkeypatch):
     """The cases of tests/test_ops_golden.py:467-490, on the port's
-    byte counts."""
+    byte counts, at JAX's 4 GiB budget; then at the port's own
+    AUTO_VOLUME_BYTES (25 GiB, re-derived for the H100's 80 GB), where 6
+    pairs of 160^2 maps stay dense (23.6 GB) and 7 chunk (27.5 GB)."""
     r = gma.resolve_auto_attn_chunk
+    assert r(-1, 6, 1, 160, 160) == 0 and r(-1, 7, 1, 160, 160) == 1024
+    monkeypatch.setattr(corr_ops, "AUTO_VOLUME_BYTES", 4 << 30)
     assert r(-1, 1, 1, 64, 64) == 0
     assert r(-1, 3, 1, 256, 256) == 1024
     assert r(16, 3, 1, 256, 256) == 16
@@ -197,16 +201,16 @@ def test_resolve_auto_attn_chunk():
 
 def test_resolve_auto_lookup(setup, monkeypatch):
     """corr_lookup "auto" is kernel #1's "fused" within the budget, on the port's
-    logical byte count (the TPU's lane padding not counted), and raises
-    beyond it; attn_chunk=-1 chunks once the budget is small, with the
-    same flow."""
+    logical byte count (the TPU's lane padding not counted), and the
+    volume-free "ondemand" beyond it; attn_chunk=-1 chunks once the budget
+    is small, with the same flow, and so does a forward beyond the budget
+    (ondemand, chunked attention)."""
     assert corr_ops.stored_volume_bytes(22, 64, 64) == 22 * 4096 * (4096 + 1024 + 256 + 64) * 4
     assert corr_ops.stored_volume_bytes(1, 3, 5, dtype=torch.bfloat16) == 15 * (15 + 2) * 2
     assert corr_ops.resolve_auto_lookup("auto", 22, 64, 64) == "fused"  # JAX: ondemand
     assert corr_ops.resolve_auto_lookup("experimental:fused_bd", 10 ** 6, 64, 64) == \
         "experimental:fused_bd"
-    with pytest.raises(NotImplementedError, match="queue 1 #11"):
-        corr_ops.resolve_auto_lookup("auto", 64, 64, 64)
+    assert corr_ops.resolve_auto_lookup("auto", 11, 180, 320, dtype=torch.bfloat16) == "ondemand"
     tree, est, frames = setup
     dense = est.forward(frames[0], frames[1], iters=ITERS, final_only=True)["flow_up"]
     auto = _port(tree, corr_lookup="auto", attn_chunk=-1)
@@ -222,5 +226,6 @@ def test_resolve_auto_lookup(setup, monkeypatch):
     assert seen == [1024]
     np.testing.assert_allclose(got.numpy(), dense.numpy(), rtol=0, atol=1e-5)
     monkeypatch.setattr(corr_ops, "AUTO_VOLUME_BYTES", 1)
-    with pytest.raises(NotImplementedError, match="queue 1 #11"):
-        auto.forward(frames[0], frames[1], iters=ITERS)
+    got = auto.forward(frames[0], frames[1], iters=ITERS, final_only=True)["flow_up"]
+    assert seen == [1024, 1024]
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), rtol=0, atol=1e-5)

@@ -191,19 +191,39 @@ def test_cli_exports_an_artifact_that_runs(tmp_path):
     assert run.stdout.split("\n")[-2] == "(1, 1, 32, 32, 2) True"
 
 
+def test_cli_exports_the_volume_free_lookup(tmp_path):
+    """--corr_lookup ondemand:8 bakes the volume-free lookup (2 chunks of
+    rebuilt rows per lookup at 32^2) into the artifact, as JAX's CLI does:
+    the loaded program equals the eager stored-volume clip on the same
+    seeded weights."""
+    out = str(tmp_path / "od.pt2")
+    cli.main(["--device", "cpu", "--size", "32", "--frames", "3", "--batch", "1",
+              "--iters", "2", "--compute-dtype", "float32", "--corr_lookup", "ondemand:8",
+              "--out", out])
+    clip = np.random.default_rng(4).uniform(-1, 1, (3, 1, 32, 32, 3)).astype(np.float32)
+    got = serving.load_artifact(out, device="cpu")(clip)
+    est = build_flow_estimator("raft", compute_dtype="float32", iters=2, device="cpu")
+    acc = init_accflow(AccFlowConfig(compute_dtype="float32"), device="cpu")
+    from accflow_tpu_torch.models import accflow_forward
+
+    want = accflow_forward(acc, clip, est.pairs_fn())
+    np.testing.assert_allclose(np.asarray(got), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("args,err", [
     (["--ofe", "gma", "--corr_lookup", "experimental:packed2"], NotImplementedError),
-    (["--corr_lookup", "ondemand:16"], NotImplementedError),
-    # "auto" beyond the stored volume's budget (3 pairs of 136 x 136 float32
-    # maps: 5.5 GB), where JAX picks the unported ondemand lookup.
-    (["--corr_lookup", "auto", "--size", "1088", "--frames", "3", "--batch", "1",
-      "--compute-dtype", "float32"], NotImplementedError),
+    (["--corr_lookup", "ondemand:0"], ValueError),
+    # "auto" sizes the stored volume by the batch: a symbolic one cannot be
+    # sized (as in JAX).
+    (["--corr_lookup", "auto", "--batch", "0"], ValueError),
     (["--streaming", "--batch", "0"], SystemExit),
 ])
 def test_cli_refuses(tmp_path, args, err):
-    """What the CLI refuses: spellings that are not ported, "auto" beyond
-    its budget, a streaming export with a symbolic batch. (--ofe gma and
-    --attn_chunk, refused before GMA was ported, export in
-    tests/test_torch_demo.py.)"""
+    """What the CLI refuses: spellings that are not ported, an ondemand
+    chunk that is not positive, "auto" with a symbolic batch, a streaming
+    export with a symbolic batch. (--ofe gma and --attn_chunk, refused
+    before GMA was ported, export in tests/test_torch_demo.py; ondemand and
+    "auto" beyond its budget, refused before the volume-free lookup was
+    ported, export in test_cli_exports_the_volume_free_lookup.)"""
     with pytest.raises(err):
         cli.main(["--device", "cpu", "--size", "32", "--out", str(tmp_path / "x.pt2"), *args])

@@ -347,11 +347,13 @@ def test_losses_match_jax(kind):
 
 
 def test_build_acc_model_refuses_the_forward_direction():
-    """direction: forward (the F0N ablation, configs/AccRAFT-F0N.yml) is not
-    ported: it raises naming ROADMAP #6, before any model is built."""
+    """direction: forward (the F0N ablation, configs/AccRAFT-F0N.yml), refused
+    before it was ported, builds the forward-direction accumulator (its
+    paths and train step: tests/test_torch_f0n.py); an unknown direction
+    raises before any model is built."""
     opt = config.parse_options("configs/AccRAFT-F0N.yml")
-    with pytest.raises(NotImplementedError, match="#6"):
-        engine.build_acc_model(opt, device="cpu")
+    opt.compute_dtype = "float32"
+    assert engine.build_acc_model(opt, device="cpu")[1].direction == "forward"
     opt.direction = "sideways"
     with pytest.raises(ValueError, match="direction"):
         engine.build_acc_model(opt, device="cpu")
