@@ -6,7 +6,8 @@
 
 Beyond the reference: --dataset-root (CVOR data), --synthetic (write a small
 synthetic dataset there first), --size/--iters/--batch, --corr_lookup, and
---device (cuda by default; cpu runs the plain path).
+--device (cuda by default; cpu runs the plain path). Under torchrun each rank
+runs its rows of every micro-batch.
 """
 
 from __future__ import annotations
@@ -60,8 +61,10 @@ def main(argv=None):
         write_synthetic_cvor(args.dataset_root, num_train=2, num_test=4,
                              h=args.size, w=args.size)
 
+    from accflow_tpu_torch.parallel.mesh import maybe_init_distributed
     from accflow_tpu_torch.train.evaluate import evaluate_cvo
 
+    maybe_init_distributed(args.device)
     return evaluate_cvo(
         args.acc + "|" + args.ofe,
         args.dataset_root,

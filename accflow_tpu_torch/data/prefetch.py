@@ -2,10 +2,17 @@
 
 `threaded_batches` runs a batch iterator (decode, collate) in a background
 thread. `device_prefetch` moves batches to the card ahead of the consumer:
-a host thread pins each numpy batch and copies it with non_blocking=True on
-a side stream, keeping up to `depth` batches ahead; the consumer's stream
-waits on each copy's event before it uses the batch. On the CPU it passes
-the batches through unchanged.
+a host thread pins each numpy batch, copies it with non_blocking=True on a
+side stream and waits for the copies there, keeping up to `depth` batches
+ahead, so the consumer gets batches already on the card and no CUDA event
+crosses threads. Its CUDA work takes graphs.CAPTURE_LOCK, which every
+capture holds: no other thread issues CUDA work while a graph is captured.
+(On an H100, without the lock, a graphed fine-tune run whose captured step
+held NCCL's collectives failed twice in the whole chip_smoke.py, once in
+the consumer's wait on the thread's copy event and once in the capture,
+invalidated before its first kernel; with it, no run has failed. The
+cause within CUDA is not established.) On the CPU it passes the batches
+through unchanged.
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+
+from accflow_tpu_torch import graphs
 
 _END = object()
 
@@ -94,17 +103,15 @@ def device_prefetch(iterator: Iterable, depth: int = 2, device=None) -> Iterator
     copy_stream = torch.cuda.Stream(device=dev)
 
     def prepare(batch):
-        with torch.cuda.device(dev), torch.cuda.stream(copy_stream):
+        with graphs.CAPTURE_LOCK, torch.cuda.device(dev), torch.cuda.stream(copy_stream):
             host = _map(batch, lambda a: torch.as_tensor(np.ascontiguousarray(a)).pin_memory())
             moved = _map(host, lambda t: t.to(dev, non_blocking=True))
-            done = torch.cuda.Event()
-            done.record(copy_stream)
-        return moved, host, done  # `host` stays referenced until the copy is waited on
+            copy_stream.synchronize()  # this thread waits for its copies, not the consumer
+        return moved
 
-    for moved, _host, done in _background(iter(iterator), depth, prepare):
-        consumer = torch.cuda.current_stream(dev)
-        consumer.wait_event(done)
+    for moved in _background(iter(iterator), depth, prepare):
         # The copies were allocated on the side stream and are used on the
         # consumer's: tell the caching allocator.
+        consumer = torch.cuda.current_stream(dev)
         _map(moved, lambda t: t.record_stream(consumer))
         yield moved

@@ -1,6 +1,6 @@
 """CVOR: a columnar storage format for CVO-style video-flow data, the port's
-own numpy copy of accflow_tpu/data/records.py (importing accflow_tpu.data
-pulls in jax). The files it writes and reads are the JAX package's.
+own copy of accflow_tpu/data/records.py (importing accflow_tpu.data pulls
+in jax). The files it writes and reads are the JAX package's.
 
 The reference stores CVO in LMDB with values serialized by the legacy
 `pyarrow.serialize` (data/dataset.py:36-69) — a format removed from modern
@@ -32,6 +32,9 @@ from typing import Dict, Iterable, Mapping, Sequence
 
 import numpy as np
 
+from accflow_tpu_torch import native
+
+ALL_KEYS = ("imgs", "imgs_blur", "fflows", "bflows", "delta_fflows", "delta_bflows")
 FLOW_OFFSET = np.float32(2**15)
 FLOW_SCALE = np.float32(128.0)
 
@@ -44,8 +47,11 @@ def encode_flow_u16(flow: np.ndarray) -> np.ndarray:
 
 def decode_flow_u16(raw: np.ndarray) -> np.ndarray:
     """uint16 storage -> float32 flow ((v - 2^15) / 128, dataset.py:65-67),
-    in numpy: the JAX package's own fallback, bit-identical to its native
-    decoder, which this package does not import."""
+    through the port's native C++ core when it is built (one pass writing
+    the output buffer, a large array over several threads:
+    accflow_tpu_torch/native), else in numpy; both give the same bits."""
+    if native.available():
+        return native.decode_flow_u16(raw)
     return (raw.astype(np.float32) - FLOW_OFFSET) / FLOW_SCALE
 
 
@@ -105,7 +111,9 @@ class CVORWriter:
 class CVORReader:
     """Zero-copy mmap reader. `sample(i, keys)` returns decoded float32
     arrays (HWC layout, frames/flows concatenated along channels exactly
-    like the reference LMDB samples)."""
+    like the reference LMDB samples). A reader of flow keys builds the
+    native core (native.get_lib) when it is made, so that no loader thread
+    compiles it."""
 
     def __init__(self, path: str, keys: Sequence[str] | None = None):
         with open(osp.join(path, "meta.json")) as f:
@@ -117,6 +125,8 @@ class CVORReader:
         for k in self.keys:
             if k not in available:
                 raise KeyError(f"key {k!r} not in dataset ({list(available)})")
+        if any("flow" in k for k in self.keys):
+            native.get_lib()
         self._mm: Dict[str, np.memmap] = {}
         for k in self.keys:
             spec = available[k]

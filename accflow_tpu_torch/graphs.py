@@ -27,17 +27,24 @@ torch.Generator, so that N calls have the effect of N eager steps (see its
 docstring).
 
 A capture checks only its own thread's CUDA calls (capture_error_mode
-"thread_local"): a data loader's thread may go on pinning and copying the
-next batch on its own stream meanwhile. On a CPU device the function is
-called as it is: that is the device the caller asked for, not a fallback.
+"thread_local"), and holds CAPTURE_LOCK, which data/prefetch.py's copies
+to the card take too: a data loader's thread may go on decoding the next
+batch meanwhile, but issues no CUDA work until the capture ends. On a CPU
+device the function is called as it is: that is the device the caller
+asked for, not a fallback.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 from torch.utils import _pytree as pytree
 
 WARMUP = 2  # eager runs on the capture stream before a capture
+# Held by each capture and by data/prefetch.py's copies to the card, so
+# that no other thread issues CUDA work while a graph is captured.
+CAPTURE_LOCK = threading.Lock()
 
 
 def _capture_stream() -> torch.cuda.Stream:
@@ -76,8 +83,8 @@ class _Graph:
             for gen in leaves:
                 if isinstance(gen, torch.Generator):
                     self.graph.register_generator_state(gen)
-            with torch.cuda.graph(self.graph, stream=_capture_stream(),
-                                  capture_error_mode="thread_local"):
+            with CAPTURE_LOCK, torch.cuda.graph(self.graph, stream=_capture_stream(),
+                                                capture_error_mode="thread_local"):
                 out = fn(*args)
         self.outputs, self.out_spec = pytree.tree_flatten(out)
         if not all(isinstance(o, torch.Tensor) for o in self.outputs):

@@ -1,0 +1,108 @@
+"""The host C++ core of the CVOR data path (src/cvor_core.cpp, the port's
+own copy of accflow_tpu/native's flow decode), loaded with ctypes:
+counterpart of accflow_tpu/native/__init__.py, for data/records.py.
+
+It is built with g++ at first use, never on import, into the git-ignored
+`_build/` beside this package (named by a hash of the source and flags, so
+an edited source rebuilds), and its ABI version is checked. Without g++ on
+the machine `get_lib()` is None and decode_flow_u16 computes the same bits
+in numpy, as JAX's does; a g++ that fails, or a library of another ABI
+version, raises. This is host code: no device kernel lives here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+SRC = Path(__file__).resolve().parent / "src" / "cvor_core.cpp"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+ABI_VERSION = 1
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_tried = False
+
+_P = ctypes.POINTER
+
+
+def build() -> Optional[Path]:
+    """Compile the core unless this source and these flags were built
+    before. Returns the library's path, or None when there is no g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None
+    tag = hashlib.sha256(SRC.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"cvor_core-{tag}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
+    proc = subprocess.run([gxx, *GXX_FLAGS, str(SRC), "-o", str(tmp)], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed on {SRC}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent process never loads a partial file
+    return lib
+
+
+def get_lib() -> Optional[ctypes.CDLL]:
+    """The loaded core, built on the first call; None without g++."""
+    global _lib, _tried
+    with _lock:
+        if _tried:
+            return _lib
+        path = build()
+        if path is not None:
+            lib = ctypes.CDLL(str(path))
+            lib.cvor_abi_version.restype = ctypes.c_int
+            lib.cvor_abi_version.argtypes = []
+            if lib.cvor_abi_version() != ABI_VERSION:
+                raise RuntimeError(f"{path}: ABI version {lib.cvor_abi_version()}, "
+                                   f"expected {ABI_VERSION}")
+            lib.cvor_decode_flow_u16.argtypes = [_P(ctypes.c_uint16), _P(ctypes.c_float),
+                                                 ctypes.c_int64, ctypes.c_int]
+            lib.cvor_decode_flow_u16.restype = None
+            _lib = lib
+        _tried = True
+        return _lib
+
+
+def available() -> bool:
+    return get_lib() is not None
+
+
+# Values a decode thread takes on. A call spawns its threads afresh, which
+# costs more than it saves on what the readers decode per call (a 256^2
+# training crop of one flow key is 0.66M values, a 512^2 sample 2.6M): those
+# run on the calling thread, and only larger arrays (a whole column) spread
+# over up to 8 threads.
+VALUES_PER_THREAD = 1 << 22
+
+
+def _threads(n: int) -> int:
+    return max(1, min(os.cpu_count() or 1, 8, n // VALUES_PER_THREAD))
+
+
+def decode_flow_u16(src: np.ndarray) -> np.ndarray:
+    """uint16 -> float32 flow decode ((v - 2^15) / 128), native when built;
+    the numpy path gives the same bits."""
+    flat = np.ascontiguousarray(src, dtype=np.uint16)
+    lib = get_lib()
+    if lib is None:
+        return (flat.astype(np.float32) - np.float32(32768.0)) / np.float32(128.0)
+    out = np.empty(flat.shape, np.float32)
+    lib.cvor_decode_flow_u16(flat.ctypes.data_as(_P(ctypes.c_uint16)),
+                             out.ctypes.data_as(_P(ctypes.c_float)), flat.size,
+                             _threads(flat.size))
+    return out

@@ -27,6 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from accflow_tpu_torch.parallel import mesh
+
 
 @contextlib.contextmanager
 def tf32(enabled: bool):
@@ -77,7 +79,7 @@ def batch_norm(x, weight, bias, running_mean, running_var, eps: float = 1e-5):
 
 
 def batch_norm_train(x, weight, bias, running_mean, running_var, eps: float = 1e-5,
-                     momentum: float = 0.1):
+                     momentum: float = 0.1, group=None):
     """Train-mode BatchNorm2d (accflow_tpu/nn/layers.py::batch_norm with
     train=True): x normalised with its batch's statistics over (N, H, W),
     taken in float32 with the biased variance, the affine map applied in
@@ -86,10 +88,25 @@ def batch_norm_train(x, weight, bias, running_mean, running_var, eps: float = 1e
     batch's, running_var with the unbiased variance, detached. They are
     returned, not applied: a train step applies them once, after its update
     (collect_bn_updates / apply_bn_updates), and F.batch_norm's in-place
-    update would move them once per micro-batch."""
+    update would move them once per micro-batch.
+
+    With a process `group` (the caller's data-parallel axis, parallel/mesh.py)
+    the statistics are those of the group's global batch, as under JAX's
+    GSPMD: each rank's own (every rank holds as many samples), combined by
+    the parallel variance formula, mean = E_r[mean_r] and var = E_r[var_r +
+    (mean_r - mean)^2], through a differentiable sum over ranks; every rank
+    then normalises alike and moves its running statistics alike (a group
+    of one gives the local statistics' bits). With group None the local
+    statistics are all that runs, whatever process group is active."""
     xf = x.float()
     var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
     n = x.shape[0] * x.shape[2] * x.shape[3]
+    if group is not None:
+        world = torch.distributed.get_world_size(group)
+        n *= world
+        local_mean = mean
+        mean = mesh.global_sum(local_mean, group) / world
+        var = mesh.global_sum(var + (local_mean - mean) ** 2, group) / world
     with torch.no_grad():
         new_mean = (1.0 - momentum) * running_mean + momentum * mean
         new_var = (1.0 - momentum) * running_var + momentum * var * (n / max(n - 1, 1))
@@ -151,8 +168,10 @@ class BatchNorm2d(nn.Module):
     frozen and applies the running statistics, whatever torch's training
     flag says; with `batch_stats` set (`batch_statistics`) it applies the
     batch's, as torch's model.train() does, and keeps the moved running
-    statistics in `new_stats` until collect_bn_updates takes them. AdamW
-    never sees the buffers: they are not parameters."""
+    statistics in `new_stats` until collect_bn_updates takes them; `group`
+    (batch_norm_group) is the process group its batch statistics reduce
+    over, None for this process's batch. AdamW never sees the buffers: they
+    are not parameters."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -162,6 +181,7 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.batch_stats = False
         self.new_stats = None
+        self.group = None
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -176,7 +196,7 @@ class BatchNorm2d(nn.Module):
             return batch_norm(x, self.weight, self.bias, self.running_mean,
                               self.running_var)
         y, mean, var = batch_norm_train(x, self.weight, self.bias, self.running_mean,
-                                        self.running_var)
+                                        self.running_var, group=self.group)
         self.new_stats = (mean, var)
         return y
 
@@ -195,6 +215,22 @@ def batch_statistics(module: nn.Module, enabled: bool = True):
     finally:
         for m in bns:
             m.batch_stats = False
+
+
+@contextlib.contextmanager
+def batch_norm_group(module: nn.Module, group):
+    """Within the block, the BatchNorm2d layers of `module` reduce their
+    batch statistics over the ranks of the process group `group` (None:
+    this process's batch alone), as flax's BatchNorm reduces over its
+    axis_name: a train step that runs data-parallel passes its group here."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.group = None
 
 
 def collect_bn_updates(model: nn.Module) -> dict:

@@ -14,18 +14,26 @@ Recipe (configs/AccRAFT*.yml, train_acc.py):
 - periodic validation on CVO-test clean, latest and best-k checkpoints,
   flow PNGs of chosen validation samples.
 
-On the card the step runs on one GPU: the frozen estimator under no_grad
-(its correlation lookups are kernel #1, or #2 for RAFT-small), the
+On the card the step runs on each GPU of the job: the frozen estimator under
+no_grad (its correlation lookups are kernel #1, or #2 for RAFT-small), the
 accumulator's forward and backward through PyTorch's own ops, bf16 compute
 with float32 master weights and float32 flow state. As JAX jits the whole
 step, train_acc replays it from a CUDA graph (graphs.CudaGraphedStep: the
 noise draw, forward, backward, clip and AdamW update in the graph, the
 schedule's advance and the loss read outside) and its validation step too
 (graphs.CudaGraphed); on the CPU both run eagerly.
+
+Data parallelism (parallel/mesh.py, JAX's mesh): under torchrun the global
+batch is batch_per_gpu x world, every rank draws it from the same seeded
+loader and keeps its rows, the step's noise is drawn for the global batch
+and sliced likewise, the gradients, loss and metrics are averaged over
+ranks inside the step (captured with it over NCCL), the validation EPEs are
+gathered, and rank 0 alone writes logs, PNGs, TensorBoard and checkpoints.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import os.path as osp
 import struct
@@ -49,6 +57,7 @@ from accflow_tpu_torch.models.accflow import (
     init_accflow,
 )
 from accflow_tpu_torch.nn.layers import tf32
+from accflow_tpu_torch.parallel import mesh
 from accflow_tpu_torch.train.accum import accumulate_grads
 from accflow_tpu_torch.train.checkpoint import CheckpointManager
 from accflow_tpu_torch.train.loss import sequence_loss_acc
@@ -106,12 +115,18 @@ def noise_from_draws(stdv: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
     return 2.0 * (torch.clamp(stdv * normal, 0.0, 255.0) / 255.0) - 1.0
 
 
-def reference_noise(gen: torch.Generator, frame_shape) -> torch.Tensor:
+def reference_noise(gen: torch.Generator, frame_shape, group=None) -> torch.Tensor:
     """One step's noise (N, H, W, 3) float32, drawn from `gen` on its
-    device: stdv, then the normals."""
+    device: stdv, then the normals. With a process `group` the draw is the
+    group's global batch's (N x world rows, the same on every rank) and this
+    rank's rows of it are returned, so that the ranks together add the
+    noise one process would."""
+    n = frame_shape[0]
+    world, rank = ((1, 0) if group is None
+                   else (torch.distributed.get_world_size(group), torch.distributed.get_rank(group)))
     stdv = torch.rand((), generator=gen, device=gen.device) * 5.0
-    normal = torch.randn(tuple(frame_shape), generator=gen, device=gen.device)
-    return noise_from_draws(stdv, normal)
+    normal = torch.randn((n * world, *frame_shape[1:]), generator=gen, device=gen.device)
+    return noise_from_draws(stdv, normal)[rank * n: (rank + 1) * n]
 
 
 def build_acc_model(opt, device=None):
@@ -132,27 +147,34 @@ def build_acc_model(opt, device=None):
     return est, acfg
 
 
-def graph_steps(make_update, valid_step, optimizer: Optimizer, graphed: bool):
+def graph_steps(make_update, valid_step, optimizer: Optimizer, graphed: bool, group=None):
     """(train_step, valid_step) of a step factory: with `graphed`, the
     update make_update(optimizer.update) in graphs.CudaGraphedStep with the
     schedule's advance after each call, and valid_step in
     graphs.CudaGraphed (both run eagerly on CPU tensors); else the eager
-    make_update(optimizer.step) and valid_step."""
+    make_update(optimizer.step) and valid_step. A process `group` is handed
+    to the update (its gradient mean over ranks)."""
+    update, step = optimizer.update, optimizer.step
+    if group is not None:
+        update, step = functools.partial(update, group), functools.partial(step, group)
     if graphed:
-        return (graphs.CudaGraphedStep(make_update(optimizer.update), after=optimizer.advance),
+        return (graphs.CudaGraphedStep(make_update(update), after=optimizer.advance),
                 graphs.CudaGraphed(valid_step))
-    return make_update(optimizer.step), valid_step
+    return make_update(step), valid_step
 
 
 def make_acc_train_step(est, model: AccFlow, optimizer: Optimizer, add_noise: bool,
-                        grad_accum: int = 1, graphed: bool = False):
+                        grad_accum: int = 1, graphed: bool = False, group=None):
     """(train_step, valid_step) for the accumulator `model` against the
     frozen estimator `est`, on the path of model.cfg (the fused paths take
     its pairs_fn, the stepwise ones its flow_fn).
 
     train_step(imgs (N, H, W, 3T), label_flows (N, H, W, 2S), gen=None) ->
-    (loss, metrics), device tensors: one optimizer update; with add_noise
-    the step's noise is drawn from the torch.Generator `gen`. Forward and
+    (loss, metrics), device tensors: one optimizer update (with a process
+    `group`, the data-parallel axis, on this rank's rows: the gradients,
+    loss and metrics averaged over its ranks, the noise this rank's rows of
+    one global draw); with add_noise the step's noise is drawn from the
+    torch.Generator `gen`. Forward and
     backward run under one TF32 setting, off (what the forward's blocks
     set), so that no backward conv of a float32 step runs in TF32.
     valid_step(imgs, label_flows) -> (per-sample EPE (N,), last output
@@ -169,12 +191,12 @@ def make_acc_train_step(est, model: AccFlow, optimizer: Optimizer, add_noise: bo
             images = to_clip(imgs)
             labels = to_flow_seq(label_flows)
             if add_noise:
-                images = images + reference_noise(gen, images.shape[1:])[None]
+                images = images + reference_noise(gen, images.shape[1:], group)[None]
             optimizer.zero_grad()
             with tf32(False):
                 loss, metrics, _ = accumulate_grads(loss_fn, grad_accum, images, labels, axis=1)
             finish()
-            return loss, metrics
+            return mesh.all_mean((loss, metrics), group)
 
         return train_step
 
@@ -186,7 +208,7 @@ def make_acc_train_step(est, model: AccFlow, optimizer: Optimizer, add_noise: bo
         epe = torch.sqrt(torch.sum((outs[-1] - labels[-1]) ** 2, dim=-1))
         return epe.mean(dim=(1, 2)), outs[-1]
 
-    return graph_steps(make_update, valid_step, optimizer, graphed)
+    return graph_steps(make_update, valid_step, optimizer, graphed, group)
 
 
 def _png_chunk(kind: bytes, data: bytes) -> bytes:
@@ -215,9 +237,30 @@ def checkpoint_state(model: torch.nn.Module, optimizer: Optimizer, step: int) ->
     return {"model": model.state_dict(), **optimizer.state_dict(), "step": step}
 
 
+def open_run_dirs(opt, logger_name: str, phase: str):
+    """(log_dir, ckpt_dir, logger) of a training run: rank 0 archives stale
+    run dirs unless resuming (train_acc.py:39-45: logs and checkpoints) and
+    creates the log dir, every rank waits for it, and rank 0's logger alone
+    writes the log file."""
+    main = mesh.is_main_process()
+    log_dir = opt.get("log_dir", f"./logs/{opt.exp_name}")
+    ckpt_dir = opt.get("ckpt_dir", f"./checkpoints/{opt.exp_name}")
+    if opt.get("resume") is None and main:
+        for d in (log_dir, ckpt_dir):
+            if osp.isdir(d):
+                os.rename(d, d + "_archived_" + get_timestamp())
+    if main:
+        os.makedirs(log_dir, exist_ok=True)
+    mesh.sync_processes("archive_dirs")
+    return log_dir, ckpt_dir, setup_logger(logger_name, log_dir, phase + opt.exp_name,
+                                           tofile=main)
+
+
 def train_acc(opt, max_steps: Optional[int] = None, tb=None, device=None) -> TrainState:
     """Train the AccFlow accumulator on one device (cuda unless `device`
-    names another; without a GPU it raises unless device="cpu"). `opt`
+    names another; without a GPU it raises unless device="cpu"), or on every
+    rank of a torchrun job (parallel.mesh.maybe_init_distributed: the global
+    batch batch_per_gpu x world, module docstring). `opt`
     mirrors configs/Acc*.yml plus `dataset_root` (CVOR data) and optional
     `ofe_params` (a JAX-layout numpy tree) or `flow_pretrained` (a
     reference .pth or a .npz tree). max_steps stops early. Returns the
@@ -227,23 +270,17 @@ def train_acc(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
     log point and val/epe at every validation (`use_tb: true` in opt builds
     one on log_dir)."""
     dev = resolve_device(device)
-    batch = opt.batch_per_gpu
+    mesh.maybe_init_distributed(dev)
+    batch = opt.batch_per_gpu * mesh.world_size()
     seed = opt.get("seed", 0)
 
     # Debug-name frequency override (train_acc.py:33-35).
     if "debug" in str(opt.exp_name).lower():
         opt["valid_freq"] = 10
         opt["log_freq"] = 1
-    log_dir = opt.get("log_dir", f"./logs/{opt.exp_name}")
-    ckpt_dir = opt.get("ckpt_dir", f"./checkpoints/{opt.exp_name}")
-    if opt.get("resume") is None:
-        # Archive stale run dirs (train_acc.py:39-45): logs and checkpoints.
-        for d in (log_dir, ckpt_dir):
-            if osp.isdir(d):
-                os.rename(d, d + "_archived_" + get_timestamp())
-    os.makedirs(log_dir, exist_ok=True)
-    logger = setup_logger("accflow_torch", log_dir, "train_" + opt.exp_name, tofile=True)
-    own_tb = tb is None and bool(opt.get("use_tb"))
+    log_dir, ckpt_dir, logger = open_run_dirs(opt, "accflow_torch", "train_")
+    main = mesh.is_main_process()
+    own_tb = tb is None and bool(opt.get("use_tb")) and main
     if own_tb:
         from accflow_tpu_torch.utils.tb import TBLogger
 
@@ -258,8 +295,8 @@ def train_acc(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
     valid_dst = fetch_valid_dataset(opt.dataset_root, [flow_key], split="clean")
     sample_per_epoch = len(train_dst) // batch + 1
     num_steps = sample_per_epoch * opt.epochs
-    logger.info("Train on %d samples, batch %d on %s, %d iters/epoch, %d total",
-                len(train_dst), batch, dev, sample_per_epoch, num_steps)
+    logger.info("Train on %d samples, batch %d on %s x %d, %d iters/epoch, %d total",
+                len(train_dst), batch, dev, mesh.world_size(), sample_per_epoch, num_steps)
 
     # Frozen OFE + trainable accumulator.
     est, acfg = build_acc_model(opt, device=dev)
@@ -272,14 +309,14 @@ def train_acc(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
         logger.info("WARNING: frozen OFE uses random init (no flow_pretrained)")
     est.model.requires_grad_(False)
 
-    model = init_accflow(acfg, seed=seed, device=dev)
+    model = mesh.shard_params(init_accflow(acfg, seed=seed, device=dev))
     logger.info("Parameter Count: trainable: %d, frozen (OFE): %d",
                 count_parameters(model), count_parameters(est.model))
     optimizer = make_optimizer(model.parameters(), opt.lr, num_steps, opt.wdecay,
                                opt.epsilon, opt.clip)
     train_step, valid_step = make_acc_train_step(
         est, model, optimizer, opt.add_noise, grad_accum=int(opt.get("grad_accum", 1)),
-        graphed=True)
+        graphed=mesh.collectives_capturable(), group=mesh.data_group())
     ckpt = CheckpointManager(ckpt_dir, keep=4)
 
     current_step = 0
@@ -306,7 +343,7 @@ def train_acc(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
         it = BatchIterator(train_dst, batch, shuffle=True, drop_last=True, seed=seed,
                            epoch=epoch)
         timer.tick()
-        for batch_t in device_prefetch(iter(it), depth=2, device=dev):
+        for batch_t in device_prefetch(map(mesh.shard_batch, it), depth=2, device=dev):
             current_step += 1
             loss, metrics = train_step(batch_t["imgs"], batch_t[flow_key], gen)
             losses.append(float(loss))
@@ -337,28 +374,30 @@ def train_acc(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
                 vit = BatchIterator(valid_dst, batch, shuffle=False, drop_last=False)
                 for vb in vit:
                     vb, n_valid = pad_batch(vb, batch)
-                    vb = {k: torch.as_tensor(v).to(dev) for k, v in vb.items()}
+                    vb = {k: torch.as_tensor(v).to(dev) for k, v in mesh.shard_batch(vb).items()}
                     per_sample, flow_last = valid_step(vb["imgs"], vb[flow_key])
-                    epes_sum += float(per_sample[:n_valid].sum())
+                    epes_sum += float(mesh.host_array(per_sample)[:n_valid].sum())
                     base = epes_n
                     epes_n += n_valid
                     want = [i for i in visual if base <= i < base + n_valid]
                     if want:
-                        flow_np = flow_last.cpu().numpy()
+                        flow_np = mesh.host_array(flow_last)
                         for i in want:
                             val_last[i] = flow_np[i - base: i - base + 1]
                 epe = epes_sum / max(epes_n, 1)
                 state = checkpoint_state(model, optimizer, current_step)
-                ckpt.save(current_step, state)  # `latest` (train_acc.py:268)
+                if main:
+                    ckpt.save(current_step, state)  # `latest` (train_acc.py:268)
                 if epe <= best_val_epe:
                     best_val_epe, best_val_step = epe, current_step
                     for index in visual:
-                        if index in val_last:
+                        if main and index in val_last:
                             save_flow_png(val_last[index], osp.join(
                                 log_dir, "val/im%03d/%06d.png" % (index, current_step)))
                     # Numbered best-EPE save, pruned oldest-first
                     # (train_acc.py:291-301).
-                    ckpt.save_best(current_step, state)
+                    if main:
+                        ckpt.save_best(current_step, state)
                 logger.info("Validation EPE: %.3f, best: %.3f (step %d)",
                             epe, best_val_epe, best_val_step)
                 if tb is not None:
@@ -368,8 +407,9 @@ def train_acc(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
                 stop = True
                 break
 
-    # final.pth (train_acc.py:311)
-    ckpt.save_final(max(current_step, 1), checkpoint_state(model, optimizer, current_step))
+    if main:  # final.pth (train_acc.py:311)
+        ckpt.save_final(max(current_step, 1), checkpoint_state(model, optimizer, current_step))
+    mesh.sync_processes("final")
     if own_tb:
         tb.close()
     logger.info("Finish training")

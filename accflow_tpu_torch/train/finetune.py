@@ -23,12 +23,13 @@ from a CUDA graph (engine.graph_steps: the noise draw, forward, remat's
 recompute, backward, clip, AdamW update and the BatchNorm write-back in
 the graph; select_pair's host choice arrives as the step's inputs, so one
 graph serves every pair) and its validation step too; on the CPU both run
-eagerly.
+eagerly. Under torchrun the step is data-parallel as train_acc's
+(train/engine.py), and train-mode BatchNorm takes the global batch's
+statistics (nn/layers.py::batch_norm_train), as JAX's GSPMD step does.
 """
 
 from __future__ import annotations
 
-import os
 import os.path as osp
 from typing import Optional
 
@@ -41,19 +42,21 @@ from accflow_tpu_torch.data.prefetch import device_prefetch
 from accflow_tpu_torch.device import resolve_device
 from accflow_tpu_torch.models import FlowEstimator, build_flow_estimator
 from accflow_tpu_torch.models.raft import check_trainable_lookup
-from accflow_tpu_torch.nn.layers import apply_bn_updates, tf32
+from accflow_tpu_torch.nn.layers import apply_bn_updates, batch_norm_group, tf32
+from accflow_tpu_torch.parallel import mesh
 from accflow_tpu_torch.train.accum import accumulate_grads
 from accflow_tpu_torch.train.checkpoint import CheckpointManager
 from accflow_tpu_torch.train.engine import (
     TrainState,
     checkpoint_state,
     graph_steps,
+    open_run_dirs,
     pad_batch,
     reference_noise,
 )
 from accflow_tpu_torch.train.loss import sequence_loss_raft
 from accflow_tpu_torch.train.optim import Optimizer, make_optimizer
-from accflow_tpu_torch.utils.logging import Timer, count_parameters, get_timestamp, setup_logger
+from accflow_tpu_torch.utils.logging import Timer, count_parameters
 
 ALL_FLOW_KEYS = ["fflows", "bflows", "delta_fflows", "delta_bflows"]
 TRAIN_ITERS = 12  # JAX's train step runs 12 GRU iterations, its validation 20
@@ -88,7 +91,8 @@ def _normalize(img) -> torch.Tensor:
 
 
 def make_finetune_step(est: FlowEstimator, optimizer: Optimizer, add_noise: bool, gamma: float,
-                       grad_accum: int = 1, remat: str = "dots", graphed: bool = False):
+                       grad_accum: int = 1, remat: str = "dots", graphed: bool = False,
+                       group=None):
     """(train_step, valid_step) of JAX's make_finetune_step for the
     estimator `est`.
 
@@ -104,18 +108,22 @@ def make_finetune_step(est: FlowEstimator, optimizer: Optimizer, add_noise: bool
     EPE (N,), flow (N, H, W, 2)): imgs[-1] -> imgs[0] at VALID_ITERS
     iterations against bflows[-1], BatchNorm on its running statistics,
     under no_grad. graphed: the two as fine_tune runs them, replayed from
-    CUDA graphs on CUDA tensors (engine.graph_steps)."""
+    CUDA graphs on CUDA tensors (engine.graph_steps). group: the process
+    group of the data-parallel axis, or None: over its ranks the gradients,
+    loss and metrics are averaged, the BatchNorm statistics reduced
+    (layers.batch_norm_group) and the noise drawn for the global batch."""
     model = est.model
 
     def loss_fn(i1, i2, label):
-        out = est.forward(i1, i2, iters=TRAIN_ITERS, train=True, remat=remat)
+        with batch_norm_group(model, group):
+            out = est.forward(i1, i2, iters=TRAIN_ITERS, train=True, remat=remat)
         return sequence_loss_raft(out["predictions"], label, gamma)
 
     def make_update(finish):
         def train_step(img1, img2, label, gen: Optional[torch.Generator] = None):
             i1, i2 = _normalize(img1), _normalize(img2)
             if add_noise:
-                noise = reference_noise(gen, i1.shape)
+                noise = reference_noise(gen, i1.shape, group)
                 i1, i2 = i1 + noise, i2 + noise
             optimizer.zero_grad()
             with tf32(False):
@@ -124,7 +132,7 @@ def make_finetune_step(est: FlowEstimator, optimizer: Optimizer, add_noise: bool
                     model=model)
             finish()
             apply_bn_updates(model, bn_updates)
-            return loss, metrics
+            return mesh.all_mean((loss, metrics), group)
 
         return train_step
 
@@ -138,22 +146,25 @@ def make_finetune_step(est: FlowEstimator, optimizer: Optimizer, add_noise: bool
         epe = torch.sqrt(torch.sum((flow - label) ** 2, dim=-1))
         return epe.mean(dim=(1, 2)), flow
 
-    return graph_steps(make_update, valid_step, optimizer, graphed)
+    return graph_steps(make_update, valid_step, optimizer, graphed, group)
 
 
 def run_validation(valid_step, valid_dst, batch: int, device, valid_sample: int = 500):
     """One validation pass, capped by samples: the reference validates at
     batch 1 and stops at index valid_sample (fine_tune.py:262-279), after
     valid_sample + 1 samples; the last batch's surplus is left out, so the
-    batch size cannot change the pass. Returns (mean EPE, samples)."""
+    batch size cannot change the pass. Under a process group `batch` is the
+    global batch, each rank runs its rows and the EPEs are gathered.
+    Returns (mean EPE, samples)."""
     epes_sum, epes_n = 0.0, 0
     cap = int(valid_sample) + 1
     for vb in BatchIterator(valid_dst, batch, shuffle=False, drop_last=False):
         vb, n_valid = pad_batch(vb, batch)
+        vb = mesh.shard_batch(vb)
         per_sample, _ = valid_step(torch.as_tensor(vb["imgs"]).to(device),
                                    torch.as_tensor(vb["bflows"]).to(device))
         n_use = min(n_valid, cap - epes_n)
-        epes_sum += float(per_sample[:n_use].sum())
+        epes_sum += float(mesh.host_array(per_sample)[:n_use].sum())
         epes_n += n_use
         if epes_n >= cap:
             break
@@ -182,7 +193,8 @@ def build_estimator(opt, device=None) -> FlowEstimator:
 
 def fine_tune(opt, max_steps: Optional[int] = None, tb=None, device=None) -> TrainState:
     """Fine-tune RAFT or GMA on CVO on one device (cuda unless `device`
-    names another; without a GPU it raises unless device="cpu"). `opt`
+    names another; without a GPU it raises unless device="cpu"), or on every
+    rank of a torchrun job (as train_acc). `opt`
     mirrors configs/{RAFT,GMA}.yml plus `dataset_root` (CVOR data) and
     optional `init_params` (a JAX-layout numpy tree of the estimator),
     `scan_remat` ("dots" by default, "none", "full"), `grad_accum`, `seed`
@@ -193,7 +205,8 @@ def fine_tune(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
     log point and val/epe at every validation (`use_tb: true` in opt builds
     one on log_dir)."""
     dev = resolve_device(device)
-    batch = opt.batch_per_gpu
+    mesh.maybe_init_distributed(dev)
+    batch = opt.batch_per_gpu * mesh.world_size()
     seed = opt.get("seed", 0)
     gamma = opt.get("gamma", 0.85)
 
@@ -201,16 +214,9 @@ def fine_tune(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
     if "debug" in str(opt.exp_name).lower():
         opt["valid_freq"] = 10
         opt["log_freq"] = 1
-    log_dir = opt.get("log_dir", f"./logs/{opt.exp_name}")
-    ckpt_dir = opt.get("ckpt_dir", f"./checkpoints/{opt.exp_name}")
-    if opt.get("resume") is None:
-        # Archive stale run dirs (train_acc.py:39-45): logs and checkpoints.
-        for d in (log_dir, ckpt_dir):
-            if osp.isdir(d):
-                os.rename(d, d + "_archived_" + get_timestamp())
-    os.makedirs(log_dir, exist_ok=True)
-    logger = setup_logger("accflow_torch_ft", log_dir, "finetune_" + opt.exp_name, tofile=True)
-    own_tb = tb is None and bool(opt.get("use_tb"))
+    log_dir, ckpt_dir, logger = open_run_dirs(opt, "accflow_torch_ft", "finetune_")
+    main = mesh.is_main_process()
+    own_tb = tb is None and bool(opt.get("use_tb")) and main
     if own_tb:
         from accflow_tpu_torch.utils.tb import TBLogger
 
@@ -221,10 +227,11 @@ def fine_tune(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
     valid_dst = fetch_valid_dataset(opt.dataset_root, ["bflows"], split="clean")
     sample_per_epoch = len(train_dst) // batch + 1
     num_steps = sample_per_epoch * opt.epochs
-    logger.info("Fine-tune on %d samples, batch %d on %s, %d total steps",
-                len(train_dst), batch, dev, num_steps)
+    logger.info("Fine-tune on %d samples, batch %d on %s x %d, %d total steps",
+                len(train_dst), batch, dev, mesh.world_size(), num_steps)
 
     est = build_estimator(opt, device=dev)
+    mesh.shard_params(est.model)
     if opt.get("init_params") is None and opt.get("flow_pretrained"):
         logger.info("Initialized from %s", opt.flow_pretrained)
     logger.info("Parameter Count: trainable: %d", count_parameters(est.model))
@@ -234,7 +241,8 @@ def fine_tune(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
                                opt.epsilon, opt.clip)
     train_step, valid_step = make_finetune_step(
         est, optimizer, opt.add_noise, gamma, grad_accum=int(opt.get("grad_accum", 1)),
-        remat=opt.get("scan_remat", "dots"), graphed=True)
+        remat=opt.get("scan_remat", "dots"), graphed=mesh.collectives_capturable(),
+        group=mesh.data_group())
     ckpt = CheckpointManager(ckpt_dir, keep=4)
     current_step = 0
     if opt.get("resume") is not None:
@@ -260,7 +268,7 @@ def fine_tune(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
         it = BatchIterator(train_dst, batch, shuffle=True, drop_last=True, seed=seed,
                            epoch=epoch)
         timer.tick()
-        for batch_t in device_prefetch(iter(it), depth=2, device=dev):
+        for batch_t in device_prefetch(map(mesh.shard_batch, it), depth=2, device=dev):
             current_step += 1
             img1, img2, label = select_pair(batch_t, host_rng)
             loss, metrics = train_step(img1, img2, label, gen)
@@ -284,10 +292,12 @@ def fine_tune(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
                 epe, _ = run_validation(valid_step, valid_dst, batch, dev,
                                         opt.get("valid_sample", 500))
                 state = checkpoint_state(est.model, optimizer, current_step)
-                ckpt.save(current_step, state)  # `latest` (fine_tune.py:285)
+                if main:
+                    ckpt.save(current_step, state)  # `latest` (fine_tune.py:285)
                 if epe <= best_val_epe:
                     best_val_epe, best_val_step = epe, current_step
-                    ckpt.save_best(current_step, state)
+                    if main:
+                        ckpt.save_best(current_step, state)
                 logger.info("Validation EPE: %.3f, best: %.3f (step %d)",
                             epe, best_val_epe, best_val_step)
                 if tb is not None:
@@ -297,7 +307,10 @@ def fine_tune(opt, max_steps: Optional[int] = None, tb=None, device=None) -> Tra
                 stop = True
                 break
 
-    ckpt.save_final(max(current_step, 1), checkpoint_state(est.model, optimizer, current_step))
+    if main:
+        ckpt.save_final(max(current_step, 1),
+                        checkpoint_state(est.model, optimizer, current_step))
+    mesh.sync_processes("final")
     if own_tb:
         tb.close()
     logger.info("Finish fine-tuning")

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from accflow_tpu_torch.parallel import mesh
+
 
 class Optimizer:
     """AdamW, its OneCycle schedule and the clip. step() is update() then
@@ -37,15 +39,19 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
-    def update(self) -> None:
+    def update(self, group=None) -> None:
         """Clip the gradients to global norm `clip` and update. A parameter
         that no loss reached (GMA's positional tables under content-only
         attention) gets a zero gradient first: optax updates every leaf,
         AdamW's decay included, where torch's AdamW skips a parameter
-        without a gradient. No host synchronisation."""
+        without a gradient. With a process `group` (the caller's
+        data-parallel axis) the gradients are first averaged over its ranks
+        (parallel.mesh.average_gradients), as GSPMD's gradient mean. No host
+        synchronisation."""
         for p in self.params():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        mesh.average_gradients(self.params(), group)
         torch.nn.utils.clip_grad_norm_(self.params(), self.clip)
         self.optimizer.step()
 
@@ -53,8 +59,8 @@ class Optimizer:
         """Advance the schedule: the learning rate of the next update."""
         self.scheduler.step()
 
-    def step(self) -> None:
-        self.update()
+    def step(self, group=None) -> None:
+        self.update(group)
         self.advance()
 
     @property

@@ -1,6 +1,7 @@
 """Flow/image file IO: .flo (Middlebury), .pfm, KITTI 16-bit png; the
 port's copy of accflow_tpu/utils/frame_io.py (numpy only; PIL and cv2 are
-imported inside the branches that need them).
+imported inside the branches that need them), and `read_png`, an 8-bit PNG
+decoder on the standard library's zlib for machines without PIL or cv2.
 
 Behavior-compatible with the reference's utils/frame_utils.py:16-144.
 """
@@ -8,6 +9,8 @@ Behavior-compatible with the reference's utils/frame_utils.py:16-144.
 from __future__ import annotations
 
 import re
+import struct
+import zlib
 from os.path import splitext
 
 import numpy as np
@@ -106,3 +109,99 @@ def read_gen(file_name: str):
         flow = read_pfm(file_name)[0].astype(np.float32)
         return flow if flow.ndim == 2 else flow[:, :, :-1]
     raise ValueError(f"unsupported extension: {ext}")
+
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}  # colour type: grey, grey+alpha, RGB, RGBA
+
+
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit, non-interlaced PNG (grey, grey+alpha, RGB or RGBA) as
+    (H, W, C) uint8, decoded with zlib and the five row filters of the PNG
+    specification. Any other PNG (16-bit samples, a palette, Adam7
+    interlacing) raises ValueError naming the file and what it lacks."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    header, idat, pos = None, [], 8
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos: pos + 8])
+        body = data[pos + 8: pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None or not idat:
+        raise ValueError(f"{path}: PNG without IHDR or IDAT")
+    w, h, depth, colour, _, _, interlace = header
+    if colour not in _PNG_CHANNELS:
+        raise ValueError(f"{path}: PNG colour type {colour} (palette) is not supported: "
+                         "read_png reads grey, grey+alpha, RGB and RGBA")
+    if depth != 8:
+        raise ValueError(f"{path}: {depth}-bit PNG samples are not supported: read_png "
+                         "reads 8-bit samples only")
+    if interlace:
+        raise ValueError(f"{path}: interlaced (Adam7) PNG is not supported: read_png reads "
+                         "non-interlaced images only")
+    bpp = _PNG_CHANNELS[colour]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size < h * (w * bpp + 1):
+        raise ValueError(f"{path}: truncated PNG image data")
+    rows = raw[: h * (w * bpp + 1)].reshape(h, w * bpp + 1)
+    filters, pixels = rows[:, 0], rows[:, 1:].reshape(h, w, bpp)
+    if filters.max(initial=0) > 4:
+        raise ValueError(f"{path}: PNG row filter {int(filters.max())} does not exist")
+    if np.isin(filters, (3, 4)).any():
+        out = _unfilter_wavefront(filters, pixels)
+    else:
+        out = _unfilter_rows(filters, pixels)
+    return out
+
+
+def _unfilter_rows(filters: np.ndarray, pixels: np.ndarray) -> np.ndarray:
+    """Rows filtered with None (0), Sub (1) or Up (2) only, one row at a
+    time: Sub is a running sum along the row, Up a sum with the row above
+    (both modulo 256)."""
+    out = np.empty_like(pixels)
+    prev = np.zeros_like(pixels[0])
+    for y, kind in enumerate(filters):
+        line = pixels[y]
+        if kind == 1:
+            line = np.cumsum(line, axis=0, dtype=np.uint8)
+        elif kind == 2:
+            line = line + prev
+        out[y] = line
+        prev = out[y]
+    return out
+
+
+def _unfilter_wavefront(filters: np.ndarray, pixels: np.ndarray) -> np.ndarray:
+    """Any mix of the five filters. Avg (3) and Paeth (4) predict a byte from
+    the decoded bytes to its left, above and above-left, so a row is
+    sequential along x; but every pixel on one anti-diagonal y + x = d
+    depends only on diagonals d-1 and d-2. So the image is decoded one
+    diagonal at a time, vectorised along it, in a skewed copy where
+    diagonal d is row d + 2 and pixel (y, x) sits at column y + 1: its left,
+    upper and upper-left neighbours are then plain slices of rows d + 1 and
+    d, and the entries never written (outside the image) are the zeros that
+    PNG predicts from there."""
+    h, w, bpp = pixels.shape
+    ys, xs = np.mgrid[:h, :w]
+    raw = np.zeros((h + w - 1, h, bpp), np.int16)
+    raw[ys + xs, ys] = pixels
+    dec = np.zeros((h + w + 1, h + 1, bpp), np.int16)
+    kinds = filters.astype(np.int16)[:, None]
+    sub, up_, avg, paeth_ = (kinds == k for k in (1, 2, 3, 4))
+    for d in range(h + w - 1):
+        y0, y1 = max(0, d - w + 1), min(h - 1, d) + 1
+        left, up, corner = dec[d + 1, y0 + 1: y1 + 1], dec[d + 1, y0: y1], dec[d, y0: y1]
+        pa, pb, pc = np.abs(up - corner), np.abs(left - corner), np.abs(left + up - 2 * corner)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, corner))
+        pred = np.where(sub[y0:y1], left, np.where(up_[y0:y1], up, np.where(
+            avg[y0:y1], (left + up) >> 1, np.where(paeth_[y0:y1], paeth, 0))))
+        dec[d + 2, y0 + 1: y1 + 1] = (raw[d, y0:y1] + pred) & 255
+    return dec[ys + xs + 2, ys + 1].astype(np.uint8)

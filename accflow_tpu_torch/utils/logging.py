@@ -1,4 +1,4 @@
-"""Logger and step timing, the port's copy of accflow_tpu/utils/logging.py
+"""Logger and timers, the port's copy of accflow_tpu/utils/logging.py
 (reference utils/util.py:68-153)."""
 
 from __future__ import annotations
@@ -76,3 +76,24 @@ class Timer:
         self._total = 0.0
         self._count = 0
         return avg
+
+
+class ScopeTimer:
+    """Wall time of a `with` block, printed (or logged to `logger`) as
+    "<msg>: <seconds>s" when it ends, and kept in `elapsed`."""
+
+    def __init__(self, msg: str = "", logger=None):
+        self.msg = msg
+        self.logger = logger
+
+    def __enter__(self):
+        self.start = time.time()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = time.time() - self.start
+        text = f"{self.msg}: {self.elapsed:.3f}s"
+        if self.logger is not None:
+            self.logger.info(text)
+        else:
+            print(text)

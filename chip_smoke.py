@@ -180,7 +180,24 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    13 steps; (b) the 64^2 f32 F0N train step on the GPU against the CPU
    (TRAIN_* bars); (c) the 7x512^2 bf16 clip: F0N fused against F0N
    stepwise, the cold backward stepwise path against the fused one
-   (CLIP_REL).
+   (CLIP_REL);
+18. High-Speed Sintel at its real shape: a synthetic tree of 8 samples of
+   43 frames of 1024x436 (PNGs written here with several row filters),
+   evaluated by cli/test_sintel as shipped (interv 6: T = 8, 12 iterations,
+   bf16, batch 4) for acc|raft, direct|raft and acc|gma: seconds per
+   sample, the loader's share, peak memory, kernel #1's predicted launches;
+   (b) a 64x32 float32 tree on the GPU against the CPU (SINTEL_REL);
+19. data parallelism: (a) train_acc (AccRAFT.yml) and fine_tune (RAFT.yml)
+   as shipped in a world of one over NCCL, graphed, bit-equal to the same
+   runs without a process group under deterministic algorithms; (b)
+   evaluate_cvo(data_parallel) under that group, bit-equal to phase 8; (c)
+   two ranks on the one card over gloo with CUDA tensors, eagerly, one
+   train_acc and one fine_tune step at batch_per_gpu 1 against one process
+   at batch 2 (the script runs itself twice with --dp-child);
+20. the host tools: a convert_ckpt round trip of the full-width acc+raft
+   (the clip forward bit-equal), the native CVOR core's decode of a
+   CVO-test-sized flow column against numpy, profiling.trace naming kernel
+   #1, profiling.device_step_time of the graphed clip beside phase 5b's.
 Optional phases: --tile-sweep builds kernels #1 and #2 with 4, 8 and 16
 queries per block and times them in turns (#1 at the clip shape after phase
 3, #2 at the stream shape after phase 4); --profile prints where
@@ -193,7 +210,8 @@ line the numbers of phases 6c and 8's GMA runs and 10-13, and a
 {"train": {...}} line phase 14's, a {"finetune": {...}} line phase 15's
 (graphed and eager ms per step, busy time, idle share, peaks, capture
 calls, the graphed-vs-eager distances beside their bars), an
-{"ondemand": {...}} line phase 16's and an {"f0n": {...}} line phase 17's. The
+{"ondemand": {...}} line phase 16's, an {"f0n": {...}} line phase 17's, and
+{"sintel"}, {"data_parallel"} and {"host_tools"} lines phases 18-20's. The
 line before
 the last is {"kernels": [...]}; the last line is {"ok": true, "device":
 {...}}. Without a GPU, or without the package beside it, the script exits
@@ -207,11 +225,15 @@ import contextlib
 import gc
 import itertools
 import json
+import os
+import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -221,14 +243,27 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 try:
-    from accflow_tpu_torch import ArtifactPipeline, FlowPipeline, graphs, models, probes, serving
+    from accflow_tpu_torch import (
+        ArtifactPipeline,
+        FlowPipeline,
+        graphs,
+        models,
+        native,
+        probes,
+        serving,
+    )
     from accflow_tpu_torch.api import _as_frames
+    from accflow_tpu_torch.cli import convert_ckpt as cli_convert_ckpt
+    from accflow_tpu_torch.cli import test_sintel as cli_test_sintel
     from accflow_tpu_torch.convert import (
+        load_accflow_checkpoint,
         load_jax_params,
         load_npz_tree,
         save_npz_tree,
         to_jax_params,
     )
+    from accflow_tpu_torch.data import records
+    from accflow_tpu_torch.data.sintel import HighSpeedSintel, resize_linear
     from accflow_tpu_torch.data.cvo import BatchIterator, fetch_train_dataset
     from accflow_tpu_torch.data.synthetic import make_long_sequence, write_synthetic_cvor
     from accflow_tpu_torch.models import gma
@@ -265,7 +300,9 @@ try:
     from accflow_tpu_torch.train.loss import sequence_loss_acc, sequence_loss_raft
     from accflow_tpu_torch.train.optim import make_optimizer
     from accflow_tpu_torch.utils.config import parse_options
-    from accflow_tpu_torch.utils.frame_io import read_flow
+    from accflow_tpu_torch.parallel import mesh
+    from accflow_tpu_torch.utils import profiling
+    from accflow_tpu_torch.utils.frame_io import read_flow, read_png, write_flow
 except ImportError as e:  # this file alone, outside the repository
     sys.exit(f"chip_smoke: run from the repository root ({e})")
 
@@ -402,6 +439,21 @@ ACCUM_F32_RATIO = 1.2
 # holds the function.
 BATCH_SPREAD = 2.0
 GRAPH_STEPS = 8  # 2 eager (graphs.WARMUP), the capture replayed once, 5 replays
+# Phase 18b, evaluate_sintel's EPEs at 64x32 in float32 (TF32 off) on the GPU
+# (kernel #1, cuDNN) against the CPU (the plain lookup, CPU convs): within
+# SINTEL_REL of the CPU's EPE plus 1e-6 px. The two flows differ by
+# summation order (phase 5's small clip: ~1e-6 of the largest |flow| in
+# float32), and an EPE is a mean of per-pixel distances to a random ground
+# truth of ~1 px, so it moves by ~1e-6 of itself; a wrong pad, crop, resize
+# or mask moves it by percents. Fixed before the phase's first run.
+SINTEL_REL = 1e-4
+SINTEL_SAMPLES = 8  # phase 18's samples: two batches of 4
+DP_STEPS = 8  # phase 19a's steps per run: 2 eager, the capture, 5 replays
+# Phase 19c's launches per step on each rank (and in one process): the
+# accumulator step's frozen RAFT at 4 iterations, the fine-tune step's RAFT
+# at 12 with its lookup's backward (remat "dots" keeps the lookup's output).
+DP_STEP_LAUNCHES = {"train": {"corr_lookup": 4},
+                    "finetune": {"corr_lookup": 12, "corr_lookup_backward": 12}}
 GRAPH_SPREAD = 2.0
 GRAPH_FLOOR = 1e-6
 REPO = Path(__file__).resolve().parent
@@ -1454,6 +1506,25 @@ class EvalGraphs:
         evaluate.CudaGraphed = self._cls
 
 
+def eval_weights():
+    """Phase 8's trees: AccFlow from seed 1 with its ZeroConv from seed 2,
+    GMA from seed 0 with its gamma from seed 3."""
+    acc = models.init_accflow(models.AccFlowConfig(compute_dtype="bfloat16"), seed=1,
+                              device="cpu")
+    perturb_zero_conv(acc, 2)
+    gma_est = models.build_flow_estimator("gma", seed=0, device="cpu")
+    perturb_gamma(gma_est.model, 3)
+    return to_jax_params(acc), to_jax_params(gma_est.model)
+
+
+def eval_cvo_synthetic(root: str, clips: int = 10) -> None:
+    """Phase 8's data: `clips` synthetic CVOR test clips of 512^2."""
+    t0 = time.perf_counter()
+    write_synthetic_cvor(root, num_train=0, num_test=clips, h=512, w=512)
+    print(f"eval: wrote {clips} synthetic CVOR clips of 512^2 in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
 def eval_phase():
     """Phase 8: the CVO evaluation at full width on synthetic CVOR clips
     (10 of 512^2, written to a temporary directory): one warm-up call, then
@@ -1468,14 +1539,7 @@ def eval_phase():
     eagerly, whose EPEs the graphed ones must equal bit for bit. Returns
     {(model, lookup): row}."""
     clips, batch, n_batches = 10, 10, 1
-    acc = models.init_accflow(models.AccFlowConfig(compute_dtype="bfloat16"), seed=1,
-                              device="cpu")
-    perturb_zero_conv(acc, 2)
-    acc_tree = to_jax_params(acc)
-    gma_est = models.build_flow_estimator("gma", seed=0, device="cpu")
-    perturb_gamma(gma_est.model, 3)
-    gma_tree = to_jax_params(gma_est.model)
-    del acc, gma_est
+    acc_tree, gma_tree = eval_weights()
     # (model, lookup, kernel, launches per micro-batch call)
     runs = (("acc|raft", "fused", corr_cuda, 12), ("acc|raft", "experimental:fused_bd", corr_bd_cuda, 12),
             ("acc|raft", "experimental:fused_bd2", corr_bd_cuda, 24),
@@ -1487,10 +1551,7 @@ def eval_phase():
           "(earlier phases' tensors; in each run's peak)")
     with tempfile.TemporaryDirectory() as tmp:
         root = str(Path(tmp) / "cvor")
-        t0 = time.perf_counter()
-        write_synthetic_cvor(root, num_train=0, num_test=clips, h=512, w=512)
-        print(f"eval: wrote {clips} synthetic CVOR clips of 512^2 in "
-              f"{time.perf_counter() - t0:.2f} s")
+        eval_cvo_synthetic(root, clips)
 
         def run(model, lookup):
             return evaluate.evaluate_cvo(
@@ -3177,6 +3238,514 @@ def f0n_phase(root: str, tmp: str) -> dict:
     return dict(train=run, gpu_vs_cpu=train_gpu_vs_cpu(direction="forward"), clips=f0n_clips())
 
 
+# ---------------------------------------------------------------------------
+# Phases 18-20: High-Speed Sintel, data parallelism, the host tools
+# ---------------------------------------------------------------------------
+
+def png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def png_bytes(img: np.ndarray, kinds) -> bytes:
+    """(H, W, C) uint8 `img` (C of 1 or 3) as an 8-bit PNG, row y filtered
+    with kinds[y % len(kinds)] (0 None, 1 Sub, 2 Up, 3 Avg, 4 Paeth)."""
+    h, w, c = img.shape
+    x = img.astype(np.int16)
+    up, left, corner = (np.zeros_like(x) for _ in range(3))
+    up[1:], left[:, 1:], corner[1:, 1:] = x[:-1], x[:, :-1], x[:-1, :-1]
+    pa, pb, pc = np.abs(up - corner), np.abs(left - corner), np.abs(left + up - 2 * corner)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, corner))
+    preds = (np.zeros_like(x), left, up, (left + up) >> 1, paeth)
+    rows = b"".join(bytes([kinds[y % len(kinds)]])
+                    + ((x[y] - preds[kinds[y % len(kinds)]][y]) & 255).astype(np.uint8).tobytes()
+                    for y in range(h))
+    return (b"\x89PNG\r\n\x1a\n"
+            + png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2}[c], 0, 0, 0))
+            + png_chunk(b"IDAT", zlib.compress(rows, 1)) + png_chunk(b"IEND", b""))
+
+
+def write_sintel_tree(root: Path, samples: int, frames, seed: int, flow_hw,
+                      flow_max: float = 20.0) -> None:
+    """A synthetic High-Speed Sintel tree in the reference's layout: per
+    sample `frames(s)` ((T, H, W, 3) uint8) as 43_imgs/ (even frames' rows
+    filtered Sub and Up, odd frames' None, Avg and Paeth), its first and
+    last frame as 2_imgs/ (Up), a .flo of `flow_hw` uniform in +-flow_max
+    px and a grey occlusion png (Paeth)."""
+    rng = np.random.default_rng(seed)
+    for s in range(samples):
+        sample = root / f"alley_{s:04d}"
+        (sample / "2_imgs").mkdir(parents=True)
+        (sample / "43_imgs").mkdir()
+        clip = frames(s)
+        files = [(sample / "43_imgs" / f"frame_{i:04d}.png", img,
+                  (1, 2) if i % 2 == 0 else (0, 3, 4)) for i, img in enumerate(clip)]
+        files += [(sample / "2_imgs" / f"frame_{i}.png", img, (2,))
+                  for i, img in enumerate((clip[0], clip[-1]))]
+        with ThreadPoolExecutor(8) as pool:  # zlib lets go of the GIL
+            list(pool.map(lambda f: f[0].write_bytes(png_bytes(f[1], f[2])), files))
+        write_flow(str(sample / "flow.flo"),
+                   rng.uniform(-flow_max, flow_max, (*flow_hw, 2)).astype(np.float32))
+        occ = (rng.uniform(size=flow_hw) > 0.8).astype(np.uint8)[..., None] * 255
+        (sample / "occ.png").write_bytes(png_bytes(occ, (4,)))
+
+
+class LoaderClock:
+    """While active, the seconds each HighSpeedSintel.get takes."""
+
+    def __enter__(self):
+        self.secs, self._get = [], HighSpeedSintel.get
+        clock = self
+
+        def get(self_, index):
+            t0 = time.perf_counter()
+            out = clock._get(self_, index)
+            clock.secs.append(time.perf_counter() - t0)
+            return out
+
+        HighSpeedSintel.get = get
+        return self
+
+    def __exit__(self, *exc):
+        HighSpeedSintel.get = self._get
+
+
+def sintel_phase(tmp: str) -> dict:
+    """Phase 18: High-Speed Sintel at its real shape. A synthetic tree of
+    SINTEL_SAMPLES samples, each 43 frames of 1024x436 (sintel_frames), is
+    written with the PNG writer above; then cli/test_sintel.main as shipped
+    (interv 6: T = 8 frames, 12 iterations, bf16, batch 4, padded to
+    1024x440) for acc|raft, direct|raft and acc|gma (weights from the seeds):
+    seconds per sample, the loader's share (HighSpeedSintel.get), the peak
+    memory, and kernel #1's launches, which the code predicts: one call
+    signature, so 12 per forward times WARMUP + 1 at the first batch's
+    capture and none in the second batch's replay. Then sintel_gpu_vs_cpu."""
+    root = Path(tmp) / "hs_sintel"
+    t0 = time.perf_counter()
+    write_sintel_tree(root, SINTEL_SAMPLES, lambda s: sintel_frames(43, 40 + s), 3, (436, 1024))
+    write_s = time.perf_counter() - t0
+    print(f"sintel: wrote {SINTEL_SAMPLES} samples of 43 + 2 frames of 1024x436 in "
+          f"{write_s:.2f} s")
+    frames = root / "alley_0000" / "43_imgs"
+    decode = {name: statistics.median(timed_runs(lambda: read_png(str(frames / f)), 3)[0])
+              for name, f in (("sub_up", "frame_0000.png"), ("avg_paeth", "frame_0001.png"))}
+    img = read_png(str(frames / "frame_0000.png")).astype(np.float32)
+    decode["resize"] = statistics.median(timed_runs(lambda: resize_linear(img, (1024, 436)), 3)[0])
+    print(f"sintel loader pieces, host seconds per 1024x436 frame: read_png with Sub/Up rows "
+          f"{decode['sub_up']:.4f}, with None/Avg/Paeth rows (the diagonal wavefront) "
+          f"{decode['avg_paeth']:.4f}; resize_linear {decode['resize']:.4f}")
+    rows = {}
+    for mode in ("acc|raft", "direct|raft", "acc|gma"):
+        acc, ofe = mode.split("|")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with LoaderClock() as clock, EvalGraphs() as probe:
+            res = cli_test_sintel.main(["-acc", acc, "-ofe", ofe, "--dataset-root", str(root),
+                                        "--interv", "6", "--iters", "12", "--compute-dtype",
+                                        "bfloat16", "--batch", "4",
+                                        "--result-file", str(Path(tmp) / "sintel.txt")])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        calls = SINTEL_SAMPLES // 4
+        launches = expect_counts(f"sintel {mode}", corr_cuda, 12 * (graphs.WARMUP + 1))
+        if [g.captures for g in probe.made] != [1] or len(probe.calls) != calls:
+            fail(f"sintel {mode}: captures {[g.captures for g in probe.made]}, "
+                 f"{len(probe.calls)} calls, expected 1 capture and {calls} calls")
+        if not all(np.isfinite(res[k]) for k in ("all", "occ", "noc")):
+            fail(f"sintel {mode}: EPE not finite {res}")
+        row = dict(res, s_per_sample=secs / SINTEL_SAMPLES,
+                   loader_s_per_sample=sum(clock.secs) / SINTEL_SAMPLES,
+                   loader_share=sum(clock.secs) / secs, capture_call_s=probe.calls[0],
+                   replay_call_s=probe.calls[1:], peak_gib=torch.cuda.max_memory_allocated()
+                   / 2**30, launches=launches)
+        print(f"sintel {mode}: EPE all {res['all']:.4f} noc {res['noc']:.4f} occ "
+              f"{res['occ']:.4f}; {row['s_per_sample']:.3f} s per sample over {SINTEL_SAMPLES} "
+              f"(loader {row['loader_s_per_sample']:.3f} s per sample, "
+              f"{100 * row['loader_share']:.1f} % of the run); model calls (batch 4, T=8, "
+              f"1024x440): first {row['capture_call_s']:.3f} s (2 warm-ups, capture, replay), "
+              f"then {', '.join(f'{c:.3f}' for c in row['replay_call_s'])} s; peak memory "
+              f"{row['peak_gib']:.3f} GiB; kernel #1 launches {launches} (predicted "
+              f"12 x {graphs.WARMUP + 1})")
+        rows[mode] = row
+    return dict(write_s=write_s, decode_s=decode, rows=rows, gpu_vs_cpu=sintel_gpu_vs_cpu(tmp))
+
+
+def sintel_gpu_vs_cpu(tmp: str) -> dict:
+    """Phase 18b: evaluate_sintel on a small tree (3 samples of 5 frames of
+    72x40 resized to 64x32, interv 2: T = 3), float32, TF32 off, 2
+    iterations, batch 2 (the second batch padded), on the GPU (kernel #1, 2
+    per forward, counted at the capture's WARMUP + 1 calls) and on the CPU
+    (the plain lookup): each EPE within SINTEL_REL of the CPU's. The ground
+    truth is drawn within +-0.25 px, the scale of the flows that random
+    weights give at 2 iterations, so that the EPEs read the flows' errors
+    and not the ground truth's size alone (at +-20 px float32 cannot see a
+    1e-6 px change in an EPE of ~15)."""
+    root = Path(tmp) / "hs_sintel_small"
+    rng = np.random.default_rng(9)
+    write_sintel_tree(root, 3, lambda s: rng.integers(0, 256, (5, 40, 72, 3), dtype=np.uint8),
+                      4, (32, 64), flow_max=0.25)
+    rows = {}
+    for mode in ("direct|raft", "acc|raft"):
+        res = {}
+        for where in ("cuda", "cpu"):
+            reset_counts()
+            with tf32(False):
+                res[where] = evaluate.evaluate_sintel(
+                    mode, str(root), interv=2, iters=2, compute_dtype="float32", size=(64, 32),
+                    batch=2, device=where)
+            expect_counts(f"sintel 64x32 {mode} on {where}", corr_cuda,
+                          2 * (graphs.WARMUP + 1) if where == "cuda" else 0)
+        gaps = {k: abs(res["cuda"][k] - res["cpu"][k]) for k in res["cpu"]}
+        if not all(0 < v < 1 for v in res["cpu"].values()):
+            fail(f"sintel 64x32 {mode}: EPEs {res['cpu']} are not of the flows' scale")
+        print(f"sintel 64x32 {mode} GPU vs CPU: {res['cuda']} vs {res['cpu']}, gaps {gaps} "
+              f"(bar {SINTEL_REL:g} x EPE + 1e-6)")
+        if not all(gaps[k] <= SINTEL_REL * abs(res["cpu"][k]) + 1e-6 for k in gaps):
+            fail(f"sintel 64x32 {mode}: GPU {res['cuda']} and CPU {res['cpu']} disagree")
+        rows[mode] = dict(gpu=res["cuda"], cpu=res["cpu"], gaps=gaps)
+    return rows
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def torchrun_env(world: int, rank: int, port: int) -> dict:
+    return dict(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK="0",
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+def params_equal(a, b) -> bool:
+    return all(torch.equal(p, q) for p, q in zip(a.parameters(), b.parameters())) and all(
+        torch.equal(p, q) for p, q in zip(a.buffers(), b.buffers()))
+
+
+def dp_phase(root: str, tmp: str, train: dict, finetune: dict, evals: dict) -> dict:
+    """Phase 19: data parallelism (parallel/mesh.py). (a) A world of one
+    over NCCL, through maybe_init_distributed (ACCFLOW_DISTRIBUTED=1 with
+    torchrun's environment), the train steps graphed with their collectives
+    captured (the gradient all-reduce; in fine_tune also the train-mode
+    BatchNorm's sums over ranks, forward and backward): train_acc with configs/AccRAFT.yml as shipped and
+    fine_tune with configs/RAFT.yml as shipped, DP_STEPS steps each on phase
+    14's clips, under deterministic(), bit-equal (every loss, every
+    parameter and buffer) to the same runs without a process group; their
+    ms per step beside phase 14's and 15's. (b) evaluate_cvo(data_parallel)
+    under the same group on phase 8's clips and weights (acc|raft, fused):
+    bit-equal to phase 8's EPEs. (c) dp_two_ranks."""
+    out = {}
+    for key, config, finetune_run in (("train", "AccRAFT.yml", False),
+                                      ("finetune", "RAFT.yml", True)):
+        runs = {}
+        for label in ("no group", "nccl"):
+            if label == "nccl" and not mesh.active():
+                os.environ.update(torchrun_env(1, 0, free_port()), ACCFLOW_DISTRIBUTED="1")
+                if not mesh.maybe_init_distributed("cuda"):
+                    fail("dp: maybe_init_distributed did not start a group")
+                if (torch.distributed.get_backend(), mesh.world_size(),
+                        mesh.collectives_capturable()) != ("nccl", 1, True):
+                    fail(f"dp: group {torch.distributed.get_backend()} x {mesh.world_size()}")
+            opt = train_opts(config, root, Path(tmp) / f"dp_{key}_{label.replace(' ', '_')}",
+                             valid_freq=100)
+            with deterministic():
+                runs[label] = engine_run(f"{config} {label}", opt, DP_STEPS, finetune=finetune_run)
+        plain, dp = runs["no group"], runs["nccl"]
+        same = plain["losses"] == dp["losses"] and params_equal(plain["state"].model,
+                                                               dp["state"].model)
+        ref_ms = (finetune["raft"] if finetune_run else train["accraft"])["ms_per_step"]
+        print(f"dp {config}: world of one over NCCL (graphed, its collectives captured) "
+              f"{dp['ms_per_step']:.2f} ms per step, without a group {plain['ms_per_step']:.2f} "
+              f"ms (both under deterministic algorithms; phase {15 if finetune_run else 14}, "
+              f"torch's defaults: {ref_ms:.2f} ms); losses and weights "
+              f"{'bit-equal' if same else 'DIFFER'}")
+        if not same:
+            fail(f"dp {config}: the NCCL run differs from the run without a group: losses "
+                 f"{dp['losses']} vs {plain['losses']}")
+        out[key] = dict(ms_per_step=dp["ms_per_step"], no_group_ms_per_step=plain["ms_per_step"],
+                        phase_ms_per_step=ref_ms, losses=dp["losses"], launches=dp["launches"],
+                        peak_gib=dp["peak_gib"], replay=dp["replay"], bit_equal=same)
+        for r in runs.values():
+            r.pop("state")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    acc_tree, _ = eval_weights()
+    with tempfile.TemporaryDirectory() as etmp:
+        eval_cvo_synthetic(str(Path(etmp) / "cvor"))
+        res = evaluate.evaluate_cvo("acc|raft", str(Path(etmp) / "cvor"), batch=10, iters=12,
+                                    compute_dtype="bfloat16", corr_lookup="fused",
+                                    acc_params=acc_tree, device="cuda", data_parallel=True,
+                                    result_file=str(Path(etmp) / "result.txt"))
+    ref = evals["acc|raft", "fused"]
+    same = all(res[k] == ref[k] for k in ("all", "vis", "occ"))
+    print(f"dp evaluate_cvo(data_parallel) acc|raft fused over NCCL x 1: {res} vs phase 8 "
+          f"{ {k: ref[k] for k in res} }: {'bit-equal' if same else 'DIFFER'}")
+    if not same:
+        fail("dp evaluate_cvo under the group differs from phase 8")
+    out["eval"] = dict(res, bit_equal=same)
+    torch.distributed.destroy_process_group()
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+              "ACCFLOW_DISTRIBUTED"):
+        os.environ.pop(k, None)
+    out["two_ranks"] = dp_two_ranks(tmp)
+    return out
+
+
+def dp_steps() -> dict:
+    """Phase 19c's two steps on this rank's rows, eagerly, float32, TF32 off,
+    noise off: a train_acc step (make_acc_train_step; phase 14b's models and
+    batch: RAFT at 4 iterations, hidden 32, T=4, 64^2) and a fine_tune step
+    (make_finetune_step; phase 15d's: full RAFT from seed 0, 12 iterations,
+    remat "dots", train-mode BatchNorm) at a global batch of 2. Returns the
+    losses, the gradients as the update sees them (averaged over ranks), the
+    running statistics after the step and the launches."""
+    out = {}
+    est, acc = small_train_models("cuda")
+    rng = np.random.default_rng(5)
+    batch = {"imgs": rng.integers(0, 256, (2, 64, 64, 12)).astype(np.float32),
+             "labels": (4.0 * rng.standard_normal((2, 64, 64, 4))).astype(np.float32)}
+    rng = np.random.default_rng(5)
+    pair = {"img1": rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8),
+            "img2": rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8),
+            "label": (4 * rng.standard_normal((2, 64, 64, 2))).astype(np.float32)}
+    ft_est = models.build_flow_estimator("raft", compute_dtype="float32", seed=0, device="cuda")
+    for name, model, make, inputs in (
+            ("train", acc, lambda o: engine.make_acc_train_step(est, acc, o, add_noise=False,
+                                                                 group=mesh.data_group()),
+             ("imgs", "labels")),
+            ("finetune", ft_est.model,
+             lambda o: ft.make_finetune_step(ft_est, o, add_noise=False, gamma=0.85,
+                                             group=mesh.data_group()),
+             ("img1", "img2", "label"))):
+        src = batch if name == "train" else pair
+        rows = mesh.shard_batch(src)
+        optimizer = make_optimizer(model.parameters(), 1e-4, 10)
+        step, _ = make(optimizer)
+        grads, orig = {}, mesh.average_gradients
+
+        def recording(params, group, model=model, grads=grads, orig=orig):
+            orig(params, group)
+            grads.update({k: p.grad.detach().float().cpu().clone()
+                          for k, p in model.named_parameters()})
+
+        mesh.average_gradients = recording
+        reset_counts()
+        try:
+            loss, _ = step(*(torch.from_numpy(rows[k]).cuda() for k in inputs))
+        finally:
+            mesh.average_gradients = orig
+        out[name] = dict(loss=float(loss), grads=grads, launches=launch_counts(),
+                         stats={k: v.float().cpu() for k, v in model.state_dict().items()
+                                if "running" in k})
+    return out
+
+
+def dp_child(rank: int, port: int, work: str) -> int:
+    """One rank of phase 19c, started by dp_two_ranks as its own process:
+    join the gloo group on the one card, run dp_steps, save what it saw."""
+    os.environ.update(torchrun_env(2, rank, port))
+    if not mesh.maybe_init_distributed("cuda", backend="gloo"):
+        fail("dp child: no group")
+    try:
+        torch.save(dp_steps(), Path(work) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_two_ranks(tmp: str) -> dict:
+    """Phase 19c: a world of two on the one card, two processes over gloo
+    with CUDA tensors, eagerly (CUDA graphs capture NCCL's collectives, not
+    gloo's), batch_per_gpu 1: dp_steps on each rank against dp_steps in
+    this process without a group at batch 2. Bars (TRAIN_LOSS_REL,
+    TRAIN_GRAD_REL over the whole gradient vector, FT_STATS_REL): one
+    sample per rank runs its convs at batch 1, so the two sides differ by
+    summation order, as the GPU and the CPU do in 14b and 15d; the ranks
+    hold equal gradients and running statistics, bit for bit."""
+    work = Path(tmp) / "dp_two_ranks"
+    work.mkdir()
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--dp-child",
+                               str(r), str(port), str(work)], cwd=str(REPO),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"dp two ranks: rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=True) for r in range(2)]
+    ref = dp_steps()
+    rows = {}
+    for name in ("train", "finetune"):
+        want = ref[name]
+        got = [r[name] for r in ranks]
+        equal = all(torch.equal(got[0]["grads"][k], got[1]["grads"][k]) for k in want["grads"]) \
+            and all(torch.equal(got[0]["stats"][k], got[1]["stats"][k]) for k in want["stats"])
+        row = dict(loss_rel=abs(got[0]["loss"] - want["loss"]) / abs(want["loss"]),
+                   grad_rel_l2=rel_l2(got[0]["grads"], want["grads"]),
+                   stats_max_rel=max((float((got[0]["stats"][k] - want["stats"][k]).abs().max()
+                                            / want["stats"][k].abs().max())
+                                      for k in want["stats"]), default=0.0),
+                   ranks_equal=equal, rank_launches=[g["launches"] for g in got],
+                   one_process_launches=want["launches"])
+        print(f"dp two ranks {name} (gloo, CUDA tensors, eager, batch_per_gpu 1) vs one "
+              f"process at batch 2: loss relative {row['loss_rel']:.3e} (bar "
+              f"{TRAIN_LOSS_REL:g}), gradient relative L2 {row['grad_rel_l2']:.3e} (bar "
+              f"{TRAIN_GRAD_REL:g}), running statistics max relative {row['stats_max_rel']:.3e} "
+              f"(bar {FT_STATS_REL:g}); ranks equal: {equal}; launches per rank "
+              f"{row['rank_launches']}")
+        launched = {k: v for k, v in row["rank_launches"][0].items() if v}
+        if not (row["loss_rel"] <= TRAIN_LOSS_REL and row["grad_rel_l2"] <= TRAIN_GRAD_REL
+                and row["stats_max_rel"] <= FT_STATS_REL and equal
+                and row["rank_launches"][0] == row["rank_launches"][1] == want["launches"]
+                and launched == DP_STEP_LAUNCHES[name]):
+            fail(f"dp two ranks {name}: {row}, expected launches {DP_STEP_LAUNCHES[name]}")
+        rows[name] = row
+    print(f"dp two ranks: both processes in {secs:.2f} s (start, build cache, steps)")
+    return dict(rows, seconds=secs)
+
+
+def host_tools_phase(tmp: str, graphed_clip_ms: float) -> dict:
+    """Phase 20: the host tools. (a) convert_ckpt: a full-width acc+raft
+    (phase 5's weights) saved as a reference-named .pth (the `module.`
+    prefix, the OFE under `ofe.`, norm3 aliases, num_batches_tracked),
+    converted to the .npz pair by cli/convert_ckpt, loaded into fresh
+    modules: the 7x512^2 clip forward bit-equal to the saved modules'. (b)
+    the native CVOR core built and used by data/records.py: its decode of a
+    flow column the size of CVO's test bflows (536 clips of 512^2 x 10
+    uint16) bit-equal to numpy's, both timed, and both timed at the sizes
+    the readers decode per call (a 256^2 training crop, a 512^2 sample). (c) profiling.trace of an
+    eager 64^2 pair: its Chrome trace names kernel #1. (d)
+    profiling.device_step_time of the graphed clip (K = 8 against 16
+    chained replays) beside phase 5b's median."""
+    out = {}
+    est = models.build_flow_estimator("raft", compute_dtype="bfloat16", seed=0)
+    acc, images = clip_inputs()
+    sd = {}
+    for prefix, module in (("", acc), ("ofe.", est.model)):
+        for k, v in module.state_dict().items():
+            sd[f"module.{prefix}{k}"] = v.detach().cpu().clone()
+            if ".downsample.1." in k:
+                sd[f"module.{prefix}{k.replace('.downsample.1.', '.norm3.')}"] = v.detach().cpu()
+            if k.endswith("running_var"):
+                sd[f"module.{prefix}{k[:-len('running_var')]}num_batches_tracked"] = \
+                    torch.tensor(1)
+    pth, stem = Path(tmp) / "acc+raft-smoke.pth", Path(tmp) / "acc-raft-smoke"
+    torch.save(sd, pth)
+    t0 = time.perf_counter()
+    cli_convert_ckpt.main(["--pth", str(pth), "--model", "acc+raft", "--out", str(stem)])
+    convert_s = time.perf_counter() - t0
+    est2 = models.build_flow_estimator("raft", compute_dtype="bfloat16", seed=5)
+    acc2 = models.init_accflow(models.AccFlowConfig(compute_dtype="bfloat16"), seed=6,
+                               device="cuda")
+    load_accflow_checkpoint(str(stem), acc2, est2.model)
+    with torch.no_grad():
+        ref = models.accflow_forward(acc, images, est.pairs_fn())
+        got = models.accflow_forward(acc2, images, est2.pairs_fn())
+    same = torch.equal(ref, got)
+    print(f"host tools convert_ckpt: .pth ({len(sd)} keys) -> {stem.name}.acc.npz + .ofe.npz "
+          f"in {convert_s:.2f} s; the loaded clip forward (7x512^2, bf16) "
+          f"{'bit-equal' if same else 'DIFFERS'} to the saved modules'")
+    if not same:
+        fail(f"convert_ckpt round trip: max abs {float((ref - got).abs().max()):.3e}")
+    out["convert_ckpt"] = dict(keys=len(sd), seconds=convert_s, bit_equal=same)
+    del est2, acc2, ref, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    built_t0 = time.perf_counter()
+    lib = native.build()
+    if lib is None or not native.available():
+        fail("native core: g++ missing or the core did not load")
+    build_s = time.perf_counter() - built_t0
+    column = np.random.default_rng(0).integers(0, 65536, (536, 512, 512, 10), dtype=np.uint16)
+    t0 = time.perf_counter()
+    want = (column.astype(np.float32) - records.FLOW_OFFSET) / records.FLOW_SCALE
+    numpy_s = time.perf_counter() - t0
+    calls, real = [], native.decode_flow_u16
+    native.decode_flow_u16 = lambda raw: calls.append(raw.shape) or real(raw)
+    try:
+        t0 = time.perf_counter()
+        got = records.decode_flow_u16(column)
+        native_s = time.perf_counter() - t0
+    finally:
+        native.decode_flow_u16 = real
+    same = calls == [column.shape] and np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    print(f"host tools native core: {lib.name} (built or cached in {build_s:.2f} s); decode of "
+          f"a {column.shape} uint16 column ({column.nbytes / 2**30:.2f} GiB): native "
+          f"{native_s:.3f} s, numpy {numpy_s:.3f} s, {'bit-equal' if same else 'DIFFER'}")
+    if not same:
+        fail("native core: records.decode_flow_u16 did not go through it, or its bits differ")
+    out["native"] = dict(library=lib.name, column_shape=list(column.shape), native_s=native_s,
+                         numpy_s=numpy_s, bit_equal=same)
+    del column, want, got
+    gc.collect()
+    # What the readers decode per call: one flow key of a 256^2 training
+    # crop (CVORReader.sample_cropped) and of a 512^2 evaluation sample.
+    calls = {}
+    for name, shape in (("train_crop", (256, 256, 10)), ("eval_sample", (512, 512, 10))):
+        raw = np.random.default_rng(1).integers(0, 65536, shape, dtype=np.uint16)
+        want = (raw.astype(np.float32) - records.FLOW_OFFSET) / records.FLOW_SCALE
+        if not np.array_equal(records.decode_flow_u16(raw).view(np.uint32), want.view(np.uint32)):
+            fail(f"native core: the {name} decode's bits differ from numpy's")
+        row = {}
+        for side, fn in (("native_ms", lambda: records.decode_flow_u16(raw)),
+                         ("numpy_ms", lambda: (raw.astype(np.float32) - records.FLOW_OFFSET)
+                          / records.FLOW_SCALE)):
+            times = []
+            for _ in range(50):
+                t0 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t0)
+            row[side] = 1e3 * statistics.median(times)
+        calls[name] = dict(row, shape=list(shape), threads=native._threads(raw.size))
+        print(f"host tools native core at a reader's call, {name} {shape}: native "
+              f"{row['native_ms']:.4f} ms ({calls[name]['threads']} thread), numpy "
+              f"{row['numpy_ms']:.4f} ms (medians of 50), bit-equal")
+    out["native"]["reader_calls"] = calls
+
+    small = models.build_flow_estimator("raft", compute_dtype="bfloat16", seed=0)
+    i1, i2 = (torch.empty((1, 64, 64, 3), device="cuda").uniform_(-1, 1) for _ in range(2))
+    with torch.no_grad():
+        small.forward(i1, i2)
+        with profiling.trace(str(Path(tmp) / "trace")) as prof:
+            small.forward(i1, i2)
+    text = (Path(tmp) / "trace" / "trace.json").read_text()
+    named = [k for k in kernel_names(corr_cuda) if k in text]
+    rows = [e for e in prof.key_averages() if "corr_window" in e.key]
+    print(f"host tools trace: {len(text) / 1e6:.2f} MB Chrome trace; kernel #1 named: {named}, "
+          f"{sum(e.count for e in rows)} launches in its key_averages")
+    if not named:
+        fail("profiling.trace: the trace does not name kernel #1")
+    out["trace"] = dict(bytes=len(text), kernel_1_named=bool(named),
+                        kernel_1_events=sum(e.count for e in rows))
+
+    run = graphs.CudaGraphed(serving.build_serving_fn(est, acc))
+    step_s = profiling.device_step_time(run, (images,), iters=8)
+    print(f"host tools device_step_time: graphed clip (7x512^2, batch 2) {step_s * 1e3:.2f} ms "
+          f"per call (K = 8 vs 16 chained replays), phase 5b's median {graphed_clip_ms:.2f} ms")
+    out["device_step_time"] = dict(ms=step_s * 1e3, phase5b_median_ms=graphed_clip_ms)
+    del run, est, acc, images, small
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def build_kernels() -> None:
     """Phase 2: one nvcc per source (and per build of a source), started
     together."""
@@ -3200,10 +3769,15 @@ def main() -> int:
                     help="print where the clip forwards' and a stream push's device time goes")
     ap.add_argument("--tile-sweep", action="store_true",
                     help="time kernels #1 and #2 at 4, 8 and 16 queries per block")
+    ap.add_argument("--dp-child", nargs=3, metavar=("RANK", "PORT", "DIR"),
+                    help="run one rank of phase 19c (started by the script itself)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.dp_child:
+        rank, port, work = args.dp_child
+        return dp_child(int(rank), int(port), work)
 
     line = smi("name,power.limit")
     print(line)
@@ -3272,6 +3846,9 @@ def main() -> int:
         ondemand = dict(small_clips=ondemand_small_clips(), clip=ondemand_clip(),
                         hires=hires_phase(), finetune=finetune_ondemand(root, tmp))
         f0n = f0n_phase(root, tmp)
+        sintel = sintel_phase(tmp)
+        dp = dp_phase(root, tmp, train, finetune, evals)
+        tools = host_tools_phase(tmp, clip_extra["graphed"]["median_ms"])
     print(f"train on {line} (graphed, train_acc): AccRAFT {train['accraft']['ms_per_step']:.2f} "
           f"ms per step ({train['accraft']['clips_per_s']:.3f} clips/s, peak "
           f"{train['accraft']['peak_gib']:.3f} GiB, idle "
@@ -3300,6 +3877,17 @@ def main() -> int:
           f"idle {100 * f0n['train']['replay']['idle_share']:.1f} %; AccRAFT "
           f"{train['accraft']['ms_per_step']:.2f} ms); clip 7x512^2 " + ", ".join(
               f"{k} {c['ms_per_forward']:.2f} ms" for k, c in f0n["clips"].items()))
+    print(f"sintel on {line} (1024x436, interv 6, 12 iters, bf16, batch 4): " + ", ".join(
+        f"{m} {r['s_per_sample']:.3f} s per sample (loader {100 * r['loader_share']:.1f} %, peak "
+        f"{r['peak_gib']:.3f} GiB)" for m, r in sintel["rows"].items()))
+    print(f"data parallel on {line}: world of one over NCCL, graphed, deterministic: " + ", ".join(
+        f"{name} {dp[k]['ms_per_step']:.2f} ms per step (no group "
+        f"{dp[k]['no_group_ms_per_step']:.2f}, bit-equal)"
+        for name, k in (("train_acc", "train"), ("fine_tune", "finetune")))
+        + "; two gloo ranks on one card agree with one process at batch 2")
+    print(json.dumps({"sintel": {"card": line, **sintel}}, default=str))
+    print(json.dumps({"data_parallel": {"card": line, **dp}}, default=str))
+    print(json.dumps({"host_tools": {"card": line, **tools}}, default=str))
     print(json.dumps({"ondemand": {"card": line, **ondemand}}, default=str))
     print(json.dumps({"f0n": {"card": line, **f0n}}, default=str))
     print(json.dumps({"graphs": {"card": line, "clip": clip_extra, "stream_a": stream_a,
@@ -3358,7 +3946,17 @@ def main() -> int:
          "f0n_train_launches": f0n["train"]["launches"]["corr_lookup"],
          "f0n_train_launches_in": "AccRAFT-F0N training, 13 graphed steps and a validation "
                                   "batch, counted as in training",
-         "f0n_clip_launches": {k: c["launches"] for k, c in f0n["clips"].items()}},
+         "f0n_clip_launches": {k: c["launches"] for k, c in f0n["clips"].items()},
+         **{f"sintel_{m.replace('|', '_')}_launches": r["launches"]
+            for m, r in sintel["rows"].items()},
+         "sintel_launches_in": "cli/test_sintel over 8 samples at batch 4 (1024x440, T=8): one "
+                               "signature's 2 warm-ups and capture counted, the replay not",
+         "dp_train_launches": dp["train"]["launches"]["corr_lookup"],
+         "dp_finetune_launches": dp["finetune"]["launches"]["corr_lookup"],
+         "dp_launches_in": f"train_acc (AccRAFT.yml) and fine_tune (RAFT.yml) in a world of one "
+                           f"over NCCL, {DP_STEPS} graphed steps each, counted as in training",
+         "dp_two_ranks_launches": {k: r["rank_launches"] for k, r in dp["two_ranks"].items()
+                                   if isinstance(r, dict)}},
         {"name": "corr_lookup_f32_out", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:264",
@@ -3427,6 +4025,8 @@ def main() -> int:
          "finetune_ondemand_launches":
              ondemand["finetune"]["raft"]["launches"]["corr_lookup_backward"],
          "finetune_ondemand_64_launches": ondemand["finetune"]["gpu_vs_cpu"]["launches"],
+         "dp_finetune_backward_launches": dp["finetune"]["launches"]["corr_lookup_backward"],
+         "dp_two_ranks_finetune_launches": dp["two_ranks"]["finetune"]["rank_launches"],
          "other_dtypes": {k: v for k, v in finetune["backward_kernel_1"].items()
                           if k != "float32 levels, bfloat16 grad"}},
         {"name": "corr_level_lookup_backward", "route": "cuda",

@@ -12,7 +12,9 @@ the CPU and its kernel-#1 launches; the lookups' backward kernel
 step on the GPU against the CPU with its launches; the graphed train,
 validation and eval steps (graphs.CudaGraphedStep, graphs.CudaGraphed)
 against the eager ones, sync-free, once captured per signature, and
-captured again after a resume.
+captured again after a resume; High-Speed Sintel's evaluation on the GPU
+against the CPU, a graphed train step in a world of one over NCCL against
+the step without a process group, and a profiler trace on the card.
 Marked `cuda`; each test skips where there is no GPU (no
 kernel can run there). This file imports neither JAX nor the JAX package,
 so it runs on a machine with only torch:
@@ -844,14 +846,15 @@ def test_finetune_step_gpu_matches_cpu(dev):
         assert float((s_g[k] - s_c[k]).abs().max()) <= 1e-5 * float(s_c[k].abs().max()), k
 
 
-def _graph_case(dev, kind: str, graphed: bool, n: int = 2, seed: int = 5):
+def _graph_case(dev, kind: str, graphed: bool, n: int = 2, seed: int = 5, group=None):
     """A train step built afresh from seeds on the card and 3 batches of `n`
     samples: kind "acc" is make_acc_train_step's (_train_case's frozen RAFT
     at 4 iterations and AccFlow hidden 32, noise on); "none", "full" and
     "dots" make_finetune_step's for full RAFT from seed 0 (12 iterations,
     the cnet's BatchNorm on the batch's statistics, noise on, gamma 0.85)
-    with that remat. float32 at 64^2. Returns (model, optimizer,
-    train_step, valid_step, batches, valid_batches)."""
+    with that remat. float32 at 64^2; `group` the steps' process group.
+    Returns (model, optimizer, train_step, valid_step, batches,
+    valid_batches)."""
     from accflow_tpu_torch.train.engine import make_acc_train_step
     from accflow_tpu_torch.train.finetune import make_finetune_step
     from accflow_tpu_torch.train.optim import make_optimizer
@@ -868,13 +871,14 @@ def _graph_case(dev, kind: str, graphed: bool, n: int = 2, seed: int = 5):
     if kind == "acc":
         est, model, _, _ = _train_case(dev)
         optimizer = make_optimizer(model.parameters(), 1e-4, 10)
-        steps = make_acc_train_step(est, model, optimizer, add_noise=True, graphed=graphed)
+        steps = make_acc_train_step(est, model, optimizer, add_noise=True, graphed=graphed,
+                                    group=group)
         batches = [(c.float(), f) for c, f in zip(clips[:3], flows[:3])]
         return (model, optimizer, *steps, batches, batches)
     est = build_flow_estimator("raft", compute_dtype="float32", seed=0, device=dev)
     optimizer = make_optimizer(est.model.parameters(), 1e-4, 10)
     steps = make_finetune_step(est, optimizer, add_noise=True, gamma=0.85, remat=kind,
-                               graphed=graphed)
+                               graphed=graphed, group=group)
     batches = [(c[..., :3], c[..., 3:6], f[..., :2]) for c, f in zip(clips[:3], flows[:3])]
     return (est.model, optimizer, *steps, batches, list(zip(clips[:3], flows[:3])))
 
@@ -890,11 +894,11 @@ def _train_state(model, optimizer) -> dict:
             "buffers": {k: b.clone() for k, b in model.named_buffers()}}
 
 
-def _run_steps(dev, kind, graphed, steps: int = 5):
+def _run_steps(dev, kind, graphed, steps: int = 5, group=None):
     """`steps` calls of _graph_case's train step (the batches cycled, noise
     from a generator seeded 11): (losses, state, train_step, optimizer,
     generator state)."""
-    model, optimizer, step, _, batches, _ = _graph_case(dev, kind, graphed)
+    model, optimizer, step, _, batches, _ = _graph_case(dev, kind, graphed, group=group)
     gen = torch.Generator(device=dev).manual_seed(11)
     losses = [float(step(*batches[i % len(batches)], gen)[0]) for i in range(steps)]
     return losses, _train_state(model, optimizer), step, optimizer, gen.get_state()
@@ -1128,3 +1132,121 @@ def test_ondemand_clip_gpu_matches_cpu_and_is_graphed(dev):
     flow_max = float(outs["cpu"].abs().max())
     assert flow_max > 0
     assert float((outs["cuda"] - outs["cpu"]).abs().max()) <= 1e-3 * flow_max
+
+
+def _write_png(path, img: np.ndarray) -> None:
+    """(H, W, C) uint8 as an 8-bit PNG (grey or RGB), rows unfiltered."""
+    import struct
+    import zlib
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    h, w, c = img.shape
+    rows = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                                                  {1: 0, 3: 2}[c], 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("model_name", ["direct|raft", "acc|raft"])
+def test_evaluate_sintel_gpu_matches_cpu(dev, tmp_path, model_name):
+    """evaluate_sintel on 3 synthetic samples (5 frames of 72x40 resized to
+    64x32, interv 2: T = 3, batch 2 with the second batch padded), float32,
+    TF32 off, 2 iterations: the GPU (kernel #1, graphed) against the CPU
+    (the plain lookup), each EPE within 1e-4 of the CPU's (chip_smoke.py's
+    SINTEL_REL); the ground truth within +-0.25 px, the flows' scale, so
+    that the EPEs read the flows' errors."""
+    from accflow_tpu_torch.nn.layers import tf32
+    from accflow_tpu_torch.train.evaluate import evaluate_sintel
+    from accflow_tpu_torch.utils.frame_io import write_flow
+
+    rng = np.random.default_rng(9)
+    for s in range(3):
+        sample = tmp_path / "hs" / f"alley_{s:04d}"
+        (sample / "2_imgs").mkdir(parents=True)
+        (sample / "43_imgs").mkdir()
+        frames = rng.integers(0, 256, (5, 40, 72, 3), dtype=np.uint8)
+        for i, img in enumerate(frames):
+            _write_png(sample / "43_imgs" / f"frame_{i:04d}.png", img)
+        for i, img in enumerate((frames[0], frames[-1])):
+            _write_png(sample / "2_imgs" / f"frame_{i}.png", img)
+        write_flow(str(sample / "flow.flo"),
+                   rng.uniform(-0.25, 0.25, (32, 64, 2)).astype(np.float32))
+        _write_png(sample / "occ.png",
+                   (rng.uniform(size=(32, 64, 1)) > 0.7).astype(np.uint8) * 255)
+    res = {}
+    for where in ("cuda", "cpu"):
+        with tf32(False):
+            res[where] = evaluate_sintel(model_name, str(tmp_path / "hs"), interv=2, iters=2,
+                                         compute_dtype="float32", size=(64, 32), batch=2,
+                                         device=where)
+    for k, v in res["cpu"].items():
+        assert np.isfinite(v) and abs(res["cuda"][k] - v) <= 1e-4 * abs(v) + 1e-6, (k, res)
+
+
+@pytest.mark.parametrize("kind", ["acc", "dots"])
+def test_nccl_world_of_one_graphed_train_step_bit_equal(dev, deterministic, monkeypatch, kind):
+    """train_acc's step ("acc") and fine_tune's ("dots": the cnet's
+    train-mode BatchNorm) graphed in a world of one over NCCL, given the
+    group (the gradient all-reduce, the loss mean and BatchNorm's sums over
+    ranks, forward and backward, captured in the graph), under torch's
+    deterministic algorithms: every loss and every state group bit-equal to
+    the same 5 steps without a process group."""
+    import socket
+
+    from accflow_tpu_torch.parallel import mesh
+
+    plain = _run_steps(dev, kind, True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port), ACCFLOW_DISTRIBUTED="1").items():
+        monkeypatch.setenv(k, v)
+    assert mesh.maybe_init_distributed("cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl" and mesh.collectives_capturable()
+        grouped = _run_steps(dev, kind, True, group=mesh.data_group())
+    finally:
+        torch.distributed.destroy_process_group()
+    assert grouped[0] == plain[0]
+    assert grouped[2].captures == 1
+    for group, tensors in plain[1].items():
+        for k, t in tensors.items():
+            assert torch.equal(grouped[1][group][k], t), (group, k)
+
+
+def test_profiling_trace_on_the_card(dev, tmp_path):
+    """profiling.trace around a 64^2 RAFT forward writes a Chrome trace that
+    names kernel #1's CUDA kernel (corr_window), with device time in its
+    key_averages."""
+    from accflow_tpu_torch.utils import profiling
+
+    est = build_flow_estimator("raft", compute_dtype="bfloat16", iters=3, device=dev)
+    i1, i2 = (torch.rand((1, 64, 64, 3), device=dev) * 2 - 1 for _ in range(2))
+    with torch.no_grad():
+        est.forward(i1, i2)
+        with profiling.trace(str(tmp_path / "tr")) as prof:
+            est.forward(i1, i2)
+    assert "corr_window" in (tmp_path / "tr" / "trace.json").read_text()
+    rows = [e for e in prof.key_averages() if "corr_window" in e.key]
+    assert sum(e.count for e in rows) == 3
+    assert sum(getattr(e, "self_device_time_total", 0) for e in rows) > 0
+
+
+def test_device_prefetch_copies_to_the_card(dev):
+    """device_prefetch hands over batches already on the card, equal to
+    their numpy source, while the consumer captures and replays a graph
+    between them (the copies wait for a capture: graphs.CAPTURE_LOCK)."""
+    from accflow_tpu_torch.data.prefetch import device_prefetch
+
+    batches = [{"a": np.full((4, 8), i, np.float32)} for i in range(6)]
+    double = graphs.CudaGraphed(lambda x: x * 2)
+    for i, b in enumerate(device_prefetch(iter(batches), depth=2, device=dev)):
+        want = torch.from_numpy(batches[i]["a"])
+        assert b["a"].is_cuda and torch.equal(b["a"].cpu(), want)
+        assert torch.equal(double(b["a"]).cpu(), 2 * want)
+    assert double.captures == 1
