@@ -11,7 +11,8 @@
 // C interface (loaded with ctypes). dtype: the levels' type, which the
 // gradients take (0 = float32, 1 = bfloat16); grad_dtype: the window
 // gradient's (0 = float32, 1 = bfloat16). coords: contiguous (q, 2)
-// float32; grad_out: contiguous (q, 4*(2*radius+1)^2); grads: 4 pointers
+// float32; grad_out: contiguous (q, 4*(2*radius+1)^2) at an address that is
+// a multiple of 4 values (16 bytes float32, 8 bfloat16); grads: 4 pointers
 // to contiguous (q, hw[2l], hw[2l+1]) outputs, every element written.
 // Launches on `stream`; returns cudaGetLastError() (0 = success), or
 // cudaErrorInvalidValue for arguments the kernel does not take.

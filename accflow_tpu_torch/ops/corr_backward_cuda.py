@@ -97,6 +97,9 @@ def launch(lib: ctypes.CDLL, entry: str, grad_out: torch.Tensor, coords: torch.T
     grads = [torch.empty((q, h, w), dtype=dtype, device=coords.device) for h, w in _shapes(hw)]
     if q == 0:
         return grads
+    if grad_out.data_ptr() % (4 * grad_out.element_size()):
+        # The kernel copies each query's row in whole 4-value pieces.
+        grad_out = grad_out.clone(memory_format=torch.contiguous_format)
     ptrs = (ctypes.c_void_p * LEVELS)(*[g.data_ptr() for g in grads])
     dims = (ctypes.c_int * (2 * LEVELS))(*hw)
     args = (coords.data_ptr(), grad_out.data_ptr(), ptrs, dims, q)

@@ -755,6 +755,97 @@ def test_lookup_ops_backward_through_the_kernel(dev, op):
         call(levels, coords.requires_grad_(True), radius, torch.bfloat16)
 
 
+# The backward kernel's paths (csrc/corr_window_backward.cuh): (Q, level 0's
+# map; each next level halves it). A level whose map rows are whole 16-byte
+# vectors is written in 16-byte stores, any other element by element:
+# 33x30 -> 16x15 -> 8x7 -> 4x3 has no such rows; 34x36 -> 17x18 -> 8x9 ->
+# 4x4 has them in float32 at levels 0 and 3; 24x40 -> 12x20 -> 6x10 -> 3x5
+# at levels 0 and 1 in float32, level 0 in bfloat16; 8x8 -> 1x1 holds a
+# bfloat16 4x4 (elements) beside an 8x8 (vectors); 2x6 -> 0x0 has zero-sized
+# levels; one query alone; 132 SMs x 8 resident blocks x 8 warps = 8,448
+# queries fill the persistent grid at most, so 132 * 8 * 16 + 3 take it
+# more than two passes. Every Q but 1 and 16 is odd: odd rows of a bfloat16
+# window gradient start 8 bytes past a 16-byte boundary.
+BWD_PATHS = {"no vector rows": (37, (33, 30)), "mixed widths": (35, (34, 36)),
+             "mixed widths 2": (13, (24, 40)), "bf16 8x8 beside 4x4": (21, (8, 8)),
+             "zero-sized levels": (9, (2, 6)), "one query": (1, (32, 32)),
+             "beyond one pass": (132 * 8 * 16 + 3, (8, 8)), "Q 16": (16, (16, 16))}
+
+
+def _paths_case(dev, q, hw0, radius, grad_dtype, seed=0):
+    """Q queries, their level shapes from hw0 down (halving), coords on a
+    1/256 grid over level 0's map and 6 px beyond it, and a unit-normal
+    window gradient (Q, 4*(2r+1)^2) in grad_dtype; returns (grad_out, coords,
+    hw, shapes)."""
+    gen = torch.Generator().manual_seed(seed)
+    shapes = [(hw0[0] >> l, hw0[1] >> l) for l in range(corr_cuda.LEVELS)]
+    span = torch.tensor([hw0[1] + 12.0, hw0[0] + 12.0])
+    coords = torch.round((torch.rand((q, 2), generator=gen) * span - 6) * 256) / 256
+    cols = corr_cuda.LEVELS * (2 * radius + 1) ** 2
+    grad = torch.randn((q, cols), generator=gen).to(grad_dtype)
+    return grad.to(dev), coords.to(dev), [d for hw in shapes for d in hw], shapes
+
+
+def _poisoned_call(op, grad, coords, hw, shapes, radius, dtype):
+    """op's gradients, called right after NaN-filled tensors of the outputs'
+    shapes were freed, so that the caching allocator hands their memory to
+    the outputs: an element the kernel leaves unwritten stays NaN."""
+    q = coords.shape[0]
+    poison = [torch.full((q, *s), float("nan"), dtype=dtype, device=coords.device)
+              for s in shapes]
+    del poison
+    return op(grad, coords, hw, radius, dtype)
+
+
+@pytest.mark.parametrize("radius", [4, 3])
+@pytest.mark.parametrize("level_dtype,grad_dtype", [
+    (torch.float32, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("case", list(BWD_PATHS))
+def test_backward_kernel_paths(dev, radius, level_dtype, grad_dtype, case):
+    """The backward kernel's 16-byte and element-by-element levels, zero-sized
+    levels, one query, a Q the block's 8 warps do not divide, a Q beyond
+    one pass of the persistent grid, and odd rows of a bfloat16 window
+    gradient, against lookup_corr_plain_backward with
+    test_backward_kernel_matches_plain's bars; every element written (the
+    outputs land on freed NaN-filled memory); coords far off every map give
+    all zeros."""
+    q, hw0 = BWD_PATHS[case]
+    grad, coords, hw, shapes = _paths_case(dev, q, hw0, radius, grad_dtype)
+    op = _backward_op(radius)
+    ref = lookup_corr_plain_backward(grad, coords, shapes, radius)
+    got32 = _poisoned_call(op, grad, coords, hw, shapes, radius, torch.float32)
+    got = _poisoned_call(op, grad, coords, hw, shapes, radius, level_dtype)
+    torch.cuda.synchronize()
+    scale = max(float(r.abs().max()) for r in ref if r.numel())
+    for g, g32, r in zip(got, got32, ref):
+        assert g.dtype == level_dtype and g.shape == r.shape
+        assert bool(torch.isfinite(g).all()) and bool(torch.isfinite(g32).all())
+        torch.testing.assert_close(g32, r, rtol=1e-5, atol=1e-6 * scale)
+        if level_dtype == torch.bfloat16:
+            assert torch.equal(g.view(torch.int16), g32.to(torch.bfloat16).view(torch.int16))
+            assert bool(((g.float() - r).abs() <= 1e-6 * scale + 2 ** -8 * r.abs()).all())
+    far = _poisoned_call(op, grad, coords + 1e4, hw, shapes, radius, level_dtype)
+    assert all(bool((g == 0).all()) for g in far)
+
+
+@pytest.mark.parametrize("radius", [4, 3])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_misaligned_window_gradient(dev, radius, grad_dtype):
+    """A window gradient that starts one element past an aligned address (a
+    view into a larger tensor) gives the aligned copy's gradients bit for bit
+    (the wrapper copies it: the kernel copies whole 4-value pieces)."""
+    grad, coords, hw, shapes = _paths_case(dev, 37, (33, 30), radius, grad_dtype)
+    flat = torch.empty(grad.numel() + 1, dtype=grad_dtype, device=dev)
+    view = flat[1:].view(grad.shape)
+    view.copy_(grad)
+    assert view.is_contiguous() and view.data_ptr() % 8 != 0
+    op = _backward_op(radius)
+    for g, a in zip(op(view, coords, hw, radius, torch.float32),
+                    op(grad, coords, hw, radius, torch.float32)):
+        assert torch.equal(g, a)
+
+
 TIE_REL = 1e-5  # chip_smoke.py's: a ReLU input this close to zero is a tie
 
 def tie_hooks(model, recorded=None):
