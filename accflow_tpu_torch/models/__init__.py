@@ -47,7 +47,10 @@ _ENTRY_POINTS = {
 class FlowEstimator:
     """A RAFT (full width or small) or GMA model with its forward entry
     points, picked by the model's type. iters: the GRU iterations of a call
-    that names none (default: the model config's)."""
+    that names none (default: the model config's). The inference entry
+    points take a `spatial` handle (parallel/mesh.py: frames, features and
+    flows are this rank's rows of a height-sharded image) for full RAFT;
+    GMA and RAFT-small refuse one (ValueError)."""
 
     def __init__(self, name: str, model, iters: Optional[int] = None):
         self.name = name
@@ -61,46 +64,66 @@ class FlowEstimator:
         return self.model.cfg
 
     def forward(self, image1, image2, iters: Optional[int] = None, flow_init=None,
-                final_only: bool = False, train: bool = False, remat: str = "none") -> dict:
+                final_only: bool = False, train: bool = False, remat: str = "none",
+                spatial=None) -> dict:
         """Flow image1 -> image2 (raft_forward's contract). train=True is
         torch's model.train() for fine-tuning (JAX's forward with
         train=True): autograd records the forward, the context encoder's
         BatchNorm normalises with the batch's statistics and keeps its
         running-statistics updates (nn.layers.collect_bn_updates), and
-        remat ("none", "dots", "full") checkpoints each GRU iteration."""
+        remat ("none", "dots", "full") checkpoints each GRU iteration.
+        spatial: images and flows are this rank's rows (inference only)."""
         if train:
+            if spatial is not None:
+                raise ValueError("training over the spatial axis is not ported: "
+                                 "ROADMAP.md queue 1, #12")
             return self._train_forward(self.model, image1, image2, self._iters(iters),
                                        flow_init, final_only, remat)
         return self._forward(self.model, image1, image2, self._iters(iters), flow_init,
-                             final_only)
+                             final_only, **self._spatial(spatial))
 
     def _iters(self, iters: Optional[int]) -> Optional[int]:
         return self.iters if iters is None else iters
 
-    def pairs_fn(self, iters: Optional[int] = None, final_only: bool = True):
+    def _spatial(self, spatial) -> dict:
+        """The entry points' spatial keyword; GMA refuses a handle."""
+        if spatial is None:
+            return {}
+        if not isinstance(self.model, RAFT):
+            raise ValueError("GMA on the spatial axis (its attention over sharded rows) is "
+                             "not ported: ROADMAP.md queue 1, #12")
+        return {"spatial": spatial}
+
+    def pairs_fn(self, iters: Optional[int] = None, final_only: bool = True, spatial=None):
         """Closure (frames, src_idx, dst_idx) -> (P*N, H, W, 2) flows with
         deduplicated frame encoding, for accflow_forward."""
+        kw = self._spatial(spatial)
+
         def fn(frames, src_idx, dst_idx):
             return self._pairs_forward(self.model, frames, src_idx, dst_idx,
-                                       iters=self._iters(iters), final_only=final_only)
+                                       iters=self._iters(iters), final_only=final_only, **kw)
 
         return fn
 
-    def encode_frame_fn(self):
+    def encode_frame_fn(self, spatial=None):
         """Closure (image_batch) -> cacheable per-frame features
         ({fmap, net, inp}) for the streaming state (streaming.py)."""
+        kw = self._spatial(spatial)
+
         def fn(image):
-            return self._encode_frame(self.model, image)
+            return self._encode_frame(self.model, image, **kw)
 
         return fn
 
     def pairs_from_features_fn(self, iters: Optional[int] = None,
-                               final_only: bool = True):
+                               final_only: bool = True, spatial=None):
         """Closure (src_feats, dst_fmaps, flow_init=None) -> (P*N, H, W, 2)
         flows from precomputed features: the streaming step's OFE call."""
+        kw = self._spatial(spatial)
+
         def fn(src, dst_fmaps, flow_init=None):
             return self._pairs_from_features(self.model, src, dst_fmaps, self._iters(iters),
-                                             flow_init, final_only)
+                                             flow_init, final_only, **kw)
 
         return fn
 

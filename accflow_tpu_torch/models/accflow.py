@@ -28,6 +28,16 @@ the OFE step by step; the warm-started one starts each step's queries from
 the previous step's flows advected into the new frame. Cell modules run in the
 compute dtype; OFE flows, occlusion maps and decoder outputs are float32.
 
+Height sharding (parallel/mesh.py): the fused backward path
+(`accflow_forward(..., spatial=...)`, with `ofe_pairs` from
+`FlowEstimator.pairs_fn(spatial=...)`) and the streaming cell
+(`_cell_from_ctx`) run on this rank's rows of the frames. The convs read
+halo rows (their modules take the handle from nn.layers.spatial_sharding),
+the occlusion and error maps warp the gathered context of the target frames,
+the deformable conv samples the gathered carry encoding, and the convex
+upsampling reads a halo row of the flow. The stepwise, F0N and warm-start
+clip paths refuse a handle (ROADMAP.md queue 1, #12).
+
 Training (train/engine.py) differentiates a path (fused or stepwise, in
 either direction) with respect to the accumulator's weights and detaches
 what JAX detaches: the frozen estimator's flows (computed under no_grad, so
@@ -50,13 +60,14 @@ import torch.nn as nn
 from accflow_tpu_torch.device import resolve_device
 from accflow_tpu_torch.models.encoders import BasicEncoder
 from accflow_tpu_torch.models.raft import to_nchw
-from accflow_tpu_torch.nn.layers import Conv2d, ZeroConv2d, init_weights, tf32
+from accflow_tpu_torch.nn.layers import Conv2d, ZeroConv2d, init_weights, spatial_sharding, tf32
 from accflow_tpu_torch.nn.remat import remat_wrap
 from accflow_tpu_torch.ops.deform import deform_conv3x3
 from accflow_tpu_torch.ops.grids import downflow8
 from accflow_tpu_torch.ops.occlusion import photometric_occ
 from accflow_tpu_torch.ops.upsample import convex_upsample
 from accflow_tpu_torch.ops.warmstart import forward_splat_flow
+from accflow_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,10 +126,11 @@ class FlowDecoder(nn.Module):
         self.flow = _stack(c, c * 2, 2, 3, 3)
         self.mask = _stack(c, c * 2, 64 * 9, 3, 1)
 
-    def forward(self, x):
-        """x (N, C, h, w) -> (flow_small (N, h, w, 2), flow (N, 8h, 8w, 2)), float32."""
+    def forward(self, x, spatial=None):
+        """x (N, C, h, w) -> (flow_small (N, h, w, 2), flow (N, 8h, 8w, 2)), float32.
+        spatial: the convex upsampling's handle."""
         flow_small = self.flow(x).float().permute(0, 2, 3, 1)
-        flow = convex_upsample(flow_small, self.mask(x).permute(0, 2, 3, 1))
+        flow = convex_upsample(flow_small, self.mask(x).permute(0, 2, 3, 1), spatial)
         return flow_small, flow
 
 
@@ -137,14 +149,16 @@ class AccPlus(nn.Module):
             Conv2d(c, c, 1),
         )
 
-    def forward(self, df, f, o, c):
+    def forward(self, df, f, o, c, spatial=None):
         """df: encoded local flow; f: encoded carry F_{i-1,0}; o: binary
-        occlusion map (N, 1, h, w); c: context of frame i (AccFlow_.py:97-109)."""
+        occlusion map (N, 1, h, w); c: context of frame i (AccFlow_.py:97-109).
+        spatial: the deformable conv's handle."""
         o = o.to(df.dtype)
         x = self.conv1(torch.cat([df, f, o], dim=1))
         x = self.conv2(torch.cat([x, c], dim=1))
         off, m = x[:, :18], torch.sigmoid(x[:, 18:])
-        f_ = deform_conv3x3(f, off.float(), m.float(), self.dconv.weight, self.dconv.bias)
+        f_ = deform_conv3x3(f, off.float(), m.float(), self.dconv.weight, self.dconv.bias,
+                            spatial)
         x = self.conv3(torch.cat([f_, df, o], dim=1))
         return self.conv4(torch.cat([x, c, f_, df], dim=1))
 
@@ -184,25 +198,31 @@ def _nhwc32(x: torch.Tensor) -> torch.Tensor:
     return x.float().permute(0, 2, 3, 1)
 
 
-def _cell_from_ctx(model: AccFlow, dflow, flow_ini, f2n, c1, c2, cn):
+def _cell_from_ctx(model: AccFlow, dflow, flow_ini, f2n, c1, c2, cn, spatial=None):
     """The cell modules on precomputed 1/8-res OFE flows (N, h8, w8, 2)
     float32 (local dflow f_{i,i-1}, direct flow_ini F_{i,0}, carry f2n
     F_{i-1,0}) and context features c1/c2/cn of frames i, i-1, 0
     ((N, C, h8, w8), compute dtype). The context encoder is a per-sample
     conv stack, so streaming (streaming.py) caches c2/cn and encodes only
     the new frame. The occlusion and error maps are detached, as JAX stops
-    them. Returns (carry (N, h8, w8, 2), flow (N, H, W, 2)), float32."""
+    them. Returns (carry (N, h8, w8, 2), flow (N, H, W, 2)), float32.
+    spatial: every input and output is this rank's rows; the context of
+    frames i-1 and 0 is gathered (one collective) for the maps' warps."""
     cd = model.cfg.dtype
     n = dflow.shape[0]
-    with tf32(False):
+    with tf32(False), spatial_sharding(model, spatial):
         enc = model.flow_encoder(to_nchw(torch.cat([flow_ini, dflow, f2n]), cd))
         f_ini, df, f = enc[:n], enc[n: 2 * n], enc[2 * n:]
         c1_32 = _nhwc32(c1)
-        o = photometric_occ(dflow, c1_32, _nhwc32(c2)).detach()
-        f_acc = model.accplus(df, f, to_nchw(o, cd), c1)
-        emap = photometric_occ(flow_ini, c1_32, _nhwc32(cn), binary=False).detach()
+        if spatial is None:
+            c2_32, cn_32 = _nhwc32(c2), _nhwc32(cn)
+        else:
+            c2_32, cn_32 = _nhwc32(mesh.gather_rows(torch.cat([c2, cn]), spatial, dim=2)).chunk(2)
+        o = photometric_occ(dflow, c1_32, c2_32, spatial=spatial).detach()
+        f_acc = model.accplus(df, f, to_nchw(o, cd), c1, spatial)
+        emap = photometric_occ(flow_ini, c1_32, cn_32, binary=False, spatial=spatial).detach()
         f_fuse = model.blending(f_ini, f_acc, to_nchw(emap, cd))
-        return model.flow_decoder(f_fuse)
+        return model.flow_decoder(f_fuse, spatial)
 
 
 def _cell_modules(model: AccFlow, dflow, flow_ini, f2n, i1, i2, i_n):
@@ -300,11 +320,18 @@ def _clip_images(model: AccFlow, images) -> torch.Tensor:
     return images
 
 
-def _dispatch(model: AccFlow, images: torch.Tensor, ofe_pairs, ofe) -> torch.Tensor:
+def _dispatch(model: AccFlow, images: torch.Tensor, ofe_pairs, ofe,
+              spatial=None) -> torch.Tensor:
     """The path of model.cfg (direction, warm_start, fused_ofe), given the
-    OFE closure it takes (accflow_tpu/models/accflow.py:644-697)."""
+    OFE closure it takes (accflow_tpu/models/accflow.py:644-697). With a
+    spatial handle, the fused backward path alone."""
     cfg = model.cfg
     forward = cfg.direction == "forward"
+    if spatial is not None and (cfg.warm_start or forward or not cfg.fused_ofe):
+        raise ValueError("the stepwise, F0N and warm-start clip paths over the spatial axis are "
+                         "not ported (ROADMAP.md queue 1, #12): the fused backward path (and "
+                         "StreamAccumulator) take a spatial handle")
+    mesh.check_rows(images.shape[2], spatial)
     if cfg.warm_start:
         if ofe is None:
             raise ValueError("warm_start needs ofe=FlowEstimator.flow_fn()")
@@ -312,15 +339,17 @@ def _dispatch(model: AccFlow, images: torch.Tensor, ofe_pairs, ofe) -> torch.Ten
     if cfg.fused_ofe:
         if ofe_pairs is None:
             raise ValueError("the fused path needs ofe_pairs=FlowEstimator.pairs_fn()")
-        path = _accflow_forward_f0n_fused if forward else _accflow_forward_fused
-        return path(model, ofe_pairs, images)
+        if forward:
+            return _accflow_forward_f0n_fused(model, ofe_pairs, images)
+        return _accflow_forward_fused(model, ofe_pairs, images, spatial)
     if ofe is None:
         raise ValueError("the stepwise path (fused_ofe=False) needs ofe=FlowEstimator.flow_fn()")
     return (_accflow_forward_f0n if forward else _accflow_forward_stepwise)(model, ofe, images)
 
 
 @torch.no_grad()
-def accflow_forward(model: AccFlow, images, ofe_pairs=None, ofe=None) -> torch.Tensor:
+def accflow_forward(model: AccFlow, images, ofe_pairs=None, ofe=None,
+                    spatial=None) -> torch.Tensor:
     """Accumulate long-range flow over a clip.
 
     images: (T, N, H, W, 3) frames [I0 .. I_{T-1}] in [-1, 1], T >= 3.
@@ -329,8 +358,11 @@ def accflow_forward(model: AccFlow, images, ofe_pairs=None, ofe=None) -> torch.T
     flow_init=None) -> (N, H, W, 2) flows (FlowEstimator.flow_fn), for the
     stepwise paths (cfg.fused_ofe=False, cfg.warm_start). Returns
     (T-2, N, H, W, 2) float32: [F_{2,0}, ..., F_{T-1,0}], or with
-    cfg.direction="forward" [F_{0,2}, ..., F_{0,T-1}]."""
-    return _dispatch(model, _clip_images(model, images), ofe_pairs, ofe)
+    cfg.direction="forward" [F_{0,2}, ..., F_{0,T-1}]. spatial (a
+    parallel.mesh.Spatial handle; the fused backward path): images and the
+    flows are this rank's rows, and ofe_pairs is FlowEstimator.pairs_fn(
+    spatial=...) with the same handle."""
+    return _dispatch(model, _clip_images(model, images), ofe_pairs, ofe, spatial)
 
 
 def accflow_train_forward(model: AccFlow, images, ofe_pairs, ofe=None) -> torch.Tensor:
@@ -347,8 +379,11 @@ def accflow_train_forward(model: AccFlow, images, ofe_pairs, ofe=None) -> torch.
     return _dispatch(model, _clip_images(model, images), ofe_pairs, ofe)
 
 
-def _accflow_forward_fused(model: AccFlow, ofe_pairs, images: torch.Tensor) -> torch.Tensor:
-    """Fused-OFE backward accumulation (accflow_tpu/models/accflow.py:553-641)."""
+def _accflow_forward_fused(model: AccFlow, ofe_pairs, images: torch.Tensor,
+                           spatial=None) -> torch.Tensor:
+    """Fused-OFE backward accumulation (accflow_tpu/models/accflow.py:553-641).
+    spatial: images and flows are this rank's rows; the context of frames
+    0 .. T-2, the maps' warp sources, is gathered once."""
     cd = model.cfg.dtype
     t, n, h, w, _ = images.shape
     s, h8, w8 = t - 2, h // 8, w // 8
@@ -357,22 +392,26 @@ def _accflow_forward_fused(model: AccFlow, ofe_pairs, images: torch.Tensor) -> t
     # | seed] (accflow.py:574-575).
     src_idx = tuple(range(2, t)) + tuple(range(2, t)) + (1,)
     dst_idx = tuple(range(1, t - 1)) + (0,) * s + (0,)
-    flows = downflow8(ofe_pairs(images, src_idx, dst_idx)).detach()
+    flows = downflow8(ofe_pairs(images, src_idx, dst_idx), spatial).detach()
     dflows, inis, seed = flows[: s * n], flows[s * n: 2 * s * n], flows[2 * s * n:]
 
-    with tf32(False):
+    with tf32(False), spatial_sharding(model, spatial):
         ctx = model.context(to_nchw(images.reshape(t * n, h, w, 3), cd))
         ctx = ctx.view(t, n, *ctx.shape[1:])  # (T, N, C, h8, w8)
         ctx32 = ctx.float().permute(0, 1, 3, 4, 2)  # (T, N, h8, w8, C)
         c_dim = ctx32.shape[-1]
+        # The warps' sources: frames 0 .. T-2, the whole height.
+        src32 = ctx32 if spatial is None else \
+            mesh.gather_rows(ctx[:-1], spatial, dim=3).float().permute(0, 1, 3, 4, 2)
+        sh8 = src32.shape[2]
 
         # Occlusion / error maps of the queried flows (detached in the reference).
         o = photometric_occ(dflows, ctx32[2:].reshape(s * n, h8, w8, c_dim),
-                            ctx32[1:-1].reshape(s * n, h8, w8, c_dim))
+                            src32[1:t - 1].reshape(s * n, sh8, w8, c_dim), spatial=spatial)
         emap = photometric_occ(
             inis, ctx32[2:].reshape(s * n, h8, w8, c_dim),
-            ctx32[0].expand(s, n, h8, w8, c_dim).reshape(s * n, h8, w8, c_dim),
-            binary=False,
+            src32[0].expand(s, n, sh8, w8, c_dim).reshape(s * n, sh8, w8, c_dim),
+            binary=False, spatial=spatial,
         )
         o = to_nchw(o, cd).view(s, n, 1, h8, w8).detach()
         emap = to_nchw(emap, cd).view(s, n, c_dim, h8, w8).detach()
@@ -383,8 +422,8 @@ def _accflow_forward_fused(model: AccFlow, ofe_pairs, images: torch.Tensor) -> t
 
         def cell(carry, f_ini, df, o_i, emap_i, c_i):
             f = model.flow_encoder(to_nchw(carry.detach(), cd))
-            f_acc = model.accplus(df, f, o_i, c_i)
-            return model.flow_decoder(model.blending(f_ini, f_acc, emap_i))
+            f_acc = model.accplus(df, f, o_i, c_i, spatial)
+            return model.flow_decoder(model.blending(f_ini, f_acc, emap_i), spatial)
 
         cell = remat_wrap(cell, model.cfg.remat)
         carry, outs = seed, []

@@ -33,6 +33,12 @@ Images are (N, H, W, 3) in [-1, 1]; flows (N, H, W, 2) in (x, y) order.
 Feature maps inside are NCHW, kept channels_last in memory.
 
 Inference (raft_forward and the other entry points) runs under no_grad.
+Full RAFT's inference entry points take a `spatial` handle
+(parallel/mesh.py): the frames, every activation, the correlation's queries
+and the flows are then this rank's rows of a height-sharded image, the
+convs read halo rows, the instance norms combine the ranks' statistics,
+and each target frame's fnet map is gathered once (the keys of every
+query); kernel #1 reads this rank's queries against the whole pyramid.
 raft_train_forward is fine-tuning's forward (JAX's forward with
 train=True): autograd records it, the cnet's BatchNorm normalises with the
 batch's statistics and keeps its running-statistics updates
@@ -54,7 +60,14 @@ import torch.nn as nn
 
 from accflow_tpu_torch.device import resolve_device
 from accflow_tpu_torch.models.encoders import BasicEncoder, SmallEncoder
-from accflow_tpu_torch.nn.layers import Conv2d, batch_statistics, conv2d, init_weights, tf32
+from accflow_tpu_torch.nn.layers import (
+    Conv2d,
+    batch_statistics,
+    conv2d,
+    init_weights,
+    spatial_sharding,
+    tf32,
+)
 from accflow_tpu_torch.nn.remat import remat_wrap
 from accflow_tpu_torch.ops.corr import (
     SPLIT_LOOKUPS,
@@ -69,6 +82,7 @@ from accflow_tpu_torch.ops.corr_cuda import LEVELS, RADIUS, lookup_corr_fused
 from accflow_tpu_torch.ops.corr_level_cuda import lookup_corr_level
 from accflow_tpu_torch.ops.grids import coords_grid, upflow8
 from accflow_tpu_torch.ops.upsample import convex_upsample
+from accflow_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,8 +200,9 @@ class SepConvGRU(nn.Module):
                 setattr(self, f"conv{gate}{ax}", Conv2d(cat, hidden_dim, k))
         self.hidden_dim = hidden_dim
 
-    def fused_step(self, inp: torch.Tensor):
-        """A GRU step specialised to the loop-invariant context `inp`.
+    def fused_step(self, inp: torch.Tensor, spatial=None):
+        """A GRU step specialised to the loop-invariant context `inp`
+        (spatial: the handle of its rows; the 5x1 convs read halo rows).
 
         The GRU input is cat(inp, varying) and `inp` never changes across
         iterations. A conv is linear in its input channels, so each gate's
@@ -203,7 +218,7 @@ class SepConvGRU(nn.Module):
             w_inp = torch.cat([g.weight[:, hd:hd + idim] for g in gates])
             bias = torch.cat([g.bias for g in gates])
             pre[ax] = (
-                conv2d(inp, w_inp, bias),
+                conv2d(inp, w_inp, bias, spatial=spatial),
                 torch.cat([g.weight[:, hd + idim:] for g in gates]).to(cd),
                 torch.cat([g.weight[:, :hd] for g in gates[:2]]).to(cd),
                 gates[2].weight[:, :hd].to(cd),
@@ -212,11 +227,11 @@ class SepConvGRU(nn.Module):
         def step(h, varying):
             for ax in ("1", "2"):
                 a_inp, w_var, w_h_zr, w_h_q = pre[ax]
-                s = conv2d(varying, w_var) + a_inp
-                hzr = conv2d(h, w_h_zr)
+                s = conv2d(varying, w_var, spatial=spatial) + a_inp
+                hzr = conv2d(h, w_h_zr, spatial=spatial)
                 z = torch.sigmoid(hzr[:, :hd] + s[:, :hd])
                 r = torch.sigmoid(hzr[:, hd:] + s[:, hd:2 * hd])
-                q = torch.tanh(conv2d(r * h, w_h_q) + s[:, 2 * hd:])
+                q = torch.tanh(conv2d(r * h, w_h_q, spatial=spatial) + s[:, 2 * hd:])
                 h = (1.0 - z) * h + z * q
             return h
 
@@ -328,7 +343,7 @@ def raft_cnet(model: RAFT, images: torch.Tensor, train: bool = False):
 
 def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
                  flow_init: Optional[torch.Tensor] = None, aggregate=None,
-                 remat: str = "none"):
+                 remat: str = "none", spatial=None):
     """The GRU refinement loop on a built pyramid, or on the volume-free
     lookup's operands (OnDemandCorr from build_corr_operands, their chunk
     set outside the loop). net/inp (N, C, h8, w8) in the compute
@@ -338,12 +353,15 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
     the motion features in the GRU's input (models/gma.py::gma_iterate).
     The coordinates are detached at the top of every iteration (JAX's
     stop_gradient). remat ("none", "dots" or "full", nn.remat.remat_wrap)
-    checkpoints each iteration under autograd. Returns {"flow_up",
-    "flow_low"[, "predictions"]}."""
+    checkpoints each iteration under autograd. spatial: net, inp, flow_init
+    and the flows are this rank's rows (full RAFT; the update block's
+    layers take the handle from spatial_sharding), the coordinates global.
+    Returns {"flow_up", "flow_low"[, "predictions"]}."""
     cfg, ub = model.cfg, model.update_block
     cd = cfg.dtype
     n, _, h8, w8 = net.shape
-    coords0 = coords_grid(n, h8, w8, device=net.device)
+    coords0 = coords_grid(n, h8, w8, device=net.device,
+                          row0=0 if spatial is None else spatial.row0(h8))
     coords1 = coords0.clone()
     if flow_init is not None:
         flow_init = torch.as_tensor(flow_init, dtype=torch.float32, device=net.device)
@@ -365,10 +383,10 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
         def upsample(flow, net):
             return upflow8(flow)
     else:
-        gru_step = ub.gru.fused_step(inp)
+        gru_step = ub.gru.fused_step(inp, spatial)
 
         def upsample(flow, net):
-            return convex_upsample(flow, ub.upsample_mask(net).permute(0, 2, 3, 1))
+            return convex_upsample(flow, ub.upsample_mask(net).permute(0, 2, 3, 1), spatial)
     split = cfg.split_levels
 
     def iteration(net, coords1):
@@ -407,30 +425,44 @@ def _as_images(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def _check_spatial(model: RAFT, spatial, local_height: int) -> None:
+    """ValueError where `spatial` cannot run: RAFT-small (its upflow8 over
+    sharded rows is not ported), or frames whose height does not split into
+    blocks of a multiple of 8 rows (mesh.check_rows)."""
+    if spatial is None:
+        return
+    if model.cfg.small:
+        raise ValueError("RAFT-small on the spatial axis (upflow8 over sharded rows) is not "
+                         "ported: ROADMAP.md queue 1, #12")
+    mesh.check_rows(local_height, spatial)
+
+
 @torch.no_grad()
 def raft_forward(model: RAFT, image1, image2, iters: Optional[int] = None,
-                 flow_init=None, final_only: bool = False):
+                 flow_init=None, final_only: bool = False, spatial=None):
     """Flow image1 -> image2; images (N, H, W, 3). flow_init: optional
     (N, H/8, W/8, 2) warm start. Returns flow_up (N, H, W, 2) float32,
     flow_low (N, H/8, W/8, 2) and, unless final_only, the per-iteration
-    upsampled `predictions`."""
+    upsampled `predictions`. spatial (a parallel.mesh.Spatial handle, full
+    RAFT): images, flow_init and the flows are this rank's rows."""
     dev = next(model.parameters()).device
     frames = torch.stack([_as_images(image1, dev), _as_images(image2, dev)])
-    return _pairs(model, frames, (0,), (1,), iters, final_only, flow_init)
+    return _pairs(model, frames, (0,), (1,), iters, final_only, flow_init, spatial=spatial)
 
 
 @torch.no_grad()
 def raft_pairs_forward(model: RAFT, frames, src_idx, dst_idx,
-                       iters: Optional[int] = None, final_only: bool = True):
+                       iters: Optional[int] = None, final_only: bool = True, spatial=None):
     """Flow for many (src, dst) frame pairs with deduplicated encodes.
 
     frames (K, N, H, W, 3); src_idx/dst_idx equal-length index tuples. Each
     used frame is fnet-encoded once and each source frame cnet-encoded once
     (AccFlow's 11 clip queries cost 7 fnet + 6 cnet encodes, not 22 + 11).
-    Returns flow_up (P*N, H, W, 2), pairs stacked P-major."""
+    Returns flow_up (P*N, H, W, 2), pairs stacked P-major. spatial: frames
+    and flows are this rank's rows (raft_forward)."""
     dev = next(model.parameters()).device
     return _pairs(model, _as_images(frames, dev), src_idx, dst_idx, iters,
-                  final_only)["flow_up"]
+                  final_only, spatial=spatial)["flow_up"]
 
 
 def check_trainable_lookup(cfg) -> None:
@@ -461,18 +493,20 @@ def raft_train_forward(model: RAFT, image1, image2, iters: Optional[int] = None,
 
 
 def _pairs(model, frames, src_idx, dst_idx, iters, final_only, flow_init=None,
-           train: bool = False, remat: str = "none"):
+           train: bool = False, remat: str = "none", spatial=None):
     cfg = model.cfg
     iters = cfg.iters if iters is None else iters
     n = frames.shape[1]
-    with tf32(False):
-        levels, net_u, inp_u, sel = _encode_pairs(model, frames, src_idx, dst_idx, train)
+    _check_spatial(model, spatial, frames.shape[2])
+    with tf32(False), spatial_sharding(model, spatial):
+        levels, net_u, inp_u, sel = _encode_pairs(model, frames, src_idx, dst_idx, train,
+                                                  spatial)
         return raft_iterate(model, levels, gather_pairs(net_u, sel, n),
                             gather_pairs(inp_u, sel, n), iters, final_only, flow_init,
-                            remat=remat)
+                            remat=remat, spatial=spatial)
 
 
-def _encode_pairs(model, frames, src_idx, dst_idx, train: bool = False):
+def _encode_pairs(model, frames, src_idx, dst_idx, train: bool = False, spatial=None):
     """The encodes of the pair queries (src_idx[i] -> dst_idx[i]) on frames
     (K, N, H, W, 3), each used frame fnet-encoded once and each source frame
     cnet-encoded once. Returns (levels, net_u, inp_u, sel): the pyramid of
@@ -482,15 +516,20 @@ def _encode_pairs(model, frames, src_idx, dst_idx, train: bool = False):
     resolved at this shape (resolve_auto_lookup): the levels are the stored
     pyramid or the volume-free lookup's operands (build_corr_operands).
     train: the cnet's BatchNorm in batch-statistics mode and the levels in
-    float32 (raft_train_forward); else the levels take the compute dtype."""
+    float32 (raft_train_forward); else the levels take the compute dtype.
+    spatial: frames are this rank's rows; "auto" is resolved at the global
+    shape (every rank takes the same path), the queries are this rank's
+    and each target frame's fnet map is gathered once (the whole height:
+    the keys)."""
     cfg = model.cfg
     cd = cfg.dtype
     level_dtype = torch.float32 if train else cd
     src_idx = tuple(int(i) for i in src_idx)
     dst_idx = tuple(int(i) for i in dst_idx)
     k, n, h, w, _ = frames.shape
+    h8 = h // 8 if spatial is None else spatial.height(h // 8)
     lookup = resolve_auto_lookup(normalize_corr_lookup(cfg.corr_lookup), len(src_idx) * n,
-                                 h // 8, w // 8, cfg.corr_levels, level_dtype)
+                                 h8, w // 8, cfg.corr_levels, level_dtype)
     # Frames and per-frame features are picked by concatenating views, not
     # by indexing with Python lists: a list index becomes a host tensor
     # copied to the device at run time, which a CUDA graph cannot capture.
@@ -499,7 +538,12 @@ def _encode_pairs(model, frames, src_idx, dst_idx, train: bool = False):
     fmaps = model.fnet(to_nchw(_select(frames, used).reshape(-1, h, w, 3), cd))
     fmaps = fmaps.view(len(used), n, *fmaps.shape[1:])
     fmap1 = _select(fmaps, [pos[i] for i in src_idx]).flatten(0, 1)
-    fmap2 = _select(fmaps, [pos[i] for i in dst_idx]).flatten(0, 1)
+    if spatial is None:
+        fmap2 = _select(fmaps, [pos[i] for i in dst_idx]).flatten(0, 1)
+    else:
+        dst_used = sorted(set(dst_idx))
+        full = mesh.gather_rows(_select(fmaps, [pos[i] for i in dst_used]), spatial, dim=3)
+        fmap2 = _select(full, [dst_used.index(i) for i in dst_idx]).flatten(0, 1)
     levels = build_corr_operands(fmap1, fmap2, cfg.corr_levels, lookup, dtype=level_dtype)
     del fmaps, fmap1, fmap2
 
@@ -522,14 +566,16 @@ def _select(x: torch.Tensor, idx) -> torch.Tensor:
 
 
 @torch.no_grad()
-def raft_encode_frame(model: RAFT, image) -> dict:
+def raft_encode_frame(model: RAFT, image, spatial=None) -> dict:
     """Cacheable per-frame features for streaming (streaming.py): the fnet
     map and the cnet (net, inp) state of (N, H, W, 3) frames. Both encoders
     are per-sample (instance norm, frozen batch norm or none), so encoding
-    frames apart is exact against the batched encodes of _pairs."""
+    frames apart is exact against the batched encodes of _pairs. spatial:
+    image and the features are this rank's rows."""
     cd = model.cfg.dtype
     x = to_nchw(_as_images(image, next(model.parameters()).device), cd)
-    with tf32(False):
+    _check_spatial(model, spatial, x.shape[2])
+    with tf32(False), spatial_sharding(model, spatial):
         fmap = model.fnet(x)
         net, inp = raft_cnet(model, x)
     return {"fmap": fmap, "net": net, "inp": inp}
@@ -538,22 +584,26 @@ def raft_encode_frame(model: RAFT, image) -> dict:
 @torch.no_grad()
 def raft_flow_pairs_from_features(model: RAFT, src: dict, dst_fmaps,
                                   iters: Optional[int] = None, flow_init=None,
-                                  final_only: bool = True) -> torch.Tensor:
+                                  final_only: bool = True, spatial=None) -> torch.Tensor:
     """Pair flows src -> each of the P dst maps from precomputed features:
     src is raft_encode_frame of the query frames, dst_fmaps a list of P
     cached fnet maps (the streaming step encodes only the new frame).
     flow_init: optional (P*N, H/8, W/8, 2) warm start. Returns flow_up
-    (P*N, H, W, 2), P-major."""
+    (P*N, H, W, 2), P-major. spatial: the features, flow_init and the flows
+    are this rank's rows; the dst maps are gathered in one collective."""
     cfg = model.cfg
     iters = cfg.iters if iters is None else iters
     p = len(dst_fmaps)
     n, _, h8, w8 = src["fmap"].shape
-    lookup = resolve_auto_lookup(normalize_corr_lookup(cfg.corr_lookup), p * n, h8, w8,
+    _check_spatial(model, spatial, 8 * h8)
+    h8_all = h8 if spatial is None else spatial.height(h8)
+    lookup = resolve_auto_lookup(normalize_corr_lookup(cfg.corr_lookup), p * n, h8_all, w8,
                                  cfg.corr_levels, cfg.dtype)
-    with tf32(False):
-        levels = build_corr_operands(torch.cat([src["fmap"]] * p), torch.cat(list(dst_fmaps)),
+    with tf32(False), spatial_sharding(model, spatial):
+        levels = build_corr_operands(torch.cat([src["fmap"]] * p),
+                                     mesh.gather_rows(torch.cat(list(dst_fmaps)), spatial, dim=2),
                                      cfg.corr_levels, lookup, dtype=cfg.dtype)
         net = torch.cat([src["net"]] * p)
         inp = torch.cat([src["inp"]] * p)
         return raft_iterate(model, levels, net, inp, iters, final_only,
-                            flow_init)["flow_up"]
+                            flow_init, spatial=spatial)["flow_up"]

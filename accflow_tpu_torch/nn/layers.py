@@ -51,22 +51,44 @@ def tf32(enabled: bool):
 # Functional forms
 # ---------------------------------------------------------------------------
 
-def conv2d(x, weight, bias=None, stride: int = 1, padding=None):
+def conv2d(x, weight, bias=None, stride: int = 1, padding=None, spatial=None):
     """NCHW conv in x's dtype; weight (O, I, kh, kw). padding defaults to
-    torch-style 'same for odd kernels' ((k-1)//2 per side)."""
+    torch-style 'same for odd kernels' ((k-1)//2 per side).
+
+    spatial (a parallel.mesh.Spatial handle): x is this rank's rows of the
+    image and so is the output. A kernel taller than one row reads the
+    halo rows its output rows need from the ranks above and below
+    (mesh.halo_rows: zeros past the image's edges, as the padding) and
+    runs with no vertical padding. Output row o reads input rows
+    o*stride - p .. o*stride - p + kh - 1, so the halo is p rows above and
+    kh - stride - p below: 3 and 2 for a 7x7/2 conv, 1 and 0 for a 3x3/2,
+    none for a 1x1/2 (local heights are even wherever a stride is 2)."""
     kh, kw = weight.shape[-2:]
     if padding is None:
         padding = ((kh - 1) // 2, (kw - 1) // 2)
     b = None if bias is None else bias.to(x.dtype)
+    if spatial is not None and kh > 1:
+        ph, pw = padding
+        above, below = mesh.halo_rows(x, spatial, ph, max(kh - stride - ph, 0))
+        x, padding = torch.cat([above, x, below], dim=2), (0, pw)
     return F.conv2d(x, weight.to(x.dtype), b, stride, padding)
 
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def instance_norm(x: torch.Tensor, eps: float = 1e-5, spatial=None) -> torch.Tensor:
     """Per-(sample, channel) normalisation over H, W with no affine, eps
     1e-5 and biased variance (nn.InstanceNorm2d defaults). Statistics and
-    the normalisation run in float32; the result takes x's dtype."""
+    the normalisation run in float32; the result takes x's dtype.
+
+    spatial: x is this rank's rows, and the statistics are those of the
+    whole image: each rank's (every rank holds as many rows), gathered and
+    combined by the parallel variance formula, mean = E_r[mean_r] and var =
+    E_r[var_r + (mean_r - mean)^2], as batch_norm_train's group path does."""
     xf = x.float()
     var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, unbiased=False)
+    if spatial is not None:
+        means, variances = mesh.stack_ranks(torch.stack([mean, var]), spatial).unbind(1)
+        mean = means.mean(0)
+        var = (variances + (means - mean) ** 2).mean(0)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
@@ -115,10 +137,10 @@ def batch_norm_train(x, weight, bias, running_mean, running_var, eps: float = 1e
     return (xf * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)).to(x.dtype), new_mean, new_var
 
 
-def zero_conv2d(x, weight, bias, scale):
+def zero_conv2d(x, weight, bias, scale, spatial=None):
     """ZeroConv2d (networks/modules.py:81-97): conv3x3(x) * exp(3 * scale);
     scale broadcasts over channels ((C,) or (1, C, 1, 1))."""
-    out = conv2d(x, weight, bias)
+    out = conv2d(x, weight, bias, spatial=spatial)
     return out * torch.exp(scale.to(out.dtype).reshape(1, -1, 1, 1) * 3.0)
 
 
@@ -127,7 +149,9 @@ def zero_conv2d(x, weight, bias, scale):
 # ---------------------------------------------------------------------------
 
 class Conv2d(nn.Module):
-    """Conv with torch-style same padding, computing in its input's dtype."""
+    """Conv with torch-style same padding, computing in its input's dtype.
+    `spatial` (spatial_sharding) is the handle of the rows it is given,
+    None for the whole image."""
 
     def __init__(self, cin: int, cout: int, ksize, stride: int = 1,
                  bias: bool = True, init: str = "torch"):
@@ -137,6 +161,7 @@ class Conv2d(nn.Module):
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
         self.stride = stride
         self.init = init
+        self.spatial = None
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -158,7 +183,7 @@ class Conv2d(nn.Module):
             self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x):
-        return conv2d(x, self.weight, self.bias, self.stride)
+        return conv2d(x, self.weight, self.bias, self.stride, spatial=self.spatial)
 
 
 class BatchNorm2d(nn.Module):
@@ -233,6 +258,28 @@ def batch_norm_group(module: nn.Module, group):
             m.group = None
 
 
+@contextlib.contextmanager
+def spatial_sharding(module: nn.Module, spatial):
+    """Within the block, the layers of `module` that read a spatial handle
+    (those with a `spatial` attribute: Conv2d and InstanceNorm2d) are
+    given `spatial`, the
+    parallel.mesh.Spatial handle of the rows they are given, as
+    batch_norm_group gives BatchNorm2d its group, and get back what they
+    had after it; None, this process's whole image, leaves them as they
+    are."""
+    if spatial is None:
+        yield
+        return
+    layers = [(m, m.spatial) for m in module.modules() if hasattr(m, "spatial")]
+    for m, _ in layers:
+        m.spatial = spatial
+    try:
+        yield
+    finally:
+        for m, prev in layers:
+            m.spatial = prev
+
+
 def collect_bn_updates(model: nn.Module) -> dict:
     """Take the moved running statistics that BatchNorm2d layers of `model`
     kept from their last forward under batch_statistics: {layer name: (mean,
@@ -257,10 +304,14 @@ def apply_bn_updates(model: nn.Module, updates: dict) -> None:
 
 
 class InstanceNorm2d(nn.Module):
-    """nn.InstanceNorm2d defaults (no parameters)."""
+    """nn.InstanceNorm2d defaults (no parameters); `spatial` as Conv2d's."""
+
+    def __init__(self):
+        super().__init__()
+        self.spatial = None
 
     def forward(self, x):
-        return instance_norm(x)
+        return instance_norm(x, spatial=self.spatial)
 
 
 class ZeroConv2d(nn.Module):
@@ -277,7 +328,7 @@ class ZeroConv2d(nn.Module):
         self.scale.zero_()
 
     def forward(self, x):
-        return zero_conv2d(x, self.conv.weight, self.conv.bias, self.scale)
+        return zero_conv2d(x, self.conv.weight, self.conv.bias, self.scale, self.conv.spatial)
 
 
 class Embedding(nn.Module):

@@ -226,6 +226,9 @@ def _bf16_valued(fmap1, fmap2) -> bool:
 
 def build_corr_pyramid(fmap1, fmap2, num_levels: int = 4, dtype=torch.float32):
     """fmap1, fmap2 (B, C, H, W) -> list of num_levels (B*H*W, hl, wl) maps.
+    fmap1 may hold fewer rows than fmap2 (on the spatial axis, a rank's
+    query rows against the whole target map: Q = B*H1*W); so may
+    build_corr_on_demand's.
 
     The products run in float32 (_corr_rows), TF32 allowed for bfloat16
     features only (_bf16_valued). `dtype` is the stored levels' type."""

@@ -14,15 +14,24 @@ from __future__ import annotations
 import torch
 
 from accflow_tpu_torch.ops.sampling import bilinear_sample
+from accflow_tpu_torch.parallel import mesh
 
 
-def deform_conv3x3(x, offsets, mask, weight, bias=None) -> torch.Tensor:
+def deform_conv3x3(x, offsets, mask, weight, bias=None, spatial=None) -> torch.Tensor:
     """x (N, Cin, H, W); offsets (N, 18, H, W); mask (N, 9, H, W);
     weight (Cout, Cin, 3, 3); bias (Cout,) -> (N, Cout, H, W).
 
     Coordinates and tap weights are float32; the gathered values, the
-    blend and the contraction keep x's dtype."""
+    blend and the contraction keep x's dtype. spatial (a
+    parallel.mesh.Spatial handle): x, offsets, mask and the output are this
+    rank's rows; the taps sit at the rows' global positions and sample the
+    whole height of x (mesh.gather_rows): the offsets are learned and
+    unbounded, so no halo of fixed depth serves."""
     n, cin, h, w = x.shape
+    row0 = 0
+    if spatial is not None:
+        row0 = spatial.row0(h)
+        x = mesh.gather_rows(x, spatial, dim=2)
     cout = weight.shape[0]
     if tuple(weight.shape[-2:]) != (3, 3):
         raise ValueError(f"deform_conv3x3 takes a 3x3 kernel, got {tuple(weight.shape)}")
@@ -30,7 +39,7 @@ def deform_conv3x3(x, offsets, mask, weight, bias=None) -> torch.Tensor:
     off = offsets.float().reshape(n, 9, 2, h, w)
     ky = torch.arange(9, device=dev).div(3, rounding_mode="floor").float() - 1.0
     kx = torch.arange(9, device=dev).remainder(3).float() - 1.0
-    gy = torch.arange(h, dtype=torch.float32, device=dev).view(1, 1, h, 1)
+    gy = torch.arange(row0, row0 + h, dtype=torch.float32, device=dev).view(1, 1, h, 1)
     gx = torch.arange(w, dtype=torch.float32, device=dev).view(1, 1, 1, w)
     py = gy + ky.view(1, 9, 1, 1) + off[:, :, 0]
     px = gx + kx.view(1, 9, 1, 1) + off[:, :, 1]

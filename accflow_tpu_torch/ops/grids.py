@@ -7,10 +7,11 @@ import torch
 import torch.nn.functional as F
 
 
-def coords_grid(batch: int, ht: int, wd: int, device=None) -> torch.Tensor:
-    """Pixel-coordinate grid (batch, ht, wd, 2) float32, channel order (x, y)."""
+def coords_grid(batch: int, ht: int, wd: int, device=None, row0: int = 0) -> torch.Tensor:
+    """Pixel-coordinate grid (batch, ht, wd, 2) float32, channel order (x, y),
+    of rows row0 .. row0 + ht - 1 (a rank's rows of a height-sharded map)."""
     ys, xs = torch.meshgrid(
-        torch.arange(ht, dtype=torch.float32, device=device),
+        torch.arange(row0, row0 + ht, dtype=torch.float32, device=device),
         torch.arange(wd, dtype=torch.float32, device=device),
         indexing="ij",
     )
@@ -34,9 +35,45 @@ def upflow8(flow: torch.Tensor) -> torch.Tensor:
     return 8.0 * resize_bilinear_align_corners(flow, (8 * h, 8 * w))
 
 
-def downflow8(flow: torch.Tensor) -> torch.Tensor:
-    """8x bilinear downsample of a flow field; values divided by 8."""
+def _taps(n_in: int, n_out: int, start: int, count: int, device):
+    """Output positions start .. start + count - 1 of an align_corners
+    resize from n_in to n_out: the two source indices and the second's
+    weight, in upsample_bilinear2d's float32 arithmetic (scale
+    (n_in - 1) / (n_out - 1), source scale * i, its floor, the next index
+    clamped to the last)."""
+    scale = torch.tensor(n_in - 1, dtype=torch.float32) / max(n_out - 1, 1)
+    src = torch.arange(start, start + count, device=device).float() * scale.to(device)
+    i0 = src.long()
+    lam = (src - i0).clamp(0.0, 1.0)
+    return i0, torch.where(i0 < n_in - 1, i0 + 1, i0), lam
+
+
+def downflow8(flow: torch.Tensor, spatial=None) -> torch.Tensor:
+    """8x bilinear downsample of a flow field; values divided by 8.
+
+    spatial (a parallel.mesh.Spatial handle): flow is this rank's rows of
+    the full-resolution field, the output its rows at 1/8. The resize maps
+    output row i to input row i (H - 1) / (H/8 - 1) = 8i + 7i / (H/8 - 1)
+    of the GLOBAL height H, which lies in [8i, 8i + 7] with its next row
+    inside 8i + 7 too (or at weight 0 on the last row): every row read is
+    this rank's own, so nothing is exchanged. The blend is F.interpolate's,
+    h0 (w0 x00 + w1 x01) + h1 (w0 x10 + w1 x11)."""
     n, h, w, _ = flow.shape
     if h % 8 != 0 or w % 8 != 0:
         raise ValueError(f"downflow8 requires /8 divisible dims, got {(h, w)}")
-    return resize_bilinear_align_corners(flow, (h // 8, w // 8)) / 8.0
+    if spatial is None:
+        return resize_bilinear_align_corners(flow, (h // 8, w // 8)) / 8.0
+    h8, height = h // 8, spatial.height(h)
+    y0, y1, ly = _taps(height, height // 8, spatial.row0(h8), h8, flow.device)
+    x0, x1, lx = _taps(w, w // 8, 0, w // 8, flow.device)
+    base = spatial.row0(h)
+    f = flow.float()
+
+    def rows(y):
+        return f.index_select(1, y - base)
+
+    def blend(r):
+        return (1.0 - lx)[:, None] * r.index_select(2, x0) + lx[:, None] * r.index_select(2, x1)
+
+    ly = ly.view(1, -1, 1, 1)
+    return ((1.0 - ly) * blend(rows(y0)) + ly * blend(rows(y1))) / 8.0

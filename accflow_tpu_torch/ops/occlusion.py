@@ -26,12 +26,14 @@ def calc_occ_mask(bflow: torch.Tensor, fflow: torch.Tensor):
     return (_length(diff_bw) > thresh).float(), (_length(diff_fw) > thresh).float()
 
 
-def photometric_occ(flow12, feat1, feat2, binary: bool = True) -> torch.Tensor:
+def photometric_occ(flow12, feat1, feat2, binary: bool = True, spatial=None) -> torch.Tensor:
     """Warp feat2 (N, H, W, C) by flow12 (N, H, W, 2) and compare to feat1.
 
     binary=True: (N, H, W, 1) float32 map, 1 where the mean abs error is
-    <= 1.0 (visible). binary=False: the raw abs error map (N, H, W, C)."""
-    err = torch.abs(feat1 - backwarp(feat2, flow12))
+    <= 1.0 (visible). binary=False: the raw abs error map (N, H, W, C).
+    spatial: flow12, feat1 and the map are this rank's rows, feat2 the
+    whole height (backwarp)."""
+    err = torch.abs(feat1 - backwarp(feat2, flow12, spatial))
     if binary:
         err = err.mean(dim=-1, keepdim=True)
         return (err <= 1.0).float()

@@ -74,11 +74,16 @@ def bilinear_sample_backward(grad: torch.Tensor, coords: torch.Tensor, h: int, w
     return out.view(b, h, w, c).to(dtype)
 
 
-def backwarp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Backward-warp (B, H, W, C) by flow (B, H, W, 2): out(p) = image(p + flow)."""
-    b, h, w, _ = image.shape
+def backwarp(image: torch.Tensor, flow: torch.Tensor, spatial=None) -> torch.Tensor:
+    """Backward-warp (B, H, W, C) by flow (B, H, W, 2): out(p) = image(p + flow).
+
+    spatial (a parallel.mesh.Spatial handle): flow and the output are this
+    rank's rows, at their global positions, and `image` is the whole
+    height (mesh.gather_rows), since p + flow may land on any row."""
+    h, w = flow.shape[1:3]
+    row0 = 0 if spatial is None else spatial.row0(h)
     ys, xs = torch.meshgrid(
-        torch.arange(h, dtype=torch.float32, device=image.device),
+        torch.arange(row0, row0 + h, dtype=torch.float32, device=image.device),
         torch.arange(w, dtype=torch.float32, device=image.device),
         indexing="ij",
     )

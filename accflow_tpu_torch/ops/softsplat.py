@@ -22,6 +22,8 @@ import contextlib
 
 import torch
 
+from accflow_tpu_torch.parallel import mesh
+
 
 @contextlib.contextmanager
 def _deterministic():
@@ -73,15 +75,33 @@ def _(values, flow):
     return torch.empty_like(values, memory_format=torch.contiguous_format)
 
 
+def _splat_rows(values: torch.Tensor, flow: torch.Tensor, spatial) -> torch.Tensor:
+    """splat_add over a height-sharded image: each rank splats its own
+    rows' sources, at their global positions, into a full-height canvas
+    (the other rows' sources are zeros, which add nothing), the group sums
+    the canvases (mesh.sum_ranks) and each rank keeps its own rows."""
+    b, h, w, c = values.shape
+    height, r0 = spatial.height(h), spatial.row0(h)
+    canvas = values.new_zeros((b, height, w, c))
+    canvas[:, r0:r0 + h] = values
+    moves = flow.new_zeros((b, height, w, 2))
+    moves[:, r0:r0 + h] = flow
+    return mesh.sum_ranks(splat_add(canvas, moves), spatial)[:, r0:r0 + h]
+
+
 def softsplat(image: torch.Tensor, flow: torch.Tensor, metric=None,
-              mode: str = "average", eps: float = 1e-7) -> torch.Tensor:
+              mode: str = "average", eps: float = 1e-7, spatial=None) -> torch.Tensor:
     """Forward-warp `image` (B, H, W, C) by `flow` (B, H, W, 2), float32.
 
     mode: "summation" | "average" | "linear" (weight = metric) | "softmax"
-    (weight = exp(metric)); metric (B, H, W, 1) for the weighted modes."""
+    (weight = exp(metric)); metric (B, H, W, 1) for the weighted modes.
+    spatial (a parallel.mesh.Spatial handle): image, flow, metric and the
+    result are this rank's rows; the numerator and the weight are the
+    group's sums (_splat_rows, one collective), and only then does the
+    average divide."""
     image, flow = image.float(), flow.float()
     if mode == "summation":
-        return splat_add(image, flow)
+        return splat_add(image, flow) if spatial is None else _splat_rows(image, flow, spatial)
     if mode == "average":
         weight = image.new_ones(image.shape[:3] + (1,))
     elif mode in ("linear", "softmax"):
@@ -90,6 +110,10 @@ def softsplat(image: torch.Tensor, flow: torch.Tensor, metric=None,
         weight = metric.float() if mode == "linear" else torch.exp(metric.float())
     else:
         raise ValueError(f"unknown softsplat mode: {mode!r}")
+    if spatial is not None:
+        num, den = _splat_rows(torch.cat([image * weight, weight], -1), flow,
+                               spatial).split([image.shape[-1], 1], -1)
+        return num / (den + eps)
     num = splat_add(image * weight, flow)
     den = splat_add(weight, flow)
     return num / (den + eps)

@@ -37,10 +37,11 @@ def forward_interpolate_flow(flow: np.ndarray) -> np.ndarray:
     return np.stack([flow_x, flow_y], axis=-1).astype(np.float32)
 
 
-def forward_splat_flow(flow: torch.Tensor, advect=None) -> torch.Tensor:
+def forward_splat_flow(flow: torch.Tensor, advect=None, spatial=None) -> torch.Tensor:
     """Splat `flow` (B, H, W, 2) forward along `advect` (average mode) ->
     (B, H, W, 2) float32. advect=None splats the flow along itself
     (upstream RAFT's constant-velocity warm start for consecutive pairs);
     pass -dflow for backward pair flows (the grid advances one frame).
-    Holes become 0, the prior the scipy version uses outside its hull."""
-    return softsplat(flow, flow if advect is None else advect, mode="average")
+    Holes become 0, the prior the scipy version uses outside its hull.
+    spatial: this rank's rows of a height-sharded field (softsplat)."""
+    return softsplat(flow, flow if advect is None else advect, mode="average", spatial=spatial)

@@ -27,9 +27,25 @@ explicitly, and None (one process) is the identity: no layer reads the
 global process group.
 
 On the card the collectives are NCCL's, captured inside a train step's CUDA
-graph (graphs.CudaGraphedStep); on the CPU they are gloo's, eagerly. The
-mesh's `spatial` axis (height sharding with halo exchanges, JAX's
-hi-res serving and streaming) is not ported: ROADMAP.md queue 1, #12.
+graph (graphs.CudaGraphedStep); on the CPU they are gloo's, eagerly.
+
+The mesh's `spatial` axis is ported for inference (JAX's hi-res serving and
+streaming, where GSPMD shards image height and inserts the halo exchanges
+and gathers). make_mesh(n_data, n_spatial) lays the ranks out as JAX's
+reshape(n_data, n_spatial): a spatial group is n_spatial consecutive ranks,
+and each rank gets a `Spatial` handle. Every rank holds its own rows of the
+frames and of every activation (shard_rows), and the model code writes out
+what GSPMD inserts, each through the handle it is given:
+- a conv reads `halo_rows` above and below its rows (nn/layers.py::conv2d);
+- instance norm combines the ranks' statistics (`stack_ranks`);
+- the correlation's keys, a backward warp's source, the deformable conv's
+  input are the whole height (`gather_rows`), the queries this rank's own;
+- a forward splat sums the ranks' full-height splats (`sum_ranks`).
+The collectives are all_gather (host-staged under gloo, which takes CUDA
+tensors in all_reduce but not in all_gather) and all_reduce; `collectives`
+and `bytes_sent` count them. Training over the spatial axis, GMA, RAFT-small
+and AccFlow's stepwise paths do not take a handle yet (ROADMAP.md queue 1,
+#12).
 
 Without a process group every function is the single-process identity, and
 the engines' outputs are those of the code before this module existed.
@@ -122,24 +138,61 @@ def collectives_capturable() -> bool:
     return not active() or dist.get_backend() == "nccl"
 
 
+class Spatial(NamedTuple):
+    """The spatial axis as one rank sees it: the process `group` of the
+    ranks that share its frames, this rank's `index` in it (the index-th
+    block of rows, top to bottom) and its `size`. Rows split evenly, so a
+    tensor's local height fixes the rest at any scale: `height` and `row0`
+    give the global height and this rank's first row for a local height."""
+    group: object
+    index: int
+    size: int
+
+    def height(self, local: int) -> int:
+        return local * self.size
+
+    def row0(self, local: int) -> int:
+        return local * self.index
+
+
 class Mesh(NamedTuple):
-    """The world's layout: `data` ranks, each holding the whole image
-    (`spatial` is 1), and this process's rank."""
+    """The world's layout: `data` x `spatial` ranks and this process's rank;
+    with `spatial` > 1, this rank's spatial handle (`axis`) and the process
+    group of its data axis (`data_group`)."""
     data: int
     spatial: int
     rank: int
+    axis: Optional[Spatial] = None
+    data_group: object = None
+
+
+def mesh_layout(n_data: int, n_spatial: int) -> np.ndarray:
+    """The ranks as a (n_data, n_spatial) array: a row is a spatial group,
+    a column a data group (accflow_tpu/parallel/mesh.py::make_mesh's
+    reshape of the device list)."""
+    return np.arange(n_data * n_spatial).reshape(n_data, n_spatial)
 
 
 def make_mesh(n_data: Optional[int] = None, n_spatial: int = 1) -> Mesh:
-    """The data-parallel layout of the process group (one rank per GPU).
-    n_spatial > 1 (height sharding) raises NotImplementedError."""
-    if n_spatial != 1:
-        raise NotImplementedError(
-            "the mesh's spatial axis (height sharding with halo exchanges) is not ported: "
-            "ROADMAP.md queue 1, #12")
-    if n_data is not None and n_data != world_size():
-        raise ValueError(f"n_data={n_data}: the process group has {world_size()} ranks")
-    return Mesh(world_size(), 1, rank())
+    """The layout of the process group (one rank per GPU). With n_spatial
+    > 1 every rank makes every group, rows of mesh_layout first and then
+    its columns (torch.distributed.new_group is collective), and keeps its
+    own. ValueError where the world does not split so."""
+    world = world_size()
+    if n_spatial < 1 or world % n_spatial:
+        raise ValueError(f"n_spatial={n_spatial}: a world of {world} rank(s) does not split "
+                         f"into spatial groups of {n_spatial}")
+    if n_data is None:
+        n_data = world // n_spatial
+    if n_data * n_spatial != world:
+        raise ValueError(f"n_data={n_data}: the process group has {world} ranks")
+    if n_spatial == 1:
+        return Mesh(world, 1, rank())
+    layout = mesh_layout(n_data, n_spatial)
+    rows = [dist.new_group(list(map(int, r))) for r in layout]
+    cols = [dist.new_group(list(map(int, c))) for c in layout.T]
+    d, s = divmod(rank(), n_spatial)
+    return Mesh(n_data, n_spatial, rank(), Spatial(rows[d], s, n_spatial), cols[s])
 
 
 def local_rows(n: int) -> slice:
@@ -230,6 +283,17 @@ def global_sum(t: torch.Tensor, group) -> torch.Tensor:
     return _GlobalSum.apply(t, group)
 
 
+def _all_gather(t: torch.Tensor, group, size: int) -> list:
+    """Every rank of `group`'s `t` (the same shape on each), in rank order:
+    an all_gather on the device under NCCL and on the host under gloo,
+    which gathers CUDA tensors in all_reduce only."""
+    src = t.detach()
+    src = (src if dist.get_backend(group) == "nccl" else src.cpu()).contiguous()
+    parts = [torch.empty_like(src) for _ in range(size)]
+    dist.all_gather(parts, src, group=group)
+    return parts
+
+
 def host_array(t) -> np.ndarray:
     """Each rank's slice of a per-sample vector (batch on axis 0, the same
     length on every rank) gathered in rank order into the whole vector, as
@@ -238,9 +302,92 @@ def host_array(t) -> np.ndarray:
     t = torch.as_tensor(t).detach()
     if world_size() == 1:
         return t.cpu().numpy()
-    if dist.get_backend() != "nccl":
-        t = t.cpu()
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(world_size())]
-    dist.all_gather(parts, t)
-    return torch.cat(parts).cpu().numpy()
+    return torch.cat(_all_gather(t, None, world_size())).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# The spatial axis: rows of a tensor over the ranks of a Spatial handle
+# ---------------------------------------------------------------------------
+
+collectives = 0  # spatial collectives this process ran
+bytes_sent = 0  # the bytes this rank sent in them (ring algorithms' count)
+
+
+def _count(nbytes: float) -> None:
+    global collectives, bytes_sent
+    collectives += 1
+    bytes_sent += int(nbytes)
+
+
+def check_rows(local: int, sp: Optional[Spatial]) -> None:
+    """ValueError unless the frames' height splits over the spatial axis
+    into blocks of a multiple of 8 rows (H % (8 * n_spatial) == 0), so that
+    every rank's first row is a multiple of 8 and the stride-2 convs line up."""
+    if sp is not None and local % 8:
+        raise ValueError(f"a height of {sp.height(local)} does not split over n_spatial="
+                         f"{sp.size} into blocks of a multiple of 8 rows")
+
+
+def shard_rows(x, sp: Optional[Spatial], dim: int = 1):
+    """This rank's rows of `x` (a tensor or array) along `dim`; `x` itself
+    without a handle. ValueError if the ranks cannot hold as many rows."""
+    if sp is None:
+        return x
+    h = x.shape[dim]
+    if h % sp.size:
+        raise ValueError(f"{h} rows do not split over n_spatial={sp.size}")
+    per = h // sp.size
+    index = [slice(None)] * x.ndim
+    index[dim] = slice(sp.index * per, (sp.index + 1) * per)
+    return x[tuple(index)]
+
+
+def stack_ranks(t: torch.Tensor, sp: Spatial) -> torch.Tensor:
+    """Every rank's `t` (the same shape on each), stacked in rank order on
+    a new axis 0, on every rank: an all_gather, through the host under
+    gloo. Exact: the bytes are moved, not summed."""
+    _count(t.numel() * t.element_size() * (sp.size - 1))
+    return torch.stack(_all_gather(t, sp.group, sp.size)).to(t.device)
+
+
+def gather_rows(x: torch.Tensor, sp: Optional[Spatial], dim: int = 1) -> torch.Tensor:
+    """The whole height of `x` along `dim` from every rank's rows, on every
+    rank; `x` itself without a handle."""
+    if sp is None:
+        return x
+    return torch.cat(stack_ranks(x, sp).unbind(0), dim=dim)
+
+
+def halo_rows(x: torch.Tensor, sp: Spatial, top: int, bottom: int, dim: int = 2):
+    """The `top` rows above this rank's rows of `x` along `dim` and the
+    `bottom` rows below them, as (above, below), from one all_gather of
+    each rank's edge rows (its last min(top, h) and first min(bottom, h)):
+    a halo may reach past the nearest rank. Rows above the image's top or
+    below its bottom are zeros."""
+    h = x.shape[dim]
+    tl, bl = min(top, h), min(bottom, h)
+    edges = torch.cat([x.narrow(dim, h - tl, tl), x.narrow(dim, 0, bl)], dim=dim)
+    parts = stack_ranks(edges, sp).unbind(0)
+    zero = torch.zeros_like(x.narrow(dim, 0, 1))
+    r0, height = sp.row0(h), sp.height(h)
+
+    def row(g: int) -> torch.Tensor:
+        if g < 0 or g >= height:
+            return zero
+        owner, off = divmod(g, h)
+        pos = off - (h - tl) if g < r0 else tl + off
+        return parts[owner].narrow(dim, pos, 1)
+
+    above = [row(g) for g in range(r0 - top, r0)]
+    below = [row(g) for g in range(r0 + h, r0 + h + bottom)]
+    return (torch.cat(above, dim=dim) if above else x.narrow(dim, 0, 0),
+            torch.cat(below, dim=dim) if below else x.narrow(dim, 0, 0))
+
+
+def sum_ranks(t: torch.Tensor, sp: Spatial) -> torch.Tensor:
+    """The sum of `t` over the ranks of the spatial group, on every rank (a
+    new tensor): an all_reduce, which gloo runs on CUDA tensors too."""
+    _count(2 * t.numel() * t.element_size() * (sp.size - 1) / sp.size)
+    out = t.clone()
+    dist.all_reduce(out, group=sp.group)
+    return out

@@ -25,6 +25,11 @@ package's order (`streaming.py:55-63`):
     dflow              previous local pair flow f_{i-1,i-2}, (N, H/8, W/8, 2)
     flow_ini           previous direct flow F_{i-1,0} (the OFE's), (N, H/8, W/8, 2)
 Feature maps are NCHW in the compute dtype; flows NHWC float32.
+
+With a spatial handle (parallel/mesh.py; full RAFT) frames, outputs and the
+state are this rank's rows of a height-sharded stream, kept so between
+calls: each call gathers the cached target maps and contexts it reads, and
+the warm start splats each rank's sources into the group's sum.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from accflow_tpu_torch.device import resolve_device
 from accflow_tpu_torch.graphs import CudaGraphed
 from accflow_tpu_torch.models.accflow import AccFlow, _cell_from_ctx
 from accflow_tpu_torch.models.raft import to_nchw
-from accflow_tpu_torch.nn.layers import tf32
+from accflow_tpu_torch.nn.layers import spatial_sharding, tf32
 from accflow_tpu_torch.ops.grids import downflow8
 from accflow_tpu_torch.ops.padding import InputPadder
 from accflow_tpu_torch.ops.warmstart import forward_splat_flow
@@ -55,7 +60,7 @@ from accflow_tpu_torch.serving import (
 )
 
 
-def make_streaming_fns(est, acc: AccFlow, ini_init: str = "ini"):
+def make_streaming_fns(est, acc: AccFlow, ini_init: str = "ini", spatial=None):
     """(init_fn, step_fn) for streaming backward accumulation.
 
     init_fn(frames3 (3, N, H, W, 3)) -> (F_{2,0} (N, H, W, 2), state): the
@@ -66,15 +71,17 @@ def make_streaming_fns(est, acc: AccFlow, ini_init: str = "ini"):
     start of the long-range query I_i -> I_0: "ini" advects the previous
     step's direct flow (the in-clip recurrence); "carry" advects the
     previous accumulated output, the JAX package's documented negative
-    result (it diverges on long streams; accflow_tpu/streaming.py:87-99)."""
+    result (it diverges on long streams; accflow_tpu/streaming.py:87-99).
+    spatial (a parallel.mesh.Spatial handle): frames, outputs and the state
+    are this rank's rows."""
     if ini_init not in ("ini", "carry"):
         raise ValueError(f"ini_init must be 'ini' or 'carry', got {ini_init!r}")
     cd = acc.cfg.dtype
-    encode = est.encode_frame_fn()
-    pairs_ff = est.pairs_from_features_fn()
+    encode = est.encode_frame_fn(spatial=spatial)
+    pairs_ff = est.pairs_from_features_fn(spatial=spatial)
 
     def encode_ctx(frames):
-        with tf32(False):
+        with tf32(False), spatial_sharding(acc, spatial):
             return acc.context(to_nchw(frames, cd))
 
     @torch.no_grad()
@@ -85,10 +92,10 @@ def make_streaming_fns(est, acc: AccFlow, ini_init: str = "ini"):
         # Queries frame 2 -> 1 and 2 -> 0, and the seed 1 -> 0, from features.
         flows_a = pairs_ff(feats1, [feats2["fmap"], featsn["fmap"]])
         seed = pairs_ff(feats2, [featsn["fmap"]])
-        dflow, flow_ini, seed = downflow8(torch.cat([flows_a, seed])).chunk(3)
+        dflow, flow_ini, seed = downflow8(torch.cat([flows_a, seed]), spatial).chunk(3)
         ctx = encode_ctx(torch.cat([i1, i2, i_n]))
         c1, cn = ctx[:n], ctx[2 * n:]
-        carry, out = _cell_from_ctx(acc, dflow, flow_ini, seed, c1, ctx[n: 2 * n], cn)
+        carry, out = _cell_from_ctx(acc, dflow, flow_ini, seed, c1, ctx[n: 2 * n], cn, spatial)
         return out, (featsn["fmap"], feats1["fmap"], cn, c1, carry, dflow, flow_ini)
 
     @torch.no_grad()
@@ -100,12 +107,12 @@ def make_streaming_fns(est, acc: AccFlow, ini_init: str = "ini"):
         # warm-start both OFE queries from them.
         advect = -dflow
         ini_seed = flow_ini if ini_init == "ini" else carry
-        init = torch.cat([forward_splat_flow(dflow, advect),
-                          forward_splat_flow(ini_seed, advect)])
+        init = torch.cat([forward_splat_flow(dflow, advect, spatial),
+                          forward_splat_flow(ini_seed, advect, spatial)])
         flows = pairs_ff(src, [fmap_prev, fmap_n], flow_init=init)
-        dflow, flow_ini = downflow8(flows).chunk(2)
+        dflow, flow_ini = downflow8(flows, spatial).chunk(2)
         c1 = encode_ctx(frame)
-        carry, out = _cell_from_ctx(acc, dflow, flow_ini, carry, c1, c_prev, cn)
+        carry, out = _cell_from_ctx(acc, dflow, flow_ini, carry, c1, c_prev, cn, spatial)
         return out, (fmap_n, src["fmap"], cn, c1, carry, dflow, flow_ini)
 
     return init_fn, step_fn
@@ -139,11 +146,15 @@ class StreamAccumulator:
     buffers and fresh tensors returned; on the CPU step_fn runs as it is.
     `reset` runs init_fn eagerly, once per stream. Frames go to the
     accumulator's device; outputs and the state stay there between calls
-    (no host round trips beyond the frame upload)."""
+    (no host round trips beyond the frame upload). spatial (a
+    parallel.mesh.Spatial handle): frames, outputs and state are this
+    rank's rows, and `push` runs step_fn eagerly: a CUDA graph cannot
+    capture gloo's collectives, and graphed spatial steps over NCCL are
+    not ported (ROADMAP.md queue 1, #12)."""
 
-    def __init__(self, est, acc: AccFlow, ini_init: str = "ini"):
-        self._init, step = make_streaming_fns(est, acc, ini_init=ini_init)
-        self._step = CudaGraphed(step)
+    def __init__(self, est, acc: AccFlow, ini_init: str = "ini", spatial=None):
+        self._init, step = make_streaming_fns(est, acc, ini_init=ini_init, spatial=spatial)
+        self._step = CudaGraphed(step) if spatial is None else step
         self._device = next(acc.parameters()).device
         self._state = None
 

@@ -197,7 +197,18 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 20. the host tools: a convert_ckpt round trip of the full-width acc+raft
    (the clip forward bit-equal), the native CVOR core's decode of a
    CVO-test-sized flow column against numpy, profiling.trace naming kernel
-   #1, profiling.device_step_time of the graphed clip beside phase 5b's.
+   #1, profiling.device_step_time of the graphed clip beside phase 5b's;
+21. the mesh's spatial axis (height sharding) for inference: two gloo
+   ranks on the one card with CUDA tensors (the script runs itself twice
+   with --spatial-child), n_spatial 2, each on its rows of the frames,
+   against this process on the whole frames: (a) RAFT 128^2, 2 iterations,
+   f32 (TF32 off), fused and ondemand:64 (CLIP_REL); (b) the CVO-6 clip,
+   (c) a 7-frame 1920x1088 clip at batch 1 through "auto" (ondemand at the
+   global shape), (d) stream (b) with warm_start, reset and 5 pushes, all
+   bf16 (BATCH_SPREAD x each case's own batch-1-vs-2 distance): each rank's
+   peak beside one process's, seconds per call, collectives and bytes,
+   kernel #1's launches (equal on both ranks, one per iteration and chunk,
+   no other kernel) and Q.
 Optional phases: --tile-sweep builds kernels #1 and #2 with 4, 8 and 16
 queries per block and times them in turns (#1 at the clip shape after phase
 3, #2 at the stream shape after phase 4); --profile prints where
@@ -211,8 +222,8 @@ line the numbers of phases 6c and 8's GMA runs and 10-13, and a
 (graphed and eager ms per step, busy time, idle share, peaks, capture
 calls, the graphed-vs-eager distances beside their bars), an
 {"ondemand": {...}} line phase 16's, an {"f0n": {...}} line phase 17's, and
-{"sintel"}, {"data_parallel"} and {"host_tools"} lines phases 18-20's. The
-line before
+{"sintel"}, {"data_parallel"}, {"host_tools"} and {"spatial"} lines phases
+18-21's. The line before
 the last is {"kernels": [...]}; the last line is {"ok": true, "device":
 {...}}. Without a GPU, or without the package beside it, the script exits
 non-zero and prints no result.
@@ -456,6 +467,25 @@ DP_STEP_LAUNCHES = {"train": {"corr_lookup": 4},
                     "finetune": {"corr_lookup": 12, "corr_lookup_backward": 12}}
 GRAPH_SPREAD = 2.0
 GRAPH_FLOOR = 1e-6
+# Phase 21, height sharding over two gloo ranks on the one card against one
+# process. (a) is float32 with TF32 off: the ranks run the same math on
+# their rows (halo rows, the whole image's instance-norm statistics, every
+# query against the whole pyramid), and differ from one process by
+# summation order where cuDNN picks another algorithm for the shorter
+# height or the two halves' statistics are combined (~1e-6 of the largest
+# |flow|): held within CLIP_REL of it, as the GPU against the CPU. (b), (c)
+# and (d) are bfloat16: there a conv's output moves by a bfloat16 rounding
+# wherever its float32 sum falls on the other side of a rounding boundary,
+# which another algorithm's summation order makes happen here and there,
+# and 12 GRU iterations carry it on; the same thing moves a clip run at
+# batch 1 against batch 2 (BATCH_SPREAD). So each is held to BATCH_SPREAD
+# times that case's own batch-1-vs-2 distance in one process, measured in
+# the same run: (b) the clip's two batch-1 clips against the batch-2 clip,
+# (c) the 1088p clip at batch 1 against the same clip beside another at
+# batch 2, (d) the stream's two batch-1 streams against the batch-2 stream.
+# A wrong halo, row offset or gather moves the flow everywhere. Fixed
+# before the phase's first run.
+SPATIAL_SIZE_C = (1088, 1920)  # (c)'s frames: 1080p padded to a multiple of 8 * 2 rows
 REPO = Path(__file__).resolve().parent
 FIXTURES = REPO / "tests" / "fixtures"
 COUNTERS = (  # each kernel wrapper's launch count: (kernel, module, attribute)
@@ -3620,6 +3650,248 @@ def dp_two_ranks(tmp: str) -> dict:
     return dict(rows, seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the spatial axis (height sharding) over two gloo ranks
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def kernel1_shapes(rec: list):
+    """Within the block, each kernel-#1 launch appends (Q, bytes of the
+    levels it reads) to `rec` (corr_cuda.launch, which its op calls)."""
+    orig = corr_cuda.launch
+
+    def launch(lib, levels, coords, out_dtype=torch.float32):
+        rec.append((int(coords.shape[0]), sum(lv.numel() * lv.element_size() for lv in levels)))
+        return orig(lib, levels, coords, out_dtype)
+
+    corr_cuda.launch = launch
+    try:
+        yield
+    finally:
+        corr_cuda.launch = orig
+
+
+def spatial_inputs(case: str, elems):
+    """Case `case` of phase 21 with the batch elements `elems` (element i's
+    frames are the same in any batch): (estimator, accumulator or None,
+    frames), from seeds, on the card."""
+    if case.startswith("a"):
+        est = models.build_flow_estimator("raft", compute_dtype="float32", iters=2, seed=0,
+                                          corr_lookup=case.split(" ", 1)[1])
+        return est, None, moving_frames(2, 1, 128, seed=21)
+    if case == "b":
+        acc, images = clip_inputs()
+        return (models.build_flow_estimator("raft", compute_dtype="bfloat16", seed=0), acc,
+                images[:, list(elems)].contiguous())
+    if case == "c":
+        acc = clip_inputs(t=3, n=1, size=8)[0]
+        h, w = SPATIAL_SIZE_C
+        frames = torch.cat([moving_frames(7, 1, w, seed=8 + i)[:, :, :h] for i in elems], 1)
+        return (models.build_flow_estimator("raft", compute_dtype="bfloat16", seed=0,
+                                            corr_lookup="auto"), acc, frames.contiguous())
+    est = models.build_flow_estimator("raft", compute_dtype="bfloat16", iters=6, seed=0)
+    acc = models.init_accflow(models.AccFlowConfig(compute_dtype="bfloat16", warm_start=True),
+                              seed=1, device="cpu")
+    perturb_zero_conv(acc, 2)
+    return est, acc.to("cuda"), moving_frames(8, 2, 512, seed=4)[:, list(elems)].contiguous()
+
+
+SPATIAL_CASES = ("a fused", "a ondemand:64", "b", "c", "d")
+SPATIAL_BATCH = {"b": (0, 1), "d": (0, 1)}  # the others: (0,)
+
+
+def spatial_run(case: str, sp, elems=None, reps: int = 2) -> dict:
+    """Case `case` on this rank's rows (sp) or on the whole frames (None),
+    with the batch elements `elems` (None: the case's own): `reps` calls
+    ((d): a reset and 5 pushes), the last one read: the seconds of each,
+    the peak, the kernel launches, kernel #1's Q and level bytes per
+    launch, the collectives and bytes, and this rank's rows of the output
+    on the host."""
+    elems = SPATIAL_BATCH.get(case, (0,)) if elems is None else elems
+    est, acc, frames = spatial_inputs(case, elems)
+    rows = mesh.shard_rows(frames, sp, 2)
+    if case == "d" and sp is not None:
+        stream = StreamAccumulator(est, acc, spatial=sp)  # a push with a handle runs eagerly
+
+        def call():
+            return torch.stack([stream.reset(rows[:3])] + [stream.push(rows[i])
+                                                           for i in range(3, 8)])
+    elif case == "d":
+        init, step = make_streaming_fns(est, acc)  # eager too: each push counts its launches
+
+        def call():
+            out, state = init(rows[:3])
+            outs = [out]
+            for i in range(3, 8):
+                out, state = step(state, rows[i])
+                outs.append(out)
+            return torch.stack(outs)
+    elif acc is None:
+        def call():
+            return est.forward(rows[0], rows[1], spatial=sp)["flow_up"]
+    else:
+        def call():
+            return models.accflow_forward(acc, rows, est.pairs_fn(spatial=sp), spatial=sp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, shapes = [], []
+    with tf32(False):
+        for _ in range(reps):
+            reset_counts()
+            c0, b0 = mesh.collectives, mesh.bytes_sent
+            shapes.clear()
+            t0 = time.perf_counter()
+            with kernel1_shapes(shapes):
+                out = call()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    return dict(out=out.float().cpu(), secs=secs, peak=torch.cuda.max_memory_allocated(),
+                launches=launch_counts(), q=sorted({q for q, _ in shapes}),
+                level_bytes=max((b for _, b in shapes), default=0),
+                collectives=mesh.collectives - c0, bytes=mesh.bytes_sent - b0)
+
+
+def spatial_child(rank: int, port: int, work: str) -> int:
+    """One rank of phase 21, started by spatial_phase as its own process:
+    join the gloo group on the one card, make the (1, 2) mesh, run every
+    case on this rank's rows, save what it saw."""
+    os.environ.update(torchrun_env(2, rank, port))
+    if not mesh.maybe_init_distributed("cuda", backend="gloo"):
+        fail("spatial child: no group")
+    try:
+        sp = mesh.make_mesh(n_data=1, n_spatial=2).axis
+        if (sp.index, sp.size) != (rank, 2):
+            fail(f"spatial child {rank}: handle {sp}")
+        torch.save({case: spatial_run(case, sp) for case in SPATIAL_CASES},
+                   Path(work) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def spatial_chunks(case: str, rows: int) -> int:
+    """Chunks of queries per lookup for `rows` query rows at 1/8 against
+    the whole image's keys, as the lookup the case resolves to cuts them
+    (ops/corr.py's own code, run on shapes only)."""
+    if case.startswith("a"):
+        lookup, pairs, h8, w8 = case.split(" ", 1)[1], 1, 16, 16
+    elif case == "c":
+        pairs, h8, w8 = 11, SPATIAL_SIZE_C[0] // 8, SPATIAL_SIZE_C[1] // 8
+        lookup = corr.resolve_auto_lookup("auto", pairs, h8, w8, 4, torch.bfloat16)
+    else:
+        return 1
+    if not corr.is_ondemand(lookup):
+        return 1
+    f1, f2 = (torch.empty((pairs, 1, h, w8), device="meta") for h in (rows, h8))
+    od = corr.prepare_ondemand_chunks(corr.build_corr_on_demand(f1, f2),
+                                      corr.ondemand_chunk(lookup))
+    return rows * w8 // od.chunk
+
+
+def spatial_phase(tmp: str) -> dict:
+    """Phase 21: the mesh's spatial axis for inference. Two processes on the
+    one card, each a gloo rank with CUDA tensors (NCCL puts no two ranks on
+    one GPU; gloo gathers through the host), n_data 1 and n_spatial 2,
+    eagerly; each runs on its rows of the frames: (a) full RAFT at 128^2, 2
+    iterations, float32 (TF32 off), "fused" and "ondemand:64"; (b) the
+    CVO-6 clip (7 x 512^2, batch 2, 12 iterations, bf16, "fused"); (c) a
+    7-frame 1920x1088 clip at batch 1 through "auto", which must take the
+    volume-free lookup (resolved at the global shape: 31 GB stored, past
+    the budget; each rank's half would fit); (d) stream (b) (RAFT at 512^2,
+    batch 2, 6 iterations, warm_start): reset and 5 pushes. Each against
+    the same run in this process on the whole frames (the bars: the
+    SPATIAL comment at the top), with each rank's and this process's peak,
+    seconds per call (two gloo ranks sharing one card: not a reading of
+    NCCL), collectives and bytes per call, and kernel #1's launches and Q:
+    both ranks' launches equal, one per GRU iteration and chunk of queries
+    as in one process (a rank holds half the queries: "fused" keeps one
+    chunk, "ondemand" halves the chunks), and no other kernel."""
+    ref = {case: spatial_run(case, None) for case in SPATIAL_CASES}
+    spread = {
+        "b": torch.cat([spatial_run("b", None, (i,), 1)["out"] for i in range(2)], 1),
+        "c": spatial_run("c", None, (0, 1), 1)["out"][:, :1],
+        "d": torch.cat([spatial_run("d", None, (i,), 1)["out"] for i in range(2)], 1)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = Path(tmp) / "spatial"
+    work.mkdir()
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--spatial-child",
+                               str(r), str(port), str(work)], cwd=str(REPO),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"spatial: rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=True) for r in range(2)]
+    rows = {}
+    for case in SPATIAL_CASES:
+        one, got = ref[case], [r[case] for r in ranks]
+        out = torch.cat([g["out"] for g in got], dim=2 if case in ("b", "c", "d") else 1)
+        diff, flow_max = float((out - one["out"]).abs().max()), float(one["out"].abs().max())
+        if case.startswith("a"):
+            bar, why = CLIP_REL * flow_max, f"{CLIP_REL:g} x max |flow|"
+        else:
+            floor = float((spread[case] - one["out"]).abs().max())
+            bar, why = BATCH_SPREAD * floor, f"{BATCH_SPREAD:g} x batch-1-vs-2 {floor:.3e}"
+        h8 = one["out"].shape[-3] // 8
+        # Kernel #1 per chunk: one launch per GRU iteration and OFE call ((d):
+        # the reset's two calls at 6 iterations, then 6 per push).
+        per_chunk = {"a": 2, "d": 12 + 5 * 6}.get(case[0], 12)
+        want = [per_chunk * spatial_chunks(case, h8 // k) for k in (2, 1)]
+        launched = [g["launches"] for g in got]
+        row = dict(max_abs=diff, flow_max=flow_max, bar=bar,
+                   rank_peak_gib=[g["peak"] / 2**30 for g in got],
+                   one_process_peak_gib=one["peak"] / 2**30,
+                   rank_s_per_call=[g["secs"][-1] for g in got],
+                   one_process_s_per_call=one["secs"][-1],
+                   collectives=[g["collectives"] for g in got], bytes=[g["bytes"] for g in got],
+                   launches=[lc["corr_lookup"] for lc in launched],
+                   one_process_launches=one["launches"]["corr_lookup"],
+                   q=[g["q"] for g in got], one_process_q=one["q"],
+                   level_bytes=[g["level_bytes"] for g in got],
+                   one_process_level_bytes=one["level_bytes"])
+        print(f"spatial ({case}) two gloo ranks on one card vs one process: max abs {diff:.3e} "
+              f"(bar {why}: {bar:.3e}; |flow| max {flow_max:.3e}); peak per rank "
+              f"{', '.join(f'{x:.3f}' for x in row['rank_peak_gib'])} GiB (one process "
+              f"{row['one_process_peak_gib']:.3f}); seconds per call, two gloo ranks sharing "
+              f"one card (not a reading of NCCL): {', '.join(f'{x:.3f}' for x in row['rank_s_per_call'])}"
+              f" (one process {row['one_process_s_per_call']:.3f}); collectives {row['collectives']}, "
+              f"bytes sent {row['bytes']} per call; kernel #1 launches {row['launches']} "
+              f"(one process {row['one_process_launches']}), Q {row['q']} (one process "
+              f"{row['one_process_q']}), level bytes per launch {row['level_bytes']} (one "
+              f"process {row['one_process_level_bytes']})")
+        if not diff <= bar or not np.isfinite(out.numpy()).all():
+            fail(f"spatial ({case}): sharded differs from one process by {diff:.3e} > {bar:.3e}")
+        others = [{k: v for k, v in lc.items() if k != "corr_lookup" and v} for lc in launched]
+        if not (row["launches"] == [want[0]] * 2 and row["one_process_launches"] == want[1]
+                and others == [{}, {}] and row["collectives"][0] == row["collectives"][1] > 0):
+            fail(f"spatial ({case}): launches {launched}, one process {one['launches']}, "
+                 f"expected {want[0]} a rank and {want[1]}; collectives {row['collectives']}")
+        rows[case] = row
+    c_lookup = corr.resolve_auto_lookup("auto", 11, SPATIAL_SIZE_C[0] // 8,
+                                        SPATIAL_SIZE_C[1] // 8, 4, torch.bfloat16)
+    if not (corr.is_ondemand(c_lookup) and spatial_chunks("c", SPATIAL_SIZE_C[0] // 16) > 1):
+        fail(f"spatial (c): auto resolved to {c_lookup!r}")
+    print(f"spatial: both ranks in {secs:.2f} s (start, build cache, cases); (c) auto -> "
+          f"{c_lookup} at the global shape, {spatial_chunks('c', SPATIAL_SIZE_C[0] // 16)} "
+          "chunks a rank")
+    return dict(rows, seconds=secs, c_lookup=c_lookup)
+
+
 def host_tools_phase(tmp: str, graphed_clip_ms: float) -> dict:
     """Phase 20: the host tools. (a) convert_ckpt: a full-width acc+raft
     (phase 5's weights) saved as a reference-named .pth (the `module.`
@@ -3771,6 +4043,8 @@ def main() -> int:
                     help="time kernels #1 and #2 at 4, 8 and 16 queries per block")
     ap.add_argument("--dp-child", nargs=3, metavar=("RANK", "PORT", "DIR"),
                     help="run one rank of phase 19c (started by the script itself)")
+    ap.add_argument("--spatial-child", nargs=3, metavar=("RANK", "PORT", "DIR"),
+                    help="run one rank of phase 21 (started by the script itself)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3778,6 +4052,9 @@ def main() -> int:
     if args.dp_child:
         rank, port, work = args.dp_child
         return dp_child(int(rank), int(port), work)
+    if args.spatial_child:
+        rank, port, work = args.spatial_child
+        return spatial_child(int(rank), int(port), work)
 
     line = smi("name,power.limit")
     print(line)
@@ -3849,6 +4126,7 @@ def main() -> int:
         sintel = sintel_phase(tmp)
         dp = dp_phase(root, tmp, train, finetune, evals)
         tools = host_tools_phase(tmp, clip_extra["graphed"]["median_ms"])
+        spatial = spatial_phase(tmp)
     print(f"train on {line} (graphed, train_acc): AccRAFT {train['accraft']['ms_per_step']:.2f} "
           f"ms per step ({train['accraft']['clips_per_s']:.3f} clips/s, peak "
           f"{train['accraft']['peak_gib']:.3f} GiB, idle "
@@ -3887,7 +4165,13 @@ def main() -> int:
         + "; two gloo ranks on one card agree with one process at batch 2")
     print(json.dumps({"sintel": {"card": line, **sintel}}, default=str))
     print(json.dumps({"data_parallel": {"card": line, **dp}}, default=str))
+    print(f"spatial axis on {line}: two gloo ranks on one card (not a reading of NCCL), each "
+          "against one process: " + "; ".join(
+              f"({case}) max abs {spatial[case]['max_abs']:.3e} (bar {spatial[case]['bar']:.3e}), "
+              f"peak per rank {max(spatial[case]['rank_peak_gib']):.3f} GiB (one process "
+              f"{spatial[case]['one_process_peak_gib']:.3f})" for case in SPATIAL_CASES))
     print(json.dumps({"host_tools": {"card": line, **tools}}, default=str))
+    print(json.dumps({"spatial": {"card": line, **spatial}}, default=str))
     print(json.dumps({"ondemand": {"card": line, **ondemand}}, default=str))
     print(json.dumps({"f0n": {"card": line, **f0n}}, default=str))
     print(json.dumps({"graphs": {"card": line, "clip": clip_extra, "stream_a": stream_a,
@@ -3956,11 +4240,20 @@ def main() -> int:
          "dp_launches_in": f"train_acc (AccRAFT.yml) and fine_tune (RAFT.yml) in a world of one "
                            f"over NCCL, {DP_STEPS} graphed steps each, counted as in training",
          "dp_two_ranks_launches": {k: r["rank_launches"] for k, r in dp["two_ranks"].items()
-                                   if isinstance(r, dict)}},
+                                   if isinstance(r, dict)},
+         "spatial_launches": {c: spatial[c]["launches"] for c in ("b", "c", "d")},
+         "spatial_q": {c: spatial[c]["q"] for c in ("b", "c", "d")},
+         "spatial_launches_in": "phase 21, each of two gloo ranks on one card, height "
+                                "sharded: (b) 2 CVO-6 clip forwards, (c) 2 7x1920x1088 clip "
+                                "forwards through auto (ondemand), (d) 2 streams of a reset "
+                                "and 5 pushes; counted in the last call"},
         {"name": "corr_lookup_f32_out", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:264",
          "launches": small["fused"], "launches_in": "the f32 small clip on the GPU",
+         "spatial_launches": {c: spatial[c]["launches"] for c in ("a fused", "a ondemand:64")},
+         "spatial_launches_in": "phase 21 (a), each of two gloo ranks on one card, height "
+                                "sharded: one 128^2 forward at 2 iterations, the last of 2",
          "gma_small_clip_launches": gma_small["fused"],
          **rows1["float32"], "levels_dtype": "float32", "out_dtype": "float32",
          "float32_levels_bf16_out": rows1["float32, bf16 out"],

@@ -14,7 +14,10 @@ validation and eval steps (graphs.CudaGraphedStep, graphs.CudaGraphed)
 against the eager ones, sync-free, once captured per signature, and
 captured again after a resume; High-Speed Sintel's evaluation on the GPU
 against the CPU, a graphed train step in a world of one over NCCL against
-the step without a process group, and a profiler trace on the card.
+the step without a process group, a profiler trace on the card, and full
+RAFT height-sharded over two gloo ranks on the card (this file run as a
+script, `_spatial_child`) against one process, with kernel #1's launches
+on each rank.
 Marked `cuda`; each test skips where there is no GPU (no
 kernel can run there). This file imports neither JAX nor the JAX package,
 so it runs on a machine with only torch:
@@ -27,6 +30,10 @@ where the plain version recomputes it per tap; at these coordinates
 contraction sums the same float32 products as its twin in another order
 (bfloat16 products are exact in float32): below 1e-4 for sums of up to 70
 unit-normal products."""
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -1341,3 +1348,98 @@ def test_device_prefetch_copies_to_the_card(dev):
         assert b["a"].is_cuda and torch.equal(b["a"].cpu(), want)
         assert torch.equal(double(b["a"]).cpu(), 2 * want)
     assert double.captures == 1
+
+
+# ---------------------------------------------------------------------------
+# The spatial axis: two gloo ranks on the card, each on its rows of the image
+# ---------------------------------------------------------------------------
+
+SPATIAL_LOOKUPS = {"fused": 1, "ondemand:16": 2}  # chunks of a rank's 32 queries
+
+
+def _spatial_forward(lookup: str, sp, counts: dict) -> torch.Tensor:
+    """Full RAFT (seed 0, 2 iterations, float32, TF32 off) on a 64^2 pair
+    from seed 9, on this rank's rows (sp) or the whole pair (None); records
+    kernel #1's launches in `counts`. Returns the flow's rows."""
+    from accflow_tpu_torch.nn.layers import tf32
+    from accflow_tpu_torch.parallel import mesh
+
+    est = build_flow_estimator("raft", compute_dtype="float32", iters=2, corr_lookup=lookup)
+    pair = torch.rand((2, 1, 64, 64, 3), generator=torch.Generator().manual_seed(9)) * 2 - 1
+    rows = mesh.shard_rows(pair.cuda(), sp, 2)
+    before = corr_cuda.launches
+    with tf32(False):
+        flow = est.forward(rows[0], rows[1], spatial=sp)["flow_up"]
+    counts[lookup] = corr_cuda.launches - before
+    return flow.cpu()
+
+
+def _spatial_child(rank: int, port: int, work: str) -> None:
+    """One rank: join a gloo group with CUDA tensors (NCCL puts no two ranks
+    on one card), make the (1, 2) mesh, run both lookups, save the rows."""
+    from accflow_tpu_torch.parallel import mesh
+
+    os.environ.update(WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    assert mesh.maybe_init_distributed("cuda", backend="gloo")
+    sp = mesh.make_mesh(n_data=1, n_spatial=2).axis
+    counts = {}
+    out = {lk: _spatial_forward(lk, sp, counts) for lk in SPATIAL_LOOKUPS}
+    torch.save({"out": out, "launches": counts}, f"{work}/rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def spatial_ranks(tmp_path_factory):
+    """Both ranks' rows and launches (a time limit: a deadlocked collective
+    fails instead of hanging)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the lookup kernel has no CPU mode")
+    import socket
+
+    work = str(tmp_path_factory.mktemp("spatial_cuda"))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "spatial-child",
+                               str(r), str(port), work], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0].decode(errors="replace") for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{log[-4000:]}"
+    return [torch.load(f"{work}/rank{r}.pt") for r in range(2)]
+
+
+@pytest.mark.parametrize("lookup", list(SPATIAL_LOOKUPS))
+def test_spatial_raft_two_ranks_match_one_process(dev, spatial_ranks, lookup):
+    """The two ranks' rows, put together, within 1e-3 of the largest |flow|
+    of the same forward in one process on the card (float32, TF32 off:
+    summation order only, as the GPU against the CPU)."""
+    one = _spatial_forward(lookup, None, {})
+    got = torch.cat([r["out"][lookup] for r in spatial_ranks], dim=1)
+    assert got.shape == one.shape == (1, 64, 64, 2)
+    assert float((got - one).abs().max()) <= 1e-3 * float(one.abs().max())
+
+
+@pytest.mark.parametrize("lookup", list(SPATIAL_LOOKUPS))
+def test_spatial_kernel_1_launches_per_rank(dev, spatial_ranks, lookup):
+    """Each rank launches kernel #1 once per iteration and chunk of its own
+    queries: 2 for "fused", as one process; 4 for "ondemand:16" (2 chunks of
+    a rank's 32 queries, one process's 64 make 4)."""
+    counts = {}
+    _spatial_forward(lookup, None, counts)
+    want = 2 * SPATIAL_LOOKUPS[lookup]
+    assert [r["launches"][lookup] for r in spatial_ranks] == [want, want]
+    assert counts[lookup] == 2 * (64 // 16 if lookup != "fused" else 1)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["spatial-child"]:
+    _spatial_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

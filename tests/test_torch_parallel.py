@@ -355,8 +355,8 @@ def test_mesh_single_process():
     assert mesh.make_mesh() == mesh.Mesh(1, 1, 0)
     with pytest.raises(ValueError, match="n_data=2"):
         mesh.make_mesh(n_data=2)
-    with pytest.raises(NotImplementedError, match="#12"):
-        mesh.make_mesh(n_spatial=2)
+    with pytest.raises(ValueError, match="n_spatial=2"):
+        mesh.make_mesh(n_spatial=2)  # a world of one does not split into two
     batch = {"a": np.arange(6).reshape(3, 2), "b": torch.arange(3)}
     sharded = mesh.shard_batch(batch)
     np.testing.assert_array_equal(sharded["a"], batch["a"])
