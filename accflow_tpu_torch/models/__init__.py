@@ -49,8 +49,8 @@ class FlowEstimator:
     points, picked by the model's type. iters: the GRU iterations of a call
     that names none (default: the model config's). The inference entry
     points take a `spatial` handle (parallel/mesh.py: frames, features and
-    flows are this rank's rows of a height-sharded image) for full RAFT;
-    GMA and RAFT-small refuse one (ValueError)."""
+    flows are this rank's rows of a height-sharded image), for RAFT of
+    either size and GMA; a training forward refuses one (ValueError)."""
 
     def __init__(self, name: str, model, iters: Optional[int] = None):
         self.name = name
@@ -80,38 +80,26 @@ class FlowEstimator:
             return self._train_forward(self.model, image1, image2, self._iters(iters),
                                        flow_init, final_only, remat)
         return self._forward(self.model, image1, image2, self._iters(iters), flow_init,
-                             final_only, **self._spatial(spatial))
+                             final_only, spatial=spatial)
 
     def _iters(self, iters: Optional[int]) -> Optional[int]:
         return self.iters if iters is None else iters
 
-    def _spatial(self, spatial) -> dict:
-        """The entry points' spatial keyword; GMA refuses a handle."""
-        if spatial is None:
-            return {}
-        if not isinstance(self.model, RAFT):
-            raise ValueError("GMA on the spatial axis (its attention over sharded rows) is "
-                             "not ported: ROADMAP.md queue 1, #12")
-        return {"spatial": spatial}
-
     def pairs_fn(self, iters: Optional[int] = None, final_only: bool = True, spatial=None):
         """Closure (frames, src_idx, dst_idx) -> (P*N, H, W, 2) flows with
         deduplicated frame encoding, for accflow_forward."""
-        kw = self._spatial(spatial)
-
         def fn(frames, src_idx, dst_idx):
             return self._pairs_forward(self.model, frames, src_idx, dst_idx,
-                                       iters=self._iters(iters), final_only=final_only, **kw)
+                                       iters=self._iters(iters), final_only=final_only,
+                                       spatial=spatial)
 
         return fn
 
     def encode_frame_fn(self, spatial=None):
         """Closure (image_batch) -> cacheable per-frame features
         ({fmap, net, inp}) for the streaming state (streaming.py)."""
-        kw = self._spatial(spatial)
-
         def fn(image):
-            return self._encode_frame(self.model, image, **kw)
+            return self._encode_frame(self.model, image, spatial=spatial)
 
         return fn
 
@@ -119,20 +107,18 @@ class FlowEstimator:
                                final_only: bool = True, spatial=None):
         """Closure (src_feats, dst_fmaps, flow_init=None) -> (P*N, H, W, 2)
         flows from precomputed features: the streaming step's OFE call."""
-        kw = self._spatial(spatial)
-
         def fn(src, dst_fmaps, flow_init=None):
             return self._pairs_from_features(self.model, src, dst_fmaps, self._iters(iters),
-                                             flow_init, final_only, **kw)
+                                             flow_init, final_only, spatial=spatial)
 
         return fn
 
-    def flow_fn(self):
+    def flow_fn(self, spatial=None):
         """Closure (image1, image2, flow_init=None) -> final full-res flow,
         for AccFlow's warm-started stepwise OFE (AccFlowConfig.warm_start)."""
         def fn(image1, image2, flow_init=None):
-            return self.forward(image1, image2, flow_init=flow_init,
-                                final_only=True)["flow_up"]
+            return self.forward(image1, image2, flow_init=flow_init, final_only=True,
+                                spatial=spatial)["flow_up"]
 
         return fn
 

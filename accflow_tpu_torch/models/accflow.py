@@ -30,8 +30,10 @@ compute dtype; OFE flows, occlusion maps and decoder outputs are float32.
 
 Height sharding (parallel/mesh.py): the fused backward path
 (`accflow_forward(..., spatial=...)`, with `ofe_pairs` from
-`FlowEstimator.pairs_fn(spatial=...)`) and the streaming cell
-(`_cell_from_ctx`) run on this rank's rows of the frames. The convs read
+`FlowEstimator.pairs_fn(spatial=...)` of RAFT, RAFT-small or GMA) and the
+streaming cell (`_cell_from_ctx`) run on this rank's block of rows of the
+frames, at any height that splits into 8-row blocks (mesh.split_rows;
+blocks may differ by 8 rows). The convs read
 halo rows (their modules take the handle from nn.layers.spatial_sharding),
 the occlusion and error maps warp the gathered context of the target frames,
 the deformable conv samples the gathered carry encoding, and the convex

@@ -36,6 +36,16 @@ equals the dense path row for row in O(chunk * HW) memory. -1 (auto) picks
 dense while the attention and the stored pyramid (none under the
 volume-free ondemand lookup) fit ops/corr.py's budget, chunks of 1024
 (rounded down to a divisor of HW) beyond.
+
+The inference entry points take a `spatial` handle (parallel/mesh.py), as
+RAFT's do: frames, features and flows are this rank's rows. Each rank keeps
+its own query rows and gathers the keys once per source frame (to_qk's
+output, before the float32 cast) and the values at every aggregate, so it
+holds (N, heads, HW_local, HW) rows of the attention, each softmaxed over
+every key: exact row for row, with no reduction across ranks. The
+relative-position score takes the queries' global rows, and attn_chunk
+("auto" included) is resolved at the global shape, its chunks of local
+query rows.
 """
 
 from __future__ import annotations
@@ -59,7 +69,7 @@ from accflow_tpu_torch.models.raft import (
     raft_encode_frame,
     raft_iterate,
 )
-from accflow_tpu_torch.nn.layers import Conv2d, Embedding, init_weights, tf32
+from accflow_tpu_torch.nn.layers import Conv2d, Embedding, init_weights, spatial_sharding, tf32
 from accflow_tpu_torch.ops.corr import (
     OnDemandCorr,
     _divisor_chunk,
@@ -70,6 +80,7 @@ from accflow_tpu_torch.ops.corr import (
     stored_volume_bytes,
 )
 from accflow_tpu_torch.ops.corr_cuda import LEVELS, RADIUS
+from accflow_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,38 +247,48 @@ def _similarity(q: torch.Tensor, k: torch.Tensor, tf32_exact: bool) -> torch.Ten
     return sim.view(n, heads, nq, -1)
 
 
-def rel_pos_score(pos_emb: RelPosEmb, q: torch.Tensor) -> torch.Tensor:
+def rel_pos_score(pos_emb: RelPosEmb, q: torch.Tensor, row0: int = 0,
+                  height: Optional[int] = None) -> torch.Tensor:
     """Decomposed relative-position similarity (modules.py:20-31): q
-    (N, heads, H, W, dh) scaled float32 queries -> (N, heads, H*W, H*W),
-    score[x, y, u, v] = q[x, y] . rel_height[u - x + m - 1]
-    + q[x, y] . rel_width[v - y + m - 1], float32 with TF32 off."""
+    (N, heads, h, W, dh) scaled float32 queries of rows row0 .. row0 + h - 1
+    of a map `height` rows high (default h: the whole map) ->
+    (N, heads, h*W, height*W), score[x, y, u, v] = q[x, y] .
+    rel_height[u - (row0 + x) + m - 1] + q[x, y] . rel_width[v - y + m - 1],
+    float32 with TF32 off."""
     n, heads, h, w, _ = q.shape
     m = pos_emb.max_pos_size
+    height = h if height is None else height
 
-    def rel(size):
-        ar = torch.arange(size, device=q.device)
-        return ar[None, :] - ar[:, None] + m - 1
+    def rel(rows, size):
+        return torch.arange(size, device=q.device)[None, :] - rows[:, None] + m - 1
 
     with tf32(False):
-        hs = torch.einsum("nhxyd,xud->nhxyu", q, pos_emb.rel_height.weight[rel(h)])
-        ws = torch.einsum("nhxyd,yvd->nhxyv", q, pos_emb.rel_width.weight[rel(w)])
-    return (hs[..., :, None] + ws[..., None, :]).reshape(n, heads, h * w, h * w)
+        hs = torch.einsum("nhxyd,xud->nhxyu", q, pos_emb.rel_height.weight[
+            rel(torch.arange(row0, row0 + h, device=q.device), height)])
+        ws = torch.einsum("nhxyd,yvd->nhxyv", q, pos_emb.rel_width.weight[
+            rel(torch.arange(w, device=q.device), w)])
+    return (hs[..., :, None] + ws[..., None, :]).reshape(n, heads, h * w, height * w)
 
 
-def attention(model: GMA, inp: torch.Tensor, chunk: int = 0):
+def attention(model: GMA, inp: torch.Tensor, chunk: int = 0, spatial=None):
     """The attention of context features inp (N, C, H, W), compute dtype:
     the dense softmaxed (N, heads, HW, HW) matrix in the compute dtype, or
-    AttnOperands for chunk > 0."""
+    AttnOperands for chunk > 0. spatial: inp is this rank's rows; the keys
+    are gathered (the whole height), and the matrix holds this rank's query
+    rows against every key."""
     cfg = model.cfg
     n, _, h, w = inp.shape
     heads, dh = cfg.num_heads, cfg.dim_head
-    qk = model.att.to_qk(inp)
-    exact = qk.dtype == torch.bfloat16
-    q, k = (_heads(x, heads).float() for x in qk.split(heads * dh, dim=1))
+    qk_q, qk_k = model.att.to_qk(inp).split(heads * dh, dim=1)
+    exact = qk_q.dtype == torch.bfloat16
+    q = _heads(qk_q, heads).float()
+    k = _heads(mesh.gather_rows(qk_k, spatial, dim=2), heads).float()
     if chunk > 0:
         return AttnOperands(q, k, _divisor_chunk(h * w, chunk))
     if cfg.positional:
-        sim = rel_pos_score(model.att.pos_emb, q.view(n, heads, h, w, dh) * dh ** -0.5)
+        row0, height = (0, h) if spatial is None else (spatial.row0(h), spatial.height(h))
+        sim = rel_pos_score(model.att.pos_emb, q.view(n, heads, h, w, dh) * dh ** -0.5,
+                            row0, height)
         if cfg.position_and_content:
             sim = sim + _similarity(q, k, exact)
     else:
@@ -280,7 +301,8 @@ def attention(model: GMA, inp: torch.Tensor, chunk: int = 0):
 def _aggregate_chunked(attn: AttnOperands, v: torch.Tensor) -> torch.Tensor:
     """softmax(q_c . k / sqrt(dh)) v for each chunk q_c of attn.chunk query
     rows, each row's softmax over every key: the dense path's rows in
-    O(chunk * HW) memory. v (N, heads, HW, dh) -> (N, heads, HW, dh)."""
+    O(chunk * HW) memory. v (N, heads, HW, dh) -> (N, heads, HW_q, dh), HW_q
+    attn.q's rows."""
     exact = v.dtype == torch.bfloat16
     outs = []
     for q in attn.q.split(attn.chunk, dim=2):
@@ -289,11 +311,12 @@ def _aggregate_chunked(attn: AttnOperands, v: torch.Tensor) -> torch.Tensor:
     return torch.cat(outs, dim=2)
 
 
-def aggregate(agg: Aggregate, attn, motion: torch.Tensor) -> torch.Tensor:
+def aggregate(agg: Aggregate, attn, motion: torch.Tensor, spatial=None) -> torch.Tensor:
     """motion (N, 128, H, W) + gamma * (attention applied to v = to_v(motion)),
-    in motion's dtype. attn: attention()'s dense matrix or AttnOperands."""
+    in motion's dtype. attn: attention()'s dense matrix or AttnOperands.
+    spatial: motion and the result are this rank's rows, v is gathered."""
     n, _, h, w = motion.shape
-    v = _heads(agg.to_v(motion), agg.num_heads)
+    v = _heads(mesh.gather_rows(agg.to_v(motion), spatial, dim=2), agg.num_heads)
     with _float32_reduction():
         if isinstance(attn, AttnOperands):
             out = _aggregate_chunked(attn, v)
@@ -314,25 +337,30 @@ def _gather_attn(attn, sel, n: int):
 
 
 def gma_iterate(model: GMA, levels, net, inp, attn, iters: int, final_only: bool,
-                flow_init: Optional[torch.Tensor] = None, remat: str = "none") -> dict:
+                flow_init: Optional[torch.Tensor] = None, remat: str = "none",
+                spatial=None) -> dict:
     """raft_iterate with the aggregation of `attn` in every iteration."""
     agg = model.update_block.aggregator
     return raft_iterate(model, levels, net, inp, iters, final_only, flow_init,
-                        aggregate=lambda motion: aggregate(agg, attn, motion), remat=remat)
+                        aggregate=lambda motion: aggregate(agg, attn, motion, spatial),
+                        remat=remat, spatial=spatial)
 
 
 def _pairs(model: GMA, frames, src_idx, dst_idx, iters, final_only, flow_init=None,
-           train: bool = False, remat: str = "none"):
+           train: bool = False, remat: str = "none", spatial=None):
     cfg = model.cfg
     iters = cfg.iters if iters is None else iters
     _, n, h, w, _ = frames.shape
-    with tf32(False):
-        levels, net_u, inp_u, sel = _encode_pairs(model, frames, src_idx, dst_idx, train)
-        chunk = _attn_chunk(cfg, len(src_idx) * n, h // 8, w // 8, levels)
-        attn = _gather_attn(attention(model, inp_u, chunk), sel, n)
+    mesh.check_rows(h, spatial)
+    h8 = h // 8 if spatial is None else spatial.height(h // 8)
+    with tf32(False), spatial_sharding(model, spatial):
+        levels, net_u, inp_u, sel = _encode_pairs(model, frames, src_idx, dst_idx, train,
+                                                  spatial)
+        chunk = _attn_chunk(cfg, len(src_idx) * n, h8, w // 8, levels)
+        attn = _gather_attn(attention(model, inp_u, chunk, spatial), sel, n)
         return gma_iterate(model, levels, gather_pairs(net_u, sel, n),
                            gather_pairs(inp_u, sel, n), attn, iters, final_only, flow_init,
-                           remat)
+                           remat, spatial)
 
 
 def gma_train_forward(model: GMA, image1, image2, iters: Optional[int] = None, flow_init=None,
@@ -347,25 +375,27 @@ def gma_train_forward(model: GMA, image1, image2, iters: Optional[int] = None, f
 
 @torch.no_grad()
 def gma_forward(model: GMA, image1, image2, iters: Optional[int] = None, flow_init=None,
-                final_only: bool = False) -> dict:
+                final_only: bool = False, spatial=None) -> dict:
     """Flow image1 -> image2, the contract of raft_forward: images
     (N, H, W, 3); flow_init an optional (N, H/8, W/8, 2) warm start. Returns
     flow_up (N, H, W, 2) float32, flow_low and, unless final_only, the
-    per-iteration `predictions`."""
+    per-iteration `predictions`. spatial: images, flow_init and the flows
+    are this rank's rows."""
     dev = next(model.parameters()).device
     frames = torch.stack([_as_images(image1, dev), _as_images(image2, dev)])
-    return _pairs(model, frames, (0,), (1,), iters, final_only, flow_init)
+    return _pairs(model, frames, (0,), (1,), iters, final_only, flow_init, spatial=spatial)
 
 
 @torch.no_grad()
 def gma_pairs_forward(model: GMA, frames, src_idx, dst_idx, iters: Optional[int] = None,
-                      final_only: bool = True) -> torch.Tensor:
+                      final_only: bool = True, spatial=None) -> torch.Tensor:
     """Flows of many (src, dst) pairs with deduplicated encodes, the
     contract of raft_pairs_forward; each source frame also gets one
-    attention. Returns flow_up (P*N, H, W, 2), P-major."""
+    attention. Returns flow_up (P*N, H, W, 2), P-major. spatial: frames and
+    flows are this rank's rows."""
     dev = next(model.parameters()).device
     return _pairs(model, _as_images(frames, dev), src_idx, dst_idx, iters,
-                  final_only)["flow_up"]
+                  final_only, spatial=spatial)["flow_up"]
 
 
 # Cacheable per-frame features for streaming: GMA's encodes are RAFT's
@@ -376,23 +406,29 @@ gma_encode_frame = raft_encode_frame
 @torch.no_grad()
 def gma_flow_pairs_from_features(model: GMA, src: dict, dst_fmaps,
                                  iters: Optional[int] = None, flow_init=None,
-                                 final_only: bool = True) -> torch.Tensor:
+                                 final_only: bool = True, spatial=None) -> torch.Tensor:
     """Pair flows src -> each of the P dst maps from precomputed features,
     the contract of raft_flow_pairs_from_features. The attention depends on
     the source's context only, so it is built once and shared by the P
-    pairs. Returns flow_up (P*N, H, W, 2), P-major."""
+    pairs. Returns flow_up (P*N, H, W, 2), P-major. spatial: the features,
+    flow_init and the flows are this rank's rows; the dst maps are gathered
+    in one collective, and the lookup and attn_chunk resolved at the global
+    shape."""
     cfg = model.cfg
     iters = cfg.iters if iters is None else iters
     p = len(dst_fmaps)
     n, _, h8, w8 = src["fmap"].shape
-    lookup = resolve_auto_lookup(normalize_corr_lookup(cfg.corr_lookup), p * n, h8, w8,
+    mesh.check_rows(8 * h8, spatial)
+    h8_all = h8 if spatial is None else spatial.height(h8)
+    lookup = resolve_auto_lookup(normalize_corr_lookup(cfg.corr_lookup), p * n, h8_all, w8,
                                  cfg.corr_levels, cfg.dtype)
-    with tf32(False):
-        levels = build_corr_operands(torch.cat([src["fmap"]] * p), torch.cat(list(dst_fmaps)),
+    with tf32(False), spatial_sharding(model, spatial):
+        levels = build_corr_operands(torch.cat([src["fmap"]] * p),
+                                     mesh.gather_rows(torch.cat(list(dst_fmaps)), spatial, dim=2),
                                      cfg.corr_levels, lookup, dtype=cfg.dtype)
-        chunk = _attn_chunk(cfg, p * n, h8, w8, levels)
-        attn = _gather_attn(attention(model, src["inp"], chunk), [0] * p, n)
+        chunk = _attn_chunk(cfg, p * n, h8_all, w8, levels)
+        attn = _gather_attn(attention(model, src["inp"], chunk, spatial), [0] * p, n)
         net = torch.cat([src["net"]] * p)
         inp = torch.cat([src["inp"]] * p)
         return gma_iterate(model, levels, net, inp, attn, iters, final_only,
-                           flow_init)["flow_up"]
+                           flow_init, spatial=spatial)["flow_up"]

@@ -33,12 +33,13 @@ Images are (N, H, W, 3) in [-1, 1]; flows (N, H, W, 2) in (x, y) order.
 Feature maps inside are NCHW, kept channels_last in memory.
 
 Inference (raft_forward and the other entry points) runs under no_grad.
-Full RAFT's inference entry points take a `spatial` handle
+The inference entry points of both sizes take a `spatial` handle
 (parallel/mesh.py): the frames, every activation, the correlation's queries
 and the flows are then this rank's rows of a height-sharded image, the
 convs read halo rows, the instance norms combine the ranks' statistics,
-and each target frame's fnet map is gathered once (the keys of every
-query); kernel #1 reads this rank's queries against the whole pyramid.
+each target frame's fnet map is gathered once (the keys of every query),
+and kernel #1 (#2 for RAFT-small) reads this rank's queries against the
+whole pyramid; RAFT-small's upflow8 reads one halo row each way.
 raft_train_forward is fine-tuning's forward (JAX's forward with
 train=True): autograd records it, the cnet's BatchNorm normalises with the
 batch's statistics and keeps its running-statistics updates
@@ -354,8 +355,8 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
     The coordinates are detached at the top of every iteration (JAX's
     stop_gradient). remat ("none", "dots" or "full", nn.remat.remat_wrap)
     checkpoints each iteration under autograd. spatial: net, inp, flow_init
-    and the flows are this rank's rows (full RAFT; the update block's
-    layers take the handle from spatial_sharding), the coordinates global.
+    and the flows are this rank's rows (the update block's layers take the
+    handle from spatial_sharding), the coordinates global.
     Returns {"flow_up", "flow_low"[, "predictions"]}."""
     cfg, ub = model.cfg, model.update_block
     cd = cfg.dtype
@@ -381,7 +382,7 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
             return ub.gru(h, torch.cat([inp, motion], dim=1))
 
         def upsample(flow, net):
-            return upflow8(flow)
+            return upflow8(flow, spatial)
     else:
         gru_step = ub.gru.fused_step(inp, spatial)
 
@@ -425,26 +426,14 @@ def _as_images(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def _check_spatial(model: RAFT, spatial, local_height: int) -> None:
-    """ValueError where `spatial` cannot run: RAFT-small (its upflow8 over
-    sharded rows is not ported), or frames whose height does not split into
-    blocks of a multiple of 8 rows (mesh.check_rows)."""
-    if spatial is None:
-        return
-    if model.cfg.small:
-        raise ValueError("RAFT-small on the spatial axis (upflow8 over sharded rows) is not "
-                         "ported: ROADMAP.md queue 1, #12")
-    mesh.check_rows(local_height, spatial)
-
-
 @torch.no_grad()
 def raft_forward(model: RAFT, image1, image2, iters: Optional[int] = None,
                  flow_init=None, final_only: bool = False, spatial=None):
     """Flow image1 -> image2; images (N, H, W, 3). flow_init: optional
     (N, H/8, W/8, 2) warm start. Returns flow_up (N, H, W, 2) float32,
     flow_low (N, H/8, W/8, 2) and, unless final_only, the per-iteration
-    upsampled `predictions`. spatial (a parallel.mesh.Spatial handle, full
-    RAFT): images, flow_init and the flows are this rank's rows."""
+    upsampled `predictions`. spatial (a parallel.mesh.Spatial handle):
+    images, flow_init and the flows are this rank's rows."""
     dev = next(model.parameters()).device
     frames = torch.stack([_as_images(image1, dev), _as_images(image2, dev)])
     return _pairs(model, frames, (0,), (1,), iters, final_only, flow_init, spatial=spatial)
@@ -497,7 +486,7 @@ def _pairs(model, frames, src_idx, dst_idx, iters, final_only, flow_init=None,
     cfg = model.cfg
     iters = cfg.iters if iters is None else iters
     n = frames.shape[1]
-    _check_spatial(model, spatial, frames.shape[2])
+    mesh.check_rows(frames.shape[2], spatial)
     with tf32(False), spatial_sharding(model, spatial):
         levels, net_u, inp_u, sel = _encode_pairs(model, frames, src_idx, dst_idx, train,
                                                   spatial)
@@ -574,7 +563,7 @@ def raft_encode_frame(model: RAFT, image, spatial=None) -> dict:
     image and the features are this rank's rows."""
     cd = model.cfg.dtype
     x = to_nchw(_as_images(image, next(model.parameters()).device), cd)
-    _check_spatial(model, spatial, x.shape[2])
+    mesh.check_rows(x.shape[2], spatial)
     with tf32(False), spatial_sharding(model, spatial):
         fmap = model.fnet(x)
         net, inp = raft_cnet(model, x)
@@ -595,7 +584,7 @@ def raft_flow_pairs_from_features(model: RAFT, src: dict, dst_fmaps,
     iters = cfg.iters if iters is None else iters
     p = len(dst_fmaps)
     n, _, h8, w8 = src["fmap"].shape
-    _check_spatial(model, spatial, 8 * h8)
+    mesh.check_rows(8 * h8, spatial)
     h8_all = h8 if spatial is None else spatial.height(h8)
     lookup = resolve_auto_lookup(normalize_corr_lookup(cfg.corr_lookup), p * n, h8_all, w8,
                                  cfg.corr_levels, cfg.dtype)

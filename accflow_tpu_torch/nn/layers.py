@@ -80,15 +80,19 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5, spatial=None) -> torch.Ten
     the normalisation run in float32; the result takes x's dtype.
 
     spatial: x is this rank's rows, and the statistics are those of the
-    whole image: each rank's (every rank holds as many rows), gathered and
-    combined by the parallel variance formula, mean = E_r[mean_r] and var =
-    E_r[var_r + (mean_r - mean)^2], as batch_norm_train's group path does."""
+    whole image: each rank's, gathered and combined by the parallel
+    variance formula, mean = sum_r w_r mean_r and var = sum_r w_r (var_r +
+    (mean_r - mean)^2), w_r the rank's share of the rows (batch_norm_train's
+    group path, whose ranks hold equal shares, with unequal ones)."""
     xf = x.float()
     var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, unbiased=False)
     if spatial is not None:
         means, variances = mesh.stack_ranks(torch.stack([mean, var]), spatial).unbind(1)
-        mean = means.mean(0)
-        var = (variances + (means - mean) ** 2).mean(0)
+        blocks = spatial.blocks(x.shape[2])
+        share = [b / sum(blocks) for b in blocks]
+        mean = sum(w * m for w, m in zip(share, means.unbind(0)))
+        var = sum(w * (v + (m - mean) ** 2)
+                  for w, m, v in zip(share, means.unbind(0), variances.unbind(0)))
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 

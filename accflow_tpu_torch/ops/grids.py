@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from accflow_tpu_torch.parallel import mesh
+
 
 def coords_grid(batch: int, ht: int, wd: int, device=None, row0: int = 0) -> torch.Tensor:
     """Pixel-coordinate grid (batch, ht, wd, 2) float32, channel order (x, y),
@@ -29,10 +31,36 @@ def resize_bilinear_align_corners(flow: torch.Tensor, out_hw) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def upflow8(flow: torch.Tensor) -> torch.Tensor:
-    """8x bilinear upsample of a flow field (N, H, W, 2); values scaled by 8."""
+def upflow8(flow: torch.Tensor, spatial=None) -> torch.Tensor:
+    """8x bilinear upsample of a flow field (N, H, W, 2); values scaled by 8.
+
+    spatial (a parallel.mesh.Spatial handle): flow is this rank's rows of
+    the 1/8 field, the output its rows at full resolution. The resize maps
+    output row r to input row r (h8 - 1) / (H - 1) of the GLOBAL heights,
+    which lies below r / 8: a rank's first output rows read the last row of
+    the rank above, its last ones the first row of the rank below. One halo
+    row each way (mesh.halo_rows) serves, and the blend is downflow8's."""
     n, h, w, _ = flow.shape
-    return 8.0 * resize_bilinear_align_corners(flow, (8 * h, 8 * w))
+    if spatial is None:
+        return 8.0 * resize_bilinear_align_corners(flow, (8 * h, 8 * w))
+    h8, r0 = spatial.height(h), spatial.row0(h)
+    f = flow.float()
+    above, below = mesh.halo_rows(f, spatial, 1, 1, dim=1)
+    y0, y1, ly = _taps(h8, 8 * h8, 8 * r0, 8 * h, flow.device)
+    x0, x1, lx = _taps(w, 8 * w, 0, 8 * w, flow.device)
+    return 8.0 * _blend(torch.cat([above, f, below], dim=1), y0 - (r0 - 1), y1 - (r0 - 1), ly,
+                        x0, x1, lx)
+
+
+def _blend(f, y0, y1, ly, x0, x1, lx) -> torch.Tensor:
+    """F.interpolate's bilinear blend of rows y0/y1 and columns x0/x1 of f
+    (N, H, W, C) at weights ly and lx: h0 (w0 x00 + w1 x01) + h1 (w0 x10 +
+    w1 x11)."""
+    def blend(r):
+        return (1.0 - lx)[:, None] * r.index_select(2, x0) + lx[:, None] * r.index_select(2, x1)
+
+    ly = ly.view(1, -1, 1, 1)
+    return (1.0 - ly) * blend(f.index_select(1, y0)) + ly * blend(f.index_select(1, y1))
 
 
 def _taps(n_in: int, n_out: int, start: int, count: int, device):
@@ -67,13 +95,4 @@ def downflow8(flow: torch.Tensor, spatial=None) -> torch.Tensor:
     y0, y1, ly = _taps(height, height // 8, spatial.row0(h8), h8, flow.device)
     x0, x1, lx = _taps(w, w // 8, 0, w // 8, flow.device)
     base = spatial.row0(h)
-    f = flow.float()
-
-    def rows(y):
-        return f.index_select(1, y - base)
-
-    def blend(r):
-        return (1.0 - lx)[:, None] * r.index_select(2, x0) + lx[:, None] * r.index_select(2, x1)
-
-    ly = ly.view(1, -1, 1, 1)
-    return ((1.0 - ly) * blend(rows(y0)) + ly * blend(rows(y1))) / 8.0
+    return _blend(flow.float(), y0 - base, y1 - base, ly, x0, x1, lx) / 8.0

@@ -33,19 +33,26 @@ The mesh's `spatial` axis is ported for inference (JAX's hi-res serving and
 streaming, where GSPMD shards image height and inserts the halo exchanges
 and gathers). make_mesh(n_data, n_spatial) lays the ranks out as JAX's
 reshape(n_data, n_spatial): a spatial group is n_spatial consecutive ranks,
-and each rank gets a `Spatial` handle. Every rank holds its own rows of the
-frames and of every activation (shard_rows), and the model code writes out
-what GSPMD inserts, each through the handle it is given:
+and each rank gets a `Spatial` handle. Every rank holds its own block of
+rows of the frames and of every activation (shard_rows): the frame height's
+1/8-scale rows split as evenly as possible, the first ranks one more
+(split_rows; a handle given the height by `Spatial.at_height` carries the
+table, one without it splits evenly), so every block starts on a multiple
+of 8 rows at full resolution and the stride-2 convs line up. The model code
+writes out what GSPMD inserts, each through the handle it is given:
 - a conv reads `halo_rows` above and below its rows (nn/layers.py::conv2d);
-- instance norm combines the ranks' statistics (`stack_ranks`);
+- instance norm combines the ranks' statistics, weighted by their pixels
+  (`stack_ranks`);
 - the correlation's keys, a backward warp's source, the deformable conv's
-  input are the whole height (`gather_rows`), the queries this rank's own;
+  input, GMA's attention keys and values are the whole height
+  (`gather_rows`), the queries this rank's own;
 - a forward splat sums the ranks' full-height splats (`sum_ranks`).
 The collectives are all_gather (host-staged under gloo, which takes CUDA
-tensors in all_reduce but not in all_gather) and all_reduce; `collectives`
-and `bytes_sent` count them. Training over the spatial axis, GMA, RAFT-small
-and AccFlow's stepwise paths do not take a handle yet (ROADMAP.md queue 1,
-#12).
+tensors in all_reduce but not in all_gather; unequal blocks padded to the
+largest and trimmed after) and all_reduce; `collectives` and `bytes_sent`
+count them. Full RAFT, RAFT-small and GMA take a handle in every inference
+entry point; training over the spatial axis and AccFlow's stepwise, F0N and
+warm-start clip paths do not yet (ROADMAP.md queue 1, #12).
 
 Without a process group every function is the single-process identity, and
 the engines' outputs are those of the code before this module existed.
@@ -138,21 +145,64 @@ def collectives_capturable() -> bool:
     return not active() or dist.get_backend() == "nccl"
 
 
+def split_rows(height: int, n: int) -> tuple:
+    """Each of n ranks' rows of a frame height, top to bottom: the 1/8-scale
+    rows split as evenly as possible, the first ranks one more, times 8
+    (1024x440 over 2: 224 + 216; 48 over 4: 16, 16, 8, 8). ValueError where
+    the height is not a multiple of 8, or has fewer rows at 1/8 than ranks."""
+    if height % 8:
+        raise ValueError(f"a height of {height} is not a multiple of 8: the spatial axis splits "
+                         "the frames into blocks of 8-row multiples")
+    h8 = height // 8
+    if h8 < n:
+        raise ValueError(f"a height of {height} has {h8} rows at 1/8, fewer than n_spatial={n}")
+    q, r = divmod(h8, n)
+    return tuple(8 * (q + (i < r)) for i in range(n))
+
+
 class Spatial(NamedTuple):
     """The spatial axis as one rank sees it: the process `group` of the
     ranks that share its frames, this rank's `index` in it (the index-th
-    block of rows, top to bottom) and its `size`. Rows split evenly, so a
-    tensor's local height fixes the rest at any scale: `height` and `row0`
-    give the global height and this rank's first row for a local height."""
+    block of rows, top to bottom) and its `size`. `rows` is every rank's
+    block at full resolution (split_rows of the frames' height, set by
+    at_height); without it the rows split evenly. A tensor's local height
+    fixes its scale, and `blocks`, `height` and `row0` answer at that scale:
+    every rank's rows, the global height and this rank's first row."""
     group: object
     index: int
     size: int
+    rows: tuple = ()
+
+    def at_height(self, height: int) -> "Spatial":
+        """This handle for frames of `height` rows (split_rows)."""
+        return self._replace(rows=split_rows(height, self.size))
+
+    def blocks(self, local: int) -> list:
+        """Every rank's rows at the scale where this rank holds `local`."""
+        if not self.rows:
+            return [local] * self.size
+        own = self.rows[self.index]
+        if any(r * local % own for r in self.rows):
+            raise ValueError(f"{local} rows are no scale of this rank's block of {own} "
+                             f"(rows {self.rows})")
+        return [r * local // own for r in self.rows]
+
+    def split(self, height: int) -> list:
+        """Every rank's rows of a tensor whose whole height is `height`."""
+        if not self.rows:
+            if height % self.size:
+                raise ValueError(f"{height} rows do not split over n_spatial={self.size}")
+            return [height // self.size] * self.size
+        total = sum(self.rows)
+        if any(r * height % total for r in self.rows):
+            raise ValueError(f"{height} rows are no scale of the handle's height {total}")
+        return [r * height // total for r in self.rows]
 
     def height(self, local: int) -> int:
-        return local * self.size
+        return sum(self.blocks(local))
 
     def row0(self, local: int) -> int:
-        return local * self.index
+        return sum(self.blocks(local)[:self.index])
 
 
 class Mesh(NamedTuple):
@@ -320,25 +370,36 @@ def _count(nbytes: float) -> None:
 
 
 def check_rows(local: int, sp: Optional[Spatial]) -> None:
-    """ValueError unless the frames' height splits over the spatial axis
-    into blocks of a multiple of 8 rows (H % (8 * n_spatial) == 0), so that
-    every rank's first row is a multiple of 8 and the stride-2 convs line up."""
-    if sp is not None and local % 8:
-        raise ValueError(f"a height of {sp.height(local)} does not split over n_spatial="
-                         f"{sp.size} into blocks of a multiple of 8 rows")
+    """ValueError unless this rank's `local` rows of the frames are its
+    block of the handle's table (split_rows), or, for a handle without
+    one, a multiple of 8 rows (the even split that table gives). Names
+    which: a height that is not a multiple of 8, fewer 1/8 rows than
+    ranks, or a height whose blocks are unequal and the handle not given
+    it (Spatial.at_height)."""
+    if sp is None:
+        return
+    if sp.rows:
+        if local != sp.rows[sp.index]:
+            raise ValueError(f"this rank holds {local} rows; its block of a height of "
+                             f"{sum(sp.rows)} is {sp.rows[sp.index]} (mesh.shard_rows)")
+        return
+    if local % 8:
+        height = local * sp.size
+        rows = split_rows(height, sp.size)
+        raise ValueError(f"a height of {height} splits over n_spatial={sp.size} into blocks of "
+                         f"{list(rows)} rows: give the handle the height "
+                         f"(Spatial.at_height({height})) and cut the frames with shard_rows")
 
 
 def shard_rows(x, sp: Optional[Spatial], dim: int = 1):
-    """This rank's rows of `x` (a tensor or array) along `dim`; `x` itself
-    without a handle. ValueError if the ranks cannot hold as many rows."""
+    """This rank's rows of `x` (a tensor or array) along `dim`, by the
+    handle's table (Spatial.split); `x` itself without a handle."""
     if sp is None:
         return x
-    h = x.shape[dim]
-    if h % sp.size:
-        raise ValueError(f"{h} rows do not split over n_spatial={sp.size}")
-    per = h // sp.size
+    blocks = sp.split(x.shape[dim])
     index = [slice(None)] * x.ndim
-    index[dim] = slice(sp.index * per, (sp.index + 1) * per)
+    start = sum(blocks[:sp.index])
+    index[dim] = slice(start, start + blocks[sp.index])
     return x[tuple(index)]
 
 
@@ -352,30 +413,48 @@ def stack_ranks(t: torch.Tensor, sp: Spatial) -> torch.Tensor:
 
 def gather_rows(x: torch.Tensor, sp: Optional[Spatial], dim: int = 1) -> torch.Tensor:
     """The whole height of `x` along `dim` from every rank's rows, on every
-    rank; `x` itself without a handle."""
+    rank; `x` itself without a handle. Unequal blocks are padded to the
+    largest for the gather (whose bytes count the padding) and trimmed."""
     if sp is None:
         return x
-    return torch.cat(stack_ranks(x, sp).unbind(0), dim=dim)
+    blocks = sp.blocks(x.shape[dim])
+    parts = stack_ranks(_pad_rows(x, max(blocks), dim), sp).unbind(0)
+    return torch.cat([p.narrow(dim, 0, b) for p, b in zip(parts, blocks)], dim=dim)
+
+
+def _pad_rows(x: torch.Tensor, rows: int, dim: int) -> torch.Tensor:
+    """x with zero rows appended along `dim` up to `rows`."""
+    if x.shape[dim] == rows:
+        return x
+    shape = list(x.shape)
+    shape[dim] = rows - x.shape[dim]
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
 
 
 def halo_rows(x: torch.Tensor, sp: Spatial, top: int, bottom: int, dim: int = 2):
     """The `top` rows above this rank's rows of `x` along `dim` and the
     `bottom` rows below them, as (above, below), from one all_gather of
-    each rank's edge rows (its last min(top, h) and first min(bottom, h)):
-    a halo may reach past the nearest rank. Rows above the image's top or
-    below its bottom are zeros."""
+    each rank's edge rows (its last min(top, h) and first min(bottom, h)
+    of its h rows, padded to the largest block's count): a halo may reach
+    past the nearest rank. Rows above the image's top or below its bottom
+    are zeros."""
     h = x.shape[dim]
+    blocks = sp.blocks(h)
+    starts = np.cumsum([0] + blocks).tolist()
     tl, bl = min(top, h), min(bottom, h)
-    edges = torch.cat([x.narrow(dim, h - tl, tl), x.narrow(dim, 0, bl)], dim=dim)
+    tpad, bpad = min(top, max(blocks)), min(bottom, max(blocks))
+    edges = torch.cat([_pad_rows(x.narrow(dim, h - tl, tl), tpad, dim),
+                       _pad_rows(x.narrow(dim, 0, bl), bpad, dim)], dim=dim)
     parts = stack_ranks(edges, sp).unbind(0)
     zero = torch.zeros_like(x.narrow(dim, 0, 1))
-    r0, height = sp.row0(h), sp.height(h)
+    r0, height = starts[sp.index], starts[-1]
 
     def row(g: int) -> torch.Tensor:
         if g < 0 or g >= height:
             return zero
-        owner, off = divmod(g, h)
-        pos = off - (h - tl) if g < r0 else tl + off
+        owner = int(np.searchsorted(starts, g, side="right")) - 1
+        off, hr = g - starts[owner], blocks[owner]
+        pos = off - (hr - min(top, hr)) if g < r0 else tpad + off
         return parts[owner].narrow(dim, pos, 1)
 
     above = [row(g) for g in range(r0 - top, r0)]

@@ -26,10 +26,12 @@ package's order (`streaming.py:55-63`):
     flow_ini           previous direct flow F_{i-1,0} (the OFE's), (N, H/8, W/8, 2)
 Feature maps are NCHW in the compute dtype; flows NHWC float32.
 
-With a spatial handle (parallel/mesh.py; full RAFT) frames, outputs and the
-state are this rank's rows of a height-sharded stream, kept so between
-calls: each call gathers the cached target maps and contexts it reads, and
-the warm start splats each rank's sources into the group's sum.
+With a spatial handle (parallel/mesh.py; RAFT of either size or GMA, at
+any height that splits into 8-row blocks) frames, outputs and the state are
+this rank's rows of a height-sharded stream, kept so between calls: each
+call gathers the cached target maps and contexts it reads (GMA also its
+attention's keys and values), and the warm start splats each rank's sources
+into the group's sum.
 """
 
 from __future__ import annotations

@@ -208,7 +208,18 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    bf16 (BATCH_SPREAD x each case's own batch-1-vs-2 distance): each rank's
    peak beside one process's, seconds per call, collectives and bytes,
    kernel #1's launches (equal on both ranks, one per iteration and chunk,
-   no other kernel) and Q.
+   no other kernel) and Q;
+22. the spatial axis for GMA and RAFT-small and at unequal row blocks, in
+   phase 21's launch of two ranks and against this process likewise: (e)
+   the AccFlow+GMA CVO-6 clip (gamma drawn in [2, 4]), (f) stream (a)
+   (RAFT-small: kernel #2 on each rank's queries) and (g) stream (c) (GMA),
+   bf16 (BATCH_SPREAD); (h) Sintel's padded 1024x440 at 224 + 216 rows: a
+   RAFT pair in f32 (CLIP_REL) and the bf16 AccFlow+RAFT 7-frame clip at
+   batch 1; (i) the drift fixture (trained weights, f32, 36 frames at 64^2:
+   DRIFT_REL on every output and DRIFT_EPE_PX per step); f32 pairs at 40x64 (24 +
+   16 rows) of GMA with its positional branch and of RAFT-small (CLIP_REL);
+   the same readings, the ranks' queries per launch adding up to one
+   process's.
 Optional phases: --tile-sweep builds kernels #1 and #2 with 4, 8 and 16
 queries per block and times them in turns (#1 at the clip shape after phase
 3, #2 at the stream shape after phase 4); --profile prints where
@@ -223,7 +234,7 @@ line the numbers of phases 6c and 8's GMA runs and 10-13, and a
 calls, the graphed-vs-eager distances beside their bars), an
 {"ondemand": {...}} line phase 16's, an {"f0n": {...}} line phase 17's, and
 {"sintel"}, {"data_parallel"}, {"host_tools"} and {"spatial"} lines phases
-18-21's. The line before
+18-22's. The line before
 the last is {"kernels": [...]}; the last line is {"ok": true, "device":
 {...}}. Without a GPU, or without the package beside it, the script exits
 non-zero and prints no result.
@@ -486,6 +497,19 @@ GRAPH_FLOOR = 1e-6
 # A wrong halo, row offset or gather moves the flow everywhere. Fixed
 # before the phase's first run.
 SPATIAL_SIZE_C = (1088, 1920)  # (c)'s frames: 1080p padded to a multiple of 8 * 2 rows
+# Phase 22, the axis for GMA and RAFT-small and at unequal blocks, holds its
+# cases as phase 21 does: (h)'s pair is float32 (TF32 off), within CLIP_REL
+# of the largest |flow|; (e), (f), (g) and (h)'s clip are bfloat16, within
+# BATCH_SPREAD times each case's own batch-1-vs-2 distance; (i), the drift
+# fixture in float32 with trained weights and flows of several px, holds
+# every output F_{i,0} within DRIFT_REL of the largest |flow| and each
+# step's EPE within DRIFT_EPE_PX of one process's (phase 7's bars; both
+# sides run the same kernel, so no binary occlusion bit flipped in the
+# first run: all 34 outputs within 2.0e-6 of the largest |flow|). Where a
+# rank holds one chunk, the ranks' queries per launch add up to one
+# process's. Fixed before the phase's first run, (i)'s bar on every output
+# (not F_{2,0} alone) after it.
+SPATIAL_SIZE_H = (440, 1024)  # (h): Sintel's 1024x436 padded, 224 + 216 rows over 2 ranks
 REPO = Path(__file__).resolve().parent
 FIXTURES = REPO / "tests" / "fixtures"
 COUNTERS = (  # each kernel wrapper's launch count: (kernel, module, attribute)
@@ -3655,20 +3679,28 @@ def dp_two_ranks(tmp: str) -> dict:
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def kernel1_shapes(rec: list):
-    """Within the block, each kernel-#1 launch appends (Q, bytes of the
-    levels it reads) to `rec` (corr_cuda.launch, which its op calls)."""
-    orig = corr_cuda.launch
+def kernel_shapes(rec: list):
+    """Within the block, each launch of kernel #1 or #2 appends (Q, bytes of
+    the levels it reads) to `rec` (corr_cuda.launch and
+    corr_level_cuda.launch, which their ops call)."""
+    orig1, orig2 = corr_cuda.launch, corr_level_cuda.launch
 
-    def launch(lib, levels, coords, out_dtype=torch.float32):
+    def record(levels, coords):
         rec.append((int(coords.shape[0]), sum(lv.numel() * lv.element_size() for lv in levels)))
-        return orig(lib, levels, coords, out_dtype)
 
-    corr_cuda.launch = launch
+    def launch1(lib, levels, coords, out_dtype=torch.float32):
+        record(levels, coords)
+        return orig1(lib, levels, coords, out_dtype)
+
+    def launch2(lib, levels, coords, radius, out_dtype=torch.float32):
+        record(levels, coords)
+        return orig2(lib, levels, coords, radius, out_dtype)
+
+    corr_cuda.launch, corr_level_cuda.launch = launch1, launch2
     try:
         yield
     finally:
-        corr_cuda.launch = orig
+        corr_cuda.launch, corr_level_cuda.launch = orig1, orig2
 
 
 def spatial_inputs(case: str, elems):
@@ -3689,7 +3721,44 @@ def spatial_inputs(case: str, elems):
         frames = torch.cat([moving_frames(7, 1, w, seed=8 + i)[:, :, :h] for i in elems], 1)
         return (models.build_flow_estimator("raft", compute_dtype="bfloat16", seed=0,
                                             corr_lookup="auto"), acc, frames.contiguous())
-    est = models.build_flow_estimator("raft", compute_dtype="bfloat16", iters=6, seed=0)
+    if case == "e":
+        acc, images = clip_inputs()
+        return gma_estimator(), acc, images[:, list(elems)].contiguous()
+    if case == "e pair":
+        est = gma_estimator(compute_dtype="float32", iters=2, position_and_content=True)
+        return est, None, moving_frames(2, 1, 64, seed=23)[:, :, :40].contiguous()
+    if case == "f pair":
+        est = models.build_flow_estimator("raft", compute_dtype="float32", iters=2, seed=0,
+                                          small=True)
+        return est, None, moving_frames(2, 1, 64, seed=24)[:, :, :40].contiguous()
+    if case == "h pair":
+        est = models.build_flow_estimator("raft", compute_dtype="float32", iters=2, seed=0)
+        h, w = SPATIAL_SIZE_H
+        return est, None, moving_frames(2, 1, w, seed=22)[:, :, :h].contiguous()
+    if case == "h clip":
+        acc = clip_inputs(t=3, n=1, size=8)[0]
+        h, w = SPATIAL_SIZE_H
+        frames = torch.cat([moving_frames(7, 1, w, seed=30 + i)[:, :, :h] for i in elems], 1)
+        return (models.build_flow_estimator("raft", compute_dtype="bfloat16", seed=0), acc,
+                frames.contiguous())
+    if case == "i":
+        est = models.build_flow_estimator("raft", compute_dtype="float32", small=True, iters=6)
+        load_jax_params(est.model, load_npz_tree(str(FIXTURES / "drift_small_ofe.npz")))
+        acc = models.init_accflow(models.AccFlowConfig(hidden=64, compute_dtype="float32",
+                                                       warm_start=True))
+        load_jax_params(acc, load_npz_tree(str(FIXTURES / "drift_small_acc.npz")))
+        seq = make_long_sequence(np.random.default_rng(77), 64, 64, 36, seg_len=6, max_v=1,
+                                 fg=True, fg_max_v=2)
+        imgs = (2.0 * (seq["imgs"].astype(np.float32) / 255.0) - 1.0)[:, None]
+        return est, acc, torch.from_numpy(imgs).cuda()
+    # (d), (f), (g): a stream of 512^2 at batch 2, 6 iterations, warm start
+    if case == "d":
+        est = models.build_flow_estimator("raft", compute_dtype="bfloat16", iters=6, seed=0)
+    elif case == "f":
+        est = models.build_flow_estimator("raft", compute_dtype="bfloat16", iters=6, seed=0,
+                                          small=True)
+    else:
+        est = gma_estimator(iters=6)
     acc = models.init_accflow(models.AccFlowConfig(compute_dtype="bfloat16", warm_start=True),
                               seed=1, device="cpu")
     perturb_zero_conv(acc, 2)
@@ -3697,32 +3766,45 @@ def spatial_inputs(case: str, elems):
 
 
 SPATIAL_CASES = ("a fused", "a ondemand:64", "b", "c", "d")
-SPATIAL_BATCH = {"b": (0, 1), "d": (0, 1)}  # the others: (0,)
+# Phase 22: (e) the AccFlow+GMA clip, (f) stream (a) (RAFT-small), (g)
+# stream (c) (GMA), (h) Sintel's padded height (a float32 RAFT pair, a bf16
+# clip), (i) the drift fixture; and a float32 pair at a height of 40 (24 +
+# 16 rows) of GMA with its positional branch (e pair) and of RAFT-small (f
+# pair), whose bar sees what the bf16 bars are too loose for (a wrong
+# gather, a halo or a norm weight off: the planted faults of
+# scripts/spatial_row0_fault.py).
+SPATIAL22_CASES = ("e", "e pair", "f", "f pair", "g", "h pair", "h clip", "i")
+SPATIAL_BATCH = {"b": (0, 1), "d": (0, 1), "e": (0, 1), "f": (0, 1), "g": (0, 1)}  # else (0,)
+SPATIAL_STREAMS = ("d", "f", "g", "i")
+SPATIAL_F32 = ("a fused", "a ondemand:64", "e pair", "f pair", "h pair", "i")
 
 
 def spatial_run(case: str, sp, elems=None, reps: int = 2) -> dict:
     """Case `case` on this rank's rows (sp) or on the whole frames (None),
     with the batch elements `elems` (None: the case's own): `reps` calls
-    ((d): a reset and 5 pushes), the last one read: the seconds of each,
-    the peak, the kernel launches, kernel #1's Q and level bytes per
-    launch, the collectives and bytes, and this rank's rows of the output
-    on the host."""
+    (a stream: a reset and a push of each other frame), the last one read:
+    the seconds of each, the peak, the kernel launches, the Q and level
+    bytes per launch of kernels #1 and #2, the collectives and bytes, and
+    this rank's rows of the output on the host. A handle is given the
+    frames' height (mesh.split_rows)."""
     elems = SPATIAL_BATCH.get(case, (0,)) if elems is None else elems
     est, acc, frames = spatial_inputs(case, elems)
+    if sp is not None:
+        sp = sp.at_height(frames.shape[2])  # the frames' blocks: (h) 224 + 216 rows
     rows = mesh.shard_rows(frames, sp, 2)
-    if case == "d" and sp is not None:
+    if case in SPATIAL_STREAMS and sp is not None:
         stream = StreamAccumulator(est, acc, spatial=sp)  # a push with a handle runs eagerly
 
         def call():
             return torch.stack([stream.reset(rows[:3])] + [stream.push(rows[i])
-                                                           for i in range(3, 8)])
-    elif case == "d":
+                                                           for i in range(3, len(rows))])
+    elif case in SPATIAL_STREAMS:
         init, step = make_streaming_fns(est, acc)  # eager too: each push counts its launches
 
         def call():
             out, state = init(rows[:3])
             outs = [out]
-            for i in range(3, 8):
+            for i in range(3, len(rows)):
                 out, state = step(state, rows[i])
                 outs.append(out)
             return torch.stack(outs)
@@ -3743,7 +3825,7 @@ def spatial_run(case: str, sp, elems=None, reps: int = 2) -> dict:
             c0, b0 = mesh.collectives, mesh.bytes_sent
             shapes.clear()
             t0 = time.perf_counter()
-            with kernel1_shapes(shapes):
+            with kernel_shapes(shapes):
                 out = call()
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
@@ -3753,10 +3835,13 @@ def spatial_run(case: str, sp, elems=None, reps: int = 2) -> dict:
                 collectives=mesh.collectives - c0, bytes=mesh.bytes_sent - b0)
 
 
+SPATIAL_REPS = {"i": 1}  # calls a rank makes of each case (the drift fixture's 34 steps: 1)
+
+
 def spatial_child(rank: int, port: int, work: str) -> int:
-    """One rank of phase 21, started by spatial_phase as its own process:
-    join the gloo group on the one card, make the (1, 2) mesh, run every
-    case on this rank's rows, save what it saw."""
+    """One rank of phases 21 and 22, started by spatial_launch as its own
+    process: join the gloo group on the one card, make the (1, 2) mesh, run
+    every case on this rank's rows, save what it saw."""
     os.environ.update(torchrun_env(2, rank, port))
     if not mesh.maybe_init_distributed("cuda", backend="gloo"):
         fail("spatial child: no group")
@@ -3764,7 +3849,8 @@ def spatial_child(rank: int, port: int, work: str) -> int:
         sp = mesh.make_mesh(n_data=1, n_spatial=2).axis
         if (sp.index, sp.size) != (rank, 2):
             fail(f"spatial child {rank}: handle {sp}")
-        torch.save({case: spatial_run(case, sp) for case in SPATIAL_CASES},
+        torch.save({case: spatial_run(case, sp, reps=SPATIAL_REPS.get(case, 2))
+                    for case in SPATIAL_CASES + SPATIAL22_CASES},
                    Path(work) / f"rank{rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
@@ -3775,7 +3861,7 @@ def spatial_chunks(case: str, rows: int) -> int:
     """Chunks of queries per lookup for `rows` query rows at 1/8 against
     the whole image's keys, as the lookup the case resolves to cuts them
     (ops/corr.py's own code, run on shapes only)."""
-    if case.startswith("a"):
+    if case.startswith("a "):
         lookup, pairs, h8, w8 = case.split(" ", 1)[1], 1, 16, 16
     elif case == "c":
         pairs, h8, w8 = 11, SPATIAL_SIZE_C[0] // 8, SPATIAL_SIZE_C[1] // 8
@@ -3790,43 +3876,50 @@ def spatial_chunks(case: str, rows: int) -> int:
     return rows * w8 // od.chunk
 
 
-def spatial_phase(tmp: str) -> dict:
-    """Phase 21: the mesh's spatial axis for inference. Two processes on the
-    one card, each a gloo rank with CUDA tensors (NCCL puts no two ranks on
-    one GPU; gloo gathers through the host), n_data 1 and n_spatial 2,
-    eagerly; each runs on its rows of the frames: (a) full RAFT at 128^2, 2
-    iterations, float32 (TF32 off), "fused" and "ondemand:64"; (b) the
-    CVO-6 clip (7 x 512^2, batch 2, 12 iterations, bf16, "fused"); (c) a
-    7-frame 1920x1088 clip at batch 1 through "auto", which must take the
-    volume-free lookup (resolved at the global shape: 31 GB stored, past
-    the budget; each rank's half would fit); (d) stream (b) (RAFT at 512^2,
-    batch 2, 6 iterations, warm_start): reset and 5 pushes. Each against
-    the same run in this process on the whole frames (the bars: the
-    SPATIAL comment at the top), with each rank's and this process's peak,
-    seconds per call (two gloo ranks sharing one card: not a reading of
-    NCCL), collectives and bytes per call, and kernel #1's launches and Q:
-    both ranks' launches equal, one per GRU iteration and chunk of queries
-    as in one process (a rank holds half the queries: "fused" keeps one
-    chunk, "ondemand" halves the chunks), and no other kernel."""
-    ref = {case: spatial_run(case, None) for case in SPATIAL_CASES}
-    spread = {
-        "b": torch.cat([spatial_run("b", None, (i,), 1)["out"] for i in range(2)], 1),
-        "c": spatial_run("c", None, (0, 1), 1)["out"][:, :1],
-        "d": torch.cat([spatial_run("d", None, (i,), 1)["out"] for i in range(2)], 1)}
+# Each case's lookup kernel and its launches per chunk of queries in one
+# call: one per GRU iteration and OFE call (a stream: the reset's two calls
+# at 6 iterations, then 6 a push; the drift fixture 33 pushes).
+SPATIAL_KERNEL = {"f": "corr_level_lookup", "f pair": "corr_level_lookup",
+                  "i": "corr_level_lookup"}  # else corr_lookup
+SPATIAL_PER_CHUNK = {"a": 2, "e pair": 2, "f pair": 2, "h pair": 2, "d": 12 + 5 * 6,
+                     "f": 12 + 5 * 6, "g": 12 + 5 * 6, "i": 12 + 33 * 6}  # else 12: a clip
+
+
+
+def spatial_references(cases) -> tuple:
+    """The cases in this process on the whole frames (the last of 2 calls),
+    and the bf16 cases' batch-1-vs-2 spread: the batch-2 runs' batch-1
+    counterparts ((b), (e), (d), (f), (g): each batch element alone; (c),
+    (h)'s clip: the element at batch 1 against the same beside another at
+    batch 2)."""
+    ref = {case: spatial_run(case, None, reps=SPATIAL_REPS.get(case, 2)) for case in cases}
+    spread = {}
+    for case in cases:
+        if case in ("c", "h clip"):
+            spread[case] = spatial_run(case, None, (0, 1), 1)["out"][:, :1]
+        elif case not in SPATIAL_F32:
+            spread[case] = torch.cat([spatial_run(case, None, (i,), 1)["out"] for i in range(2)], 1)
     gc.collect()
     torch.cuda.empty_cache()
-    work = Path(tmp) / "spatial"
+    return ref, spread
+
+
+def spatial_launch(tmp: str, command=None) -> tuple:
+    """Both ranks of phases 21 and 22 (this script with --spatial-child, or
+    `command`, a script and its arguments, in its place), to their end:
+    what each saved, and the seconds both took."""
+    work = Path(tmp) / f"spatial-{time.monotonic_ns()}"
     work.mkdir()
     port = free_port()
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--spatial-child",
-                               str(r), str(port), str(work)], cwd=str(REPO),
+    procs = [subprocess.Popen([sys.executable, *(command or [str(REPO / "chip_smoke.py")]),
+                               "--spatial-child", str(r), str(port), str(work)], cwd=str(REPO),
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
              for r in range(2)]
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=600)[0].decode(errors="replace"))
+            logs.append(p.communicate(timeout=900)[0].decode(errors="replace"))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3836,52 +3929,111 @@ def spatial_phase(tmp: str) -> dict:
     for r, (p, log) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
             fail(f"spatial: rank {r} exited {p.returncode}:\n{log[-3000:]}")
-    ranks = [torch.load(work / f"rank{r}.pt", weights_only=True) for r in range(2)]
-    rows = {}
-    for case in SPATIAL_CASES:
-        one, got = ref[case], [r[case] for r in ranks]
-        out = torch.cat([g["out"] for g in got], dim=2 if case in ("b", "c", "d") else 1)
-        diff, flow_max = float((out - one["out"]).abs().max()), float(one["out"].abs().max())
-        if case.startswith("a"):
-            bar, why = CLIP_REL * flow_max, f"{CLIP_REL:g} x max |flow|"
-        else:
-            floor = float((spread[case] - one["out"]).abs().max())
-            bar, why = BATCH_SPREAD * floor, f"{BATCH_SPREAD:g} x batch-1-vs-2 {floor:.3e}"
-        h8 = one["out"].shape[-3] // 8
-        # Kernel #1 per chunk: one launch per GRU iteration and OFE call ((d):
-        # the reset's two calls at 6 iterations, then 6 per push).
-        per_chunk = {"a": 2, "d": 12 + 5 * 6}.get(case[0], 12)
-        want = [per_chunk * spatial_chunks(case, h8 // k) for k in (2, 1)]
-        launched = [g["launches"] for g in got]
-        row = dict(max_abs=diff, flow_max=flow_max, bar=bar,
-                   rank_peak_gib=[g["peak"] / 2**30 for g in got],
-                   one_process_peak_gib=one["peak"] / 2**30,
-                   rank_s_per_call=[g["secs"][-1] for g in got],
-                   one_process_s_per_call=one["secs"][-1],
-                   collectives=[g["collectives"] for g in got], bytes=[g["bytes"] for g in got],
-                   launches=[lc["corr_lookup"] for lc in launched],
-                   one_process_launches=one["launches"]["corr_lookup"],
-                   q=[g["q"] for g in got], one_process_q=one["q"],
-                   level_bytes=[g["level_bytes"] for g in got],
-                   one_process_level_bytes=one["level_bytes"])
-        print(f"spatial ({case}) two gloo ranks on one card vs one process: max abs {diff:.3e} "
-              f"(bar {why}: {bar:.3e}; |flow| max {flow_max:.3e}); peak per rank "
-              f"{', '.join(f'{x:.3f}' for x in row['rank_peak_gib'])} GiB (one process "
-              f"{row['one_process_peak_gib']:.3f}); seconds per call, two gloo ranks sharing "
-              f"one card (not a reading of NCCL): {', '.join(f'{x:.3f}' for x in row['rank_s_per_call'])}"
-              f" (one process {row['one_process_s_per_call']:.3f}); collectives {row['collectives']}, "
-              f"bytes sent {row['bytes']} per call; kernel #1 launches {row['launches']} "
-              f"(one process {row['one_process_launches']}), Q {row['q']} (one process "
-              f"{row['one_process_q']}), level bytes per launch {row['level_bytes']} (one "
-              f"process {row['one_process_level_bytes']})")
-        if not diff <= bar or not np.isfinite(out.numpy()).all():
-            fail(f"spatial ({case}): sharded differs from one process by {diff:.3e} > {bar:.3e}")
-        others = [{k: v for k, v in lc.items() if k != "corr_lookup" and v} for lc in launched]
-        if not (row["launches"] == [want[0]] * 2 and row["one_process_launches"] == want[1]
-                and others == [{}, {}] and row["collectives"][0] == row["collectives"][1] > 0):
-            fail(f"spatial ({case}): launches {launched}, one process {one['launches']}, "
-                 f"expected {want[0]} a rank and {want[1]}; collectives {row['collectives']}")
-        rows[case] = row
+    return [torch.load(work / f"rank{r}.pt", weights_only=True) for r in range(2)], secs
+
+
+def spatial_check(case: str, one: dict, spread, got: list) -> dict:
+    """Case `case`'s two ranks (`got`) against this process (`one`, and
+    `spread` for the bf16 bar): its row of readings, printed; a distance
+    past its bar, a launch count off, or another kernel fails the phase."""
+    pair = case.startswith("a ") or case.endswith("pair")
+    out = torch.cat([g["out"] for g in got], dim=1 if pair else 2)
+    diff, flow_max = float((out - one["out"]).abs().max()), float(one["out"].abs().max())
+    extra = {}
+    if case == "i":
+        first = float((out[0] - one["out"][0]).abs().max())
+        gt = torch.from_numpy(make_long_sequence(
+            np.random.default_rng(77), 64, 64, 36, seg_len=6, max_v=1, fg=True,
+            fg_max_v=2)["bflows"][1:35])
+        curves = [((o[:, 0] - gt) ** 2).sum(-1).sqrt().mean((1, 2)) for o in (out, one["out"])]
+        epe_gap = float((curves[0] - curves[1]).abs().max())
+        bar, why = DRIFT_REL * flow_max, f"{DRIFT_REL:g} x max |flow|"
+        extra = dict(first_max_abs=first, epe_gap_px=epe_gap, epe_bar_px=DRIFT_EPE_PX)
+        ok = diff <= bar and epe_gap <= DRIFT_EPE_PX
+    elif case in SPATIAL_F32:
+        bar, why = CLIP_REL * flow_max, f"{CLIP_REL:g} x max |flow|"
+        ok = diff <= bar
+    else:
+        floor = float((spread - one["out"]).abs().max())
+        bar, why = BATCH_SPREAD * floor, f"{BATCH_SPREAD:g} x batch-1-vs-2 {floor:.3e}"
+        ok = diff <= bar
+    kernel = SPATIAL_KERNEL.get(case, "corr_lookup")
+    per_chunk = SPATIAL_PER_CHUNK.get(case, SPATIAL_PER_CHUNK.get(case[0], 12))
+    h8 = one["out"].shape[-3] // 8
+    blocks = mesh.split_rows(8 * h8, 2)
+    want = [per_chunk * spatial_chunks(case, b // 8) for b in blocks]
+    want_one = per_chunk * spatial_chunks(case, h8)
+    launched = [g["launches"] for g in got]
+    row = dict(max_abs=diff, flow_max=flow_max, bar=bar, rows=list(blocks), kernel=kernel,
+               rank_peak_gib=[g["peak"] / 2**30 for g in got],
+               one_process_peak_gib=one["peak"] / 2**30,
+               rank_s_per_call=[g["secs"][-1] for g in got],
+               one_process_s_per_call=one["secs"][-1],
+               collectives=[g["collectives"] for g in got], bytes=[g["bytes"] for g in got],
+               launches=[lc[kernel] for lc in launched],
+               one_process_launches=one["launches"][kernel],
+               q=[g["q"] for g in got], one_process_q=one["q"],
+               level_bytes=[g["level_bytes"] for g in got],
+               one_process_level_bytes=one["level_bytes"], **extra)
+    print(f"spatial ({case}) two gloo ranks on one card vs one process: max abs {diff:.3e} "
+          + (f"over all outputs; F_2,0 {extra['first_max_abs']:.3e}, per-step EPE gap "
+             f"{extra['epe_gap_px']:.3e} px (bar {DRIFT_EPE_PX} px); " if extra else "")
+          + f"(bar {why}: {bar:.3e}; |flow| max {flow_max:.3e}); rows {list(blocks)}; peak per "
+          f"rank {', '.join(f'{x:.3f}' for x in row['rank_peak_gib'])} GiB (one process "
+          f"{row['one_process_peak_gib']:.3f}); seconds per call, two gloo ranks sharing one "
+          f"card (not a reading of NCCL): {', '.join(f'{x:.3f}' for x in row['rank_s_per_call'])}"
+          f" (one process {row['one_process_s_per_call']:.3f}); collectives "
+          f"{row['collectives']}, bytes sent {row['bytes']} per call; {kernel} launches "
+          f"{row['launches']} (one process {row['one_process_launches']}), Q {row['q']} (one "
+          f"process {row['one_process_q']}), level bytes per launch {row['level_bytes']} (one "
+          f"process {row['one_process_level_bytes']})")
+    if not ok or not np.isfinite(out.numpy()).all():
+        fail(f"spatial ({case}): sharded differs from one process by {diff:.3e} (bar "
+             f"{bar:.3e}){'; ' + str(extra) if extra else ''}")
+    others = [{k: v for k, v in lc.items() if k != kernel and v} for lc in launched]
+    if not (row["launches"] == want and row["one_process_launches"] == want_one
+            and others == [{}, {}] and row["collectives"][0] == row["collectives"][1] > 0):
+        fail(f"spatial ({case}): launches {launched}, one process {one['launches']}, "
+             f"expected {want} and {want_one} of {kernel}; collectives {row['collectives']}")
+    if case in SPATIAL22_CASES and (sum(q[0] if q else 0 for q in row["q"])
+                                    != (row["one_process_q"] or [0])[0]):
+        fail(f"spatial ({case}): queries per launch {row['q']} do not add up to one "
+             f"process's {row['one_process_q']}")
+    return row
+
+
+def spatial_phase(tmp: str) -> dict:
+    """Phases 21 and 22: the mesh's spatial axis for inference. Two
+    processes on the one card, each a gloo rank with CUDA tensors (NCCL
+    puts no two ranks on one GPU; gloo gathers through the host), n_data 1
+    and n_spatial 2, eagerly; each runs on its rows of the frames, every
+    case in one launch. Phase 21: (a) full RAFT at 128^2, 2 iterations,
+    float32 (TF32 off), "fused" and "ondemand:64"; (b) the CVO-6 clip (7 x
+    512^2, batch 2, 12 iterations, bf16, "fused"); (c) a 7-frame 1920x1088
+    clip at batch 1 through "auto", which must take the volume-free lookup
+    (resolved at the global shape: 31 GB stored, past the budget; each
+    rank's half would fit); (d) stream (b) (RAFT at 512^2, batch 2, 6
+    iterations, warm_start): reset and 5 pushes. Phase 22: (e) the
+    AccFlow+GMA CVO-6 clip (gamma drawn in [2, 4]); (f) stream (a)
+    (RAFT-small: kernel #2) and (g) stream (c) (GMA), (d)'s protocol; (h)
+    Sintel's padded 1024x440, 224 + 216 rows: a float32 RAFT pair at 2
+    iterations and the bf16 AccFlow+RAFT 7-frame clip at batch 1; (i) the
+    drift fixture (trained RAFT-small and hidden-64 accumulator, float32,
+    36 frames at 64^2); float32 pairs at 40x64 (24 + 16 rows), 2
+    iterations, of GMA with its positional branch and of RAFT-small. Each
+    against the same run in this process on the
+    whole frames (the bars: the SPATIAL comments at the top), with each
+    rank's and this process's peak, seconds per call (two gloo ranks
+    sharing one card: not a reading of NCCL), collectives and bytes per
+    call, and the lookup kernel's launches and Q: both ranks' launches
+    equal, one per GRU iteration and chunk of queries as in one process (a
+    rank holds half the queries: "fused" keeps one chunk, "ondemand" halves
+    the chunks), and no other kernel. Returns each case's row."""
+    cases = SPATIAL_CASES + SPATIAL22_CASES
+    ref, spread = spatial_references(cases)
+    ranks, secs = spatial_launch(tmp)
+    rows = {case: spatial_check(case, ref[case], spread.get(case), [r[case] for r in ranks])
+            for case in cases}
     c_lookup = corr.resolve_auto_lookup("auto", 11, SPATIAL_SIZE_C[0] // 8,
                                         SPATIAL_SIZE_C[1] // 8, 4, torch.bfloat16)
     if not (corr.is_ondemand(c_lookup) and spatial_chunks("c", SPATIAL_SIZE_C[0] // 16) > 1):
@@ -4169,7 +4321,8 @@ def main() -> int:
           "against one process: " + "; ".join(
               f"({case}) max abs {spatial[case]['max_abs']:.3e} (bar {spatial[case]['bar']:.3e}), "
               f"peak per rank {max(spatial[case]['rank_peak_gib']):.3f} GiB (one process "
-              f"{spatial[case]['one_process_peak_gib']:.3f})" for case in SPATIAL_CASES))
+              f"{spatial[case]['one_process_peak_gib']:.3f})"
+              for case in SPATIAL_CASES + SPATIAL22_CASES))
     print(json.dumps({"host_tools": {"card": line, **tools}}, default=str))
     print(json.dumps({"spatial": {"card": line, **spatial}}, default=str))
     print(json.dumps({"ondemand": {"card": line, **ondemand}}, default=str))
@@ -4241,19 +4394,25 @@ def main() -> int:
                            f"over NCCL, {DP_STEPS} graphed steps each, counted as in training",
          "dp_two_ranks_launches": {k: r["rank_launches"] for k, r in dp["two_ranks"].items()
                                    if isinstance(r, dict)},
-         "spatial_launches": {c: spatial[c]["launches"] for c in ("b", "c", "d")},
-         "spatial_q": {c: spatial[c]["q"] for c in ("b", "c", "d")},
-         "spatial_launches_in": "phase 21, each of two gloo ranks on one card, height "
+         "spatial_launches": {c: spatial[c]["launches"] for c in ("b", "c", "d", "e", "g",
+                                                                  "h clip")},
+         "spatial_q": {c: spatial[c]["q"] for c in ("b", "c", "d", "e", "g", "h clip")},
+         "spatial_launches_in": "phases 21 and 22, each of two gloo ranks on one card, height "
                                 "sharded: (b) 2 CVO-6 clip forwards, (c) 2 7x1920x1088 clip "
                                 "forwards through auto (ondemand), (d) 2 streams of a reset "
-                                "and 5 pushes; counted in the last call"},
+                                "and 5 pushes, (e) 2 AccFlow+GMA CVO-6 clip forwards, (g) 2 "
+                                "GMA streams (c), (h) 2 7x1024x440 clip forwards at 224 + 216 "
+                                "rows; counted in the last call"},
         {"name": "corr_lookup_f32_out", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:264",
          "launches": small["fused"], "launches_in": "the f32 small clip on the GPU",
-         "spatial_launches": {c: spatial[c]["launches"] for c in ("a fused", "a ondemand:64")},
-         "spatial_launches_in": "phase 21 (a), each of two gloo ranks on one card, height "
-                                "sharded: one 128^2 forward at 2 iterations, the last of 2",
+         "spatial_launches": {c: spatial[c]["launches"] for c in ("a fused", "a ondemand:64",
+                                                                  "h pair")},
+         "spatial_q": {c: spatial[c]["q"] for c in ("a fused", "a ondemand:64", "h pair")},
+         "spatial_launches_in": "phases 21 (a) and 22 (h), each of two gloo ranks on one card, "
+                                "height sharded: one 128^2 forward (1024x440 at 224 + 216 "
+                                "rows) at 2 iterations, the last of 2",
          "gma_small_clip_launches": gma_small["fused"],
          **rows1["float32"], "levels_dtype": "float32", "out_dtype": "float32",
          "float32_levels_bf16_out": rows1["float32, bf16 out"],
@@ -4272,11 +4431,17 @@ def main() -> int:
          "finetune_launches_in": "RAFT-small fine-tune, 6 graphed steps (float32 levels, "
                                  "bfloat16 out): 2 eager steps and the capture counted",
          "finetune_shape": finetune["lookup_kernel_2"],
-         "ondemand_small_clip_launches": ondemand["small_clips"]["RAFT-small ondemand:16"]},
+         "ondemand_small_clip_launches": ondemand["small_clips"]["RAFT-small ondemand:16"],
+         "spatial_launches": spatial["f"]["launches"], "spatial_q": spatial["f"]["q"],
+         "spatial_launches_in": "phase 22 (f), each of two gloo ranks on one card, height "
+                                "sharded: stream (a), a reset and 5 pushes, the last of 2"},
         {"name": "corr_level_lookup_f32_out", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_level_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:466",
          "launches": drift_launches, "launches_in": "the f32 drift fixture on the GPU",
+         "spatial_launches": spatial["i"]["launches"], "spatial_q": spatial["i"]["q"],
+         "spatial_launches_in": "phase 22 (i), each of two gloo ranks on one card, height "
+                                "sharded: the drift fixture's 36 frames",
          **rows2["float32"], "levels_dtype": "float32", "out_dtype": "float32", "radius": 3},
         {"name": "corr_y_contract", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_y_contract.cu",

@@ -1,26 +1,40 @@
 #!/usr/bin/env python3
-"""Whether phase 21's bars (chip_smoke.py: the spatial axis over two gloo
-ranks on one card) catch rows put in the wrong place:
+"""Whether the bars of phases 21 and 22 (chip_smoke.py: the spatial axis
+over two gloo ranks on one card) catch a planted fault:
 
-    python3 scripts/spatial_row0_fault.py      # from the root of a checkout
+    python3 scripts/spatial_row0_fault.py                   # the row-0 fault
+    python3 scripts/spatial_row0_fault.py --faults none,no_gather,equal_norm,no_halo
 
-It runs phase 21 as chip_smoke.py does, with one fault planted in the two
-sharded ranks only: RAFT's coordinates start every rank at row 0
-(models/raft.py::raft_iterate's coords_grid, where a rank's rows start at
-its first global row). The one-process references run unchanged. Each
-case's distance to one process is printed beside its bar, and every case
-runs to its end (chip_smoke's `fail` is recorded, not raised). The code of
-the checkout is not changed: the fault is patched in at run time, in the
-ranks' processes, which this script starts in place of chip_smoke.py's.
+It runs the cases of phases 21 and 22 as chip_smoke.py does: the
+one-process references once, then, for each fault named, the two sharded
+ranks with that fault planted in them only:
+- row0: RAFT's coordinates start every rank at row 0 (models/raft.py::
+  raft_iterate's coords_grid, where a rank's rows start at its first
+  global row);
+- no_gather: GMA's attention and aggregate run on each rank's own keys
+  and values, with no gather (models/gma.py::attention and aggregate given
+  no handle; the positional score then of the local rows);
+- equal_norm: instance norm combines the ranks' statistics with equal
+  weights, whatever their rows (nn/layers.py::instance_norm given a handle
+  without its table);
+- no_halo: RAFT-small's upflow8 reads no halo rows (ops/grids.py::upflow8's
+  halo_rows replaced by the rank's own edge rows);
+- none: no fault (the phases as chip_smoke.py runs them).
+Each case's distance to one process is printed beside its bar, and every
+case runs to its end (chip_smoke's `fail` is recorded, not raised). The
+code of the checkout is not changed: the fault is patched in at run time,
+in the ranks' processes, which this script starts in place of
+chip_smoke.py's.
 
-The last line is one JSON object: each case's distance, bar and whether
-the bar caught the fault. The exit code is 0 if every case caught it.
+The last line is one JSON object: per fault, each case's distance, bar and
+whether its checks failed. The exit code is 0 if every fault was caught by
+at least one case and the run without a fault (if asked for) passed.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -30,7 +44,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 
 
-def plant_row0_fault() -> None:
+def plant_row0() -> None:
     """Every rank's RAFT coordinates start at row 0."""
     from accflow_tpu_torch.models import raft
 
@@ -38,45 +52,87 @@ def plant_row0_fault() -> None:
     raft.coords_grid = lambda *a, **k: coords_grid(*a, **{**k, "row0": 0})
 
 
-class _Subprocess:
-    """chip_smoke's subprocess module, with phase 21's ranks started as
-    this script (which plants the fault, then runs chip_smoke's child)."""
+def plant_no_gather() -> None:
+    """GMA attends over each rank's own keys and values."""
+    from accflow_tpu_torch.models import gma
 
-    def __getattr__(self, name):
-        return getattr(subprocess, name)
+    attention, aggregate = gma.attention, gma.aggregate
+    gma.attention = lambda model, inp, chunk=0, spatial=None: attention(model, inp, chunk)
+    gma.aggregate = lambda agg, attn, motion, spatial=None: aggregate(agg, attn, motion)
 
-    @staticmethod
-    def Popen(cmd, **kw):
-        if "--spatial-child" in cmd:
-            cmd = [sys.executable, str(Path(__file__).resolve()), *cmd[2:]]
-        return subprocess.Popen(cmd, **kw)
+
+def plant_equal_norm() -> None:
+    """Instance norm weighs every rank's statistics alike."""
+    from accflow_tpu_torch.nn import layers
+
+    norm = layers.instance_norm
+    layers.instance_norm = lambda x, eps=1e-5, spatial=None: norm(
+        x, eps, None if spatial is None else spatial._replace(rows=()))
+
+
+def plant_no_halo() -> None:
+    """upflow8 reads each rank's own edge rows where its halo belongs."""
+    import types
+
+    from accflow_tpu_torch.ops import grids
+
+    grids.mesh = types.SimpleNamespace(halo_rows=lambda x, sp, top, bottom, dim=2: (
+        x.narrow(dim, 0, top), x.narrow(dim, x.shape[dim] - bottom, bottom)))
+
+
+FAULTS = {"none": None, "row0": plant_row0, "no_gather": plant_no_gather,
+          "equal_norm": plant_equal_norm, "no_halo": plant_no_halo}
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--spatial-child"]:
-        plant_row0_fault()
+    if sys.argv[1:2] == ["--fault-child"]:  # one rank: --fault-child FAULT --spatial-child ...
+        if FAULTS[sys.argv[2]] is not None:
+            FAULTS[sys.argv[2]]()
+        sys.argv[1:3] = []
         return chip_smoke.main()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--faults", default="row0",
+                    help=f"comma-separated, of {', '.join(FAULTS)} (default row0)")
+    faults = ap.parse_args().faults.split(",")
+    unknown = set(faults) - set(FAULTS)
+    if unknown:
+        ap.error(f"unknown faults {sorted(unknown)}")
     if not chip_smoke.torch.cuda.is_available():
         print("spatial_row0_fault: no CUDA device", file=sys.stderr)
         return 1
     print(chip_smoke.smi("name,power.limit"))
     failures = []
     chip_smoke.fail = failures.append
-    chip_smoke.subprocess = _Subprocess()
     chip_smoke.build_kernels()
+    cases = chip_smoke.SPATIAL_CASES + chip_smoke.SPATIAL22_CASES
+    ref, spread = chip_smoke.spatial_references(cases)
+    out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        rows = chip_smoke.spatial_phase(tmp)
-    out = {case: dict(max_abs=rows[case]["max_abs"], bar=rows[case]["bar"],
-                      flow_max=rows[case]["flow_max"],
-                      caught=not rows[case]["max_abs"] <= rows[case]["bar"])
-           for case in chip_smoke.SPATIAL_CASES}
-    for case, r in out.items():
-        print(f"row-0 fault ({case}): max abs {r['max_abs']:.3e} against one process, bar "
-              f"{r['bar']:.3e} ({r['max_abs'] / r['bar']:.2f}x; |flow| max {r['flow_max']:.3e}): "
-              f"{'caught' if r['caught'] else 'NOT caught'}")
-    print(f"phase 21's checks that failed: {len(failures)}")
-    print(json.dumps({"row0_fault": out}))
-    return 0 if all(r["caught"] for r in out.values()) else 1
+        for fault in faults:
+            # The ranks run this script, which plants the fault, then chip_smoke's child.
+            ranks, secs = chip_smoke.spatial_launch(
+                tmp, [str(Path(__file__).resolve()), "--fault-child", fault])
+            rows = {}
+            for case in cases:
+                before = len(failures)
+                row = chip_smoke.spatial_check(case, ref[case], spread.get(case),
+                                               [r[case] for r in ranks])
+                rows[case] = dict(max_abs=row["max_abs"], bar=row["bar"],
+                                  flow_max=row["flow_max"], failed=len(failures) > before,
+                                  **{k: row[k] for k in ("first_max_abs", "epe_gap_px")
+                                     if k in row})
+            for case, r in rows.items():
+                print(f"fault {fault} ({case}): max abs {r['max_abs']:.3e} against one process, "
+                      f"bar {r['bar']:.3e} ({r['max_abs'] / r['bar']:.2f}x; |flow| max "
+                      f"{r['flow_max']:.3e}): {'FAILED' if r['failed'] else 'passed'}")
+            print(f"fault {fault}: ranks in {secs:.1f} s; cases that failed: "
+                  f"{sum(r['failed'] for r in rows.values())} of {len(rows)}")
+            out[fault] = rows
+    print(json.dumps({"spatial_faults": out}))
+    caught = all(any(r["failed"] for r in rows.values()) for f, rows in out.items()
+                 if f != "none")
+    clean = not any(r["failed"] for r in out.get("none", {}).values())
+    return 0 if caught and clean else 1
 
 
 if __name__ == "__main__":

@@ -13,7 +13,8 @@ evaluate_cvo, train_acc), with weights and data from seeds, at the full
 widths chip_smoke.py runs:
 
 - clip: AccFlow+RAFT, 7 frames of 512^2, batch 2, 12 iterations, bf16,
-  eager: the sha256 of the output's bytes;
+  eager: the sha256 of the output's bytes; clip_gma: the same with GMA,
+  its gamma set to 2.5 (at its init of 0 the attention adds nothing);
 - stream (a) RAFT-small and (b) full RAFT under AccFlow 128, warm-started,
   512^2, batch 2, 6 iterations: a reset on 3 frames and 5 pushes, the
   sha256 of every output's bytes;
@@ -89,6 +90,9 @@ def main() -> int:
         est = models.build_flow_estimator("raft", compute_dtype="bfloat16", seed=0)
         acc = accumulator()
         out["clip"] = sha(models.accflow_forward(acc, frames(7, 2, 512, 3), est.pairs_fn()))
+        est = models.build_flow_estimator("gma", compute_dtype="bfloat16", seed=0)
+        est.model.update_block.aggregator.gamma.fill_(2.5)
+        out["clip_gma"] = sha(models.accflow_forward(acc, frames(7, 2, 512, 3), est.pairs_fn()))
         for label, small in (("stream_a", True), ("stream_b", False)):
             est = models.build_flow_estimator("raft", compute_dtype="bfloat16", small=small,
                                               iters=6, seed=0)

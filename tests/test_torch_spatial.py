@@ -7,32 +7,44 @@ one process and against the JAX package's unsharded runs.
   of the inputs and gathers its outputs' rows for the comparison:
   - the primitives against the same function in one process, within 1e-5:
     the halo conv2d at 3x3, 7x7/2, 3x3/2, 1x1/2, 5x1, 1x5 and a 7x7 on an
-    image of 4 rows (two a rank: a halo past the image's edge), instance_norm,
-    convex_upsample, downflow8, backwarp, deform_conv3x3 and
-    forward_splat_flow;
+    image of 4 rows (two a rank: a halo past the image's edge),
+    instance_norm, convex_upsample, downflow8, upflow8, backwarp,
+    deform_conv3x3 and forward_splat_flow; and at unequal blocks (a handle
+    given a height of 40: 24 + 16 rows) upflow8, instance_norm, halo_rows
+    itself and a 7x7/2 conv;
   - full RAFT's forward at 128^2, 2 iterations, float32, with "fused",
     "ondemand:64" and the split lookup "experimental:fused_bd", against
     JAX's unsharded est.forward with corr_lookup "mm" (rtol / atol 1e-3,
-    tests/test_sharding.py:94,127);
-  - the AccFlow clip (5 x 1 x 128^2, RAFT with "ondemand:64", hidden 128,
-    its ZeroConv drawn so the deformable conv deforms) against JAX's
-    unsharded "mm" clip at the AccFlow bar (rtol 2e-3 / atol 2e-2);
-  - StreamAccumulator with warm_start (reset on 3 frames of 128^2 and 2
-    pushes) against JAX's make_streaming_fns at the stream bar (rtol 2e-3 /
-    atol 2e-2);
+    tests/test_sharding.py:94,127); RAFT-small's with "fused" and
+    "ondemand:64" (kernel #2's path; upflow8's halo rows);
+  - GMA's pair at 64^2 with gamma drawn in [2, 4] (at its init of 0 the
+    attention adds nothing): dense, chunks of 16 query rows, "auto", and
+    the positional branch beside the content one (content-only attention
+    cannot see the keys' order);
+  - the AccFlow clips (5 x 1 x 128^2 with RAFT "ondemand:64"; 5 x 1 x 64^2
+    with each GMA variant; 4 x 1 x 40x48 at 24 + 16 rows; hidden 128, its
+    ZeroConv drawn so the deformable conv deforms) against JAX's unsharded
+    "mm" clip at the AccFlow bar (rtol 2e-3 / atol 2e-2);
+  - StreamAccumulator with warm_start (a reset on 3 frames and 2 pushes)
+    with RAFT (b), RAFT-small (a) and GMA (c), and the drift fixture's
+    trained weights over its first 10 frames, against JAX's
+    make_streaming_fns at the stream bar;
   - each of these also within 1e-4 x max |flow| of JAX's (FLOW_REL: the
     clip's and the stream's flows are ~0.1 px, so the AccFlow bar alone
     passes a run whose coordinates start every rank at row 0) and of the
     port's run in one process;
   - each rank's handle, and the collectives it counted.
 - One launch of four gloo ranks: the primitives again on a (1, 4) mesh (1
-  to 16 rows a rank: a 7x7 conv's halo then comes from three ranks up),
+  to 16 rows a rank: a 7x7 conv's halo then comes from three ranks up;
+  16, 8, 8, 8 at a height of 40), full RAFT at 48x64 (16, 16, 8, 8 rows)
+  against JAX unsharded, JAX's GSPMD run over 4 devices and one process,
   and a (2, 2) mesh, each spatial pair on its own image, whose data groups
   are the mesh's columns.
 - Without processes: make_mesh's rank layout against JAX's reshape of the
-  device list, and the refusals (a height that does not split into blocks
-  of 8 rows, GMA, RAFT-small, the stepwise, F0N and warm-start clip paths,
-  a training forward with a handle).
+  device list, split_rows' blocks, and the refusals (a height not a
+  multiple of 8, fewer rows at 1/8 than ranks, unequal blocks the handle
+  was not given, the stepwise, F0N and warm-start clip paths, a training
+  forward with a handle).
 """
 
 import os
@@ -45,7 +57,10 @@ import numpy as np
 import pytest
 import torch
 
+import torch.nn.functional as F
+
 from accflow_tpu_torch.convert import load_jax_params, load_npz_tree, save_npz_tree, to_jax_params
+from accflow_tpu_torch.data.synthetic import make_long_sequence
 from accflow_tpu_torch.models import (
     AccFlowConfig,
     accflow_forward,
@@ -54,7 +69,7 @@ from accflow_tpu_torch.models import (
 )
 from accflow_tpu_torch.nn import layers
 from accflow_tpu_torch.ops.deform import deform_conv3x3
-from accflow_tpu_torch.ops.grids import downflow8
+from accflow_tpu_torch.ops.grids import downflow8, upflow8
 from accflow_tpu_torch.ops.sampling import backwarp
 from accflow_tpu_torch.ops.upsample import convex_upsample
 from accflow_tpu_torch.ops.warmstart import forward_splat_flow
@@ -63,6 +78,18 @@ from accflow_tpu_torch.streaming import StreamAccumulator
 
 WORLD, SIZE, ITERS = 2, 128, 2
 LOOKUPS = ("fused", "ondemand:64", "experimental:fused_bd")
+GMA_SIZE = 64  # GMA's pair, clip and stream (c): 64^2
+# GMA's attention branches and attn_chunk: dense, chunks of 16 local query
+# rows (2 a rank), "auto" (resolved at the global shape), and the
+# relative-position branch beside the content one (its score takes the
+# queries' global rows; max_pos_size covers the 8 rows and columns at 1/8).
+GMA_VARIANTS = {"dense": {}, "chunk16": dict(attn_chunk=16), "auto": dict(attn_chunk=-1),
+                "positional": dict(position_and_content=True, max_pos_size=10)}
+SMALL_LOOKUPS = ("fused", "ondemand:64")  # RAFT-small at 128^2: 1 and 2 chunks a rank
+DRIFT_FRAMES = 10  # the drift fixture's prefix: a reset on 3 frames and 7 pushes
+CLIP40 = (4, 1, 40, 48, 3)  # the clip at a height of 40: 24 + 16 rows over 2 ranks
+RAFT48 = (1, 48, 64, 3)  # RAFT over 4 ranks: 16, 16, 8, 8 rows
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 PRIM_TOL = dict(rtol=1e-5, atol=1e-5)
 FLOW_TOL = dict(rtol=1e-3, atol=1e-3)  # tests/test_sharding.py's sharded-vs-unsharded bar
 ACC_TOL = dict(rtol=2e-3, atol=2e-2)  # the AccFlow and stream bar (tests/test_torch_accflow.py)
@@ -96,8 +123,16 @@ def _t(rng, *shape, scale=1.0):
     return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32))
 
 
-def _conv(k, stride, h=32):
+def _bound(sp, height):
+    """The handle given the frames' height (mesh.split_rows: unequal blocks
+    where the 1/8 rows do not split evenly); None as it is."""
+    return sp if sp is None or height is None else sp.at_height(height)
+
+
+def _conv(k, stride, h=32, height=None):
+    """A conv on h rows; with `height`, a handle given that frame height."""
     def run(sp):
+        sp = _bound(sp, height)
         rng = np.random.default_rng(10 * k[0] + k[1] + stride + h)
         x, w, b = _t(rng, 2, 3, h, 20), _t(rng, 4, 3, *k), _t(rng, 4)
         y = layers.conv2d(mesh.shard_rows(x, sp, 2), w, b, stride, spatial=sp)
@@ -105,10 +140,42 @@ def _conv(k, stride, h=32):
     return run
 
 
-def _instance_norm(sp):
-    rng = np.random.default_rng(1)
-    x = _t(rng, 2, 5, 32, 20, scale=3.0) + _t(rng, 1, 5, 1, 1, scale=2.0)
-    return mesh.gather_rows(layers.instance_norm(mesh.shard_rows(x, sp, 2), spatial=sp), sp, 2)
+def _instance_norm(h=32, height=None):
+    def run(sp):
+        sp = _bound(sp, height)
+        rng = np.random.default_rng(1)
+        x = _t(rng, 2, 5, h, 20, scale=3.0) + _t(rng, 1, 5, 1, 1, scale=2.0)
+        y = layers.instance_norm(mesh.shard_rows(x, sp, 2), spatial=sp)
+        return mesh.gather_rows(y, sp, 2)
+    return run
+
+
+def _upflow8(h8, height=None):
+    """upflow8 of an h8-row field at 1/8 (with `height`: blocks of 3 + 2
+    rows at 1/8 over 2 ranks, 2, 1, 1, 1 over 4, for a height of 40)."""
+    def run(sp):
+        sp = _bound(sp, height)
+        flow = _t(np.random.default_rng(7 + h8), 2, h8, 6, 2, scale=3.0)
+        return mesh.gather_rows(upflow8(mesh.shard_rows(flow, sp), sp), sp)
+    return run
+
+
+def _halo(h, top, bottom, height):
+    """halo_rows itself: each rank's rows with their halo, as windows of
+    top + 1 + bottom rows about each of its rows, against the zero-padded
+    image's (a handle given `height`; h rows, at that scale)."""
+    def run(sp):
+        sp = _bound(sp, height)
+        x = _t(np.random.default_rng(8 + h + top), 2, 3, h, 5)
+        if sp is None:
+            ext, rows = F.pad(x, (0, 0, top, bottom)), h
+        else:
+            xl = mesh.shard_rows(x, sp, 2)
+            above, below = mesh.halo_rows(xl, sp, top, bottom)
+            ext, rows = torch.cat([above, xl, below], 2), xl.shape[2]
+        win = torch.stack([ext[:, :, i:i + rows] for i in range(top + 1 + bottom)], 1)
+        return mesh.gather_rows(win.flatten(1, 2), sp, 2)
+    return run
 
 
 def _convex_upsample(sp):
@@ -149,9 +216,14 @@ PRIMITIVES = {
     "conv 3x3/2": _conv((3, 3), 2), "conv 1x1/2": _conv((1, 1), 2),
     "conv 5x1": _conv((5, 1), 1), "conv 1x5": _conv((1, 5), 1),
     "conv 7x7 on 4 rows": _conv((7, 7), 1, h=4),
-    "instance_norm": _instance_norm, "convex_upsample": _convex_upsample,
+    "instance_norm": _instance_norm(), "convex_upsample": _convex_upsample,
     "downflow8": _downflow8, "backwarp": _backwarp, "deform_conv3x3": _deform,
-    "forward_splat_flow": _splat,
+    "forward_splat_flow": _splat, "upflow8": _upflow8(8),
+    # Unequal blocks: a height of 40 is 24 + 16 rows over 2 ranks, 16, 8, 8,
+    # 8 over 4 (at 1/8: 3 + 2, and 2, 1, 1, 1).
+    "upflow8 uneven": _upflow8(5, 40), "instance_norm uneven": _instance_norm(40, 40),
+    "halo_rows uneven": _halo(40, 3, 2, 40), "halo_rows uneven at 1/8": _halo(5, 3, 3, 40),
+    "conv 7x7/2 uneven": _conv((7, 7), 2, h=40, height=40),
 }
 
 
@@ -173,10 +245,47 @@ def _accumulator(work: str, warm_start: bool = False):
     return load_jax_params(acc, load_npz_tree(f"{work}/acc.npz"))
 
 
+def _branch(variant: str) -> str:
+    """The attention branch of a GMA variant, which names its weights and
+    its JAX reference (the chunked and auto variants are the content
+    branch's function)."""
+    return "positional" if variant == "positional" else "content"
+
+
+def _branch_cfg(branch: str) -> dict:
+    return GMA_VARIANTS["positional"] if branch == "positional" else {}
+
+
+def _gma(work: str, variant: str):
+    est = build_flow_estimator("gma", compute_dtype="float32", iters=ITERS, device="cpu",
+                               **GMA_VARIANTS[variant])
+    load_jax_params(est.model, load_npz_tree(f"{work}/gma {_branch(variant)}.npz"))
+    return est
+
+
+def _small(work: str, lookup: str):
+    est = build_flow_estimator("raft", compute_dtype="float32", iters=ITERS, device="cpu",
+                               small=True, corr_lookup=lookup)
+    load_jax_params(est.model, load_npz_tree(f"{work}/small.npz"))
+    return est
+
+
+def _drift_models():
+    """The drift fixture's trained RAFT-small (6 iterations) and hidden-64
+    warm-start accumulator (tests/test_torch_stream.py)."""
+    est = build_flow_estimator("raft", compute_dtype="float32", device="cpu", small=True,
+                               iters=6)
+    load_jax_params(est.model, load_npz_tree(f"{FIXTURES}/drift_small_ofe.npz"))
+    acc = init_accflow(AccFlowConfig(hidden=64, compute_dtype="float32", warm_start=True),
+                       device="cpu")
+    return est, load_jax_params(acc, load_npz_tree(f"{FIXTURES}/drift_small_acc.npz"))
+
+
 def _models(sp, work: str) -> dict:
-    """The RAFT forwards, the clip and the stream on this rank's rows (sp),
-    or on the whole frames (None: the port's one-process runs); outputs
-    whole, with the collectives each case counted."""
+    """The RAFT, GMA and RAFT-small forwards, the clips and the streams on
+    this rank's rows (sp), or on the whole frames (None: the port's
+    one-process runs); outputs whole, with the collectives each case
+    counted."""
     data = np.load(f"{work}/inputs.npz")
     out = {}
 
@@ -195,14 +304,42 @@ def _models(sp, work: str) -> dict:
     clip = mesh.shard_rows(torch.from_numpy(data["clip"]), sp, 2)
     case("clip", lambda: mesh.gather_rows(
         accflow_forward(acc, clip, est.pairs_fn(spatial=sp), spatial=sp), sp, 2))
-    stream = StreamAccumulator(_estimator(work, "fused"), _accumulator(work, True), spatial=sp)
-    frames = mesh.shard_rows(torch.from_numpy(data["stream"]), sp, 2)
+    sp40 = None if sp is None else sp.at_height(CLIP40[2])
+    clip40 = mesh.shard_rows(torch.from_numpy(data["clip40"]), sp40, 2)
+    case("clip 40", lambda: mesh.gather_rows(
+        accflow_forward(acc, clip40, est.pairs_fn(spatial=sp40), spatial=sp40), sp40, 2))
 
-    def run_stream():
-        outs = [stream.reset(frames[:3])] + [stream.push(frames[i]) for i in (3, 4)]
+    def run_stream(stream, frames):  # a reset on 3 frames, then a push of each other
+        frames = mesh.shard_rows(frames, sp, 2)
+        outs = [stream.reset(frames[:3])] + [stream.push(f) for f in frames[3:]]
         return mesh.gather_rows(torch.stack(outs), sp, 2)
 
-    case("stream", run_stream)
+    stream = torch.from_numpy(data["stream"])
+    case("stream", lambda: run_stream(StreamAccumulator(
+        _estimator(work, "fused"), _accumulator(work, True), spatial=sp), stream))
+
+    # GMA: a pair, the clip (each attention variant) and stream (c), at 64^2.
+    g_clip = torch.from_numpy(data["gma_clip"])
+    g_rows = mesh.shard_rows(g_clip, sp, 2)
+    for v in GMA_VARIANTS:
+        g_est = _gma(work, v)
+        case(f"gma {v}", lambda: mesh.gather_rows(
+            g_est.forward(g_rows[0], g_rows[1], spatial=sp)["flow_up"], sp))
+        case(f"gma clip {v}", lambda: mesh.gather_rows(
+            accflow_forward(acc, g_rows, g_est.pairs_fn(spatial=sp), spatial=sp), sp, 2))
+    case("gma stream", lambda: run_stream(StreamAccumulator(
+        _gma(work, "dense"), _accumulator(work, True), spatial=sp), g_clip))
+
+    # RAFT-small (kernel #2's path): a pair with each lookup, stream (a).
+    for lookup in SMALL_LOOKUPS:
+        small = _small(work, lookup)
+        i1, i2 = (mesh.shard_rows(torch.from_numpy(data[k]), sp) for k in ("i1", "i2"))
+        case(f"small {lookup}",
+             lambda: mesh.gather_rows(small.forward(i1, i2, spatial=sp)["flow_up"], sp))
+    case("small stream", lambda: run_stream(StreamAccumulator(
+        _small(work, "fused"), _accumulator(work, True), spatial=sp), stream))
+    case("drift", lambda: run_stream(StreamAccumulator(*_drift_models(), spatial=sp),
+                                     torch.from_numpy(data["drift"])))
     return out
 
 
@@ -235,11 +372,24 @@ def _data_by_spatial(rank: int) -> dict:
             "2x2/ref": run(None), "2x2/data_sum": ranks.numpy()}
 
 
+def _raft48(sp, work: str) -> dict:
+    """Full RAFT on a 48x64 pair over the (1, 4) mesh: 6 rows at 1/8 split
+    2, 2, 1, 1 (16, 16, 8, 8 rows), with the collectives it counted."""
+    data = np.load(f"{work}/inputs.npz")
+    sp = sp.at_height(RAFT48[1])
+    i1, i2 = (mesh.shard_rows(torch.from_numpy(data[k]), sp) for k in ("i1", "i2"))
+    c0 = mesh.collectives
+    flow = mesh.gather_rows(_estimator(work, "fused").forward(i1, i2, spatial=sp)["flow_up"], sp)
+    return {"raft48": flow.numpy(), "raft48/rows": np.array([i1.shape[1]]),
+            "raft48/collectives": np.array([mesh.collectives - c0])}
+
+
 def _child(mode: str, world: int, rank: int, port: int, work: str) -> None:
     """One rank of a launch: join the gloo group through torchrun's
     environment, make the mesh, run the primitives (each beside its
     one-process run) and, for "models", the models on a (1, 2) mesh, for
-    "meshes" the data x spatial check on a (2, 2) one; save what it saw."""
+    "meshes" RAFT at 48x64 on the (1, 4) mesh and the data x spatial check
+    on a (2, 2) one; save what it saw."""
     os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     torch.set_num_threads(1)
@@ -247,7 +397,10 @@ def _child(mode: str, world: int, rank: int, port: int, work: str) -> None:
     m = mesh.make_mesh(n_data=1, n_spatial=world)
     t0 = time.perf_counter()
     out = {"axis": np.array([m.axis.index, m.axis.size]), **_primitives(m.axis)}
-    out.update(_models(m.axis, work) if mode == "models" else _data_by_spatial(rank))
+    if mode == "models":
+        out.update(_models(m.axis, work))
+    else:
+        out.update(_raft48(m.axis, work), **_data_by_spatial(rank))
     out["seconds"] = time.perf_counter() - t0
     np.savez(f"{work}/rank{rank}.npz", **out)
     torch.distributed.destroy_process_group()
@@ -258,11 +411,21 @@ def _child(mode: str, world: int, rank: int, port: int, work: str) -> None:
 # ---------------------------------------------------------------------------
 
 def _write_inputs(work: str) -> None:
-    """Full RAFT's weights (seed 0) and the accumulator's (hidden 128, seed
-    1, its ZeroConv drawn from seed 3), as JAX-layout trees, and the frames
-    (uniform in [-1, 1], seeds as tests/test_sharding.py's)."""
+    """Full RAFT's weights (seed 0), GMA's (seed 0, its gamma drawn in [2, 4]
+    from seed 5: at its init of 0 the attention adds nothing), RAFT-small's
+    (seed 0) and the accumulator's (hidden 128, seed 1, its ZeroConv drawn
+    from seed 3), as JAX-layout trees, and the frames (uniform in [-1, 1],
+    seeds as tests/test_sharding.py's; the drift fixture's first frames)."""
     save_npz_tree(f"{work}/ofe.npz", to_jax_params(
         build_flow_estimator("raft", compute_dtype="float32", device="cpu").model))
+    save_npz_tree(f"{work}/small.npz", to_jax_params(
+        build_flow_estimator("raft", compute_dtype="float32", device="cpu", small=True).model))
+    for branch in ("content", "positional"):  # the tables' size follows max_pos_size
+        gma = to_jax_params(build_flow_estimator(
+            "gma", compute_dtype="float32", device="cpu", **_branch_cfg(branch)).model)
+        gma["update_block"]["aggregator"]["gamma"] = np.random.default_rng(5).uniform(
+            2.0, 4.0, (1,)).astype(np.float32)
+        save_npz_tree(f"{work}/gma {branch}.npz", gma)
     acc = to_jax_params(init_accflow(AccFlowConfig(compute_dtype="float32"), device="cpu"))
     rng = np.random.default_rng(3)
     zc = acc["accplus"]["conv2"]["4"]
@@ -275,8 +438,12 @@ def _write_inputs(work: str) -> None:
         return np.random.default_rng(seed).uniform(-1, 1, shape).astype(np.float32)
 
     pair = frames(1, (2, 1, SIZE, SIZE, 3))
+    seq = make_long_sequence(np.random.default_rng(77), 64, 64, 36, seg_len=6, max_v=1,
+                             fg=True, fg_max_v=2)["imgs"][:DRIFT_FRAMES]
     np.savez(f"{work}/inputs.npz", i1=pair[0], i2=pair[1], clip=frames(3, (5, 1, SIZE, SIZE, 3)),
-             stream=frames(4, (5, 1, SIZE, SIZE, 3)))
+             stream=frames(4, (5, 1, SIZE, SIZE, 3)),
+             gma_clip=frames(6, (5, 1, GMA_SIZE, GMA_SIZE, 3)), clip40=frames(7, CLIP40),
+             drift=(2.0 * (seq.astype(np.float32) / 255.0) - 1.0)[:, None])
 
 
 def _free_port() -> int:
@@ -334,8 +501,14 @@ def launch(tmp_path_factory):
 @pytest.fixture(scope="module")
 def launch4(tmp_path_factory):
     """Four gloo ranks: the primitives on a (1, 4) mesh (a 7x7 conv at one
-    row a rank reads its halo from three ranks up), then a (2, 2) mesh."""
-    run = Launch(str(tmp_path_factory.mktemp("spatial4")), "meshes", 4)
+    row a rank reads its halo from three ranks up), RAFT at 48x64 (16, 16,
+    8, 8 rows a rank), then a (2, 2) mesh."""
+    work = str(tmp_path_factory.mktemp("spatial4"))
+    save_npz_tree(f"{work}/ofe.npz", to_jax_params(
+        build_flow_estimator("raft", compute_dtype="float32", device="cpu").model))
+    pair = np.random.default_rng(8).uniform(-1, 1, (2,) + RAFT48).astype(np.float32)
+    np.savez(f"{work}/inputs.npz", i1=pair[0], i2=pair[1])
+    run = Launch(work, "meshes", 4)
     yield run
     _stop(run)
 
@@ -353,25 +526,83 @@ def refs(launch):
     from accflow_tpu.streaming import make_streaming_fns as j_make_streaming_fns
 
     work = launch.work
-    data = np.load(f"{work}/inputs.npz")
+    data = {k: jnp.asarray(v) for k, v in np.load(f"{work}/inputs.npz").items()}
     ofe, acc = load_npz_tree(f"{work}/ofe.npz"), load_npz_tree(f"{work}/acc.npz")
+    small = load_npz_tree(f"{work}/small.npz")
+    f32 = JAccFlowConfig(compute_dtype="float32")
+
+    def pair(j_est, params, frames):
+        return np.asarray(jax.jit(lambda p, a, b: j_est.forward(p, a, b)["flow_up"])(
+            params, frames[0], frames[1]))
+
+    def clip(j_est, params, frames):
+        return np.asarray(jax.jit(lambda ap, op, ims: j_accflow_forward(
+            ap, j_est.flow_fn(op), ims, f32, ofe_pairs=j_est.pairs_fn(op)))(acc, params, frames))
+
+    def stream(j_est, params, acc_params, frames, cfg):
+        # The weights are arguments, not constants folded into the programs:
+        # a quicker compile.
+        init = jax.jit(lambda op, ap, x: j_make_streaming_fns(j_est, cfg, op, ap)[0](x))
+        step = jax.jit(lambda op, ap, st, x: j_make_streaming_fns(j_est, cfg, op, ap)[1](st, x))
+        flow, state = init(params, acc_params, frames[:3])
+        outs = [np.asarray(flow)]
+        for f in frames[3:]:
+            flow, state = step(params, acc_params, state, f)
+            outs.append(np.asarray(flow))
+        return np.stack(outs)
+
+    warm = JAccFlowConfig(compute_dtype="float32", warm_start=True)
     j_est = j_build("raft", compute_dtype="float32", corr_lookup="mm", iters=ITERS)
-    out = {"raft": np.asarray(jax.jit(lambda p, a, b: j_est.forward(p, a, b)["flow_up"])(
-        ofe, jnp.asarray(data["i1"]), jnp.asarray(data["i2"])))}
-    out["clip"] = np.asarray(jax.jit(lambda ap, op, ims: j_accflow_forward(
-        ap, j_est.flow_fn(op), ims, JAccFlowConfig(compute_dtype="float32"),
-        ofe_pairs=j_est.pairs_fn(op)))(acc, ofe, jnp.asarray(data["clip"])))
-    init_fn, step_fn = j_make_streaming_fns(
-        j_est, JAccFlowConfig(compute_dtype="float32", warm_start=True), ofe, acc)
-    frames = jnp.asarray(data["stream"])
-    flow, state = jax.jit(init_fn)(frames[:3])
-    outs = [np.asarray(flow)]
-    for i in (3, 4):
-        flow, state = jax.jit(step_fn)(state, frames[i])
-        outs.append(np.asarray(flow))
-    out["stream"] = np.stack(outs)
+    out = {"raft": pair(j_est, ofe, (data["i1"], data["i2"])),
+           "clip": clip(j_est, ofe, data["clip"]), "clip 40": clip(j_est, ofe, data["clip40"]),
+           "stream": stream(j_est, ofe, acc, data["stream"], warm)}
+    for branch in ("content", "positional"):
+        gma = load_npz_tree(f"{work}/gma {branch}.npz")
+        j_gma = j_build("gma", compute_dtype="float32", corr_lookup="mm", iters=ITERS,
+                        **_branch_cfg(branch))
+        out[f"gma {branch}"] = pair(j_gma, gma, data["gma_clip"])
+        out[f"gma clip {branch}"] = clip(j_gma, gma, data["gma_clip"])
+        if branch == "content":
+            out["gma stream"] = stream(j_gma, gma, acc, data["gma_clip"], warm)
+    j_small = j_build("raft", compute_dtype="float32", small=True, iters=ITERS)
+    out["small"] = pair(j_small, small, (data["i1"], data["i2"]))
+    out["small stream"] = stream(j_small, small, acc, data["stream"], warm)
+    out["drift"] = stream(
+        j_build("raft", compute_dtype="float32", small=True, iters=6),
+        load_npz_tree(f"{FIXTURES}/drift_small_ofe.npz"),
+        load_npz_tree(f"{FIXTURES}/drift_small_acc.npz"), data["drift"],
+        JAccFlowConfig(hidden=64, compute_dtype="float32", warm_start=True))
     out["port"] = _models(None, work)
     return out
+
+
+@pytest.fixture(scope="module")
+def refs4(launch4, cpu_devices):
+    """RAFT at 48x64: JAX unsharded ("mm"), JAX's own GSPMD run with the
+    height over 4 devices (12 rows each: JAX's even split), and the port in
+    one process."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from accflow_tpu.models import build_flow_estimator as j_build
+    from accflow_tpu.parallel.mesh import make_mesh as j_make_mesh
+    from accflow_tpu.parallel.mesh import shard_params as j_shard_params
+
+    work = launch4.work
+    data = np.load(f"{work}/inputs.npz")
+    ofe = load_npz_tree(f"{work}/ofe.npz")
+    j_est = j_build("raft", compute_dtype="float32", corr_lookup="mm", iters=ITERS)
+    fwd = jax.jit(lambda p, a, b: j_est.forward(p, a, b)["flow_up"])
+    i1, i2 = jnp.asarray(data["i1"]), jnp.asarray(data["i2"])
+    j_mesh = j_make_mesh(n_data=1, n_spatial=4, devices=cpu_devices[:4])
+    sh = NamedSharding(j_mesh, P(None, "spatial", None, None))
+    gspmd = fwd(j_shard_params(j_mesh, ofe), jax.device_put(i1, sh), jax.device_put(i2, sh))
+    assert len(gspmd.sharding.device_set) == 4
+    port = _estimator(work, "fused").forward(data["i1"], data["i2"])["flow_up"]
+    return {"jax": np.asarray(fwd(ofe, i1, i2)), "gspmd": np.asarray(gspmd),
+            "port": port.numpy()}
 
 
 # ---------------------------------------------------------------------------
@@ -383,9 +614,11 @@ def test_spatial_handles(launch):
     collectives (halos, gathers, sums) that it counted."""
     r0, r1 = launch.ranks()
     assert r0["axis"].tolist() == [0, 2] and r1["axis"].tolist() == [1, 2]
-    for case in [f"raft {lookup}" for lookup in LOOKUPS] + ["clip", "stream"]:
+    cases = [k[:-len("/collectives")] for k in r0 if k.endswith("/collectives")]
+    assert len(cases) == len(LOOKUPS) + 3 + 2 * len(GMA_VARIANTS) + 1 + len(SMALL_LOOKUPS) + 2
+    for case in cases:
         assert int(r0[f"{case}/collectives"]) == int(r1[f"{case}/collectives"]) > 0
-        assert int(r0[f"{case}/bytes"]) > 0
+        assert int(r0[f"{case}/bytes"]) == int(r1[f"{case}/bytes"]) > 0
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -426,6 +659,98 @@ def test_spatial_raft_forward_matches_jax(launch, refs, lookup):
     assert np.abs(got - one).max() <= 1e-4 * np.abs(one).max()
 
 
+def _holds(got, jax_ref, one, tol):
+    """got against JAX (tol, and FLOW_REL x max |flow|) and within 1e-4 x
+    max |flow| of the port's one-process run."""
+    assert got.shape == jax_ref.shape == one.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, jax_ref, **tol)
+    assert np.abs(got - jax_ref).max() <= FLOW_REL * np.abs(jax_ref).max()
+    assert np.abs(got - one).max() <= 1e-4 * np.abs(one).max()
+
+
+@pytest.mark.parametrize("variant", list(GMA_VARIANTS))
+def test_spatial_gma_forward_matches_jax(launch, refs, variant):
+    """GMA's pair on two ranks (each its own queries against the gathered
+    keys and values; gamma in [2, 4], so the attention moves the flow),
+    every attention variant, against JAX's unsharded forward of its branch
+    and the port's one-process run; both ranks' outputs equal."""
+    r0, r1 = launch.ranks()
+    _holds(r0[f"gma {variant}"], refs[f"gma {_branch(variant)}"], refs["port"][f"gma {variant}"],
+           FLOW_TOL)
+    np.testing.assert_array_equal(r1[f"gma {variant}"], r0[f"gma {variant}"])
+
+
+@pytest.mark.parametrize("variant", list(GMA_VARIANTS))
+def test_spatial_gma_clip_matches_jax(launch, refs, variant):
+    got = launch.ranks()[0][f"gma clip {variant}"]
+    assert got.shape == (3, 1, GMA_SIZE, GMA_SIZE, 2)
+    _holds(got, refs[f"gma clip {_branch(variant)}"], refs["port"][f"gma clip {variant}"],
+           ACC_TOL)
+
+
+def test_spatial_gma_stream_matches_jax(launch, refs):
+    """Stream (c): GMA's gma_flow_pairs_from_features through a reset and 2
+    warm-started pushes."""
+    _holds(launch.ranks()[0]["gma stream"], refs["gma stream"], refs["port"]["gma stream"],
+           ACC_TOL)
+
+
+@pytest.mark.parametrize("lookup", SMALL_LOOKUPS)
+def test_spatial_small_forward_matches_jax(launch, refs, lookup):
+    """RAFT-small (kernel #2's lookup on each rank's queries; upflow8 with
+    its halo rows) against JAX's unsharded forward and one process."""
+    r0, r1 = launch.ranks()
+    _holds(r0[f"small {lookup}"], refs["small"], refs["port"][f"small {lookup}"], FLOW_TOL)
+    np.testing.assert_array_equal(r1[f"small {lookup}"], r0[f"small {lookup}"])
+
+
+def test_spatial_small_stream_matches_jax(launch, refs):
+    """Stream (a): RAFT-small, a reset and 2 warm-started pushes."""
+    _holds(launch.ranks()[0]["small stream"], refs["small stream"],
+           refs["port"]["small stream"], ACC_TOL)
+
+
+def test_spatial_drift_prefix_matches_jax(launch, refs):
+    """The drift fixture's trained RAFT-small and accumulator over its first
+    10 frames (a reset and 7 pushes; flows of several px), on two ranks."""
+    got = launch.ranks()[0]["drift"]
+    assert got.shape == (DRIFT_FRAMES - 2, 1, 64, 64, 2) and np.abs(got).max() > 1.0
+    _holds(got, refs["drift"], refs["port"]["drift"], ACC_TOL)
+
+
+def test_spatial_uneven_clip_matches_jax(launch, refs):
+    """The clip at a height of 40 over two ranks: 24 + 16 rows."""
+    got = launch.ranks()[0]["clip 40"]
+    assert got.shape == (CLIP40[0] - 2,) + CLIP40[1:4] + (2,)
+    _holds(got, refs["clip 40"], refs["port"]["clip 40"], ACC_TOL)
+
+
+def test_spatial_uneven_raft_four_ranks(launch4, refs4):
+    """Full RAFT at 48x64 over four ranks of 16, 16, 8 and 8 rows, against
+    JAX unsharded, JAX's GSPMD run over 4 devices and one process."""
+    ranks = launch4.ranks()
+    assert [int(r["raft48/rows"][0]) for r in ranks] == [16, 16, 8, 8]
+    got = ranks[0]["raft48"]
+    _holds(got, refs4["jax"], refs4["port"], FLOW_TOL)
+    _holds(got, refs4["gspmd"], refs4["port"], FLOW_TOL)
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["raft48"], got)
+        assert int(r["raft48/collectives"][0]) == int(ranks[0]["raft48/collectives"][0]) > 0
+
+
+@pytest.mark.parametrize("height,n,rows", [(440, 2, (224, 216)), (720, 4, (184, 184, 176, 176)),
+                                           (48, 4, (16, 16, 8, 8))])
+def test_split_rows(height, n, rows):
+    """The blocks: the 1/8 rows as even as possible, the first ranks one
+    more; a handle given the height answers every scale from them."""
+    assert mesh.split_rows(height, n) == rows
+    sp = mesh.Spatial(None, n - 1, n).at_height(height)
+    assert sp.height(rows[-1]) == height and sp.row0(rows[-1]) == height - rows[-1]
+    assert sp.height(rows[-1] // 8) == height // 8
+    assert sp.row0(rows[-1] // 8) == (height - rows[-1]) // 8
+    assert sp.split(height // 2) == [r // 2 for r in rows]
+
+
 def test_spatial_clip_matches_jax(launch, refs):
     got = launch.ranks()[0]["clip"]
     assert got.shape == (3, 1, SIZE, SIZE, 2)
@@ -464,20 +789,24 @@ def test_mesh_layout_matches_jax(cpu_devices, n_data, n_spatial):
 
 def test_spatial_refusals(tmp_path):
     """A handle (never used for a collective here: each call refuses
-    first) where the spatial axis is not ported, or where the height does
-    not split into blocks of 8 rows."""
+    first) where the spatial axis is not ported (the stepwise, F0N and
+    warm-start clip paths, a training forward), or where the frames do not
+    split into blocks of 8-row multiples (a height not a multiple of 8,
+    fewer rows at 1/8 than ranks, unequal blocks the handle was not given).
+    GMA and RAFT-small take a handle: the launches run them."""
     sp = mesh.Spatial(None, 0, 2)
     with pytest.raises(ValueError, match="n_spatial=2"):
         mesh.make_mesh(n_spatial=2)
     est = build_flow_estimator("raft", compute_dtype="float32", iters=1, device="cpu")
-    img = np.zeros((1, 12, 16, 3), np.float32)  # a rank's 12 rows of 24
-    with pytest.raises(ValueError, match="multiple of 8"):
-        est.forward(img, img, spatial=sp)
-    with pytest.raises(ValueError, match="GMA"):
-        build_flow_estimator("gma", compute_dtype="float32", device="cpu").pairs_fn(spatial=sp)
-    small = build_flow_estimator("raft", compute_dtype="float32", small=True, device="cpu")
-    with pytest.raises(ValueError, match="RAFT-small"):
-        small.forward(img[:, :8], img[:, :8], spatial=sp)
+    img = np.zeros((1, 12, 16, 3), np.float32)
+    with pytest.raises(ValueError, match="not a multiple of 8"):
+        est.forward(img[:, :10], img[:, :10], spatial=sp)  # a height of 20
+    with pytest.raises(ValueError, match="fewer than n_spatial=2"):
+        sp.at_height(8)
+    with pytest.raises(ValueError, match=r"at_height\(24\)"):
+        est.forward(img, img, spatial=sp)  # 12 rows a rank of 24: blocks of 16 + 8
+    with pytest.raises(ValueError, match="its block of a height of 24 is 16"):
+        est.forward(img, img, spatial=sp.at_height(24))
     clip = np.zeros((4, 1, 16, 16, 3), np.float32)
     for kw in (dict(warm_start=True), dict(direction="forward"), dict(fused_ofe=False)):
         acc = init_accflow(AccFlowConfig(hidden=32, compute_dtype="float32", **kw),
