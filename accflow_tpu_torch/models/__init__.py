@@ -50,7 +50,9 @@ class FlowEstimator:
     that names none (default: the model config's). The inference entry
     points take a `spatial` handle (parallel/mesh.py: frames, features and
     flows are this rank's rows of a height-sharded image), for RAFT of
-    either size and GMA; a training forward refuses one (ValueError)."""
+    either size and GMA: the frozen estimator of the accumulator's sharded
+    train step runs through them, under no_grad. A training forward (the
+    estimator's own, fine_tune's) refuses one (ValueError)."""
 
     def __init__(self, name: str, model, iters: Optional[int] = None):
         self.name = name
@@ -75,8 +77,8 @@ class FlowEstimator:
         spatial: images and flows are this rank's rows (inference only)."""
         if train:
             if spatial is not None:
-                raise ValueError("training over the spatial axis is not ported: "
-                                 "ROADMAP.md queue 1, #12")
+                raise ValueError("the estimator's training over the spatial axis (fine_tune) is "
+                                 "not ported: ROADMAP.md queue 1, #12 item 5.2")
             return self._train_forward(self.model, image1, image2, self._iters(iters),
                                        flow_init, final_only, remat)
         return self._forward(self.model, image1, image2, self._iters(iters), flow_init,
@@ -115,7 +117,8 @@ class FlowEstimator:
 
     def flow_fn(self, spatial=None):
         """Closure (image1, image2, flow_init=None) -> final full-res flow,
-        for AccFlow's warm-started stepwise OFE (AccFlowConfig.warm_start)."""
+        for AccFlow's stepwise paths (AccFlowConfig.warm_start, fused_ofe
+        False); spatial: images, flow_init and flows are this rank's rows."""
         def fn(image1, image2, flow_init=None):
             return self.forward(image1, image2, flow_init=flow_init, final_only=True,
                                 spatial=spatial)["flow_up"]

@@ -28,17 +28,20 @@ the OFE step by step; the warm-started one starts each step's queries from
 the previous step's flows advected into the new frame. Cell modules run in the
 compute dtype; OFE flows, occlusion maps and decoder outputs are float32.
 
-Height sharding (parallel/mesh.py): the fused backward path
-(`accflow_forward(..., spatial=...)`, with `ofe_pairs` from
-`FlowEstimator.pairs_fn(spatial=...)` of RAFT, RAFT-small or GMA) and the
+Height sharding (parallel/mesh.py): every path (`accflow_forward(...,
+spatial=...)`, with `ofe_pairs` from `FlowEstimator.pairs_fn(spatial=...)`
+or `ofe` from `flow_fn(spatial=...)` of RAFT, RAFT-small or GMA) and the
 streaming cell (`_cell_from_ctx`) run on this rank's block of rows of the
 frames, at any height that splits into 8-row blocks (mesh.split_rows;
-blocks may differ by 8 rows). The convs read
-halo rows (their modules take the handle from nn.layers.spatial_sharding),
-the occlusion and error maps warp the gathered context of the target frames,
-the deformable conv samples the gathered carry encoding, and the convex
-upsampling reads a halo row of the flow. The stepwise, F0N and warm-start
-clip paths refuse a handle (ROADMAP.md queue 1, #12).
+blocks may differ by 8 rows). The convs read halo rows (their modules take
+the handle from nn.layers.spatial_sharding, which each cell sets itself,
+so that a rematerialised cell's recompute reads them too), the occlusion
+and error maps warp the gathered context of their source frames (F0N's
+carry map that of frame i-1, inside the loop), the deformable conv samples
+the gathered carry encoding, the convex upsampling reads a halo row of
+the flow, and the warm start's advected inits are the group's summed
+splats (ops/softsplat.py). The estimator runs on each rank's own queries
+against the whole pyramid (kernel #1, or #2 for RAFT-small).
 
 Training (train/engine.py) differentiates a path (fused or stepwise, in
 either direction) with respect to the accumulator's weights and detaches
@@ -48,7 +51,9 @@ maps, and the carry entering each cell (truncated backpropagation through
 the recurrence). The context encoder trains through AccPlus's and
 Blending's context inputs. AccFlowConfig.remat recomputes each cell in the
 backward pass (the stepwise paths' cell modules; their OFE queries carry no
-gradient and are not recomputed).
+gradient and are not recomputed). With a spatial handle every exchange is
+differentiable (parallel/mesh.py), so each rank's loss part reaches the
+weights through the other ranks' rows too (train/engine.py).
 """
 
 from __future__ import annotations
@@ -227,37 +232,40 @@ def _cell_from_ctx(model: AccFlow, dflow, flow_ini, f2n, c1, c2, cn, spatial=Non
         return model.flow_decoder(f_fuse, spatial)
 
 
-def _cell_modules(model: AccFlow, dflow, flow_ini, f2n, i1, i2, i_n):
+def _cell_modules(model: AccFlow, dflow, flow_ini, f2n, i1, i2, i_n, spatial=None):
     """_cell_from_ctx with the context of frames i1, i2, i_n (N, H, W, 3)
     encoded here, in one batched call."""
     n = i1.shape[0]
-    with tf32(False):
+    with tf32(False), spatial_sharding(model, spatial):
         ctx = model.context(to_nchw(torch.cat([i1, i2, i_n]), model.cfg.dtype))
-    return _cell_from_ctx(model, dflow, flow_ini, f2n, ctx[:n], ctx[n: 2 * n], ctx[2 * n:])
+    return _cell_from_ctx(model, dflow, flow_ini, f2n, ctx[:n], ctx[n: 2 * n], ctx[2 * n:],
+                          spatial)
 
 
-def _accflow_forward_stepwise(model: AccFlow, ofe, images: torch.Tensor) -> torch.Tensor:
+def _accflow_forward_stepwise(model: AccFlow, ofe, images: torch.Tensor,
+                              spatial=None) -> torch.Tensor:
     """Cold stepwise accumulation (accflow_tpu/models/accflow.py:296-324,
     680-697, AccFlow_.py:177-201): step i queries the OFE for its own pairs,
     I_i -> I_{i-1} and I_i -> I_0 (and, on the first step, the seed
     I_1 -> I_0), then runs the cell. `ofe` is FlowEstimator.flow_fn()."""
     i_n = images[0]
-    cell = remat_wrap(functools.partial(_cell_modules, model), model.cfg.remat)
+    cell = remat_wrap(functools.partial(_cell_modules, model, spatial=spatial), model.cfg.remat)
     carry, outs = None, []
     for i in range(2, images.shape[0]):
         i1, i2 = images[i], images[i - 1]
         if carry is None:
-            flows = downflow8(ofe(torch.cat([i1, i1, i2]), torch.cat([i2, i_n, i_n])))
+            flows = downflow8(ofe(torch.cat([i1, i1, i2]), torch.cat([i2, i_n, i_n])), spatial)
             dflow, flow_ini, carry = flows.detach().chunk(3)
         else:
-            flows = downflow8(ofe(torch.cat([i1, i1]), torch.cat([i2, i_n])))
+            flows = downflow8(ofe(torch.cat([i1, i1]), torch.cat([i2, i_n])), spatial)
             dflow, flow_ini = flows.detach().chunk(2)
         carry, out = cell(dflow, flow_ini, carry.detach(), i1, i2, i_n)
         outs.append(out)
     return torch.stack(outs)
 
 
-def _accflow_forward_f0n(model: AccFlow, ofe, images: torch.Tensor) -> torch.Tensor:
+def _accflow_forward_f0n(model: AccFlow, ofe, images: torch.Tensor,
+                         spatial=None) -> torch.Tensor:
     """Stepwise forward accumulation, [F_{0,2} .. F_{0,T-1}]
     (accflow_tpu/models/accflow.py:391-458): the cell with the roles
     swapped, F_{0,i}(x) = F_{0,i-1}(x) + f_{i-1,i}(x + F_{0,i-1}(x)). Slots
@@ -268,21 +276,22 @@ def _accflow_forward_f0n(model: AccFlow, ofe, images: torch.Tensor) -> torch.Ten
     carry F_{0,1}. `ofe` is FlowEstimator.flow_fn()."""
     i0 = images[0]
     flows = downflow8(ofe(torch.cat([i0, i0, images[1]]),
-                          torch.cat([images[1], images[2], images[2]])))
+                          torch.cat([images[1], images[2], images[2]])), spatial)
     seed, direct, local = flows.detach().chunk(3)
-    carry, out = _cell_modules(model, seed, direct, local, i0, images[1], images[2])
+    carry, out = _cell_modules(model, seed, direct, local, i0, images[1], images[2], spatial)
     outs = [out]
-    cell = remat_wrap(functools.partial(_cell_modules, model), model.cfg.remat)
+    cell = remat_wrap(functools.partial(_cell_modules, model, spatial=spatial), model.cfg.remat)
     for i in range(3, images.shape[0]):
         i2, i_n = images[i - 1], images[i]
-        flows = downflow8(ofe(torch.cat([i0, i2]), torch.cat([i_n, i_n])))
+        flows = downflow8(ofe(torch.cat([i0, i2]), torch.cat([i_n, i_n])), spatial)
         direct, local = flows.detach().chunk(2)
         carry, out = cell(carry.detach(), direct, local, i0, i2, i_n)
         outs.append(out)
     return torch.stack(outs)
 
 
-def _accflow_forward_warmstart(model: AccFlow, ofe, images: torch.Tensor) -> torch.Tensor:
+def _accflow_forward_warmstart(model: AccFlow, ofe, images: torch.Tensor,
+                               spatial=None) -> torch.Tensor:
     """Stepwise accumulation with warm-started OFE queries (the reference
     README's TODO, built on upstream RAFT's forward-interpolate warm start).
     Between steps the query frame advances one frame, so the previous
@@ -294,22 +303,24 @@ def _accflow_forward_warmstart(model: AccFlow, ofe, images: torch.Tensor) -> tor
         flow_ini_init <- splat(flow_ini_prev, -dflow_prev)
 
     `ofe` is FlowEstimator.flow_fn(). Only the estimator's starting point
-    changes: with enough iterations the outputs match the cold path."""
+    changes: with enough iterations the outputs match the cold path.
+    spatial: each splat is the group's summed splat of its rows."""
     t = images.shape[0]
     i_n = images[0]
     i1, i2 = images[2], images[1]
-    flows = downflow8(ofe(torch.cat([i1, i1, i2]), torch.cat([i2, i_n, i_n])))
+    flows = downflow8(ofe(torch.cat([i1, i1, i2]), torch.cat([i2, i_n, i_n])), spatial)
     dflow, flow_ini, seed = flows.chunk(3)
-    carry, out = _cell_modules(model, dflow, flow_ini, seed, i1, i2, i_n)
+    carry, out = _cell_modules(model, dflow, flow_ini, seed, i1, i2, i_n, spatial)
     outs = [out]
     for i in range(3, t):
         i1, i2 = images[i], images[i - 1]
         advect = -dflow
-        init = torch.cat([forward_splat_flow(dflow, advect),
-                          forward_splat_flow(flow_ini, advect)])
-        flows = downflow8(ofe(torch.cat([i1, i1]), torch.cat([i2, i_n]), flow_init=init))
+        init = torch.cat([forward_splat_flow(dflow, advect, spatial),
+                          forward_splat_flow(flow_ini, advect, spatial)])
+        flows = downflow8(ofe(torch.cat([i1, i1]), torch.cat([i2, i_n]), flow_init=init),
+                          spatial)
         dflow, flow_ini = flows.chunk(2)
-        carry, out = _cell_modules(model, dflow, flow_ini, carry, i1, i2, i_n)
+        carry, out = _cell_modules(model, dflow, flow_ini, carry, i1, i2, i_n, spatial)
         outs.append(out)
     return torch.stack(outs)
 
@@ -325,28 +336,24 @@ def _clip_images(model: AccFlow, images) -> torch.Tensor:
 def _dispatch(model: AccFlow, images: torch.Tensor, ofe_pairs, ofe,
               spatial=None) -> torch.Tensor:
     """The path of model.cfg (direction, warm_start, fused_ofe), given the
-    OFE closure it takes (accflow_tpu/models/accflow.py:644-697). With a
-    spatial handle, the fused backward path alone."""
+    OFE closure it takes (accflow_tpu/models/accflow.py:644-697), on this
+    rank's rows under a spatial handle."""
     cfg = model.cfg
     forward = cfg.direction == "forward"
-    if spatial is not None and (cfg.warm_start or forward or not cfg.fused_ofe):
-        raise ValueError("the stepwise, F0N and warm-start clip paths over the spatial axis are "
-                         "not ported (ROADMAP.md queue 1, #12): the fused backward path (and "
-                         "StreamAccumulator) take a spatial handle")
     mesh.check_rows(images.shape[2], spatial)
     if cfg.warm_start:
         if ofe is None:
             raise ValueError("warm_start needs ofe=FlowEstimator.flow_fn()")
-        return _accflow_forward_warmstart(model, ofe, images)
+        return _accflow_forward_warmstart(model, ofe, images, spatial)
     if cfg.fused_ofe:
         if ofe_pairs is None:
             raise ValueError("the fused path needs ofe_pairs=FlowEstimator.pairs_fn()")
-        if forward:
-            return _accflow_forward_f0n_fused(model, ofe_pairs, images)
-        return _accflow_forward_fused(model, ofe_pairs, images, spatial)
+        fused = _accflow_forward_f0n_fused if forward else _accflow_forward_fused
+        return fused(model, ofe_pairs, images, spatial)
     if ofe is None:
         raise ValueError("the stepwise path (fused_ofe=False) needs ofe=FlowEstimator.flow_fn()")
-    return (_accflow_forward_f0n if forward else _accflow_forward_stepwise)(model, ofe, images)
+    return (_accflow_forward_f0n if forward else _accflow_forward_stepwise)(model, ofe, images,
+                                                                            spatial)
 
 
 @torch.no_grad()
@@ -361,24 +368,28 @@ def accflow_forward(model: AccFlow, images, ofe_pairs=None, ofe=None,
     stepwise paths (cfg.fused_ofe=False, cfg.warm_start). Returns
     (T-2, N, H, W, 2) float32: [F_{2,0}, ..., F_{T-1,0}], or with
     cfg.direction="forward" [F_{0,2}, ..., F_{0,T-1}]. spatial (a
-    parallel.mesh.Spatial handle; the fused backward path): images and the
-    flows are this rank's rows, and ofe_pairs is FlowEstimator.pairs_fn(
-    spatial=...) with the same handle."""
+    parallel.mesh.Spatial handle, given the frames' height): images and
+    the flows are this rank's rows, and ofe_pairs / ofe are
+    FlowEstimator.pairs_fn(spatial=...) / flow_fn(spatial=...) with the
+    same handle."""
     return _dispatch(model, _clip_images(model, images), ofe_pairs, ofe, spatial)
 
 
-def accflow_train_forward(model: AccFlow, images, ofe_pairs, ofe=None) -> torch.Tensor:
+def accflow_train_forward(model: AccFlow, images, ofe_pairs, ofe=None,
+                          spatial=None) -> torch.Tensor:
     """accflow_forward with autograd recording the accumulator (the
     training forward of accflow_tpu/models/accflow.py's accflow_forward
     under jax.grad): the same outputs, differentiable with respect to
     `model`'s weights, on the path of model.cfg (fused or stepwise, either
     direction); the frozen estimator's flows, the occlusion and error maps
-    and each cell's incoming carry are detached. `ofe_pairs` and `ofe` as
-    accflow_forward's."""
+    and each cell's incoming carry are detached. `ofe_pairs`, `ofe` and
+    `spatial` as accflow_forward's: under a handle the outputs are this
+    rank's rows, and their gradients reach the other ranks' rows through
+    the exchanges' backward (parallel/mesh.py)."""
     if model.cfg.warm_start:
         raise ValueError("training runs the fused or the cold stepwise path; warm_start is an "
                          "inference path")
-    return _dispatch(model, _clip_images(model, images), ofe_pairs, ofe)
+    return _dispatch(model, _clip_images(model, images), ofe_pairs, ofe, spatial)
 
 
 def _accflow_forward_fused(model: AccFlow, ofe_pairs, images: torch.Tensor,
@@ -423,9 +434,10 @@ def _accflow_forward_fused(model: AccFlow, ofe_pairs, images: torch.Tensor,
         dfs = enc[s * n:].view(s, n, *enc.shape[1:])
 
         def cell(carry, f_ini, df, o_i, emap_i, c_i):
-            f = model.flow_encoder(to_nchw(carry.detach(), cd))
-            f_acc = model.accplus(df, f, o_i, c_i, spatial)
-            return model.flow_decoder(model.blending(f_ini, f_acc, emap_i), spatial)
+            with spatial_sharding(model, spatial):  # again in a remat recompute
+                f = model.flow_encoder(to_nchw(carry.detach(), cd))
+                f_acc = model.accplus(df, f, o_i, c_i, spatial)
+                return model.flow_decoder(model.blending(f_ini, f_acc, emap_i), spatial)
 
         cell = remat_wrap(cell, model.cfg.remat)
         carry, outs = seed, []
@@ -435,13 +447,15 @@ def _accflow_forward_fused(model: AccFlow, ofe_pairs, images: torch.Tensor,
         return torch.stack(outs)
 
 
-def _accflow_forward_f0n_fused(model: AccFlow, ofe_pairs, images: torch.Tensor) -> torch.Tensor:
+def _accflow_forward_f0n_fused(model: AccFlow, ofe_pairs, images: torch.Tensor,
+                               spatial=None) -> torch.Tensor:
     """Fused-OFE forward accumulation (accflow_tpu/models/accflow.py:461-550;
     slots as _accflow_forward_f0n): one batched OFE call for the direct
     flows F_{0,i}, the local flows f_{i-1,i} and the seed F_{0,1}; the
     context, the error maps of the direct flows and the flow encodings once.
     The occlusion map of the carry between frames 0 and i-1 stays in the
-    loop."""
+    loop. spatial: images and flows are this rank's rows; the context of
+    frames 1 .. T-1, the maps' warp sources, is gathered once."""
     cd = model.cfg.dtype
     t, n, h, w, _ = images.shape
     s, h8, w8 = t - 2, h // 8, w // 8
@@ -450,19 +464,24 @@ def _accflow_forward_f0n_fused(model: AccFlow, ofe_pairs, images: torch.Tensor) 
     # (accflow.py:478-479).
     src_idx = (0,) * s + tuple(range(1, t - 1)) + (0,)
     dst_idx = tuple(range(2, t)) + tuple(range(2, t)) + (1,)
-    flows = downflow8(ofe_pairs(images, src_idx, dst_idx)).detach()
+    flows = downflow8(ofe_pairs(images, src_idx, dst_idx), spatial).detach()
     directs, locals_, seed = flows[: s * n], flows[s * n: 2 * s * n], flows[2 * s * n:]
 
-    with tf32(False):
+    with tf32(False), spatial_sharding(model, spatial):
         ctx = model.context(to_nchw(images.reshape(t * n, h, w, 3), cd))
         ctx = ctx.view(t, n, *ctx.shape[1:])  # (T, N, C, h8, w8)
         ctx32 = ctx.float().permute(0, 1, 3, 4, 2)  # (T, N, h8, w8, C)
         c_dim = ctx32.shape[-1]
         c0, c0_32 = ctx[0], ctx32[0]
+        # The warps' sources: frames 1 .. T-1 (src32[k] is frame k + 1), the
+        # whole height.
+        src32 = ctx32[1:] if spatial is None else \
+            mesh.gather_rows(ctx[1:], spatial, dim=3).float().permute(0, 1, 3, 4, 2)
+        sh8 = src32.shape[2]
 
         emap = photometric_occ(
             directs, c0_32.expand(s, n, h8, w8, c_dim).reshape(s * n, h8, w8, c_dim),
-            ctx32[2:].reshape(s * n, h8, w8, c_dim), binary=False)
+            src32[1:].reshape(s * n, sh8, w8, c_dim), binary=False, spatial=spatial)
         emap = to_nchw(emap, cd).view(s, n, c_dim, h8, w8).detach()
 
         enc = model.flow_encoder(to_nchw(torch.cat([directs, locals_]), cd))
@@ -470,15 +489,16 @@ def _accflow_forward_f0n_fused(model: AccFlow, ofe_pairs, images: torch.Tensor) 
         f_locs = enc[s * n:].view(s, n, *enc.shape[1:])
 
         def cell(carry, f_dir, f_loc, emap_i, c_prev32):
-            carry = carry.detach()
-            f = model.flow_encoder(to_nchw(carry, cd))
-            o = photometric_occ(carry, c0_32, c_prev32).detach()
-            f_acc = model.accplus(f, f_loc, to_nchw(o, cd), c0)
-            return model.flow_decoder(model.blending(f_dir, f_acc, emap_i))
+            with spatial_sharding(model, spatial):  # again in a remat recompute
+                carry = carry.detach()
+                f = model.flow_encoder(to_nchw(carry, cd))
+                o = photometric_occ(carry, c0_32, c_prev32, spatial=spatial).detach()
+                f_acc = model.accplus(f, f_loc, to_nchw(o, cd), c0, spatial)
+                return model.flow_decoder(model.blending(f_dir, f_acc, emap_i), spatial)
 
         cell = remat_wrap(cell, model.cfg.remat)
         carry, outs = seed, []
         for i in range(s):
-            carry, out = cell(carry, f_dirs[i], f_locs[i], emap[i], ctx32[i + 1])
+            carry, out = cell(carry, f_dirs[i], f_locs[i], emap[i], src32[i])
             outs.append(out)
         return torch.stack(outs)

@@ -1,5 +1,5 @@
-"""Data parallelism over torch.distributed, the port's counterpart of
-accflow_tpu/parallel/mesh.py.
+"""Data and spatial parallelism over torch.distributed, the port's
+counterpart of accflow_tpu/parallel/mesh.py.
 
 JAX runs one SPMD program over a device mesh: batch-sharded inputs,
 replicated parameters, and the psums GSPMD inserts (the gradient mean, and
@@ -29,17 +29,18 @@ global process group.
 On the card the collectives are NCCL's, captured inside a train step's CUDA
 graph (graphs.CudaGraphedStep); on the CPU they are gloo's, eagerly.
 
-The mesh's `spatial` axis is ported for inference (JAX's hi-res serving and
-streaming, where GSPMD shards image height and inserts the halo exchanges
-and gathers). make_mesh(n_data, n_spatial) lays the ranks out as JAX's
-reshape(n_data, n_spatial): a spatial group is n_spatial consecutive ranks,
-and each rank gets a `Spatial` handle. Every rank holds its own block of
-rows of the frames and of every activation (shard_rows): the frame height's
-1/8-scale rows split as evenly as possible, the first ranks one more
-(split_rows; a handle given the height by `Spatial.at_height` carries the
-table, one without it splits evenly), so every block starts on a multiple
-of 8 rows at full resolution and the stride-2 convs line up. The model code
-writes out what GSPMD inserts, each through the handle it is given:
+The mesh's `spatial` axis shards image height (JAX's hi-res serving,
+streaming and height-sharded accumulator training, where GSPMD inserts the
+halo exchanges and gathers). make_mesh(n_data, n_spatial) lays the ranks
+out as JAX's reshape(n_data, n_spatial): a spatial group is n_spatial
+consecutive ranks, and each rank gets a `Spatial` handle. Every rank holds
+its own block of rows of the frames and of every activation (shard_rows):
+the frame height's 1/8-scale rows split as evenly as possible, the first
+ranks one more (split_rows; a handle given the height by
+`Spatial.at_height` carries the table, one without it splits evenly), so
+every block starts on a multiple of 8 rows at full resolution and the
+stride-2 convs line up. The model code writes out what GSPMD inserts, each
+through the handle it is given:
 - a conv reads `halo_rows` above and below its rows (nn/layers.py::conv2d);
 - instance norm combines the ranks' statistics, weighted by their pixels
   (`stack_ranks`);
@@ -50,9 +51,26 @@ writes out what GSPMD inserts, each through the handle it is given:
 The collectives are all_gather (host-staged under gloo, which takes CUDA
 tensors in all_reduce but not in all_gather; unequal blocks padded to the
 largest and trimmed after) and all_reduce; `collectives` and `bytes_sent`
-count them. Full RAFT, RAFT-small and GMA take a handle in every inference
-entry point; training over the spatial axis and AccFlow's stepwise, F0N and
-warm-start clip paths do not yet (ROADMAP.md queue 1, #12).
+count them, in the forward and in the backward alike.
+
+Every exchange is differentiable, as GSPMD's transpose of it is. Each rank
+back-propagates its own part of the loss (train/loss.py: its pixels' sum
+over the global count), so the gradient of a tensor another rank read is
+the sum of what every rank's part sends back: stack_ranks' backward
+all-reduces the stacked gradient over the group and keeps this rank's
+slice (a halo row's gradient returns to the rank that owns the row, a
+gathered block's to its owner, instance norm's statistics' to each rank),
+and sum_ranks' backward all-reduces the gradient. The ranks' parameter
+gradients are then summed over the spatial group and averaged over the
+data group, in one all_reduce over the world divided by n_data
+(average_gradients with the handle, from train/optim.py).
+Every rank builds the same graph in the same order, so the backward's
+collectives line up (and a rematerialised cell re-runs its forward's in the
+same order on each).
+Full RAFT, RAFT-small and GMA take a handle in every inference entry
+point, AccFlow in each clip path and in its training forward
+(train/engine.py::make_acc_train_step); the estimators' training forward
+(fine_tune) and graphed spatial steps do not yet (ROADMAP.md queue 1, #12).
 
 Without a process group every function is the single-process identity, and
 the engines' outputs are those of the code before this module existed.
@@ -60,6 +78,7 @@ the engines' outputs are those of the code before this module existed.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import NamedTuple, Optional
 
@@ -272,41 +291,73 @@ def shard_params(module: torch.nn.Module) -> torch.nn.Module:
     return module
 
 
-def _flat_mean(tensors, group) -> None:
-    """Average `tensors` over the ranks of `group` in place, through one
-    flat buffer per dtype (one collective, NCCL-capturable)."""
+def _flat_reduce(tensors, group, divisor: int) -> None:
+    """Sum `tensors` over the ranks of `group` and divide them by
+    `divisor`, in place, through one flat buffer per dtype (one collective,
+    NCCL-capturable)."""
     by_dtype: dict = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for ts in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in ts])
         dist.all_reduce(flat, group=group)
-        flat.div_(dist.get_world_size(group))
+        flat.div_(divisor)
         offset = 0
         for t in ts:
             t.copy_(flat[offset: offset + t.numel()].view_as(t))
             offset += t.numel()
 
 
-def average_gradients(params, group) -> None:
-    """The mean of every parameter's .grad over the ranks of `group`, in
-    place (a world of one included: the collective is then an exact copy);
-    nothing for group None."""
-    if group is not None:
-        _flat_mean([p.grad for p in params if p.grad is not None], group)
+def average_gradients(params, group, sp: Optional[Spatial] = None) -> None:
+    """The mesh's gradient in every parameter's .grad, in place, through one
+    flat collective: the mean over the ranks of the data-parallel `group`
+    (a world of one included: the collective is then an exact copy). With a
+    spatial handle `sp` each rank holds the gradient of its own part of the
+    loss (train/loss.py), which the spatial group sums: the collective is
+    then the world's sum (the mesh: every spatial group of every data
+    group) divided by the mesh's n_data, counted as a spatial one. Nothing
+    for group and sp None. Every rank then holds the same bits."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if sp is not None:
+        world = world_size()
+        _count(2 * sum(g.numel() * g.element_size() for g in grads) * (world - 1) / world)
+        _flat_reduce(grads, dist.group.WORLD, world // sp.size)
+    elif group is not None:
+        _flat_reduce(grads, group, dist.get_world_size(group))
 
 
 def all_mean(tree, group):
     """The mean over the ranks of `group` of a dict, tuple or list of 0-d
     tensors (a step's loss and metrics), as new tensors; the input
     unchanged for group None."""
-    if group is None:
-        return tree
+    return tree if group is None else _reduce_tree(tree, group, spatial=False)
+
+
+def _all_reduce(t: torch.Tensor, group, counted: bool) -> torch.Tensor:
+    """The sum of `t` over the ranks of `group`, on every rank (a new
+    tensor; counted in `collectives` and `bytes_sent` when `counted`, as
+    the spatial axis's are): an all_reduce, which gloo runs on CUDA tensors
+    too."""
+    if counted:
+        n = dist.get_world_size(group)
+        _count(2 * t.numel() * t.element_size() * (n - 1) / n)
+    out = t.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def _reduce_tree(tree, group, spatial: bool):
+    """A dict, tuple or list of tensors reduced over the ranks of `group`,
+    detached, through one flat collective: a spatial group's counted sum
+    (`spatial`), else a data group's mean."""
     leaves, spec = torch.utils._pytree.tree_flatten(tree)
-    flat = torch.stack([x.detach().float().reshape(()) for x in leaves])
-    dist.all_reduce(flat, group=group)
-    flat = flat / dist.get_world_size(group)
-    return torch.utils._pytree.tree_unflatten(list(flat.unbind(0)), spec)
+    flat = _all_reduce(torch.cat([x.detach().float().reshape(-1) for x in leaves]), group,
+                       spatial)
+    if not spatial:
+        flat = flat / dist.get_world_size(group)
+    parts = flat.split([x.numel() for x in leaves])
+    return torch.utils._pytree.tree_unflatten(
+        [p.view(x.shape) for p, x in zip(parts, leaves)], spec)
 
 
 class _GlobalSum(torch.autograd.Function):
@@ -314,23 +365,19 @@ class _GlobalSum(torch.autograd.Function):
     ranks of the gradients (every rank's loss reads the sum)."""
 
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        out = t.clone()
-        dist.all_reduce(out, group=group)
-        return out
+    def forward(ctx, t, group, counted):
+        ctx.group, ctx.counted = group, counted
+        return _all_reduce(t, group, counted)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
+        return _all_reduce(grad, ctx.group, ctx.counted), None, None
 
 
 def global_sum(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of `t` over the ranks of `group` (not None), differentiable,
     as GSPMD's psum."""
-    return _GlobalSum.apply(t, group)
+    return _GlobalSum.apply(t, group, False)
 
 
 def _all_gather(t: torch.Tensor, group, size: int) -> list:
@@ -369,6 +416,12 @@ def _count(nbytes: float) -> None:
     bytes_sent += int(nbytes)
 
 
+def global_rows(local: int, sp: Optional[Spatial]) -> int:
+    """The whole height of a tensor of which this rank holds `local` rows
+    (Spatial.height): `local` without a handle."""
+    return local if sp is None else sp.height(local)
+
+
 def check_rows(local: int, sp: Optional[Spatial]) -> None:
     """ValueError unless this rank's `local` rows of the frames are its
     block of the handle's table (split_rows), or, for a handle without
@@ -403,12 +456,29 @@ def shard_rows(x, sp: Optional[Spatial], dim: int = 1):
     return x[tuple(index)]
 
 
+class _StackRanks(torch.autograd.Function):
+    """stack_ranks. Backward: rank i's stack fed every rank's loss part, so
+    the gradient of rank j's tensor is the sum over ranks of their stacks'
+    gradients at slot j: one all_reduce of the stacked gradient, this
+    rank's slot kept (gloo has no reduce_scatter on every build)."""
+
+    @staticmethod
+    def forward(ctx, t, sp):
+        ctx.sp = sp
+        _count(t.numel() * t.element_size() * (sp.size - 1))
+        return torch.stack(_all_gather(t, sp.group, sp.size)).to(t.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.sp.group, True)[ctx.sp.index], None
+
+
 def stack_ranks(t: torch.Tensor, sp: Spatial) -> torch.Tensor:
     """Every rank's `t` (the same shape on each), stacked in rank order on
     a new axis 0, on every rank: an all_gather, through the host under
-    gloo. Exact: the bytes are moved, not summed."""
-    _count(t.numel() * t.element_size() * (sp.size - 1))
-    return torch.stack(_all_gather(t, sp.group, sp.size)).to(t.device)
+    gloo. Exact: the bytes are moved, not summed. Differentiable
+    (_StackRanks: its backward is an all_reduce)."""
+    return _StackRanks.apply(t, sp)
 
 
 def gather_rows(x: torch.Tensor, sp: Optional[Spatial], dim: int = 1) -> torch.Tensor:
@@ -437,36 +507,57 @@ def halo_rows(x: torch.Tensor, sp: Spatial, top: int, bottom: int, dim: int = 2)
     each rank's edge rows (its last min(top, h) and first min(bottom, h)
     of its h rows, padded to the largest block's count): a halo may reach
     past the nearest rank. Rows above the image's top or below its bottom
-    are zeros."""
+    are zeros. Both are picked from one table of every rank's edge rows and
+    a zero row, so every rank's halos read the gathered stack (and its
+    backward, a collective, runs on every rank): a row's gradient returns
+    to the rank that owns it."""
     h = x.shape[dim]
     blocks = sp.blocks(h)
-    starts = np.cumsum([0] + blocks).tolist()
     tl, bl = min(top, h), min(bottom, h)
     tpad, bpad = min(top, max(blocks)), min(bottom, max(blocks))
     edges = torch.cat([_pad_rows(x.narrow(dim, h - tl, tl), tpad, dim),
                        _pad_rows(x.narrow(dim, 0, bl), bpad, dim)], dim=dim)
-    parts = stack_ranks(edges, sp).unbind(0)
-    zero = torch.zeros_like(x.narrow(dim, 0, 1))
-    r0, height = starts[sp.index], starts[-1]
+    table = torch.cat(list(stack_ranks(edges, sp).unbind(0))
+                      + [torch.zeros_like(x.narrow(dim, 0, 1))], dim=dim)
+    rows = table.index_select(dim, _halo_index(tuple(blocks), sp.index, top, bottom, x.device))
+    return rows.narrow(dim, 0, top), rows.narrow(dim, top, bottom)
 
-    def row(g: int) -> torch.Tensor:
+
+@functools.lru_cache(maxsize=512)
+def _halo_index(blocks: tuple, index: int, top: int, bottom: int,
+                device: torch.device) -> torch.Tensor:
+    """halo_rows' rows of its table (each rank's tpad + bpad edge rows in
+    rank order, then a zero row) for rank `index` of `blocks`: the `top`
+    above its rows, then the `bottom` below them, on `device`. Made once
+    for each shape (a copy to the device)."""
+    starts = np.cumsum((0,) + blocks).tolist()
+    tpad, bpad = min(top, max(blocks)), min(bottom, max(blocks))
+    width = tpad + bpad  # each rank's edge rows in the table
+    r0, h, height = starts[index], blocks[index], starts[-1]
+
+    def row(g: int) -> int:
         if g < 0 or g >= height:
-            return zero
+            return len(blocks) * width  # the zero row
         owner = int(np.searchsorted(starts, g, side="right")) - 1
         off, hr = g - starts[owner], blocks[owner]
         pos = off - (hr - min(top, hr)) if g < r0 else tpad + off
-        return parts[owner].narrow(dim, pos, 1)
+        return owner * width + pos
 
-    above = [row(g) for g in range(r0 - top, r0)]
-    below = [row(g) for g in range(r0 + h, r0 + h + bottom)]
-    return (torch.cat(above, dim=dim) if above else x.narrow(dim, 0, 0),
-            torch.cat(below, dim=dim) if below else x.narrow(dim, 0, 0))
+    rows = list(range(r0 - top, r0)) + list(range(r0 + h, r0 + h + bottom))
+    return torch.tensor([row(g) for g in rows], dtype=torch.long, device=device)
 
 
 def sum_ranks(t: torch.Tensor, sp: Spatial) -> torch.Tensor:
     """The sum of `t` over the ranks of the spatial group, on every rank (a
-    new tensor): an all_reduce, which gloo runs on CUDA tensors too."""
-    _count(2 * t.numel() * t.element_size() * (sp.size - 1) / sp.size)
-    out = t.clone()
-    dist.all_reduce(out, group=sp.group)
-    return out
+    new tensor): an all_reduce, which gloo runs on CUDA tensors too.
+    Differentiable: every rank's sum read this rank's tensor, so its
+    gradient is the sum over ranks of their sums' gradients (_GlobalSum)."""
+    return _GlobalSum.apply(t, sp.group, True)
+
+
+def spatial_sum(tree, sp: Optional[Spatial]):
+    """The sum over the ranks of the spatial group of a dict, tuple or list
+    of tensors (a step's loss and metrics, each rank's part of them, or a
+    per-sample vector), detached, as new tensors; the input unchanged
+    without a handle. One collective."""
+    return tree if sp is None else _reduce_tree(tree, sp.group, spatial=True)

@@ -152,7 +152,9 @@ class StreamAccumulator:
     parallel.mesh.Spatial handle): frames, outputs and state are this
     rank's rows, and `push` runs step_fn eagerly: a CUDA graph cannot
     capture gloo's collectives, and graphed spatial steps over NCCL are
-    not ported (ROADMAP.md queue 1, #12)."""
+    not ported (ROADMAP.md queue 1, #12 item 6). Its warm start is the
+    group's summed splat (ops/softsplat.py), as the warm-started clip's
+    (models/accflow.py)."""
 
     def __init__(self, est, acc: AccFlow, ini_init: str = "ini", spatial=None):
         self._init, step = make_streaming_fns(est, acc, ini_init=ini_init, spatial=spatial)

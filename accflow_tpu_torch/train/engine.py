@@ -29,6 +29,19 @@ loader and keeps its rows, the step's noise is drawn for the global batch
 and sliced likewise, the gradients, loss and metrics are averaged over
 ranks inside the step (captured with it over NCCL), the validation EPEs are
 gathered, and rank 0 alone writes logs, PNGs, TensorBoard and checkpoints.
+
+Height sharding (JAX's make_acc_train_step with images and flows sharded
+P("data", "spatial"), accflow_tpu/train/engine.py:111-160): the step
+builder takes a spatial handle beside the data group, and each rank holds
+its rows of its samples (mesh.shard_batch, then mesh.shard_rows). The
+frozen estimator runs on the rank's queries under no_grad, the accumulator
+differentiates through the exchanges (parallel/mesh.py), each rank
+back-propagates its part of the loss over the global pixels
+(train/loss.py), and the update sums the gradients over the spatial group
+and averages them over the data group, once, before the clip. The noise is
+the rank's rows of one global draw. The step runs eagerly: graphed spatial
+steps over NCCL are not ported (ROADMAP.md queue 1, #12 item 6). The
+engines (train_acc, fine_tune) stay data-parallel only, as JAX's do.
 """
 
 from __future__ import annotations
@@ -115,18 +128,23 @@ def noise_from_draws(stdv: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
     return 2.0 * (torch.clamp(stdv * normal, 0.0, 255.0) / 255.0) - 1.0
 
 
-def reference_noise(gen: torch.Generator, frame_shape, group=None) -> torch.Tensor:
+def reference_noise(gen: torch.Generator, frame_shape, group=None,
+                    spatial=None) -> torch.Tensor:
     """One step's noise (N, H, W, 3) float32, drawn from `gen` on its
     device: stdv, then the normals. With a process `group` the draw is the
     group's global batch's (N x world rows, the same on every rank) and this
     rank's rows of it are returned, so that the ranks together add the
-    noise one process would."""
-    n = frame_shape[0]
+    noise one process would. With a spatial handle H is this rank's block
+    of rows: the draw is at the global height, and the rank's block of it
+    is returned."""
+    n, h = frame_shape[0], frame_shape[1]
     world, rank = ((1, 0) if group is None
                    else (torch.distributed.get_world_size(group), torch.distributed.get_rank(group)))
+    height = mesh.global_rows(h, spatial)
     stdv = torch.rand((), generator=gen, device=gen.device) * 5.0
-    normal = torch.randn((n * world, *frame_shape[1:]), generator=gen, device=gen.device)
-    return noise_from_draws(stdv, normal)[rank * n: (rank + 1) * n]
+    normal = torch.randn((n * world, height, *frame_shape[2:]), generator=gen,
+                         device=gen.device)
+    return mesh.shard_rows(noise_from_draws(stdv, normal)[rank * n: (rank + 1) * n], spatial)
 
 
 def build_acc_model(opt, device=None):
@@ -147,16 +165,19 @@ def build_acc_model(opt, device=None):
     return est, acfg
 
 
-def graph_steps(make_update, valid_step, optimizer: Optimizer, graphed: bool, group=None):
+def graph_steps(make_update, valid_step, optimizer: Optimizer, graphed: bool, group=None,
+                spatial=None):
     """(train_step, valid_step) of a step factory: with `graphed`, the
     update make_update(optimizer.update) in graphs.CudaGraphedStep with the
     schedule's advance after each call, and valid_step in
     graphs.CudaGraphed (both run eagerly on CPU tensors); else the eager
-    make_update(optimizer.step) and valid_step. A process `group` is handed
-    to the update (its gradient mean over ranks)."""
+    make_update(optimizer.step) and valid_step. A process `group` and a
+    spatial handle are handed to the update (its gradient sum and mean
+    over ranks)."""
     update, step = optimizer.update, optimizer.step
-    if group is not None:
-        update, step = functools.partial(update, group), functools.partial(step, group)
+    if group is not None or spatial is not None:
+        update = functools.partial(update, group, spatial)
+        step = functools.partial(step, group, spatial)
     if graphed:
         return (graphs.CudaGraphedStep(make_update(update), after=optimizer.advance),
                 graphs.CudaGraphed(valid_step))
@@ -164,7 +185,7 @@ def graph_steps(make_update, valid_step, optimizer: Optimizer, graphed: bool, gr
 
 
 def make_acc_train_step(est, model: AccFlow, optimizer: Optimizer, add_noise: bool,
-                        grad_accum: int = 1, graphed: bool = False, group=None):
+                        grad_accum: int = 1, graphed: bool = False, group=None, spatial=None):
     """(train_step, valid_step) for the accumulator `model` against the
     frozen estimator `est`, on the path of model.cfg (the fused paths take
     its pairs_fn, the stepwise ones its flow_fn).
@@ -180,35 +201,52 @@ def make_acc_train_step(est, model: AccFlow, optimizer: Optimizer, add_noise: bo
     valid_step(imgs, label_flows) -> (per-sample EPE (N,), last output
     (N, H, W, 2)), under no_grad. graphed: the two as train_acc runs them,
     replayed from CUDA graphs on CUDA tensors (graph_steps). label_flows
-    are the direction's: bflows [F_{k,0}], or fflows [F_{0,k}] forward."""
-    pairs, ofe = est.pairs_fn(), est.flow_fn()
+    are the direction's: bflows [F_{k,0}], or fflows [F_{0,k}] forward.
+
+    spatial (mesh.Mesh.axis given the frames' height by at_height): imgs
+    and label_flows are this rank's rows of its samples (mesh.shard_batch,
+    then mesh.shard_rows(x, spatial, dim=1)); each rank back-propagates its
+    part of the loss over the global pixels, the update sums the gradients
+    over the spatial group (then averages them over `group`) before the
+    clip, the reported loss and metrics are the group's sums of the parts,
+    and valid_step returns the per-sample EPE over the global pixels and
+    this rank's rows of the last output. The step runs eagerly: graphed=True
+    with a handle raises ValueError."""
+    if spatial is not None and graphed:
+        raise ValueError("graphed spatial steps over NCCL are not ported (ROADMAP.md queue 1, "
+                         "#12 item 6): a train step with a spatial handle runs eagerly "
+                         "(graphed=False)")
+    pairs, ofe = est.pairs_fn(spatial=spatial), est.flow_fn(spatial=spatial)
 
     def loss_fn(images, labels):
-        return sequence_loss_acc(accflow_train_forward(model, images, pairs, ofe), labels)
+        return sequence_loss_acc(accflow_train_forward(model, images, pairs, ofe, spatial),
+                                 labels, spatial)
 
     def make_update(finish):
         def train_step(imgs, label_flows, gen: Optional[torch.Generator] = None):
             images = to_clip(imgs)
             labels = to_flow_seq(label_flows)
             if add_noise:
-                images = images + reference_noise(gen, images.shape[1:], group)[None]
+                images = images + reference_noise(gen, images.shape[1:], group, spatial)[None]
             optimizer.zero_grad()
             with tf32(False):
                 loss, metrics, _ = accumulate_grads(loss_fn, grad_accum, images, labels, axis=1)
             finish()
-            return mesh.all_mean((loss, metrics), group)
+            return mesh.all_mean(mesh.spatial_sum((loss, metrics), spatial), group)
 
         return train_step
 
     def valid_step(imgs, label_flows):
-        outs = accflow_forward(model, to_clip(imgs), ofe_pairs=pairs, ofe=ofe)
+        outs = accflow_forward(model, to_clip(imgs), ofe_pairs=pairs, ofe=ofe, spatial=spatial)
         labels = to_flow_seq(label_flows)
         # Per-sample EPE of the last accumulated flow, so the engine can
         # aggregate over padded validation batches.
         epe = torch.sqrt(torch.sum((outs[-1] - labels[-1]) ** 2, dim=-1))
-        return epe.mean(dim=(1, 2)), outs[-1]
+        h, w = epe.shape[1:]
+        return (mesh.spatial_sum(epe.sum(dim=(1, 2)) / (mesh.global_rows(h, spatial) * w),
+                                 spatial), outs[-1])
 
-    return graph_steps(make_update, valid_step, optimizer, graphed, group)
+    return graph_steps(make_update, valid_step, optimizer, graphed, group, spatial)
 
 
 def _png_chunk(kind: bytes, data: bytes) -> bytes:

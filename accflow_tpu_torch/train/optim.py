@@ -39,19 +39,22 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
-    def update(self, group=None) -> None:
+    def update(self, group=None, spatial=None) -> None:
         """Clip the gradients to global norm `clip` and update. A parameter
         that no loss reached (GMA's positional tables under content-only
         attention) gets a zero gradient first: optax updates every leaf,
         AdamW's decay included, where torch's AdamW skips a parameter
-        without a gradient. With a process `group` (the caller's
-        data-parallel axis) the gradients are first averaged over its ranks
-        (parallel.mesh.average_gradients), as GSPMD's gradient mean. No host
-        synchronisation."""
+        without a gradient. The gradients are made the mesh's first, once,
+        before the clip, by one collective (parallel.mesh.average_gradients,
+        as GSPMD's gradient mean): with a process `group` (the caller's
+        data-parallel axis) averaged over its ranks; with a spatial handle
+        (each rank holding the gradient of its part of the loss,
+        train/loss.py) summed over its ranks as well. Every rank then clips
+        and updates the same bits. No host synchronisation."""
         for p in self.params():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        mesh.average_gradients(self.params(), group)
+        mesh.average_gradients(self.params(), group, spatial)
         torch.nn.utils.clip_grad_norm_(self.params(), self.clip)
         self.optimizer.step()
 
@@ -59,8 +62,8 @@ class Optimizer:
         """Advance the schedule: the learning rate of the next update."""
         self.scheduler.step()
 
-    def step(self, group=None) -> None:
-        self.update(group)
+    def step(self, group=None, spatial=None) -> None:
+        self.update(group, spatial)
         self.advance()
 
     @property

@@ -219,7 +219,21 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    DRIFT_REL on every output and DRIFT_EPE_PX per step); f32 pairs at 40x64 (24 +
    16 rows) of GMA with its positional branch and of RAFT-small (CLIP_REL);
    the same readings, the ranks' queries per launch adding up to one
-   process's.
+   process's;
+23. the accumulator's train step over the spatial axis and the clip paths
+   that took a handle last, in phase 21's launch of two ranks: (j) one
+   train step (make_acc_train_step with a handle, AdamW's update left out)
+   at 64^2, f32 (TF32 off), AccFlow hidden 128, on the fused, F0N
+   fused and cold stepwise paths, and the fused one at 40x64 (24 + 16
+   rows): the loss (TRAIN_LOSS_REL) and the reduced gradients, the context
+   encoder's and the rest apart (TRAIN_GRAD_REL), against this process,
+   both ranks' gradients bit-equal; (k) AccRAFT.yml as shipped (batch 6 a
+   spatial pair, 7 x 256^2, bf16, noise on): its gradients against one
+   process's f32 step (ACCUM_F32_RATIO x one process's bf16 step's
+   distance), each rank's peak, seconds per step, the forward's and the
+   backward's collectives and bytes, kernel #1's launches and Q; (l) the
+   warm-started, F0N fused and cold stepwise CVO-6 clips (BATCH_SPREAD),
+   kernel #1's launches a rank (60, 12, 60) and Q.
 Optional phases: --tile-sweep builds kernels #1 and #2 with 4, 8 and 16
 queries per block and times them in turns (#1 at the clip shape after phase
 3, #2 at the stream shape after phase 4); --profile prints where
@@ -234,7 +248,7 @@ line the numbers of phases 6c and 8's GMA runs and 10-13, and a
 calls, the graphed-vs-eager distances beside their bars), an
 {"ondemand": {...}} line phase 16's, an {"f0n": {...}} line phase 17's, and
 {"sintel"}, {"data_parallel"}, {"host_tools"} and {"spatial"} lines phases
-18-22's. The line before
+18-23's. The line before
 the last is {"kernels": [...]}; the last line is {"ok": true, "device":
 {...}}. Without a GPU, or without the package beside it, the script exits
 non-zero and prints no result.
@@ -510,6 +524,27 @@ SPATIAL_SIZE_C = (1088, 1920)  # (c)'s frames: 1080p padded to a multiple of 8 *
 # process's. Fixed before the phase's first run, (i)'s bar on every output
 # (not F_{2,0} alone) after it.
 SPATIAL_SIZE_H = (440, 1024)  # (h): Sintel's 1024x436 padded, 224 + 216 rows over 2 ranks
+# Phase 23, the train step and the clip paths over the spatial axis, in the
+# same launch. (j) is float32 with TF32 off: the ranks run one process's
+# math on their rows, and their gradients differ from one process's by
+# summation order (the halo rows' and the gathered blocks' gradients added
+# on their owners, the weights' gradients summed over the ranks: ~1e-6
+# relative, as phase 14b's GPU against the CPU), so it takes 14b's bars,
+# TRAIN_LOSS_REL and TRAIN_GRAD_REL, over the context encoder (where a lost
+# halo gradient shows) and the rest apart; the ranks' reduced gradients are
+# bit-equal (one all_reduce gives both the same bits). (k) is bfloat16 at
+# full width, where a step's gradients move with the kernels cuDNN picks for
+# the shorter height; it takes 14c's grad_accum bar (ACCUM_F32_RATIO: the
+# sharded bfloat16 gradients no further from one process's float32 ones
+# than 1.2 x one process's bfloat16 ones; a lost halo gradient or a loss
+# over the wrong count moves them by 1e-1 or more). (l)'s clips are
+# bfloat16, held as (b) is (BATCH_SPREAD). Fixed before the phase's first
+# run.
+SPATIAL_CLIP_KW = {"l warm": dict(warm_start=True), "l f0n": dict(direction="forward"),
+                   "l stepwise": dict(fused_ofe=False)}
+SPATIAL_TRAIN_KW = {"j fused": {}, "j f0n": dict(direction="forward"),
+                    "j stepwise": dict(fused_ofe=False), "j fused 40": {}, "k": {}}
+SPATIAL_J = ("j fused", "j f0n", "j stepwise", "j fused 40")  # the float32 train cases
 REPO = Path(__file__).resolve().parent
 FIXTURES = REPO / "tests" / "fixtures"
 COUNTERS = (  # each kernel wrapper's launch count: (kernel, module, attribute)
@@ -3582,8 +3617,8 @@ def dp_steps() -> dict:
         step, _ = make(optimizer)
         grads, orig = {}, mesh.average_gradients
 
-        def recording(params, group, model=model, grads=grads, orig=orig):
-            orig(params, group)
+        def recording(params, group, sp=None, model=model, grads=grads, orig=orig):
+            orig(params, group, sp)
             grads.update({k: p.grad.detach().float().cpu().clone()
                           for k, p in model.named_parameters()})
 
@@ -3724,6 +3759,14 @@ def spatial_inputs(case: str, elems):
     if case == "e":
         acc, images = clip_inputs()
         return gma_estimator(), acc, images[:, list(elems)].contiguous()
+    if case in SPATIAL_CLIP_KW:  # (l): the clip's accumulator on another path
+        images = clip_inputs()[1]
+        acc = models.init_accflow(models.AccFlowConfig(compute_dtype="bfloat16",
+                                                       **SPATIAL_CLIP_KW[case]), seed=1,
+                                  device="cpu")
+        perturb_zero_conv(acc, 2)
+        return (models.build_flow_estimator("raft", compute_dtype="bfloat16", seed=0),
+                acc.to("cuda"), images[:, list(elems)].contiguous())
     if case == "e pair":
         est = gma_estimator(compute_dtype="float32", iters=2, position_and_content=True)
         return est, None, moving_frames(2, 1, 64, seed=23)[:, :, :40].contiguous()
@@ -3749,8 +3792,8 @@ def spatial_inputs(case: str, elems):
         load_jax_params(acc, load_npz_tree(str(FIXTURES / "drift_small_acc.npz")))
         seq = make_long_sequence(np.random.default_rng(77), 64, 64, 36, seg_len=6, max_v=1,
                                  fg=True, fg_max_v=2)
-        imgs = (2.0 * (seq["imgs"].astype(np.float32) / 255.0) - 1.0)[:, None]
-        return est, acc, torch.from_numpy(imgs).cuda()
+        imgs = (2.0 * (seq["imgs"][:SPATIAL_DRIFT_FRAMES].astype(np.float32) / 255.0) - 1.0)
+        return est, acc, torch.from_numpy(imgs[:, None]).cuda()
     # (d), (f), (g): a stream of 512^2 at batch 2, 6 iterations, warm start
     if case == "d":
         est = models.build_flow_estimator("raft", compute_dtype="bfloat16", iters=6, seed=0)
@@ -3762,10 +3805,14 @@ def spatial_inputs(case: str, elems):
     acc = models.init_accflow(models.AccFlowConfig(compute_dtype="bfloat16", warm_start=True),
                               seed=1, device="cpu")
     perturb_zero_conv(acc, 2)
-    return est, acc.to("cuda"), moving_frames(8, 2, 512, seed=4)[:, list(elems)].contiguous()
+    frames = moving_frames(SPATIAL_STREAM_FRAMES, 2, 512, seed=4)
+    return est, acc.to("cuda"), frames[:, list(elems)].contiguous()
 
 
 SPATIAL_CASES = ("a fused", "a ondemand:64", "b", "c", "d")
+# The streams' frames, a reset on 3 and a push of each other: (d), (f), (g)
+# 8, and the drift fixture's 36.
+SPATIAL_STREAM_FRAMES, SPATIAL_DRIFT_FRAMES = 8, 36
 # Phase 22: (e) the AccFlow+GMA clip, (f) stream (a) (RAFT-small), (g)
 # stream (c) (GMA), (h) Sintel's padded height (a float32 RAFT pair, a bf16
 # clip), (i) the drift fixture; and a float32 pair at a height of 40 (24 +
@@ -3774,7 +3821,9 @@ SPATIAL_CASES = ("a fused", "a ondemand:64", "b", "c", "d")
 # gather, a halo or a norm weight off: the planted faults of
 # scripts/spatial_row0_fault.py).
 SPATIAL22_CASES = ("e", "e pair", "f", "f pair", "g", "h pair", "h clip", "i")
-SPATIAL_BATCH = {"b": (0, 1), "d": (0, 1), "e": (0, 1), "f": (0, 1), "g": (0, 1)}  # else (0,)
+SPATIAL23_CASES = tuple(SPATIAL_CLIP_KW)  # (l); (j) and (k) are train steps (SPATIAL_TRAIN_KW)
+SPATIAL_BATCH = {"b": (0, 1), "d": (0, 1), "e": (0, 1), "f": (0, 1), "g": (0, 1),
+                 **{c: (0, 1) for c in SPATIAL23_CASES}}  # else (0,)
 SPATIAL_STREAMS = ("d", "f", "g", "i")
 SPATIAL_F32 = ("a fused", "a ondemand:64", "e pair", "f pair", "h pair", "i")
 
@@ -3813,7 +3862,8 @@ def spatial_run(case: str, sp, elems=None, reps: int = 2) -> dict:
             return est.forward(rows[0], rows[1], spatial=sp)["flow_up"]
     else:
         def call():
-            return models.accflow_forward(acc, rows, est.pairs_fn(spatial=sp), spatial=sp)
+            return models.accflow_forward(acc, rows, est.pairs_fn(spatial=sp),
+                                          est.flow_fn(spatial=sp), spatial=sp)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3835,13 +3885,17 @@ def spatial_run(case: str, sp, elems=None, reps: int = 2) -> dict:
                 collectives=mesh.collectives - c0, bytes=mesh.bytes_sent - b0)
 
 
-SPATIAL_REPS = {"i": 1}  # calls a rank makes of each case (the drift fixture's 34 steps: 1)
+# Calls a rank (and this process) makes of each case, the last read; the
+# drift fixture's 34 steps once.
+SPATIAL_REPS = {"i": 1}
 
 
 def spatial_child(rank: int, port: int, work: str) -> int:
-    """One rank of phases 21 and 22, started by spatial_launch as its own
-    process: join the gloo group on the one card, make the (1, 2) mesh, run
-    every case on this rank's rows, save what it saw."""
+    """One rank of phases 21-23, started by spatial_launch as its own
+    process: join the gloo group on the one card, make the (1, 2) mesh,
+    wait for spatial_launch's go file (its start overlaps the launching
+    process's work, not its timed runs on the card), run every case on this
+    rank's rows, save what it saw."""
     os.environ.update(torchrun_env(2, rank, port))
     if not mesh.maybe_init_distributed("cuda", backend="gloo"):
         fail("spatial child: no group")
@@ -3849,9 +3903,16 @@ def spatial_child(rank: int, port: int, work: str) -> int:
         sp = mesh.make_mesh(n_data=1, n_spatial=2).axis
         if (sp.index, sp.size) != (rank, 2):
             fail(f"spatial child {rank}: handle {sp}")
-        torch.save({case: spatial_run(case, sp, reps=SPATIAL_REPS.get(case, 2))
-                    for case in SPATIAL_CASES + SPATIAL22_CASES},
-                   Path(work) / f"rank{rank}.pt")
+        deadline = time.monotonic() + 900
+        while not (Path(work) / "go").exists():
+            if time.monotonic() > deadline:
+                fail(f"spatial child {rank}: no go file in 900 s")
+            time.sleep(0.05)
+        out = {case: spatial_run(case, sp, reps=SPATIAL_REPS.get(case, 2))
+               for case in SPATIAL_CASES + SPATIAL22_CASES + SPATIAL23_CASES}
+        out.update({case: spatial_train_run(case, sp, record=case in SPATIAL_J)
+                    for case in SPATIAL_TRAIN_KW})
+        torch.save(out, Path(work) / f"rank{rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
     return 0
@@ -3878,12 +3939,203 @@ def spatial_chunks(case: str, rows: int) -> int:
 
 # Each case's lookup kernel and its launches per chunk of queries in one
 # call: one per GRU iteration and OFE call (a stream: the reset's two calls
-# at 6 iterations, then 6 a push; the drift fixture 33 pushes).
+# at 6 iterations, then 6 a push).
 SPATIAL_KERNEL = {"f": "corr_level_lookup", "f pair": "corr_level_lookup",
                   "i": "corr_level_lookup"}  # else corr_lookup
-SPATIAL_PER_CHUNK = {"a": 2, "e pair": 2, "f pair": 2, "h pair": 2, "d": 12 + 5 * 6,
-                     "f": 12 + 5 * 6, "g": 12 + 5 * 6, "i": 12 + 33 * 6}  # else 12: a clip
+SPATIAL_PER_CHUNK = {"a": 2, "e pair": 2, "f pair": 2, "h pair": 2,
+                     **{c: 12 + (SPATIAL_STREAM_FRAMES - 3) * 6 for c in ("d", "f", "g")},
+                     "i": 12 + (SPATIAL_DRIFT_FRAMES - 3) * 6,
+                     "l warm": 5 * 12, "l stepwise": 5 * 12}  # else 12: a fused clip
 
+
+
+def spatial_train_inputs(case: str, dtype=None):
+    """Phase 23's train case `case`: (estimator, accumulator, imgs (N, H,
+    W, 3T), label flows (N, H, W, 2S), add_noise), from seeds, on the card.
+    (j): phase 14b's batch (2 clips of 4 frames at 64^2 from seed 5; "j
+    fused 40" their first 40 rows), RAFT at 4 iterations, AccFlow hidden
+    128 on the case's path, float32. (k): configs/AccRAFT.yml as shipped
+    (RAFT at 12 iterations, hidden 128, noise on; `dtype` in place of its
+    bfloat16 if given), on 6 clips of 7 frames at 256^2 (uint8 values from
+    seed 23) and their label flows. Both accumulators from seed 1, their
+    ZeroConv from seed 2."""
+    if case == "k":
+        opt = parse_options(str(REPO / "configs" / "AccRAFT.yml"))
+        opt["compute_dtype"] = dtype or opt.compute_dtype
+        est, acfg = engine.build_acc_model(opt, device="cuda")
+        (h, w), n, t, add_noise = opt.image_size, opt.batch_per_gpu, 7, bool(opt.add_noise)
+        rng = np.random.default_rng(23)
+    else:
+        est = models.build_flow_estimator("raft", compute_dtype="float32", iters=4, seed=0)
+        acfg = models.AccFlowConfig(compute_dtype="float32", **SPATIAL_TRAIN_KW[case])
+        (h, w), n, t, add_noise = (64, 64), 2, 4, False
+        rng = np.random.default_rng(5)
+    imgs = rng.integers(0, 256, (n, h, w, 3 * t)).astype(np.float32)
+    labels = (4.0 * rng.standard_normal((n, h, w, 2 * (t - 2)))).astype(np.float32)
+    if case == "j fused 40":
+        imgs, labels = imgs[:, :40], labels[:, :40]
+    acc = models.init_accflow(acfg, seed=1, device="cpu")
+    perturb_zero_conv(acc, 2)
+    return (est, acc.cuda(), torch.from_numpy(np.ascontiguousarray(imgs)).cuda(),
+            torch.from_numpy(np.ascontiguousarray(labels)).cuda(), add_noise)
+
+
+SPATIAL_TRAIN_REPS = {"k": 2}  # steps a run times of each train case (the last read); else 1
+SPATIAL_TRAIN_LAUNCHES = {"j stepwise": 2 * 4, "k": 12}  # kernel #1 a step; else 4 (one call)
+
+
+def spatial_train_run(case: str, sp, dtype=None, record: bool = False, recorded=None) -> dict:
+    """Phase 23's train case on this rank's rows (sp) or on the whole
+    frames (None): SPATIAL_TRAIN_REPS steps of make_acc_train_step (eager,
+    TF32 off as the step sets it), each from the same weights and noise
+    (AdamW's update left out, the generator reseeded), the last read: its
+    loss, the gradients its update reduced (before the clip; float32 on the
+    host), the collectives and bytes of its forward (to the loss) and of its
+    backward (to the gradient sum), its seconds, the peak, the kernel
+    launches and kernel #1's Q. With `record`, the accumulator's conv
+    outputs (its ReLU inputs, tie_hooks), as "record"; with another run's
+    `recorded` (the whole frames'), its values taken at ties, counted as
+    "ties"."""
+    est, acc, imgs, labels, add_noise = spatial_train_inputs(case, dtype)
+    if sp is not None:
+        sp = sp.at_height(imgs.shape[1])
+        imgs, labels = mesh.shard_rows(imgs, sp), mesh.shard_rows(labels, sp)
+    optimizer = make_optimizer(acc.parameters(), 1e-4, 10)
+    optimizer.optimizer.step = lambda *a, **k: None  # AdamW's update left out
+    step, _ = engine.make_acc_train_step(est, acc, optimizer, add_noise, spatial=sp)
+    marks, grads, shapes = {}, {}, []
+    loss_fn, reduce = engine.sequence_loss_acc, mesh.average_gradients
+
+    def loss_at(*a, **k):  # the forward's end
+        marks["forward"] = (mesh.collectives, mesh.bytes_sent)
+        return loss_fn(*a, **k)
+
+    def reduce_at(params, group, spatial=None):  # the backward's end, then the gradient sum
+        marks["backward"] = (mesh.collectives, mesh.bytes_sent)
+        reduce(params, group, spatial)
+        grads.update({k: p.grad.detach().float().cpu() for k, p in acc.named_parameters()})
+
+    engine.sequence_loss_acc, mesh.average_gradients = loss_at, reduce_at
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    handles, ties, rec = [], [], {}
+    try:
+        for rep in range(SPATIAL_TRAIN_REPS.get(case, 1)):
+            if (record or recorded is not None) and rep == SPATIAL_TRAIN_REPS.get(case, 1) - 1:
+                rec, ties, handles = tie_hooks(acc, recorded)
+            reset_counts()
+            shapes.clear()
+            c0 = (mesh.collectives, mesh.bytes_sent)
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            t0 = time.perf_counter()
+            with kernel_shapes(shapes):
+                loss, _ = step(imgs, labels, gen)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        engine.sequence_loss_acc, mesh.average_gradients = loss_fn, reduce
+        for h in handles:
+            h.remove()
+    fwd, bwd = marks["forward"], marks["backward"]
+    return dict(loss=float(loss), grads=grads, secs=secs, peak=torch.cuda.max_memory_allocated(),
+                launches=launch_counts(), q=sorted({q for q, _ in shapes}),
+                forward_collectives=fwd[0] - c0[0], forward_bytes=fwd[1] - c0[1],
+                backward_collectives=bwd[0] - fwd[0], backward_bytes=bwd[1] - fwd[1],
+                record=rec if record else None, ties=ties)
+
+
+def spatial_k_references() -> dict:
+    """(k) in this process on the whole frames, as shipped ("k") and in
+    float32 ("k f32": the grad_accum bar's reference)."""
+    ref = {"k": spatial_train_run("k", None), "k f32": spatial_train_run("k", None, "float32")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def spatial_j_references(ranks) -> dict:
+    """The (j) cases in this process on the whole frames, each taking the
+    ranks' values (their conv outputs' rows put together) at a ReLU input
+    in a tie (tie_hooks: float32 roundings of another summation order may
+    put an input within TIE_REL of zero on either side of the kink; the
+    ties are counted and printed)."""
+    ref = {}
+    for case in SPATIAL_J:
+        recs = [r[case]["record"] for r in ranks]
+        whole = {name: [torch.cat(calls, dim=2) for calls in zip(*(rec[name] for rec in recs))]
+                 for name in recs[0]}
+        ref[case] = spatial_train_run(case, None, recorded=whole)
+    return ref
+
+
+def spatial_train_check(case: str, one: dict, got: list, one_f32=None) -> dict:
+    """Train case `case`'s two ranks (`got`) against this process (`one`;
+    for (k) also `one_f32`): its row of readings, printed; a loss or
+    gradients past the bars (SPATIAL_TRAIN comments), ranks whose reduced
+    gradients differ in a bit, a launch count off or another kernel fails
+    the phase."""
+    g0, g1 = got[0]["grads"], got[1]["grads"]
+    same = set(g0) == set(g1) and all(torch.equal(g0[k], g1[k]) for k in g0)
+    ctx = [k for k in g0 if k.startswith("context.")]
+    rest = [k for k in g0 if k not in ctx]
+    loss_rel = abs(got[0]["loss"] - one["loss"]) / abs(one["loss"])
+    row = dict(loss=got[0]["loss"], one_process_loss=one["loss"], loss_rel=loss_rel,
+               ranks_bit_equal=same, kernel="corr_lookup",
+               rank_peak_gib=[g["peak"] / 2**30 for g in got],
+               one_process_peak_gib=one["peak"] / 2**30,
+               rank_s_per_step=[g["secs"] for g in got], one_process_s_per_step=one["secs"],
+               **{k: [g[k] for g in got] for k in ("forward_collectives", "forward_bytes",
+                                                   "backward_collectives", "backward_bytes")},
+               launches=[g["launches"]["corr_lookup"] for g in got],
+               one_process_launches=one["launches"]["corr_lookup"],
+               q=[g["q"] for g in got], one_process_q=one["q"])
+    row["ties"] = one["ties"]
+    if case == "k":
+        dist, base = rel_l2(g0, one_f32["grads"]), rel_l2(one["grads"], one_f32["grads"])
+        row.update(vs_f32_grad_rel_l2=dist, one_bf16_vs_f32_grad_rel_l2=base,
+                   bar=ACCUM_F32_RATIO * base, vs_one_bf16_grad_rel_l2=rel_l2(g0, one["grads"]),
+                   ratio=dist / (ACCUM_F32_RATIO * base))
+        what = (f"gradients vs one process's f32 step relative L2 {dist:.3e}, one process's "
+                f"bf16 step's {base:.3e} (bar {ACCUM_F32_RATIO:g}x that: {row['bar']:.3e}); vs "
+                f"one process's bf16 step {row['vs_one_bf16_grad_rel_l2']:.3e}; loss "
+                f"{got[0]['loss']:.5f} (one process {one['loss']:.5f})")
+    else:
+        grad, grad_ctx = rel_l2(g0, one["grads"], rest), rel_l2(g0, one["grads"], ctx)
+        row.update(grad_rel_l2=grad, context_grad_rel_l2=grad_ctx, bar=TRAIN_GRAD_REL,
+                   loss_bar=TRAIN_LOSS_REL,
+                   ratio=max(loss_rel / TRAIN_LOSS_REL, grad / TRAIN_GRAD_REL,
+                             grad_ctx / TRAIN_GRAD_REL))
+        what = (f"loss {got[0]['loss']:.7f} vs {one['loss']:.7f} (relative {loss_rel:.3e}, bar "
+                f"{TRAIN_LOSS_REL:g}); gradient relative L2 outside the context encoder "
+                f"{grad:.3e}, context encoder {grad_ctx:.3e} (bar {TRAIN_GRAD_REL:g} each; one "
+                f"process took the ranks' values at {sum(t[2] for t in one['ties'])} ReLU "
+                f"inputs in a tie: {one['ties']})")
+    h = one["q"] and got[0]["q"]
+    print(f"spatial ({case}) train step, two gloo ranks on one card vs one process: {what}; "
+          f"ranks' reduced gradients {'bit-equal' if same else 'DIFFER'}; peak per rank "
+          f"{', '.join(f'{x:.3f}' for x in row['rank_peak_gib'])} GiB (one process "
+          f"{row['one_process_peak_gib']:.3f}); seconds per step, two gloo ranks sharing one card "
+          f"(not a reading of NCCL): {', '.join(f'{x:.3f}' for x in row['rank_s_per_step'])} "
+          f"(one process {row['one_process_s_per_step']:.3f}); collectives forward "
+          f"{row['forward_collectives']}, backward {row['backward_collectives']}; bytes sent "
+          f"forward {row['forward_bytes']}, backward {row['backward_bytes']}; corr_lookup "
+          f"launches {row['launches']} (one process {row['one_process_launches']}), Q "
+          f"{row['q']} (one process {row['one_process_q']})")
+    if not (row["ratio"] <= 1.0 and same and np.isfinite(row["loss"])):
+        fail(f"spatial ({case}) train step: {what}; ranks bit-equal {same}")
+    want = SPATIAL_TRAIN_LAUNCHES.get(case, 4)
+    others = [{k: v for k, v in g["launches"].items() if k != "corr_lookup" and v} for g in got]
+    if not (row["launches"] == [want, want] and row["one_process_launches"] == want
+            and others == [{}, {}] and h
+            and sum(q[0] for q in row["q"]) == row["one_process_q"][0]
+            and min(row["forward_collectives"]) > 0 and min(row["backward_collectives"]) > 0):
+        fail(f"spatial ({case}) train step: launches {[g['launches'] for g in got]}, one process "
+             f"{one['launches']}, expected {want} of corr_lookup; Q {row['q']} against "
+             f"{row['one_process_q']}; collectives {row['forward_collectives']} / "
+             f"{row['backward_collectives']}")
+    return row
 
 
 def spatial_references(cases) -> tuple:
@@ -3904,32 +4156,37 @@ def spatial_references(cases) -> tuple:
     return ref, spread
 
 
-def spatial_launch(tmp: str, command=None) -> tuple:
-    """Both ranks of phases 21 and 22 (this script with --spatial-child, or
+def spatial_launch(tmp: str, command=None, meanwhile=None) -> tuple:
+    """Both ranks of phases 21-23 (this script with --spatial-child, or
     `command`, a script and its arguments, in its place), to their end:
-    what each saved, and the seconds both took."""
+    what each saved, the seconds from their go to their end, and what
+    `meanwhile` returned. The ranks start (imports, the group, the mesh),
+    then wait for the go file, which is written after `meanwhile()` has run
+    here: their start overlaps it, their cases run on a card of their own."""
     work = Path(tmp) / f"spatial-{time.monotonic_ns()}"
     work.mkdir()
     port = free_port()
-    t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, *(command or [str(REPO / "chip_smoke.py")]),
                                "--spatial-child", str(r), str(port), str(work)], cwd=str(REPO),
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
              for r in range(2)]
     logs = []
     try:
+        result = meanwhile() if meanwhile else None
+        (work / "go").touch()
+        t0 = time.perf_counter()
         for p in procs:
             logs.append(p.communicate(timeout=900)[0].decode(errors="replace"))
+        secs = time.perf_counter() - t0
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    secs = time.perf_counter() - t0
     for r, (p, log) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
             fail(f"spatial: rank {r} exited {p.returncode}:\n{log[-3000:]}")
-    return [torch.load(work / f"rank{r}.pt", weights_only=True) for r in range(2)], secs
+    return [torch.load(work / f"rank{r}.pt", weights_only=True) for r in range(2)], secs, result
 
 
 def spatial_check(case: str, one: dict, spread, got: list) -> dict:
@@ -3944,7 +4201,7 @@ def spatial_check(case: str, one: dict, spread, got: list) -> dict:
         first = float((out[0] - one["out"][0]).abs().max())
         gt = torch.from_numpy(make_long_sequence(
             np.random.default_rng(77), 64, 64, 36, seg_len=6, max_v=1, fg=True,
-            fg_max_v=2)["bflows"][1:35])
+            fg_max_v=2)["bflows"][1:SPATIAL_DRIFT_FRAMES - 1])
         curves = [((o[:, 0] - gt) ** 2).sum(-1).sqrt().mean((1, 2)) for o in (out, one["out"])]
         epe_gap = float((curves[0] - curves[1]).abs().max())
         bar, why = DRIFT_REL * flow_max, f"{DRIFT_REL:g} x max |flow|"
@@ -3995,7 +4252,7 @@ def spatial_check(case: str, one: dict, spread, got: list) -> dict:
             and others == [{}, {}] and row["collectives"][0] == row["collectives"][1] > 0):
         fail(f"spatial ({case}): launches {launched}, one process {one['launches']}, "
              f"expected {want} and {want_one} of {kernel}; collectives {row['collectives']}")
-    if case in SPATIAL22_CASES and (sum(q[0] if q else 0 for q in row["q"])
+    if case in SPATIAL22_CASES + SPATIAL23_CASES and (sum(q[0] if q else 0 for q in row["q"])
                                     != (row["one_process_q"] or [0])[0]):
         fail(f"spatial ({case}): queries per launch {row['q']} do not add up to one "
              f"process's {row['one_process_q']}")
@@ -4028,17 +4285,26 @@ def spatial_phase(tmp: str) -> dict:
     call, and the lookup kernel's launches and Q: both ranks' launches
     equal, one per GRU iteration and chunk of queries as in one process (a
     rank holds half the queries: "fused" keeps one chunk, "ondemand" halves
-    the chunks), and no other kernel. Returns each case's row."""
-    cases = SPATIAL_CASES + SPATIAL22_CASES
-    ref, spread = spatial_references(cases)
-    ranks, secs = spatial_launch(tmp)
+    the chunks), and no other kernel. Phase 23 (the train cases: their own
+    bars and readings, spatial_train_check; the clips as (b)): (j) the
+    train step in f32 at 64^2 on the fused, F0N fused and cold stepwise
+    paths and at 40x64; (k) AccRAFT.yml's step at full width; (l) the
+    warm-started, F0N fused and cold stepwise CVO-6 clips. Returns each
+    case's row."""
+    cases = SPATIAL_CASES + SPATIAL22_CASES + SPATIAL23_CASES
+    ranks, secs, (ref, spread, train_ref) = spatial_launch(
+        tmp, meanwhile=lambda: (*spatial_references(cases), spatial_k_references()))
     rows = {case: spatial_check(case, ref[case], spread.get(case), [r[case] for r in ranks])
             for case in cases}
+    train_ref.update(spatial_j_references(ranks))
+    rows.update({case: spatial_train_check(case, train_ref[case], [r[case] for r in ranks],
+                                           train_ref["k f32"]) for case in SPATIAL_TRAIN_KW})
     c_lookup = corr.resolve_auto_lookup("auto", 11, SPATIAL_SIZE_C[0] // 8,
                                         SPATIAL_SIZE_C[1] // 8, 4, torch.bfloat16)
     if not (corr.is_ondemand(c_lookup) and spatial_chunks("c", SPATIAL_SIZE_C[0] // 16) > 1):
         fail(f"spatial (c): auto resolved to {c_lookup!r}")
-    print(f"spatial: both ranks in {secs:.2f} s (start, build cache, cases); (c) auto -> "
+    print(f"spatial: both ranks in {secs:.2f} s from their go (their start overlapped this "
+          f"process's runs); (c) auto -> "
           f"{c_lookup} at the global shape, {spatial_chunks('c', SPATIAL_SIZE_C[0] // 16)} "
           "chunks a rank")
     return dict(rows, seconds=secs, c_lookup=c_lookup)
@@ -4322,7 +4588,11 @@ def main() -> int:
               f"({case}) max abs {spatial[case]['max_abs']:.3e} (bar {spatial[case]['bar']:.3e}), "
               f"peak per rank {max(spatial[case]['rank_peak_gib']):.3f} GiB (one process "
               f"{spatial[case]['one_process_peak_gib']:.3f})"
-              for case in SPATIAL_CASES + SPATIAL22_CASES))
+              for case in SPATIAL_CASES + SPATIAL22_CASES + SPATIAL23_CASES)
+          + "; train steps " + "; ".join(
+              f"({case}) {spatial[case]['ratio']:.3f} of its bar, peak per rank "
+              f"{max(spatial[case]['rank_peak_gib']):.3f} GiB (one process "
+              f"{spatial[case]['one_process_peak_gib']:.3f})" for case in SPATIAL_TRAIN_KW))
     print(json.dumps({"host_tools": {"card": line, **tools}}, default=str))
     print(json.dumps({"spatial": {"card": line, **spatial}}, default=str))
     print(json.dumps({"ondemand": {"card": line, **ondemand}}, default=str))
@@ -4395,24 +4665,31 @@ def main() -> int:
          "dp_two_ranks_launches": {k: r["rank_launches"] for k, r in dp["two_ranks"].items()
                                    if isinstance(r, dict)},
          "spatial_launches": {c: spatial[c]["launches"] for c in ("b", "c", "d", "e", "g",
-                                                                  "h clip")},
-         "spatial_q": {c: spatial[c]["q"] for c in ("b", "c", "d", "e", "g", "h clip")},
-         "spatial_launches_in": "phases 21 and 22, each of two gloo ranks on one card, height "
+                                                                  "h clip", "k")
+                              + SPATIAL23_CASES},
+         "spatial_q": {c: spatial[c]["q"] for c in ("b", "c", "d", "e", "g", "h clip", "k")
+                       + SPATIAL23_CASES},
+         "spatial_launches_in": "phases 21-23, each of two gloo ranks on one card, height "
                                 "sharded: (b) 2 CVO-6 clip forwards, (c) 2 7x1920x1088 clip "
                                 "forwards through auto (ondemand), (d) 2 streams of a reset "
                                 "and 5 pushes, (e) 2 AccFlow+GMA CVO-6 clip forwards, (g) 2 "
                                 "GMA streams (c), (h) 2 7x1024x440 clip forwards at 224 + 216 "
-                                "rows; counted in the last call"},
+                                "rows, (k) 2 AccRAFT.yml train steps (batch 6, 256^2), (l) 2 "
+                                "warm-started, F0N fused and cold stepwise CVO-6 clip forwards "
+                                "each; counted in the last call"},
         {"name": "corr_lookup_f32_out", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:264",
          "launches": small["fused"], "launches_in": "the f32 small clip on the GPU",
          "spatial_launches": {c: spatial[c]["launches"] for c in ("a fused", "a ondemand:64",
-                                                                  "h pair")},
-         "spatial_q": {c: spatial[c]["q"] for c in ("a fused", "a ondemand:64", "h pair")},
-         "spatial_launches_in": "phases 21 (a) and 22 (h), each of two gloo ranks on one card, "
-                                "height sharded: one 128^2 forward (1024x440 at 224 + 216 "
-                                "rows) at 2 iterations, the last of 2",
+                                                                  "h pair",
+                                                                  *SPATIAL_J)},
+         "spatial_q": {c: spatial[c]["q"] for c in ("a fused", "a ondemand:64", "h pair",
+                                                    *SPATIAL_J)},
+         "spatial_launches_in": "phases 21 (a), 22 (h) and 23 (j), each of two gloo ranks on "
+                                "one card, height sharded: one 128^2 forward (1024x440 at 224 "
+                                "+ 216 rows) at 2 iterations, the last of 2; one 64^2 train "
+                                "step (40x64 at 24 + 16 rows) at 4 iterations",
          "gma_small_clip_launches": gma_small["fused"],
          **rows1["float32"], "levels_dtype": "float32", "out_dtype": "float32",
          "float32_levels_bf16_out": rows1["float32, bf16 out"],

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Whether the bars of phases 21 and 22 (chip_smoke.py: the spatial axis
-over two gloo ranks on one card) catch a planted fault:
+"""Whether the bars of phases 21-23 (chip_smoke.py: the spatial axis over
+two gloo ranks on one card) catch a planted fault:
 
     python3 scripts/spatial_row0_fault.py                   # the row-0 fault
     python3 scripts/spatial_row0_fault.py --faults none,no_gather,equal_norm,no_halo
+    python3 scripts/spatial_row0_fault.py --faults none,no_grad_exchange,mean_of_means
 
-It runs the cases of phases 21 and 22 as chip_smoke.py does: the
-one-process references once, then, for each fault named, the two sharded
-ranks with that fault planted in them only:
+It runs the cases of phases 21-23 as chip_smoke.py does: the one-process
+references once (phase 23's float32 train steps once per launch, as they
+take the ranks' values at ReLU ties), then, for each fault named, the two
+sharded ranks with that fault planted in them only:
 - row0: RAFT's coordinates start every rank at row 0 (models/raft.py::
   raft_iterate's coords_grid, where a rank's rows start at its first
   global row);
@@ -19,6 +21,15 @@ ranks with that fault planted in them only:
   without its table);
 - no_halo: RAFT-small's upflow8 reads no halo rows (ops/grids.py::upflow8's
   halo_rows replaced by the rank's own edge rows);
+- no_grad_exchange: the gathers and halos pass no gradient back (mesh.
+  stack_ranks gathering detached tensors, as before its backward was
+  written): a halo row's and a gathered block's gradient never reach the
+  rank that owns them;
+- mean_of_means: each rank's part of the loss and metrics is its own
+  pixels' mean over the spatial group's size (train/loss.py's global
+  count replaced by the rank's count times the ranks): the loss is the
+  mean of the ranks' means, which unequal blocks (phase 23's 24 + 16 rows)
+  weigh wrongly;
 - none: no fault (the phases as chip_smoke.py runs them).
 Each case's distance to one process is printed beside its bar, and every
 case runs to its end (chip_smoke's `fail` is recorded, not raised). The
@@ -80,8 +91,28 @@ def plant_no_halo() -> None:
         x.narrow(dim, 0, top), x.narrow(dim, x.shape[dim] - bottom, bottom)))
 
 
+def plant_no_grad_exchange() -> None:
+    """Gathers and halos of detached tensors: no gradient flows back."""
+    from accflow_tpu_torch.parallel import mesh
+
+    def stack_ranks(t, sp):
+        mesh._count(t.numel() * t.element_size() * (sp.size - 1))
+        return chip_smoke.torch.stack(mesh._all_gather(t, sp.group, sp.size)).to(t.device)
+
+    mesh.stack_ranks = stack_ranks
+
+
+def plant_mean_of_means() -> None:
+    """Each rank's loss part over its own count times the ranks."""
+    from accflow_tpu_torch.train import loss
+
+    loss._global_count = lambda x, spatial, channel_dims: (
+        x[(0,) * (x.ndim - 3 - channel_dims)].numel() * spatial.size)
+
+
 FAULTS = {"none": None, "row0": plant_row0, "no_gather": plant_no_gather,
-          "equal_norm": plant_equal_norm, "no_halo": plant_no_halo}
+          "equal_norm": plant_equal_norm, "no_halo": plant_no_halo,
+          "no_grad_exchange": plant_no_grad_exchange, "mean_of_means": plant_mean_of_means}
 
 
 def main() -> int:
@@ -104,13 +135,14 @@ def main() -> int:
     failures = []
     chip_smoke.fail = failures.append
     chip_smoke.build_kernels()
-    cases = chip_smoke.SPATIAL_CASES + chip_smoke.SPATIAL22_CASES
+    cases = chip_smoke.SPATIAL_CASES + chip_smoke.SPATIAL22_CASES + chip_smoke.SPATIAL23_CASES
     ref, spread = chip_smoke.spatial_references(cases)
+    k_ref = chip_smoke.spatial_k_references()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for fault in faults:
             # The ranks run this script, which plants the fault, then chip_smoke's child.
-            ranks, secs = chip_smoke.spatial_launch(
+            ranks, secs, _ = chip_smoke.spatial_launch(
                 tmp, [str(Path(__file__).resolve()), "--fault-child", fault])
             rows = {}
             for case in cases:
@@ -118,13 +150,22 @@ def main() -> int:
                 row = chip_smoke.spatial_check(case, ref[case], spread.get(case),
                                                [r[case] for r in ranks])
                 rows[case] = dict(max_abs=row["max_abs"], bar=row["bar"],
+                                  ratio=row["max_abs"] / row["bar"],
                                   flow_max=row["flow_max"], failed=len(failures) > before,
                                   **{k: row[k] for k in ("first_max_abs", "epe_gap_px")
                                      if k in row})
+            train_ref = {**k_ref, **chip_smoke.spatial_j_references(ranks)}
+            for case in chip_smoke.SPATIAL_TRAIN_KW:
+                before = len(failures)
+                row = chip_smoke.spatial_train_check(case, train_ref[case],
+                                                     [r[case] for r in ranks], train_ref["k f32"])
+                rows[case] = dict(ratio=row["ratio"], bar=row["bar"],
+                                  failed=len(failures) > before)
             for case, r in rows.items():
-                print(f"fault {fault} ({case}): max abs {r['max_abs']:.3e} against one process, "
-                      f"bar {r['bar']:.3e} ({r['max_abs'] / r['bar']:.2f}x; |flow| max "
-                      f"{r['flow_max']:.3e}): {'FAILED' if r['failed'] else 'passed'}")
+                print(f"fault {fault} ({case}): {r['ratio']:.2f}x its bar"
+                      + (f" (max abs {r['max_abs']:.3e} against one process, bar {r['bar']:.3e}; "
+                         f"|flow| max {r['flow_max']:.3e})" if "max_abs" in r else "")
+                      + f": {'FAILED' if r['failed'] else 'passed'}")
             print(f"fault {fault}: ranks in {secs:.1f} s; cases that failed: "
                   f"{sum(r['failed'] for r in rows.values())} of {len(rows)}")
             out[fault] = rows

@@ -119,8 +119,8 @@ def _rank_mean_grads(model, out: dict):
     over ranks, before the clip, as JAX-layout leaves in `out`."""
     orig = mesh.average_gradients
 
-    def recording(params, group):
-        orig(params, group)
+    def recording(params, group, sp=None):
+        orig(params, group, sp)
         g = copy.deepcopy(model)
         with torch.no_grad():
             for p, q in zip(g.parameters(), model.parameters()):

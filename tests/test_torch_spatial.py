@@ -22,9 +22,27 @@ one process and against the JAX package's unsharded runs.
     the positional branch beside the content one (content-only attention
     cannot see the keys' order);
   - the AccFlow clips (5 x 1 x 128^2 with RAFT "ondemand:64"; 5 x 1 x 64^2
-    with each GMA variant; 4 x 1 x 40x48 at 24 + 16 rows; hidden 128, its
-    ZeroConv drawn so the deformable conv deforms) against JAX's unsharded
-    "mm" clip at the AccFlow bar (rtol 2e-3 / atol 2e-2);
+    with each GMA variant; 4 x 1 x 40x48 at 24 + 16 rows on every path:
+    fused, warm-started, F0N fused and stepwise, cold stepwise; hidden 128,
+    its ZeroConv drawn so the deformable conv deforms) against JAX's
+    unsharded "mm" clip at the AccFlow bar (rtol 2e-3 / atol 2e-2; a
+    stepwise path against JAX's fused clip of its direction, the same
+    function: tests/test_torch_f0n.py);
+  - the accumulator's sharded train step (train/engine.py::
+    make_acc_train_step with a handle; a batch of 2 clips of 4 frames at
+    40x48, 24 + 16 rows, hidden 32, RAFT at 2 iterations, float32, no
+    noise): its loss and the raw gradients the update reduces against
+    JAX's make_acc_train_step unsharded (loss rtol 1e-5, gradients at
+    tests/test_torch_train.py's bars) and against one process on the
+    fused, F0N fused, cold stepwise and remat "full" paths (relative L2
+    <= 1e-4 over the whole vector and over the context encoder's leaves,
+    where a lost halo gradient shows), the ranks' gradients bit-equal; its
+    noise rows bit-equal to one process's draw; valid_step's per-sample
+    EPE;
+  - the exchanges' backward: the input gradients of the halo conv, the
+    instance norm, upflow8 and the convex upsampling at unequal blocks,
+    the deformable conv (its gathered input) and a summed canvas
+    (sum_ranks) against one process's, within 1e-5;
   - StreamAccumulator with warm_start (a reset on 3 frames and 2 pushes)
     with RAFT (b), RAFT-small (a) and GMA (c), and the drift fixture's
     trained weights over its first 10 frames, against JAX's
@@ -39,12 +57,14 @@ one process and against the JAX package's unsharded runs.
   16, 8, 8, 8 at a height of 40), full RAFT at 48x64 (16, 16, 8, 8 rows)
   against JAX unsharded, JAX's GSPMD run over 4 devices and one process,
   and a (2, 2) mesh, each spatial pair on its own image, whose data groups
-  are the mesh's columns.
+  are the mesh's columns; on it the train step, one sample a data group
+  and 24 + 16 rows a spatial pair, against JAX and one process at batch
+  2, and its noise rows.
 - Without processes: make_mesh's rank layout against JAX's reshape of the
   device list, split_rows' blocks, and the refusals (a height not a
   multiple of 8, fewer rows at 1/8 than ranks, unequal blocks the handle
-  was not given, the stepwise, F0N and warm-start clip paths, a training
-  forward with a handle).
+  was not given, the estimator's training forward with a handle, a graphed
+  train step with a handle).
 """
 
 import os
@@ -75,6 +95,8 @@ from accflow_tpu_torch.ops.upsample import convex_upsample
 from accflow_tpu_torch.ops.warmstart import forward_splat_flow
 from accflow_tpu_torch.parallel import mesh
 from accflow_tpu_torch.streaming import StreamAccumulator
+from accflow_tpu_torch.train import engine
+from accflow_tpu_torch.train.optim import make_optimizer
 
 WORLD, SIZE, ITERS = 2, 128, 2
 LOOKUPS = ("fused", "ondemand:64", "experimental:fused_bd")
@@ -89,6 +111,20 @@ SMALL_LOOKUPS = ("fused", "ondemand:64")  # RAFT-small at 128^2: 1 and 2 chunks 
 DRIFT_FRAMES = 10  # the drift fixture's prefix: a reset on 3 frames and 7 pushes
 CLIP40 = (4, 1, 40, 48, 3)  # the clip at a height of 40: 24 + 16 rows over 2 ranks
 RAFT48 = (1, 48, 64, 3)  # RAFT over 4 ranks: 16, 16, 8, 8 rows
+# The clip paths a handle reaches beside the fused one, each at CLIP40, and
+# the JAX clip each is held to (the stepwise paths compute the fused paths'
+# function of their direction).
+CLIP_PATHS = {"warm start": dict(warm_start=True), "f0n fused": dict(direction="forward"),
+              "f0n stepwise": dict(direction="forward", fused_ofe=False),
+              "stepwise": dict(fused_ofe=False)}
+CLIP_JAX = {"warm start": "clip 40 warm start", "f0n fused": "clip 40 f0n",
+            "f0n stepwise": "clip 40 f0n", "stepwise": "clip 40"}
+# The sharded train step: a batch of 2 clips of CLIP40's shape, AccFlow
+# hidden 32 (its ZeroConv drawn), on each path JAX's step trains.
+TRAIN_BATCH, TRAIN_HIDDEN, TRAIN_LR = 2, 32, 1e-4
+TRAIN_PATHS = {"fused": {}, "f0n fused": dict(direction="forward"),
+               "stepwise": dict(fused_ofe=False), "remat full": dict(remat="full")}
+GRAD_REL = 1e-4  # sharded against one process, relative L2 of the gradients
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 PRIM_TOL = dict(rtol=1e-5, atol=1e-5)
 FLOW_TOL = dict(rtol=1e-3, atol=1e-3)  # tests/test_sharding.py's sharded-vs-unsharded bar
@@ -211,6 +247,58 @@ def _splat(sp):
     return mesh.gather_rows(out, sp)
 
 
+def _vjp(fn, xs, dims, cot, cot_dim, height=None):
+    """The exchanges' backward: each rank's part of the loss is its rows of
+    fn's output against the cotangent `cot`, and it back-propagates that
+    part alone (train/loss.py's convention); the gradients of the inputs
+    `xs` (whole, each sharded along its entry of `dims`), gathered and
+    flattened into one vector."""
+    def run(sp):
+        sp = _bound(sp, height)
+        local = [mesh.shard_rows(x, sp, d).clone().requires_grad_(True) for x, d in zip(xs, dims)]
+        (fn(sp, *local) * mesh.shard_rows(cot, sp, cot_dim)).sum().backward()
+        grads = [torch.zeros_like(x) if x.grad is None else x.grad for x in local]
+        return torch.cat([mesh.gather_rows(g, sp, d).reshape(-1) for g, d in zip(grads, dims)])
+    return run
+
+
+def _grad_cases() -> dict:
+    """Input gradients through each exchange, against one process's."""
+    rng = np.random.default_rng(9)
+    x40, w7, b4 = _t(rng, 2, 3, 40, 20), _t(rng, 4, 3, 7, 7), _t(rng, 4)
+    n40 = _t(rng, 2, 5, 40, 20, scale=3.0) + _t(rng, 1, 5, 1, 1, scale=2.0)
+    up, fl = _t(rng, 2, 5, 6, 2, scale=3.0), _t(rng, 2, 8, 10, 2, scale=3.0)
+    mask = _t(rng, 2, 8, 10, 576)
+    dx, doff, dm = _t(rng, 2, 4, 16, 12), _t(rng, 2, 18, 16, 12, scale=3.0), _t(rng, 2, 9, 16, 12)
+    dw, db = _t(rng, 5, 4, 3, 3), _t(rng, 5)
+    canvas = _t(rng, 2, 16, 12, 3)
+
+    def flipped_sum(sp, x):
+        # Each rank's rows placed in a full-height canvas upside down, the
+        # canvases summed: rank i's rows land in other ranks' rows.
+        if sp is None:
+            return x.flip(1)
+        h, r0 = sp.height(x.shape[1]), sp.row0(x.shape[1])
+        full = x.new_zeros((x.shape[0], h) + x.shape[2:])
+        full = full.index_copy(1, torch.arange(r0, r0 + x.shape[1]), x)
+        return mesh.shard_rows(mesh.sum_ranks(full.flip(1), sp), sp)
+
+    return {
+        "conv 7x7/2 uneven grad": _vjp(lambda sp, x: layers.conv2d(x, w7, b4, 2, spatial=sp),
+                                       [x40], [2], _t(rng, 2, 4, 20, 10), 2, 40),
+        "instance_norm uneven grad": _vjp(lambda sp, x: layers.instance_norm(x, spatial=sp),
+                                          [n40], [2], _t(rng, 2, 5, 40, 20), 2, 40),
+        "upflow8 uneven grad": _vjp(lambda sp, x: upflow8(x, sp), [up[:, :5]], [1],
+                                    _t(rng, 2, 40, 48, 2), 1, 40),
+        "convex_upsample grad": _vjp(lambda sp, f, m: convex_upsample(f, m, sp), [fl, mask],
+                                     [1, 1], _t(rng, 2, 64, 80, 2), 1),
+        "deform_conv3x3 grad": _vjp(lambda sp, x, o, m: deform_conv3x3(x, o, torch.sigmoid(m),
+                                                                       dw, db, sp),
+                                    [dx, doff, dm], [2, 2, 2], _t(rng, 2, 5, 16, 12), 2),
+        "sum_ranks grad": _vjp(flipped_sum, [canvas], [1], _t(rng, 2, 16, 12, 3), 1),
+    }
+
+
 PRIMITIVES = {
     "conv 3x3": _conv((3, 3), 1), "conv 7x7/2": _conv((7, 7), 2),
     "conv 3x3/2": _conv((3, 3), 2), "conv 1x1/2": _conv((1, 1), 2),
@@ -225,6 +313,13 @@ PRIMITIVES = {
     "halo_rows uneven": _halo(40, 3, 2, 40), "halo_rows uneven at 1/8": _halo(5, 3, 3, 40),
     "conv 7x7/2 uneven": _conv((7, 7), 2, h=40, height=40),
 }
+# The exchanges' backward, each rank back-propagating its rows of the
+# output. The gradients sum 8 to 81 products each (|grad| up to ~70), which
+# the sharded backward adds in another order: held within GRAD_PRIM_REL of
+# the largest |grad| (float32 rounding; a lost or unsummed halo, gather or
+# sum moves whole rows by their size).
+GRAD_PRIMITIVES = _grad_cases()
+GRAD_PRIM_REL = 1e-6
 
 
 # ---------------------------------------------------------------------------
@@ -239,9 +334,8 @@ def _estimator(work: str, lookup: str):
     return est
 
 
-def _accumulator(work: str, warm_start: bool = False):
-    acc = init_accflow(AccFlowConfig(compute_dtype="float32", warm_start=warm_start),
-                       device="cpu")
+def _accumulator(work: str, **cfg):
+    acc = init_accflow(AccFlowConfig(compute_dtype="float32", **cfg), device="cpu")
     return load_jax_params(acc, load_npz_tree(f"{work}/acc.npz"))
 
 
@@ -308,6 +402,11 @@ def _models(sp, work: str) -> dict:
     clip40 = mesh.shard_rows(torch.from_numpy(data["clip40"]), sp40, 2)
     case("clip 40", lambda: mesh.gather_rows(
         accflow_forward(acc, clip40, est.pairs_fn(spatial=sp40), spatial=sp40), sp40, 2))
+    for name, cfg in CLIP_PATHS.items():
+        acc_p = _accumulator(work, **cfg)
+        case(f"clip 40 {name}", lambda: mesh.gather_rows(accflow_forward(
+            acc_p, clip40, est.pairs_fn(spatial=sp40), est.flow_fn(spatial=sp40), spatial=sp40),
+            sp40, 2))
 
     def run_stream(stream, frames):  # a reset on 3 frames, then a push of each other
         frames = mesh.shard_rows(frames, sp, 2)
@@ -316,7 +415,7 @@ def _models(sp, work: str) -> dict:
 
     stream = torch.from_numpy(data["stream"])
     case("stream", lambda: run_stream(StreamAccumulator(
-        _estimator(work, "fused"), _accumulator(work, True), spatial=sp), stream))
+        _estimator(work, "fused"), _accumulator(work, warm_start=True), spatial=sp), stream))
 
     # GMA: a pair, the clip (each attention variant) and stream (c), at 64^2.
     g_clip = torch.from_numpy(data["gma_clip"])
@@ -328,7 +427,7 @@ def _models(sp, work: str) -> dict:
         case(f"gma clip {v}", lambda: mesh.gather_rows(
             accflow_forward(acc, g_rows, g_est.pairs_fn(spatial=sp), spatial=sp), sp, 2))
     case("gma stream", lambda: run_stream(StreamAccumulator(
-        _gma(work, "dense"), _accumulator(work, True), spatial=sp), g_clip))
+        _gma(work, "dense"), _accumulator(work, warm_start=True), spatial=sp), g_clip))
 
     # RAFT-small (kernel #2's path): a pair with each lookup, stream (a).
     for lookup in SMALL_LOOKUPS:
@@ -337,25 +436,107 @@ def _models(sp, work: str) -> dict:
         case(f"small {lookup}",
              lambda: mesh.gather_rows(small.forward(i1, i2, spatial=sp)["flow_up"], sp))
     case("small stream", lambda: run_stream(StreamAccumulator(
-        _small(work, "fused"), _accumulator(work, True), spatial=sp), stream))
+        _small(work, "fused"), _accumulator(work, warm_start=True), spatial=sp), stream))
     case("drift", lambda: run_stream(StreamAccumulator(*_drift_models(), spatial=sp),
                                      torch.from_numpy(data["drift"])))
     return out
 
 
-def _primitives(sp) -> dict:
-    """Every primitive on this rank's rows, and in one process."""
+def _train_batch(work: str, data_index: int = 0, n_data: int = 1, sp=None):
+    """The train batch (imgs (N, H, W, 3T), label flows (N, H, W, 2S)):
+    this data group's samples, this rank's rows of them."""
+    data = np.load(f"{work}/train.npz")
+    n = TRAIN_BATCH // n_data
+    return [mesh.shard_rows(torch.from_numpy(data[k][data_index * n: (data_index + 1) * n]), sp)
+            for k in ("imgs", "labels")]
+
+
+def _train_step(work: str, path: str, sp=None, group=None, data_index: int = 0,
+                n_data: int = 1, valid: bool = False) -> dict:
+    """One sharded train step (make_acc_train_step with the data `group`
+    and the handle, eager, no noise) on path `path`: its loss and the
+    gradients its update reduced, before the clip (read where
+    mesh.average_gradients leaves them), as JAX-layout leaves; with
+    `valid`, first valid_step's per-sample EPE and last output (whole)."""
+    est = _estimator(work, "fused")
+    acc = init_accflow(AccFlowConfig(hidden=TRAIN_HIDDEN, compute_dtype="float32",
+                                     **TRAIN_PATHS[path]), device="cpu")
+    load_jax_params(acc, load_npz_tree(f"{work}/acc32.npz"))
+    step, valid_step = engine.make_acc_train_step(
+        est, acc, make_optimizer(acc.parameters(), TRAIN_LR, 10), add_noise=False, group=group,
+        spatial=sp)
+    imgs, labels = _train_batch(work, data_index, n_data, sp)
     out = {}
-    for name, fn in PRIMITIVES.items():
+    if valid:
+        epe, last = valid_step(imgs, labels)
+        out.update({"train/valid/epe": epe.numpy(),
+                    "train/valid/out": mesh.gather_rows(last, sp).numpy()})
+    grads, average = [], mesh.average_gradients
+
+    def record(params, grp, spatial=None):
+        average(params, grp, spatial)
+        grads.extend(p.grad.clone() for p in params)
+
+    mesh.average_gradients = record
+    try:
+        loss, _ = step(imgs, labels)
+    finally:
+        mesh.average_gradients = average
+    with torch.no_grad():
+        for p, g in zip(acc.parameters(), grads):
+            p.copy_(g)
+    out[f"train/{path}/loss"] = np.array(float(loss))
+    out.update({f"train/{path}/g/{k}": v for k, v in _leaves(to_jax_params(acc)).items()})
+    return out
+
+
+def _leaves(tree, prefix=""):
+    """{path: numpy leaf} of a nested dict (test_torch_train.py's, which
+    imports jax: the ranks do not)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def _train_noise(sp=None, group=None, n: int = TRAIN_BATCH) -> np.ndarray:
+    """reference_noise for this rank's n samples of a CLIP40-shaped clip,
+    from a generator at seed 5, its rows gathered."""
+    h = CLIP40[2] if sp is None else sp.split(CLIP40[2])[sp.index]
+    noise = engine.reference_noise(torch.Generator().manual_seed(5), (n, h) + CLIP40[3:],
+                                   group, sp)
+    return mesh.gather_rows(noise, sp).numpy()
+
+
+def _train_cases(work: str, sp=None) -> dict:
+    """The train step on every path of TRAIN_PATHS, and the noise, on a
+    (1, 2) mesh's rows (sp, given the height) or in one process (None)."""
+    sp = _bound(sp, CLIP40[2])
+    out = {"train/noise": _train_noise(sp)}
+    for path in TRAIN_PATHS:
+        out.update(_train_step(work, path, sp, valid=path == "fused"))
+    return out
+
+
+def _primitives(sp) -> dict:
+    """Every primitive (and its backward) on this rank's rows, and in one
+    process."""
+    out = {}
+    for name, fn in {**PRIMITIVES, **GRAD_PRIMITIVES}.items():
         out[f"prim/{name}"] = fn(sp).numpy()
         out[f"prim/{name}/ref"] = fn(None).numpy()
     return out
 
 
-def _data_by_spatial(rank: int) -> dict:
+def _data_by_spatial(rank: int, work: str) -> dict:
     """A (2, 2) mesh: each data group's spatial pair runs a 3x3 conv and an
-    instance norm on its own image (seed 100 + its data index), and the
-    data group sums each member's rank."""
+    instance norm on its own image (seed 100 + its data index), the data
+    group sums each member's rank, and the train step runs on data x
+    spatial (the gradients summed over each pair, averaged over the
+    columns), with its noise rows."""
     m = mesh.make_mesh(n_data=2, n_spatial=2)
     d = rank // 2
     rng = np.random.default_rng(100 + d)
@@ -368,8 +549,13 @@ def _data_by_spatial(rank: int) -> dict:
 
     ranks = torch.tensor([float(rank)])
     torch.distributed.all_reduce(ranks, group=m.data_group)
+    # The train step: one sample a data group, 24 + 16 rows a spatial pair.
+    sp = m.axis.at_height(CLIP40[2])
+    step = _train_step(work, "fused", sp, m.data_group, d, 2)
     return {"2x2/axis": np.array([m.axis.index, m.axis.size]), "2x2/out": run(m.axis),
-            "2x2/ref": run(None), "2x2/data_sum": ranks.numpy()}
+            "2x2/ref": run(None), "2x2/data_sum": ranks.numpy(),
+            "2x2/noise": _train_noise(sp, m.data_group, TRAIN_BATCH // 2),
+            **{f"2x2/{k}": v for k, v in step.items()}}
 
 
 def _raft48(sp, work: str) -> dict:
@@ -387,9 +573,9 @@ def _raft48(sp, work: str) -> dict:
 def _child(mode: str, world: int, rank: int, port: int, work: str) -> None:
     """One rank of a launch: join the gloo group through torchrun's
     environment, make the mesh, run the primitives (each beside its
-    one-process run) and, for "models", the models on a (1, 2) mesh, for
-    "meshes" RAFT at 48x64 on the (1, 4) mesh and the data x spatial check
-    on a (2, 2) one; save what it saw."""
+    one-process run) and, for "models", the models and the train step on a
+    (1, 2) mesh, for "meshes" RAFT at 48x64 on the (1, 4) mesh and the data
+    x spatial checks on a (2, 2) one; save what it saw."""
     os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     torch.set_num_threads(1)
@@ -398,9 +584,9 @@ def _child(mode: str, world: int, rank: int, port: int, work: str) -> None:
     t0 = time.perf_counter()
     out = {"axis": np.array([m.axis.index, m.axis.size]), **_primitives(m.axis)}
     if mode == "models":
-        out.update(_models(m.axis, work))
+        out.update(_models(m.axis, work), **_train_cases(work, m.axis))
     else:
-        out.update(_raft48(m.axis, work), **_data_by_spatial(rank))
+        out.update(_raft48(m.axis, work), **_data_by_spatial(rank, work))
     out["seconds"] = time.perf_counter() - t0
     np.savez(f"{work}/rank{rank}.npz", **out)
     torch.distributed.destroy_process_group()
@@ -440,10 +626,30 @@ def _write_inputs(work: str) -> None:
     pair = frames(1, (2, 1, SIZE, SIZE, 3))
     seq = make_long_sequence(np.random.default_rng(77), 64, 64, 36, seg_len=6, max_v=1,
                              fg=True, fg_max_v=2)["imgs"][:DRIFT_FRAMES]
+    _write_train_inputs(work)
     np.savez(f"{work}/inputs.npz", i1=pair[0], i2=pair[1], clip=frames(3, (5, 1, SIZE, SIZE, 3)),
              stream=frames(4, (5, 1, SIZE, SIZE, 3)),
              gma_clip=frames(6, (5, 1, GMA_SIZE, GMA_SIZE, 3)), clip40=frames(7, CLIP40),
              drift=(2.0 * (seq.astype(np.float32) / 255.0) - 1.0)[:, None])
+
+
+def _write_train_inputs(work: str) -> None:
+    """The train step's accumulator (hidden 32, seed 1, its ZeroConv drawn
+    from seed 9) as a JAX-layout tree, and its batch: TRAIN_BATCH clips of
+    CLIP40's frames as uint8 values and their label flows (~4 px), seed 12."""
+    acc = to_jax_params(init_accflow(AccFlowConfig(hidden=TRAIN_HIDDEN, compute_dtype="float32"),
+                                     device="cpu"))
+    rng = np.random.default_rng(9)
+    zc = acc["accplus"]["conv2"]["4"]
+    zc["w"] = (rng.standard_normal(zc["w"].shape) * 0.05).astype(np.float32)
+    zc["b"] = (rng.standard_normal(zc["b"].shape) * 0.5).astype(np.float32)
+    zc["scale"] = rng.uniform(-0.1, 0.1, zc["scale"].shape).astype(np.float32)
+    save_npz_tree(f"{work}/acc32.npz", acc)
+    t, _, h, w, _ = CLIP40
+    rng = np.random.default_rng(12)
+    np.savez(f"{work}/train.npz",
+             imgs=rng.integers(0, 256, (TRAIN_BATCH, h, w, 3 * t)).astype(np.float32),
+             labels=(4.0 * rng.standard_normal((TRAIN_BATCH, h, w, 2 * (t - 2)))).astype(np.float32))
 
 
 def _free_port() -> int:
@@ -502,12 +708,14 @@ def launch(tmp_path_factory):
 def launch4(tmp_path_factory):
     """Four gloo ranks: the primitives on a (1, 4) mesh (a 7x7 conv at one
     row a rank reads its halo from three ranks up), RAFT at 48x64 (16, 16,
-    8, 8 rows a rank), then a (2, 2) mesh."""
+    8, 8 rows a rank), then a (2, 2) mesh (the train step on data x
+    spatial)."""
     work = str(tmp_path_factory.mktemp("spatial4"))
     save_npz_tree(f"{work}/ofe.npz", to_jax_params(
         build_flow_estimator("raft", compute_dtype="float32", device="cpu").model))
     pair = np.random.default_rng(8).uniform(-1, 1, (2,) + RAFT48).astype(np.float32)
     np.savez(f"{work}/inputs.npz", i1=pair[0], i2=pair[1])
+    _write_train_inputs(work)
     run = Launch(work, "meshes", 4)
     yield run
     _stop(run)
@@ -515,8 +723,9 @@ def launch4(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def refs(launch):
-    """JAX's unsharded runs (corr_lookup "mm") and the port's one-process
-    runs, computed here while the ranks run."""
+    """JAX's unsharded runs (corr_lookup "mm"; the train step's raw
+    gradients) and the port's one-process runs, computed here while the
+    ranks run."""
     import jax
     import jax.numpy as jnp
 
@@ -535,9 +744,9 @@ def refs(launch):
         return np.asarray(jax.jit(lambda p, a, b: j_est.forward(p, a, b)["flow_up"])(
             params, frames[0], frames[1]))
 
-    def clip(j_est, params, frames):
+    def clip(j_est, params, frames, cfg=f32):
         return np.asarray(jax.jit(lambda ap, op, ims: j_accflow_forward(
-            ap, j_est.flow_fn(op), ims, f32, ofe_pairs=j_est.pairs_fn(op)))(acc, params, frames))
+            ap, j_est.flow_fn(op), ims, cfg, ofe_pairs=j_est.pairs_fn(op)))(acc, params, frames))
 
     def stream(j_est, params, acc_params, frames, cfg):
         # The weights are arguments, not constants folded into the programs:
@@ -555,7 +764,11 @@ def refs(launch):
     j_est = j_build("raft", compute_dtype="float32", corr_lookup="mm", iters=ITERS)
     out = {"raft": pair(j_est, ofe, (data["i1"], data["i2"])),
            "clip": clip(j_est, ofe, data["clip"]), "clip 40": clip(j_est, ofe, data["clip40"]),
+           "clip 40 warm start": clip(j_est, ofe, data["clip40"], warm),
+           "clip 40 f0n": clip(j_est, ofe, data["clip40"],
+                               JAccFlowConfig(compute_dtype="float32", direction="forward")),
            "stream": stream(j_est, ofe, acc, data["stream"], warm)}
+    out["train"] = _jax_train_step(work, ofe)
     for branch in ("content", "positional"):
         gma = load_npz_tree(f"{work}/gma {branch}.npz")
         j_gma = j_build("gma", compute_dtype="float32", corr_lookup="mm", iters=ITERS,
@@ -572,8 +785,35 @@ def refs(launch):
         load_npz_tree(f"{FIXTURES}/drift_small_ofe.npz"),
         load_npz_tree(f"{FIXTURES}/drift_small_acc.npz"), data["drift"],
         JAccFlowConfig(hidden=64, compute_dtype="float32", warm_start=True))
-    out["port"] = _models(None, work)
+    out["port"] = {**_models(None, work), **_train_cases(work)}
     return out
+
+
+def _jax_train_step(work: str, ofe) -> dict:
+    """JAX's make_acc_train_step, unsharded, on the train batch (the raw
+    gradients from _keep_grads chained before its optimizer,
+    tests/test_torch_train.py): {"loss", "grads": JAX-layout leaves}."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from test_torch_train import _keep_grads
+
+    from accflow_tpu.models import build_flow_estimator as j_build
+    from accflow_tpu.models.accflow import AccFlowConfig as JAccFlowConfig
+    from accflow_tpu.train import engine as j_engine
+    from accflow_tpu.train import optim as j_optim
+
+    j_est = j_build("raft", compute_dtype="float32", corr_lookup="mm", iters=ITERS)
+    tx = optax.chain(_keep_grads(), j_optim.make_optimizer(
+        TRAIN_LR, num_steps=10, wdecay=1e-5, epsilon=1e-8, clip=1.0)[0])
+    j_step, _ = j_engine.make_acc_train_step(
+        j_est, JAccFlowConfig(hidden=TRAIN_HIDDEN, compute_dtype="float32"), tx, add_noise=False)
+    params = jax.tree.map(jnp.asarray, load_npz_tree(f"{work}/acc32.npz"))
+    batch = np.load(f"{work}/train.npz")
+    state, loss, _ = j_step(j_engine.TrainState(params, tx.init(params), jnp.int32(0)), ofe,
+                            jnp.asarray(batch["imgs"]), jnp.asarray(batch["labels"]),
+                            jax.random.PRNGKey(0))
+    return {"loss": float(loss), "grads": _leaves(jax.tree.map(np.asarray, state.opt_state[0]))}
 
 
 @pytest.fixture(scope="module")
@@ -615,7 +855,8 @@ def test_spatial_handles(launch):
     r0, r1 = launch.ranks()
     assert r0["axis"].tolist() == [0, 2] and r1["axis"].tolist() == [1, 2]
     cases = [k[:-len("/collectives")] for k in r0 if k.endswith("/collectives")]
-    assert len(cases) == len(LOOKUPS) + 3 + 2 * len(GMA_VARIANTS) + 1 + len(SMALL_LOOKUPS) + 2
+    assert len(cases) == (len(LOOKUPS) + 3 + len(CLIP_PATHS) + 2 * len(GMA_VARIANTS) + 1
+                          + len(SMALL_LOOKUPS) + 2)
     for case in cases:
         assert int(r0[f"{case}/collectives"]) == int(r1[f"{case}/collectives"]) > 0
         assert int(r0[f"{case}/bytes"]) == int(r1[f"{case}/bytes"]) > 0
@@ -630,6 +871,21 @@ def test_spatial_primitive_matches_one_process(request, name, world):
     got, ref = ranks[0][f"prim/{name}"], ranks[0][f"prim/{name}/ref"]
     assert got.shape == ref.shape and np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, **PRIM_TOL)
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r[f"prim/{name}"], got)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", list(GRAD_PRIMITIVES))
+def test_spatial_exchange_grads_match_one_process(request, name, world):
+    """Over 2 ranks and over 4, the input gradients through each exchange
+    (every rank back-propagating its own rows' part of the loss), gathered,
+    equal on every rank and within GRAD_PRIM_REL of one process's largest
+    |grad| (rtol 1e-5)."""
+    ranks = request.getfixturevalue("launch" if world == 2 else "launch4").ranks()
+    got, ref = ranks[0][f"prim/{name}"], ranks[0][f"prim/{name}/ref"]
+    assert got.shape == ref.shape and np.isfinite(got).all() and np.abs(ref).max() > 0
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=GRAD_PRIM_REL * np.abs(ref).max())
     for r in ranks[1:]:
         np.testing.assert_array_equal(r[f"prim/{name}"], got)
 
@@ -787,13 +1043,121 @@ def test_mesh_layout_matches_jax(cpu_devices, n_data, n_spatial):
     np.testing.assert_array_equal(mesh.mesh_layout(n_data, n_spatial), want)
 
 
+@pytest.mark.parametrize("path", list(CLIP_PATHS))
+def test_spatial_clip_paths_match_jax(launch, refs, path):
+    """The warm-started, F0N (fused and stepwise) and cold stepwise clips at
+    a height of 40 over two ranks (24 + 16 rows), against JAX's unsharded
+    clip and the port's one-process run of the path."""
+    got = launch.ranks()[0][f"clip 40 {path}"]
+    assert got.shape == (CLIP40[0] - 2,) + CLIP40[1:4] + (2,)
+    _holds(got, refs[CLIP_JAX[path]], refs["port"][f"clip 40 {path}"], ACC_TOL)
+    np.testing.assert_array_equal(launch.ranks()[1][f"clip 40 {path}"], got)
+
+
+def _train_ranks(request, mesh_shape: str):
+    """Each rank's train step outputs on the (1, 2) or the (2, 2) mesh, as
+    the one-process run names them."""
+    if mesh_shape == "1x2":
+        return request.getfixturevalue("launch").ranks()
+    return [{k[len("2x2/"):]: v for k, v in r.items() if k.startswith("2x2/train/")}
+            for r in request.getfixturevalue("launch4").ranks()]
+
+
+def _grads(out: dict, path: str) -> dict:
+    pre = f"train/{path}/g/"
+    return {k[len(pre):]: v for k, v in out.items() if k.startswith(pre)}
+
+
+def _context(grads: dict) -> list:
+    """The context encoder's leaves, where a halo row's lost gradient
+    shows (the rest see the context through a 3x3 conv at most)."""
+    return [k for k in grads if k.startswith("context/")]
+
+
+def _same_grads(ranks, path: str) -> dict:
+    """Rank 0's reduced gradients, every other rank's bit-equal to them."""
+    got = _grads(ranks[0], path)
+    for r in ranks[1:]:
+        g = _grads(r, path)
+        assert set(g) == set(got)
+        for k in got:
+            np.testing.assert_array_equal(g[k], got[k], err_msg=k)
+    return got
+
+
+@pytest.mark.parametrize("mesh_shape", ["1x2", "2x2"])
+def test_spatial_train_step_matches_jax(request, refs, mesh_shape):
+    """The fused path's sharded step (24 + 16 rows a spatial pair; on the
+    (2, 2) mesh one sample a data group) against JAX's unsharded
+    make_acc_train_step at batch 2: the loss within rtol 1e-5, the raw
+    gradients at test_one_step_loss_and_grads_match_jax's bars (per leaf
+    rtol 1e-3, atol 1e-3 of its largest; the context encoder's leaves by
+    their relative L2, 1e-2)."""
+    from test_torch_train import _assert_grads_close, _rel_l2
+
+    ranks, want = _train_ranks(request, mesh_shape), refs["train"]
+    got = _same_grads(ranks, "fused")
+    np.testing.assert_allclose(float(ranks[0]["train/fused/loss"]), want["loss"], rtol=1e-5)
+    ctx = _context(want["grads"])
+    _assert_grads_close({k: v for k, v in got.items() if k not in ctx},
+                        {k: v for k, v in want["grads"].items() if k not in ctx})
+    assert _rel_l2(got, want["grads"], ctx) <= 1e-2
+    assert np.abs(got["accplus/conv2/4/w"]).max() > 0  # the offsets reach the deformable conv
+
+
+@pytest.mark.parametrize("mesh_shape,path", [("1x2", p) for p in TRAIN_PATHS] + [("2x2", "fused")])
+def test_spatial_train_step_matches_one_process(request, refs, mesh_shape, path):
+    """The sharded step on each path against the port's one process at
+    batch 2: the loss within rtol 1e-5, the whole gradient and the context
+    encoder's leaves each within GRAD_REL in relative L2, every rank's
+    reduced gradients bit-equal."""
+    from test_torch_train import _rel_l2
+
+    ranks, one = _train_ranks(request, mesh_shape), refs["port"]
+    got, want = _same_grads(ranks, path), _grads(one, path)
+    np.testing.assert_allclose(float(ranks[0][f"train/{path}/loss"]),
+                               float(one[f"train/{path}/loss"]), rtol=1e-5)
+    assert set(got) == set(want)
+    assert _rel_l2(got, want, list(want)) <= GRAD_REL
+    assert _rel_l2(got, want, _context(want)) <= GRAD_REL
+
+
+@pytest.mark.parametrize("mesh_shape", ["1x2", "2x2"])
+def test_spatial_train_noise_rows(request, refs, mesh_shape):
+    """reference_noise under a handle (and on the (2, 2) mesh a data
+    group): each rank's rows, gathered, bit-equal to one process's draw
+    for the global batch from the same generator seed."""
+    one = refs["port"]["train/noise"]
+    if mesh_shape == "1x2":
+        for r in request.getfixturevalue("launch").ranks():
+            np.testing.assert_array_equal(r["train/noise"], one)
+        return
+    for rank, r in enumerate(request.getfixturevalue("launch4").ranks()):
+        d = rank // 2
+        np.testing.assert_array_equal(r["2x2/noise"], one[d: d + 1])
+
+
+def test_spatial_valid_step_matches_one_process(launch, refs):
+    """valid_step under a handle: the per-sample EPE over the global pixels
+    (rtol 1e-5) on every rank, and the last output's rows (gathered)
+    within FLOW_REL x max |flow| of one process's."""
+    one = refs["port"]
+    for r in launch.ranks():
+        assert r["train/valid/epe"].shape == (TRAIN_BATCH,)
+        np.testing.assert_allclose(r["train/valid/epe"], one["train/valid/epe"], rtol=1e-5)
+        got, want = r["train/valid/out"], one["train/valid/out"]
+        assert got.shape == want.shape == (TRAIN_BATCH,) + CLIP40[2:4] + (2,)
+        assert np.abs(got - want).max() <= FLOW_REL * np.abs(want).max()
+
+
 def test_spatial_refusals(tmp_path):
     """A handle (never used for a collective here: each call refuses
-    first) where the spatial axis is not ported (the stepwise, F0N and
-    warm-start clip paths, a training forward), or where the frames do not
-    split into blocks of 8-row multiples (a height not a multiple of 8,
+    first) where the spatial axis is not ported (the estimator's training
+    forward, fine_tune's; a graphed train step), or where the frames do
+    not split into blocks of 8-row multiples (a height not a multiple of 8,
     fewer rows at 1/8 than ranks, unequal blocks the handle was not given).
-    GMA and RAFT-small take a handle: the launches run them."""
+    Every AccFlow clip path, the accumulator's train step, GMA and
+    RAFT-small take a handle: the launches run them."""
     sp = mesh.Spatial(None, 0, 2)
     with pytest.raises(ValueError, match="n_spatial=2"):
         mesh.make_mesh(n_spatial=2)
@@ -807,12 +1171,10 @@ def test_spatial_refusals(tmp_path):
         est.forward(img, img, spatial=sp)  # 12 rows a rank of 24: blocks of 16 + 8
     with pytest.raises(ValueError, match="its block of a height of 24 is 16"):
         est.forward(img, img, spatial=sp.at_height(24))
-    clip = np.zeros((4, 1, 16, 16, 3), np.float32)
-    for kw in (dict(warm_start=True), dict(direction="forward"), dict(fused_ofe=False)):
-        acc = init_accflow(AccFlowConfig(hidden=32, compute_dtype="float32", **kw),
-                           device="cpu")
-        with pytest.raises(ValueError, match="#12"):
-            accflow_forward(acc, clip, est.pairs_fn(), est.flow_fn(), spatial=sp)
+    acc = init_accflow(AccFlowConfig(hidden=32, compute_dtype="float32"), device="cpu")
+    with pytest.raises(ValueError, match="#12 item 6"):
+        engine.make_acc_train_step(est, acc, make_optimizer(acc.parameters(), TRAIN_LR, 10),
+                                   add_noise=False, graphed=True, spatial=sp)
     with pytest.raises(ValueError, match="training over the spatial axis"):
         est.forward(img[:, :8], img[:, :8], train=True, spatial=sp)
 
