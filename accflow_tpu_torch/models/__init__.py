@@ -47,12 +47,13 @@ _ENTRY_POINTS = {
 class FlowEstimator:
     """A RAFT (full width or small) or GMA model with its forward entry
     points, picked by the model's type. iters: the GRU iterations of a call
-    that names none (default: the model config's). The inference entry
-    points take a `spatial` handle (parallel/mesh.py: frames, features and
-    flows are this rank's rows of a height-sharded image), for RAFT of
-    either size and GMA: the frozen estimator of the accumulator's sharded
-    train step runs through them, under no_grad. A training forward (the
-    estimator's own, fine_tune's) refuses one (ValueError)."""
+    that names none (default: the model config's). Every entry point takes
+    a `spatial` handle (parallel/mesh.py: frames, features and flows are
+    this rank's rows of a height-sharded image), for RAFT of either size
+    and GMA: the frozen estimator of the accumulator's sharded train step
+    runs through the inference ones under no_grad, the sharded fine-tune
+    step (train/finetune.py::make_finetune_step) through the training
+    forward."""
 
     def __init__(self, name: str, model, iters: Optional[int] = None):
         self.name = name
@@ -74,13 +75,10 @@ class FlowEstimator:
         BatchNorm normalises with the batch's statistics and keeps its
         running-statistics updates (nn.layers.collect_bn_updates), and
         remat ("none", "dots", "full") checkpoints each GRU iteration.
-        spatial: images and flows are this rank's rows (inference only)."""
+        spatial: images, flow_init and flows are this rank's rows."""
         if train:
-            if spatial is not None:
-                raise ValueError("the estimator's training over the spatial axis (fine_tune) is "
-                                 "not ported: ROADMAP.md queue 1, #12 item 5.2")
             return self._train_forward(self.model, image1, image2, self._iters(iters),
-                                       flow_init, final_only, remat)
+                                       flow_init, final_only, remat, spatial=spatial)
         return self._forward(self.model, image1, image2, self._iters(iters), flow_init,
                              final_only, spatial=spatial)
 

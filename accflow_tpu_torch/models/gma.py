@@ -37,8 +37,9 @@ dense while the attention and the stored pyramid (none under the
 volume-free ondemand lookup) fit ops/corr.py's budget, chunks of 1024
 (rounded down to a divisor of HW) beyond.
 
-The inference entry points take a `spatial` handle (parallel/mesh.py), as
-RAFT's do: frames, features and flows are this rank's rows. Each rank keeps
+The entry points take a `spatial` handle (parallel/mesh.py), as RAFT's
+do, the training forward too: frames, features and flows are this rank's
+rows. Each rank keeps
 its own query rows and gathers the keys once per source frame (to_qk's
 output, before the float32 cast) and the values at every aggregate, so it
 holds (N, heads, HW_local, HW) rows of the attention, each softmaxed over
@@ -364,13 +365,15 @@ def _pairs(model: GMA, frames, src_idx, dst_idx, iters, final_only, flow_init=No
 
 
 def gma_train_forward(model: GMA, image1, image2, iters: Optional[int] = None, flow_init=None,
-                      final_only: bool = False, remat: str = "none") -> dict:
-    """gma_forward for training, the contract of raft_train_forward."""
+                      final_only: bool = False, remat: str = "none", spatial=None) -> dict:
+    """gma_forward for training, the contract of raft_train_forward; under
+    a handle the gathered keys' and values' gradients return to the ranks
+    that own their rows."""
     check_trainable_lookup(model.cfg)
     dev = next(model.parameters()).device
     frames = torch.stack([_as_images(image1, dev), _as_images(image2, dev)])
     return _pairs(model, frames, (0,), (1,), iters, final_only, flow_init, train=True,
-                  remat=remat)
+                  remat=remat, spatial=spatial)
 
 
 @torch.no_grad()

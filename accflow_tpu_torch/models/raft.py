@@ -33,7 +33,8 @@ Images are (N, H, W, 3) in [-1, 1]; flows (N, H, W, 2) in (x, y) order.
 Feature maps inside are NCHW, kept channels_last in memory.
 
 Inference (raft_forward and the other entry points) runs under no_grad.
-The inference entry points of both sizes take a `spatial` handle
+The entry points of both sizes, raft_train_forward among them, take a
+`spatial` handle
 (parallel/mesh.py): the frames, every activation, the correlation's queries
 and the flows are then this rank's rows of a height-sharded image, the
 convs read halo rows, the instance norms combine the ranks' statistics,
@@ -369,8 +370,10 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
         coords1 = (coords1 + flow_init).contiguous()
     if isinstance(levels, OnDemandCorr):
         def lookup(c):  # kernel #1 (#2 for RAFT-small) on each chunk's rows
+            # reshape: at batch > 1 with chunks of one row the windows are a
+            # batch-strided view, which no view can flatten.
             return lookup_corr_on_demand(levels, c.view(n, h8, w8, 2), cfg.corr_radius,
-                                         out_dtype=cd).view(n * h8 * w8, -1)
+                                         out_dtype=cd).reshape(n * h8 * w8, -1)
     elif cfg.small:
         def lookup(c):  # the kernel writes the compute dtype itself
             return lookup_corr_level(levels, c, cfg.corr_radius, out_dtype=cd)
@@ -408,10 +411,16 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
             return net, coords1
         return net, coords1, upsample(coords1 - coords0, net)
 
-    iteration = remat_wrap(iteration, remat)
+    def sharded(net, coords1):
+        # The layers take the handle in the iteration: a checkpoint's
+        # recompute runs in the backward, after the caller's spatial_sharding.
+        with spatial_sharding(model, spatial):
+            return iteration(net, coords1)
+
+    step = remat_wrap(sharded, remat)
     preds = []
     for _ in range(iters):
-        net, coords1, *pred = iteration(net, coords1.detach())
+        net, coords1, *pred = step(net, coords1.detach())
         preds += pred
     out = {"flow_low": coords1 - coords0}
     if final_only:
@@ -467,18 +476,26 @@ def check_trainable_lookup(cfg) -> None:
 
 
 def raft_train_forward(model: RAFT, image1, image2, iters: Optional[int] = None,
-                       flow_init=None, final_only: bool = False, remat: str = "none"):
+                       flow_init=None, final_only: bool = False, remat: str = "none",
+                       spatial=None):
     """raft_forward for training (JAX's forward with train=True): autograd
     records it; the cnet's BatchNorm uses the batch's statistics and keeps
     its running-statistics updates for collect_bn_updates; the pyramid is
     stored in float32; remat ("none", "dots", "full") checkpoints each GRU
     iteration. The split lookups (experimental:fused_bd[2]) have no
-    backward, as in the reference: NotImplementedError."""
+    backward, as in the reference: NotImplementedError. spatial: images,
+    flow_init and the flows are this rank's rows, as in raft_forward; the
+    gathered fnet map's backward returns each key row's gradient (the
+    pyramid's, from the lookups' backward on this rank's queries) to its
+    owner, and the BatchNorm statistics are the mesh's
+    (nn/layers.py::batch_norm_train). Under remat each checkpointed
+    iteration re-runs its halo exchanges in the backward, on every rank in
+    the same order (nn/remat.py)."""
     check_trainable_lookup(model.cfg)
     dev = next(model.parameters()).device
     frames = torch.stack([_as_images(image1, dev), _as_images(image2, dev)])
     return _pairs(model, frames, (0,), (1,), iters, final_only, flow_init, train=True,
-                  remat=remat)
+                  remat=remat, spatial=spatial)
 
 
 def _pairs(model, frames, src_idx, dst_idx, iters, final_only, flow_init=None,

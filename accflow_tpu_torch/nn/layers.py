@@ -82,8 +82,8 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5, spatial=None) -> torch.Ten
     spatial: x is this rank's rows, and the statistics are those of the
     whole image: each rank's, gathered and combined by the parallel
     variance formula, mean = sum_r w_r mean_r and var = sum_r w_r (var_r +
-    (mean_r - mean)^2), w_r the rank's share of the rows (batch_norm_train's
-    group path, whose ranks hold equal shares, with unequal ones)."""
+    (mean_r - mean)^2), w_r the rank's share of the rows (as
+    batch_norm_train's spatial path)."""
     xf = x.float()
     var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, unbiased=False)
     if spatial is not None:
@@ -105,7 +105,7 @@ def batch_norm(x, weight, bias, running_mean, running_var, eps: float = 1e-5):
 
 
 def batch_norm_train(x, weight, bias, running_mean, running_var, eps: float = 1e-5,
-                     momentum: float = 0.1, group=None):
+                     momentum: float = 0.1, group=None, spatial=None):
     """Train-mode BatchNorm2d (accflow_tpu/nn/layers.py::batch_norm with
     train=True): x normalised with its batch's statistics over (N, H, W),
     taken in float32 with the biased variance, the affine map applied in
@@ -123,11 +123,28 @@ def batch_norm_train(x, weight, bias, running_mean, running_var, eps: float = 1e
     (mean_r - mean)^2], through a differentiable sum over ranks; every rank
     then normalises alike and moves its running statistics alike (a group
     of one gives the local statistics' bits). With group None the local
-    statistics are all that runs, whatever process group is active."""
+    statistics are all that runs, whatever process group is active.
+
+    With a `spatial` handle x is this rank's rows of its samples, whose
+    blocks may differ by 8-row multiples: the same formula weighs each
+    rank's statistics by its share of the elements, w_r = its rows over
+    n_data x the global height (mean = sum_r w_r mean_r, var = sum_r w_r
+    (var_r + (mean_r - mean)^2)), over the ranks of the spatial group, or
+    of the whole mesh (data x spatial: mesh.mesh_sum) when a data `group`
+    is given too; the running variance's n / (n - 1) takes the global
+    element count."""
     xf = x.float()
     var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
     n = x.shape[0] * x.shape[2] * x.shape[3]
-    if group is not None:
+    if spatial is not None:
+        n_data = 1 if group is None else torch.distributed.get_world_size(group)
+        height = spatial.height(x.shape[2])
+        n = x.shape[0] * n_data * height * x.shape[3]
+        share = x.shape[2] / (n_data * height)
+        local_mean = mean
+        mean = mesh.mesh_sum(share * local_mean, group, spatial)
+        var = mesh.mesh_sum(share * (var + (local_mean - mean) ** 2), group, spatial)
+    elif group is not None:
         world = torch.distributed.get_world_size(group)
         n *= world
         local_mean = mean
@@ -199,7 +216,9 @@ class BatchNorm2d(nn.Module):
     batch's, as torch's model.train() does, and keeps the moved running
     statistics in `new_stats` until collect_bn_updates takes them; `group`
     (batch_norm_group) is the process group its batch statistics reduce
-    over, None for this process's batch. AdamW never sees the buffers: they
+    over, None for this process's batch, and `spatial` (spatial_sharding)
+    the handle of the rows it is given, whose statistics it combines with
+    the other ranks' (batch_norm_train). AdamW never sees the buffers: they
     are not parameters."""
 
     def __init__(self, num_features: int):
@@ -211,6 +230,7 @@ class BatchNorm2d(nn.Module):
         self.batch_stats = False
         self.new_stats = None
         self.group = None
+        self.spatial = None
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -225,7 +245,8 @@ class BatchNorm2d(nn.Module):
             return batch_norm(x, self.weight, self.bias, self.running_mean,
                               self.running_var)
         y, mean, var = batch_norm_train(x, self.weight, self.bias, self.running_mean,
-                                        self.running_var, group=self.group)
+                                        self.running_var, group=self.group,
+                                        spatial=self.spatial)
         self.new_stats = (mean, var)
         return y
 
@@ -251,7 +272,9 @@ def batch_norm_group(module: nn.Module, group):
     """Within the block, the BatchNorm2d layers of `module` reduce their
     batch statistics over the ranks of the process group `group` (None:
     this process's batch alone), as flax's BatchNorm reduces over its
-    axis_name: a train step that runs data-parallel passes its group here."""
+    axis_name: a train step that runs data-parallel passes its group here.
+    Under a spatial handle (spatial_sharding) a group stands for its ranks'
+    whole mesh, data x spatial (batch_norm_train)."""
     bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
     for m in bns:
         m.group = group
@@ -265,8 +288,8 @@ def batch_norm_group(module: nn.Module, group):
 @contextlib.contextmanager
 def spatial_sharding(module: nn.Module, spatial):
     """Within the block, the layers of `module` that read a spatial handle
-    (those with a `spatial` attribute: Conv2d and InstanceNorm2d) are
-    given `spatial`, the
+    (those with a `spatial` attribute: Conv2d, InstanceNorm2d and
+    BatchNorm2d) are given `spatial`, the
     parallel.mesh.Spatial handle of the rows they are given, as
     batch_norm_group gives BatchNorm2d its group, and get back what they
     had after it; None, this process's whole image, leaves them as they

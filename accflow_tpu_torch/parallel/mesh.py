@@ -13,8 +13,9 @@ global batch:
   (average_gradients, from train/optim.py), and the loss and metrics too
   (all_mean);
 - train-mode BatchNorm reduces its mean and variance over the global batch
-  (nn/layers.py::batch_norm_train), so every rank moves its running
-  statistics the same way;
+  (nn/layers.py::batch_norm_train; under a spatial handle over the whole
+  mesh, each rank weighted by its elements: mesh_sum), so every rank moves
+  its running statistics the same way;
 - per-sample metrics are gathered onto every rank (host_array);
 - rank 0 alone writes logs, PNGs, TensorBoard and checkpoints, after a
   barrier (is_main_process, sync_processes).
@@ -30,8 +31,8 @@ On the card the collectives are NCCL's, captured inside a train step's CUDA
 graph (graphs.CudaGraphedStep); on the CPU they are gloo's, eagerly.
 
 The mesh's `spatial` axis shards image height (JAX's hi-res serving,
-streaming and height-sharded accumulator training, where GSPMD inserts the
-halo exchanges and gathers). make_mesh(n_data, n_spatial) lays the ranks
+streaming, and height-sharded accumulator training and fine-tuning, where
+GSPMD inserts the halo exchanges and gathers). make_mesh(n_data, n_spatial) lays the ranks
 out as JAX's reshape(n_data, n_spatial): a spatial group is n_spatial
 consecutive ranks, and each rank gets a `Spatial` handle. Every rank holds
 its own block of rows of the frames and of every activation (shard_rows):
@@ -68,9 +69,13 @@ Every rank builds the same graph in the same order, so the backward's
 collectives line up (and a rematerialised cell re-runs its forward's in the
 same order on each).
 Full RAFT, RAFT-small and GMA take a handle in every inference entry
-point, AccFlow in each clip path and in its training forward
-(train/engine.py::make_acc_train_step); the estimators' training forward
-(fine_tune) and graphed spatial steps do not yet (ROADMAP.md queue 1, #12).
+point and in their training forward (train/finetune.py::make_finetune_step:
+each rank's queries against the gathered keys, the lookups' backward on
+them, the key-side gradient summed back to its owner by the gather's
+backward, train-mode BatchNorm over the mesh), AccFlow in each clip path
+and in its training forward (train/engine.py::make_acc_train_step). Graphed
+spatial steps are not ported (ROADMAP.md queue 1, #12 item 6), and the
+engines (train_acc, fine_tune) stay data-parallel, as JAX's do.
 
 Without a process group every function is the single-process identity, and
 the engines' outputs are those of the code before this module existed.
@@ -378,6 +383,15 @@ def global_sum(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of `t` over the ranks of `group` (not None), differentiable,
     as GSPMD's psum."""
     return _GlobalSum.apply(t, group, False)
+
+
+def mesh_sum(t: torch.Tensor, group, sp: Spatial) -> torch.Tensor:
+    """The sum of `t` over the ranks of the spatial group of `sp` or, with a
+    data `group` (not None), over the whole mesh: every spatial group of
+    every data group, the world that make_mesh lays out (train-mode
+    BatchNorm's statistics of the global batch). Differentiable (_GlobalSum)
+    and counted as the spatial axis's collectives."""
+    return _GlobalSum.apply(t, sp.group if group is None else dist.group.WORLD, True)
 
 
 def _all_gather(t: torch.Tensor, group, size: int) -> list:

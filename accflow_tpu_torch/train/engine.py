@@ -41,7 +41,9 @@ back-propagates its part of the loss over the global pixels
 and averages them over the data group, once, before the clip. The noise is
 the rank's rows of one global draw. The step runs eagerly: graphed spatial
 steps over NCCL are not ported (ROADMAP.md queue 1, #12 item 6). The
-engines (train_acc, fine_tune) stay data-parallel only, as JAX's do.
+estimators' fine-tune step takes the handle the same way
+(train/finetune.py::make_finetune_step). The engines (train_acc, fine_tune)
+stay data-parallel only, as JAX's do.
 """
 
 from __future__ import annotations

@@ -26,6 +26,19 @@ graph serves every pair) and its validation step too; on the CPU both run
 eagerly. Under torchrun the step is data-parallel as train_acc's
 (train/engine.py), and train-mode BatchNorm takes the global batch's
 statistics (nn/layers.py::batch_norm_train), as JAX's GSPMD step does.
+
+make_finetune_step also takes a spatial handle, as make_acc_train_step
+does: JAX's make_finetune_step with its batch sharded P("data",
+"spatial"), where GSPMD trains the estimator on height shards. Each rank
+holds its rows of its samples; the estimator's training forward runs on
+them (halos, the gathered target fnet map and GMA's keys and values, the
+lookups and their backward kernel on this rank's queries), BatchNorm takes
+the mesh's statistics, each rank back-propagates its pixels' part of the
+sequence loss over the global count, and the update sums the gradients
+over the spatial group and averages them over the data group. The step
+runs eagerly (graphed spatial steps: ROADMAP.md queue 1, #12 item 6);
+fine_tune itself stays data-parallel, as JAX's builds its mesh with
+n_spatial 1 (accflow_tpu/train/finetune.py:147).
 """
 
 from __future__ import annotations
@@ -92,7 +105,7 @@ def _normalize(img) -> torch.Tensor:
 
 def make_finetune_step(est: FlowEstimator, optimizer: Optimizer, add_noise: bool, gamma: float,
                        grad_accum: int = 1, remat: str = "dots", graphed: bool = False,
-                       group=None):
+                       group=None, spatial=None):
     """(train_step, valid_step) of JAX's make_finetune_step for the
     estimator `est`.
 
@@ -111,19 +124,36 @@ def make_finetune_step(est: FlowEstimator, optimizer: Optimizer, add_noise: bool
     CUDA graphs on CUDA tensors (engine.graph_steps). group: the process
     group of the data-parallel axis, or None: over its ranks the gradients,
     loss and metrics are averaged, the BatchNorm statistics reduced
-    (layers.batch_norm_group) and the noise drawn for the global batch."""
+    (layers.batch_norm_group) and the noise drawn for the global batch.
+
+    spatial (mesh.Mesh.axis given the frames' height by at_height): the
+    images and labels are this rank's rows of its samples (mesh.shard_batch,
+    then mesh.shard_rows(x, spatial, dim=1)); the noise is this rank's rows
+    of one global draw, BatchNorm reduces over the data x spatial ranks,
+    each rank back-propagates its part of the loss over the global pixels,
+    the update sums the gradients over the spatial group (then averages
+    them over `group`) before the clip, grad_accum splits N (which every
+    spatial rank holds whole), the reported loss and metrics are the
+    group's sums of the parts, and valid_step returns the per-sample EPE
+    over the global pixels and this rank's rows of the flow. The step runs
+    eagerly: graphed=True with a handle raises ValueError."""
+    if spatial is not None and graphed:
+        raise ValueError("graphed spatial steps over NCCL are not ported (ROADMAP.md queue 1, "
+                         "#12 item 6): a fine-tune step with a spatial handle runs eagerly "
+                         "(graphed=False)")
     model = est.model
 
     def loss_fn(i1, i2, label):
         with batch_norm_group(model, group):
-            out = est.forward(i1, i2, iters=TRAIN_ITERS, train=True, remat=remat)
-        return sequence_loss_raft(out["predictions"], label, gamma)
+            out = est.forward(i1, i2, iters=TRAIN_ITERS, train=True, remat=remat,
+                              spatial=spatial)
+        return sequence_loss_raft(out["predictions"], label, gamma, spatial)
 
     def make_update(finish):
         def train_step(img1, img2, label, gen: Optional[torch.Generator] = None):
             i1, i2 = _normalize(img1), _normalize(img2)
             if add_noise:
-                noise = reference_noise(gen, i1.shape, group)
+                noise = reference_noise(gen, i1.shape, group, spatial)
                 i1, i2 = i1 + noise, i2 + noise
             optimizer.zero_grad()
             with tf32(False):
@@ -132,7 +162,7 @@ def make_finetune_step(est: FlowEstimator, optimizer: Optimizer, add_noise: bool
                     model=model)
             finish()
             apply_bn_updates(model, bn_updates)
-            return mesh.all_mean((loss, metrics), group)
+            return mesh.all_mean(mesh.spatial_sum((loss, metrics), spatial), group)
 
         return train_step
 
@@ -142,11 +172,15 @@ def make_finetune_step(est: FlowEstimator, optimizer: Optimizer, add_noise: bool
         i1 = _normalize(imgs[..., 3 * (n_frames - 1):])
         i2 = _normalize(imgs[..., :3])
         label = torch.as_tensor(bflows)[..., -2:]
-        flow = est.forward(i1, i2, iters=VALID_ITERS, final_only=True)["flow_up"]
+        flow = est.forward(i1, i2, iters=VALID_ITERS, final_only=True, spatial=spatial)["flow_up"]
         epe = torch.sqrt(torch.sum((flow - label) ** 2, dim=-1))
-        return epe.mean(dim=(1, 2)), flow
+        if spatial is None:
+            return epe.mean(dim=(1, 2)), flow
+        h, w = epe.shape[1:]
+        return (mesh.spatial_sum(epe.sum(dim=(1, 2)) / (mesh.global_rows(h, spatial) * w),
+                                 spatial), flow)
 
-    return graph_steps(make_update, valid_step, optimizer, graphed, group)
+    return graph_steps(make_update, valid_step, optimizer, graphed, group, spatial)
 
 
 def run_validation(valid_step, valid_dst, batch: int, device, valid_sample: int = 500):

@@ -11,7 +11,7 @@ Flows are channels-last, predictions stacked on a leading axis; the
 metrics stay tensors on the flows' device (read them when needed).
 
 Under a spatial handle (parallel/mesh.py: each rank holds its block of
-rows) the accumulator's loss and metrics are means over the global pixels,
+rows) both losses and the metrics are means over the global pixels,
 written as each rank's part: its pixels' sum over the global element count
 of its data shard (the handle's height, whose blocks may differ by 8 rows,
 not its own). The parts add up to the one-process value; the convention
@@ -49,13 +49,20 @@ def epe_metrics(flow_final: torch.Tensor, flow_gt: torch.Tensor, spatial=None) -
             "3px": (epe < 3).float().sum() / count, "5px": (epe < 5).float().sum() / count}
 
 
-def sequence_loss_raft(predictions: torch.Tensor, flow_gt: torch.Tensor, gamma: float = 0.8):
-    """predictions: (T, N, H, W, 2); flow_gt: (N, H, W, 2)."""
+def sequence_loss_raft(predictions: torch.Tensor, flow_gt: torch.Tensor, gamma: float = 0.8,
+                       spatial=None):
+    """predictions: (T, N, H, W, 2); flow_gt: (N, H, W, 2). spatial: both
+    are this rank's rows, and the loss and metrics its parts (module
+    docstring); without a handle each iteration's L1 is torch's mean."""
     t = predictions.shape[0]
     weights = gamma ** torch.arange(t - 1, -1, -1, dtype=torch.float32,
                                     device=predictions.device)
-    l1 = torch.abs(predictions - flow_gt[None]).mean(dim=(1, 2, 3, 4))
-    return torch.sum(weights * l1), epe_metrics(predictions[-1], flow_gt)
+    err = torch.abs(predictions - flow_gt[None])
+    if spatial is None:
+        l1 = err.mean(dim=(1, 2, 3, 4))
+    else:
+        l1 = err.sum(dim=(1, 2, 3, 4)) / _global_count(err, spatial, 1)
+    return torch.sum(weights * l1), epe_metrics(predictions[-1], flow_gt, spatial)
 
 
 def sequence_loss_acc(predictions: torch.Tensor, flow_gts: torch.Tensor, spatial=None):

@@ -233,7 +233,21 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    distance), each rank's peak, seconds per step, the forward's and the
    backward's collectives and bytes, kernel #1's launches and Q; (l) the
    warm-started, F0N fused and cold stepwise CVO-6 clips (BATCH_SPREAD),
-   kernel #1's launches a rank (60, 12, 60) and Q.
+   kernel #1's launches a rank (60, 12, 60) and Q;
+24. the estimators' fine-tune step over the spatial axis, in phase 21's
+   launch of two ranks: (m) one step of make_finetune_step with a handle
+   (AdamW's update left out), f32 (TF32 off), batch 2 at 64^2, 12
+   iterations, remat "dots": full RAFT "fused" and "ondemand:16" (2 chunks
+   a rank), GMA (positional, gamma drawn), RAFT-small (kernel #2), and RAFT
+   at 40x64 (24 + 16 rows): the loss (TRAIN_LOSS_REL), the reduced
+   gradients over the fnet, the cnet and the rest apart (TRAIN_GRAD_REL)
+   and the moved running statistics (FT_STATS_REL) against this process,
+   both ranks' gradients and statistics bit-equal; (n) RAFT.yml as shipped
+   (batch 6 a spatial pair, 256^2, bf16, remat "dots", noise on): its
+   gradients against one process's f32 step (ACCUM_F32_RATIO), each rank's
+   peak, seconds per step, the forward's and the backward's collectives
+   and bytes, kernel #1's and the backward kernel's launches a rank (12
+   each) and Q.
 Optional phases: --tile-sweep builds kernels #1 and #2 with 4, 8 and 16
 queries per block and times them in turns (#1 at the clip shape after phase
 3, #2 at the stream shape after phase 4); --profile prints where
@@ -248,7 +262,7 @@ line the numbers of phases 6c and 8's GMA runs and 10-13, and a
 calls, the graphed-vs-eager distances beside their bars), an
 {"ondemand": {...}} line phase 16's, an {"f0n": {...}} line phase 17's, and
 {"sintel"}, {"data_parallel"}, {"host_tools"} and {"spatial"} lines phases
-18-23's. The line before
+18-24's. The line before
 the last is {"kernels": [...]}; the last line is {"ok": true, "device":
 {...}}. Without a GPU, or without the package beside it, the script exits
 non-zero and prints no result.
@@ -276,6 +290,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch.profiler import ProfilerActivity, profile
 
 try:
@@ -304,7 +319,7 @@ try:
     from accflow_tpu_torch.data.synthetic import make_long_sequence, write_synthetic_cvor
     from accflow_tpu_torch.models import gma
     from accflow_tpu_torch.models.raft import gather_pairs, raft_cnet, to_nchw
-    from accflow_tpu_torch.nn.layers import BatchNorm2d, Conv2d, InstanceNorm2d, tf32
+    from accflow_tpu_torch.nn.layers import tf32
     from accflow_tpu_torch.ops import (
         corr,
         corr_backward_cuda,
@@ -432,7 +447,7 @@ FT_STATS_REL = 1e-5
 # such element took the other side on the GPU than on the CPU in 15d (the
 # fnet's layer2.1.norm2 output, -1.06e-6 on the CPU and +1.41e-6 on the GPU
 # at a median of 0.67, which moved the fnet's gradient by 1.75e-4 in L2), so
-# 15d's CPU run takes the GPU's value at each tie (tie_hooks) and counts them.
+# 15d's CPU run takes the GPU's value at each tie (relu_ties) and counts them.
 TIE_REL = 1e-5
 MEMORY_REL_F32 = 1e-5
 MEMORY_REL_BF16 = 1e-3
@@ -540,6 +555,23 @@ SPATIAL_SIZE_H = (440, 1024)  # (h): Sintel's 1024x436 padded, 224 + 216 rows ov
 # over the wrong count moves them by 1e-1 or more). (l)'s clips are
 # bfloat16, held as (b) is (BATCH_SPREAD). Fixed before the phase's first
 # run.
+# Phase 24, the estimators' fine-tune step over the spatial axis, in the
+# same launch, holds its cases as phase 23 does and phase 15d holds the GPU
+# against the CPU: (m) is float32 with TF32 off, so the sharded step is one
+# process's math on the ranks' rows (BatchNorm's statistics combined from
+# the ranks', the gathered keys' gradient summed on their owners) and takes
+# 15d's bars, TRAIN_LOSS_REL, TRAIN_GRAD_REL over the fnet (a lost key
+# gradient), the cnet (a halo, a BatchNorm over the wrong ranks or count)
+# and the rest apart, and FT_STATS_REL on the running statistics; the
+# ranks' gradients and statistics are bit-equal. (n) is bfloat16 at full
+# width and takes (k)'s bar (ACCUM_F32_RATIO). The bars were fixed before
+# the phase's first run. The ties one process takes from the ranks were
+# first those of the convs' and norms' outputs, and the fnet's gradient
+# then missed its bar by 76x: at 64^2 the ranks' forward differed from one
+# process's by up to 2.2e-5 x a tensor's median |value|, the kernels by
+# 6e-7 from their plain versions, and the flips lay at ReLU inputs no hook
+# sees, the encoders' residual sums. relu_ties watches every ReLU input, at
+# the same TIE_REL, and puts the fnet at 3.4e-6.
 SPATIAL_CLIP_KW = {"l warm": dict(warm_start=True), "l f0n": dict(direction="forward"),
                    "l stepwise": dict(fused_ofe=False)}
 SPATIAL_TRAIN_KW = {"j fused": {}, "j f0n": dict(direction="forward"),
@@ -2752,35 +2784,36 @@ def finetune_step_parts(opt, root: str):
     return est, ft.select_pair(batch, np.random.default_rng(2))
 
 
-def tie_hooks(model, recorded=None):
-    """Forward hooks on `model`'s convs and norms, whose outputs hold its
-    ReLU inputs. Without `recorded`, each call's output is kept (float32, on
-    the CPU) in the returned dict under the module's name. With another
-    run's record, each call's output takes that run's value wherever the two
-    lie on opposite sides of zero, each within TIE_REL of its tensor's
-    median |value|: a ReLU input in a tie, which either rounding may put on
-    either side of the kink; the gradient passes unchanged. Returns (record,
-    ties: (module, call, elements) per call that had one, hook handles)."""
-    rec, ties, handles = {}, [], []
-    for name, m in model.named_modules():
-        if not isinstance(m, (Conv2d, InstanceNorm2d, BatchNorm2d)):
-            continue
+@contextlib.contextmanager
+def relu_ties(recorded=None):
+    """Within the block every torch.relu (F.relu and nn.ReLU call it) is
+    watched: without `recorded`, each call's input is kept (float32, on the
+    CPU) in the yielded list; with another run's list, each call's input
+    takes that run's value wherever the two lie on opposite sides of zero,
+    each within TIE_REL of its tensor's median |value| (a tie), and the
+    gradient passes unchanged: a ReLU input in a tie, which either rounding
+    may put on either side of the kink. Yields (record, ties: (call,
+    elements) per call that had one). Watch with the checkpoints' early
+    stop off (torch.utils.checkpoint.set_checkpoint_early_stop), so that a
+    recompute makes as many calls in either run."""
+    rec, ties, relu = [], [], torch.relu
 
-        def hook(mod, inputs, out, name=name):
-            calls = rec.setdefault(name, [])
-            calls.append(out.detach().float().cpu() if recorded is None else None)
-            if recorded is None:
-                return None
-            o, other = out.detach().float(), recorded[name][len(calls) - 1].to(out.device)
+    def watched(x):
+        rec.append(x.detach().float().cpu() if recorded is None else None)
+        if recorded is not None:
+            o, other = x.detach().float(), recorded[len(rec) - 1].to(x.device)
             tie = ((o * other < 0) & (o.abs() <= TIE_REL * o.abs().median())
                    & (other.abs() <= TIE_REL * other.abs().median()))
-            if not bool(tie.any()):
-                return None
-            ties.append((name, len(calls) - 1, int(tie.sum())))
-            return out + ((other - o) * tie).to(out.dtype).detach()
+            if bool(tie.any()):
+                ties.append((len(rec) - 1, int(tie.sum())))
+                x = x + ((other - o) * tie).to(x.dtype).detach()
+        return relu(x)
 
-        handles.append(m.register_forward_hook(hook))
-    return rec, ties, handles
+    torch.relu = watched
+    try:
+        yield rec, ties
+    finally:
+        torch.relu = relu
 
 
 def finetune_gpu_vs_cpu(corr_lookup: str = "fused") -> dict:
@@ -2794,7 +2827,7 @@ def finetune_gpu_vs_cpu(corr_lookup: str = "fused") -> dict:
     gradients over the fnet, the cnet and the update block apart, and each
     running-statistics buffer after the step (TRAIN_LOSS_REL,
     TRAIN_GRAD_REL, FT_STATS_REL). The CPU run takes the GPU's ReLU inputs at their ties
-    (tie_hooks, TIE_REL); their count is printed."""
+    (relu_ties, TIE_REL); their count is printed."""
     rng = np.random.default_rng(5)
     img1, img2 = (rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8) for _ in range(2))
     label = (4 * rng.standard_normal((2, 64, 64, 2))).astype(np.float32)
@@ -2805,7 +2838,6 @@ def finetune_gpu_vs_cpu(corr_lookup: str = "fused") -> dict:
     for where in ("cuda", "cpu"):
         est = models.build_flow_estimator("raft", compute_dtype="float32", seed=0, device=where,
                                           corr_lookup=corr_lookup)
-        rec, ties, _ = tie_hooks(est.model, recorded)
         opt = make_optimizer(est.model.parameters(), 1e-4, 10)
         grads = {}
         update = opt.step
@@ -2826,7 +2858,10 @@ def finetune_gpu_vs_cpu(corr_lookup: str = "fused") -> dict:
                 return fn(*a, **k)
             setattr(m, name, counted)
         try:
-            loss, _ = train_step(*(torch.from_numpy(a).to(where) for a in (img1, img2, label)))
+            with relu_ties(recorded) as (rec, ties), \
+                    torch.utils.checkpoint.set_checkpoint_early_stop(False):
+                loss, _ = train_step(*(torch.from_numpy(a).to(where)
+                                       for a in (img1, img2, label)))
         finally:
             for (m, name), fn in zip(plain, originals):
                 setattr(m, name, fn)
@@ -3912,6 +3947,8 @@ def spatial_child(rank: int, port: int, work: str) -> int:
                for case in SPATIAL_CASES + SPATIAL22_CASES + SPATIAL23_CASES}
         out.update({case: spatial_train_run(case, sp, record=case in SPATIAL_J)
                     for case in SPATIAL_TRAIN_KW})
+        out.update({case: spatial_ft_run(case, sp, record=case in SPATIAL_M)
+                    for case in SPATIAL_FT_KW})
         torch.save(out, Path(work) / f"rank{rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
@@ -3992,10 +4029,9 @@ def spatial_train_run(case: str, sp, dtype=None, record: bool = False, recorded=
     loss, the gradients its update reduced (before the clip; float32 on the
     host), the collectives and bytes of its forward (to the loss) and of its
     backward (to the gradient sum), its seconds, the peak, the kernel
-    launches and kernel #1's Q. With `record`, the accumulator's conv
-    outputs (its ReLU inputs, tie_hooks), as "record"; with another run's
-    `recorded` (the whole frames'), its values taken at ties, counted as
-    "ties"."""
+    launches and kernel #1's Q. With `record`, the last step's ReLU inputs
+    (relu_ties), as "record"; with another run's `recorded` (the whole
+    frames'), its values taken at ties, counted as "ties"."""
     est, acc, imgs, labels, add_noise = spatial_train_inputs(case, dtype)
     if sp is not None:
         sp = sp.at_height(imgs.shape[1])
@@ -4020,24 +4056,22 @@ def spatial_train_run(case: str, sp, dtype=None, record: bool = False, recorded=
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    handles, ties, rec = [], [], {}
+    watch = record or recorded is not None
     try:
-        for rep in range(SPATIAL_TRAIN_REPS.get(case, 1)):
-            if (record or recorded is not None) and rep == SPATIAL_TRAIN_REPS.get(case, 1) - 1:
-                rec, ties, handles = tie_hooks(acc, recorded)
+        for _ in range(SPATIAL_TRAIN_REPS.get(case, 1)):
             reset_counts()
             shapes.clear()
             c0 = (mesh.collectives, mesh.bytes_sent)
             gen = torch.Generator(device="cuda").manual_seed(7)
             t0 = time.perf_counter()
-            with kernel_shapes(shapes):
+            watcher = relu_ties(recorded) if watch else contextlib.nullcontext(([], []))
+            with kernel_shapes(shapes), watcher as (rec, ties), \
+                    torch.utils.checkpoint.set_checkpoint_early_stop(not watch):
                 loss, _ = step(imgs, labels, gen)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
     finally:
         engine.sequence_loss_acc, mesh.average_gradients = loss_fn, reduce
-        for h in handles:
-            h.remove()
     fwd, bwd = marks["forward"], marks["backward"]
     return dict(loss=float(loss), grads=grads, secs=secs, peak=torch.cuda.max_memory_allocated(),
                 launches=launch_counts(), q=sorted({q for q, _ in shapes}),
@@ -4057,15 +4091,13 @@ def spatial_k_references() -> dict:
 
 def spatial_j_references(ranks) -> dict:
     """The (j) cases in this process on the whole frames, each taking the
-    ranks' values (their conv outputs' rows put together) at a ReLU input
-    in a tie (tie_hooks: float32 roundings of another summation order may
-    put an input within TIE_REL of zero on either side of the kink; the
-    ties are counted and printed)."""
+    ranks' values (their ReLU inputs' rows put together) at a ReLU input in
+    a tie (relu_ties: float32 roundings of another summation order may put
+    an input within TIE_REL of zero on either side of the kink; the ties
+    are counted and printed)."""
     ref = {}
     for case in SPATIAL_J:
-        recs = [r[case]["record"] for r in ranks]
-        whole = {name: [torch.cat(calls, dim=2) for calls in zip(*(rec[name] for rec in recs))]
-                 for name in recs[0]}
+        whole = [torch.cat(calls, dim=2) for calls in zip(*(r[case]["record"] for r in ranks))]
         ref[case] = spatial_train_run(case, None, recorded=whole)
     return ref
 
@@ -4110,7 +4142,7 @@ def spatial_train_check(case: str, one: dict, got: list, one_f32=None) -> dict:
         what = (f"loss {got[0]['loss']:.7f} vs {one['loss']:.7f} (relative {loss_rel:.3e}, bar "
                 f"{TRAIN_LOSS_REL:g}); gradient relative L2 outside the context encoder "
                 f"{grad:.3e}, context encoder {grad_ctx:.3e} (bar {TRAIN_GRAD_REL:g} each; one "
-                f"process took the ranks' values at {sum(t[2] for t in one['ties'])} ReLU "
+                f"process took the ranks' values at {sum(t[1] for t in one['ties'])} ReLU "
                 f"inputs in a tie: {one['ties']})")
     h = one["q"] and got[0]["q"]
     print(f"spatial ({case}) train step, two gloo ranks on one card vs one process: {what}; "
@@ -4135,6 +4167,236 @@ def spatial_train_check(case: str, one: dict, got: list, one_f32=None) -> dict:
              f"{one['launches']}, expected {want} of corr_lookup; Q {row['q']} against "
              f"{row['one_process_q']}; collectives {row['forward_collectives']} / "
              f"{row['backward_collectives']}")
+    return row
+
+
+# Phase 24: the estimators' fine-tune step over the spatial axis, in phase
+# 21's launch of two ranks. (m) one step of make_finetune_step with a
+# handle, float32 (TF32 off), batch 2 at 64^2, 12 GRU iterations, remat
+# "dots" (the step's default), noise off: full RAFT "fused" and
+# "ondemand:16" (2 chunks of 16 queries a rank's image, 4 in one process),
+# GMA (its positional branch, gamma drawn in [2, 4]) and RAFT-small
+# (kernel #2), and full RAFT at 40x64 (24 + 16 rows); (n) configs/RAFT.yml
+# as shipped (batch 6 a spatial pair, 256^2, bf16, noise on).
+SPATIAL_FT_KW = {"m raft": dict(model="raft"),
+                 "m ondemand": dict(model="raft", corr_lookup="ondemand:16"),
+                 "m gma": dict(model="gma"), "m small": dict(model="small"),
+                 "m raft 40": dict(model="raft", rows=40), "n": {}}
+SPATIAL_M = tuple(c for c in SPATIAL_FT_KW if c.startswith("m"))  # the float32 cases
+SPATIAL_FT_F32 = tuple(c for c in SPATIAL_M if c != "m small")  # kernel #1's
+SPATIAL_FT_REPS = {"n": 2}  # steps a run times (the last read); else 1
+# Chunks of queries an image per lookup, on a rank and in one process; else 1.
+SPATIAL_FT_CHUNKS = {"m ondemand": (2, 4)}
+
+
+def spatial_ft_inputs(case: str, dtype=None):
+    """Phase 24's case `case`: (estimator, img1, img2, label, add_noise,
+    remat), from seeds, on the card. (m): phase 15d's pair batch (2 pairs
+    at 64^2 of uint8 values from seed 5, "m raft 40" their first 40 rows),
+    float32 estimators from seed 0 (GMA: gma_estimator's gamma), noise off.
+    (n): configs/RAFT.yml as shipped (its estimator from seed 0, no
+    flow_pretrained file here; `dtype` in place of its bfloat16 if given),
+    6 pairs at 256^2 from seed 23 and their label flows, noise on."""
+    if case == "n":
+        opt = parse_options(str(REPO / "configs" / "RAFT.yml"))
+        opt.update(flow_pretrained=None, compute_dtype=dtype or opt.compute_dtype)
+        est = ft.build_estimator(opt, device="cuda")
+        (h, w), n, add_noise = opt.image_size, opt.batch_per_gpu, bool(opt.add_noise)
+        full, remat, rng = h, opt.get("scan_remat", "dots"), np.random.default_rng(23)
+    else:
+        kw = dict(SPATIAL_FT_KW[case])
+        model, rows = kw.pop("model"), kw.pop("rows", 64)
+        if model == "gma":
+            est = gma_estimator(compute_dtype="float32", position_and_content=True)
+        else:
+            est = models.build_flow_estimator("raft", compute_dtype="float32", seed=0,
+                                              small=model == "small", **kw)
+        (h, w), n, add_noise = (rows, 64), 2, False
+        full, remat, rng = 64, "dots", np.random.default_rng(5)
+    img1, img2 = (rng.integers(0, 256, (n, full, w, 3)).astype(np.uint8) for _ in range(2))
+    label = (4 * rng.standard_normal(img1.shape[:3] + (2,))).astype(np.float32)
+    return (est, *(torch.from_numpy(np.ascontiguousarray(a[:, :h])).cuda()
+                   for a in (img1, img2, label)), add_noise, remat)
+
+
+def spatial_ft_run(case: str, sp, dtype=None, record: bool = False, recorded=None) -> dict:
+    """Phase 24's case on this rank's rows (sp) or on the whole frames
+    (None): SPATIAL_FT_REPS steps of make_finetune_step (eager, TF32 off
+    as the step sets it), each from the same weights and noise (AdamW's
+    update left out, the generator reseeded), the last read: its loss, the
+    gradients its update reduced (before the clip; float32 on the host),
+    the running statistics after it, the collectives and bytes of its
+    forward (to the loss) and of its backward (to the gradient sum), its
+    seconds, the peak, the kernel launches and the Q of kernel #1's (#2's)
+    forward launches. `record`: the step's ReLU inputs (relu_ties), as
+    "record"; `recorded`: another run's (the ranks' rows put together),
+    whose values this run takes at ties, counted as "ties"."""
+    est, img1, img2, label, add_noise, remat = spatial_ft_inputs(case, dtype)
+    if sp is not None:
+        sp = sp.at_height(img1.shape[1])
+        img1, img2, label = (mesh.shard_rows(x, sp) for x in (img1, img2, label))
+    optimizer = make_optimizer(est.model.parameters(), 1e-4, 10)
+    optimizer.optimizer.step = lambda *a, **k: None  # AdamW's update left out
+    step, _ = ft.make_finetune_step(est, optimizer, add_noise, gamma=0.85, remat=remat, spatial=sp)
+    marks, grads, shapes = {}, {}, []
+    loss_fn, reduce = ft.sequence_loss_raft, mesh.average_gradients
+
+    def loss_at(*a, **k):  # the forward's end
+        marks["forward"] = (mesh.collectives, mesh.bytes_sent)
+        return loss_fn(*a, **k)
+
+    def reduce_at(params, group, spatial=None):  # the backward's end, then the gradient sum
+        marks["backward"] = (mesh.collectives, mesh.bytes_sent)
+        reduce(params, group, spatial)
+        grads.update({k: p.grad.detach().float().cpu() for k, p in est.model.named_parameters()})
+
+    ft.sequence_loss_raft, mesh.average_gradients = loss_at, reduce_at
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    watch = record or recorded is not None
+    reps = SPATIAL_FT_REPS.get(case, 1)
+    try:
+        for _ in range(reps):
+            reset_counts()
+            shapes.clear()
+            c0 = (mesh.collectives, mesh.bytes_sent)
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            t0 = time.perf_counter()
+            # Watching ReLUs, a checkpoint's recompute runs to the
+            # iteration's end, so that a rank sees as many calls as one
+            # process (an early stop follows the saved tensors, which the
+            # halos change).
+            watcher = relu_ties(recorded) if watch else contextlib.nullcontext(([], []))
+            with kernel_shapes(shapes), watcher as (rec, ties), \
+                    torch.utils.checkpoint.set_checkpoint_early_stop(not watch):
+                loss, _ = step(img1, img2, label, gen)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        ft.sequence_loss_raft, mesh.average_gradients = loss_fn, reduce
+    fwd, bwd = marks["forward"], marks["backward"]
+    stats = {k: v.float().cpu() for k, v in est.model.state_dict().items() if "running" in k}
+    return dict(loss=float(loss), grads=grads, stats=stats, secs=secs,
+                peak=torch.cuda.max_memory_allocated(), launches=launch_counts(),
+                q=sorted({q for q, _ in shapes}),
+                forward_collectives=fwd[0] - c0[0], forward_bytes=fwd[1] - c0[1],
+                backward_collectives=bwd[0] - fwd[0], backward_bytes=bwd[1] - fwd[1],
+                record=rec if record else None, ties=ties)
+
+
+def spatial_ft_references() -> dict:
+    """(n) in this process on the whole frames, as shipped ("n") and in
+    float32 ("n f32": the bar's reference)."""
+    ref = {"n": spatial_ft_run("n", None), "n f32": spatial_ft_run("n", None, "float32")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def spatial_m_references(ranks) -> dict:
+    """The (m) cases in this process on the whole frames, each taking the
+    ranks' values at a ReLU input in a tie (relu_ties: every ReLU input of
+    the estimators is NCHW, its rows the ranks')."""
+    ref = {}
+    for case in SPATIAL_M:
+        whole = [torch.cat(calls, dim=2) for calls in zip(*(r[case]["record"] for r in ranks))]
+        ref[case] = spatial_ft_run(case, None, recorded=whole)
+    return ref
+
+
+def spatial_ft_check(case: str, one: dict, got: list, one_f32=None) -> dict:
+    """Phase 24's case `case`: its two ranks (`got`) against this process
+    (`one`; for (n) also `one_f32`), its row of readings, printed. (m): the
+    loss within TRAIN_LOSS_REL, the gradients within TRAIN_GRAD_REL in
+    relative L2 over the fnet (where a lost key gradient shows), the cnet
+    (halos, BatchNorm) and the rest apart, each running-statistics buffer
+    within FT_STATS_REL of its largest |value|; (n): ACCUM_F32_RATIO, as
+    (k). Both: the ranks' gradients and running statistics bit-equal, the
+    lookup's forward and backward kernels launched as many times on both
+    ranks as the case predicts (12 each a step, x chunks; "ondemand"
+    recomputes each chunk's forward in the backward), no other kernel, the
+    ranks' Q adding up to one process's (each chunk's Q, under ondemand,
+    equal), collectives in the forward and the backward."""
+    g0, g1 = got[0]["grads"], got[1]["grads"]
+    same = (set(g0) == set(g1) and all(torch.equal(g0[k], g1[k]) for k in g0)
+            and all(torch.equal(got[0]["stats"][k], got[1]["stats"][k]) for k in got[0]["stats"]))
+    parts = {p: [k for k in g0 if k.startswith(p + ".")] for p in ("fnet", "cnet")}
+    parts["rest"] = [k for k in g0 if not k.startswith(("fnet.", "cnet."))]
+    small = case == "m small"
+    kernel, backward = (("corr_level_lookup", "corr_level_lookup_backward") if small
+                        else ("corr_lookup", "corr_lookup_backward"))
+    loss_rel = abs(got[0]["loss"] - one["loss"]) / abs(one["loss"])
+    row = dict(loss=got[0]["loss"], one_process_loss=one["loss"], loss_rel=loss_rel,
+               ranks_bit_equal=same, kernel=kernel,
+               rank_peak_gib=[g["peak"] / 2**30 for g in got],
+               one_process_peak_gib=one["peak"] / 2**30,
+               rank_s_per_step=[g["secs"] for g in got], one_process_s_per_step=one["secs"],
+               **{k: [g[k] for g in got] for k in ("forward_collectives", "forward_bytes",
+                                                   "backward_collectives", "backward_bytes")},
+               launches=[g["launches"][kernel] for g in got],
+               backward_launches=[g["launches"][backward] for g in got],
+               one_process_launches=one["launches"][kernel],
+               one_process_backward_launches=one["launches"][backward],
+               q=[g["q"] for g in got], one_process_q=one["q"], ties=one["ties"])
+    if case == "n":
+        dist, base = rel_l2(g0, one_f32["grads"]), rel_l2(one["grads"], one_f32["grads"])
+        row.update(vs_f32_grad_rel_l2=dist, one_bf16_vs_f32_grad_rel_l2=base,
+                   bar=ACCUM_F32_RATIO * base, vs_one_bf16_grad_rel_l2=rel_l2(g0, one["grads"]),
+                   ratio=dist / (ACCUM_F32_RATIO * base))
+        what = (f"gradients vs one process's f32 step relative L2 {dist:.3e}, one process's "
+                f"bf16 step's {base:.3e} (bar {ACCUM_F32_RATIO:g}x that: {row['bar']:.3e}); vs "
+                f"one process's bf16 step {row['vs_one_bf16_grad_rel_l2']:.3e}; loss "
+                f"{got[0]['loss']:.5f} (one process {one['loss']:.5f})")
+    else:
+        rels = {p: rel_l2(g0, one["grads"], keys) for p, keys in parts.items()}
+        stats = max((float((got[0]["stats"][k] - v).abs().max() / v.abs().max())
+                     for k, v in one["stats"].items()), default=0.0)
+        row.update(**{f"{p}_grad_rel_l2": v for p, v in rels.items()}, stats_max_rel=stats,
+                   bar=TRAIN_GRAD_REL, loss_bar=TRAIN_LOSS_REL, stats_bar=FT_STATS_REL,
+                   ratio=max(loss_rel / TRAIN_LOSS_REL, stats / FT_STATS_REL,
+                             *(v / TRAIN_GRAD_REL for v in rels.values())))
+        what = (f"loss {got[0]['loss']:.7f} vs {one['loss']:.7f} (relative {loss_rel:.3e}, bar "
+                f"{TRAIN_LOSS_REL:g}); gradient relative L2 fnet {rels['fnet']:.3e}, cnet "
+                f"{rels['cnet']:.3e}, rest {rels['rest']:.3e} (bar {TRAIN_GRAD_REL:g} each); "
+                f"running statistics max relative {stats:.3e} (bar {FT_STATS_REL:g}); one "
+                f"process took the ranks' values at {sum(t[1] for t in one['ties'])} ReLU "
+                f"inputs in a tie (call, elements): {one['ties']}")
+    print(f"spatial ({case}) fine-tune step, two gloo ranks on one card vs one process: {what}; "
+          f"ranks' reduced gradients and running statistics "
+          f"{'bit-equal' if same else 'DIFFER'}; peak per rank "
+          f"{', '.join(f'{x:.3f}' for x in row['rank_peak_gib'])} GiB (one process "
+          f"{row['one_process_peak_gib']:.3f}); seconds per step, two gloo ranks sharing one card "
+          f"(not a reading of NCCL): {', '.join(f'{x:.3f}' for x in row['rank_s_per_step'])} "
+          f"(one process {row['one_process_s_per_step']:.3f}); collectives forward "
+          f"{row['forward_collectives']}, backward {row['backward_collectives']}; bytes sent "
+          f"forward {row['forward_bytes']}, backward {row['backward_bytes']}; {kernel} launches "
+          f"{row['launches']} (one process {row['one_process_launches']}), {backward} "
+          f"{row['backward_launches']} (one process {row['one_process_backward_launches']}), Q "
+          f"{row['q']} (one process {row['one_process_q']})")
+    if not (row["ratio"] <= 1.0 and same and np.isfinite(row["loss"])):
+        fail(f"spatial ({case}) fine-tune step: {what}; ranks bit-equal {same}")
+    chunks, chunks_one = SPATIAL_FT_CHUNKS.get(case, (1, 1))
+
+    def want(c):  # (forward, backward) launches a step at c chunks an image
+        return 12 * c * (2 if c > 1 else 1), 12 * c
+
+    others = [{k: v for k, v in g["launches"].items() if k not in (kernel, backward) and v}
+              for g in got]
+    q_ok = (all(q == row["one_process_q"] for q in row["q"]) if chunks > 1 else
+            row["one_process_q"] and sum(q[0] for q in row["q"] if q) == row["one_process_q"][0])
+    if not ((row["launches"][0], row["backward_launches"][0]) == want(chunks)
+            and row["launches"][1] == row["launches"][0]
+            and row["backward_launches"][1] == row["backward_launches"][0]
+            and (row["one_process_launches"], row["one_process_backward_launches"])
+            == want(chunks_one) and others == [{}, {}] and q_ok
+            and row["forward_collectives"][0] == row["forward_collectives"][1] > 0
+            and row["backward_collectives"][0] == row["backward_collectives"][1] > 0):
+        fail(f"spatial ({case}) fine-tune step: launches {[g['launches'] for g in got]}, one "
+             f"process {one['launches']}, expected {want(chunks)} and {want(chunks_one)} of "
+             f"{kernel} / {backward}; Q {row['q']} against {row['one_process_q']}; collectives "
+             f"{row['forward_collectives']} / {row['backward_collectives']}")
     return row
 
 
@@ -4260,7 +4522,7 @@ def spatial_check(case: str, one: dict, spread, got: list) -> dict:
 
 
 def spatial_phase(tmp: str) -> dict:
-    """Phases 21 and 22: the mesh's spatial axis for inference. Two
+    """Phases 21-24: the mesh's spatial axis. Two
     processes on the one card, each a gloo rank with CUDA tensors (NCCL
     puts no two ranks on one GPU; gloo gathers through the host), n_data 1
     and n_spatial 2, eagerly; each runs on its rows of the frames, every
@@ -4289,16 +4551,22 @@ def spatial_phase(tmp: str) -> dict:
     bars and readings, spatial_train_check; the clips as (b)): (j) the
     train step in f32 at 64^2 on the fused, F0N fused and cold stepwise
     paths and at 40x64; (k) AccRAFT.yml's step at full width; (l) the
-    warm-started, F0N fused and cold stepwise CVO-6 clips. Returns each
-    case's row."""
+    warm-started, F0N fused and cold stepwise CVO-6 clips. Phase 24 (the
+    fine-tune step, spatial_ft_check): (m) float32 at 64^2 with full RAFT
+    "fused" and "ondemand:16", GMA and RAFT-small, and RAFT at 40x64; (n)
+    RAFT.yml's step at full width. Returns each case's row."""
     cases = SPATIAL_CASES + SPATIAL22_CASES + SPATIAL23_CASES
-    ranks, secs, (ref, spread, train_ref) = spatial_launch(
-        tmp, meanwhile=lambda: (*spatial_references(cases), spatial_k_references()))
+    ranks, secs, (ref, spread, train_ref, ft_ref) = spatial_launch(
+        tmp, meanwhile=lambda: (*spatial_references(cases), spatial_k_references(),
+                                spatial_ft_references()))
     rows = {case: spatial_check(case, ref[case], spread.get(case), [r[case] for r in ranks])
             for case in cases}
     train_ref.update(spatial_j_references(ranks))
     rows.update({case: spatial_train_check(case, train_ref[case], [r[case] for r in ranks],
                                            train_ref["k f32"]) for case in SPATIAL_TRAIN_KW})
+    ft_ref.update(spatial_m_references(ranks))
+    rows.update({case: spatial_ft_check(case, ft_ref[case], [r[case] for r in ranks],
+                                        ft_ref["n f32"]) for case in SPATIAL_FT_KW})
     c_lookup = corr.resolve_auto_lookup("auto", 11, SPATIAL_SIZE_C[0] // 8,
                                         SPATIAL_SIZE_C[1] // 8, 4, torch.bfloat16)
     if not (corr.is_ondemand(c_lookup) and spatial_chunks("c", SPATIAL_SIZE_C[0] // 16) > 1):
@@ -4592,7 +4860,11 @@ def main() -> int:
           + "; train steps " + "; ".join(
               f"({case}) {spatial[case]['ratio']:.3f} of its bar, peak per rank "
               f"{max(spatial[case]['rank_peak_gib']):.3f} GiB (one process "
-              f"{spatial[case]['one_process_peak_gib']:.3f})" for case in SPATIAL_TRAIN_KW))
+              f"{spatial[case]['one_process_peak_gib']:.3f})" for case in SPATIAL_TRAIN_KW)
+          + "; fine-tune steps " + "; ".join(
+              f"({case}) {spatial[case]['ratio']:.3f} of its bar, peak per rank "
+              f"{max(spatial[case]['rank_peak_gib']):.3f} GiB (one process "
+              f"{spatial[case]['one_process_peak_gib']:.3f})" for case in SPATIAL_FT_KW))
     print(json.dumps({"host_tools": {"card": line, **tools}}, default=str))
     print(json.dumps({"spatial": {"card": line, **spatial}}, default=str))
     print(json.dumps({"ondemand": {"card": line, **ondemand}}, default=str))
@@ -4665,9 +4937,9 @@ def main() -> int:
          "dp_two_ranks_launches": {k: r["rank_launches"] for k, r in dp["two_ranks"].items()
                                    if isinstance(r, dict)},
          "spatial_launches": {c: spatial[c]["launches"] for c in ("b", "c", "d", "e", "g",
-                                                                  "h clip", "k")
+                                                                  "h clip", "k", "n")
                               + SPATIAL23_CASES},
-         "spatial_q": {c: spatial[c]["q"] for c in ("b", "c", "d", "e", "g", "h clip", "k")
+         "spatial_q": {c: spatial[c]["q"] for c in ("b", "c", "d", "e", "g", "h clip", "k", "n")
                        + SPATIAL23_CASES},
          "spatial_launches_in": "phases 21-23, each of two gloo ranks on one card, height "
                                 "sharded: (b) 2 CVO-6 clip forwards, (c) 2 7x1920x1088 clip "
@@ -4676,20 +4948,22 @@ def main() -> int:
                                 "GMA streams (c), (h) 2 7x1024x440 clip forwards at 224 + 216 "
                                 "rows, (k) 2 AccRAFT.yml train steps (batch 6, 256^2), (l) 2 "
                                 "warm-started, F0N fused and cold stepwise CVO-6 clip forwards "
-                                "each; counted in the last call"},
+                                "each, (n) 2 RAFT.yml fine-tune steps (batch 6, 256^2, float32 "
+                                "levels); counted in the last call"},
         {"name": "corr_lookup_f32_out", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:264",
          "launches": small["fused"], "launches_in": "the f32 small clip on the GPU",
          "spatial_launches": {c: spatial[c]["launches"] for c in ("a fused", "a ondemand:64",
-                                                                  "h pair",
-                                                                  *SPATIAL_J)},
+                                                                  "h pair", *SPATIAL_J,
+                                                                  *SPATIAL_FT_F32)},
          "spatial_q": {c: spatial[c]["q"] for c in ("a fused", "a ondemand:64", "h pair",
-                                                    *SPATIAL_J)},
-         "spatial_launches_in": "phases 21 (a), 22 (h) and 23 (j), each of two gloo ranks on "
-                                "one card, height sharded: one 128^2 forward (1024x440 at 224 "
-                                "+ 216 rows) at 2 iterations, the last of 2; one 64^2 train "
-                                "step (40x64 at 24 + 16 rows) at 4 iterations",
+                                                    *SPATIAL_J, *SPATIAL_FT_F32)},
+         "spatial_launches_in": "phases 21 (a), 22 (h), 23 (j) and 24 (m), each of two gloo "
+                                "ranks on one card, height sharded: one 128^2 forward "
+                                "(1024x440 at 224 + 216 rows) at 2 iterations, the last of 2; "
+                                "one 64^2 train step (40x64 at 24 + 16 rows) at 4 iterations; "
+                                "one 64^2 fine-tune step (40x64) at 12 iterations",
          "gma_small_clip_launches": gma_small["fused"],
          **rows1["float32"], "levels_dtype": "float32", "out_dtype": "float32",
          "float32_levels_bf16_out": rows1["float32, bf16 out"],
@@ -4716,9 +4990,11 @@ def main() -> int:
          "source": "accflow_tpu_torch/csrc/corr_level_lookup.cu",
          "replaces": "accflow_tpu/ops/corr_pallas.py:466",
          "launches": drift_launches, "launches_in": "the f32 drift fixture on the GPU",
-         "spatial_launches": spatial["i"]["launches"], "spatial_q": spatial["i"]["q"],
-         "spatial_launches_in": "phase 22 (i), each of two gloo ranks on one card, height "
-                                "sharded: the drift fixture's 36 frames",
+         "spatial_launches": {c: spatial[c]["launches"] for c in ("i", "m small")},
+         "spatial_q": {c: spatial[c]["q"] for c in ("i", "m small")},
+         "spatial_launches_in": "phases 22 (i) and 24 (m), each of two gloo ranks on one card, "
+                                "height sharded: the drift fixture's 36 frames; one 64^2 "
+                                "RAFT-small fine-tune step at 12 iterations",
          **rows2["float32"], "levels_dtype": "float32", "out_dtype": "float32", "radius": 3},
         {"name": "corr_y_contract", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_y_contract.cu",
@@ -4762,6 +5038,11 @@ def main() -> int:
          "finetune_ondemand_64_launches": ondemand["finetune"]["gpu_vs_cpu"]["launches"],
          "dp_finetune_backward_launches": dp["finetune"]["launches"]["corr_lookup_backward"],
          "dp_two_ranks_finetune_launches": dp["two_ranks"]["finetune"]["rank_launches"],
+         "spatial_launches": {c: spatial[c]["backward_launches"]
+                              for c in (*SPATIAL_FT_F32, "n")},
+         "spatial_launches_in": "phase 24, each of two gloo ranks on one card, height sharded: "
+                                "one fine-tune step of (m) at 64^2 (40x64) f32, the last of 2 "
+                                "of (n) RAFT.yml (batch 6, 256^2)",
          "other_dtypes": {k: v for k, v in finetune["backward_kernel_1"].items()
                           if k != "float32 levels, bfloat16 grad"}},
         {"name": "corr_level_lookup_backward", "route": "cuda",
@@ -4776,7 +5057,10 @@ def main() -> int:
          **finetune["backward_kernel_2"]["float32 levels, bfloat16 grad"],
          "levels_dtype": "float32", "grad_dtype": "bfloat16", "radius": 3,
          "shape": "Q = 6*32*32, maps 32^2 .. 4^2",
-         "bfloat16_levels": finetune["backward_kernel_2"]["bfloat16 levels, bfloat16 grad"]},
+         "bfloat16_levels": finetune["backward_kernel_2"]["bfloat16 levels, bfloat16 grad"],
+         "spatial_launches": spatial["m small"]["backward_launches"],
+         "spatial_launches_in": "phase 24 (m), each of two gloo ranks on one card, height "
+                                "sharded: one 64^2 RAFT-small fine-tune step, f32"},
         *probe_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {

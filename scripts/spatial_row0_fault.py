@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Whether the bars of phases 21-23 (chip_smoke.py: the spatial axis over
+"""Whether the bars of phases 21-24 (chip_smoke.py: the spatial axis over
 two gloo ranks on one card) catch a planted fault:
 
     python3 scripts/spatial_row0_fault.py                   # the row-0 fault
     python3 scripts/spatial_row0_fault.py --faults none,no_gather,equal_norm,no_halo
     python3 scripts/spatial_row0_fault.py --faults none,no_grad_exchange,mean_of_means
+    python3 scripts/spatial_row0_fault.py --faults none,detached_keys,bn_equal_shares
 
-It runs the cases of phases 21-23 as chip_smoke.py does: the one-process
-references once (phase 23's float32 train steps once per launch, as they
-take the ranks' values at ReLU ties), then, for each fault named, the two
-sharded ranks with that fault planted in them only:
+It runs the cases of phases 21-24 as chip_smoke.py does: the one-process
+references once (phases 23's and 24's float32 steps once per launch, as
+they take the ranks' values at ReLU ties), then, for each fault named, the
+two sharded ranks with that fault planted in them only:
 - row0: RAFT's coordinates start every rank at row 0 (models/raft.py::
   raft_iterate's coords_grid, where a rank's rows start at its first
   global row);
@@ -30,6 +31,13 @@ sharded ranks with that fault planted in them only:
   count replaced by the rank's count times the ranks): the loss is the
   mean of the ranks' means, which unequal blocks (phase 23's 24 + 16 rows)
   weigh wrongly;
+- detached_keys: the estimators' gathered target fnet map passes no
+  gradient back (models/raft.py::_encode_pairs gathering a detached map):
+  the keys' gradient, which the lookups' backward writes into the whole
+  pyramid, never reaches the fnet rows other ranks own;
+- bn_equal_shares: train-mode BatchNorm weighs every rank's statistics
+  alike, whatever its rows (nn/layers.py::batch_norm_train given a handle
+  without its table), which phase 24's 24 + 16 rows weigh wrongly;
 - none: no fault (the phases as chip_smoke.py runs them).
 Each case's distance to one process is printed beside its bar, and every
 case runs to its end (chip_smoke's `fail` is recorded, not raised). The
@@ -110,9 +118,35 @@ def plant_mean_of_means() -> None:
         x[(0,) * (x.ndim - 3 - channel_dims)].numel() * spatial.size)
 
 
+def plant_detached_keys() -> None:
+    """The estimators' gathered fnet map, of a detached map."""
+    from accflow_tpu_torch.models import raft
+    from accflow_tpu_torch.parallel import mesh
+
+    class Mesh:  # models/raft.py's view of parallel/mesh.py
+        def __getattr__(self, name):
+            return getattr(mesh, name)
+
+        @staticmethod
+        def gather_rows(x, sp, dim=1):
+            return mesh.gather_rows(x.detach(), sp, dim)
+
+    raft.mesh = Mesh()
+
+
+def plant_bn_equal_shares() -> None:
+    """Train-mode BatchNorm weighs every rank's statistics alike."""
+    from accflow_tpu_torch.nn import layers
+
+    norm = layers.batch_norm_train
+    layers.batch_norm_train = lambda *a, spatial=None, **k: norm(
+        *a, spatial=None if spatial is None else spatial._replace(rows=()), **k)
+
+
 FAULTS = {"none": None, "row0": plant_row0, "no_gather": plant_no_gather,
           "equal_norm": plant_equal_norm, "no_halo": plant_no_halo,
-          "no_grad_exchange": plant_no_grad_exchange, "mean_of_means": plant_mean_of_means}
+          "no_grad_exchange": plant_no_grad_exchange, "mean_of_means": plant_mean_of_means,
+          "detached_keys": plant_detached_keys, "bn_equal_shares": plant_bn_equal_shares}
 
 
 def main() -> int:
@@ -138,6 +172,7 @@ def main() -> int:
     cases = chip_smoke.SPATIAL_CASES + chip_smoke.SPATIAL22_CASES + chip_smoke.SPATIAL23_CASES
     ref, spread = chip_smoke.spatial_references(cases)
     k_ref = chip_smoke.spatial_k_references()
+    n_ref = chip_smoke.spatial_ft_references()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for fault in faults:
@@ -159,6 +194,13 @@ def main() -> int:
                 before = len(failures)
                 row = chip_smoke.spatial_train_check(case, train_ref[case],
                                                      [r[case] for r in ranks], train_ref["k f32"])
+                rows[case] = dict(ratio=row["ratio"], bar=row["bar"],
+                                  failed=len(failures) > before)
+            ft_ref = {**n_ref, **chip_smoke.spatial_m_references(ranks)}
+            for case in chip_smoke.SPATIAL_FT_KW:
+                before = len(failures)
+                row = chip_smoke.spatial_ft_check(case, ft_ref[case], [r[case] for r in ranks],
+                                                  ft_ref["n f32"])
                 rows[case] = dict(ratio=row["ratio"], bar=row["bar"],
                                   failed=len(failures) > before)
             for case, r in rows.items():

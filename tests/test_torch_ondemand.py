@@ -196,6 +196,27 @@ def test_raft_ondemand_matches_jax(frames, small):
                                    **OP_TOL, err_msg=key)
 
 
+def test_raft_ondemand_one_row_chunks_at_batch_2_matches_jax():
+    """Full RAFT at batch 2 with ondemand:8 at 64^2: chunks of one row at
+    1/8, whose windows come back strided by the batch, which no view
+    flattens (the lookup raised before models/raft.py flattened them with
+    reshape; ROADMAP.md queue 3), against JAX's and the port's stored
+    path."""
+    rng = np.random.default_rng(6)
+    i1, i2 = (rng.standard_normal((2, 64, 64, 3)).astype(np.float32) for _ in range(2))
+    params = _tree("raft")
+    ref = j_raft_forward(params, jnp.asarray(i1), jnp.asarray(i2),
+                         JRAFTConfig(compute_dtype="float32", corr_lookup="ondemand:8"), iters=2)
+    out = {}
+    for lookup in ("ondemand:8", "fused"):
+        est = build_flow_estimator("raft", compute_dtype="float32", corr_lookup=lookup,
+                                   device="cpu")
+        load_jax_params(est.model, params)
+        out[lookup] = est.forward(i1, i2, iters=2)["flow_up"].numpy()
+    np.testing.assert_allclose(out["ondemand:8"], np.asarray(ref["flow_up"]), **TOL)
+    np.testing.assert_allclose(out["ondemand:8"], out["fused"], **OP_TOL)
+
+
 def test_auto_switches_to_ondemand_beyond_the_budget(frames, monkeypatch):
     """"auto" is the stored path within AUTO_VOLUME_BYTES and "ondemand"
     beyond it, with the same flows (tests/test_ops_golden.py:421-460); it

@@ -39,6 +39,19 @@ one process and against the JAX package's unsharded runs.
     where a lost halo gradient shows), the ranks' gradients bit-equal; its
     noise rows bit-equal to one process's draw; valid_step's per-sample
     EPE;
+  - the estimators' sharded fine-tune step (train/finetune.py::
+    make_finetune_step with a handle; FT_PATHS: a batch of 2 pairs at
+    40x48, 24 + 16 rows, float32, 2 iterations, remat "dots"): full RAFT
+    and GMA (positional) against JAX's make_finetune_step unsharded (loss
+    rtol 1e-5, gradients and running statistics at
+    tests/test_torch_finetune.py's bars), and against one process on
+    RAFT, RAFT "ondemand:6" (3 and 2 chunks a rank), GMA, RAFT-small and
+    RAFT with grad_accum 2 (relative L2 <= 1e-4 over the whole vector, the
+    fnet's leaves, where a lost key gradient shows, and the cnet's, where a
+    lost halo or a BatchNorm over the wrong count shows; the running
+    statistics rtol 1e-5), the ranks' gradients and statistics bit-equal;
+    its noise rows and valid_step's per-sample EPE; train-mode BatchNorm
+    itself and its input gradient at 24 + 16 rows;
   - the exchanges' backward: the input gradients of the halo conv, the
     instance norm, upflow8 and the convex upsampling at unequal blocks,
     the deformable conv (its gathered input) and a summed canvas
@@ -59,14 +72,15 @@ one process and against the JAX package's unsharded runs.
   and a (2, 2) mesh, each spatial pair on its own image, whose data groups
   are the mesh's columns; on it the train step, one sample a data group
   and 24 + 16 rows a spatial pair, against JAX and one process at batch
-  2, and its noise rows.
+  2, and its noise rows; the fine-tune step likewise (RAFT: its BatchNorm
+  over all four ranks).
 - Without processes: make_mesh's rank layout against JAX's reshape of the
   device list, split_rows' blocks, and the refusals (a height not a
   multiple of 8, fewer rows at 1/8 than ranks, unequal blocks the handle
-  was not given, the estimator's training forward with a handle, a graphed
-  train step with a handle).
+  was not given, a graphed train or fine-tune step with a handle).
 """
 
+import contextlib
 import os
 import socket
 import subprocess
@@ -95,7 +109,7 @@ from accflow_tpu_torch.ops.upsample import convex_upsample
 from accflow_tpu_torch.ops.warmstart import forward_splat_flow
 from accflow_tpu_torch.parallel import mesh
 from accflow_tpu_torch.streaming import StreamAccumulator
-from accflow_tpu_torch.train import engine
+from accflow_tpu_torch.train import engine, finetune
 from accflow_tpu_torch.train.optim import make_optimizer
 
 WORLD, SIZE, ITERS = 2, 128, 2
@@ -125,6 +139,29 @@ TRAIN_BATCH, TRAIN_HIDDEN, TRAIN_LR = 2, 32, 1e-4
 TRAIN_PATHS = {"fused": {}, "f0n fused": dict(direction="forward"),
                "stepwise": dict(fused_ofe=False), "remat full": dict(remat="full")}
 GRAD_REL = 1e-4  # sharded against one process, relative L2 of the gradients
+# The estimators' sharded fine-tune step (make_finetune_step with a handle):
+# a batch of 2 pairs at 40x48 (24 + 16 rows, 3 + 2 at 1/8), float32, 2 GRU
+# iterations, remat "dots" (the step's default). Full RAFT and GMA (its
+# positional branch, gamma drawn) from their seed-0 weights with drawn
+# running statistics, RAFT-small from the launch's. "raft" and "gma" run
+# without noise (JAX draws its own), the others with it. "ondemand:6" cuts
+# each rank's 18 and 12 queries an image into 3 and 2 chunks.
+FT_SHAPE = (2, 40, 48)
+FT_PATHS = {"raft": dict(model="raft"), "gma": dict(model="gma"),
+            "ondemand": dict(model="raft", corr_lookup="ondemand:6", noise=True),
+            "small": dict(model="small", noise=True),
+            "grad_accum 2": dict(model="raft", grad_accum=2, noise=True)}
+FT_JAX = ("raft", "gma")  # the paths held against JAX's make_finetune_step
+FT_GAMMA = 0.85
+# A ReLU input within TIE_REL of its tensor's median |value| of zero is a
+# tie, which float32 roundings of another summation order (halo rows, the
+# ranks' statistics combined) may put on the other side of the kink: at
+# "raft"'s first GRU iteration one of flow_head.conv1's outputs is -9.2e-8
+# in one process and +4.3e-7 on rank 0, which moves every cnet leaf's
+# gradient by ~4e-3 of its largest element. So the sharded step takes one
+# process's value at each tie (_relu_ties; chip_smoke.py's relu_ties, whose
+# one process takes the ranks' values) and counts them.
+TIE_REL = 1e-5
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 PRIM_TOL = dict(rtol=1e-5, atol=1e-5)
 FLOW_TOL = dict(rtol=1e-3, atol=1e-3)  # tests/test_sharding.py's sharded-vs-unsharded bar
@@ -184,6 +221,25 @@ def _instance_norm(h=32, height=None):
         y = layers.instance_norm(mesh.shard_rows(x, sp, 2), spatial=sp)
         return mesh.gather_rows(y, sp, 2)
     return run
+
+
+def _bn_inputs(h=40):
+    """Train-mode BatchNorm's input (2, 5, h, 20), weight, bias and running
+    statistics, seed 11."""
+    rng = np.random.default_rng(11)
+    x = _t(rng, 2, 5, h, 20, scale=3.0) + _t(rng, 1, 5, 1, 1, scale=2.0)
+    var = torch.from_numpy(rng.uniform(0.5, 2.0, 5).astype(np.float32))
+    return x, _t(rng, 5), _t(rng, 5), _t(rng, 5, scale=0.1), var
+
+
+def _batch_norm(sp):
+    """batch_norm_train on each rank's rows at a height of 40 (24 + 16, over
+    4 ranks 16, 8, 8, 8): the output gathered, then the moved running mean
+    and variance (the spatial group's statistics, weighted by rows)."""
+    sp = _bound(sp, 40)
+    x, w, b, rm, rv = _bn_inputs()
+    y, mean, var = layers.batch_norm_train(mesh.shard_rows(x, sp, 2), w, b, rm, rv, spatial=sp)
+    return torch.cat([mesh.gather_rows(y, sp, 2).reshape(-1), mean, var])
 
 
 def _upflow8(h8, height=None):
@@ -272,6 +328,7 @@ def _grad_cases() -> dict:
     dx, doff, dm = _t(rng, 2, 4, 16, 12), _t(rng, 2, 18, 16, 12, scale=3.0), _t(rng, 2, 9, 16, 12)
     dw, db = _t(rng, 5, 4, 3, 3), _t(rng, 5)
     canvas = _t(rng, 2, 16, 12, 3)
+    bn_x, bn_w, bn_b, bn_rm, bn_rv = _bn_inputs()
 
     def flipped_sum(sp, x):
         # Each rank's rows placed in a full-height canvas upside down, the
@@ -296,6 +353,9 @@ def _grad_cases() -> dict:
                                                                        dw, db, sp),
                                     [dx, doff, dm], [2, 2, 2], _t(rng, 2, 5, 16, 12), 2),
         "sum_ranks grad": _vjp(flipped_sum, [canvas], [1], _t(rng, 2, 16, 12, 3), 1),
+        "batch_norm uneven grad": _vjp(
+            lambda sp, x: layers.batch_norm_train(x, bn_w, bn_b, bn_rm, bn_rv, spatial=sp)[0],
+            [bn_x], [2], _t(rng, 2, 5, 40, 20), 2, 40),
     }
 
 
@@ -312,6 +372,7 @@ PRIMITIVES = {
     "upflow8 uneven": _upflow8(5, 40), "instance_norm uneven": _instance_norm(40, 40),
     "halo_rows uneven": _halo(40, 3, 2, 40), "halo_rows uneven at 1/8": _halo(5, 3, 3, 40),
     "conv 7x7/2 uneven": _conv((7, 7), 2, h=40, height=40),
+    "batch_norm uneven": _batch_norm,
 }
 # The exchanges' backward, each rank back-propagating its rows of the
 # output. The gradients sum 8 to 81 products each (|grad| up to ~70), which
@@ -521,6 +582,157 @@ def _train_cases(work: str, sp=None) -> dict:
     return out
 
 
+class _Iters:
+    """An estimator whose every call runs `iters` GRU iterations (the
+    fine-tune step's 12 and 20 cut, as tests/test_torch_finetune.py's
+    TIters)."""
+
+    def __init__(self, est, iters):
+        self.est, self.iters, self.model = est, iters, est.model
+
+    def forward(self, image1, image2, iters=None, **kw):
+        return self.est.forward(image1, image2, iters=self.iters, **kw)
+
+
+def _ft_estimator(work: str, path: str):
+    cfg = dict(FT_PATHS[path])
+    model = cfg.pop("model")
+    for k in ("noise", "grad_accum"):
+        cfg.pop(k, None)
+    if model == "small":
+        return _small(work, cfg.get("corr_lookup", "fused"))
+    if model == "gma":
+        cfg.update(GMA_VARIANTS["positional"])
+    est = build_flow_estimator(model, compute_dtype="float32", device="cpu", **cfg)
+    load_jax_params(est.model, load_npz_tree(f"{work}/ft {model}.npz"))
+    return est
+
+
+def _ft_batch(work: str, data_index: int = 0, n_data: int = 1, sp=None):
+    """The fine-tune batch (img1, img2, label): this data group's samples,
+    this rank's rows of them."""
+    data = np.load(f"{work}/ft.npz")
+    n = FT_SHAPE[0] // n_data
+    return [mesh.shard_rows(torch.from_numpy(data[k][data_index * n: (data_index + 1) * n]), sp)
+            for k in ("img1", "img2", "label")]
+
+
+@contextlib.contextmanager
+def _relu_inputs(fn):
+    """Within the block every torch.relu (F.relu and nn.ReLU call it) is of
+    fn(call, input) in place of its input."""
+    relu, calls = torch.relu, []
+
+    def watched(x):
+        calls.append(1)
+        return relu(fn(len(calls) - 1, x))
+
+    torch.relu = watched
+    try:
+        yield
+    finally:
+        torch.relu = relu
+
+
+def _relu_ties(ref: list, sp, data_index: int, n_data: int, batch: int, ties: list):
+    """_relu_inputs by which each ReLU input takes one process's value
+    (`ref`: one process's ReLU inputs, NCHW, on the whole micro-batch of
+    `batch` samples, frames of a pair batch-major, and the whole height;
+    this data group's samples and this rank's rows of them) where the two
+    lie on opposite sides of zero, each within TIE_REL of its tensor's
+    median |value|: a tie. The gradient passes unchanged; `ties` gets
+    (call, elements) of each."""
+    def take(call, x):
+        whole = ref[call]
+        k, n = whole.shape[0] // batch, batch // n_data
+        other = mesh.shard_rows(whole.view(k, batch, *whole.shape[1:])[
+            :, data_index * n: (data_index + 1) * n].flatten(0, 1), sp, 2)
+        o = x.detach()
+        tie = ((o * other < 0) & (o.abs() <= TIE_REL * o.abs().median())
+               & (other.abs() <= TIE_REL * other.abs().median()))
+        if not bool(tie.any()):
+            return x
+        ties.append((call, int(tie.sum())))
+        return x + ((other - o) * tie).detach()
+    return _relu_inputs(take)
+
+
+def _ft_step(work: str, path: str, sp=None, group=None, data_index: int = 0, n_data: int = 1,
+             valid: bool = False, record=None) -> dict:
+    """One sharded fine-tune step (make_finetune_step with the data `group`
+    and the handle, eager) on path `path`, the generator at seed 5: its
+    loss, the gradients its update reduced (before the clip, as JAX-layout
+    leaves), the running statistics after it, the noise it drew (gathered),
+    the collectives and bytes it counted and, with a handle, the ReLU ties
+    at which it took one process's values (_relu_ties, one process's step
+    run here first); with `valid`, first valid_step's per-sample EPE and
+    flow (gathered) on the pair. `record`: a list that gets the step's ReLU
+    inputs."""
+    cfg = FT_PATHS[path]
+    ref, ties = [], []
+    if sp is not None:
+        _ft_step(work, path, record=ref)
+    est = _ft_estimator(work, path)
+    step, valid_step = finetune.make_finetune_step(
+        _Iters(est, ITERS), make_optimizer(est.model.parameters(), TRAIN_LR, 10),
+        add_noise=cfg.get("noise", False), gamma=FT_GAMMA, grad_accum=cfg.get("grad_accum", 1),
+        group=group, spatial=sp)
+    img1, img2, label = _ft_batch(work, data_index, n_data, sp)
+    pre, out = f"ft/{path}/", {}
+    if valid:
+        epe, flow = valid_step(torch.cat([img1, img2], -1), label)
+        out.update({pre + "valid/epe": epe.numpy(),
+                    pre + "valid/flow": mesh.gather_rows(flow, sp).numpy()})
+    grads, noises, average, draw = [], [], mesh.average_gradients, finetune.reference_noise
+
+    def reduce(params, grp, spatial=None):
+        average(params, grp, spatial)
+        grads.extend(p.grad.clone() for p in params)
+
+    def noise(*a):
+        noises.append(draw(*a))
+        return noises[-1]
+
+    if sp is not None:
+        watch = _relu_ties(ref, sp, data_index, n_data, FT_SHAPE[0] // cfg.get("grad_accum", 1),
+                           ties)
+    else:
+        watch = _relu_inputs(lambda call, x: x if record is None else record.append(
+            x.detach().clone()) or x)
+    mesh.average_gradients, finetune.reference_noise = reduce, noise
+    c0, b0 = mesh.collectives, mesh.bytes_sent
+    try:
+        # A checkpoint's recompute runs to the iteration's end, so that one
+        # process sees as many ReLU calls as a rank.
+        with watch, torch.utils.checkpoint.set_checkpoint_early_stop(False):
+            loss, _ = step(img1, img2, label, torch.Generator().manual_seed(5))
+    finally:
+        mesh.average_gradients, finetune.reference_noise = average, draw
+    out.update({pre + "loss": np.array(float(loss)), pre + "ties": np.array(len(ties)),
+                pre + "collectives": np.array(mesh.collectives - c0),
+                pre + "bytes": np.array(mesh.bytes_sent - b0)})
+    if noises:
+        out[pre + "noise"] = mesh.gather_rows(noises[0], sp).numpy()
+    leaves = _leaves(to_jax_params(est.model))
+    out.update({pre + "bn/" + k: v for k, v in leaves.items() if k.endswith(("/mean", "/var"))})
+    with torch.no_grad():
+        for p, g in zip(est.model.parameters(), grads):
+            p.copy_(g)
+    out.update({pre + "g/" + k: v for k, v in _leaves(to_jax_params(est.model)).items()
+                if not k.endswith(("/mean", "/var"))})
+    return out
+
+
+def _ft_cases(work: str, sp=None) -> dict:
+    """The fine-tune step on every path of FT_PATHS (valid_step on "raft"),
+    on a (1, 2) mesh's rows (sp, given the height) or in one process."""
+    sp = _bound(sp, FT_SHAPE[1])
+    out = {}
+    for path in FT_PATHS:
+        out.update(_ft_step(work, path, sp, valid=path == "raft"))
+    return out
+
+
 def _primitives(sp) -> dict:
     """Every primitive (and its backward) on this rank's rows, and in one
     process."""
@@ -552,10 +764,11 @@ def _data_by_spatial(rank: int, work: str) -> dict:
     # The train step: one sample a data group, 24 + 16 rows a spatial pair.
     sp = m.axis.at_height(CLIP40[2])
     step = _train_step(work, "fused", sp, m.data_group, d, 2)
+    ft = _ft_step(work, "raft", m.axis.at_height(FT_SHAPE[1]), m.data_group, d, 2)
     return {"2x2/axis": np.array([m.axis.index, m.axis.size]), "2x2/out": run(m.axis),
             "2x2/ref": run(None), "2x2/data_sum": ranks.numpy(),
             "2x2/noise": _train_noise(sp, m.data_group, TRAIN_BATCH // 2),
-            **{f"2x2/{k}": v for k, v in step.items()}}
+            **{f"2x2/{k}": v for k, v in {**step, **ft}.items()}}
 
 
 def _raft48(sp, work: str) -> dict:
@@ -584,7 +797,7 @@ def _child(mode: str, world: int, rank: int, port: int, work: str) -> None:
     t0 = time.perf_counter()
     out = {"axis": np.array([m.axis.index, m.axis.size]), **_primitives(m.axis)}
     if mode == "models":
-        out.update(_models(m.axis, work), **_train_cases(work, m.axis))
+        out.update(_models(m.axis, work), **_train_cases(work, m.axis), **_ft_cases(work, m.axis))
     else:
         out.update(_raft48(m.axis, work), **_data_by_spatial(rank, work))
     out["seconds"] = time.perf_counter() - t0
@@ -627,6 +840,7 @@ def _write_inputs(work: str) -> None:
     seq = make_long_sequence(np.random.default_rng(77), 64, 64, 36, seg_len=6, max_v=1,
                              fg=True, fg_max_v=2)["imgs"][:DRIFT_FRAMES]
     _write_train_inputs(work)
+    _write_ft_inputs(work)
     np.savez(f"{work}/inputs.npz", i1=pair[0], i2=pair[1], clip=frames(3, (5, 1, SIZE, SIZE, 3)),
              stream=frames(4, (5, 1, SIZE, SIZE, 3)),
              gma_clip=frames(6, (5, 1, GMA_SIZE, GMA_SIZE, 3)), clip40=frames(7, CLIP40),
@@ -650,6 +864,37 @@ def _write_train_inputs(work: str) -> None:
     np.savez(f"{work}/train.npz",
              imgs=rng.integers(0, 256, (TRAIN_BATCH, h, w, 3 * t)).astype(np.float32),
              labels=(4.0 * rng.standard_normal((TRAIN_BATCH, h, w, 2 * (t - 2)))).astype(np.float32))
+
+
+def _write_ft_inputs(work: str) -> None:
+    """The fine-tune step's full RAFT and GMA (positional; gamma drawn in
+    [2, 4] from seed 5), seed 0, their cnet's running statistics drawn away
+    from 0 and 1 (seed 11), as JAX-layout trees, and its batch: FT_SHAPE
+    pairs of uint8 values and their label flows (~4 px), seed 13."""
+    rng = np.random.default_rng(11)
+
+    def draw_stats(tree):
+        for v in tree.values():
+            if isinstance(v, dict) and "mean" in v:
+                v["mean"] = (0.1 * rng.standard_normal(v["mean"].shape)).astype(np.float32)
+                v["var"] = rng.uniform(0.5, 2.0, v["var"].shape).astype(np.float32)
+            elif isinstance(v, dict):
+                draw_stats(v)
+
+    for model, cfg in (("raft", {}), ("gma", GMA_VARIANTS["positional"])):
+        tree = to_jax_params(build_flow_estimator(model, compute_dtype="float32", device="cpu",
+                                                  **cfg).model)
+        draw_stats(tree["cnet"])
+        if model == "gma":
+            tree["update_block"]["aggregator"]["gamma"] = np.random.default_rng(5).uniform(
+                2.0, 4.0, (1,)).astype(np.float32)
+        save_npz_tree(f"{work}/ft {model}.npz", tree)
+    n, h, w = FT_SHAPE
+    rng = np.random.default_rng(13)
+    np.savez(f"{work}/ft.npz",
+             img1=rng.integers(0, 256, (n, h, w, 3)).astype(np.float32),
+             img2=rng.integers(0, 256, (n, h, w, 3)).astype(np.float32),
+             label=(4.0 * rng.standard_normal((n, h, w, 2))).astype(np.float32))
 
 
 def _free_port() -> int:
@@ -716,6 +961,7 @@ def launch4(tmp_path_factory):
     pair = np.random.default_rng(8).uniform(-1, 1, (2,) + RAFT48).astype(np.float32)
     np.savez(f"{work}/inputs.npz", i1=pair[0], i2=pair[1])
     _write_train_inputs(work)
+    _write_ft_inputs(work)
     run = Launch(work, "meshes", 4)
     yield run
     _stop(run)
@@ -769,6 +1015,7 @@ def refs(launch):
                                JAccFlowConfig(compute_dtype="float32", direction="forward")),
            "stream": stream(j_est, ofe, acc, data["stream"], warm)}
     out["train"] = _jax_train_step(work, ofe)
+    out["ft"] = {path: _jax_finetune_step(work, path) for path in FT_JAX}
     for branch in ("content", "positional"):
         gma = load_npz_tree(f"{work}/gma {branch}.npz")
         j_gma = j_build("gma", compute_dtype="float32", corr_lookup="mm", iters=ITERS,
@@ -785,7 +1032,7 @@ def refs(launch):
         load_npz_tree(f"{FIXTURES}/drift_small_ofe.npz"),
         load_npz_tree(f"{FIXTURES}/drift_small_acc.npz"), data["drift"],
         JAccFlowConfig(hidden=64, compute_dtype="float32", warm_start=True))
-    out["port"] = {**_models(None, work), **_train_cases(work)}
+    out["port"] = {**_models(None, work), **_train_cases(work), **_ft_cases(work)}
     return out
 
 
@@ -814,6 +1061,43 @@ def _jax_train_step(work: str, ofe) -> dict:
                             jnp.asarray(batch["imgs"]), jnp.asarray(batch["labels"]),
                             jax.random.PRNGKey(0))
     return {"loss": float(loss), "grads": _leaves(jax.tree.map(np.asarray, state.opt_state[0]))}
+
+
+def _jax_finetune_step(work: str, path: str) -> dict:
+    """JAX's make_finetune_step, unsharded, on the fine-tune batch
+    (corr_lookup "mm", ITERS GRU iterations through
+    tests/test_torch_finetune.py's JIters, noise off; the raw gradients
+    from _keep_grads, the running statistics after the step): {"loss",
+    "grads", "bn": JAX-layout leaves}."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from test_torch_finetune import JIters
+    from test_torch_train import _keep_grads
+
+    from accflow_tpu.models import build_flow_estimator as j_build
+    from accflow_tpu.nn import layers as j_layers
+    from accflow_tpu.train import finetune as j_ft
+    from accflow_tpu.train import optim as j_optim
+    from accflow_tpu.train.engine import TrainState as JTrainState
+
+    model = FT_PATHS[path]["model"]
+    tree = load_npz_tree(f"{work}/ft {model}.npz")
+    j_est = JIters(j_build(model, compute_dtype="float32", corr_lookup="mm",
+                           **(GMA_VARIANTS["positional"] if model == "gma" else {})), ITERS)
+    tx = optax.chain(_keep_grads(), j_optim.make_optimizer(
+        TRAIN_LR, 10, 1e-5, 1e-8, 1.0, buffer_mask=j_layers.bn_buffer_mask(tree))[0])
+    step, _ = j_ft.make_finetune_step(j_est, tx, add_noise=False, gamma=FT_GAMMA)
+    params = jax.tree.map(jnp.asarray, tree)
+    batch = np.load(f"{work}/ft.npz")
+    state, loss, _ = step(JTrainState(params, tx.init(params), jnp.int32(0)),
+                          *(jnp.asarray(batch[k]) for k in ("img1", "img2", "label")),
+                          jax.random.PRNGKey(0))
+    stats = ("/mean", "/var")
+    grads = _leaves(jax.tree.map(np.asarray, state.opt_state[0]))
+    return {"loss": float(loss), "grads": {k: v for k, v in grads.items() if not k.endswith(stats)},
+            "bn": {k: v for k, v in _leaves(jax.tree.map(np.asarray, state.params)).items()
+                   if k.endswith(stats)}}
 
 
 @pytest.fixture(scope="module")
@@ -856,7 +1140,7 @@ def test_spatial_handles(launch):
     assert r0["axis"].tolist() == [0, 2] and r1["axis"].tolist() == [1, 2]
     cases = [k[:-len("/collectives")] for k in r0 if k.endswith("/collectives")]
     assert len(cases) == (len(LOOKUPS) + 3 + len(CLIP_PATHS) + 2 * len(GMA_VARIANTS) + 1
-                          + len(SMALL_LOOKUPS) + 2)
+                          + len(SMALL_LOOKUPS) + 2 + len(FT_PATHS))
     for case in cases:
         assert int(r0[f"{case}/collectives"]) == int(r1[f"{case}/collectives"]) > 0
         assert int(r0[f"{case}/bytes"]) == int(r1[f"{case}/bytes"]) > 0
@@ -1055,11 +1339,11 @@ def test_spatial_clip_paths_match_jax(launch, refs, path):
 
 
 def _train_ranks(request, mesh_shape: str):
-    """Each rank's train step outputs on the (1, 2) or the (2, 2) mesh, as
-    the one-process run names them."""
+    """Each rank's train and fine-tune step outputs on the (1, 2) or the
+    (2, 2) mesh, as the one-process run names them."""
     if mesh_shape == "1x2":
         return request.getfixturevalue("launch").ranks()
-    return [{k[len("2x2/"):]: v for k, v in r.items() if k.startswith("2x2/train/")}
+    return [{k[len("2x2/"):]: v for k, v in r.items() if k.startswith(("2x2/train/", "2x2/ft/"))}
             for r in request.getfixturevalue("launch4").ranks()]
 
 
@@ -1150,13 +1434,100 @@ def test_spatial_valid_step_matches_one_process(launch, refs):
         assert np.abs(got - want).max() <= FLOW_REL * np.abs(want).max()
 
 
+def _ft(out: dict, path: str, part: str) -> dict:
+    """The fine-tune step's leaves of `part` ("g": the reduced gradients,
+    "bn": the running statistics after the step) on path `path`."""
+    pre = f"ft/{path}/{part}/"
+    return {k[len(pre):]: v for k, v in out.items() if k.startswith(pre)}
+
+
+def _same_ft(ranks, path: str) -> tuple:
+    """Rank 0's reduced gradients and running statistics, every other
+    rank's bit-equal to them."""
+    got = {part: _ft(ranks[0], path, part) for part in ("g", "bn")}
+    for r in ranks[1:]:
+        for part, leaves in got.items():
+            other = _ft(r, path, part)
+            assert set(other) == set(leaves)
+            for k in leaves:
+                np.testing.assert_array_equal(other[k], leaves[k], err_msg=k)
+    return got["g"], got["bn"]
+
+
+def _assert_stats_close(got: dict, want: dict) -> None:
+    """The running statistics after the step at
+    tests/test_torch_finetune.py's bar (rtol 1e-5, atol 1e-7)."""
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-7, err_msg=k)
+
+
+@pytest.mark.parametrize("mesh_shape,path", [("1x2", p) for p in FT_JAX] + [("2x2", "raft")])
+def test_spatial_finetune_step_matches_jax(request, refs, mesh_shape, path):
+    """The sharded fine-tune step (24 + 16 rows a spatial pair; on the (2, 2)
+    mesh one sample a data group, BatchNorm over all four ranks) against
+    JAX's unsharded make_finetune_step at batch 2: the loss within rtol
+    1e-5, the raw gradients at tests/test_torch_finetune.py's bars (per
+    leaf rtol 1e-3, atol 1e-3 of its largest; the biases a norm follows
+    near 0 on both sides), the cnet's 15 layers' running statistics rtol
+    1e-5 (atol 1e-7)."""
+    from test_torch_finetune import assert_grads_match, normalized_biases
+
+    ranks, want = _train_ranks(request, mesh_shape), refs["ft"][path]
+    got, stats = _same_ft(ranks, path)
+    np.testing.assert_allclose(float(ranks[0][f"ft/{path}/loss"]), want["loss"], rtol=1e-5)
+    assert_grads_match(got, want["grads"], normalized_biases(want["grads"], ("fnet", "cnet")))
+    assert len(stats) == 30
+    _assert_stats_close(stats, want["bn"])
+
+
+@pytest.mark.parametrize("mesh_shape,path", [("1x2", p) for p in FT_PATHS] + [("2x2", "raft")])
+def test_spatial_finetune_step_matches_one_process(request, refs, mesh_shape, path):
+    """The sharded fine-tune step on each path against the port's one
+    process at batch 2: the loss within rtol 1e-5; the gradients within
+    GRAD_REL in relative L2 over the whole vector, the fnet's leaves (the
+    gathered keys' gradient) and the cnet's (halos, BatchNorm) apart; the
+    running statistics rtol 1e-5; every rank's reduced gradients and
+    statistics bit-equal."""
+    from test_torch_train import _rel_l2
+
+    ranks, one = _train_ranks(request, mesh_shape), refs["port"]
+    got, stats = _same_ft(ranks, path)
+    want = _ft(one, path, "g")
+    np.testing.assert_allclose(float(ranks[0][f"ft/{path}/loss"]), float(one[f"ft/{path}/loss"]),
+                               rtol=1e-5)
+    assert set(got) == set(want)
+    for prefix in ("", "fnet/", "cnet/"):
+        assert _rel_l2(got, want, [k for k in want if k.startswith(prefix)]) <= GRAD_REL, prefix
+    _assert_stats_close(stats, _ft(one, path, "bn"))
+
+
+def test_spatial_finetune_noise_and_valid_step(launch, refs):
+    """The noise each path's sharded step drew, its rows gathered,
+    bit-equal to one process's draw for the whole pairs; valid_step under
+    a handle: the per-sample EPE over the global pixels (rtol 1e-5) on
+    every rank, the flow's rows within FLOW_REL x max |flow| of one
+    process's."""
+    one = refs["port"]
+    noisy = [p for p, cfg in FT_PATHS.items() if cfg.get("noise")]
+    for r in launch.ranks():
+        for path in noisy:
+            assert one[f"ft/{path}/noise"].shape == FT_SHAPE + (3,)
+            np.testing.assert_array_equal(r[f"ft/{path}/noise"], one[f"ft/{path}/noise"])
+        assert r["ft/raft/valid/epe"].shape == (FT_SHAPE[0],)
+        np.testing.assert_allclose(r["ft/raft/valid/epe"], one["ft/raft/valid/epe"], rtol=1e-5)
+        got, want = r["ft/raft/valid/flow"], one["ft/raft/valid/flow"]
+        assert got.shape == want.shape == FT_SHAPE + (2,)
+        assert np.abs(got - want).max() <= FLOW_REL * np.abs(want).max()
+
+
 def test_spatial_refusals(tmp_path):
     """A handle (never used for a collective here: each call refuses
-    first) where the spatial axis is not ported (the estimator's training
-    forward, fine_tune's; a graphed train step), or where the frames do
-    not split into blocks of 8-row multiples (a height not a multiple of 8,
-    fewer rows at 1/8 than ranks, unequal blocks the handle was not given).
-    Every AccFlow clip path, the accumulator's train step, GMA and
+    first) where the spatial axis is not ported (a graphed train or
+    fine-tune step), or where the frames do not split into blocks of 8-row
+    multiples (a height not a multiple of 8, fewer rows at 1/8 than ranks,
+    unequal blocks the handle was not given). Every AccFlow clip path, the
+    accumulator's train step, the estimators' fine-tune step, GMA and
     RAFT-small take a handle: the launches run them."""
     sp = mesh.Spatial(None, 0, 2)
     with pytest.raises(ValueError, match="n_spatial=2"):
@@ -1175,8 +1546,9 @@ def test_spatial_refusals(tmp_path):
     with pytest.raises(ValueError, match="#12 item 6"):
         engine.make_acc_train_step(est, acc, make_optimizer(acc.parameters(), TRAIN_LR, 10),
                                    add_noise=False, graphed=True, spatial=sp)
-    with pytest.raises(ValueError, match="training over the spatial axis"):
-        est.forward(img[:, :8], img[:, :8], train=True, spatial=sp)
+    with pytest.raises(ValueError, match="#12 item 6"):
+        finetune.make_finetune_step(est, make_optimizer(est.model.parameters(), TRAIN_LR, 10),
+                                    add_noise=False, gamma=FT_GAMMA, graphed=True, spatial=sp)
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["child"]:
