@@ -26,6 +26,18 @@ parameters, optimizer state and BatchNorm buffers in place and draws from a
 torch.Generator, so that N calls have the effect of N eager steps (see its
 docstring).
 
+Collectives. A function that runs collectives (a data-parallel step's
+gradient mean, a height-sharded step's exchanges: parallel/mesh.py) is
+captured with them where they are NCCL's; both wrappers take that `group`
+and, on the card, refuse gloo's with a ValueError before any run
+(mesh.require_capturable). The warm-ups make each group's NCCL
+communicator and fill mesh's host-made caches, so that the capture holds
+no host copy. mesh's `collectives` and `bytes_sent` are counted in
+Python, which a replay does not run: each graph keeps what its capture
+counted and adds it on every replay, so a graphed call counts what an
+eager one does (the capture call: one call's worth; CudaGraphed's
+warm-ups are eager calls and count as such).
+
 A capture checks only its own thread's CUDA calls (capture_error_mode
 "thread_local"), and holds CAPTURE_LOCK, which data/prefetch.py's copies
 to the card take too: a data loader's thread may go on decoding the next
@@ -40,6 +52,8 @@ import threading
 
 import torch
 from torch.utils import _pytree as pytree
+
+from accflow_tpu_torch.parallel import mesh
 
 WARMUP = 2  # eager runs on the capture stream before a capture
 # Held by each capture and by data/prefetch.py's copies to the card, so
@@ -68,9 +82,11 @@ def _on_capture_stream(fn, args):
 
 
 class _Graph:
-    """One captured signature: static inputs, the graph, its outputs. The
-    leaves that are not tensors (torch.Generators, None) are static: the
-    graph is captured with them, each generator registered with it."""
+    """One captured signature: static inputs, the graph, its outputs, and
+    the mesh collectives and bytes its capture counted (`counts`: added
+    on each replay, taken back from the capture). The leaves that are not
+    tensors (torch.Generators, None) are static: the graph is captured
+    with them, each generator registered with it."""
 
     def __init__(self, fn, leaves, spec, warmup: int):
         self.inputs = [torch.empty_like(x).copy_(x) if isinstance(x, torch.Tensor) else x
@@ -83,9 +99,12 @@ class _Graph:
             for gen in leaves:
                 if isinstance(gen, torch.Generator):
                     self.graph.register_generator_state(gen)
+            before = mesh.counts()
             with CAPTURE_LOCK, torch.cuda.graph(self.graph, stream=_capture_stream(),
                                                 capture_error_mode="thread_local"):
                 out = fn(*args)
+        self.counts = tuple(a - b for a, b in zip(mesh.counts(), before))
+        mesh.add_counts(*(-c for c in self.counts))
         self.outputs, self.out_spec = pytree.tree_flatten(out)
         if not all(isinstance(o, torch.Tensor) for o in self.outputs):
             raise TypeError("a graphed function returns tensors only")
@@ -95,6 +114,7 @@ class _Graph:
             if isinstance(x, torch.Tensor):
                 buf.copy_(x)
         self.graph.replay()
+        mesh.add_counts(*self.counts)
         return pytree.tree_unflatten([o.clone() for o in self.outputs], self.out_spec)
 
 
@@ -117,11 +137,13 @@ def _signature(leaves, spec):
 
 class CudaGraphed:
     """`fn` replayed from CUDA graphs on CUDA tensors, called as it is on
-    CPU tensors (see the module docstring). `captures` counts the graphs
+    CPU tensors (see the module docstring). `group`: the process group of
+    the collectives `fn` runs, None for none; on the card it must be
+    NCCL's, checked before the first run. `captures` counts the graphs
     captured so far."""
 
-    def __init__(self, fn):
-        self._fn = fn
+    def __init__(self, fn, group=None):
+        self._fn, self._group = fn, group
         self._graphs: dict = {}
 
     @property
@@ -137,6 +159,8 @@ class CudaGraphed:
             raise ValueError(f"a graphed function takes tensors on one device, got {devices}")
         if leaves[0].device.type != "cuda":
             return self._fn(*args)
+        if self._group is not None:
+            mesh.require_capturable(self._group)
         key = _signature(leaves, spec)
         graph = self._graphs.get(key)
         if graph is None:
@@ -162,12 +186,15 @@ class CudaGraphedStep:
     value into a device tensor) runs after every call, outside the graph.
     On the card the arguments are tensors, torch.Generators and None, and
     the outputs tensors, returned as clones. Without a CUDA tensor among
-    its arguments `fn` and then `after` run as they are. `captures` counts
-    the graphs captured, `eager_calls` the calls of `fn` that ran eagerly
-    on the card."""
+    its arguments `fn` and then `after` run as they are. `group`: the
+    process group of the collectives `fn` runs (the data axis, or a
+    spatial handle's), None for none; on the card it must be NCCL's,
+    checked before the first eager call. `captures` counts the graphs
+    captured, `eager_calls` the calls of `fn` that ran eagerly on the
+    card."""
 
-    def __init__(self, fn, after=None):
-        self._fn, self._after = fn, after
+    def __init__(self, fn, after=None, group=None):
+        self._fn, self._after, self._group = fn, after, group
         self._graphs: dict = {}
         self._warm: dict = {}  # signature -> its eager calls so far
         self.eager_calls = 0
@@ -189,6 +216,8 @@ class CudaGraphedStep:
     def _on_card(self, args, leaves, spec):
         if not all(isinstance(x, (torch.Tensor, torch.Generator)) or x is None for x in leaves):
             raise TypeError("a graphed step takes tensors, torch.Generators and None only")
+        if self._group is not None:
+            mesh.require_capturable(self._group)
         devices = {_indexed(x.device) for x in leaves
                    if isinstance(x, (torch.Tensor, torch.Generator))}
         if len(devices) != 1:

@@ -68,9 +68,10 @@ def _taps(n_in: int, n_out: int, start: int, count: int, device):
     resize from n_in to n_out: the two source indices and the second's
     weight, in upsample_bilinear2d's float32 arithmetic (scale
     (n_in - 1) / (n_out - 1), source scale * i, its floor, the next index
-    clamped to the last)."""
-    scale = torch.tensor(n_in - 1, dtype=torch.float32) / max(n_out - 1, 1)
-    src = torch.arange(start, start + count, device=device).float() * scale.to(device)
+    clamped to the last). The scale is the float32 quotient as a host
+    number: no copy to the device, which a CUDA graph's capture refuses."""
+    scale = float(torch.tensor(n_in - 1, dtype=torch.float32) / max(n_out - 1, 1))
+    src = torch.arange(start, start + count, device=device).float() * scale
     i0 = src.long()
     lam = (src - i0).clamp(0.0, 1.0)
     return i0, torch.where(i0 < n_in - 1, i0 + 1, i0), lam

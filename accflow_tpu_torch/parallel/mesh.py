@@ -49,10 +49,12 @@ through the handle it is given:
   input, GMA's attention keys and values are the whole height
   (`gather_rows`), the queries this rank's own;
 - a forward splat sums the ranks' full-height splats (`sum_ranks`).
-The collectives are all_gather (host-staged under gloo, which takes CUDA
-tensors in all_reduce but not in all_gather; unequal blocks padded to the
-largest and trimmed after) and all_reduce; `collectives` and `bytes_sent`
-count them, in the forward and in the backward alike.
+The collectives are all_gather and all_reduce. Under NCCL an all_gather
+fills one (size, ...) tensor on the device (all_gather_into_tensor); under
+gloo, which takes CUDA tensors in all_reduce but not in all_gather, it is
+staged through the host. Unequal blocks are padded to the largest and
+trimmed after, so every call sees static shapes. `collectives` and
+`bytes_sent` count them, in the forward and in the backward alike.
 
 Every exchange is differentiable, as GSPMD's transpose of it is. Each rank
 back-propagates its own part of the loss (train/loss.py: its pixels' sum
@@ -73,9 +75,31 @@ point and in their training forward (train/finetune.py::make_finetune_step:
 each rank's queries against the gathered keys, the lookups' backward on
 them, the key-side gradient summed back to its owner by the gather's
 backward, train-mode BatchNorm over the mesh), AccFlow in each clip path
-and in its training forward (train/engine.py::make_acc_train_step). Graphed
-spatial steps are not ported (ROADMAP.md queue 1, #12 item 6), and the
+and in its training forward (train/engine.py::make_acc_train_step). The
 engines (train_acc, fine_tune) stay data-parallel, as JAX's do.
+
+Graphs. As JAX jits a height-sharded program with GSPMD's collectives in
+it, the port captures a sharded step in a CUDA graph (graphs.py) with its
+exchanges in it: StreamAccumulator's push, a sharded clip in CudaGraphed,
+and the train steps of make_acc_train_step / make_finetune_step(graphed=
+True, spatial=) in CudaGraphedStep. What makes that hold:
+- NCCL only. A graph captures NCCL's collectives; gloo's are host-staged
+  and cannot be captured. collectives_capturable(group) says which;
+  graphs given a group refuse gloo on the card (require_capturable: a
+  ValueError that names the backend), and every collective here raises
+  the same where a capture is under way on a gloo group.
+- No host copy in a capture: every collective's buffers are made on the
+  device, and _halo_index's tables (a copy from a host list) are cached
+  by the eager warm-ups that precede each capture, so a capture finds
+  them there.
+- A group's NCCL communicator may be made at its first collective
+  (make_mesh's groups): a graph's warm-ups run that, never the capture.
+- The counters are Python: a replay runs none of the code that adds to
+  them. Each graph records what its capture counted and adds it on every
+  replay (graphs._Graph), so a graphed call counts what an eager call
+  counts; nothing reads the counters inside a graph.
+- graphs.CAPTURE_LOCK is held by every capture (a graphed NCCL fine-tune
+  without it failed twice, cause unknown).
 
 Without a process group every function is the single-process identity, and
 the engines' outputs are those of the code before this module existed.
@@ -163,10 +187,27 @@ def data_group():
     return dist.group.WORLD if active() else None
 
 
-def collectives_capturable() -> bool:
-    """Whether a CUDA graph may capture this process's collectives: always
-    without a process group, and with NCCL's; gloo runs eagerly."""
-    return not active() or dist.get_backend() == "nccl"
+def collectives_capturable(group=None) -> bool:
+    """Whether a CUDA graph may capture the collectives of `group` (None:
+    the default group): always without a process group, and with NCCL's;
+    gloo runs eagerly."""
+    return not active() or dist.get_backend(group) == "nccl"
+
+
+def require_capturable(group=None) -> None:
+    """ValueError unless a CUDA graph may capture the collectives of
+    `group` (collectives_capturable): gloo stages them through the host."""
+    if not collectives_capturable(group):
+        raise ValueError(f"a CUDA graph cannot capture {dist.get_backend(group)}'s collectives "
+                         "(gloo stages them through the host): graphs need NCCL, one rank per "
+                         "card; run the step eagerly (graphed=False)")
+
+
+def _no_capture_on(group) -> None:
+    """require_capturable(group) while a CUDA graph is being captured on
+    this thread's stream: a collective of gloo's never reaches a capture."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        require_capturable(group)
 
 
 def split_rows(height: int, n: int) -> tuple:
@@ -303,6 +344,7 @@ def _flat_reduce(tensors, group, divisor: int) -> None:
     by_dtype: dict = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
+    _no_capture_on(group)
     for ts in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in ts])
         dist.all_reduce(flat, group=group)
@@ -346,6 +388,7 @@ def _all_reduce(t: torch.Tensor, group, counted: bool) -> torch.Tensor:
     if counted:
         n = dist.get_world_size(group)
         _count(2 * t.numel() * t.element_size() * (n - 1) / n)
+    _no_capture_on(group)
     out = t.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, group=group)
     return out
@@ -394,15 +437,23 @@ def mesh_sum(t: torch.Tensor, group, sp: Spatial) -> torch.Tensor:
     return _GlobalSum.apply(t, sp.group if group is None else dist.group.WORLD, True)
 
 
-def _all_gather(t: torch.Tensor, group, size: int) -> list:
-    """Every rank of `group`'s `t` (the same shape on each), in rank order:
-    an all_gather on the device under NCCL and on the host under gloo,
-    which gathers CUDA tensors in all_reduce only."""
+def _all_gather(t: torch.Tensor, group, size: int) -> torch.Tensor:
+    """Every rank of `group`'s `t` (the same shape on each), stacked in rank
+    order on a new axis 0: under NCCL one all_gather_into_tensor on the
+    device, into the stack itself; under gloo, which gathers CUDA tensors
+    in all_reduce only, an all_gather of host copies, stacked on the
+    host."""
+    _no_capture_on(group)
     src = t.detach()
-    src = (src if dist.get_backend(group) == "nccl" else src.cpu()).contiguous()
+    if dist.get_backend(group) == "nccl":
+        src = src.contiguous()
+        out = src.new_empty((size, *src.shape))
+        dist.all_gather_into_tensor(out, src, group=group)
+        return out
+    src = src.cpu().contiguous()
     parts = [torch.empty_like(src) for _ in range(size)]
     dist.all_gather(parts, src, group=group)
-    return parts
+    return torch.stack(parts)
 
 
 def host_array(t) -> np.ndarray:
@@ -413,21 +464,32 @@ def host_array(t) -> np.ndarray:
     t = torch.as_tensor(t).detach()
     if world_size() == 1:
         return t.cpu().numpy()
-    return torch.cat(_all_gather(t, None, world_size())).cpu().numpy()
+    return _all_gather(t, None, world_size()).flatten(0, 1).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
 # The spatial axis: rows of a tensor over the ranks of a Spatial handle
 # ---------------------------------------------------------------------------
 
-collectives = 0  # spatial collectives this process ran
+collectives = 0  # spatial collectives this process ran (a graph's replays included)
 bytes_sent = 0  # the bytes this rank sent in them (ring algorithms' count)
 
 
 def _count(nbytes: float) -> None:
+    add_counts(1, int(nbytes))
+
+
+def counts() -> tuple:
+    """(collectives, bytes_sent) so far."""
+    return collectives, bytes_sent
+
+
+def add_counts(n: int, nbytes: int) -> None:
+    """Add `n` collectives of `nbytes` bytes in all to the counters (a
+    graph's replay adds what its capture counted)."""
     global collectives, bytes_sent
-    collectives += 1
-    bytes_sent += int(nbytes)
+    collectives += n
+    bytes_sent += nbytes
 
 
 def global_rows(local: int, sp: Optional[Spatial]) -> int:
@@ -480,7 +542,7 @@ class _StackRanks(torch.autograd.Function):
     def forward(ctx, t, sp):
         ctx.sp = sp
         _count(t.numel() * t.element_size() * (sp.size - 1))
-        return torch.stack(_all_gather(t, sp.group, sp.size)).to(t.device)
+        return _all_gather(t, sp.group, sp.size).to(t.device)
 
     @staticmethod
     def backward(ctx, grad):
@@ -543,7 +605,9 @@ def _halo_index(blocks: tuple, index: int, top: int, bottom: int,
     """halo_rows' rows of its table (each rank's tpad + bpad edge rows in
     rank order, then a zero row) for rank `index` of `blocks`: the `top`
     above its rows, then the `bottom` below them, on `device`. Made once
-    for each shape (a copy to the device)."""
+    for each shape: a copy from a host list, which a CUDA graph's capture
+    may not hold. The eager warm-ups that precede every capture (graphs.py)
+    make each table a sharded step reads, so the capture finds it here."""
     starts = np.cumsum((0,) + blocks).tolist()
     tpad, bpad = min(top, max(blocks)), min(bottom, max(blocks))
     width = tpad + bpad  # each rank's edge rows in the table

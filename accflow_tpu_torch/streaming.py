@@ -52,6 +52,7 @@ from accflow_tpu_torch.nn.layers import spatial_sharding, tf32
 from accflow_tpu_torch.ops.grids import downflow8
 from accflow_tpu_torch.ops.padding import InputPadder
 from accflow_tpu_torch.ops.warmstart import forward_splat_flow
+from accflow_tpu_torch.parallel import mesh
 from accflow_tpu_torch.serving import (
     Program,
     cast_models,
@@ -150,15 +151,18 @@ class StreamAccumulator:
     accumulator's device; outputs and the state stay there between calls
     (no host round trips beyond the frame upload). spatial (a
     parallel.mesh.Spatial handle): frames, outputs and state are this
-    rank's rows, and `push` runs step_fn eagerly: a CUDA graph cannot
-    capture gloo's collectives, and graphed spatial steps over NCCL are
-    not ported (ROADMAP.md queue 1, #12 item 6). Its warm start is the
-    group's summed splat (ops/softsplat.py), as the warm-started clip's
-    (models/accflow.py)."""
+    rank's rows, and the graph of step_fn holds its exchanges where the
+    handle's group is NCCL's (mesh.collectives_capturable), as JAX's jit
+    holds GSPMD's collectives; under gloo, which stages its collectives
+    through the host and which a graph cannot capture, `push` runs step_fn
+    eagerly. Its warm start is the group's summed splat (ops/softsplat.py),
+    as the warm-started clip's (models/accflow.py)."""
 
     def __init__(self, est, acc: AccFlow, ini_init: str = "ini", spatial=None):
         self._init, step = make_streaming_fns(est, acc, ini_init=ini_init, spatial=spatial)
-        self._step = CudaGraphed(step) if spatial is None else step
+        group = None if spatial is None else spatial.group
+        graphed = spatial is None or mesh.collectives_capturable(group)
+        self._step = CudaGraphed(step, group) if graphed else step
         self._device = next(acc.parameters()).device
         self._state = None
 

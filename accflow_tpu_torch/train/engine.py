@@ -39,9 +39,12 @@ differentiates through the exchanges (parallel/mesh.py), each rank
 back-propagates its part of the loss over the global pixels
 (train/loss.py), and the update sums the gradients over the spatial group
 and averages them over the data group, once, before the clip. The noise is
-the rank's rows of one global draw. The step runs eagerly: graphed spatial
-steps over NCCL are not ported (ROADMAP.md queue 1, #12 item 6). The
-estimators' fine-tune step takes the handle the same way
+the rank's rows of one global draw. As JAX jits that program with GSPMD's
+collectives in it, graphed=True captures the step with its exchanges
+(halos, gathers, the backward's all_reduces, the gradient sum) in one CUDA
+graph over NCCL; gloo's host-staged collectives cannot be captured, and a
+graphed step on the card refuses them. The estimators' fine-tune step
+takes the handle the same way
 (train/finetune.py::make_finetune_step). The engines (train_acc, fine_tune)
 stay data-parallel only, as JAX's do.
 """
@@ -175,14 +178,17 @@ def graph_steps(make_update, valid_step, optimizer: Optimizer, graphed: bool, gr
     graphs.CudaGraphed (both run eagerly on CPU tensors); else the eager
     make_update(optimizer.step) and valid_step. A process `group` and a
     spatial handle are handed to the update (its gradient sum and mean
-    over ranks)."""
+    over ranks); with `graphed`, their collectives are captured in the
+    graphs, which on the card refuse a group that is not NCCL's."""
     update, step = optimizer.update, optimizer.step
     if group is not None or spatial is not None:
         update = functools.partial(update, group, spatial)
         step = functools.partial(step, group, spatial)
     if graphed:
-        return (graphs.CudaGraphedStep(make_update(update), after=optimizer.advance),
-                graphs.CudaGraphed(valid_step))
+        collective = group if spatial is None else spatial.group
+        return (graphs.CudaGraphedStep(make_update(update), after=optimizer.advance,
+                                       group=collective),
+                graphs.CudaGraphed(valid_step, collective))
     return make_update(step), valid_step
 
 
@@ -212,12 +218,9 @@ def make_acc_train_step(est, model: AccFlow, optimizer: Optimizer, add_noise: bo
     over the spatial group (then averages them over `group`) before the
     clip, the reported loss and metrics are the group's sums of the parts,
     and valid_step returns the per-sample EPE over the global pixels and
-    this rank's rows of the last output. The step runs eagerly: graphed=True
-    with a handle raises ValueError."""
-    if spatial is not None and graphed:
-        raise ValueError("graphed spatial steps over NCCL are not ported (ROADMAP.md queue 1, "
-                         "#12 item 6): a train step with a spatial handle runs eagerly "
-                         "(graphed=False)")
+    this rank's rows of the last output. graphed=True with a handle
+    captures the step with its exchanges over NCCL (graph_steps); on the
+    card under gloo its first call raises ValueError."""
     pairs, ofe = est.pairs_fn(spatial=spatial), est.flow_fn(spatial=spatial)
 
     def loss_fn(images, labels):

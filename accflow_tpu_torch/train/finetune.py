@@ -35,10 +35,13 @@ them (halos, the gathered target fnet map and GMA's keys and values, the
 lookups and their backward kernel on this rank's queries), BatchNorm takes
 the mesh's statistics, each rank back-propagates its pixels' part of the
 sequence loss over the global count, and the update sums the gradients
-over the spatial group and averages them over the data group. The step
-runs eagerly (graphed spatial steps: ROADMAP.md queue 1, #12 item 6);
-fine_tune itself stays data-parallel, as JAX's builds its mesh with
-n_spatial 1 (accflow_tpu/train/finetune.py:147).
+over the spatial group and averages them over the data group. With
+graphed=True the step is captured over NCCL with every exchange in it (the
+halos and gathers, those that remat re-runs in the backward, BatchNorm's
+sums over the mesh, the backward's all_reduces, the gradient sum), as
+JAX's jit holds GSPMD's; under gloo on the card it refuses
+(engine.graph_steps). fine_tune itself stays data-parallel, as JAX's
+builds its mesh with n_spatial 1 (accflow_tpu/train/finetune.py:147).
 """
 
 from __future__ import annotations
@@ -135,12 +138,10 @@ def make_finetune_step(est: FlowEstimator, optimizer: Optimizer, add_noise: bool
     them over `group`) before the clip, grad_accum splits N (which every
     spatial rank holds whole), the reported loss and metrics are the
     group's sums of the parts, and valid_step returns the per-sample EPE
-    over the global pixels and this rank's rows of the flow. The step runs
-    eagerly: graphed=True with a handle raises ValueError."""
-    if spatial is not None and graphed:
-        raise ValueError("graphed spatial steps over NCCL are not ported (ROADMAP.md queue 1, "
-                         "#12 item 6): a fine-tune step with a spatial handle runs eagerly "
-                         "(graphed=False)")
+    over the global pixels and this rank's rows of the flow. graphed=True
+    with a handle captures the step with its exchanges over NCCL
+    (engine.graph_steps); on the card under gloo its first call raises
+    ValueError."""
     model = est.model
 
     def loss_fn(i1, i2, label):

@@ -105,7 +105,7 @@ def plant_no_grad_exchange() -> None:
 
     def stack_ranks(t, sp):
         mesh._count(t.numel() * t.element_size() * (sp.size - 1))
-        return chip_smoke.torch.stack(mesh._all_gather(t, sp.group, sp.size)).to(t.device)
+        return mesh._all_gather(t, sp.group, sp.size).to(t.device)
 
     mesh.stack_ranks = stack_ranks
 

@@ -14,7 +14,10 @@ validation and eval steps (graphs.CudaGraphedStep, graphs.CudaGraphed)
 against the eager ones, sync-free, once captured per signature, and
 captured again after a resume; High-Speed Sintel's evaluation on the GPU
 against the CPU, a graphed train step in a world of one over NCCL against
-the step without a process group, a profiler trace on the card, and full
+the step without a process group, the graphed train and fine-tune steps,
+clip and pushes with a one-rank spatial handle over NCCL against eager
+(and their counted collectives), graphs refusing gloo on the card, a
+profiler trace on the card, and full
 RAFT height-sharded over two gloo ranks on the card (this file run as a
 script, `_spatial_child`) against one process, with kernel #1's launches
 on each rank.
@@ -944,15 +947,16 @@ def test_finetune_step_gpu_matches_cpu(dev):
         assert float((s_g[k] - s_c[k]).abs().max()) <= 1e-5 * float(s_c[k].abs().max()), k
 
 
-def _graph_case(dev, kind: str, graphed: bool, n: int = 2, seed: int = 5, group=None):
+def _graph_case(dev, kind: str, graphed: bool, n: int = 2, seed: int = 5, group=None,
+                spatial=None):
     """A train step built afresh from seeds on the card and 3 batches of `n`
     samples: kind "acc" is make_acc_train_step's (_train_case's frozen RAFT
     at 4 iterations and AccFlow hidden 32, noise on); "none", "full" and
     "dots" make_finetune_step's for full RAFT from seed 0 (12 iterations,
     the cnet's BatchNorm on the batch's statistics, noise on, gamma 0.85)
-    with that remat. float32 at 64^2; `group` the steps' process group.
-    Returns (model, optimizer, train_step, valid_step, batches,
-    valid_batches)."""
+    with that remat. float32 at 64^2; `group` the steps' process group,
+    `spatial` their handle (given the height). Returns (model, optimizer,
+    train_step, valid_step, batches, valid_batches)."""
     from accflow_tpu_torch.train.engine import make_acc_train_step
     from accflow_tpu_torch.train.finetune import make_finetune_step
     from accflow_tpu_torch.train.optim import make_optimizer
@@ -966,17 +970,18 @@ def _graph_case(dev, kind: str, graphed: bool, n: int = 2, seed: int = 5, group=
 
     clips = [draw((n, 64, 64, 12), True) for _ in range(4)]
     flows = [draw((n, 64, 64, 4)) for _ in range(4)]
+    spatial = None if spatial is None else spatial.at_height(64)
     if kind == "acc":
         est, model, _, _ = _train_case(dev)
         optimizer = make_optimizer(model.parameters(), 1e-4, 10)
         steps = make_acc_train_step(est, model, optimizer, add_noise=True, graphed=graphed,
-                                    group=group)
+                                    group=group, spatial=spatial)
         batches = [(c.float(), f) for c, f in zip(clips[:3], flows[:3])]
         return (model, optimizer, *steps, batches, batches)
     est = build_flow_estimator("raft", compute_dtype="float32", seed=0, device=dev)
     optimizer = make_optimizer(est.model.parameters(), 1e-4, 10)
     steps = make_finetune_step(est, optimizer, add_noise=True, gamma=0.85, remat=kind,
-                               graphed=graphed, group=group)
+                               graphed=graphed, group=group, spatial=spatial)
     batches = [(c[..., :3], c[..., 3:6], f[..., :2]) for c, f in zip(clips[:3], flows[:3])]
     return (est.model, optimizer, *steps, batches, list(zip(clips[:3], flows[:3])))
 
@@ -992,14 +997,21 @@ def _train_state(model, optimizer) -> dict:
             "buffers": {k: b.clone() for k, b in model.named_buffers()}}
 
 
-def _run_steps(dev, kind, graphed, steps: int = 5, group=None):
+def _run_steps(dev, kind, graphed, steps: int = 5, group=None, spatial=None):
     """`steps` calls of _graph_case's train step (the batches cycled, noise
     from a generator seeded 11): (losses, state, train_step, optimizer,
-    generator state)."""
-    model, optimizer, step, _, batches, _ = _graph_case(dev, kind, graphed, group=group)
+    generator state, each step's mesh collectives and bytes)."""
+    from accflow_tpu_torch.parallel import mesh
+
+    model, optimizer, step, _, batches, _ = _graph_case(dev, kind, graphed, group=group,
+                                                        spatial=spatial)
     gen = torch.Generator(device=dev).manual_seed(11)
-    losses = [float(step(*batches[i % len(batches)], gen)[0]) for i in range(steps)]
-    return losses, _train_state(model, optimizer), step, optimizer, gen.get_state()
+    losses, counts = [], []
+    for i in range(steps):
+        c0 = mesh.counts()
+        losses.append(float(step(*batches[i % len(batches)], gen)[0]))
+        counts.append(tuple(a - b for a, b in zip(mesh.counts(), c0)))
+    return losses, _train_state(model, optimizer), step, optimizer, gen.get_state(), counts
 
 
 @pytest.fixture
@@ -1315,6 +1327,130 @@ def test_nccl_world_of_one_graphed_train_step_bit_equal(dev, deterministic, monk
     for group, tensors in plain[1].items():
         for k, t in tensors.items():
             assert torch.equal(grouped[1][group][k], t), (group, k)
+
+
+@pytest.fixture
+def nccl_handle(dev, monkeypatch):
+    """A world of one over NCCL (torchrun's environment through
+    maybe_init_distributed) while a test runs, and a spatial handle of its
+    one rank (JAX's mesh keeps a "spatial" axis of size 1): every exchange
+    then runs as an NCCL collective of one rank."""
+    import socket
+
+    from accflow_tpu_torch.parallel import mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port), ACCFLOW_DISTRIBUTED="1").items():
+        monkeypatch.setenv(k, v)
+    assert mesh.maybe_init_distributed("cuda")
+    try:
+        assert mesh.collectives_capturable(torch.distributed.group.WORLD)
+        yield mesh.Spatial(torch.distributed.group.WORLD, 0, 1)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind", ["acc", "dots"])
+def test_one_rank_handle_graphed_steps_match_eager(dev, deterministic, nccl_handle, kind):
+    """make_acc_train_step ("acc") and make_finetune_step ("dots") with a
+    one-rank spatial handle over NCCL, graphed (the halos, gathers, the
+    backward's all_reduces and the gradient sum captured) against two eager
+    runs with the handle under torch's deterministic algorithms
+    (_assert_within_eager_spread); captured once; every step counts the
+    eager step's collectives and bytes (a replay adds its capture's)."""
+    eager = [_run_steps(dev, kind, False, spatial=nccl_handle) for _ in range(2)]
+    g = _run_steps(dev, kind, True, spatial=nccl_handle)
+    _assert_within_eager_spread(g[:2], [e[:2] for e in eager])
+    assert g[2].eager_calls == graphs.WARMUP and g[2].captures == 1
+    assert g[5] == eager[0][5] and g[5][0][0] > 0
+
+
+def _handle_clip_and_stream(dev, sp):
+    """RAFT (seed 0, 2 iterations) under AccFlow hidden 32 (the stream's
+    warm-started), float32, on 6 frames of 64^2 from seed 9, with the
+    handle `sp` given their height: (clip forward, init, step_fn,
+    StreamAccumulator, frames)."""
+    sp = sp.at_height(64)
+    est = build_flow_estimator("raft", compute_dtype="float32", iters=2, device=dev)
+    acc, warm = (init_accflow(AccFlowConfig(hidden=32, compute_dtype="float32", warm_start=w),
+                              device=dev) for w in (False, True))
+    frames = (torch.rand((6, 1, 64, 64, 3), generator=torch.Generator().manual_seed(9)) * 2
+              - 1).to(dev)
+
+    def clip(x):
+        return accflow_forward(acc, x, est.pairs_fn(spatial=sp), spatial=sp)
+
+    init, step = make_streaming_fns(est, warm, spatial=sp)
+    return clip, init, step, StreamAccumulator(est, warm, spatial=sp), frames
+
+
+def test_one_rank_handle_graphed_clip_and_push_bit_equal(dev, nccl_handle):
+    """With a one-rank handle over NCCL: the sharded clip in
+    graphs.CudaGraphed (the handle's group) and StreamAccumulator's pushes,
+    which replay a graph under NCCL, bit-equal to the eager clip and to
+    step_fn; a replayed call counts the eager call's collectives and bytes,
+    and launches kernel #1 through no wrapper."""
+    from accflow_tpu_torch.parallel import mesh
+    from accflow_tpu_torch.nn.layers import tf32
+
+    clip, init, step, stream, frames = _handle_clip_and_stream(dev, nccl_handle)
+    graphed = graphs.CudaGraphed(clip, nccl_handle.group)
+
+    def counted(fn, *args):
+        c0, l0 = mesh.counts(), corr_cuda.launches
+        out = fn(*args)
+        return out, tuple(a - b for a, b in zip(mesh.counts(), c0)), corr_cuda.launches - l0
+
+    with tf32(False):
+        want, want_counts, want_launches = counted(clip, frames[:4])
+        graphed(frames[:4])
+        got, got_counts, got_launches = counted(graphed, frames[:4])
+        assert torch.equal(got, want) and graphed.captures == 1
+        assert got_counts == want_counts and want_counts[0] > 0
+        assert (want_launches, got_launches) == (2, 0)
+        flow, state = init(frames[:3])
+        assert torch.equal(stream.reset(frames[:3]), flow)
+        for i in range(3, 6):  # the first push warms up and captures, the others replay
+            (flow, state), step_counts, _ = counted(step, state, frames[i])
+            pushed, push_counts, _ = counted(stream.push, frames[i])
+            assert torch.equal(pushed, flow), i
+        assert push_counts == step_counts and push_counts[0] > 0
+
+
+def test_graphs_refuse_gloo_on_the_card(dev, monkeypatch):
+    """A world of one over gloo with CUDA tensors: a graphed train step with
+    a handle raises ValueError naming gloo at its first call, before it
+    runs anything; a capture that reaches a gloo collective (after
+    CudaGraphed's eager warm-ups) raises the same; StreamAccumulator's
+    push with the handle runs eagerly."""
+    import socket
+
+    from accflow_tpu_torch.parallel import mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port), ACCFLOW_DISTRIBUTED="1").items():
+        monkeypatch.setenv(k, v)
+    assert mesh.maybe_init_distributed("cuda", backend="gloo")
+    try:
+        sp = mesh.Spatial(torch.distributed.group.WORLD, 0, 1)
+        model, _, step, _, batches, _ = _graph_case(dev, "acc", True, spatial=sp)
+        with pytest.raises(ValueError, match="gloo"):
+            step(*batches[0], torch.Generator(device=dev).manual_seed(1))
+        assert step.eager_calls == 0 and step.captures == 0
+        summed = graphs.CudaGraphed(lambda x: mesh.sum_ranks(x, sp))
+        with pytest.raises(ValueError, match="gloo"):
+            summed(torch.ones(4, device=dev))
+        assert summed.captures == 0
+        stream = _handle_clip_and_stream(dev, sp)[3]
+        assert not isinstance(stream._step, graphs.CudaGraphed)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_profiling_trace_on_the_card(dev, tmp_path):

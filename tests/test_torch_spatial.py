@@ -74,10 +74,16 @@ one process and against the JAX package's unsharded runs.
   and 24 + 16 rows a spatial pair, against JAX and one process at batch
   2, and its noise rows; the fine-tune step likewise (RAFT: its BatchNorm
   over all four ranks).
+- In the launch of two ranks also, on CPU tensors: the train and
+  fine-tune steps with graphed=True and a handle bit-equal to graphed=False
+  (loss, reduced gradients, running statistics, collectives and bytes);
+  StreamAccumulator's pushes bit-equal to step_fn's; the gathers under
+  gloo bit-equal to a host all_gather, NCCL's all_gather_into_tensor never
+  called.
 - Without processes: make_mesh's rank layout against JAX's reshape of the
   device list, split_rows' blocks, and the refusals (a height not a
   multiple of 8, fewer rows at 1/8 than ranks, unequal blocks the handle
-  was not given, a graphed train or fine-tune step with a handle).
+  was not given); a graphed step with a handle is a CudaGraphedStep.
 """
 
 import contextlib
@@ -93,6 +99,7 @@ import torch
 
 import torch.nn.functional as F
 
+from accflow_tpu_torch import graphs
 from accflow_tpu_torch.convert import load_jax_params, load_npz_tree, save_npz_tree, to_jax_params
 from accflow_tpu_torch.data.synthetic import make_long_sequence
 from accflow_tpu_torch.models import (
@@ -108,7 +115,7 @@ from accflow_tpu_torch.ops.sampling import backwarp
 from accflow_tpu_torch.ops.upsample import convex_upsample
 from accflow_tpu_torch.ops.warmstart import forward_splat_flow
 from accflow_tpu_torch.parallel import mesh
-from accflow_tpu_torch.streaming import StreamAccumulator
+from accflow_tpu_torch.streaming import StreamAccumulator, make_streaming_fns
 from accflow_tpu_torch.train import engine, finetune
 from accflow_tpu_torch.train.optim import make_optimizer
 
@@ -733,6 +740,94 @@ def _ft_cases(work: str, sp=None) -> dict:
     return out
 
 
+def _graphed_step(pre: str, model, call) -> dict:
+    """One call of a train step: its loss, the gradients its update reduced
+    (before the clip), the running statistics after it and the collectives
+    and bytes it counted, as numpy under `pre`."""
+    grads, average = [], mesh.average_gradients
+
+    def record(params, grp, spatial=None):
+        average(params, grp, spatial)
+        grads.extend(p.grad.clone() for p in params)
+
+    mesh.average_gradients = record
+    c0 = mesh.counts()
+    try:
+        loss, _ = call()
+    finally:
+        mesh.average_gradients = average
+    out = {pre + "loss": np.array(float(loss)),
+           pre + "counts": np.array([a - b for a, b in zip(mesh.counts(), c0)])}
+    out.update({f"{pre}g/{i}": g.numpy() for i, g in enumerate(grads)})
+    out.update({f"{pre}bn/{k}": v.numpy() for k, v in model.state_dict().items()
+                if "running" in k})
+    return out
+
+
+def _graphed_cases(work: str, sp) -> dict:
+    """Under the handle, on CPU tensors (where the graphed wrappers call the
+    step as it is): make_acc_train_step and make_finetune_step (full RAFT)
+    with graphed=True and graphed=False, noise on, one step each at 24 + 16
+    rows (_graphed_step); StreamAccumulator's reset and pushes (stream (b))
+    beside make_streaming_fns' init and step_fn on the same rows; and
+    stack_ranks, gather_rows and host_array with all_gather_into_tensor
+    refused (gloo never takes NCCL's path), beside an all_gather of the
+    same tensors stacked, whether a graph may capture the handle's group
+    (mesh.collectives_capturable)."""
+    out = {}
+    sp40, sp_ft = sp.at_height(CLIP40[2]), sp.at_height(FT_SHAPE[1])
+    for graphed in (False, True):
+        acc = init_accflow(AccFlowConfig(hidden=TRAIN_HIDDEN, compute_dtype="float32"),
+                           device="cpu")
+        load_jax_params(acc, load_npz_tree(f"{work}/acc32.npz"))
+        step, _ = engine.make_acc_train_step(
+            _estimator(work, "fused"), acc, make_optimizer(acc.parameters(), TRAIN_LR, 10),
+            add_noise=True, graphed=graphed, spatial=sp40)
+        imgs, labels = _train_batch(work, sp=sp40)
+        out.update(_graphed_step(f"graphed/{graphed}/train/", acc,
+                                 lambda: step(imgs, labels, torch.Generator().manual_seed(3))))
+        est = _ft_estimator(work, "raft")
+        step, _ = finetune.make_finetune_step(
+            _Iters(est, ITERS), make_optimizer(est.model.parameters(), TRAIN_LR, 10),
+            add_noise=True, gamma=FT_GAMMA, graphed=graphed, spatial=sp_ft)
+        img1, img2, label = _ft_batch(work, sp=sp_ft)
+        out.update(_graphed_step(f"graphed/{graphed}/ft/", est.model,
+                                 lambda: step(img1, img2, label, torch.Generator().manual_seed(5))))
+
+    est, acc = _estimator(work, "fused"), _accumulator(work, warm_start=True)
+    frames = mesh.shard_rows(torch.from_numpy(np.load(f"{work}/inputs.npz")["stream"]), sp, 2)
+    stream = StreamAccumulator(est, acc, spatial=sp)
+    init, step_fn = make_streaming_fns(est, acc, spatial=sp)
+    flow, state = init(frames[:3])
+    fns = [flow]
+    for f in frames[3:]:
+        flow, state = step_fn(state, f)
+        fns.append(flow)
+    out["graphed/stream/accumulator"] = torch.stack(
+        [stream.reset(frames[:3])] + [stream.push(f) for f in frames[3:]]).numpy()
+    out["graphed/stream/step_fn"] = torch.stack(fns).numpy()
+
+    x = torch.from_numpy(np.random.default_rng(40).standard_normal((2, 3, 8, 5)).astype(
+        np.float32)) + sp.index
+    gather_into = torch.distributed.all_gather_into_tensor
+
+    def refuse(*a, **k):
+        raise AssertionError("all_gather_into_tensor under gloo")
+
+    torch.distributed.all_gather_into_tensor = refuse
+    try:
+        got = [mesh.stack_ranks(x, sp), mesh.gather_rows(x, sp, 2), mesh.host_array(x[:, 0, 0, 0])]
+    finally:
+        torch.distributed.all_gather_into_tensor = gather_into
+    parts = [torch.empty_like(x) for _ in range(sp.size)]
+    torch.distributed.all_gather(parts, x, group=sp.group)
+    want = [torch.stack(parts), torch.cat(parts, 2), torch.cat([p[:, 0, 0, 0] for p in parts])]
+    for name, a, b in zip(("stack", "rows", "host"), got, want):
+        out[f"gloo/{name}"], out[f"gloo/{name}/ref"] = np.asarray(a), b.numpy()
+    out["gloo/capturable"] = np.array(mesh.collectives_capturable(sp.group))
+    return out
+
+
 def _primitives(sp) -> dict:
     """Every primitive (and its backward) on this rank's rows, and in one
     process."""
@@ -797,7 +892,8 @@ def _child(mode: str, world: int, rank: int, port: int, work: str) -> None:
     t0 = time.perf_counter()
     out = {"axis": np.array([m.axis.index, m.axis.size]), **_primitives(m.axis)}
     if mode == "models":
-        out.update(_models(m.axis, work), **_train_cases(work, m.axis), **_ft_cases(work, m.axis))
+        out.update(_models(m.axis, work), **_train_cases(work, m.axis), **_ft_cases(work, m.axis),
+                   **_graphed_cases(work, m.axis))
     else:
         out.update(_raft48(m.axis, work), **_data_by_spatial(rank, work))
     out["seconds"] = time.perf_counter() - t0
@@ -1521,14 +1617,53 @@ def test_spatial_finetune_noise_and_valid_step(launch, refs):
         assert np.abs(got - want).max() <= FLOW_REL * np.abs(want).max()
 
 
+@pytest.mark.parametrize("step", ["train", "ft"])
+def test_spatial_graphed_step_on_cpu_bit_equal_eager(launch, step):
+    """make_acc_train_step ("train") and make_finetune_step ("ft") with
+    graphed=True and a handle, on CPU tensors, where the graphed wrappers
+    call the step as it is: on every rank the loss, the reduced gradients,
+    the running statistics after the step and the collectives and bytes it
+    counted are bit-equal to graphed=False's."""
+    for r in launch.ranks():
+        eager, graphed = ({k[len(pre):]: v for k, v in r.items() if k.startswith(pre)}
+                          for pre in (f"graphed/False/{step}/", f"graphed/True/{step}/"))
+        assert set(eager) == set(graphed) and any(k.startswith("g/") for k in eager)
+        assert eager["counts"][0] > 0 and eager["counts"][1] > 0
+        assert (step == "ft") == any(k.startswith("bn/") for k in eager)
+        for k in eager:
+            np.testing.assert_array_equal(graphed[k], eager[k], err_msg=k)
+
+
+def test_spatial_stream_accumulator_pushes_bit_equal_step_fn(launch):
+    """StreamAccumulator with a handle (gloo: its push runs step_fn eagerly)
+    against make_streaming_fns' init and step_fn on the same rows: the reset
+    and every push bit-equal on every rank."""
+    for r in launch.ranks():
+        got, want = r["graphed/stream/accumulator"], r["graphed/stream/step_fn"]
+        assert got.shape == want.shape == (5 - 2, 1, SIZE // WORLD, SIZE, 2)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_spatial_gloo_gathers_on_the_host(launch):
+    """Under gloo the gathers never take NCCL's all_gather_into_tensor (it
+    raised if called): stack_ranks, gather_rows and host_array bit-equal to
+    an all_gather of the same tensors stacked, concatenated; and a graph
+    may not capture the handle's group."""
+    for r in launch.ranks():
+        for name in ("stack", "rows", "host"):
+            np.testing.assert_array_equal(r[f"gloo/{name}"], r[f"gloo/{name}/ref"], err_msg=name)
+        assert r["gloo/stack"].shape == (WORLD, 2, 3, 8, 5)
+        assert not r["gloo/capturable"]
+
+
 def test_spatial_refusals(tmp_path):
     """A handle (never used for a collective here: each call refuses
-    first) where the spatial axis is not ported (a graphed train or
-    fine-tune step), or where the frames do not split into blocks of 8-row
-    multiples (a height not a multiple of 8, fewer rows at 1/8 than ranks,
-    unequal blocks the handle was not given). Every AccFlow clip path, the
-    accumulator's train step, the estimators' fine-tune step, GMA and
-    RAFT-small take a handle: the launches run them."""
+    first) where the frames do not split into blocks of 8-row multiples (a
+    height not a multiple of 8, fewer rows at 1/8 than ranks, unequal
+    blocks the handle was not given). Every AccFlow clip path, the
+    accumulator's train step, the estimators' fine-tune step (graphed or
+    not), GMA and RAFT-small take a handle: the launches run them; a
+    graphed step with a handle is built as CudaGraphedStep."""
     sp = mesh.Spatial(None, 0, 2)
     with pytest.raises(ValueError, match="n_spatial=2"):
         mesh.make_mesh(n_spatial=2)
@@ -1543,12 +1678,12 @@ def test_spatial_refusals(tmp_path):
     with pytest.raises(ValueError, match="its block of a height of 24 is 16"):
         est.forward(img, img, spatial=sp.at_height(24))
     acc = init_accflow(AccFlowConfig(hidden=32, compute_dtype="float32"), device="cpu")
-    with pytest.raises(ValueError, match="#12 item 6"):
-        engine.make_acc_train_step(est, acc, make_optimizer(acc.parameters(), TRAIN_LR, 10),
-                                   add_noise=False, graphed=True, spatial=sp)
-    with pytest.raises(ValueError, match="#12 item 6"):
-        finetune.make_finetune_step(est, make_optimizer(est.model.parameters(), TRAIN_LR, 10),
-                                    add_noise=False, gamma=FT_GAMMA, graphed=True, spatial=sp)
+    steps = (engine.make_acc_train_step(est, acc, make_optimizer(acc.parameters(), TRAIN_LR, 10),
+                                        add_noise=False, graphed=True, spatial=sp),
+             finetune.make_finetune_step(est, make_optimizer(est.model.parameters(), TRAIN_LR, 10),
+                                         add_noise=False, gamma=FT_GAMMA, graphed=True, spatial=sp))
+    for step, valid in steps:
+        assert isinstance(step, graphs.CudaGraphedStep) and isinstance(valid, graphs.CudaGraphed)
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["child"]:
