@@ -225,7 +225,7 @@ def main(argv=None):
                         "'auto': the stored volume while it fits its "
                         "budget, the volume-free 'ondemand' mode past "
                         "that, so any frame size runs; or force fused, "
-                        "ondemand[:chunk], experimental:fused_bd[2]")
+                        "ondemand[:chunk] or an experimental: spelling")
     parser.add_argument("--attn_chunk", type=int, default=-1,
                         help="gma only: >0 recomputes attention per query "
                         "chunk instead of storing the (HW)^2 matrix; "

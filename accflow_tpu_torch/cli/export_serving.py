@@ -49,7 +49,7 @@ def main(argv=None):
     parser.add_argument("--corr_lookup", type=str, default="fused",
                         help="correlation lookup: fused (also mm, pallas_fused), auto, "
                         "ondemand[:chunk] (bakes the volume-free hi-res mode into the "
-                        "artifact) or experimental:fused_bd[2] (see RAFTConfig.corr_lookup)")
+                        "artifact) or an experimental: spelling (see RAFTConfig.corr_lookup)")
     parser.add_argument("--attn_chunk", type=int, default=0,
                         help="gma only: >0 recomputes the attention per chunk of query "
                         "rows; -1 picks per shape; 0 (default) stores the (HW)^2 matrix")

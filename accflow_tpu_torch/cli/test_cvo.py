@@ -33,7 +33,7 @@ def main(argv=None):
     parser.add_argument("--compute-dtype", type=str, default="bfloat16")
     parser.add_argument("--corr_lookup", type=str, default="fused",
                         help="correlation lookup: fused (also mm, pallas_fused), auto, "
-                        "ondemand[:chunk] or experimental:fused_bd[2] (see "
+                        "ondemand[:chunk] or an experimental: spelling (see "
                         "RAFTConfig.corr_lookup)")
     parser.add_argument("--attn_chunk", type=int, default=0,
                         help="gma only: >0 recomputes the attention per chunk of query "

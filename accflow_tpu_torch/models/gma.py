@@ -15,7 +15,9 @@ GMA is full-width RAFT plus one attention over the context features:
   aggregated motion] (128 * 3 channels).
 
 The GRU loop, the lookups (kernel #1 for "fused", "ondemand" and "auto",
-kernel #3 under experimental:fused_bd[2]) and the upsampling are raft.py's (raft_iterate),
+and every experimental spelling as raft.py's docstring lists them: kernel #2
+for experimental:pallas, kernel #3 for a "bd" level) and the upsampling are
+raft.py's (raft_iterate),
 given the aggregation as its hook; the encodes are raft.py's as well, and
 so is the training forward's contract (gma_train_forward: raft.py's
 raft_train_forward, with the attention and the aggregate recorded by
@@ -111,6 +113,7 @@ class GMAConfig:
     context_dim = 128
     small = False  # raft_iterate's switch: GMA runs full RAFT's loop
 
+    lookup_impl = RAFTConfig.lookup_impl
     split_levels = RAFTConfig.split_levels
     dtype = RAFTConfig.dtype
     corr_planes = RAFTConfig.corr_planes

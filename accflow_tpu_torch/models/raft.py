@@ -18,16 +18,30 @@ lookup of full RAFT (ops/corr.py::normalize_corr_lookup):
   RAFT-small), so high resolutions fit the card;
 - "auto": "fused" while the stored pyramid fits ops/corr.py's budget,
   "ondemand" beyond it (resolve_auto_lookup, per shape in each entry point);
-- "experimental:fused_bd" / "experimental:fused_bd2": the split lookup
-  (ops/corr.py::lookup_corr_split_v2), level 0 (0 and 1) through the
-  y_contract kernel (ops/corr_bd_cuda.py) and the rest through torch.bmm,
-  consumed per level by BasicMotionEncoder.forward_split.
+- the experimental spellings, behind "experimental:", dispatched as JAX's
+  step dispatches them (accflow_tpu/models/raft.py:575-657; ops/corr.py
+  names their functions):
+  - flat lookups into convc1, like "fused": "pallas" (kernel #2,
+    ops/corr_level_cuda.py, at radius 4; bfloat16 levels unless the
+    compute dtype is float32), "rows", "patch", "gather" (PyTorch ops);
+  - split lookups, per-level (N, H, W, 9, 9) windows into
+    BasicMotionEncoder.forward_split: "fused_bd" / "fused_bd2" (level 0,
+    or 0 and 1, through the y_contract kernel #3, ops/corr_bd_cuda.py; the
+    rest torch.bmm), "fused_vy" (the y contraction summed in float32),
+    "fusedv" (the x contraction as 9 multiply-and-sum passes), "packed" /
+    "packed2" (levels 1.. or 2.. packed into one map, whose windows come as
+    one (N, H, W, L', 9, 9) entry), "fused_mix:<l0,l1,l2,l3>" (a level impl
+    each from mm, bd, rows, rows_gx, vpu_y; kernel #3 for bd);
+  - split lookups into BasicMotionEncoder.forward_stacked (convc1 as one
+    product over the stacked windows): "fused_cat", "fused_vy_cat".
 RAFT-small takes the per-level kernel (ops/corr_level_cuda.py) on the
-stored pyramid or under ondemand, as JAX maps every other spelling to one
-flat lookup there. On the CPU each
-kernel is replaced by its plain version. Encoders and the update block run
-in the compute dtype; the pyramid products, coordinates and upsampling in
-float32, and the stored pyramid levels in the compute dtype.
+stored pyramid or under ondemand, and for "experimental:pallas"; "rows",
+"patch" and "gather" are its flat lookups at radius 3; every split
+spelling maps to its default lookup, as JAX maps them to its flat one. On
+the CPU each kernel is replaced by its plain version. Encoders and the
+update block run in the compute dtype; the pyramid products, coordinates
+and upsampling in float32, and the stored pyramid levels in the compute
+dtype.
 
 Images are (N, H, W, 3) in [-1, 1]; flows (N, H, W, 2) in (x, y) order.
 Feature maps inside are NCHW, kept channels_last in memory.
@@ -72,13 +86,17 @@ from accflow_tpu_torch.nn.layers import (
 )
 from accflow_tpu_torch.nn.remat import remat_wrap
 from accflow_tpu_torch.ops.corr import (
+    FLAT_LOOKUPS,
     SPLIT_LOOKUPS,
+    STACKED_LOOKUPS,
     OnDemandCorr,
     build_corr_operands,
     lookup_corr_on_demand,
-    lookup_corr_split_v2,
+    lookup_flat,
     normalize_corr_lookup,
     resolve_auto_lookup,
+    split_level_impls,
+    split_windows,
 )
 from accflow_tpu_torch.ops.corr_cuda import LEVELS, RADIUS, lookup_corr_fused
 from accflow_tpu_torch.ops.corr_level_cuda import lookup_corr_level
@@ -118,14 +136,18 @@ class RAFTConfig:
         normalize_corr_lookup(self.corr_lookup)
 
     @property
+    def lookup_impl(self) -> str:
+        """The normalized spelling (ops/corr.py::normalize_corr_lookup)."""
+        return normalize_corr_lookup(self.corr_lookup)
+
+    @property
     def split_levels(self):
-        """The split lookup's per-level impls ("bd" on the first 1 or 2
-        levels, "mm" on the rest), or None for the all-levels kernel."""
-        impl = normalize_corr_lookup(self.corr_lookup)
-        if self.small or impl not in SPLIT_LOOKUPS:
-            return None
-        nbd = SPLIT_LOOKUPS[impl]
-        return ("bd",) * nbd + ("mm",) * (self.corr_levels - nbd)
+        """The per-level impls of a split spelling built on
+        lookup_corr_split_v2 (fused_bd: "bd" then "mm"; fused_bd2: "bd" on
+        two levels; fused_vy[_cat]: "vpu_y"; fused_mix: its list, the last
+        entry repeated), or None: for every other spelling, and for
+        RAFT-small, which maps split spellings to its default lookup."""
+        return None if self.small else split_level_impls(self.lookup_impl, self.corr_levels)
 
     @property
     def hidden_dim(self) -> int:
@@ -168,18 +190,36 @@ class BasicMotionEncoder(nn.Module):
 
     def forward_split(self, flow, corr_levels):
         """forward on the split lookup's per-level windows: corr_levels is a
-        list of L (N, H, W, 9, 9) windows [a, b] in the compute dtype. convc1
-        is 1x1, so convc1(cat(levels)) = bias + sum_l window_l . W_l, W_l
-        being convc1's input channels l*81 .. l*81+80 (a*9 + b order): the
-        same weight, split by level. The bias comes first, then each level's
-        product, each rounded to the compute dtype
+        list of (N, H, W, 9, 9) windows [a, b] of one level each, or (N, H,
+        W, L', 9, 9) of L' packed levels (lookup_corr_split_packed), in the
+        compute dtype. convc1 is 1x1, so convc1(cat(levels)) = bias + sum_l
+        window_l . W_l, W_l being convc1's input channels l*81 .. l*81+80
+        (a*9 + b order): the same weight, split by level. The bias comes
+        first, then each entry's product (a packed entry's over its levels'
+        channels at once), each rounded to the compute dtype
         (accflow_tpu/models/raft.py::basic_motion_encoder_split)."""
         cd = corr_levels[0].dtype
         n, h, w = corr_levels[0].shape[:3]
-        wc = self.convc1.weight.view(self.convc1.weight.shape[0], len(corr_levels), -1)
-        cor = self.convc1.bias.to(cd)
-        for l, part in enumerate(corr_levels):
-            cor = cor + part.reshape(n, h, w, -1) @ wc[:, l].t().to(cd)
+        wc = self.convc1.weight.view(self.convc1.weight.shape[0], -1)
+        cor, k0 = self.convc1.bias.to(cd), 0
+        for part in corr_levels:
+            x = part.reshape(n, h, w, -1)
+            cor = cor + x @ wc[:, k0:k0 + x.shape[-1]].t().to(cd)
+            k0 += x.shape[-1]
+        cor = cor.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        return self._tail(flow, cor)
+
+    def forward_stacked(self, flow, corr_levels):
+        """forward on the L per-level (N, H, W, 9, 9) windows stacked into
+        (N, H, W, L*81) (level, a, b: convc1's channel order): convc1 as one
+        product over them, rounded to the compute dtype, and the bias added
+        after it (accflow_tpu/models/raft.py::basic_motion_encoder_stacked),
+        where forward_split adds the bias first."""
+        cd = corr_levels[0].dtype
+        n, h, w = corr_levels[0].shape[:3]
+        x = torch.stack(corr_levels, dim=3).reshape(n, h, w, -1)
+        wc = self.convc1.weight.view(self.convc1.weight.shape[0], -1)
+        cor = x @ wc.t().to(cd) + self.convc1.bias.to(cd)
         cor = cor.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         return self._tail(flow, cor)
 
@@ -368,18 +408,7 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
     if flow_init is not None:
         flow_init = torch.as_tensor(flow_init, dtype=torch.float32, device=net.device)
         coords1 = (coords1 + flow_init).contiguous()
-    if isinstance(levels, OnDemandCorr):
-        def lookup(c):  # kernel #1 (#2 for RAFT-small) on each chunk's rows
-            # reshape: at batch > 1 with chunks of one row the windows are a
-            # batch-strided view, which no view can flatten.
-            return lookup_corr_on_demand(levels, c.view(n, h8, w8, 2), cfg.corr_radius,
-                                         out_dtype=cd).reshape(n * h8 * w8, -1)
-    elif cfg.small:
-        def lookup(c):  # the kernel writes the compute dtype itself
-            return lookup_corr_level(levels, c, cfg.corr_radius, out_dtype=cd)
-    else:
-        def lookup(c):  # the kernel writes the compute dtype itself
-            return lookup_corr_fused(levels, c, cfg.corr_radius, out_dtype=cd)
+    motion_of = _motion_fn(cfg, ub.encoder, levels, n, h8, w8)
     if cfg.small:
         def gru_step(h, motion):
             return ub.gru(h, torch.cat([inp, motion], dim=1))
@@ -391,17 +420,10 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
 
         def upsample(flow, net):
             return convex_upsample(flow, ub.upsample_mask(net).permute(0, 2, 3, 1), spatial)
-    split = cfg.split_levels
 
     def iteration(net, coords1):
         flow = coords1 - coords0
-        flow_cd = flow.permute(0, 3, 1, 2).to(cd)
-        if split is None:
-            corr = lookup(coords1.view(-1, 2)).view(n, h8, w8, -1).permute(0, 3, 1, 2)
-            motion = ub.encoder(flow_cd, corr)
-        else:
-            parts = lookup_corr_split_v2(levels, coords1, cfg.corr_radius, split, cd)
-            motion = ub.encoder.forward_split(flow_cd, [p.to(cd) for p in parts])
+        motion = motion_of(flow.permute(0, 3, 1, 2).to(cd), coords1)
         if aggregate is not None:
             motion = torch.cat([motion, aggregate(motion)], dim=1)
         net = gru_step(net, motion)
@@ -429,6 +451,41 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
         out["flow_up"] = preds[-1]
         out["predictions"] = torch.stack(preds)
     return out
+
+
+def _motion_fn(cfg, encoder, levels, n: int, h8: int, w8: int):
+    """motion(flow_cd, coords1) -> the motion encoder's output on the
+    lookup that cfg.corr_lookup selects (module docstring), for levels (the
+    stored pyramid, or OnDemandCorr) of n maps of h8 x w8 queries; coords1
+    (n, h8, w8, 2) float32. Flat lookups give convc1 one (n, L*(2r+1)^2,
+    h8, w8) input in the compute dtype; split lookups give forward_split or
+    forward_stacked their windows."""
+    cd, r = cfg.dtype, cfg.corr_radius
+    impl = cfg.lookup_impl
+    if isinstance(levels, OnDemandCorr):
+        def flat(c):  # kernel #1 (#2 for RAFT-small) on each chunk's rows
+            # reshape: at batch > 1 with chunks of one row the windows are a
+            # batch-strided view, which no view can flatten.
+            return lookup_corr_on_demand(levels, c, r, out_dtype=cd).reshape(n * h8 * w8, -1)
+    elif impl in FLAT_LOOKUPS and not (cfg.small and impl == "pallas"):
+        def flat(c):
+            return lookup_flat(impl, levels, c, r, cd).view(n * h8 * w8, -1)
+    elif cfg.small:
+        def flat(c):  # the kernel writes the compute dtype itself
+            return lookup_corr_level(levels, c.view(-1, 2), r, out_dtype=cd)
+    elif impl in SPLIT_LOOKUPS or cfg.split_levels is not None:
+        consume = encoder.forward_stacked if impl in STACKED_LOOKUPS else encoder.forward_split
+
+        def motion(flow_cd, c):
+            return consume(flow_cd, split_windows(impl, levels, c, r, cd))
+        return motion
+    else:
+        def flat(c):  # the kernel writes the compute dtype itself
+            return lookup_corr_fused(levels, c.view(-1, 2), r, out_dtype=cd)
+
+    def motion(flow_cd, c):
+        return encoder(flow_cd, flat(c).view(n, h8, w8, -1).permute(0, 3, 1, 2))
+    return motion
 
 
 def _as_images(x, device) -> torch.Tensor:
@@ -464,11 +521,22 @@ def raft_pairs_forward(model: RAFT, frames, src_idx, dst_idx,
 
 
 def check_trainable_lookup(cfg) -> None:
-    """Raise NotImplementedError for a lookup without a backward: the split
-    lookups (kernel #3 has no backward, nor has the reference's Pallas
-    y_contract_bd; ROADMAP.md #16). The stored and the volume-free
-    (ondemand) lookups train through the backward kernel."""
-    if cfg.split_levels is not None:
+    """Raise NotImplementedError for exactly the lookups that JAX cannot
+    differentiate, those that reach a Pallas call, which has no autodiff
+    rule (accflow_tpu/ops/corr_pallas.py:71-73): experimental:pallas on
+    every model (the TPU's lookup_corr_pallas; kernel #2 here), and a split
+    spelling with a "bd" level on full RAFT and GMA (y_contract_bd; kernel
+    #3 has no backward either, ROADMAP.md #16). RAFT-small maps split
+    spellings to its default lookup, which trains. Every other spelling
+    trains: the stored and the volume-free (ondemand) lookups through the
+    backward kernel, the other experimental ones through autograd of their
+    PyTorch ops."""
+    if cfg.lookup_impl == "pallas":
+        raise NotImplementedError(
+            f"corr_lookup={cfg.corr_lookup!r} has no backward in the reference: "
+            "lookup_corr_pallas is a Pallas call, which JAX cannot differentiate; train "
+            "with corr_lookup 'fused'")
+    if "bd" in (cfg.split_levels or ()):
         raise NotImplementedError(
             f"corr_lookup={cfg.corr_lookup!r} has no backward: kernel #3 has none, and "
             "neither has the reference's y_contract_bd, which JAX cannot differentiate "
@@ -482,8 +550,9 @@ def raft_train_forward(model: RAFT, image1, image2, iters: Optional[int] = None,
     records it; the cnet's BatchNorm uses the batch's statistics and keeps
     its running-statistics updates for collect_bn_updates; the pyramid is
     stored in float32; remat ("none", "dots", "full") checkpoints each GRU
-    iteration. The split lookups (experimental:fused_bd[2]) have no
-    backward, as in the reference: NotImplementedError. spatial: images,
+    iteration. The lookups that reach a Pallas call in the reference
+    (experimental:pallas, a split lookup with a "bd" level) have no
+    backward there: NotImplementedError (check_trainable_lookup). spatial: images,
     flow_init and the flows are this rank's rows, as in raft_forward; the
     gathered fnet map's backward returns each key row's gradient (the
     pyramid's, from the lookups' backward on this rank's queries) to its

@@ -1,13 +1,15 @@
 """The host C++ core of the CVOR data path (src/cvor_core.cpp, the port's
-own copy of accflow_tpu/native's flow decode), loaded with ctypes:
-counterpart of accflow_tpu/native/__init__.py, for data/records.py.
+own copy of accflow_tpu/native's: the flow decode, the image normalisation
+and the cropped batch gather), loaded with ctypes: counterpart of
+accflow_tpu/native/__init__.py, for data/records.py.
 
 It is built with g++ at first use, never on import, into the git-ignored
 `_build/` beside this package (named by a hash of the source and flags, so
 an edited source rebuilds), and its ABI version is checked. Without g++ on
-the machine `get_lib()` is None and decode_flow_u16 computes the same bits
-in numpy, as JAX's does; a g++ that fails, or a library of another ABI
-version, raises. This is host code: no device kernel lives here.
+the machine `get_lib()` is None and decode_flow_u16, normalize_u8 and
+gather_crop compute the same bits in numpy, as JAX's do; a g++ that fails,
+or a library of another ABI version, raises. This is host code: no device
+kernel lives here.
 """
 
 from __future__ import annotations
@@ -73,6 +75,17 @@ def get_lib() -> Optional[ctypes.CDLL]:
             lib.cvor_decode_flow_u16.argtypes = [_P(ctypes.c_uint16), _P(ctypes.c_float),
                                                  ctypes.c_int64, ctypes.c_int]
             lib.cvor_decode_flow_u16.restype = None
+            lib.cvor_normalize_u8.argtypes = [_P(ctypes.c_uint8), _P(ctypes.c_float),
+                                              ctypes.c_int64, ctypes.c_int]
+            lib.cvor_normalize_u8.restype = None
+            crop = [_P(ctypes.c_int64), _P(ctypes.c_int32), _P(ctypes.c_int32),
+                    *[ctypes.c_int64] * 6]
+            lib.cvor_gather_crop.argtypes = [ctypes.c_void_p, *crop, ctypes.c_int64,
+                                             ctypes.c_void_p, ctypes.c_int]
+            lib.cvor_gather_crop.restype = None
+            lib.cvor_gather_crop_decode_flow.argtypes = [_P(ctypes.c_uint16), *crop,
+                                                         _P(ctypes.c_float), ctypes.c_int]
+            lib.cvor_gather_crop_decode_flow.restype = None
             _lib = lib
         _tried = True
         return _lib
@@ -105,4 +118,60 @@ def decode_flow_u16(src: np.ndarray) -> np.ndarray:
     lib.cvor_decode_flow_u16(flat.ctypes.data_as(_P(ctypes.c_uint16)),
                              out.ctypes.data_as(_P(ctypes.c_float)), flat.size,
                              _threads(flat.size))
+    return out
+
+
+def normalize_u8(src: np.ndarray) -> np.ndarray:
+    """uint8 -> float32 2*(x/255)-1, native when built; the numpy path gives
+    the same bits (x/255 rounded once, the doubling exact)."""
+    flat = np.ascontiguousarray(src, dtype=np.uint8)
+    lib = get_lib()
+    if lib is None:
+        return np.float32(2.0) * (flat.astype(np.float32) / np.float32(255.0)) - np.float32(1.0)
+    out = np.empty(flat.shape, np.float32)
+    lib.cvor_normalize_u8(flat.ctypes.data_as(_P(ctypes.c_uint8)),
+                          out.ctypes.data_as(_P(ctypes.c_float)), flat.size,
+                          _threads(flat.size))
+    return out
+
+
+def gather_crop(column: np.ndarray, indices, y0, x0, crop_hw: tuple,
+                decode_flow: bool = False) -> np.ndarray:
+    """The crops column[i, y:y+ch, x:x+cw] for i, y, x in zip(indices, y0,
+    x0) of a column (N, H, W, C) (an array or a memmap) -> (B, ch, cw, C):
+    float32 flow, decoded as decode_flow_u16 does, with decode_flow (a
+    uint16 column), else the column's dtype. Native when built (rows copied
+    over the batch x rows on up to 8 threads); the numpy path gives the
+    same bits. ValueError for a crop outside the records."""
+    n, h, w, c = column.shape
+    ch, cw = crop_hw
+    indices = np.ascontiguousarray(indices, np.int64)
+    y0 = np.ascontiguousarray(y0, np.int32)
+    x0 = np.ascontiguousarray(x0, np.int32)
+    b = len(indices)
+    if b and (indices.min() < 0 or indices.max() >= n or y0.min() < 0 or x0.min() < 0
+              or y0.max() + ch > h or x0.max() + cw > w):
+        raise ValueError(f"a crop of {ch}x{cw} at {list(zip(indices, y0, x0))} leaves "
+                         f"the column's records ({n}, {h}, {w})")
+    if decode_flow and column.dtype != np.uint16:
+        raise ValueError(f"decode_flow needs a uint16 column, got {column.dtype}")
+    lib = get_lib()
+    if lib is None or b == 0:
+        out = np.stack([column[i, yy:yy + ch, xx:xx + cw] for i, yy, xx in zip(indices, y0, x0)]
+                       ) if b else np.empty((0, ch, cw, c), column.dtype)
+        return decode_flow_u16(out) if decode_flow else out
+    base = np.asarray(column)
+    if not base.flags.c_contiguous:
+        base = np.ascontiguousarray(base)
+    crop = (indices.ctypes.data_as(_P(ctypes.c_int64)), y0.ctypes.data_as(_P(ctypes.c_int32)),
+            x0.ctypes.data_as(_P(ctypes.c_int32)), b, h, w, c, ch, cw)
+    threads = min(os.cpu_count() or 1, 8, b * ch)
+    if decode_flow:
+        out = np.empty((b, ch, cw, c), np.float32)
+        lib.cvor_gather_crop_decode_flow(base.ctypes.data_as(_P(ctypes.c_uint16)), *crop,
+                                         out.ctypes.data_as(_P(ctypes.c_float)), threads)
+        return out
+    out = np.empty((b, ch, cw, c), column.dtype)
+    lib.cvor_gather_crop(base.ctypes.data, *crop, column.dtype.itemsize, out.ctypes.data,
+                         threads)
     return out

@@ -20,12 +20,30 @@ the CPU path of the lookup ops' backward and the oracle of the backward
 kernel (ops/corr_backward_cuda.py), held against torch.autograd.grad of
 lookup_corr_plain and against JAX's gradient by the tests.
 
-Split lookup (`lookup_corr_split_v2`, the `experimental:fused_bd[2]`
-spellings of `corr_lookup`): the same windows per level as (Q, 9, 9) arrays,
-each from two separable tent contractions, tmp = wy . corr3 over y and then
-wx . tmp over x. Level impl "bd" runs the y contraction through the
-y_contract kernel (ops/corr_bd_cuda.py), "mm" through torch.bmm. The motion
-encoder consumes them unflattened (BasicMotionEncoder.forward_split).
+The experimental spellings of `corr_lookup` (behind "experimental:";
+normalize_corr_lookup, dispatched by models/raft.py as JAX's RAFT step
+dispatches them) compute the same windows laid out for the TPU's units,
+each in JAX's order of casts: bfloat16 levels give bfloat16 tent weights
+and float32 sums, float32 levels (JAX's precision "highest") float32
+throughout, TF32 off. None needs a host synchronisation.
+- Flat, (B, H, W, L*81) into convc1 (`lookup_flat`): `lookup_corr_pallas`
+  (accflow_tpu/ops/corr_pallas.py:466; kernel #2, ops/corr_level_cuda.py),
+  `lookup_corr_rows` (accflow_tpu/ops/corr.py:953: a 2r+2-row gather, a
+  float32 lerp, the x tent product), `lookup_corr_patch` (:707: one
+  (2r+2)^2 patch blended from its four corners), `lookup_corr_gather`
+  (:464: lookup_corr_plain itself).
+- Split, per-level (B, H, W, 9, 9) windows [a (x), b (y)] into the motion
+  encoder unflattened (`split_windows`): `lookup_corr_split_v2` (:916-950)
+  with a level impl each: "mm" two tent products (`_level_window_mm`,
+  :832), "bd" the y product through the y_contract kernel #3
+  (`_level_window_bd`, :886; ops/corr_bd_cuda.py), "vpu_y" the y product
+  summed in float32 (`_level_window_vpu_y`, :854), "rows" / "rows_gx" a row
+  gather finished by the x product or a column gather
+  (`_level_window_rows`, :772); `lookup_corr_split` (:575-622) with the x
+  contraction as a product ("mxu") or 9 multiply-and-sum passes ("vpu",
+  `_level_window_vpu_x`); `lookup_corr_split_packed` (:495-574), levels
+  start.. packed into one map, their windows one (B, H, W, L', 9, 9) entry.
+  `window_weights` is JAX's `_window_weights` (:695).
 
 Volume-free lookup (`corr_lookup="ondemand[:chunk]"`, the hi-res mode,
 accflow_tpu/ops/corr.py:107-461): the operands store features, not the
@@ -53,10 +71,23 @@ from accflow_tpu_torch.ops.corr_bd_cuda import y_contract
 from accflow_tpu_torch.ops.sampling import bilinear_sample, bilinear_sample_backward
 
 # corr_lookup spellings (accflow_tpu/ops/corr.py:116-134): the live ones the
-# all-levels lookup serves, and the experimental split ones with their
-# number of "bd" levels (the rest "mm").
+# all-levels lookup serves; the experimental ones behind the "experimental:"
+# prefix, dispatched as JAX's RAFT step dispatches them
+# (accflow_tpu/models/raft.py:575-657): the flat lookups, whose
+# (B, H, W, L*81) windows feed convc1 as one input, and the split lookups,
+# whose per-level (B, H, W, 9, 9) windows the motion encoder contracts
+# level by level (forward_split) or stacked (forward_stacked, the "_cat"
+# spellings). A split spelling built on lookup_corr_split_v2 names its level
+# impls (SPLIT_V2_LEVELS; "fused_mix:<l0,l1,l2,l3>" spells them out).
 FUSED_LOOKUPS = ("fused", "mm", "pallas_fused")
-SPLIT_LOOKUPS = {"fused_bd": 1, "fused_bd2": 2}
+FLAT_LOOKUPS = ("pallas", "rows", "patch", "gather")
+SPLIT_LOOKUPS = ("fusedv", "fused_cat", "packed", "packed2", "fused_vy", "fused_vy_cat",
+                 "fused_bd", "fused_bd2")
+STACKED_LOOKUPS = ("fused_cat", "fused_vy_cat")
+SPLIT_V2_LEVELS = {"fused_vy": ("vpu_y",), "fused_vy_cat": ("vpu_y",),
+                   "fused_bd": ("bd", "mm"), "fused_bd2": ("bd", "bd", "mm")}
+LEVEL_IMPLS = ("mm", "bd", "rows", "rows_gx", "vpu_y")
+MIX = "fused_mix:"
 
 
 def is_ondemand(spelling: str) -> bool:
@@ -70,17 +101,26 @@ def normalize_corr_lookup(spelling: str) -> str:
     "auto" for auto (resolve_auto_lookup picks per shape), the spelling
     itself for ondemand[:chunk] (whose suffix is checked here: ValueError
     for a suffix that is not a positive int, as JAX raises at build time),
-    "fused_bd" / "fused_bd2" for experimental:fused_bd[2]. As in JAX, an
-    experimental variant needs its "experimental:" prefix (ValueError
-    without); the other experimental variants raise NotImplementedError."""
+    and for an experimental spelling the name after its "experimental:"
+    prefix: a FLAT_LOOKUPS or SPLIT_LOOKUPS name, or "fused_mix:<impls>"
+    with level impls from LEVEL_IMPLS. As in JAX, an experimental variant
+    needs its prefix (ValueError without), and a live spelling may carry
+    it. An unknown experimental spelling, or a mix with an unknown level
+    impl, raises ValueError here, where JAX raises at run time
+    (accflow_tpu/ops/corr.py:692,948)."""
     if spelling.startswith("experimental:"):
         impl = spelling.split(":", 1)[1]
-        if impl in SPLIT_LOOKUPS:
+        if impl in FLAT_LOOKUPS or impl in SPLIT_LOOKUPS:
             return impl
-        raise NotImplementedError(
-            f"corr_lookup={spelling!r} is not ported to accflow_tpu_torch; "
-            f"ported: {' | '.join(FUSED_LOOKUPS)} | auto | ondemand[:chunk] | "
-            + " | ".join(f"experimental:{k}" for k in SPLIT_LOOKUPS))
+        if impl.startswith(MIX):
+            mix_levels(impl)
+            return impl
+        if impl in FUSED_LOOKUPS or impl == "auto" or is_ondemand(impl):
+            return normalize_corr_lookup(impl)
+        raise ValueError(
+            f"unknown corr_lookup={spelling!r}; the experimental spellings: "
+            + " | ".join(f"experimental:{k}" for k in FLAT_LOOKUPS + SPLIT_LOOKUPS)
+            + f" | experimental:{MIX}<l0,l1,l2,l3> (level impls {' | '.join(LEVEL_IMPLS)})")
     if spelling in FUSED_LOOKUPS:
         return "fused"
     if spelling == "auto":
@@ -92,6 +132,28 @@ def normalize_corr_lookup(spelling: str) -> str:
         f"corr_lookup={spelling!r} is an adjudicated experimental variant, not a "
         f"supported impl: spell it 'experimental:{spelling}' to opt in. Supported: "
         "fused | mm | ondemand[:chunk] | auto | pallas_fused")
+
+
+def mix_levels(impl: str) -> tuple:
+    """The level impls of "fused_mix:<l0,l1,...>" as a tuple (a list
+    shorter than the levels repeats its last entry in
+    lookup_corr_split_v2); ValueError for one not in LEVEL_IMPLS."""
+    levels = tuple(impl[len(MIX):].split(","))
+    bad = [k for k in levels if k not in LEVEL_IMPLS]
+    if bad:
+        raise ValueError(f"corr_lookup experimental:{impl}: unknown level impl {bad[0]!r} "
+                         f"(level impls: {' | '.join(LEVEL_IMPLS)})")
+    return levels
+
+
+def split_level_impls(impl: str, num_levels: int = 4):
+    """The per-level impls of lookup_corr_split_v2 for a normalized
+    spelling built on it (SPLIT_V2_LEVELS, or a fused_mix), the last entry
+    repeated to `num_levels`; None for every other spelling."""
+    levels = mix_levels(impl) if impl.startswith(MIX) else SPLIT_V2_LEVELS.get(impl)
+    if levels is None:
+        return None
+    return tuple(levels[min(i, len(levels) - 1)] for i in range(num_levels))
 
 
 # Stored-volume budget of corr_lookup="auto" (and of GMA's attn_chunk=-1):
@@ -386,7 +448,8 @@ def lookup_corr_plain_backward(grad_out: torch.Tensor, coords: torch.Tensor, lev
 def window_weights(centers: torch.Tensor, size: int) -> torch.Tensor:
     """Separable bilinear weights: centers (Q, K) -> (Q, K, size) float32,
     weight[q, k, y] = max(0, 1 - |y - centers[q, k]|): grid_sample's
-    align_corners=True with zeros outside along one axis."""
+    align_corners=True with zeros outside along one axis
+    (accflow_tpu/ops/corr.py:695 `_window_weights`)."""
     ys = torch.arange(size, dtype=torch.float32, device=centers.device)
     return torch.clamp(1.0 - torch.abs(ys - centers[..., None]), min=0.0)
 
@@ -444,15 +507,102 @@ def _level_window_bd(corr3, cf, scale: float, radius: int, f32: bool) -> torch.T
     return _contract(wx.to(corr3.dtype), tmp.transpose(1, 2))
 
 
+def _contract_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched a @ b with a float32 result whatever the operands' type:
+    JAX's einsum with preferred_element_type=float32 where its output is
+    not rounded to the level's type. Both operands go in as float32 (TF32
+    off); the products of bfloat16 values are exact there, so this is the
+    bfloat16 product summed in float32, in another order than XLA's."""
+    with tf32(False):
+        return torch.bmm(a.float(), b.float())
+
+
+def _rows_lerp(corr3: torch.Tensor, cy: torch.Tensor, radius: int) -> torch.Tensor:
+    """The y half of a window from a row gather (accflow_tpu/ops/corr.py:
+    983-993, 814-823): the 2r+2 rows floor(cy)-r .. floor(cy)+r+1 of each
+    query's map (Q, hl, wl), zero outside it, in float32, lerped by cy's
+    fraction -> (Q, 2r+1 (b), wl) float32. Every tap of a window shares that
+    fraction, so this equals the y tent contraction."""
+    q, hl, wl = corr3.shape
+    num = 2 * radius + 1
+    dy = torch.arange(-radius, radius + 2, dtype=torch.float32, device=cy.device)
+    y0 = torch.floor(cy)
+    fy = (cy - y0)[:, None, None]
+    py = y0[:, None] + dy  # (Q, 2r+2)
+    yvalid = (py >= 0) & (py <= hl - 1)
+    iy = py.clamp(0, hl - 1).long()
+    rows = torch.gather(corr3, 1, iy[:, :, None].expand(q, num + 1, wl))
+    rows = (rows * yvalid[:, :, None].to(rows.dtype)).float()
+    return (1.0 - fy) * rows[:, :num] + fy * rows[:, 1:]
+
+
+def _level_window_rows(corr3, cf, scale: float, radius: int, x_mode: str = "mxu"):
+    """One level's window from a row gather (accflow_tpu/ops/corr.py:
+    772-831): _rows_lerp, then the x tent contraction in the level's dtype
+    ("mxu", the weights and tmp rounded to it, as _level_window_mm) or a
+    gather of 2r+2 columns of tmp lerped by x's fraction in float32
+    ("gather", level impl rows_gx) -> (Q, a, b)."""
+    q, hl, wl = corr3.shape
+    num = 2 * radius + 1
+    cx = cf[:, 0] / scale
+    tmp = _rows_lerp(corr3, cf[:, 1] / scale, radius)  # (Q, b, wl) float32
+    if x_mode == "mxu":
+        delta = torch.linspace(-radius, radius, num, dtype=torch.float32, device=cf.device)
+        wx = window_weights(cx[:, None] + delta, wl)
+        return _contract(wx.to(corr3.dtype), tmp.to(corr3.dtype).transpose(1, 2))
+    dx = torch.arange(-radius, radius + 2, dtype=torch.float32, device=cf.device)
+    x0 = torch.floor(cx)
+    fx = (cx - x0)[:, None, None]
+    px = x0[:, None] + dx  # (Q, 2r+2)
+    xvalid = (px >= 0) & (px <= wl - 1)
+    ix = px.clamp(0, wl - 1).long()
+    cols = torch.gather(tmp, 2, ix[:, None, :].expand(q, num, num + 1))
+    cols = cols * xvalid[:, None, :].to(cols.dtype)
+    return ((1.0 - fx) * cols[:, :, :num] + fx * cols[:, :, 1:]).transpose(1, 2)
+
+
+def _level_window_vpu_y(corr3, cf, scale: float, radius: int) -> torch.Tensor:
+    """One level's window with the y tent contraction summed in float32
+    (accflow_tpu/ops/corr.py:854-883): tmp = sum_y wy . corr3, wy rounded to
+    the level's dtype, then the x contraction as in _level_window_mm. JAX
+    writes tmp as a broadcast product reduced over y, which XLA fuses into
+    one pass; eager PyTorch would materialise the (Q, 9, hl, wl) float32
+    product (13.3 GB at the CVO-6 clip's level 0). The same sums come from a
+    float32 batched product with TF32 off (_contract_f32: bfloat16 products
+    are exact in float32), at the cost of one float32 copy of a bfloat16
+    level, (Q, hl, wl), per call."""
+    wx, wy = _tents(corr3, cf, scale, radius)
+    tmp = _contract_f32(wy.to(corr3.dtype), corr3)  # (Q, b, wl) float32
+    return _contract(wx.to(corr3.dtype), tmp.to(corr3.dtype).transpose(1, 2))
+
+
+def _level_window_vpu_x(corr3, cf, scale: float, radius: int) -> torch.Tensor:
+    """One level's window with the x contraction as 2r+1 multiply-and-sum
+    passes in float32 (lookup_corr_split's x_contraction="vpu",
+    accflow_tpu/ops/corr.py:606-616): tmp = wy . corr3 summed in float32 and
+    not rounded, wx rounded to the level's dtype, each pass a's row
+    out[:, a] = sum_x tmp * wx[:, a] -> (Q, a, b) float32."""
+    num = 2 * radius + 1
+    wx, wy = _tents(corr3, cf, scale, radius)
+    t = _contract_f32(wy.to(corr3.dtype), corr3)  # (Q, b, wl) float32
+    wxf = wx.to(corr3.dtype).float()
+    return torch.stack([(t * wxf[:, a:a + 1, :]).sum(dim=-1) for a in range(num)], dim=1)
+
+
 def lookup_corr_split_v2(levels, coords: torch.Tensor, radius: int = 4,
                          level_impl=("bd", "mm", "mm", "mm"),
                          compute_dtype=torch.float32) -> list:
     """levels: list of (Q, hl, wl) maps; coords (B, H, W, 2) in level-0
-    pixels, Q = B*H*W. level_impl[i] ("bd" or "mm"; the last repeats) picks
-    level i's formulation. Returns one (B, H, W, 2r+1, 2r+1) window per
-    level in the levels' dtype (bfloat16 levels: float32 sums rounded once),
-    indexed [a (x offset), b (y offset)]
-    (accflow_tpu/ops/corr.py::lookup_corr_split_v2)."""
+    pixels, Q = B*H*W. level_impl[i] (one of LEVEL_IMPLS; the last repeats)
+    picks level i's formulation: "mm" the two tent contractions, "bd" the y
+    one through kernel #3, "vpu_y" the y one summed in float32, "rows" and
+    "rows_gx" a row gather finished by the x tent contraction or by a
+    column gather. Returns one (B, H, W, 2r+1, 2r+1) window per level,
+    indexed [a (x offset), b (y offset)]: in the levels' dtype where the x
+    contraction is a product (bfloat16 levels: float32 sums rounded once),
+    float32 for rows_gx (accflow_tpu/ops/corr.py::lookup_corr_split_v2,
+    :916-950). compute_dtype float32 is JAX's precision "highest" (kernel
+    #3 takes float32 operands), else bfloat16 operands."""
     b, h, w, _ = coords.shape
     num = 2 * radius + 1
     cf = coords.reshape(b * h * w, 2).float()
@@ -464,7 +614,180 @@ def lookup_corr_split_v2(levels, coords: torch.Tensor, radius: int = 4,
             out = _level_window_mm(level, cf, 2.0 ** i, radius)
         elif impl == "bd":
             out = _level_window_bd(level, cf, 2.0 ** i, radius, f32)
+        elif impl == "vpu_y":
+            out = _level_window_vpu_y(level, cf, 2.0 ** i, radius)
+        elif impl in ("rows", "rows_gx"):
+            out = _level_window_rows(level, cf, 2.0 ** i, radius,
+                                     "mxu" if impl == "rows" else "gather")
         else:
-            raise ValueError(f"level impl {impl!r} is not ported (ported: bd, mm)")
+            raise ValueError(f"unknown level impl {impl!r} (level impls: "
+                             f"{', '.join(LEVEL_IMPLS)})")
         outs.append(out.reshape(b, h, w, num, num))
     return outs
+
+
+def lookup_corr_split(levels, coords: torch.Tensor, radius: int = 4,
+                      x_contraction: str = "mxu") -> list:
+    """The split windows from the two tent contractions on every level
+    (accflow_tpu/ops/corr.py:575-622): one (B, H, W, 2r+1, 2r+1) window per
+    level, [a, b]. x_contraction "mxu" is _level_window_mm (a window in the
+    levels' dtype), "vpu" _level_window_vpu_x (float32). JAX's "fused"
+    default runs "mxu"; the port's "fused" is kernel #1, and this serves
+    experimental:fused_cat ("mxu") and experimental:fusedv ("vpu")."""
+    if x_contraction not in ("mxu", "vpu"):
+        raise ValueError(f"x_contraction must be 'mxu' or 'vpu', got {x_contraction!r}")
+    b, h, w, _ = coords.shape
+    num = 2 * radius + 1
+    cf = coords.reshape(b * h * w, 2).float()
+    window = _level_window_mm if x_contraction == "mxu" else _level_window_vpu_x
+    return [window(level, cf, 2.0 ** i, radius).reshape(b, h, w, num, num)
+            for i, level in enumerate(levels)]
+
+
+def lookup_corr_split_packed(levels, coords: torch.Tensor, radius: int = 4,
+                             start: int = 1) -> list:
+    """lookup_corr_split ("mxu") with levels start.. packed into one map
+    (accflow_tpu/ops/corr.py:495-574): those levels concatenated in y and
+    zero-padded in x to the first packed level's width, (Q, sum hl, wp);
+    each level's y tents masked to its own rows and offset by them, its x
+    tents over wp columns (taps in the padding multiply zeros, the zeros
+    outside a map). Both contractions run once over the packed levels, in
+    the levels' dtype as in _level_window_mm. Returns the windows of levels
+    < start, each (B, H, W, 2r+1, 2r+1), and then the packed levels' windows
+    (B, H, W, L - start, 2r+1, 2r+1) in the levels' dtype. The packed copy
+    is built per call, as JAX builds it in its step."""
+    b, h, w, _ = coords.shape
+    num = 2 * radius + 1
+    q = b * h * w
+    cf = coords.reshape(q, 2).float()
+    outs = lookup_corr_split(levels[:start], coords, radius)
+    small = levels[start:]
+    nl, wp = len(small), small[0].shape[-1]
+    offs, rows, off = [], [], 0
+    for lvl in small:
+        offs.append(off)
+        rows.append(torch.nn.functional.pad(lvl, (0, wp - lvl.shape[-1])))
+        off += lvl.shape[-2]
+    packed = torch.cat(rows, dim=1)  # (Q, sum hl, wp)
+    delta = torch.linspace(-radius, radius, num, dtype=torch.float32, device=cf.device)
+    ys = torch.arange(off, dtype=torch.float32, device=cf.device)
+    wys, wxs = [], []
+    for li, lvl in enumerate(small):
+        scale = 2.0 ** (li + start)
+        wy = window_weights(cf[:, 1:2] / scale + delta + float(offs[li]), off)
+        wys.append(wy * ((ys >= offs[li]) & (ys < offs[li] + lvl.shape[-2])))
+        wxs.append(window_weights(cf[:, 0:1] / scale + delta, wp))
+    wy_p = torch.stack(wys, dim=1).to(packed.dtype).view(q, nl * num, off)
+    wx_p = torch.stack(wxs, dim=1).to(packed.dtype).view(q * nl, num, wp)
+    tmp = _contract(wy_p, packed)  # (Q, L'*b, wp)
+    out = _contract(wx_p, tmp.view(q * nl, num, wp).transpose(1, 2))  # (Q*L', a, b)
+    return outs + [out.view(b, h, w, nl, num, num)]
+
+
+def lookup_corr_rows(levels, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
+    """The flat windows from a row gather (accflow_tpu/ops/corr.py:953-995):
+    per level _rows_lerp, then the x tent contraction in float32 (TF32
+    off), levels concatenated -> (B, H, W, L*(2r+1)^2) float32, channel
+    a*(2r+1) + b as lookup_corr_plain's."""
+    b, h, w, _ = coords.shape
+    num = 2 * radius + 1
+    cf = coords.reshape(b * h * w, 2).float()
+    delta = torch.linspace(-radius, radius, num, dtype=torch.float32, device=cf.device)
+    outs = []
+    for i, level in enumerate(levels):
+        tmp = _rows_lerp(level, cf[:, 1] / (2.0 ** i), radius)  # (Q, b, wl)
+        wx = window_weights(cf[:, 0:1] / (2.0 ** i) + delta, level.shape[-1])  # (Q, a, wl)
+        with tf32(False):
+            outs.append(torch.bmm(wx, tmp.transpose(1, 2)).reshape(b, h, w, num * num))
+    return torch.cat(outs, dim=-1)
+
+
+def lookup_corr_patch(levels, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
+    """The flat windows from one (2r+2)^2 patch per query and level
+    (accflow_tpu/ops/corr.py:707-769): the patch around (floor x, floor y),
+    zero outside the map, blended from its four (2r+1)^2 corner sub-grids
+    with the shared fractions in float32, in JAX's order -> (B, H, W,
+    L*(2r+1)^2) float32."""
+    b, h, w, _ = coords.shape
+    num = 2 * radius + 1
+    side = num + 1
+    q = b * h * w
+    cf = coords.reshape(q, 2).float()
+    d = torch.arange(-radius, radius + 2, dtype=torch.float32, device=cf.device)
+    outs = []
+    for i, level in enumerate(levels):
+        hl, wl = level.shape[-2:]
+        cx, cy = cf[:, 0] / (2.0 ** i), cf[:, 1] / (2.0 ** i)
+        x0, y0 = torch.floor(cx), torch.floor(cy)
+        fx, fy = (cx - x0)[:, None, None], (cy - y0)[:, None, None]
+        py, px = y0[:, None] + d, x0[:, None] + d  # (Q, side)
+        valid = ((py[:, :, None] >= 0) & (py[:, :, None] <= hl - 1)
+                 & (px[:, None, :] >= 0) & (px[:, None, :] <= wl - 1))
+        idx = (py.clamp(0, hl - 1).long()[:, :, None] * wl
+               + px.clamp(0, wl - 1).long()[:, None, :]).view(q, side * side)
+        patch = torch.gather(level.reshape(q, hl * wl), 1, idx).view(q, side, side)
+        patch = (patch * valid.to(patch.dtype)).float()  # rows y, columns x
+        blend = ((1 - fy) * (1 - fx) * patch[:, :num, :num]
+                 + (1 - fy) * fx * patch[:, :num, 1:]
+                 + fy * (1 - fx) * patch[:, 1:, :num]
+                 + fy * fx * patch[:, 1:, 1:])  # (Q, b, a)
+        outs.append(blend.transpose(1, 2).reshape(b, h, w, num * num))
+    return torch.cat(outs, dim=-1)
+
+
+def lookup_corr_gather(levels, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
+    """The 81-tap bilinear gather (accflow_tpu/ops/corr.py:464-492) is
+    lookup_corr_plain, the plain version of kernels #1 and #2: here on
+    (B, H, W, 2) coords -> (B, H, W, L*(2r+1)^2) float32."""
+    b, h, w, _ = coords.shape
+    return lookup_corr_plain(levels, coords.reshape(b * h * w, 2), radius).view(b, h, w, -1)
+
+
+def lookup_corr_pallas(levels, coords: torch.Tensor, radius: int = 4, stream_dtype=None,
+                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """experimental:pallas (accflow_tpu/ops/corr_pallas.py:466): the levels
+    cast to `stream_dtype` (None: as they are; JAX streams bfloat16 under
+    precision "default" and the storage dtype under "highest") and read by
+    kernel #2 (ops/corr_level_cuda.py, radius 3 or 4; its plain version on
+    CPU tensors) -> (B, H, W, L*(2r+1)^2) in `out_dtype`."""
+    from accflow_tpu_torch.ops.corr_level_cuda import lookup_corr_level
+
+    if stream_dtype is not None:
+        levels = [lvl.to(stream_dtype) for lvl in levels]
+    b, h, w, _ = coords.shape
+    cf = coords.reshape(b * h * w, 2).float().contiguous()
+    return lookup_corr_level(levels, cf, radius, out_dtype=out_dtype).view(b, h, w, -1)
+
+
+def lookup_flat(impl: str, levels, coords: torch.Tensor, radius: int,
+                compute_dtype=torch.float32) -> torch.Tensor:
+    """A flat experimental lookup (FLAT_LOOKUPS) on a stored pyramid, as
+    JAX's `lookup` dispatches it (accflow_tpu/ops/corr.py:677-692): coords
+    (B, H, W, 2) -> (B, H, W, L*(2r+1)^2) in compute_dtype. "pallas" streams
+    bfloat16 levels unless the compute dtype is float32."""
+    if impl == "pallas":
+        stream = None if compute_dtype == torch.float32 else torch.bfloat16
+        return lookup_corr_pallas(levels, coords, radius, stream, out_dtype=compute_dtype)
+    fn = {"rows": lookup_corr_rows, "patch": lookup_corr_patch, "gather": lookup_corr_gather}
+    if impl not in fn:
+        raise ValueError(f"{impl!r} is not a flat lookup ({' | '.join(FLAT_LOOKUPS)})")
+    return fn[impl](levels, coords, radius).to(compute_dtype)
+
+
+def split_windows(impl: str, levels, coords: torch.Tensor, radius: int,
+                  compute_dtype=torch.float32) -> list:
+    """A split lookup's windows (SPLIT_LOOKUPS or a fused_mix) in
+    compute_dtype, as JAX's RAFT step computes them
+    (accflow_tpu/models/raft.py:600-633): lookup_corr_split_v2 with the
+    spelling's level impls, lookup_corr_split_packed for packed[2],
+    lookup_corr_split for fusedv ("vpu") and fused_cat ("mxu")."""
+    level_impl = split_level_impls(impl, len(levels))
+    if level_impl is not None:
+        parts = lookup_corr_split_v2(levels, coords, radius, level_impl, compute_dtype)
+    elif impl in ("packed", "packed2"):
+        parts = lookup_corr_split_packed(levels, coords, radius, 1 if impl == "packed" else 2)
+    elif impl in ("fusedv", "fused_cat"):
+        parts = lookup_corr_split(levels, coords, radius, "vpu" if impl == "fusedv" else "mxu")
+    else:
+        raise ValueError(f"{impl!r} is not a split lookup")
+    return [p.to(compute_dtype) for p in parts]

@@ -2,7 +2,8 @@
 CUDA kernel for Hopper: tmp[q, b, x] = sum_y wy[q, b, y] * corr3[q, y, x].
 
 Replaces accflow_tpu/ops/corr_pallas.py::y_contract_bd, the TPU kernel that
-the `experimental:fused_bd[2]` lookups run on pyramid levels 0 (and 1)
+the `experimental:fused_bd[2]` lookups run on pyramid levels 0 (and 1),
+and `experimental:fused_mix:...` on its "bd" levels
 (ops/corr.py::_level_window_bd). The kernel is csrc/corr_y_contract.cu; its
 header says how it works and what bounds it. `y_contract_plain` is its plain
 twin: the CPU path and the kernel's oracle.

@@ -89,8 +89,9 @@ def refuse_autograd(op, name: str) -> None:
     def setup_context(ctx, inputs, output):
         raise RuntimeError(
             f"{name} has no backward, and neither has the reference's y_contract_bd: a "
-            "fine_tune with corr_lookup experimental:fused_bd[2] cannot run in either "
-            "package (ROADMAP.md, queue 3, #16); fine-tune with corr_lookup 'fused'")
+            "fine_tune with a corr_lookup that has a bd level (experimental:fused_bd[2], "
+            "experimental:fused_mix:...bd...) cannot run in either package (ROADMAP.md, "
+            "queue 3, #16); fine-tune with corr_lookup 'fused'")
 
     def backward(ctx, grad):
         raise AssertionError("unreachable: setup_context refuses")

@@ -141,8 +141,10 @@ def make_finetune_step(est: FlowEstimator, optimizer: Optimizer, add_noise: bool
     over the global pixels and this rank's rows of the flow. graphed=True
     with a handle captures the step with its exchanges over NCCL
     (engine.graph_steps); on the card under gloo its first call raises
-    ValueError."""
+    ValueError. A lookup that JAX cannot differentiate raises
+    NotImplementedError here (models/raft.py::check_trainable_lookup)."""
     model = est.model
+    check_trainable_lookup(model.cfg)
 
     def loss_fn(i1, i2, label):
         with batch_norm_group(model, group):
@@ -210,10 +212,10 @@ def build_estimator(opt, device=None) -> FlowEstimator:
     """The estimator of a fine-tune config (RAFT for a name with "raft",
     else GMA) with its weights from `init_params` (a JAX-layout numpy
     tree), `flow_pretrained` (a reference .pth or an .npz tree) or the
-    seed, on `device`. A lookup without a backward raises: the split
-    lookups (experimental:fused_bd[2]: kernel #3 has none, nor has the
-    reference's y_contract_bd, ROADMAP.md #16). The stored and the
-    volume-free (ondemand[:chunk]) lookups train."""
+    seed, on `device`. A lookup that JAX cannot differentiate raises
+    NotImplementedError (models/raft.py::check_trainable_lookup:
+    experimental:pallas, a split lookup with a "bd" level); every other
+    spelling trains."""
     est = build_flow_estimator(
         opt.exp_name, compute_dtype=opt.get("compute_dtype", "bfloat16"), device=device,
         seed=opt.get("seed", 0), small=bool(opt.get("small", False)),

@@ -47,12 +47,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    its device busy time and lookup launches, the output against eager);
    9a: the clip exported with bfloat16 weights (serving.export_serving),
    saved, loaded for the card and run (export, save and load seconds,
-   size, time, the flows against eager under ARTIFACT_REL); then the same
-   clip with corr_lookup="experimental:fused_bd" (12 kernel-#3 launches and
-   no kernel-#1 launch per forward). Then a small clip in float32 (TF32
-   off) runs on the GPU (through the kernels) and on the CPU (through the
-   plain versions) with the same weights, with both lookups, and the GPU
-   must agree with the CPU and fused_bd with fused;
+   size, time, the flows against eager under ARTIFACT_REL) (the same clip
+   with corr_lookup="experimental:fused_bd" is phase 25's). Then a small
+   clip in float32 (TF32 off) runs on the GPU (through the kernels) and on
+   the CPU (through the plain versions) with the same weights, with fused
+   and experimental:fused_bd, and the GPU must agree with the CPU and
+   fused_bd with fused;
 6. the stream at full width (scripts/bench_stream.py's stream6 protocol:
    512^2, batch 2, bfloat16 compute with float32 flow state, 6 OFE
    iterations per step): reset on 3 frames, 2 warm-up pushes, 30 timed
@@ -263,7 +263,23 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    gradients against one process's f32 step (ACCUM_F32_RATIO), each rank's
    peak, seconds per step, the forward's and the backward's collectives
    and bytes, kernel #1's and the backward kernel's launches a rank (12
-   each) and Q.
+   each) and Q;
+25. the experimental corr_lookup spellings (run after phase 5; (d) in
+   phase 21's launch): (a) each of pallas, rows, patch, gather, fusedv,
+   packed, packed2, fused_vy, fused_cat, fused_vy_cat and
+   fused_mix:rows,rows_gx,vpu_y,bd on phase 5's 64^2 f32 small clip on the
+   GPU against fused there (CLIP_REL), 12 launches of kernel #2 (pallas) or
+   #3 (the mix) and none of any lookup kernel for the others; (b) each and
+   experimental:fused_bd on the CVO-6 clip (7 x 512^2, batch 2, bf16): one
+   eager forward under the sync debug mode "error", one warm and one timed
+   forward (ms, frames/s, peak, launches, the max abs distance from fused's
+   flow, which must be finite and not all zero); (c) kernel #2 at radius 4
+   on the clip's shape, bf16 in and out, as experimental:pallas launches it
+   (phase 4's row, beside kernel #1's, with #1's bound and library call);
+   (d) the 64^2 f32 small clip with experimental:fused_mix:rows,rows_gx,
+   vpu_y,mm on phase 21's two gloo ranks (mix clip, FLOW_REL, no lookup
+   kernel). An {"experimental": ...} line holds the readings, and a
+   {"phase_seconds": ...} line each phase's seconds.
 --nccl-spatial runs none of these phases: on every card of the machine
 (two or more; four through the tool's --chips 4) it starts one NCCL rank
 per card (the script with --nccl-spatial-child) and runs, eagerly and
@@ -1247,10 +1263,10 @@ def clip_artifact(est, acc, images, eager_out, tmp: str) -> dict:
 def clip_path(with_profile: bool, tmp: str):
     """Phase 5: the clip forward at full size (and --profile's breakdown of
     it), one eager forward under the sync debug mode "error", the same clip
-    graphed (5b) and as a loaded artifact (9a), the clip with the split
-    lookup, then the small GPU-vs-CPU clip. Returns (kernel #1 launches,
-    frames/s, kernel #3 launches, frames/s with fused_bd, the small clip's
-    GPU launches by lookup, {"graphed": ..., "artifact": ...})."""
+    graphed (5b) and as a loaded artifact (9a), then the small GPU-vs-CPU
+    clip (the split lookup's full-width clip is phase 25's). Returns
+    (kernel #1 launches, frames/s, median seconds, the small clip's GPU
+    launches by lookup, {"graphed": ..., "artifact": ...})."""
     t, n, size = 7, 2, 512
     acc, images = clip_inputs(t, n, size)
     shape = (t - 2, n, size, size, 2)
@@ -1276,29 +1292,10 @@ def clip_path(with_profile: bool, tmp: str):
           f"frames/s, peak {extra['graphed']['peak_gib']:.3f} GiB)")
     torch.cuda.empty_cache()
     extra["artifact"] = clip_artifact(est, acc, images, out, tmp)
-    del est, pairs
-    torch.cuda.empty_cache()
-
-    est_bd = models.build_flow_estimator("raft", compute_dtype="bfloat16", seed=0,
-                                         corr_lookup="experimental:fused_bd")
-    pairs_bd = est_bd.pairs_fn(iters=acc.cfg.ofe_iters)
-
-    def forward_bd():
-        return models.accflow_forward(acc, images, pairs_bd)
-
-    launches_bd, med_bd, _, out_bd, _ = time_clip(
-        "clip path, experimental:fused_bd", forward_bd, corr_bd_cuda, shape)
-    fps_bd = n * t / med_bd
-    if with_profile:
-        profile_forward(forward_bd, med_bd * 1e3)
-    gap = float((out_bd - out).abs().max())
-    print(f"clip path, same process: fused {med * 1e3:.2f} ms ({fps:.3f} frames/s), "
-          f"experimental:fused_bd {med_bd * 1e3:.2f} ms ({fps_bd:.3f} frames/s); bf16 outputs "
-          f"differ by max abs {gap:.3e} at |flow| max {float(out.abs().max()):.3e}")
-    del est_bd, pairs_bd, acc, images, out, out_bd
+    del est, pairs, acc, images, out
     torch.cuda.empty_cache()
     small = small_clip()
-    return launches, fps, launches_bd, fps_bd, small, extra
+    return launches, fps, med, small, extra
 
 
 def sync_free(label: str, fn) -> None:
@@ -1330,21 +1327,10 @@ def small_clip(ofe: str = "raft") -> dict:
     fused_bd against fused on the GPU (the same function, computed as
     bilinear taps by kernel #1 and as tent contractions by kernel #3).
     Returns each lookup's kernel launches on the GPU (float32 outputs)."""
-    clip = np.random.default_rng(3).uniform(-1, 1, (4, 1, 64, 64, 3)).astype(np.float32)
     outs, launches = {}, {}
     for lookup, kernel in (("fused", corr_cuda), ("experimental:fused_bd", corr_bd_cuda)):
         for where in ("cuda", "cpu"):
-            est = models.build_flow_estimator(ofe, compute_dtype="float32", device=where,
-                                              seed=0, corr_lookup=lookup)
-            if ofe == "gma":
-                perturb_gamma(est.model, 3)
-            cfg = models.AccFlowConfig(compute_dtype="float32")
-            acc = models.init_accflow(cfg, seed=1, device="cpu")
-            perturb_zero_conv(acc, 2)
-            reset_counts()
-            with tf32(False):
-                outs[lookup, where] = models.accflow_forward(
-                    acc.to(where), clip, est.pairs_fn()).cpu().numpy()
+            outs[lookup, where] = small_clip_forward(lookup, where, ofe)
             n = expect_counts(f"small clip {ofe} {lookup} on {where}", kernel,
                               12 if where == "cuda" else 0)
             if where == "cuda":
@@ -1362,6 +1348,139 @@ def small_clip(ofe: str = "raft") -> dict:
         if not diff <= tol:
             fail(f"small clip {ofe}: {a} and {b} differ by {diff:.3e} > {tol:.3e}")
     return launches
+
+
+def small_clip_forward(lookup: str, where: str, ofe: str = "raft") -> np.ndarray:
+    """small_clip's forward: the 4-frame 64^2 float32 clip (seed 3) through
+    AccFlow (seed 1, its ZeroConv from seed 2) and the estimator `ofe`
+    (seed 0; GMA's gamma from seed 3) with corr_lookup `lookup`, on
+    `where`, TF32 off, the launch counts reset before it. Returns the flows
+    on the host."""
+    clip = np.random.default_rng(3).uniform(-1, 1, (4, 1, 64, 64, 3)).astype(np.float32)
+    est = models.build_flow_estimator(ofe, compute_dtype="float32", device=where, seed=0,
+                                      corr_lookup=lookup)
+    if ofe == "gma":
+        perturb_gamma(est.model, 3)
+    acc = models.init_accflow(models.AccFlowConfig(compute_dtype="float32"), seed=1,
+                              device="cpu")
+    perturb_zero_conv(acc, 2)
+    reset_counts()
+    with tf32(False):
+        return models.accflow_forward(acc.to(where), clip, est.pairs_fn()).cpu().numpy()
+
+
+# Phase 25: the experimental corr_lookup spellings (ops/corr.py), each the
+# windows of "fused" laid out another way: (a) on phase 5's 64^2 float32
+# small clip on the GPU against "fused" there, within CLIP_REL of the
+# largest |flow| (float32, TF32 off: summation order apart, as GPU against
+# CPU), with their launches per forward: pallas 12 of kernel #2, a mix with
+# a bd level 12 of kernel #3, every other spelling no lookup kernel; (b) on
+# the CVO-6 clip at full width in bfloat16 (with fused_bd, moved here from
+# phase 5), one eager forward under the sync debug mode "error", then one
+# warm and one timed forward: ms, frames/s, peak, the launches, and the
+# flow finite, not all zero, its max abs distance from fused's printed (the
+# float32 clip in (a) carries the bar; in bfloat16 each spelling rounds its
+# windows its own way).
+EXPERIMENTAL = ("pallas", "rows", "patch", "gather", "fusedv", "packed", "packed2", "fused_vy",
+                "fused_cat", "fused_vy_cat", "fused_mix:rows,rows_gx,vpu_y,bd")
+EXPERIMENTAL_KERNEL = {"fused": corr_cuda, "pallas": corr_level_cuda, "fused_bd": corr_bd_cuda,
+                       "fused_mix:rows,rows_gx,vpu_y,bd": corr_bd_cuda}  # else none
+
+
+def expect_lookup_counts(label: str, impl: str) -> int:
+    """expect_counts for spelling `impl` after one clip forward: 12
+    launches of its kernel (EXPERIMENTAL_KERNEL), or no lookup kernel at
+    all. Returns that kernel's count (0 for none)."""
+    kernel = EXPERIMENTAL_KERNEL.get(impl)
+    n = expect_counts(label, kernel or corr_cuda, 12 if kernel else 0)
+    return n if kernel else 0
+
+
+def experimental_small_clips() -> dict:
+    """Phase 25 (a). Returns each spelling's row."""
+    ref = small_clip_forward("fused", "cuda")
+    expect_lookup_counts("phase 25 (a) small clip fused", "fused")
+    flow_max = float(np.abs(ref).max())
+    if not flow_max > 0 or not np.isfinite(ref).all():
+        fail("phase 25 (a): the fused flow is zero or not finite, nothing to compare")
+    rows = {}
+    for impl in EXPERIMENTAL:
+        label = f"phase 25 (a) small clip experimental:{impl}"
+        out = small_clip_forward(f"experimental:{impl}", "cuda")
+        n = expect_lookup_counts(label, impl)
+        diff = float(np.abs(out - ref).max())
+        print(f"{label} on the GPU vs fused on the GPU: max abs {diff:.3e}, |flow| max "
+              f"{flow_max:.3e} (tol {CLIP_REL:g} x |flow| max = {CLIP_REL * flow_max:.3e})")
+        if not np.isfinite(out).all() or not diff <= CLIP_REL * flow_max:
+            fail(f"{label}: differs from fused by {diff:.3e} > {CLIP_REL * flow_max:.3e}")
+        rows[impl] = dict(max_abs=diff, flow_max=flow_max, launches=n)
+    return rows
+
+
+def experimental_clip(impl: str, acc, images, ref=None, with_profile: bool = False) -> tuple:
+    """Phase 25 (b) for one spelling ("fused" first, the yardstick): one
+    eager forward under the sync debug mode "error", one warm, one timed;
+    (its readings, against `ref` (fused's flow) the max abs distance; its
+    flow)."""
+    lookup = impl if impl == "fused" else f"experimental:{impl}"
+    label = f"phase 25 (b) clip {lookup}"
+    est = models.build_flow_estimator("raft", compute_dtype="bfloat16", seed=0,
+                                      corr_lookup=lookup)
+    pairs = est.pairs_fn(iters=acc.cfg.ofe_iters)
+
+    def forward():
+        return models.accflow_forward(acc, images, pairs)
+
+    sync_free(label, forward)
+    forward()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = forward()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = expect_lookup_counts(label, impl)
+    peak = torch.cuda.max_memory_allocated()
+    t, b = images.shape[:2]
+    if not bool(torch.isfinite(out).all()) or not float(out.abs().max()) > 0:
+        fail(f"{label}: the flow is not finite or all zero")
+    row = dict(ms=secs * 1e3, frames_per_s=b * t / secs, peak_gib=peak / 2**30, launches=n)
+    gap = ""
+    if ref is not None:
+        row["max_abs_vs_fused"] = float((out - ref).abs().max())
+        gap = (f"; bf16 flow differs from fused's by max abs {row['max_abs_vs_fused']:.3e} at "
+               f"|flow| max {float(ref.abs().max()):.3e}")
+    print(f"{label}: {row['ms']:.2f} ms per forward ({row['frames_per_s']:.3f} frames/s), peak "
+          f"{row['peak_gib']:.3f} GiB, {n} lookup-kernel launches{gap}")
+    if with_profile and impl == "fused_bd":
+        profile_forward(forward, row["ms"])
+    del est, pairs
+    return row, out
+
+
+def experimental_phase(fused_phase5_ms: float, with_profile: bool = False) -> dict:
+    """Phase 25 (a) and (b) ((c) is phase 4's kernel #2 at the clip shape,
+    radius 4; (d) runs in phase 21's launch). Returns their rows and
+    seconds."""
+    t0 = time.perf_counter()
+    small = experimental_small_clips()
+    torch.cuda.empty_cache()
+    acc, images = clip_inputs()
+    full, ref = {}, None
+    for impl in ("fused",) + EXPERIMENTAL + ("fused_bd",):
+        full[impl], out = experimental_clip(impl, acc, images, ref, with_profile)
+        if ref is None:
+            ref = out
+        del out
+        torch.cuda.empty_cache()
+    print(f"phase 25 (b) on {smi('name,power.limit')}: ms per forward (one timed after a warm "
+          f"one), peak GiB: " + ", ".join(f"{k} {r['ms']:.2f} ({r['peak_gib']:.3f})"
+                                          for k, r in full.items())
+          + f"; phase 5's fused median {fused_phase5_ms:.2f} ms")
+    del acc, images, ref
+    torch.cuda.empty_cache()
+    return dict(small_clip=small, clip=full, seconds=time.perf_counter() - t0)
 
 
 def moving_frames(t: int, n: int, size: int, seed: int) -> torch.Tensor:
@@ -2972,7 +3091,7 @@ def finetune_gpu_vs_cpu(corr_lookup: str = "fused") -> dict:
 def finetune_remat_options(opt, root: str) -> dict:
     """Phase 15e: remat "none", "full" and "dots" (the recipe's default) in
     make_finetune_step at the recipe's full width: each from the seed-0
-    estimator on the first training pair, 2 warm-up steps, then 5 timed
+    estimator on the first training pair, 2 warm-up steps, then 3 timed
     steps (host clock to a synchronise; median), the peak memory of those,
     kernel #1's forward launches per step, and the first step's gradients
     against "none"'s (MEMORY_REL_BF16: the same kernels, recomputed)."""
@@ -2997,12 +3116,12 @@ def finetune_remat_options(opt, root: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         c0 = launch_counts()
         secs = []
-        for _ in range(5):
+        for _ in range(3):
             t0 = time.perf_counter()
             step(img1, img2, label)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
-        fwd = (launch_counts()["corr_lookup"] - c0["corr_lookup"]) // 5
+        fwd = (launch_counts()["corr_lookup"] - c0["corr_lookup"]) // 3
         ref = grads if ref is None else ref
         rel = rel_l2(grads, ref)
         rows[remat] = dict(ms_per_step=statistics.median(secs) * 1e3,
@@ -3010,7 +3129,7 @@ def finetune_remat_options(opt, root: str) -> dict:
                            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                            lookup_launches_per_step=fwd, grad_rel_l2_vs_none=rel)
         print(f"fine-tune remat {remat} (RAFT, batch 6, 256^2, bf16): median "
-              f"{rows[remat]['ms_per_step']:.2f} ms per step over 5, peak "
+              f"{rows[remat]['ms_per_step']:.2f} ms per step over 3, peak "
               f"{rows[remat]['peak_gib']:.3f} GiB, kernel #1 {fwd} forward launches per step, "
               f"first step's gradients vs none relative L2 {rel:.3e} (bar {MEMORY_REL_BF16:g})")
         if not rel <= MEMORY_REL_BF16:
@@ -3198,24 +3317,25 @@ def video_frames(t: int, h: int, w: int, seed: int) -> np.ndarray:
     return ((f + 1) * 127.5).round().clamp(0, 255).to(torch.uint8).cpu().numpy()
 
 
-def hires_call(label: str, pipe, frames, chunks: int, reps: int = 2):
-    """`reps` FlowPipeline.long_range calls on `frames` from zeroed counts
-    and peak: 12 kernel-#1 launches per chunk and call, finite flows of the
-    frames' size. Returns (seconds of the last call, peak bytes, flows)."""
+def hires_call(label: str, pipe, frames, chunks: int):
+    """One FlowPipeline.long_range call on `frames` from zeroed counts and
+    peak: 12 kernel-#1 launches per chunk, finite flows of the frames'
+    size. Returns (its seconds, warm-up included: a second call read within
+    4 % of the first in PR 19's and PR 20's runs; peak bytes; flows)."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    secs, out = timed_runs(lambda: pipe.long_range(frames), reps)
+    secs, out = timed_runs(lambda: pipe.long_range(frames), 1)
     peak = torch.cuda.max_memory_allocated()
-    expect_counts(label, corr_cuda, 12 * chunks * reps)
+    expect_counts(label, corr_cuda, 12 * chunks)
     t, h, w, _ = frames.shape
     if out.shape != (t - 2, h, w, 2) or not np.isfinite(out).all():
         fail(f"{label}: long_range output {out.shape} malformed or not finite")
-    print(f"{label}: {secs[-1]:.3f} s per call (first {secs[0]:.3f} s), peak memory "
-          f"{peak / 2**30:.3f} GiB, {chunks} chunk(s) per lookup, {12 * chunks * reps} kernel-#1 "
-          f"launches in {reps} calls, |flow| max {float(np.abs(out).max()):.3e}")
-    return secs[-1], peak, out
+    print(f"{label}: {secs[0]:.3f} s per call (one call), peak memory {peak / 2**30:.3f} GiB, "
+          f"{chunks} chunk(s) per lookup, {12 * chunks} kernel-#1 launches, |flow| max "
+          f"{float(np.abs(out).max()):.3e}")
+    return secs[0], peak, out
 
 
 def od_chunks(lookup: str, pairs: int, h8: int, w8: int) -> int:
@@ -3256,7 +3376,7 @@ def hires_phase() -> dict:
             secs, peak, outs[lookup] = hires_call(f"FlowPipeline long_range {w}x{h} {lookup}",
                                                   pipe, frames, chunks)
             rows[f"{w}x{h} {lookup}"] = dict(s_per_call=secs, peak_gib=peak / 2**30,
-                                             chunks=chunks, launches=24 * chunks)
+                                             chunks=chunks, launches=12 * chunks)
             del pipe
         diff, flow_max = (float(np.abs(outs["ondemand"] - outs["fused"]).max()),
                           float(np.abs(outs["fused"]).max()))
@@ -3296,18 +3416,17 @@ def hires_phase() -> dict:
         fail("auto does not pick ondemand at 2560x1440")
     frames = video_frames(7, 1440, 2560, seed=9)
     chunks = picks["2560x1440"]["chunks"]
-    for name, reps in (("acc+raft", 2), ("acc+gma", 1)):
+    for name in ("acc+raft", "acc+gma"):
         pipe = FlowPipeline.from_checkpoint(name)
         perturb_zero_conv(pipe.acc, 2)
         if "gma" in name:
             perturb_gamma(pipe.est.model, 3)
         secs, peak, _ = hires_call(f"FlowPipeline {name} long_range 2560x1440 auto", pipe,
-                                   frames, chunks, reps)
+                                   frames, chunks)
         if not peak < total:
             fail(f"{name} at 2560x1440: peak {peak} over the card's {total}")
         rows[f"2560x1440 auto {name}"] = dict(s_per_call=secs, peak_gib=peak / 2**30,
-                                              chunks=chunks, calls=reps,
-                                              launches=12 * chunks * reps)
+                                              chunks=chunks, launches=12 * chunks)
         del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -4062,9 +4181,9 @@ def spatial_inputs(case: str, elems):
         est = models.build_flow_estimator("raft", compute_dtype="float32", iters=2, seed=0,
                                           corr_lookup=case.split(" ", 1)[1])
         return est, None, moving_frames(2, 1, 128, seed=21)
-    if case == "bd clip":  # phase 5's small clip, on kernel #3
+    if case in SPATIAL_CLIP_LOOKUP:  # phase 5's small clip, on kernel #3 or the mix
         est = models.build_flow_estimator("raft", compute_dtype="float32", seed=0,
-                                          corr_lookup="experimental:fused_bd")
+                                          corr_lookup=SPATIAL_CLIP_LOOKUP[case])
         acc = models.init_accflow(models.AccFlowConfig(compute_dtype="float32"), seed=1,
                                   device="cpu")
         perturb_zero_conv(acc, 2)
@@ -4133,7 +4252,10 @@ def spatial_inputs(case: str, elems):
     return est, acc.to("cuda"), frames[:, list(elems)].contiguous()
 
 
-SPATIAL_CASES = ("a fused", "a ondemand:64", "b", "c", "d", "bd clip")
+SPATIAL_CASES = ("a fused", "a ondemand:64", "b", "c", "d", "bd clip", "mix clip")
+# (bd clip) and, phase 25 (d), (mix clip): the small clip with these lookups.
+SPATIAL_CLIP_LOOKUP = {"bd clip": "experimental:fused_bd",
+                       "mix clip": "experimental:fused_mix:rows,rows_gx,vpu_y,mm"}
 # The streams' frames, a reset on 3 and a push of each other: (d), (f), (g)
 # 8, and the drift fixture's 36.
 SPATIAL_STREAM_FRAMES, SPATIAL_DRIFT_FRAMES = 8, 36
@@ -4149,14 +4271,18 @@ SPATIAL23_CASES = tuple(SPATIAL_CLIP_KW)  # (l); (j) and (k) are train steps (SP
 SPATIAL_BATCH = {"b": (0, 1), "d": (0, 1), "e": (0, 1), "f": (0, 1), "g": (0, 1),
                  **{c: (0, 1) for c in SPATIAL23_CASES}}  # else (0,)
 SPATIAL_STREAMS = ("d", "f", "g", "i")
-SPATIAL_F32 = ("a fused", "a ondemand:64", "e pair", "f pair", "h pair", "i", "bd clip")
+SPATIAL_F32 = ("a fused", "a ondemand:64", "e pair", "f pair", "h pair", "i", "bd clip",
+               "mix clip")
 # (bd clip), phase 5's 64^2 f32 small clip on kernel #3 (experimental:
 # fused_bd, whose split lookup the spatial axis had run on the CPU only): f32
 # with TF32 off, so the ranks differ from one process by summation order
 # (phase 21 (a): <= 2.6e-6 of max |flow|); held within FLOW_REL of the
 # largest |flow|, tests/test_torch_spatial.py's bar, which a rank's queries
 # read against its own rows alone (a row-0 fault) fails where CLIP_REL
-# does not. Fixed before the case's first run on the card.
+# does not. Fixed before the case's first run on the card. Phase 25 (d),
+# (mix clip), the same clip with the level mix rows, rows_gx, vpu_y, mm
+# (PyTorch ops only, no lookup kernel: each rank's queries against the
+# gathered levels), takes the same bar.
 FLOW_REL = 1e-4
 
 
@@ -4303,7 +4429,7 @@ def spatial_chunks(case: str, rows: int) -> int:
 # at 6 iterations, then 6 a push).
 SPATIAL_KERNEL = {"f": "corr_level_lookup", "f pair": "corr_level_lookup",
                   "i": "corr_level_lookup", "bd clip": "y_contract"}  # else corr_lookup
-SPATIAL_PER_CHUNK = {"a": 2, "e pair": 2, "f pair": 2, "h pair": 2,
+SPATIAL_PER_CHUNK = {"a": 2, "e pair": 2, "f pair": 2, "h pair": 2, "mix clip": 0,
                      **{c: 12 + (SPATIAL_STREAM_FRAMES - 3) * 6 for c in ("d", "f", "g")},
                      "i": 12 + (SPATIAL_DRIFT_FRAMES - 3) * 6,
                      "l warm": 5 * 12, "l stepwise": 5 * 12}  # else 12: a fused clip
@@ -4797,7 +4923,7 @@ def spatial_check(case: str, one: dict, spread, got: list) -> dict:
         extra = dict(first_max_abs=first, epe_gap_px=epe_gap, epe_bar_px=DRIFT_EPE_PX)
         ok = diff <= bar and epe_gap <= DRIFT_EPE_PX
     elif case in SPATIAL_F32:
-        rel = FLOW_REL if case == "bd clip" else CLIP_REL
+        rel = FLOW_REL if case in SPATIAL_CLIP_LOOKUP else CLIP_REL
         bar, why = rel * flow_max, f"{rel:g} x max |flow|"
         ok = diff <= bar
     else:
@@ -5322,7 +5448,15 @@ def main() -> int:
     print(line)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    phase_secs, last = {}, [time.perf_counter()]
+
+    def lap() -> float:
+        now = time.perf_counter()
+        secs, last[0] = now - last[0], now
+        return secs
+
     build_kernels()
+    phase_secs["2"] = lap()
 
     levels32, coords = lookup_inputs(22)
     rows1 = check_lookup("kernel #1 (radius 4, clip shape)",
@@ -5351,44 +5485,63 @@ def main() -> int:
                    levels32, coords, 3)
     del levels32, coords
     torch.cuda.empty_cache()
+    phase_secs["3-4c"] = lap()
 
     with tempfile.TemporaryDirectory() as tmp:
-        launches1, fps, launches3_clip, fps_bd, small, clip_extra = clip_path(args.profile, tmp)
+        launches1, fps, clip_med, small, clip_extra = clip_path(args.profile, tmp)
+        phase_secs["5"] = lap()
+        experimental = experimental_phase(clip_med * 1e3, args.profile)
+        phase_secs["25 (a), (b)"] = lap()
+        fps_bd = experimental["clip"]["fused_bd"]["frames_per_s"]
         print(f"frames/s {fps:.3f} on {line} (AccFlow+RAFT, 7x512^2, batch 2, 12 iters, bf16); "
-              f"{fps_bd:.3f} with experimental:fused_bd; graphed "
+              f"{fps_bd:.3f} with experimental:fused_bd (phase 25, one timed forward); graphed "
               f"{clip_extra['graphed']['frames_per_s']:.3f}; loaded bf16 artifact "
               f"{14 / clip_extra['artifact']['median_ms'] * 1e3:.3f}")
         stream_a = stream_path("(a) RAFT-small", True, args.profile, tmp)
+        phase_secs["6a, 9b"] = lap()
         gma_row = gma_clip_path(args.profile)
         gma_small = small_clip("gma")
         chunked = chunked_attention()
+        phase_secs["10-11"] = lap()
         api_rows, pipe_gma, lr_gma, clip7 = pipeline_phase(
             tmp, clip_extra["graphed"]["median_ms"])
         demo_row = demo_phase(tmp, pipe_gma, lr_gma, clip7)
         del pipe_gma
         torch.cuda.empty_cache()
+        phase_secs["12-13"] = lap()
     print(f"GMA frames/s on {line} (AccFlow+GMA, 7x512^2, batch 2, 12 iters, bf16): eager "
           f"{gma_row['eager_frames_per_s']:.3f}, graphed {gma_row['graphed']['frames_per_s']:.3f}")
     stream_b = stream_path("(b) full RAFT", False, args.profile)
     stream_c = stream_path("(c) GMA", False, False, ofe="gma", bit_equal=True)
+    phase_secs["6b, 6c"] = lap()
     print(f"stream frames/s on {line} (512^2, batch 2, 6 iters, bf16): (a) RAFT-small eager "
           f"{stream_a['eager_frames_per_s']:.3f} ({stream_a['eager_median_ms']:.3f} ms per push), "
           f"graphed {stream_a['frames_per_s']:.3f} ({stream_a['median_ms']:.3f} ms); (b) full "
           f"RAFT eager {stream_b['eager_frames_per_s']:.3f} ({stream_b['eager_median_ms']:.3f} "
           f"ms), graphed {stream_b['frames_per_s']:.3f} ({stream_b['median_ms']:.3f} ms)")
     drift_launches = drift_fixture()
+    phase_secs["7"] = lap()
     evals = eval_phase()
+    phase_secs["8"] = lap()
     with tempfile.TemporaryDirectory() as tmp:
         train = train_phase(tmp, args.profile)
+        phase_secs["14"] = lap()
         root = str(Path(tmp) / "cvor_train")
         finetune = finetune_phase(root, tmp, args.profile)
+        phase_secs["15"] = lap()
         ondemand = dict(small_clips=ondemand_small_clips(), clip=ondemand_clip(),
                         hires=hires_phase(), finetune=finetune_ondemand(root, tmp))
+        phase_secs["16"] = lap()
         f0n = f0n_phase(root, tmp)
+        phase_secs["17"] = lap()
         sintel = sintel_phase(tmp)
+        phase_secs["18"] = lap()
         dp = dp_phase(root, tmp, train, finetune, evals)
+        phase_secs["19"] = lap()
         tools = host_tools_phase(tmp, clip_extra["graphed"]["median_ms"])
+        phase_secs["20"] = lap()
         spatial = spatial_phase(tmp)
+        phase_secs["21-24, 25 (d)"] = lap()
     print(f"train on {line} (graphed, train_acc): AccRAFT {train['accraft']['ms_per_step']:.2f} "
           f"ms per step ({train['accraft']['clips_per_s']:.3f} clips/s, peak "
           f"{train['accraft']['peak_gib']:.3f} GiB, idle "
@@ -5454,6 +5607,10 @@ def main() -> int:
         "pipeline": api_rows, "demo": demo_row}}))
     print(json.dumps({"train": {"card": line, **train}}))
     print(json.dumps({"finetune": {"card": line, **finetune}}))
+    experimental.update(c=rows2_r4["bfloat16, bf16 out"], d=spatial["mix clip"])
+    print(json.dumps({"experimental": {"card": line, **experimental}}))
+    print(json.dumps({"phase_seconds": {"card": line, **phase_secs,
+                                        "total": sum(phase_secs.values())}}))
 
     # Kernels #1 and #3 have a row for each output type, each timed in the
     # configuration whose launches it reports: corr_lookup and
@@ -5562,6 +5719,10 @@ def main() -> int:
          "float32_levels": rows2["float32"],
          "float32_levels_bf16_out": rows2["float32, bf16 out"],
          "radius4_clip_shape": rows2_r4,
+         "pallas_clip_launches": experimental["clip"]["pallas"]["launches"],
+         "pallas_clip_launches_in": "phase 25 (b), one timed forward of the CVO-6 clip with "
+                                    "experimental:pallas (radius 4, bfloat16 in and out: "
+                                    "radius4_clip_shape's 'bfloat16, bf16 out' row)",
          "finetune_launches": finetune["raft_small"]["launches"]["corr_level_lookup"],
          "finetune_launches_in": "RAFT-small fine-tune, 6 graphed steps (float32 levels, "
                                  "bfloat16 out): 2 eager steps and the capture counted",
@@ -5579,6 +5740,9 @@ def main() -> int:
          "spatial_launches_in": "phases 22 (i) and 24 (m), each of two gloo ranks on one card, "
                                 "height sharded: the drift fixture's 36 frames; one 64^2 "
                                 "RAFT-small fine-tune step at 12 iterations",
+         "pallas_small_clip_launches": experimental["small_clip"]["pallas"]["launches"],
+         "pallas_small_clip_launches_in": "phase 25 (a), the f32 small clip with "
+                                          "experimental:pallas (radius 4)",
          **rows2["float32"], "levels_dtype": "float32", "out_dtype": "float32", "radius": 3},
         {"name": "corr_y_contract", "route": "cuda",
          "source": "accflow_tpu_torch/csrc/corr_y_contract.cu",
@@ -5589,7 +5753,12 @@ def main() -> int:
          **rows3["level0"]["bfloat16, bf16 out"],
          "shape": "level 0 of the clip path, bfloat16 in", "out_dtype": "bfloat16",
          "level1": rows3["level1"]["bfloat16, bf16 out"],
-         "clip_launches": launches3_clip,
+         "clip_launches": experimental["clip"]["fused_bd"]["launches"],
+         "clip_launches_in": "phase 25 (b), one timed forward of the CVO-6 clip with "
+                             "experimental:fused_bd",
+         "mix_clip_launches": experimental["clip"][EXPERIMENTAL[-1]]["launches"],
+         "mix_clip_launches_in": f"phase 25 (b), one timed forward of the CVO-6 clip with "
+                                 f"experimental:{EXPERIMENTAL[-1]} (bd on level 3)",
          "fused_bd2_eval_launches": evals["acc|raft", "experimental:fused_bd2"]["launches"],
          "split_windows_max_diff_over_A": split_ratio},
         {"name": "corr_y_contract_f32_out", "route": "cuda",
@@ -5601,6 +5770,9 @@ def main() -> int:
          "spatial_launches_in": "phase 21 (bd clip), each of two gloo ranks on one card, height "
                                 "sharded: the 64^2 f32 small clip, one forward",
          "gma_small_clip_launches": gma_small["experimental:fused_bd"],
+         "mix_small_clip_launches": experimental["small_clip"][EXPERIMENTAL[-1]]["launches"],
+         "mix_small_clip_launches_in": f"phase 25 (a), the f32 small clip with "
+                                       f"experimental:{EXPERIMENTAL[-1]}",
          **rows3["level0"]["float32"],
          "shape": "level 0 of the clip path, float32 in", "out_dtype": "float32",
          "level1": rows3["level1"]["float32"],

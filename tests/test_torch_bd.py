@@ -129,9 +129,11 @@ def test_split_windows_equal_plain_lookup(rng):
 
 
 def test_split_lookup_rejects_unported_level_impl(rng):
+    """Every level impl of JAX's lookup_corr_split_v2 is ported (mm, bd,
+    rows, rows_gx, vpu_y); one it does not know raises ValueError."""
     _, levels, coords = _pyramids(rng, 1, 8, 8, 8, 2)
-    with pytest.raises(ValueError, match="'vpu_y' is not ported"):
-        lookup_corr_split_v2(levels, torch.from_numpy(coords), 4, ("vpu_y",))
+    with pytest.raises(ValueError, match="unknown level impl 'nope'"):
+        lookup_corr_split_v2(levels, torch.from_numpy(coords), 4, ("nope",))
 
 
 def test_forward_split_matches_jax(rng):
@@ -177,6 +179,12 @@ def test_raft_forward_split_lookup_matches_jax(raft_setup, lookup):
     ("fused", "fused"), ("mm", "fused"), ("pallas_fused", "fused"),
     ("experimental:fused_bd", "fused_bd"), ("experimental:fused_bd2", "fused_bd2"),
     ("auto", "auto"), ("ondemand", "ondemand"), ("ondemand:4096", "ondemand:4096"),
+    ("experimental:pallas", "pallas"), ("experimental:rows", "rows"),
+    ("experimental:patch", "patch"), ("experimental:gather", "gather"),
+    ("experimental:fusedv", "fusedv"), ("experimental:packed", "packed"),
+    ("experimental:packed2", "packed2"), ("experimental:fused_vy", "fused_vy"),
+    ("experimental:fused_cat", "fused_cat"), ("experimental:fused_vy_cat", "fused_vy_cat"),
+    ("experimental:fused_mix:mm,bd,rows,rows_gx,vpu_y", "fused_mix:mm,bd,rows,rows_gx,vpu_y"),
 ])
 def test_normalize_corr_lookup(spelling, want):
     assert normalize_corr_lookup(spelling) == want
@@ -195,8 +203,11 @@ def test_corr_lookup_fence():
     # and the volume-free ondemand lookup beyond it, as in JAX.
     assert RAFTConfig(corr_lookup="auto").split_levels is None
     assert resolve_auto_lookup("auto", 11, 180, 320, dtype=torch.bfloat16) == "ondemand"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        RAFTConfig(corr_lookup="experimental:packed2")
+    # Every spelling JAX's dispatch computes is ported; an unknown one raises
+    # ValueError when the config is built (JAX: when its lookup runs).
+    assert RAFTConfig(corr_lookup="experimental:packed2").lookup_impl == "packed2"
+    with pytest.raises(ValueError, match="unknown corr_lookup"):
+        RAFTConfig(corr_lookup="experimental:nope")
     assert RAFTConfig(corr_lookup="experimental:fused_bd2").split_levels == ("bd", "bd", "mm", "mm")
     assert RAFTConfig(corr_lookup="mm").split_levels is None
     # RAFT-small keeps its per-level kernel whatever the spelling.

@@ -5,7 +5,9 @@ queries per block), both with float32 and bfloat16 output, the y
 contraction of the split lookup (ops/corr_bd_cuda.py) and the floor kernel of the probes
 (probes.py); the CUDA graphs of the stream step (StreamAccumulator) and of a
 loaded artifact (serving.py, streaming.py), and the splat's determinism;
-GMA's small clip on the GPU against the CPU with kernels #1 and #3,
+GMA's small clip on the GPU against the CPU with kernels #1 and #3, RAFT's
+small clip with each experimental corr_lookup spelling on the GPU against
+the CPU, with its lookup kernel's launches,
 FlowPipeline on the GPU, and one accumulator train step on the GPU against
 the CPU and its kernel-#1 launches; the lookups' backward kernel
 (ops/corr_backward_cuda.py) against the plain backward, and one fine-tune
@@ -577,6 +579,42 @@ def test_gma_small_clip_gpu_matches_cpu(dev, lookup, kernel):
     ref = outs["cpu"]
     diff = float((outs[str(dev)] - ref).abs().max())
     assert diff <= 1e-3 * float(ref.abs().max()), diff
+
+
+EXPERIMENTAL_KERNEL = {"experimental:pallas": corr_level_cuda,
+                       "experimental:fused_mix:rows,rows_gx,vpu_y,bd": corr_bd_cuda}
+
+
+@pytest.mark.parametrize("lookup", [
+    "experimental:pallas", "experimental:rows", "experimental:patch", "experimental:gather",
+    "experimental:fusedv", "experimental:packed", "experimental:packed2",
+    "experimental:fused_vy", "experimental:fused_cat", "experimental:fused_vy_cat",
+    "experimental:fused_mix:rows,rows_gx,vpu_y,bd"])
+def test_experimental_small_clip_gpu_matches_cpu(dev, lookup):
+    """AccFlow+RAFT on the 4-frame 64^2 clip in float32 (TF32 off), 2
+    iterations, with an experimental spelling: the GPU forward against the
+    CPU's within 1e-3 of the largest |flow| (the small clips' bar). pallas
+    launches kernel #2 and the mix kernel #3 once an iteration on the GPU;
+    the other spellings run PyTorch ops and no lookup kernel."""
+    from accflow_tpu_torch.nn.layers import tf32
+
+    clip = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (4, 1, 64, 64, 3))
+                            .astype(np.float32))
+    kernels = (corr_cuda, corr_level_cuda, corr_bd_cuda)
+    outs = {}
+    for where in ("cpu", dev):
+        est = build_flow_estimator("raft", compute_dtype="float32", device=where, iters=2,
+                                   corr_lookup=lookup)
+        acc = init_accflow(AccFlowConfig(hidden=32, compute_dtype="float32"), device=where)
+        before = [k.launches for k in kernels]
+        with tf32(False):
+            outs[str(where)] = accflow_forward(acc, clip, est.pairs_fn()).cpu()
+        want = [2 if where == dev and k is EXPERIMENTAL_KERNEL.get(lookup) else 0
+                for k in kernels]
+        assert [k.launches - b for k, b in zip(kernels, before)] == want
+    ref = outs["cpu"]
+    diff = float((outs[str(dev)] - ref).abs().max())
+    assert torch.isfinite(outs[str(dev)]).all() and diff <= 1e-3 * float(ref.abs().max()), diff
 
 
 def test_flow_pipeline_on_the_gpu(dev):

@@ -211,7 +211,7 @@ def test_cli_exports_the_volume_free_lookup(tmp_path):
 
 
 @pytest.mark.parametrize("args,err", [
-    (["--ofe", "gma", "--corr_lookup", "experimental:packed2"], NotImplementedError),
+    (["--ofe", "gma", "--corr_lookup", "experimental:nope"], ValueError),
     (["--corr_lookup", "ondemand:0"], ValueError),
     # "auto" sizes the stored volume by the batch: a symbolic one cannot be
     # sized (as in JAX).
@@ -219,7 +219,8 @@ def test_cli_exports_the_volume_free_lookup(tmp_path):
     (["--streaming", "--batch", "0"], SystemExit),
 ])
 def test_cli_refuses(tmp_path, args, err):
-    """What the CLI refuses: spellings that are not ported, an ondemand
+    """What the CLI refuses: a spelling JAX does not know (every one it
+    computes is ported, experimental:packed2 among them), an ondemand
     chunk that is not positive, "auto" with a symbolic batch, a streaming
     export with a symbolic batch. (--ofe gma and --attn_chunk, refused
     before GMA was ported, export in tests/test_torch_demo.py; ondemand and

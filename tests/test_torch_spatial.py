@@ -22,7 +22,10 @@ one process and against the JAX package's unsharded runs.
     the positional branch beside the content one (content-only attention
     cannot see the keys' order);
   - the AccFlow clips (5 x 1 x 128^2 with RAFT "ondemand:64"; 5 x 1 x 64^2
-    with each GMA variant; 4 x 1 x 40x48 at 24 + 16 rows on every path:
+    with each GMA variant; 4 x 1 x 64^2 with RAFT's level mix
+    "experimental:fused_mix:rows,rows_gx,vpu_y,mm", each rank's queries
+    against the gathered levels, held to one process within FLOW_REL x
+    max |flow|, the bar of chip_smoke.py's (bd clip); 4 x 1 x 40x48 at 24 + 16 rows on every path:
     fused, warm-started, F0N fused and stepwise, cold stepwise; hidden 128,
     its ZeroConv drawn so the deformable conv deforms) against JAX's
     unsharded "mm" clip at the AccFlow bar (rtol 2e-3 / atol 2e-2; a
@@ -121,6 +124,7 @@ from accflow_tpu_torch.train.optim import make_optimizer
 
 WORLD, SIZE, ITERS = 2, 128, 2
 LOOKUPS = ("fused", "ondemand:64", "experimental:fused_bd")
+MIX = "experimental:fused_mix:rows,rows_gx,vpu_y,mm"  # the mix clip's lookup (PyTorch ops only)
 GMA_SIZE = 64  # GMA's pair, clip and stream (c): 64^2
 # GMA's attention branches and attn_chunk: dense, chunks of 16 local query
 # rows (2 a rank), "auto" (resolved at the global shape), and the
@@ -475,6 +479,10 @@ def _models(sp, work: str) -> dict:
         case(f"clip 40 {name}", lambda: mesh.gather_rows(accflow_forward(
             acc_p, clip40, est.pairs_fn(spatial=sp40), est.flow_fn(spatial=sp40), spatial=sp40),
             sp40, 2))
+
+    mix_clip = mesh.shard_rows(torch.from_numpy(data["gma_clip"][:4]), sp, 2)
+    case("clip mix", lambda: mesh.gather_rows(accflow_forward(
+        acc, mix_clip, _estimator(work, MIX).pairs_fn(spatial=sp), spatial=sp), sp, 2))
 
     def run_stream(stream, frames):  # a reset on 3 frames, then a push of each other
         frames = mesh.shard_rows(frames, sp, 2)
@@ -1235,7 +1243,8 @@ def test_spatial_handles(launch):
     r0, r1 = launch.ranks()
     assert r0["axis"].tolist() == [0, 2] and r1["axis"].tolist() == [1, 2]
     cases = [k[:-len("/collectives")] for k in r0 if k.endswith("/collectives")]
-    assert len(cases) == (len(LOOKUPS) + 3 + len(CLIP_PATHS) + 2 * len(GMA_VARIANTS) + 1
+    # clip, clip 40, clip mix and stream beside the lookups' pairs and the paths
+    assert len(cases) == (len(LOOKUPS) + 4 + len(CLIP_PATHS) + 2 * len(GMA_VARIANTS) + 1
                           + len(SMALL_LOOKUPS) + 2 + len(FT_PATHS))
     for case in cases:
         assert int(r0[f"{case}/collectives"]) == int(r1[f"{case}/collectives"]) > 0
@@ -1344,6 +1353,18 @@ def test_spatial_small_stream_matches_jax(launch, refs):
     """Stream (a): RAFT-small, a reset and 2 warm-started pushes."""
     _holds(launch.ranks()[0]["small stream"], refs["small stream"],
            refs["port"]["small stream"], ACC_TOL)
+
+
+def test_spatial_mix_clip_matches_one_process(launch, refs):
+    """The 4-frame 64^2 clip with RAFT's level mix (rows, rows_gx, vpu_y,
+    mm: each rank's queries against the gathered levels, no exchange of its
+    own) on two ranks against one process, within FLOW_REL x max |flow|;
+    both ranks' outputs equal."""
+    r0, r1 = launch.ranks()
+    got, one = r0["clip mix"], refs["port"]["clip mix"]
+    assert got.shape == (2, 1, GMA_SIZE, GMA_SIZE, 2) and np.isfinite(got).all()
+    assert np.abs(got - one).max() <= FLOW_REL * np.abs(one).max() and np.abs(one).max() > 0
+    np.testing.assert_array_equal(r1["clip mix"], got)
 
 
 def test_spatial_drift_prefix_matches_jax(launch, refs):

@@ -12,7 +12,9 @@ utils/logging.py::ScopeTimer.
   messages without lmdb or with a pyarrow lacking deserialize;
 - the native core (built with g++ here) against numpy, bit for bit: its
   flow decode, which data/records.py goes through, and numpy's path
-  without g++;
+  without g++; its image normalisation and cropped batch gather (plain and
+  with the flow decode) against JAX's accflow_tpu.native, bit for bit,
+  native and numpy's path alike (tests/test_native.py:21-45's cases);
 - timed_pair_median's discard of degenerate pairs and its raise;
   device_step_time, trace and ScopeTimer on the CPU.
 """
@@ -25,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from accflow_tpu import native as j_native
 from accflow_tpu.cli import convert_ckpt as j_convert_ckpt
 from accflow_tpu.cli import convert_data as j_convert_data
 from accflow_tpu_torch import native
@@ -189,6 +192,54 @@ def test_native_core_is_bit_equal_to_numpy(monkeypatch):
     monkeypatch.setattr(native.shutil, "which", lambda name: None)
     assert native.get_lib() is None and not native.available()
     np.testing.assert_array_equal(real(raw).view(np.uint32), want.view(np.uint32))
+
+
+def _no_gxx(monkeypatch):
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    assert native.get_lib() is None
+
+
+@pytest.mark.parametrize("path", ["native", "numpy"])
+def test_normalize_u8_matches_jax(monkeypatch, path):
+    """2*(x/255)-1 over every uint8 value and a batch of images, bit for
+    bit against JAX's native core (its numpy path gives the same bits)."""
+    if path == "numpy":
+        _no_gxx(monkeypatch)
+    else:
+        assert native.available()
+    raw = np.concatenate([np.arange(256, dtype=np.uint8),
+                          np.random.default_rng(2).integers(0, 256, 3 * 5 * 7 * 3, np.uint8)])
+    for x in (raw, raw[256:].reshape(3, 5, 7, 3)):
+        got, want = native.normalize_u8(x), j_native.normalize_u8(x)
+        assert got.dtype == np.float32 and got.shape == x.shape
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("path", ["native", "numpy"])
+@pytest.mark.parametrize("decode_flow", [False, True])
+def test_gather_crop_matches_jax(monkeypatch, path, decode_flow):
+    """Crops of a uint8 image column and of a uint16 flow column (decoded
+    to float32 with decode_flow), in the order asked, one crop at the
+    records' far corner: bit for bit against JAX's gather_crop."""
+    if path == "numpy":
+        _no_gxx(monkeypatch)
+    rng = np.random.default_rng(3)
+    if decode_flow:
+        col = rng.integers(0, 65536, (4, 12, 12, 10), dtype=np.uint16)
+        idx, y0, x0 = np.array([1, 3, 3]), np.array([2, 0, 4]), np.array([0, 4, 4])
+    else:
+        col = rng.integers(0, 256, (6, 16, 16, 3), dtype=np.uint8)
+        idx, y0, x0 = np.array([4, 0, 2, 5]), np.array([1, 0, 7, 8]), np.array([3, 8, 0, 8])
+    got = native.gather_crop(col, idx, y0, x0, (8, 8), decode_flow=decode_flow)
+    want = j_native.gather_crop(col, idx.astype(np.int64), y0.astype(np.int32),
+                                x0.astype(np.int32), (8, 8), decode_flow=decode_flow)
+    assert got.dtype == want.dtype == (np.float32 if decode_flow else np.uint8)
+    assert got.shape == (len(idx), 8, 8, col.shape[-1])
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="leaves the column"):
+        native.gather_crop(col, idx, y0 + 1, x0 + 9, (8, 8), decode_flow=decode_flow)
 
 
 def test_timed_pair_median_discards_and_raises(capsys):
