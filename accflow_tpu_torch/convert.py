@@ -6,6 +6,7 @@ torch module names. Per layer:
 - conv {w (kh, kw, I, O), b}        <-> Conv2d weight (O, I, kh, kw), bias;
 - ZeroConv2d {w, b, scale (C,)}     <-> conv.weight, conv.bias, scale (1, C, 1, 1);
 - BatchNorm {scale, bias, mean, var} <-> weight, bias, running_mean, running_var;
+- GroupNorm {scale, bias}           <-> weight, bias;
 - Embedding {emb (num, dim)}        <-> weight (GMA's RelPosEmb tables);
 - a bare parameter (GMA's Aggregate `gamma`) is a leaf of its module's
   subtree under its own name.
@@ -35,9 +36,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from accflow_tpu_torch.nn.layers import BatchNorm2d, Conv2d, Embedding, ZeroConv2d
+from accflow_tpu_torch.nn.layers import BatchNorm2d, Conv2d, Embedding, GroupNorm2d, ZeroConv2d
 
-_LAYERS = (Conv2d, BatchNorm2d, Embedding)
+_LAYERS = (Conv2d, BatchNorm2d, GroupNorm2d, Embedding)
 
 Tree = Dict[str, Any]
 
@@ -69,6 +70,8 @@ def _leaves(layer: nn.Module) -> Dict[str, tuple]:
     if isinstance(layer, BatchNorm2d):
         return {"scale": (layer.weight, *same), "bias": (layer.bias, *same),
                 "mean": (layer.running_mean, *same), "var": (layer.running_var, *same)}
+    if isinstance(layer, GroupNorm2d):
+        return {"scale": (layer.weight, *same), "bias": (layer.bias, *same)}
     if isinstance(layer, Embedding):
         return {"emb": (layer.weight, *same)}
     if not isinstance(layer, Conv2d):  # bare parameters

@@ -1,17 +1,24 @@
-// Per-level correlation window lookup for Hopper (sm_90a), radius 3 or 4.
+// Per-level correlation window lookup for Hopper (sm_90a), at any radius
+// and level count.
 //
 // Replaces accflow_tpu/ops/corr_pallas.py::lookup_corr_pallas (the TPU
 // per-level kernel: body `_level_kernel`, launcher `_lookup_level`, one
 // launch per level, tent weights and two small dots per query for the MXU).
-// For each query, the (2R+1)^2 bilinear window of each of the 4 levels,
-// (Q, 4*(2R+1)^2) in float32 or bfloat16. RAFT-small (radius 3) runs it in
-// every GRU iteration. The kernel is corr_window.cuh's (R = 3 or 4, NL = 4),
-// whose header says how it works: one block takes QT queries and all
-// levels, stages the patch rows as 16-byte chunks by cp.async and writes
-// its contiguous run of outputs as 16-byte vectors. The level count is
-// RAFT's 4 unless the build sets another with -DCORR_LEVELS=n (the
-// one-level probe of chip_smoke.py, which stands in for the TPU probes of
-// a single level's lookup, scripts/probe_pallas_fused.py).
+// For each query, the (2R+1)^2 bilinear window of each of the L levels,
+// (Q, L*(2R+1)^2) in float32 or bfloat16. RAFT-small (radius 3) runs it in
+// every GRU iteration, and so does every estimator whose corr_radius and
+// corr_levels are not kernel #1's (4, 4). The kernel is corr_window.cuh's
+// (R, NL), whose header says how it works: one block takes QT queries and
+// all levels, stages the patch rows as 16-byte chunks by cp.async and
+// writes its contiguous run of outputs as 16-byte vectors.
+//
+// Builds. The default build instantiates R = 3 and R = 4 over RAFT's 4
+// levels. A build with -DCORR_RADIUS=r instantiates that radius alone, and
+// -DCORR_LEVELS=n sets the level count (n = 1: the one-level probe of
+// chip_smoke.py, which stands in for the TPU probes of a single level's
+// lookup, scripts/probe_pallas_fused.py); ops/corr_level_cuda.py builds one
+// library per (radius, levels) a config asks for, and lowers -DCORR_QT
+// where a block's staged patches would outgrow shared memory.
 //
 // Bound (H100 SXM, 3.35 TB/s): memory. At the stream's shape (2 pairs x
 // batch 2 at 512^2: Q = 16,384, radius 3, levels 64^2 .. 8^2, bfloat16)
@@ -29,6 +36,21 @@
 // The level count this library was built for.
 extern "C" int corr_level_lookup_levels() { return CORR_LEVELS; }
 
+// The radius this library was built for; 0 for the default build (3 and 4).
+extern "C" int corr_level_lookup_radius() {
+#ifdef CORR_RADIUS
+  return CORR_RADIUS;
+#else
+  return 0;
+#endif
+}
+
+#ifdef CORR_RADIUS
+static_assert(CORR_RADIUS >= 1, "a window of at least 3 x 3 taps");
+static_assert(Smem<float, float, CORR_RADIUS, CORR_LEVELS>::BYTES <= 227 * 1024,
+              "a block's staged patches outgrow shared memory: lower CORR_QT");
+#endif
+
 // C interface (loaded with ctypes). dtype: 0 = float32 levels, 1 =
 // bfloat16; out_dtype: 0 = float32 output, 1 = bfloat16. levels:
 // CORR_LEVELS pointers to contiguous (q, hw[2l], hw[2l+1]) maps; coords:
@@ -39,9 +61,15 @@ extern "C" int corr_level_lookup(int dtype, int out_dtype, int radius, const flo
                                  const void* const* levels, const int* hw,
                                  long long q, void* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#ifdef CORR_RADIUS
+  if (radius == CORR_RADIUS)
+    return window_lookup<CORR_RADIUS, CORR_LEVELS>(dtype, out_dtype, coords, levels, hw, q,
+                                                   out, s);
+#else
   if (radius == 3)
     return window_lookup<3, CORR_LEVELS>(dtype, out_dtype, coords, levels, hw, q, out, s);
   if (radius == 4)
     return window_lookup<4, CORR_LEVELS>(dtype, out_dtype, coords, levels, hw, q, out, s);
+#endif
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,7 @@
 // The correlation window lookup for Hopper (sm_90a), shared by the
 // 4-level radius-4 kernel (corr_lookup.cu, kernel #1) and the per-level
-// kernel of radius 3 or 4 (corr_level_lookup.cu, kernel #2): both compute
-// ops/corr.py::lookup_corr_plain.
+// kernel of any radius and level count (corr_level_lookup.cu, kernel #2):
+// both compute ops/corr.py::lookup_corr_plain.
 //
 // For each query q and level l < NL, the (2R+1)^2 bilinear window of q's
 // own (hl, wl) correlation map around coords(q) / 2^l, align_corners,
@@ -38,7 +38,7 @@
 //      device memory made every store instruction touch 32 sectors);
 //   4. write the block's outputs as one contiguous run of 16-byte vectors
 //      where QT*NL*(2R+1)^2 values are a whole number of them (every build
-//      the port runs), else element by element.
+//      at QT = 8), else element by element.
 // The chunk copies need map rows that are whole 16-byte chunks (wl*elem a
 // multiple of 16) and a 16-byte aligned map: every level of the clip and
 // stream paths. A level without both (an odd width, a misaligned view)
@@ -62,7 +62,7 @@ namespace {
 #ifndef CORR_QT
 #define CORR_QT 8
 #endif
-constexpr int QT = CORR_QT;        // queries per block (4, 8 or 16)
+constexpr int QT = CORR_QT;        // queries per block (1, 2, 4, 8 or 16)
 constexpr int THREADS = 16 * QT;   // 128 at QT = 8
 
 template <int NL>

@@ -1,7 +1,8 @@
 // The correlation window lookup's backward for Hopper (sm_90a): the
 // gradient of corr_window.cuh's lookup with respect to its levels, for the
-// 4-level radius-4 lookup (kernel #1) and the per-level one of radius 3 or
-// 4 (kernel #2). It computes ops/corr.py::lookup_corr_plain_backward.
+// 4-level radius-4 lookup (kernel #1) and the per-level one of any radius
+// and level count (kernel #2). It computes
+// ops/corr.py::lookup_corr_plain_backward.
 //
 // It replaces no TPU kernel: the TPU kernels have no backward
 // (accflow_tpu/ops/corr_pallas.py:71-73), and JAX fine-tunes through the
@@ -34,10 +35,15 @@
 // (SMs x resident blocks) whose warps walk the queries by a grid stride;
 // no __syncthreads, each warp syncs only itself:
 //   1. while a warp writes query q's maps, cp.async copies its next
-//      query's window gradient, raw (16-byte pieces of float32, 8-byte
-//      pieces of bfloat16: a bfloat16 row of 648 or 392 B is only 8-byte
-//      aligned), into the other of its two shared-memory slots, and its
-//      coords load into registers;
+//      query's window gradient, raw, into the other of its two
+//      shared-memory slots (dynamic shared memory, sized by the row), and
+//      its coords load into registers. The pieces are 4 values where a
+//      query's row of NL*(2R+1)^2 values is a multiple of 4 (16 bytes of
+//      float32, 8 of bfloat16: a bfloat16 row of 648 or 392 B is only 8-byte
+//      aligned), else 2 or 1 (an odd level count makes the row odd); a
+//      piece under 4 bytes (one bfloat16 value) has no cp.async, so such a
+//      row is loaded into registers before the warp writes q's maps and
+//      stored into the slot after;
 //   2. the levels are a compile-time loop, so each level's pointer, shape
 //      and patch origin are selected with constant indices (a runtime index
 //      into the parameter struct copies it to local memory) and there is no
@@ -223,15 +229,27 @@ __device__ __forceinline__ void write_levels(const Grads<NL>& gv, int64_t q, flo
   }
 }
 
+// How a query's window gradient (NL*(2R+1)^2 values of G) is copied: PV
+// values per piece, by cp.async where a piece is 4 bytes or more.
+template <typename G, int R, int NL>
+struct RowCopy {
+  static constexpr int ROW = NL * (2 * R + 1) * (2 * R + 1);  // values per query
+  static constexpr int PV = ROW % 4 == 0 ? 4 : (ROW % 2 == 0 ? 2 : 1);
+  static constexpr int BYTES = PV * static_cast<int>(sizeof(G));  // bytes per piece
+  static constexpr bool ASYNC = BYTES >= 4;
+  static constexpr int STAGE = ASYNC ? 1 : (ROW + 31) / 32;  // register-staged values a lane
+  static constexpr size_t SMEM = sizeof(G) * BWD_WARPS * 2 * ROW;  // two slots a warp
+};
+
 template <typename T, typename G, int R, int NL>
 __global__ void __launch_bounds__(BWD_THREADS)
 corr_window_backward_kernel(const float* __restrict__ coords, const G* __restrict__ grad_out,
                             Grads<NL> gv, int64_t q_total) {
-  constexpr int ROW = NL * (2 * R + 1) * (2 * R + 1);  // window gradient values per query
-  constexpr int CP = 4 * static_cast<int>(sizeof(G));   // bytes per copy: 4 values
-  static_assert(ROW % 4 == 0, "a query's window gradient is whole 4-value pieces");
-  __shared__ __align__(16) G slot[BWD_WARPS][2][ROW];
+  using C = RowCopy<G, R, NL>;
+  constexpr int ROW = C::ROW, CP = C::BYTES;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
   const int warp = static_cast<int>(threadIdx.x) / 32, lane = static_cast<int>(threadIdx.x) % 32;
+  G* slots = reinterpret_cast<G*>(bwd_smem) + warp * 2 * ROW;  // this warp's two slots
   const int64_t stride = static_cast<int64_t>(gridDim.x) * BWD_WARPS;
   int64_t q = static_cast<int64_t>(blockIdx.x) * BWD_WARPS + warp;
   if (q >= q_total) return;
@@ -239,26 +257,52 @@ corr_window_backward_kernel(const float* __restrict__ coords, const G* __restric
   // Copies query qq's window gradient into slot b, as one group.
   auto fetch = [&](int64_t qq, int b) {
     const char* src = reinterpret_cast<const char*>(grad_out + qq * ROW);
-    char* dst = reinterpret_cast<char*>(slot[warp][b]);
-    for (int p = lane; p < ROW / 4; p += 32) cp_async<CP>(dst + p * CP, src + p * CP);
+    char* dst = reinterpret_cast<char*>(slots + b * ROW);
+    for (int p = lane; p < ROW / C::PV; p += 32) cp_async<CP>(dst + p * CP, src + p * CP);
     cp_async_commit();
   };
+  // The register-staged copy (one bfloat16 value a piece): load, then store.
+  G stage[C::STAGE];
+  auto load_row = [&](int64_t qq) {
+#pragma unroll
+    for (int k = 0; k < C::STAGE; ++k) {
+      const int p = lane + 32 * k;
+      if (p < ROW) stage[k] = grad_out[qq * ROW + p];
+    }
+  };
+  auto store_row = [&](int b) {
+#pragma unroll
+    for (int k = 0; k < C::STAGE; ++k) {
+      const int p = lane + 32 * k;
+      if (p < ROW) slots[b * ROW + p] = stage[k];
+    }
+  };
   float cx = coords[q * 2], cy = coords[q * 2 + 1];
-  fetch(q, 0);
+  if constexpr (C::ASYNC) {
+    fetch(q, 0);
+  } else {
+    load_row(q);
+    store_row(0);
+  }
   for (int b = 0;; b ^= 1) {
     const int64_t next = q + stride;
     float nx = 0.0f, ny = 0.0f;
     if (next < q_total) {
       nx = coords[next * 2];
       ny = coords[next * 2 + 1];
-      fetch(next, b ^ 1);
-      cp_async_wait<1>();  // this lane's copies of q are done, next's in flight
-    } else {
+      if constexpr (C::ASYNC) {
+        fetch(next, b ^ 1);
+        cp_async_wait<1>();  // this lane's copies of q are done, next's in flight
+      } else {
+        load_row(next);  // in registers while the warp writes q's maps
+      }
+    } else if constexpr (C::ASYNC) {
       cp_async_wait<0>();
     }
     __syncwarp();  // every lane's copies of q are visible to the warp
-    write_levels<T, G, R, NL>(gv, q, cx, cy, slot[warp][b], lane);
+    write_levels<T, G, R, NL>(gv, q, cx, cy, slots + b * ROW, lane);
     if (next >= q_total) break;
+    if constexpr (!C::ASYNC) store_row(b ^ 1);
     __syncwarp();  // slot b is read out before the copy after next refills it
     q = next;
     cx = nx;
@@ -278,18 +322,24 @@ int launch_backward(const float* coords, const void* grad_out, const Grads<NL>& 
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev >= DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  constexpr size_t smem = RowCopy<G, R, NL>::SMEM;
+  static_assert(smem <= 227 * 1024, "two window-gradient rows a warp outgrow shared memory");
   if (resident[dev] == 0) {
     int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (smem > 48 * 1024)
+      e = cudaFuncSetAttribute(corr_window_backward_kernel<T, G, R, NL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, corr_window_backward_kernel<T, G, R, NL>, BWD_THREADS, 0);
+          &per_sm, corr_window_backward_kernel<T, G, R, NL>, BWD_THREADS, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     resident[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }
   const long long need = (q + BWD_WARPS - 1) / BWD_WARPS;
   const unsigned int blocks = static_cast<unsigned int>(need < resident[dev] ? need : resident[dev]);
-  corr_window_backward_kernel<T, G, R, NL><<<blocks, BWD_THREADS, 0, s>>>(
+  corr_window_backward_kernel<T, G, R, NL><<<blocks, BWD_THREADS, smem, s>>>(
       coords, static_cast<const G*>(grad_out), gv, q);
   return static_cast<int>(cudaGetLastError());
 }
@@ -298,7 +348,8 @@ int launch_backward(const float* coords, const void* grad_out, const Grads<NL>& 
 // hw[2l], hw[2l+1]) outputs of type `dtype` (the levels': 0 = float32, 1 =
 // bfloat16), grad_out a contiguous (q, NL*(2R+1)^2) window gradient of type
 // grad_dtype (0 = float32, 1 = bfloat16) whose address is a multiple of 4
-// values (16 bytes float32, 8 bfloat16), coords contiguous (q, 2) float32.
+// values (16 bytes float32, 8 bfloat16; the copies need the piece's
+// alignment, RowCopy::BYTES, at most that), coords contiguous (q, 2) float32.
 // Returns cudaGetLastError() (0 = success), or cudaErrorInvalidValue for
 // arguments the kernel does not take.
 template <int R, int NL>

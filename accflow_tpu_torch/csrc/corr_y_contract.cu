@@ -1,7 +1,7 @@
 // Per-query y tent contraction for Hopper (sm_90a):
 //   tmp[q, b, x] = sum_y wy[q, b, y] * corr[q, y, x]
-// for corr (Q, hl, wl) and wy (Q, 9, hl), both float32 or both bfloat16,
-// accumulated in float32; out (Q, 9, wl) float32, or bfloat16 rounded once
+// for corr (Q, hl, wl) and wy (Q, NUM, hl), both float32 or both bfloat16,
+// accumulated in float32; out (Q, NUM, wl) float32, or bfloat16 rounded once
 // from the float32 sums (round to nearest even): bit for bit the float32
 // output cast, so a caller that casts at once gets the cast for free.
 //
@@ -48,6 +48,13 @@
 // maps at level 0 (same card). The host picks the path from the dtype, the
 // width and the pointer (corr_y_contract_path).
 // Offsets are 64-bit (Q*hl*wl passes 2^31 at larger inputs).
+//
+// NUM, the window's taps per axis (2R+1), is compiled in: 9 (radius 4) by
+// default, any other with -DCORR_NUM=n (ops/corr_bd_cuda.py builds one
+// library per radius a config asks for; JAX's fused_bd takes any radius).
+// The MMA path pads the NUM taps to 16 rows (tap t in row t), so it takes
+// NUM <= 16; the narrow path takes any NUM, with its queries per block
+// capped so that their staged tent rows fit 48 KB of shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,7 +63,11 @@
 
 namespace {
 
-constexpr int NUM = 9;             // window taps per axis (radius 4)
+#ifndef CORR_NUM
+#define CORR_NUM 9
+#endif
+constexpr int NUM = CORR_NUM;      // window taps per axis (2 x radius + 1)
+static_assert(NUM >= 1, "at least one tap");
 constexpr int THREADS = 256;
 
 // MMA path.
@@ -104,12 +115,12 @@ __device__ __forceinline__ void put2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// One warp per query: out (9 taps padded to 16, wl) = wy (16, hl) x
+// One warp per query: out (NUM taps padded to 16, wl) = wy (16, hl) x
 // corr (hl, wl) on the tensor cores, NT tiles of 8 columns, 16 rows of the
 // map per step. Both operands pass through shared memory, copied by
 // cp.async 64 map rows at a time: a map row padded by 16 B (so the 4 rows a
 // B fragment reads fall in different banks), zeros past hl; the A rows of
-// taps 9-15 are zero registers.
+// taps NUM-15 are zero registers.
 template <typename O, int NT>
 __global__ void __launch_bounds__(MW * 32)
 y_contract_mma_kernel(const __nv_bfloat16* __restrict__ corr,
@@ -166,13 +177,14 @@ y_contract_mma_kernel(const __nv_bfloat16* __restrict__ corr,
     asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
     __syncwarp();
     for (int k0 = 0; k0 < nk; k0 += 16) {
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(ws + g * WYS + k0 + 2 * t);
-      a[2] = *reinterpret_cast<const uint32_t*>(ws + g * WYS + k0 + 2 * t + 8);
-      a[1] = a[3] = 0u;  // A rows g + 8: tap 8 for g = 0, zero padding (taps 9-15) else
-      if (g == 0) {
-        a[1] = *reinterpret_cast<const uint32_t*>(ws + 8 * WYS + k0 + 2 * t);
-        a[3] = *reinterpret_cast<const uint32_t*>(ws + 8 * WYS + k0 + 2 * t + 8);
+      uint32_t a[4] = {0u, 0u, 0u, 0u};  // A rows g and g + 8: taps g, g + 8, or padding
+      if (g < NUM) {
+        a[0] = *reinterpret_cast<const uint32_t*>(ws + g * WYS + k0 + 2 * t);
+        a[2] = *reinterpret_cast<const uint32_t*>(ws + g * WYS + k0 + 2 * t + 8);
+      }
+      if (g + 8 < NUM) {
+        a[1] = *reinterpret_cast<const uint32_t*>(ws + (g + 8) * WYS + k0 + 2 * t);
+        a[3] = *reinterpret_cast<const uint32_t*>(ws + (g + 8) * WYS + k0 + 2 * t + 8);
       }
       const unsigned short* c0 = cs + (k0 + 2 * t) * RS + g;
 #pragma unroll
@@ -185,13 +197,13 @@ y_contract_mma_kernel(const __nv_bfloat16* __restrict__ corr,
     }
   }
 
-  // D rows are taps: g holds (c0, c1), g + 8 (c2, c3), of which only tap 8
-  // exists; columns n*8 + 2t, +1.
+  // D rows are taps: g holds (c0, c1), g + 8 (c2, c3), each where the tap
+  // exists (NUM = 9: every g, and g + 8 for g = 0); columns n*8 + 2t, +1.
   O* dst = out + q * (NUM * WL) + 2 * t;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
-    put2(dst + g * WL + n * 8, acc[n][0], acc[n][1]);
-    if (g == 0) put2(dst + 8 * WL + n * 8, acc[n][2], acc[n][3]);
+    if (g < NUM) put2(dst + g * WL + n * 8, acc[n][0], acc[n][1]);
+    if (g + 8 < NUM) put2(dst + (g + 8) * WL + n * 8, acc[n][2], acc[n][3]);
   }
 }
 
@@ -245,9 +257,9 @@ y_contract_narrow_kernel(const T* __restrict__ corr, const T* __restrict__ wy,
 }
 
 // Column tiles of the MMA path for this shape (bfloat16 maps 8, 16, 32 or
-// 64 wide at a 16-byte aligned address), or 0.
+// 64 wide at a 16-byte aligned address, NUM <= 16), or 0.
 int mma_tiles(int dtype, const void* corr, int wl) {
-  if (dtype != 1 || (reinterpret_cast<uintptr_t>(corr) & 15) != 0) return 0;
+  if (NUM > 16 || dtype != 1 || (reinterpret_cast<uintptr_t>(corr) & 15) != 0) return 0;
   return wl == 8 || wl == 16 || wl == 32 || wl == 64 ? wl / 8 : 0;
 }
 
@@ -274,11 +286,14 @@ int launch_mma(int nt, const void* corr, const void* wy, long long q, int hl, vo
 template <typename T, typename O>
 int launch_narrow(const void* corr, const void* wy, long long q, int hl, int wl, void* out,
                   cudaStream_t s) {
+  constexpr int QB_FIT = 48 * 1024 / (WS * static_cast<int>(sizeof(float)));  // 42 at NUM = 9
+  constexpr int QB_CAP = QB_MAX < QB_FIT ? QB_MAX : QB_FIT;
+  static_assert(QB_CAP >= 1, "one query's tent rows outgrow 48 KB of shared memory");
   int qb = THREADS / wl;
-  qb = qb < 1 ? 1 : (qb > QB_MAX ? QB_MAX : qb);
+  qb = qb < 1 ? 1 : (qb > QB_CAP ? QB_CAP : qb);
   const long long blocks = (q + qb - 1) / qb;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(qb) * WS * sizeof(float);  // <= 37 KB
+  const size_t smem = static_cast<size_t>(qb) * WS * sizeof(float);  // <= 48 KB
   y_contract_narrow_kernel<T, O><<<dim3(static_cast<unsigned int>(blocks)), THREADS, smem, s>>>(
       static_cast<const T*>(corr), static_cast<const T*>(wy), static_cast<O*>(out), q, hl, wl,
       qb);
@@ -297,6 +312,9 @@ int launch(const void* corr, const void* wy, long long q, int hl, int wl, void* 
 
 }  // namespace
 
+// The taps per axis this library was built for.
+extern "C" int corr_y_contract_num() { return NUM; }
+
 // The path that takes maps of width wl (float32 when dtype is 0, bfloat16
 // when 1) at the address corr: 1 MMA, 0 narrow.
 extern "C" int corr_y_contract_path(int dtype, const void* corr, int wl) {
@@ -305,7 +323,7 @@ extern "C" int corr_y_contract_path(int dtype, const void* corr, int wl) {
 
 // C interface (loaded with ctypes). dtype: 0 = float32 operands, 1 =
 // bfloat16; out_dtype: 0 = float32 output, 1 = bfloat16. corr: contiguous
-// (q, hl, wl); wy: contiguous (q, 9, hl); out: contiguous (q, 9, wl).
+// (q, hl, wl); wy: contiguous (q, NUM, hl); out: contiguous (q, NUM, wl).
 // Launches on `stream`; returns cudaGetLastError() (0 = success), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int corr_y_contract(int dtype, int out_dtype, const void* corr, const void* wy,

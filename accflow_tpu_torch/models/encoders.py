@@ -5,7 +5,10 @@ BasicEncoder: 7x7/2 stem, three residual stages (64, 96, 128 channels,
 strides 1, 2, 2), 1x1 output conv; total stride 8. SmallEncoder (RAFT-small):
 the same layout with bottleneck blocks and stages 32, 64, 96. Norm modes:
 "instance" (RAFT fnets), "batch" (frozen, RAFT cnet), "none" (RAFT-small
-cnet, AccFlow context).
+cnet, AccFlow context), and "group", with JAX's group counts: 8 at the
+stems, planes // 8 in every norm of a residual or bottleneck block, the
+downsample's too (a bottleneck block's norm1 and norm2 have planes // 4
+channels and still planes // 8 groups; accflow_tpu/models/encoders.py).
 Submodule names follow the reference state_dict; the downsample norm is
 stored once, under `downsample.1`, as in the JAX tree (the reference also
 aliases it as `norm3`).
@@ -26,14 +29,15 @@ def _conv(cin, cout, k, stride=1):
 class ResidualBlock(nn.Module):
     def __init__(self, in_planes: int, planes: int, norm_fn: str, stride: int = 1):
         super().__init__()
+        groups = planes // 8
         self.conv1 = _conv(in_planes, planes, 3, stride)
         self.conv2 = _conv(planes, planes, 3)
-        self.norm1 = make_norm(norm_fn, planes)
-        self.norm2 = make_norm(norm_fn, planes)
+        self.norm1 = make_norm(norm_fn, planes, groups)
+        self.norm2 = make_norm(norm_fn, planes, groups)
         self.downsample = None
         if stride != 1 or in_planes != planes:
             self.downsample = nn.Sequential(
-                _conv(in_planes, planes, 1, stride), make_norm(norm_fn, planes)
+                _conv(in_planes, planes, 1, stride), make_norm(norm_fn, planes, groups)
             )
 
     def forward(self, x):
@@ -73,16 +77,17 @@ class BottleneckBlock(nn.Module):
 
     def __init__(self, in_planes: int, planes: int, norm_fn: str, stride: int = 1):
         super().__init__()
+        groups = planes // 8
         self.conv1 = _conv(in_planes, planes // 4, 1)
         self.conv2 = _conv(planes // 4, planes // 4, 3, stride)
         self.conv3 = _conv(planes // 4, planes, 1)
-        self.norm1 = make_norm(norm_fn, planes // 4)
-        self.norm2 = make_norm(norm_fn, planes // 4)
-        self.norm3 = make_norm(norm_fn, planes)
+        self.norm1 = make_norm(norm_fn, planes // 4, groups)
+        self.norm2 = make_norm(norm_fn, planes // 4, groups)
+        self.norm3 = make_norm(norm_fn, planes, groups)
         self.downsample = None
         if stride != 1:
             self.downsample = nn.Sequential(
-                _conv(in_planes, planes, 1, stride), make_norm(norm_fn, planes)
+                _conv(in_planes, planes, 1, stride), make_norm(norm_fn, planes, groups)
             )
 
     def forward(self, x):

@@ -14,9 +14,10 @@ GMA is full-width RAFT plus one attention over the context features:
 - GMAUpdateBlock: RAFT's update block whose GRU input is [inp, motion,
   aggregated motion] (128 * 3 channels).
 
-The GRU loop, the lookups (kernel #1 for "fused", "ondemand" and "auto",
-and every experimental spelling as raft.py's docstring lists them: kernel #2
-for experimental:pallas, kernel #3 for a "bd" level) and the upsampling are
+The GRU loop, the lookups (kernel #1 for "fused", "ondemand" and "auto" at
+corr_radius 4 over corr_levels 4, kernel #2 at any other pair, and every
+experimental spelling as raft.py's docstring lists them: kernel #2 for
+experimental:pallas, kernel #3 for a "bd" level) and the upsampling are
 raft.py's (raft_iterate),
 given the aggregation as its hook; the encodes are raft.py's as well, and
 so is the training forward's contract (gma_train_forward: raft.py's
@@ -67,6 +68,7 @@ from accflow_tpu_torch.models.raft import (
     RAFTConfig,
     _as_images,
     _encode_pairs,
+    check_corr_fields,
     check_trainable_lookup,
     gather_pairs,
     raft_encode_frame,
@@ -82,20 +84,20 @@ from accflow_tpu_torch.ops.corr import (
     resolve_auto_lookup,
     stored_volume_bytes,
 )
-from accflow_tpu_torch.ops.corr_cuda import LEVELS, RADIUS
 from accflow_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
 class GMAConfig:
-    """The JAX package's GMAConfig at full width (hidden and context 128,
-    radius 4, 4 levels). corr_lookup as RAFTConfig's; attn_chunk 0 stores
-    the dense attention, > 0 chunks it, -1 resolves per shape (module
-    docstring; the positional branches have no chunked form, so a positive
-    chunk raises there and auto stays dense). JAX's TPU-only knobs
-    (scan_unroll, scan_remat, stem_s2d) and its corr_volume_dtype are not
-    carried over, as in RAFTConfig: the stored levels take the compute
-    dtype."""
+    """The JAX package's GMAConfig at full width (hidden and context 128).
+    corr_lookup, corr_levels, corr_radius (GMA's window radius, `radius`)
+    and corr_volume_dtype as RAFTConfig's (None: the stored levels take the
+    compute dtype when inferring, float32 when training); attn_chunk 0
+    stores the dense attention, > 0 chunks it, -1 resolves per shape
+    (module docstring; the positional branches have no chunked form, so a
+    positive chunk raises there and auto stays dense). JAX's TPU-only knobs
+    (scan_unroll, scan_remat, stem_s2d) are not carried over, as in
+    RAFTConfig."""
 
     iters: int = 12
     compute_dtype: str = "bfloat16"
@@ -106,9 +108,10 @@ class GMAConfig:
     position_and_content: bool = False
     max_pos_size: int = 160
     attn_chunk: int = 0
+    corr_levels: int = 4
+    corr_radius: int = 4
+    corr_volume_dtype: Optional[str] = None
 
-    corr_levels = LEVELS  # class constants: the lookup kernels are built for 4
-    corr_radius = RADIUS  # levels at radius 4
     hidden_dim = 128
     context_dim = 128
     small = False  # raft_iterate's switch: GMA runs full RAFT's loop
@@ -116,10 +119,13 @@ class GMAConfig:
     lookup_impl = RAFTConfig.lookup_impl
     split_levels = RAFTConfig.split_levels
     dtype = RAFTConfig.dtype
+    radius = RAFTConfig.radius
+    level_dtype = RAFTConfig.level_dtype
     corr_planes = RAFTConfig.corr_planes
 
     def __post_init__(self):
         normalize_corr_lookup(self.corr_lookup)
+        check_corr_fields(self)
         if self.attn_chunk > 0 and self.positional:
             raise ValueError(
                 "attn_chunk > 0 (chunked attention) supports the content-only branch, "
@@ -222,10 +228,11 @@ def resolve_auto_attn_chunk(attn_chunk: int, batch: int, heads: int, h8: int, w8
 
 def _attn_chunk(cfg: GMAConfig, batch: int, h8: int, w8: int, levels) -> int:
     """cfg.attn_chunk for `batch` pairs at this shape, auto resolved beside
-    the stored pyramid, or beside nothing when `levels` are the volume-free
-    lookup's operands (accflow_tpu/models/gma.py:394-412)."""
+    the stored pyramid (sized in its levels' dtype), or beside nothing when
+    `levels` are the volume-free lookup's operands
+    (accflow_tpu/models/gma.py:394-412)."""
     reserved = 0 if isinstance(levels, OnDemandCorr) else stored_volume_bytes(
-        batch, h8, w8, cfg.corr_levels, cfg.dtype)
+        batch, h8, w8, cfg.corr_levels, levels[0].dtype)
     return resolve_auto_attn_chunk(
         cfg.attn_chunk, batch, cfg.num_heads, h8, w8, reserved_bytes=reserved,
         compute_dtype=cfg.dtype, positional=cfg.positional)
@@ -427,11 +434,11 @@ def gma_flow_pairs_from_features(model: GMA, src: dict, dst_fmaps,
     mesh.check_rows(8 * h8, spatial)
     h8_all = h8 if spatial is None else spatial.height(h8)
     lookup = resolve_auto_lookup(normalize_corr_lookup(cfg.corr_lookup), p * n, h8_all, w8,
-                                 cfg.corr_levels, cfg.dtype)
+                                 cfg.corr_levels, cfg.level_dtype())
     with tf32(False), spatial_sharding(model, spatial):
         levels = build_corr_operands(torch.cat([src["fmap"]] * p),
                                      mesh.gather_rows(torch.cat(list(dst_fmaps)), spatial, dim=2),
-                                     cfg.corr_levels, lookup, dtype=cfg.dtype)
+                                     cfg.corr_levels, lookup, dtype=cfg.level_dtype())
         chunk = _attn_chunk(cfg, p * n, h8_all, w8, levels)
         attn = _gather_attn(attention(model, src["inp"], chunk, spatial), [0] * p, n)
         net = torch.cat([src["net"]] * p)

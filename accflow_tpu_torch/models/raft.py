@@ -6,31 +6,38 @@ in its two configurations:
 - RAFT-small (RAFTConfig(small=True)): small encoders (fnet 128, instance
   norm; cnet 96 hidden + 64 context, no norm), radius 3, 4 levels, a 3x3
   ConvGRU, no mask head: flows are upsampled with upflow8.
+corr_levels and corr_radius set the pyramid's level count and the window's
+radius (RAFT-small keeps radius 3 whatever corr_radius says, as in JAX);
+convc1's input width follows (corr_planes). The lookup kernel follows the
+pair (ops/corr.py::lookup_corr_kernel): kernel #1 at radius 4 over 4
+levels, kernel #2 built for every other pair.
 
 One iteration: the correlation window lookup gives the motion encoder its
 input -> motion encoder -> GRU -> FlowHead. RAFTConfig.corr_lookup picks the
 lookup of full RAFT (ops/corr.py::normalize_corr_lookup):
 - "fused" (also spelled "mm" or "pallas_fused", one function in JAX): the
-  4-level radius-4 kernel (ops/corr_cuda.py), a (Q, 324) input to convc1;
+  4-level radius-4 kernel (ops/corr_cuda.py), a (Q, 324) input to convc1
+  (kernel #2, ops/corr_level_cuda.py, at any other radius or level count);
 - "ondemand[:chunk]": the volume-free lookup (ops/corr.py::
   lookup_corr_on_demand): features, not the volume, are stored, and every
-  iteration rebuilds each chunk's rows and reads them with kernel #1 (#2 for
-  RAFT-small), so high resolutions fit the card;
+  iteration rebuilds each chunk's rows and reads them with the same kernel
+  as "fused" (#2 for RAFT-small), so high resolutions fit the card;
 - "auto": "fused" while the stored pyramid fits ops/corr.py's budget,
   "ondemand" beyond it (resolve_auto_lookup, per shape in each entry point);
 - the experimental spellings, behind "experimental:", dispatched as JAX's
   step dispatches them (accflow_tpu/models/raft.py:575-657; ops/corr.py
   names their functions):
   - flat lookups into convc1, like "fused": "pallas" (kernel #2,
-    ops/corr_level_cuda.py, at radius 4; bfloat16 levels unless the
-    compute dtype is float32), "rows", "patch", "gather" (PyTorch ops);
-  - split lookups, per-level (N, H, W, 9, 9) windows into
+    ops/corr_level_cuda.py, at the config's radius; bfloat16 levels unless
+    the compute dtype is float32), "rows", "patch", "gather" (PyTorch ops);
+  - split lookups, per-level (N, H, W, 2r+1, 2r+1) windows into
     BasicMotionEncoder.forward_split: "fused_bd" / "fused_bd2" (level 0,
-    or 0 and 1, through the y_contract kernel #3, ops/corr_bd_cuda.py; the
-    rest torch.bmm), "fused_vy" (the y contraction summed in float32),
-    "fusedv" (the x contraction as 9 multiply-and-sum passes), "packed" /
-    "packed2" (levels 1.. or 2.. packed into one map, whose windows come as
-    one (N, H, W, L', 9, 9) entry), "fused_mix:<l0,l1,l2,l3>" (a level impl
+    or 0 and 1, through the y_contract kernel #3, ops/corr_bd_cuda.py,
+    built for 2r+1 taps; the rest torch.bmm), "fused_vy" (the y
+    contraction summed in float32), "fusedv" (the x contraction as 2r+1
+    multiply-and-sum passes), "packed" / "packed2" (levels 1.. or 2..
+    packed into one map, whose windows come as one (N, H, W, L', 2r+1,
+    2r+1) entry), "fused_mix:<l0,l1,l2,l3>" (a level impl
     each from mm, bd, rows, rows_gx, vpu_y; kernel #3 for bd);
   - split lookups into BasicMotionEncoder.forward_stacked (convc1 as one
     product over the stacked windows): "fused_cat", "fused_vy_cat".
@@ -40,8 +47,9 @@ stored pyramid or under ondemand, and for "experimental:pallas"; "rows",
 spelling maps to its default lookup, as JAX maps them to its flat one. On
 the CPU each kernel is replaced by its plain version. Encoders and the
 update block run in the compute dtype; the pyramid products, coordinates
-and upsampling in float32, and the stored pyramid levels in the compute
-dtype.
+and upsampling in float32, and the stored pyramid levels in
+corr_volume_dtype (RAFTConfig.level_dtype: by default the compute dtype
+when inferring, float32 when training).
 
 Images are (N, H, W, 3) in [-1, 1]; flows (N, H, W, 2) in (x, y) order.
 Feature maps inside are NCHW, kept channels_last in memory.
@@ -59,9 +67,10 @@ raft_train_forward is fine-tuning's forward (JAX's forward with
 train=True): autograd records it, the cnet's BatchNorm normalises with the
 batch's statistics and keeps its running-statistics updates
 (nn.layers.collect_bn_updates), the pyramid is stored (or, under
-ondemand, rebuilt) in float32 (JAX's default corr_volume_dtype), so that
-the levels' gradient sums its iterations in float32, and the lookups'
-backward is the backward kernel (ops/corr_backward_cuda.py). The coordinates are detached at the top of
+ondemand, rebuilt) in float32 unless corr_volume_dtype says otherwise
+(JAX's default corr_volume_dtype), so that the levels' gradient sums its
+iterations in float32, and the lookups' backward is the backward kernel
+(ops/corr_backward_cuda.py, built for the config's radius and levels). The coordinates are detached at the top of
 every iteration, as JAX's stop_gradient; `remat` checkpoints each
 iteration (JAX's scan_remat).
 """
@@ -91,6 +100,7 @@ from accflow_tpu_torch.ops.corr import (
     STACKED_LOOKUPS,
     OnDemandCorr,
     build_corr_operands,
+    lookup_corr_kernel,
     lookup_corr_on_demand,
     lookup_flat,
     normalize_corr_lookup,
@@ -98,42 +108,68 @@ from accflow_tpu_torch.ops.corr import (
     split_level_impls,
     split_windows,
 )
-from accflow_tpu_torch.ops.corr_cuda import LEVELS, RADIUS, lookup_corr_fused
-from accflow_tpu_torch.ops.corr_level_cuda import lookup_corr_level
 from accflow_tpu_torch.ops.grids import coords_grid, upflow8
 from accflow_tpu_torch.ops.upsample import convex_upsample
 from accflow_tpu_torch.parallel import mesh
 
 
+VOLUME_DTYPES = (None, "float32", "bfloat16")  # corr_volume_dtype's values
+
+
+def check_corr_fields(cfg) -> None:
+    """ValueError for a corr_levels, corr_radius or corr_volume_dtype that no
+    kernel takes, and for experimental:packed[2] with no level to pack
+    (levels 1.. or 2..), where JAX's lookup_corr_split_packed fails with an
+    IndexError (RAFTConfig's and GMAConfig's __post_init__)."""
+    if cfg.corr_levels < 1 or cfg.corr_radius < 0:
+        raise ValueError(f"corr_levels must be >= 1 and corr_radius >= 0, got "
+                         f"{cfg.corr_levels} and {cfg.corr_radius}")
+    if cfg.corr_volume_dtype not in VOLUME_DTYPES:
+        raise ValueError(f"corr_volume_dtype must be one of {VOLUME_DTYPES}, got "
+                         f"{cfg.corr_volume_dtype!r}")
+    start = {"packed": 1, "packed2": 2}.get(cfg.lookup_impl)
+    if start is not None and not cfg.small and cfg.corr_levels <= start:
+        raise ValueError(f"corr_lookup={cfg.corr_lookup!r} packs levels {start}.., and "
+                         f"corr_levels={cfg.corr_levels} leaves none to pack")
+
+
 @dataclasses.dataclass(frozen=True)
 class RAFTConfig:
     """The JAX package's RAFTConfig: full width, or RAFT-small with
-    small=True, from which the widths and the radius follow. corr_lookup
-    selects full RAFT's lookup (module docstring; an unported spelling
-    raises here). Its TPU-only knobs (scan_unroll, stem_s2d) are not
-    carried over; scan_remat is raft_train_forward's `remat` argument.
+    small=True, from which the widths follow. corr_lookup selects full
+    RAFT's lookup (module docstring; an unported spelling raises here).
+    corr_levels and corr_radius are JAX's fields, at JAX's defaults (4, 4);
+    the window's radius is `radius`, 3 for RAFT-small whatever corr_radius
+    says (accflow_tpu/models/raft.py:110-112). Its TPU-only knobs
+    (scan_unroll, stem_s2d) are not carried over; scan_remat is
+    raft_train_forward's `remat` argument.
 
-    JAX's corr_volume_dtype is a numerics choice, and the port makes it
-    differently: JAX stores the pyramid levels in float32 by default
-    (accflow_tpu/models/raft.py:64-67), the port in the compute dtype
-    (build_corr_pyramid's dtype in _pairs and
-    raft_flow_pairs_from_features). Under bfloat16 compute this barely
-    moves the flow: on the CPU, full RAFT at batch 2, 12 iterations, the
-    port's max |bf16 - JAX float32| went from 3.61e-2 (bfloat16 levels) to
-    3.80e-2 (float32 levels) at 64^2, and from 3.26e-2 to 3.16e-2 at 96^2,
-    against JAX's own bfloat16 error of 5.66e-2 and 6.61e-2 (ROADMAP.md,
-    queue 3). tests/test_torch_bf16.py holds the port's bfloat16 flow to
-    JAX's own bfloat16 error."""
+    corr_volume_dtype is the dtype of the stored pyramid levels (and of the
+    ondemand lookup's rebuilt rows), when inferring and when training:
+    "float32" and "bfloat16" mean what they mean in JAX
+    (accflow_tpu/models/raft.py:64-67), and "auto" sizes the volume by it.
+    JAX's default is "float32". The port's default, None, keeps the
+    levels in the compute dtype when inferring and in float32 when
+    training (level_dtype): at float32 compute that is JAX's "float32",
+    and at bfloat16 compute it is JAX's "bfloat16" for the lookups'
+    forward, which barely moves the flow: on the CPU, full RAFT at batch
+    2, 12 iterations, the port's max |bf16 - JAX float32| went from
+    3.61e-2 (bfloat16 levels) to 3.80e-2 (float32 levels) at 64^2, and
+    from 3.26e-2 to 3.16e-2 at 96^2, against JAX's own bfloat16 error of
+    5.66e-2 and 6.61e-2. tests/test_torch_bf16.py holds the port's
+    bfloat16 flow to JAX's own bfloat16 error."""
 
     iters: int = 12
     compute_dtype: str = "bfloat16"
     small: bool = False
     corr_lookup: str = "fused"
-
-    corr_levels = LEVELS  # a class constant: the lookup kernels are built for 4
+    corr_levels: int = 4
+    corr_radius: int = 4
+    corr_volume_dtype: Optional[str] = None
 
     def __post_init__(self):
         normalize_corr_lookup(self.corr_lookup)
+        check_corr_fields(self)
 
     @property
     def lookup_impl(self) -> str:
@@ -158,16 +194,24 @@ class RAFTConfig:
         return 64 if self.small else 128
 
     @property
-    def corr_radius(self) -> int:
-        return 3 if self.small else RADIUS
+    def radius(self) -> int:
+        """The window's radius: 3 for RAFT-small, corr_radius otherwise."""
+        return 3 if self.small else self.corr_radius
 
     @property
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
 
+    def level_dtype(self, train: bool = False) -> torch.dtype:
+        """The stored levels' dtype: corr_volume_dtype where it is set, else
+        float32 when training and the compute dtype when inferring."""
+        if self.corr_volume_dtype is not None:
+            return getattr(torch, self.corr_volume_dtype)
+        return torch.float32 if train else self.dtype
+
     @property
     def corr_planes(self) -> int:
-        return self.corr_levels * (2 * self.corr_radius + 1) ** 2
+        return self.corr_levels * (2 * self.radius + 1) ** 2
 
 
 def to_nchw(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -190,11 +234,12 @@ class BasicMotionEncoder(nn.Module):
 
     def forward_split(self, flow, corr_levels):
         """forward on the split lookup's per-level windows: corr_levels is a
-        list of (N, H, W, 9, 9) windows [a, b] of one level each, or (N, H,
-        W, L', 9, 9) of L' packed levels (lookup_corr_split_packed), in the
-        compute dtype. convc1 is 1x1, so convc1(cat(levels)) = bias + sum_l
-        window_l . W_l, W_l being convc1's input channels l*81 .. l*81+80
-        (a*9 + b order): the same weight, split by level. The bias comes
+        list of (N, H, W, 2r+1, 2r+1) windows [a, b] of one level each, or
+        (N, H, W, L', 2r+1, 2r+1) of L' packed levels
+        (lookup_corr_split_packed), in the compute dtype. convc1 is 1x1, so
+        convc1(cat(levels)) = bias + sum_l window_l . W_l, W_l being convc1's
+        (2r+1)^2 input channels from l*(2r+1)^2 on (a*(2r+1) + b order),
+        sliced by each entry's width: the same weight, split by level. The bias comes
         first, then each entry's product (a packed entry's over its levels'
         channels at once), each rounded to the compute dtype
         (accflow_tpu/models/raft.py::basic_motion_encoder_split)."""
@@ -210,8 +255,8 @@ class BasicMotionEncoder(nn.Module):
         return self._tail(flow, cor)
 
     def forward_stacked(self, flow, corr_levels):
-        """forward on the L per-level (N, H, W, 9, 9) windows stacked into
-        (N, H, W, L*81) (level, a, b: convc1's channel order): convc1 as one
+        """forward on the L per-level (N, H, W, 2r+1, 2r+1) windows stacked
+        into (N, H, W, L*(2r+1)^2) (level, a, b: convc1's channel order): convc1 as one
         product over them, rounded to the compute dtype, and the bias added
         after it (accflow_tpu/models/raft.py::basic_motion_encoder_stacked),
         where forward_split adds the bias first."""
@@ -460,28 +505,28 @@ def _motion_fn(cfg, encoder, levels, n: int, h8: int, w8: int):
     (n, h8, w8, 2) float32. Flat lookups give convc1 one (n, L*(2r+1)^2,
     h8, w8) input in the compute dtype; split lookups give forward_split or
     forward_stacked their windows."""
-    cd, r = cfg.dtype, cfg.corr_radius
+    cd, r = cfg.dtype, cfg.radius
     impl = cfg.lookup_impl
     if isinstance(levels, OnDemandCorr):
-        def flat(c):  # kernel #1 (#2 for RAFT-small) on each chunk's rows
+        def flat(c):  # lookup_corr_kernel on each chunk's rows
             # reshape: at batch > 1 with chunks of one row the windows are a
             # batch-strided view, which no view can flatten.
             return lookup_corr_on_demand(levels, c, r, out_dtype=cd).reshape(n * h8 * w8, -1)
     elif impl in FLAT_LOOKUPS and not (cfg.small and impl == "pallas"):
         def flat(c):
             return lookup_flat(impl, levels, c, r, cd).view(n * h8 * w8, -1)
-    elif cfg.small:
-        def flat(c):  # the kernel writes the compute dtype itself
-            return lookup_corr_level(levels, c.view(-1, 2), r, out_dtype=cd)
-    elif impl in SPLIT_LOOKUPS or cfg.split_levels is not None:
+    elif not cfg.small and (impl in SPLIT_LOOKUPS or cfg.split_levels is not None):
         consume = encoder.forward_stacked if impl in STACKED_LOOKUPS else encoder.forward_split
 
         def motion(flow_cd, c):
             return consume(flow_cd, split_windows(impl, levels, c, r, cd))
         return motion
     else:
-        def flat(c):  # the kernel writes the compute dtype itself
-            return lookup_corr_fused(levels, c.view(-1, 2), r, out_dtype=cd)
+        # Kernel #1 at radius 4 over 4 levels, #2 at every other pair (always
+        # for RAFT-small, which maps split spellings here); the kernel writes
+        # the compute dtype itself.
+        def flat(c):
+            return lookup_corr_kernel(levels, c.view(-1, 2), r, out_dtype=cd)
 
     def motion(flow_cd, c):
         return encoder(flow_cd, flat(c).view(n, h8, w8, -1).permute(0, 3, 1, 2))
@@ -590,15 +635,16 @@ def _encode_pairs(model, frames, src_idx, dst_idx, train: bool = False, spatial=
     them (gather_pairs picks the pairs' rows). corr_lookup "auto" is
     resolved at this shape (resolve_auto_lookup): the levels are the stored
     pyramid or the volume-free lookup's operands (build_corr_operands).
-    train: the cnet's BatchNorm in batch-statistics mode and the levels in
-    float32 (raft_train_forward); else the levels take the compute dtype.
+    train: the cnet's BatchNorm in batch-statistics mode (raft_train_forward).
+    The levels take cfg.level_dtype(train): corr_volume_dtype, or by
+    default float32 when training and the compute dtype when inferring.
     spatial: frames are this rank's rows; "auto" is resolved at the global
     shape (every rank takes the same path), the queries are this rank's
     and each target frame's fnet map is gathered once (the whole height:
     the keys)."""
     cfg = model.cfg
     cd = cfg.dtype
-    level_dtype = torch.float32 if train else cd
+    level_dtype = cfg.level_dtype(train)
     src_idx = tuple(int(i) for i in src_idx)
     dst_idx = tuple(int(i) for i in dst_idx)
     k, n, h, w, _ = frames.shape
@@ -673,11 +719,11 @@ def raft_flow_pairs_from_features(model: RAFT, src: dict, dst_fmaps,
     mesh.check_rows(8 * h8, spatial)
     h8_all = h8 if spatial is None else spatial.height(h8)
     lookup = resolve_auto_lookup(normalize_corr_lookup(cfg.corr_lookup), p * n, h8_all, w8,
-                                 cfg.corr_levels, cfg.dtype)
+                                 cfg.corr_levels, cfg.level_dtype())
     with tf32(False), spatial_sharding(model, spatial):
         levels = build_corr_operands(torch.cat([src["fmap"]] * p),
                                      mesh.gather_rows(torch.cat(list(dst_fmaps)), spatial, dim=2),
-                                     cfg.corr_levels, lookup, dtype=cfg.dtype)
+                                     cfg.corr_levels, lookup, dtype=cfg.level_dtype())
         net = torch.cat([src["net"]] * p)
         inp = torch.cat([src["inp"]] * p)
         return raft_iterate(model, levels, net, inp, iters, final_only,

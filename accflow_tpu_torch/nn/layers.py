@@ -80,20 +80,46 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5, spatial=None) -> torch.Ten
     the normalisation run in float32; the result takes x's dtype.
 
     spatial: x is this rank's rows, and the statistics are those of the
-    whole image: each rank's, gathered and combined by the parallel
-    variance formula, mean = sum_r w_r mean_r and var = sum_r w_r (var_r +
-    (mean_r - mean)^2), w_r the rank's share of the rows (as
-    batch_norm_train's spatial path)."""
+    whole image (whole_image_stats)."""
     xf = x.float()
     var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, unbiased=False)
     if spatial is not None:
-        means, variances = mesh.stack_ranks(torch.stack([mean, var]), spatial).unbind(1)
-        blocks = spatial.blocks(x.shape[2])
-        share = [b / sum(blocks) for b in blocks]
-        mean = sum(w * m for w, m in zip(share, means.unbind(0)))
-        var = sum(w * (v + (m - mean) ** 2)
-                  for w, m, v in zip(share, means.unbind(0), variances.unbind(0)))
+        mean, var = whole_image_stats(mean, var, x.shape[2], spatial)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def whole_image_stats(mean, var, rows: int, spatial):
+    """The whole image's mean and biased variance from this rank's, over
+    `rows` rows of the image: each rank's gathered and combined by the
+    parallel variance formula, mean = sum_r w_r mean_r and var = sum_r w_r
+    (var_r + (mean_r - mean)^2), w_r the rank's share of the rows (as
+    batch_norm_train's spatial path)."""
+    means, variances = mesh.stack_ranks(torch.stack([mean, var]), spatial).unbind(1)
+    blocks = spatial.blocks(rows)
+    share = [b / sum(blocks) for b in blocks]
+    mean = sum(w * m for w, m in zip(share, means.unbind(0)))
+    var = sum(w * (v + (m - mean) ** 2)
+              for w, m, v in zip(share, means.unbind(0), variances.unbind(0)))
+    return mean, var
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int,
+               eps: float = 1e-5, spatial=None) -> torch.Tensor:
+    """Per-(sample, group) normalisation over the group's channels and H, W,
+    then the per-channel affine map (accflow_tpu/nn/layers.py::group_norm,
+    nn.GroupNorm): biased variance, eps 1e-5. Statistics, normalisation and
+    affine map run in float32; the result takes x's dtype. JAX computes it
+    outside any kernel, and so does this (plain tensor ops).
+
+    spatial: x is this rank's rows, and the statistics are those of the
+    whole image (whole_image_stats)."""
+    n, c, h, w = x.shape
+    xf = x.float().reshape(n, num_groups, c // num_groups, h, w)
+    var, mean = torch.var_mean(xf, dim=(2, 3, 4), keepdim=True, unbiased=False)
+    if spatial is not None:
+        mean, var = whole_image_stats(mean, var, h, spatial)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(n, c, h, w)
+    return (y * weight.float().view(1, -1, 1, 1) + bias.float().view(1, -1, 1, 1)).to(x.dtype)
 
 
 def batch_norm(x, weight, bias, running_mean, running_var, eps: float = 1e-5):
@@ -341,6 +367,31 @@ class InstanceNorm2d(nn.Module):
         return instance_norm(x, spatial=self.spatial)
 
 
+class GroupNorm2d(nn.Module):
+    """nn.GroupNorm's parameters `weight` and `bias` (JAX's `scale` and
+    `bias`; ones and zeros at init), `num_groups` groups; `spatial` as
+    Conv2d's. It keeps no running state, so train and eval mode are one
+    (accflow_tpu/nn/layers.py::apply_norm)."""
+
+    def __init__(self, num_groups: int, num_features: int):
+        super().__init__()
+        if num_groups < 1 or num_features % num_groups:
+            raise ValueError(f"{num_features} channels do not split into {num_groups} groups")
+        self.num_groups = num_groups
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.spatial = None
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        del generator  # deterministic, as init_group_norm
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x):
+        return group_norm(x, self.weight, self.bias, self.num_groups, spatial=self.spatial)
+
+
 class ZeroConv2d(nn.Module):
     """3x3 conv scaled by exp(3 * scale), zero at init (AccPlus offsets)."""
 
@@ -372,11 +423,14 @@ class Embedding(nn.Module):
         self.weight.normal_(0.0, 1.0, generator=generator)
 
 
-def make_norm(norm_fn: str, num_features: int) -> nn.Module:
+def make_norm(norm_fn: str, num_features: int, num_groups: int = 8) -> nn.Module:
     """The encoders' norm modes: "instance" and "none" carry no parameters
-    (and so no state_dict keys), "batch" is BatchNorm2d."""
+    (and so no state_dict keys), "batch" is BatchNorm2d, "group" GroupNorm2d
+    with `num_groups` groups (accflow_tpu/nn/layers.py::init_norm)."""
     if norm_fn == "batch":
         return BatchNorm2d(num_features)
+    if norm_fn == "group":
+        return GroupNorm2d(num_groups, num_features)
     if norm_fn == "instance":
         return InstanceNorm2d()
     if norm_fn == "none":

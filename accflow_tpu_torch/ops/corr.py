@@ -10,11 +10,16 @@ the product is linear in f2. Each level is stored flat over queries as
 Lookup: for every query and level, the (2r+1)^2 bilinear window of the
 query's own map around coords/2^l (align_corners, zeros outside), levels
 concatenated level-major. Window-offset quirk kept for checkpoint parity:
-channel l*81 + a*9 + b samples (x/2^l + a - r, y/2^l + b - r), so the outer
-index a carries the x offset (networks/raft/corr.py:32-38).
+channel l*(2r+1)^2 + a*(2r+1) + b samples (x/2^l + a - r, y/2^l + b - r),
+so the outer index a carries the x offset (networks/raft/corr.py:32-38).
+Any radius and level count (the estimators' corr_radius and corr_levels);
+a level pooled to nothing (a 1-pixel map pools to 0 x 0) reads nothing and
+gives zeros.
 
 `lookup_corr_plain` is the explicit 4-corner gather: the CPU path and the
-oracle of the CUDA kernel (ops/corr_cuda.py), which the GPU path runs.
+oracle of the CUDA kernels, which the GPU path runs (`lookup_corr_kernel`:
+kernel #1, ops/corr_cuda.py, at radius 4 over 4 levels; kernel #2,
+ops/corr_level_cuda.py, at every other radius and level count).
 `lookup_corr_plain_backward` is its gradient with respect to the levels:
 the CPU path of the lookup ops' backward and the oracle of the backward
 kernel (ops/corr_backward_cuda.py), held against torch.autograd.grad of
@@ -26,23 +31,24 @@ dispatches them) compute the same windows laid out for the TPU's units,
 each in JAX's order of casts: bfloat16 levels give bfloat16 tent weights
 and float32 sums, float32 levels (JAX's precision "highest") float32
 throughout, TF32 off. None needs a host synchronisation.
-- Flat, (B, H, W, L*81) into convc1 (`lookup_flat`): `lookup_corr_pallas`
+- Flat, (B, H, W, L*(2r+1)^2) into convc1 (`lookup_flat`): `lookup_corr_pallas`
   (accflow_tpu/ops/corr_pallas.py:466; kernel #2, ops/corr_level_cuda.py),
   `lookup_corr_rows` (accflow_tpu/ops/corr.py:953: a 2r+2-row gather, a
   float32 lerp, the x tent product), `lookup_corr_patch` (:707: one
   (2r+2)^2 patch blended from its four corners), `lookup_corr_gather`
   (:464: lookup_corr_plain itself).
-- Split, per-level (B, H, W, 9, 9) windows [a (x), b (y)] into the motion
-  encoder unflattened (`split_windows`): `lookup_corr_split_v2` (:916-950)
+- Split, per-level (B, H, W, 2r+1, 2r+1) windows [a (x), b (y)] into the
+  motion encoder unflattened (`split_windows`): `lookup_corr_split_v2` (:916-950)
   with a level impl each: "mm" two tent products (`_level_window_mm`,
   :832), "bd" the y product through the y_contract kernel #3
-  (`_level_window_bd`, :886; ops/corr_bd_cuda.py), "vpu_y" the y product
+  (`_level_window_bd`, :886; ops/corr_bd_cuda.py, built for 2r+1 taps),
+  "vpu_y" the y product
   summed in float32 (`_level_window_vpu_y`, :854), "rows" / "rows_gx" a row
   gather finished by the x product or a column gather
   (`_level_window_rows`, :772); `lookup_corr_split` (:575-622) with the x
-  contraction as a product ("mxu") or 9 multiply-and-sum passes ("vpu",
+  contraction as a product ("mxu") or 2r+1 multiply-and-sum passes ("vpu",
   `_level_window_vpu_x`); `lookup_corr_split_packed` (:495-574), levels
-  start.. packed into one map, their windows one (B, H, W, L', 9, 9) entry.
+  start.. packed into one map, their windows one (B, H, W, L', 2r+1, 2r+1) entry.
   `window_weights` is JAX's `_window_weights` (:695).
 
 Volume-free lookup (`corr_lookup="ondemand[:chunk]"`, the hi-res mode,
@@ -50,8 +56,10 @@ accflow_tpu/ops/corr.py:107-461): the operands store features, not the
 volume (`OnDemandCorr`: f1 (B, H*W, C) float32 and f2 pooled per level), and
 every lookup rebuilds each query chunk's rows (B*chunk, hl, wl) per level
 with `_corr_rows`, the code build_corr_pyramid runs, then reads the windows
-through the lookup kernels: #1 at radius 4 (full RAFT, GMA), #2 at radius 3
-(RAFT-small). Peak memory is one chunk's rows. JAX's choice between a
+through the lookup kernels (`lookup_corr_kernel`): #1 at radius 4 over 4
+levels (full RAFT and GMA at their defaults), #2 at every other radius and
+level count (RAFT-small's radius 3 among them). Peak memory is one chunk's
+rows. JAX's choice between a
 "bqyx" and a "bqk" einsum for the rows (and the environment variables that
 set it and OD_AUTO_BYTES) is a TPU layout choice: here the rows are
 row-major (Q, hl, wl) either way, and nothing is read from the environment.
@@ -74,8 +82,8 @@ from accflow_tpu_torch.ops.sampling import bilinear_sample, bilinear_sample_back
 # all-levels lookup serves; the experimental ones behind the "experimental:"
 # prefix, dispatched as JAX's RAFT step dispatches them
 # (accflow_tpu/models/raft.py:575-657): the flat lookups, whose
-# (B, H, W, L*81) windows feed convc1 as one input, and the split lookups,
-# whose per-level (B, H, W, 9, 9) windows the motion encoder contracts
+# (B, H, W, L*(2r+1)^2) windows feed convc1 as one input, and the split
+# lookups, whose per-level (B, H, W, 2r+1, 2r+1) windows the motion encoder contracts
 # level by level (forward_split) or stacked (forward_stacked, the "_cat"
 # spellings). A split spelling built on lookup_corr_split_v2 names its level
 # impls (SPLIT_V2_LEVELS; "fused_mix:<l0,l1,l2,l3>" spells them out).
@@ -355,6 +363,25 @@ def build_corr_operands(fmap1, fmap2, num_levels: int, spelling: str, dtype=torc
     return build_corr_pyramid(fmap1, fmap2, num_levels, dtype)
 
 
+def lookup_corr_kernel(levels, coords: torch.Tensor, radius: int,
+                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The window lookup on a stored pyramid through the hand kernels, keyed
+    on (radius, levels): kernel #1 (ops/corr_cuda.py::lookup_corr_fused) at
+    radius 4 over 4 levels, full RAFT's and GMA's default; kernel #2
+    (ops/corr_level_cuda.py::lookup_corr_level) at every other radius and
+    level count, each pair in a build of its own. levels: L (Q, hl, wl);
+    coords (Q, 2) float32 -> (Q, L*(2r+1)^2) in `out_dtype`. On CPU tensors
+    the kernels' plain versions; with a card, always a kernel (a build or
+    launch failure raises)."""
+    # The kernels' wrappers import this module (their plain versions).
+    from accflow_tpu_torch.ops.corr_cuda import LEVELS, RADIUS, lookup_corr_fused
+    from accflow_tpu_torch.ops.corr_level_cuda import lookup_corr_level
+
+    if radius == RADIUS and len(levels) == LEVELS:
+        return lookup_corr_fused(levels, coords, radius, out_dtype=out_dtype)
+    return lookup_corr_level(levels, coords, radius, out_dtype=out_dtype)
+
+
 def lookup_corr_on_demand(od, coords: torch.Tensor, radius: int = 4, chunk: int = 0,
                           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The windows of lookup_corr_plain without a stored volume: coords
@@ -362,8 +389,9 @@ def lookup_corr_on_demand(od, coords: torch.Tensor, radius: int = 4, chunk: int 
     `out_dtype`. For each chunk of queries (the same chunk of every image)
     the rows (B*chunk, hl, wl) per level are rebuilt (_corr_rows, what
     build_corr_pyramid stores, cast to od.dtype) and read by the lookup
-    kernel: #1 (ops/corr_cuda.py) at radius 4, #2 (ops/corr_level_cuda.py)
-    otherwise; on CPU tensors their plain versions. Under autograd the
+    kernel (lookup_corr_kernel): #1 (ops/corr_cuda.py) at radius 4 over 4
+    levels, #2 (ops/corr_level_cuda.py) at every other radius and level
+    count; on CPU tensors their plain versions. Under autograd the
     gradient flows through the kernels' backward into the rows and through
     the products into f1 and the pooled keys; with more than one chunk
     each chunk's body is recomputed in the backward pass (nn.remat, as JAX
@@ -374,22 +402,17 @@ def lookup_corr_on_demand(od, coords: torch.Tensor, radius: int = 4, chunk: int 
     od: OnDemandCorr; its own chunk holds once set (prepare_ondemand_chunks),
     else `chunk` queries per chunk (0: AUTO, one chunk while the float32
     rows fit OD_AUTO_BYTES; rounded down to a divisor of H1*W1)."""
-    # The kernels' wrappers import this module (their plain versions).
-    from accflow_tpu_torch.ops.corr_cuda import RADIUS, lookup_corr_fused
-    from accflow_tpu_torch.ops.corr_level_cuda import lookup_corr_level
-
     if not od.chunk:
         od = prepare_ondemand_chunks(od, chunk)
     b, h, w, _ = coords.shape
     chunk, c = od.chunk, od.f1.shape[-1]
     nch = h * w // chunk
     inv_sqrt_c = 1.0 / math.sqrt(c)
-    lookup = lookup_corr_fused if radius == RADIUS else lookup_corr_level
 
     def one_chunk(f1c, cc):
         with tf32(od.tf32):
             rows = [_corr_rows(f1c, f2, inv_sqrt_c, od.dtype) for f2 in od.f2_levels]
-        return lookup(rows, cc, radius, out_dtype=out_dtype)
+        return lookup_corr_kernel(rows, cc, radius, out_dtype=out_dtype)
 
     cf = coords.reshape(b, h * w, 2).float()
     if nch == 1:
@@ -736,7 +759,7 @@ def lookup_corr_patch(levels, coords: torch.Tensor, radius: int = 4) -> torch.Te
 
 
 def lookup_corr_gather(levels, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
-    """The 81-tap bilinear gather (accflow_tpu/ops/corr.py:464-492) is
+    """The (2r+1)^2-tap bilinear gather (accflow_tpu/ops/corr.py:464-492) is
     lookup_corr_plain, the plain version of kernels #1 and #2: here on
     (B, H, W, 2) coords -> (B, H, W, L*(2r+1)^2) float32."""
     b, h, w, _ = coords.shape
@@ -748,8 +771,8 @@ def lookup_corr_pallas(levels, coords: torch.Tensor, radius: int = 4, stream_dty
     """experimental:pallas (accflow_tpu/ops/corr_pallas.py:466): the levels
     cast to `stream_dtype` (None: as they are; JAX streams bfloat16 under
     precision "default" and the storage dtype under "highest") and read by
-    kernel #2 (ops/corr_level_cuda.py, radius 3 or 4; its plain version on
-    CPU tensors) -> (B, H, W, L*(2r+1)^2) in `out_dtype`."""
+    kernel #2 (ops/corr_level_cuda.py, any radius and level count; its plain
+    version on CPU tensors) -> (B, H, W, L*(2r+1)^2) in `out_dtype`."""
     from accflow_tpu_torch.ops.corr_level_cuda import lookup_corr_level
 
     if stream_dtype is not None:

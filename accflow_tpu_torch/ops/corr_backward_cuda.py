@@ -7,9 +7,13 @@ backward (accflow_tpu/ops/corr_pallas.py:71-73). The port's lookups are
 kernels #1 and #2 (ops/corr_cuda.py, ops/corr_level_cuda.py), so their
 gradient is a kernel too: csrc/corr_lookup_backward.cu, the template of
 csrc/corr_window_backward.cuh (whose header says how it works and what
-bounds it) for kernel #1 (radius 4) and kernel #2 (radius 3 or 4), one
-library with two C entries, built by nvcc at first use (ops/cuda_lib.py),
-never on import.
+bounds it) for kernel #1 (radius 4, 4 levels) and kernel #2 (any radius
+and level count), built by nvcc at first use (ops/cuda_lib.py), never on
+import. As kernel #2's, the libraries go by (radius, levels) (`library`):
+the default build has kernel #1's entry and kernel #2's at radius 3 or 4
+over 4 levels; every other pair has a build of its own with -DCORR_RADIUS
+and -DCORR_LEVELS and kernel #2's entry alone, so fine_tune trains at any
+corr_radius and corr_levels, as JAX's autodiff does.
 
 Two torch ops carry it, `accflow::corr_lookup_backward` and
 `accflow::corr_level_lookup_backward`: the plain backward on the CPU
@@ -20,7 +24,8 @@ makes them the backward of `accflow::corr_lookup` and
 `accflow::corr_level_lookup`: the levels get their gradient, in the
 levels' dtype; coords get none (JAX stops it), and a call whose coords
 require grad raises. `launches` counts kernel #1's backward launches,
-`level_launches` kernel #2's, and nothing else.
+`level_launches` kernel #2's (`level_build_launches` per (radius,
+levels)), and nothing else.
 """
 
 from __future__ import annotations
@@ -33,12 +38,14 @@ from accflow_tpu_torch.ops import cuda_lib
 from accflow_tpu_torch.ops.corr import lookup_corr_plain_backward
 
 SOURCE = cuda_lib.CSRC / "corr_lookup_backward.cu"
-LEVELS = 4  # compiled into both entries
+LEVELS = 4  # kernel #1's entry, and kernel #2's in the default build
+RADII = (3, 4)  # kernel #2's entry in the default build
 ENTRIES = ("corr_lookup_backward", "corr_level_lookup_backward")
 
 launches = 0        # accflow::corr_lookup_backward (kernel #1's, radius 4)
-level_launches = 0  # accflow::corr_level_lookup_backward (kernel #2's, radius 3 or 4)
-_lib = None
+level_launches = 0  # accflow::corr_level_lookup_backward (kernel #2's)
+level_build_launches: dict = {}  # (radius, levels) -> kernel #2's backward launches
+_libs: dict = {}  # (radius, levels) -> the loaded library
 
 _SCHEMA = ("(Tensor grad_out, Tensor coords, int[] hw, int radius, ScalarType dtype) "
            "-> Tensor[]")
@@ -51,15 +58,38 @@ def build(*defines: str) -> tuple[str, str]:
     return cuda_lib.build(SOURCE, *defines)
 
 
+def defines(radius: int, levels: int) -> tuple:
+    """The -D flags of the build whose kernel #2 entry serves (radius,
+    levels): none for the default build, else -DCORR_RADIUS and
+    -DCORR_LEVELS."""
+    if radius in RADII and levels == LEVELS:
+        return ()
+    return (f"-DCORR_RADIUS={radius}", f"-DCORR_LEVELS={levels}")
+
+
+def library(radius: int, levels: int) -> ctypes.CDLL:
+    """The loaded library for (radius, levels), built at its first use
+    (kernel #1's entry: library(4, 4))."""
+    key = (radius, levels)
+    if key not in _libs:
+        _libs[key] = load(build(*defines(radius, levels))[0])
+    return _libs[key]
+
+
 def load(path: str) -> ctypes.CDLL:
-    """The built library at `path`, with both C functions' signatures."""
+    """The built library at `path`, with its C functions' signatures (a
+    build for another radius or level count has kernel #2's entry alone)."""
     lib = ctypes.CDLL(path)
     ptrs = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
             ctypes.POINTER(ctypes.c_int), ctypes.c_longlong, ctypes.c_void_p]
-    lib.corr_lookup_backward.argtypes = [ctypes.c_int, ctypes.c_int, *ptrs]
+    if hasattr(lib, ENTRIES[0]):
+        lib.corr_lookup_backward.argtypes = [ctypes.c_int, ctypes.c_int, *ptrs]
+        lib.corr_lookup_backward.restype = ctypes.c_int
     lib.corr_level_lookup_backward.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, *ptrs]
-    for entry in ENTRIES:
-        getattr(lib, entry).restype = ctypes.c_int
+    lib.corr_level_lookup_backward.restype = ctypes.c_int
+    for query in ("corr_level_lookup_backward_levels", "corr_level_lookup_backward_radius"):
+        getattr(lib, query).argtypes = []
+        getattr(lib, query).restype = ctypes.c_int
     return lib
 
 
@@ -74,10 +104,11 @@ def _check(grad_out: torch.Tensor, coords: torch.Tensor, hw, radius: int, dtype)
                          f"{dtype} and {grad_out.dtype}")
     if coords.dtype != torch.float32 or coords.dim() != 2 or coords.shape[1] != 2:
         raise ValueError(f"coords must be (Q, 2) float32, got {tuple(coords.shape)} {coords.dtype}")
-    cols = len(hw) // 2 * (2 * radius + 1) ** 2
-    if len(hw) != 2 * LEVELS or grad_out.shape != (coords.shape[0], cols):
-        raise ValueError(f"grad_out must be (Q={coords.shape[0]}, {cols}) for {LEVELS} levels, got "
-                         f"{tuple(grad_out.shape)} for {len(hw) // 2}")
+    nl = len(hw) // 2
+    cols = nl * (2 * radius + 1) ** 2
+    if nl < 1 or len(hw) != 2 * nl or grad_out.shape != (coords.shape[0], cols):
+        raise ValueError(f"grad_out must be (Q={coords.shape[0]}, {cols}) for {nl} levels at "
+                         f"radius {radius}, got {tuple(grad_out.shape)}")
     if not (grad_out.is_contiguous() and coords.is_contiguous()):
         raise ValueError("grad_out and coords must be contiguous")
     if grad_out.device != coords.device:
@@ -87,21 +118,33 @@ def _check(grad_out: torch.Tensor, coords: torch.Tensor, hw, radius: int, dtype)
 def launch(lib: ctypes.CDLL, entry: str, grad_out: torch.Tensor, coords: torch.Tensor, hw,
            radius: int, dtype: torch.dtype) -> list:
     """Run `entry` of `lib` (from `load`; "corr_lookup_backward" takes
-    radius 4) on CUDA tensors: the 4 levels' (Q, hl, wl) gradients in
-    `dtype`. Raises on operands it does not take and if the launch fails."""
+    radius 4 over 4 levels, "corr_level_lookup_backward" the radius and
+    level count `lib` was built for) on CUDA tensors: the levels' (Q, hl,
+    wl) gradients in `dtype`. Raises on operands it does not take and if
+    the launch fails."""
     global launches, level_launches
     _check(grad_out, coords, hw, radius, dtype)
-    if entry == ENTRIES[0] and radius != 4:
-        raise ValueError(f"{entry} is built for radius 4, got {radius}")
+    nl = len(hw) // 2
+    if entry == ENTRIES[0]:
+        if (radius, nl) != (4, LEVELS):
+            raise ValueError(f"{entry} is built for radius 4 over {LEVELS} levels, got radius "
+                             f"{radius} over {nl}")
+    else:
+        built = lib.corr_level_lookup_backward_radius()
+        if (lib.corr_level_lookup_backward_levels() != nl
+                or radius not in ((built,) if built else RADII)):
+            raise ValueError(f"{entry}: the library is built for radius {built or RADII} over "
+                             f"{lib.corr_level_lookup_backward_levels()} levels, got radius "
+                             f"{radius} over {nl}")
     q = coords.shape[0]
     grads = [torch.empty((q, h, w), dtype=dtype, device=coords.device) for h, w in _shapes(hw)]
     if q == 0:
         return grads
     if grad_out.data_ptr() % (4 * grad_out.element_size()):
-        # The kernel copies each query's row in whole 4-value pieces.
+        # The kernel copies each query's row in pieces of up to 4 values.
         grad_out = grad_out.clone(memory_format=torch.contiguous_format)
-    ptrs = (ctypes.c_void_p * LEVELS)(*[g.data_ptr() for g in grads])
-    dims = (ctypes.c_int * (2 * LEVELS))(*hw)
+    ptrs = (ctypes.c_void_p * nl)(*[g.data_ptr() for g in grads])
+    dims = (ctypes.c_int * (2 * nl))(*hw)
     args = (coords.data_ptr(), grad_out.data_ptr(), ptrs, dims, q)
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -116,15 +159,13 @@ def launch(lib: ctypes.CDLL, entry: str, grad_out: torch.Tensor, coords: torch.T
         launches += 1
     else:
         level_launches += 1
+        level_build_launches[radius, nl] = level_build_launches.get((radius, nl), 0) + 1
     return grads
 
 
 def _cuda(entry: str):
     def kernel(grad_out, coords, hw, radius, dtype):
-        global _lib
-        if _lib is None:
-            _lib = load(build()[0])
-        return launch(_lib, entry, grad_out, coords, hw, radius, dtype)
+        return launch(library(radius, len(hw) // 2), entry, grad_out, coords, hw, radius, dtype)
 
     return kernel
 

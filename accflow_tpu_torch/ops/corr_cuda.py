@@ -22,7 +22,10 @@ rounded once to nearest even, bit for bit the float32 output cast.
 of a captured launch does not pass through Python and is not counted).
 Its backward is the backward kernel's op `accflow::corr_lookup_backward`
 (ops/corr_backward_cuda.py): the levels' gradient, the coords none.
-Radius (4) and level count (4) are compiled into the kernel; `build` and
+Radius (4) and level count (4) are compiled into the kernel: it serves
+full RAFT's and GMA's default corr_radius 4 over corr_levels 4, and every
+other (radius, levels) goes to kernel #2's build for it
+(ops/corr.py::lookup_corr_kernel, ops/corr_level_cuda.py). `build` and
 `launch` also take a variant built with other -D defines (chip_smoke.py's
 tile sweep over CORR_QT, the queries per block).
 """

@@ -145,16 +145,16 @@ def lookup_backward_bound(grad_out: torch.Tensor, coords: torch.Tensor, level_sh
     return ms, by, nbytes
 
 
-def y_contract_bound(corr3: torch.Tensor, out_elem: int = 4):
+def y_contract_bound(corr3: torch.Tensor, out_elem: int = 4, num: int = 9):
     """Least time of the y contraction of (Q, hl, wl) maps on an H100: corr3
-    and wy (Q, 9, hl) read, (Q, 9, wl) written at `out_elem` bytes an
-    element; 2*9*hl*wl operations per query at the inputs' rate (bfloat16
+    and wy (Q, num, hl) read, (Q, num, wl) written at `out_elem` bytes an
+    element; 2*num*hl*wl operations per query at the inputs' rate (bfloat16
     tensor cores, or float32). Returns (ms, "bytes" | "operations", bytes)."""
     q, hl, wl = corr3.shape
     elem = corr3.element_size()
-    nbytes = q * hl * wl * elem + q * 9 * hl * elem + q * 9 * wl * out_elem
+    nbytes = q * hl * wl * elem + q * num * hl * elem + q * num * wl * out_elem
     rate = H100_BF16_FLOPS if corr3.dtype == torch.bfloat16 else H100_F32_FLOPS
-    ms, by = bound(nbytes, 2.0 * q * 9 * hl * wl, rate)
+    ms, by = bound(nbytes, 2.0 * q * num * hl * wl, rate)
     return ms, by, nbytes
 
 

@@ -152,11 +152,23 @@ def reference_noise(gen: torch.Generator, frame_shape, group=None,
     return mesh.shard_rows(noise_from_draws(stdv, normal)[rank * n: (rank + 1) * n], spatial)
 
 
+# Estimator options a config may set (corr_levels, corr_radius,
+# corr_volume_dtype: RAFTConfig's and GMAConfig's fields); absent or null,
+# the estimator keeps its default.
+CORR_OPTIONS = ("corr_levels", "corr_radius", "corr_volume_dtype")
+
+
+def corr_options(opt) -> dict:
+    """The CORR_OPTIONS that `opt` sets, for build_flow_estimator."""
+    return {k: opt[k] for k in CORR_OPTIONS if opt.get(k) is not None}
+
+
 def build_acc_model(opt, device=None):
     """(estimator, AccFlowConfig) from an experiment name like Acc+RAFT-cvo
     (RAFT, or GMA for a name with "gma"), the estimator's weights from seed
-    0 on `device`. `direction` "forward" selects the F0N ablation; an
-    unknown direction raises ValueError before any model is built."""
+    0 on `device`, at the config's corr_options. `direction` "forward"
+    selects the F0N ablation; an unknown direction raises ValueError before
+    any model is built."""
     cd = opt.get("compute_dtype", "bfloat16")
     acfg = AccFlowConfig(compute_dtype=cd, hidden=int(opt.get("acc_hidden", 128)),
                          remat=opt.get("remat", False),
@@ -165,7 +177,7 @@ def build_acc_model(opt, device=None):
         opt.exp_name, compute_dtype=cd, device=device,
         small=bool(opt.get("small", False)),
         corr_lookup=opt.get("corr_lookup", "fused"),
-        attn_chunk=int(opt.get("attn_chunk", 0)),
+        attn_chunk=int(opt.get("attn_chunk", 0)), **corr_options(opt),
     )
     return est, acfg
 

@@ -65,6 +65,7 @@ from accflow_tpu_torch.train.checkpoint import CheckpointManager
 from accflow_tpu_torch.train.engine import (
     TrainState,
     checkpoint_state,
+    corr_options,
     graph_steps,
     open_run_dirs,
     pad_batch,
@@ -210,16 +211,18 @@ def run_validation(valid_step, valid_dst, batch: int, device, valid_sample: int 
 
 def build_estimator(opt, device=None) -> FlowEstimator:
     """The estimator of a fine-tune config (RAFT for a name with "raft",
-    else GMA) with its weights from `init_params` (a JAX-layout numpy
-    tree), `flow_pretrained` (a reference .pth or an .npz tree) or the
-    seed, on `device`. A lookup that JAX cannot differentiate raises
+    else GMA, at the config's corr_levels, corr_radius and
+    corr_volume_dtype where it sets them: engine.corr_options) with its
+    weights from `init_params` (a JAX-layout numpy tree), `flow_pretrained`
+    (a reference .pth or an .npz tree) or the seed, on `device`. A lookup that JAX cannot differentiate raises
     NotImplementedError (models/raft.py::check_trainable_lookup:
     experimental:pallas, a split lookup with a "bd" level); every other
     spelling trains."""
     est = build_flow_estimator(
         opt.exp_name, compute_dtype=opt.get("compute_dtype", "bfloat16"), device=device,
         seed=opt.get("seed", 0), small=bool(opt.get("small", False)),
-        corr_lookup=opt.get("corr_lookup", "fused"), attn_chunk=int(opt.get("attn_chunk", 0)))
+        corr_lookup=opt.get("corr_lookup", "fused"), attn_chunk=int(opt.get("attn_chunk", 0)),
+        **corr_options(opt))
     check_trainable_lookup(est.cfg)
     if opt.get("init_params") is not None:
         load_jax_params(est.model, opt.init_params)

@@ -279,7 +279,29 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    (d) the 64^2 f32 small clip with experimental:fused_mix:rows,rows_gx,
    vpu_y,mm on phase 21's two gloo ranks (mix clip, FLOW_REL, no lookup
    kernel). An {"experimental": ...} line holds the readings, and a
-   {"phase_seconds": ...} line each phase's seconds.
+   {"phase_seconds": ...} line each phase's seconds;
+26. the estimator options (run after phase 17; (f) in phase 21's launch):
+   corr_levels and corr_radius at any level count and radius, through
+   kernel #2 built for each (radius, levels) but kernel #1's (4, 4), the
+   backward kernel likewise and kernel #3 for 2r+1 taps; corr_volume_dtype;
+   norm_fn "group". (a) RAFT at (3, 3), (2, 2) and (5, 6), RAFT-small at 3
+   levels, GMA at (3, 3), RAFT (3, 3) with experimental:fused_bd (kernel #3
+   at 7 taps) and with ondemand:16, each on phase 5's 64^2 f32 small clip
+   on the GPU against the CPU (CLIP_REL), each build's launches counted;
+   (b) kernel #2's (3, 3), (2, 2) and (6, 5) builds at the CVO-6 clip's
+   lookup shape (bf16 in), kernel #3 at 7 taps at its level 0, the
+   backward kernel's (3, 3) build at the fine-tune shape, each against its
+   plain version and timed beside its bound and library yardstick; (c) the
+   CVO-6 clip with full RAFT and with GMA at (3, 3), eager and graphed
+   (bit-equal), and RAFT's with corr_volume_dtype "float32" (ms, peak, its
+   distance from the default's flow); (d) a 64^2 f32 fine-tune step at (3,
+   3) on the GPU against the CPU (phase 15d's bars) and RAFT.yml with
+   corr_levels 3, corr_radius 3 through fine_tune, graphed, 6 steps; (e)
+   the basic and small encoders with norm_fn "group" on the GPU against the
+   CPU (GROUP_REL), one bf16 call each at 512^2; (f) RAFT (3, 3) and a
+   group-norm basic encoder on two gloo ranks at 40x64 (24 + 16 rows)
+   against one process (FLOW_REL). An {"options": ...} line holds the
+   readings.
 --nccl-spatial runs none of these phases: on every card of the machine
 (two or more; four through the tool's --chips 4) it starts one NCCL rank
 per card (the script with --nccl-spatial-child) and runs, eagerly and
@@ -367,7 +389,8 @@ try:
     from accflow_tpu_torch.data.synthetic import make_long_sequence, write_synthetic_cvor
     from accflow_tpu_torch.models import gma
     from accflow_tpu_torch.models.raft import gather_pairs, raft_cnet, to_nchw
-    from accflow_tpu_torch.nn.layers import tf32
+    from accflow_tpu_torch.models.encoders import BasicEncoder, SmallEncoder
+    from accflow_tpu_torch.nn.layers import init_weights, spatial_sharding, tf32
     from accflow_tpu_torch.ops import (
         corr,
         corr_backward_cuda,
@@ -634,6 +657,11 @@ COUNTERS = (  # each kernel wrapper's launch count: (kernel, module, attribute)
     ("corr_lookup_backward", corr_backward_cuda, "launches"),
     ("corr_level_lookup_backward", corr_backward_cuda, "level_launches"),
 )
+BUILD_COUNTERS = (  # the same launches per build: {(radius, levels) or taps: n}
+    (corr_level_cuda, "build_launches"),
+    (corr_bd_cuda, "build_launches"),
+    (corr_backward_cuda, "level_build_launches"),
+)
 TILES = (4, 8, 16)           # queries per block of kernels #1 and #2 tried by --tile-sweep; 8 ships
 KINDS = (  # --profile: kind of a kernel, first match on its lower-cased name
     ("corr lookup (this port's kernels)", ("corr_window", "y_contract")),
@@ -728,16 +756,16 @@ def device_ms(fn, calls: int) -> float:
          "than the spin that was to hold the card")
 
 
-def lookup_inputs(b: int, h: int = 64, w: int = 64):
+def lookup_inputs(b: int, h: int = 64, w: int = 64, levels: int = 4):
     """A lookup shape of the port: Q = b*h*w queries (b pair-batches of
     8h x 8w frames; 22 of 512^2 on the clip path, 4 in the stream, 66 of
     256^2 in a train step), unit-normal float32 levels of h x w down to
-    h/8 x w/8, coords on the grid +-20 px."""
+    h/2^(levels-1) x w/2^(levels-1), coords on the grid +-20 px."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     q = b * h * w
     levels32 = [torch.randn((q, h >> l, w >> l), generator=gen, device=dev)
-                for l in range(4)]
+                for l in range(levels)]
     ys, xs = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev),
                             indexing="ij")
     grid = torch.stack([xs, ys], -1).float().expand(b, h, w, 2).reshape(q, 2)
@@ -768,7 +796,7 @@ def out_name(dtype) -> str:
 
 
 def check_lookup(label: str, kernel, levels32, coords, radius: int, beside=None,
-                 out_dtypes=(torch.float32,)):
+                 out_dtypes=(torch.float32,), level_dtypes=(torch.float32, torch.bfloat16)):
     """Phases 3 and 4: `kernel(levels, coords, out_dtype)` against the plain
     lookup at `radius`, for each of `out_dtypes` (float32 first), then its
     time beside the plain lookup's (with the same output type),
@@ -782,9 +810,11 @@ def check_lookup(label: str, kernel, levels32, coords, radius: int, beside=None,
     rounding (<= half an ulp of |x| <= ~100, i.e. <= 4e-6) times the maps'
     local slope (unit-normal values, |slope| <= ~8) stays below 1e-4.
     A bfloat16 output is held as check_out says. Rows are keyed by the
-    levels' dtype, with ", bf16 out" for a bfloat16 output."""
+    levels' dtype (each of `level_dtypes`), with ", bf16 out" for a
+    bfloat16 output."""
     rows = {}
-    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    for dtype in level_dtypes:
+        name = str(dtype)[6:]
         levels = [lvl.to(dtype) for lvl in levels32]
         ref = corr.lookup_corr_plain(levels, coords, radius)
         lib_run, lib_result = grid_sample_lookup(levels, coords, radius)
@@ -823,24 +853,28 @@ def check_lookup(label: str, kernel, levels32, coords, radius: int, beside=None,
     return rows
 
 
-def check_y_contract(levels32, coords):
-    """Phase 4b: kernel #3 at levels 0 and 1 of the clip shape: corr3 the
+def check_y_contract(levels32, coords, radius: int = 4, levels=(0, 1),
+                     in_dtypes=(torch.float32, torch.bfloat16)):
+    """Phase 4b: kernel #3 at `levels` (0 and 1) of the clip shape: corr3 the
     level's unit-normal maps, wy the tent weights of the coords' y windows
-    (what _level_window_bd gives it), float32 and bfloat16 in, float32 and
-    bfloat16 out. The kernel against its plain twin (Y_TOL_F32, Y_REL_BF16;
+    at `radius` (what _level_window_bd gives it: 2r+1 taps, kernel #3's
+    build for them), each of `in_dtypes` in, float32 and bfloat16 out. The
+    kernel against its plain twin (Y_TOL_F32, Y_REL_BF16;
     a bfloat16 output as check_out says), then device times of the kernel,
     the twin (same output type) and torch.bmm (the library yardstick, which
     writes the inputs' type) beside the bound (with the output type's
     bytes). Returns {level: {"<in dtype>[, bf16 out]": row}}."""
     rows = {}
-    delta = torch.linspace(-4, 4, 9, device=coords.device)
+    num = 2 * radius + 1
+    delta = torch.linspace(-radius, radius, num, device=coords.device)
     with tf32(False):
-        for l in (0, 1):
+        for l in levels:
             hl = levels32[l].shape[1]
             wy32 = corr.window_weights(coords[:, 1:2] / 2.0 ** l + delta, hl)
-            for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            for dtype in in_dtypes:
+                name = str(dtype)[6:]
                 corr3, wy = levels32[l].to(dtype), wy32.to(dtype)
-                path = corr_bd_cuda.path(corr_bd_cuda.load(corr_bd_cuda.build()[0]), corr3)
+                path = corr_bd_cuda.path(corr_bd_cuda.library(num), corr3)
                 ref = corr_bd_cuda.y_contract_plain(corr3, wy)
                 lib_out = torch.bmm(wy, corr3)
                 torch.cuda.synchronize()
@@ -851,7 +885,7 @@ def check_y_contract(levels32, coords):
                 got32 = None
                 for out_dtype in (torch.float32, torch.bfloat16):
                     on = out_name(out_dtype)
-                    label = f"kernel #3 level {l} {name}, {on}"
+                    label = f"kernel #3 ({num} taps) level {l} {name}, {on}"
                     got = corr_bd_cuda.y_contract(corr3, wy, out_dtype)
                     torch.cuda.synchronize()
                     if out_dtype == torch.float32:
@@ -865,7 +899,7 @@ def check_y_contract(levels32, coords):
                     plain_ms = device_ms(
                         lambda: corr_bd_cuda.y_contract_plain(corr3, wy, out_dtype), 5)
                     bound_ms, bound_by, nbytes = probes.y_contract_bound(
-                        corr3, torch.tensor([], dtype=out_dtype).element_size())
+                        corr3, torch.tensor([], dtype=out_dtype).element_size(), num)
                     print(f"{label}: kernel {ms:.4f} ms ({wall_ms:.4f} ms per call back to "
                           f"back), plain {plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms, bound "
                           f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B at 3.35 TB/s) = "
@@ -1081,6 +1115,8 @@ def gma_estimator(**kw):
 def reset_counts() -> None:
     for _, module, attr in COUNTERS:
         setattr(module, attr, 0)
+    for module, attr in BUILD_COUNTERS:
+        getattr(module, attr).clear()
 
 
 def launch_counts() -> dict:
@@ -1350,15 +1386,15 @@ def small_clip(ofe: str = "raft") -> dict:
     return launches
 
 
-def small_clip_forward(lookup: str, where: str, ofe: str = "raft") -> np.ndarray:
+def small_clip_forward(lookup: str, where: str, ofe: str = "raft", **overrides) -> np.ndarray:
     """small_clip's forward: the 4-frame 64^2 float32 clip (seed 3) through
     AccFlow (seed 1, its ZeroConv from seed 2) and the estimator `ofe`
-    (seed 0; GMA's gamma from seed 3) with corr_lookup `lookup`, on
-    `where`, TF32 off, the launch counts reset before it. Returns the flows
-    on the host."""
+    (seed 0; GMA's gamma from seed 3) with corr_lookup `lookup` (and the
+    config `overrides`), on `where`, TF32 off, the launch counts reset
+    before it. Returns the flows on the host."""
     clip = np.random.default_rng(3).uniform(-1, 1, (4, 1, 64, 64, 3)).astype(np.float32)
     est = models.build_flow_estimator(ofe, compute_dtype="float32", device=where, seed=0,
-                                      corr_lookup=lookup)
+                                      corr_lookup=lookup, **overrides)
     if ofe == "gma":
         perturb_gamma(est.model, 3)
     acc = models.init_accflow(models.AccFlowConfig(compute_dtype="float32"), seed=1,
@@ -1481,6 +1517,224 @@ def experimental_phase(fused_phase5_ms: float, with_profile: bool = False) -> di
     del acc, images, ref
     torch.cuda.empty_cache()
     return dict(small_clip=small, clip=full, seconds=time.perf_counter() - t0)
+
+
+# Phase 26, the estimator options (the module docstring lists its parts).
+# (a)'s cases are JAX's examples, each of which gave a finite flow in JAX at
+# 64^2; each runs its build (kernel #2's (radius, levels), kernel #3's 7
+# taps) 12 times a forward (48 under ondemand:16's 4 chunks) and kernel #1
+# never. (e)'s GROUP_REL: float32 encoders, cuDNN against the CPU's convs,
+# differ by summation order (~1e-6 of the largest value); a wrong group,
+# statistic or affine map moves the output by its own size. Fixed before
+# the phase's first run.
+OPTION_CLIPS = {  # (a): estimator, overrides, kernel module, build key, launches a forward
+    "raft (3, 3)": ("raft", dict(corr_levels=3, corr_radius=3), corr_level_cuda, (3, 3), 12),
+    "raft (2, 2)": ("raft", dict(corr_levels=2, corr_radius=2), corr_level_cuda, (2, 2), 12),
+    "raft (5, 6)": ("raft", dict(corr_levels=5, corr_radius=6), corr_level_cuda, (6, 5), 12),
+    "raft-small corr_levels 3": ("raft", dict(small=True, corr_levels=3), corr_level_cuda,
+                                 (3, 3), 12),
+    "gma (3, 3)": ("gma", dict(corr_levels=3, corr_radius=3), corr_level_cuda, (3, 3), 12),
+    "raft (3, 3) experimental:fused_bd": (
+        "raft", dict(corr_levels=3, corr_radius=3, corr_lookup="experimental:fused_bd"),
+        corr_bd_cuda, 7, 12),
+    "raft (3, 3) ondemand:16": ("raft", dict(corr_levels=3, corr_radius=3,
+                                             corr_lookup="ondemand:16"), corr_level_cuda,
+                                (3, 3), 48),
+}
+OPTION_BUILDS = ((3, 3), (2, 2), (6, 5))  # kernel #2's builds of (b): (radius, levels)
+OPTION_33 = dict(corr_levels=3, corr_radius=3)
+GROUP_REL = 1e-5
+
+
+def option_small_clips() -> dict:
+    """Phase 26 (a). Returns each case's row."""
+    rows = {}
+    for case, (ofe, kw, module, key, per_forward) in OPTION_CLIPS.items():
+        kw = dict(kw)
+        lookup = kw.pop("corr_lookup", "fused")
+        outs, launched = {}, {}
+        for where in ("cuda", "cpu"):
+            label = f"phase 26 (a) small clip {case} on {where}"
+            outs[where] = small_clip_forward(lookup, where, ofe, **kw)
+            expect_counts(label, module, per_forward if where == "cuda" else 0)
+            launched[where] = dict(module.build_launches)
+        if launched["cuda"] != {key: per_forward}:
+            fail(f"phase 26 (a) {case}: launches by build {launched['cuda']}, expected "
+                 f"{per_forward} of {key}")
+        diff = float(np.abs(outs["cuda"] - outs["cpu"]).max())
+        flow_max = float(np.abs(outs["cpu"]).max())
+        print(f"phase 26 (a) small clip {case} on the GPU vs the CPU: max abs {diff:.3e}, |flow| "
+              f"max {flow_max:.3e} (tol {CLIP_REL:g} x |flow| max = {CLIP_REL * flow_max:.3e}); "
+              f"{per_forward} launches of the {key} build")
+        if not (flow_max > 0 and np.isfinite(outs["cuda"]).all()
+                and diff <= CLIP_REL * flow_max):
+            fail(f"phase 26 (a) {case}: GPU and CPU differ by {diff:.3e} (|flow| max "
+                 f"{flow_max:.3e})")
+        rows[case] = dict(max_abs=diff, flow_max=flow_max, launches=per_forward, build=str(key))
+    return rows
+
+
+def option_kernels() -> dict:
+    """Phase 26 (b). Returns the rows by build: "r<R> l<L>" (kernel #2),
+    "y_contract 7", "backward r3 l3"."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = {}
+    for radius, nl in OPTION_BUILDS:
+        levels32, coords = lookup_inputs(22, levels=nl)
+        rows[f"r{radius} l{nl}"] = check_lookup(
+            f"phase 26 (b) kernel #2 ({radius}, {nl}), clip shape",
+            lambda lv, c, o, r=radius: corr_level_cuda.lookup_corr_level(lv, c, r, o),
+            levels32, coords, radius, out_dtypes=(f32, bf16), level_dtypes=(bf16,))
+        if (radius, nl) == (3, 3):
+            rows["y_contract 7"] = check_y_contract(levels32, coords, 3, (0,), (bf16,))["level0"]
+        del levels32, coords
+        torch.cuda.empty_cache()
+    levels32, coords = lookup_inputs(6, 32, 32, levels=3)
+    rows["backward r3 l3"] = check_backward(
+        "phase 26 (b) backward kernel (3, 3), fine-tune shape",
+        corr_backward_cuda.corr_level_lookup_backward_op, 3, levels32, coords,
+        ((f32, bf16), (bf16, bf16)))
+    del levels32, coords
+    torch.cuda.empty_cache()
+    return rows
+
+
+def option_clips() -> dict:
+    """Phase 26 (c). Returns each clip's row."""
+    t, n, size = 7, 2, 512
+    acc, images = clip_inputs(t, n, size)
+    shape = (t - 2, n, size, size, 2)
+    rows, default_out = {}, None
+    for case, make in (
+            ("raft (3, 3)", lambda: models.build_flow_estimator("raft", seed=0, **OPTION_33)),
+            ("gma (3, 3)", lambda: gma_estimator(**OPTION_33)),
+            ("raft (3, 3) corr_volume_dtype float32", lambda: models.build_flow_estimator(
+                "raft", seed=0, corr_volume_dtype="float32", **OPTION_33))):
+        label = f"phase 26 (c) clip {case}"
+        est = make()
+        pairs = est.pairs_fn(iters=acc.cfg.ofe_iters)
+
+        def forward(pairs=pairs):
+            return models.accflow_forward(acc, images, pairs)
+
+        launches, med, _, out, peak = time_clip(label, forward, corr_level_cuda, shape)
+        if corr_level_cuda.build_launches != {(3, 3): 12 * 5}:
+            fail(f"{label}: launches by build {corr_level_cuda.build_launches}")
+        row = dict(eager_ms=med * 1e3, eager_frames_per_s=n * t / med, eager_peak_gib=peak / 2**30,
+                   launches=launches)
+        if "float32" in case:
+            row["max_abs_vs_bf16_levels"] = float((out - default_out).abs().max())
+            print(f"{label}: float32 levels against the default's bfloat16 levels: max abs "
+                  f"{row['max_abs_vs_bf16_levels']:.3e} at |flow| max "
+                  f"{float(default_out.abs().max()):.3e}; peak {row['eager_peak_gib']:.3f} GiB")
+        else:
+            torch.cuda.empty_cache()
+            row["graphed"] = graphed_clip(f"{label}, graphed", serving.build_serving_fn(est, acc),
+                                          images, out, corr_level_cuda, 12)
+            if row["graphed"]["max_abs_vs_eager"] != 0:
+                fail(f"{label}: the graphed clip is not bit-equal to the eager one")
+        if case == "raft (3, 3)":
+            default_out = out
+        rows[case] = row
+        del est, pairs, out
+        torch.cuda.empty_cache()
+    del acc, images, default_out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def option_training(root: str, tmp: str) -> dict:
+    """Phase 26 (d). Returns the GPU-vs-CPU step's row and the run's."""
+    step = finetune_gpu_vs_cpu(**OPTION_33)
+    run = engine_run("RAFT.yml corr_levels 3, corr_radius 3",
+                     train_opts("RAFT.yml", root, Path(tmp) / "finetune_33", **OPTION_33), 6,
+                     finetune=True, level_kernel=True)
+    run.pop("state")
+    builds = (dict(corr_level_cuda.build_launches), dict(corr_backward_cuda.level_build_launches))
+    if set(builds[0]) != {(3, 3)} or set(builds[1]) != {(3, 3)}:
+        fail(f"phase 26 (d) RAFT.yml (3, 3): launches by build {builds}")
+    run["builds"] = {k: {str(b): n for b, n in d.items()} for k, d in zip(("fwd", "bwd"), builds)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(gpu_vs_cpu=step, raft_yml=run)
+
+
+def group_encoder(cls, seed: int):
+    """`cls` (BasicEncoder or SmallEncoder) with 128 outputs and norm_fn
+    "group", its weights from seed 0 and each group norm's affine map drawn
+    from `seed` (scale in [0.5, 1.5], bias N(0, 0.1)), on the CPU."""
+    enc = init_weights(cls(128, "group"), 0)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in enc.modules():
+            if hasattr(m, "num_groups"):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+    return enc
+
+
+def option_group_norm() -> dict:
+    """Phase 26 (e). Returns each encoder's row."""
+    rows = {}
+    gen = torch.Generator().manual_seed(26)
+    x = torch.rand((2, 3, 64, 48), generator=gen) * 2 - 1
+    x512 = (torch.rand((2, 3, 512, 512), generator=gen) * 2 - 1).cuda()
+    for name, cls in (("basic", BasicEncoder), ("small", SmallEncoder)):
+        enc = group_encoder(cls, 26)
+        with torch.no_grad():
+            with tf32(False):
+                ref = enc(x)
+                got = enc.cuda()(x.cuda()).cpu()
+            diff, top = float((got - ref).abs().max()), float(ref.abs().max())
+            bf = x512.to(torch.bfloat16)
+            enc(bf)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = enc(bf)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        print(f"phase 26 (e) {name} encoder, norm_fn group: GPU vs CPU f32 max abs {diff:.3e} "
+              f"(bar {GROUP_REL:g} x {top:.3e}); bf16 at 512^2, batch 2: {tuple(y.shape)} in "
+              f"{ms:.2f} ms (one call after a warm one)")
+        if not (diff <= GROUP_REL * top and y.dtype == torch.bfloat16
+                and bool(torch.isfinite(y).all())):
+            fail(f"phase 26 (e) {name} encoder: GPU vs CPU {diff:.3e}, bf16 finite "
+                 f"{bool(torch.isfinite(y).all())}")
+        rows[name] = dict(max_abs=diff, max_abs_bar=GROUP_REL * top, bf16_512_ms=ms)
+        del enc, y
+    return rows
+
+
+def option_launches(options: dict, spatial: dict, build) -> dict:
+    """The kernels line's launches of kernel #2's `build` ((radius, levels)):
+    phase 26 (c)'s RAFT clip for (3, 3) (5 eager forwards, bf16 in and
+    out, the row's own configuration), else phase 26 (a)'s f32 small clip."""
+    if build == (3, 3):
+        return dict(launches=options["clips"]["raft (3, 3)"]["launches"],
+                    launches_in="phase 26 (c), the CVO-6 clip with RAFT at corr_levels 3, "
+                                "corr_radius 3, 5 eager forwards (bf16 in and out)",
+                    spatial_launches=spatial["26f pair"]["launches"],
+                    spatial_launches_in="phase 26 (f), each of two gloo ranks on one card, a "
+                                        "40x64 f32 pair at 2 iterations")
+    case = next(c for c, v in OPTION_CLIPS.items() if v[3] == build and v[2] is corr_level_cuda)
+    return dict(launches=options["small_clips"][case]["launches"],
+                launches_in=f"phase 26 (a), the f32 small clip with {case} (f32 in and out)")
+
+
+def options_phase(root: str, tmp: str) -> dict:
+    """Phase 26 (a)-(e); (f) runs in phase 21's launch. Returns the rows."""
+    t0 = time.perf_counter()
+    out = dict(small_clips=option_small_clips(), kernels=option_kernels(), clips=option_clips(),
+               training=option_training(root, tmp), group_norm=option_group_norm())
+    out["seconds"] = time.perf_counter() - t0
+    clips = out["clips"]
+    print(f"phase 26 on {smi('name,power.limit')}: CVO-6 clip eager / graphed ms "
+          + ", ".join(f"{k} {r['eager_ms']:.2f} / "
+                      f"{r['graphed']['median_ms'] if 'graphed' in r else float('nan'):.2f}"
+                      for k, r in clips.items())
+          + f"; RAFT.yml (3, 3) {out['training']['raft_yml']['ms_per_step']:.2f} ms per step; "
+          f"{out['seconds']:.1f} s")
+    return out
 
 
 def moving_frames(t: int, n: int, size: int, seed: int) -> torch.Tensor:
@@ -2323,12 +2577,14 @@ def check_resumed(label: str, run: dict, state) -> None:
           "(captured again); AdamW's count and the schedule at 18")
 
 
-def engine_run(label: str, opt, steps: int, finetune: bool = False, small: bool = False) -> dict:
+def engine_run(label: str, opt, steps: int, finetune: bool = False, small: bool = False,
+               level_kernel: bool = False) -> dict:
     """train_acc (or with `finetune`, fine_tune) under a StepProbe from
     zeroed counts, up to step `steps`, its steps and validation batches
     replayed from CUDA graphs (StepProbe.check_graphs): every loss finite;
     per eager or captured step 12 launches of the forward kernel (#1, or #2
-    for RAFT-small) and, fine-tuning, as many of its backward kernel, per
+    for RAFT-small and, with `level_kernel`, for corr_levels or corr_radius
+    other than 4) and, fine-tuning, as many of its backward kernel, per
     validation batch 12 (fine-tuning: VALID_ITERS = 20) forward launches
     times WARMUP + 1 at its capture, none counted in a replay, and as many
     seen in the profile of the last step (a replay); no other kernel, no
@@ -2336,7 +2592,8 @@ def engine_run(label: str, opt, steps: int, finetune: bool = False, small: bool 
     step starts over the replays but the last (profiled) one, leaving out
     the steps a validation follows. The idle share is 1 - the profiled
     replay's device busy time / that median. Returns the run's numbers."""
-    fwd, bwd = ("corr_level_lookup", "corr_level_lookup_backward") if small else (
+    level_kernel = small or level_kernel
+    fwd, bwd = ("corr_level_lookup", "corr_level_lookup_backward") if level_kernel else (
         "corr_lookup", "corr_lookup_backward")
     module, factory, run = ((ft, "make_finetune_step", ft.fine_tune) if finetune else
                             (engine, "make_acc_train_step", engine.train_acc))
@@ -2360,7 +2617,7 @@ def engine_run(label: str, opt, steps: int, finetune: bool = False, small: bool 
         fail(f"{what} {label}: ran steps {state.step - n + 1}..{state.step}, expected from {first}")
     replay = probe.check_graphs(f"{what} {label}", per_call, per_valid)
     graphed_calls = graphs.WARMUP + 1
-    expect_counts(f"{what} {label}", corr_level_cuda if small else corr_cuda,
+    expect_counts(f"{what} {label}", corr_level_cuda if level_kernel else corr_cuda,
                   12 * graphed_calls + per_valid[fwd] * graphed_calls * min(nv, 1),
                   **({bwd: 12 * graphed_calls} if finetune else {}))
     if probe.plain_calls:
@@ -3007,9 +3264,11 @@ def relu_ties(recorded=None):
         torch.relu = relu
 
 
-def finetune_gpu_vs_cpu(corr_lookup: str = "fused") -> dict:
+def finetune_gpu_vs_cpu(corr_lookup: str = "fused", **overrides) -> dict:
     """Phase 15d (16d with corr_lookup "ondemand:16": 4 chunks, each
-    rebuilt in the backward pass): one fine-tune step (make_finetune_step:
+    rebuilt in the backward pass; 26d with the `overrides` corr_levels 3,
+    corr_radius 3: kernel #2's (3, 3) build and its backward's, where these
+    names say kernel #1 and its backward): one fine-tune step (make_finetune_step:
     12 iterations, noise off, remat "dots") of full RAFT from seed 0 at
     64^2, batch 2, float32, TF32 off, on the GPU (kernel #1 and its
     backward kernel, 12 launches each under "fused"; as many as the CPU run
@@ -3024,11 +3283,15 @@ def finetune_gpu_vs_cpu(corr_lookup: str = "fused") -> dict:
     label = (4 * rng.standard_normal((2, 64, 64, 2))).astype(np.float32)
     out, calls = {}, {}
     recorded = None
-    what = "fine-tune step 64^2" + ("" if corr_lookup == "fused" else f" {corr_lookup}")
-    plain = [(corr_cuda, "lookup_corr_plain"), (corr_backward_cuda, "lookup_corr_plain_backward")]
+    what = ("fine-tune step 64^2" + ("" if corr_lookup == "fused" else f" {corr_lookup}")
+            + "".join(f" {k} {v}" for k, v in overrides.items()))
+    kernel1 = (overrides.get("corr_levels", 4), overrides.get("corr_radius", 4)) == (4, 4)
+    fwd_name, fwd_module = ("corr_lookup", corr_cuda) if kernel1 else (
+        "corr_level_lookup", corr_level_cuda)
+    plain = [(fwd_module, "lookup_corr_plain"), (corr_backward_cuda, "lookup_corr_plain_backward")]
     for where in ("cuda", "cpu"):
         est = models.build_flow_estimator("raft", compute_dtype="float32", seed=0, device=where,
-                                          corr_lookup=corr_lookup)
+                                          corr_lookup=corr_lookup, **overrides)
         opt = make_optimizer(est.model.parameters(), 1e-4, 10)
         grads = {}
         update = opt.step
@@ -3062,7 +3325,7 @@ def finetune_gpu_vs_cpu(corr_lookup: str = "fused") -> dict:
         out[where] = float(loss), grads, stats
         recorded = rec
     fwd, bwd = calls["cpu"].values()
-    want = {k: 0 for k in gpu_counts} | {"corr_lookup": fwd, "corr_lookup_backward": bwd}
+    want = {k: 0 for k in gpu_counts} | {fwd_name: fwd, f"{fwd_name}_backward": bwd}
     print(f"{what}: GPU kernel launches {gpu_counts}, CPU plain calls {fwd} lookups and {bwd} "
           f"backwards, GPU plain calls {calls['cuda']}")
     if (gpu_counts != want or any(calls["cuda"].values()) or not (bwd >= 12 and fwd >= bwd)
@@ -4217,6 +4480,12 @@ def spatial_inputs(case: str, elems):
         est = models.build_flow_estimator("raft", compute_dtype="float32", iters=2, seed=0,
                                           small=True)
         return est, None, moving_frames(2, 1, 64, seed=24)[:, :, :40].contiguous()
+    if case == "26f pair":  # phase 26 (f): RAFT at corr_levels 3, corr_radius 3
+        est = models.build_flow_estimator("raft", compute_dtype="float32", iters=2, seed=0,
+                                          **OPTION_33)
+        return est, None, moving_frames(2, 1, 64, seed=26)[:, :, :40].contiguous()
+    if case == "26f group":  # phase 26 (f): a basic encoder with norm_fn "group"
+        return group_encoder(BasicEncoder, 27).cuda(), None, moving_frames(1, 1, 64, seed=27)[:, :, :40].contiguous()
     if case == "h pair":
         est = models.build_flow_estimator("raft", compute_dtype="float32", iters=2, seed=0)
         h, w = SPATIAL_SIZE_H
@@ -4268,11 +4537,17 @@ SPATIAL_STREAM_FRAMES, SPATIAL_DRIFT_FRAMES = 8, 36
 # scripts/spatial_row0_fault.py).
 SPATIAL22_CASES = ("e", "e pair", "f", "f pair", "g", "h pair", "h clip", "i")
 SPATIAL23_CASES = tuple(SPATIAL_CLIP_KW)  # (l); (j) and (k) are train steps (SPATIAL_TRAIN_KW)
+# Phase 26 (f): RAFT at corr_levels 3, corr_radius 3 (kernel #2's (3, 3)
+# build on each rank's queries against the gathered keys) and a basic
+# encoder with norm_fn "group" (the group statistics combined over the
+# ranks), float32 at 40x64 (24 + 16 rows), held within FLOW_REL of the
+# largest |value| of one process's run. Fixed before the cases' first run.
+SPATIAL26_CASES = ("26f pair", "26f group")
 SPATIAL_BATCH = {"b": (0, 1), "d": (0, 1), "e": (0, 1), "f": (0, 1), "g": (0, 1),
                  **{c: (0, 1) for c in SPATIAL23_CASES}}  # else (0,)
 SPATIAL_STREAMS = ("d", "f", "g", "i")
 SPATIAL_F32 = ("a fused", "a ondemand:64", "e pair", "f pair", "h pair", "i", "bd clip",
-               "mix clip")
+               "mix clip", *SPATIAL26_CASES)
 # (bd clip), phase 5's 64^2 f32 small clip on kernel #3 (experimental:
 # fused_bd, whose split lookup the spatial axis had run on the CPU only): f32
 # with TF32 off, so the ranks differ from one process by summation order
@@ -4315,6 +4590,10 @@ def spatial_run(case: str, sp, elems=None) -> dict:
                 out, state = step(state, rows[i])
                 outs.append(out)
             return torch.stack(outs)
+    elif case == "26f group":  # the encoder's NCHW features at 1/8
+        def call():
+            with torch.no_grad(), spatial_sharding(est, sp):
+                return est(rows[0].permute(0, 3, 1, 2))
     elif acc is None:
         def call():
             return est.forward(rows[0], rows[1], spatial=sp)["flow_up"]
@@ -4362,7 +4641,7 @@ def spatial_child(rank: int, port: int, work: str) -> int:
                 fail(f"spatial child {rank}: no go file in 900 s")
             time.sleep(0.05)
         out = {case: spatial_run(case, sp)
-               for case in SPATIAL_CASES + SPATIAL22_CASES + SPATIAL23_CASES}
+               for case in SPATIAL_CASES + SPATIAL22_CASES + SPATIAL23_CASES + SPATIAL26_CASES}
         out.update({case: spatial_train_run(case, sp, record=case in SPATIAL_J)
                     for case in SPATIAL_TRAIN_KW})
         out.update({case: spatial_ft_run(case, sp, record=case in SPATIAL_M)
@@ -4428,8 +4707,10 @@ def spatial_chunks(case: str, rows: int) -> int:
 # call: one per GRU iteration and OFE call (a stream: the reset's two calls
 # at 6 iterations, then 6 a push).
 SPATIAL_KERNEL = {"f": "corr_level_lookup", "f pair": "corr_level_lookup",
-                  "i": "corr_level_lookup", "bd clip": "y_contract"}  # else corr_lookup
+                  "i": "corr_level_lookup", "bd clip": "y_contract",
+                  "26f pair": "corr_level_lookup"}  # else corr_lookup
 SPATIAL_PER_CHUNK = {"a": 2, "e pair": 2, "f pair": 2, "h pair": 2, "mix clip": 0,
+                     "26f pair": 2, "26f group": 0,
                      **{c: 12 + (SPATIAL_STREAM_FRAMES - 3) * 6 for c in ("d", "f", "g")},
                      "i": 12 + (SPATIAL_DRIFT_FRAMES - 3) * 6,
                      "l warm": 5 * 12, "l stepwise": 5 * 12}  # else 12: a fused clip
@@ -4923,7 +5204,7 @@ def spatial_check(case: str, one: dict, spread, got: list) -> dict:
         extra = dict(first_max_abs=first, epe_gap_px=epe_gap, epe_bar_px=DRIFT_EPE_PX)
         ok = diff <= bar and epe_gap <= DRIFT_EPE_PX
     elif case in SPATIAL_F32:
-        rel = FLOW_REL if case in SPATIAL_CLIP_LOOKUP else CLIP_REL
+        rel = FLOW_REL if case in (*SPATIAL_CLIP_LOOKUP, *SPATIAL26_CASES) else CLIP_REL
         bar, why = rel * flow_max, f"{rel:g} x max |flow|"
         ok = diff <= bar
     else:
@@ -4932,7 +5213,8 @@ def spatial_check(case: str, one: dict, spread, got: list) -> dict:
         ok = diff <= bar
     kernel = SPATIAL_KERNEL.get(case, "corr_lookup")
     per_chunk = SPATIAL_PER_CHUNK.get(case, SPATIAL_PER_CHUNK.get(case[0], 12))
-    h8 = one["out"].shape[-3] // 8
+    # rows at 1/8: of the flow's height, or the group encoder's (NCHW) own
+    h8 = one["out"].shape[2] if case == "26f group" else one["out"].shape[-3] // 8
     blocks = mesh.split_rows(8 * h8, 2)
     want = [per_chunk * spatial_chunks(case, b // 8) for b in blocks]
     want_one = per_chunk * spatial_chunks(case, h8)
@@ -4968,7 +5250,7 @@ def spatial_check(case: str, one: dict, spread, got: list) -> dict:
             and others == [{}, {}] and row["collectives"][0] == row["collectives"][1] > 0):
         fail(f"spatial ({case}): launches {launched}, one process {one['launches']}, "
              f"expected {want} and {want_one} of {kernel}; collectives {row['collectives']}")
-    if case in SPATIAL22_CASES + SPATIAL23_CASES + ("bd clip",) and (
+    if case in SPATIAL22_CASES + SPATIAL23_CASES + ("bd clip", "26f pair") and (
             sum(q[0] if q else 0 for q in row["q"])
                                     != (row["one_process_q"] or [0])[0]):
         fail(f"spatial ({case}): queries per launch {row['q']} do not add up to one "
@@ -5009,8 +5291,10 @@ def spatial_phase(tmp: str) -> dict:
     warm-started, F0N fused and cold stepwise CVO-6 clips. Phase 24 (the
     fine-tune step, spatial_ft_check): (m) float32 at 64^2 with full RAFT
     "fused" and "ondemand:16", GMA and RAFT-small, and RAFT at 40x64; (n)
-    RAFT.yml's step at full width. Returns each case's row."""
-    cases = SPATIAL_CASES + SPATIAL22_CASES + SPATIAL23_CASES
+    RAFT.yml's step at full width. Phase 26 (f): RAFT at corr_levels 3,
+    corr_radius 3 and a group-norm basic encoder, f32 at 40x64 (24 + 16
+    rows). Returns each case's row."""
+    cases = SPATIAL_CASES + SPATIAL22_CASES + SPATIAL23_CASES + SPATIAL26_CASES
     ranks, secs, (ref, spread, train_ref, ft_ref) = spatial_launch(
         tmp, meanwhile=lambda: (*spatial_references(cases), spatial_k_references(),
                                 spatial_ft_references()))
@@ -5402,7 +5686,13 @@ def build_kernels() -> None:
     together."""
     builds = (corr_cuda.build, corr_level_cuda.build, corr_bd_cuda.build,
               corr_backward_cuda.build, probes.build_floor,
-              lambda: corr_level_cuda.build("-DCORR_LEVELS=1"))
+              lambda: corr_level_cuda.build("-DCORR_LEVELS=1"),
+              # phase 26's builds: kernel #2 and its backward for other (radius,
+              # levels), kernel #3 for 7 taps
+              *[lambda rl=rl: corr_level_cuda.build(*corr_level_cuda.defines(*rl))
+                for rl in OPTION_BUILDS],
+              lambda: corr_backward_cuda.build(*corr_backward_cuda.defines(3, 3)),
+              lambda: corr_bd_cuda.build(*corr_bd_cuda.defines(7)))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         built = list(pool.map(lambda b: b(), builds))
@@ -5534,6 +5824,8 @@ def main() -> int:
         phase_secs["16"] = lap()
         f0n = f0n_phase(root, tmp)
         phase_secs["17"] = lap()
+        options = options_phase(root, tmp)
+        phase_secs["26 (a)-(e)"] = lap()
         sintel = sintel_phase(tmp)
         phase_secs["18"] = lap()
         dp = dp_phase(root, tmp, train, finetune, evals)
@@ -5585,7 +5877,7 @@ def main() -> int:
               f"({case}) max abs {spatial[case]['max_abs']:.3e} (bar {spatial[case]['bar']:.3e}), "
               f"peak per rank {max(spatial[case]['rank_peak_gib']):.3f} GiB (one process "
               f"{spatial[case]['one_process_peak_gib']:.3f})"
-              for case in SPATIAL_CASES + SPATIAL22_CASES + SPATIAL23_CASES)
+              for case in SPATIAL_CASES + SPATIAL22_CASES + SPATIAL23_CASES + SPATIAL26_CASES)
           + "; train steps " + "; ".join(
               f"({case}) {spatial[case]['ratio']:.3f} of its bar, peak per rank "
               f"{max(spatial[case]['rank_peak_gib']):.3f} GiB (one process "
@@ -5609,6 +5901,8 @@ def main() -> int:
     print(json.dumps({"finetune": {"card": line, **finetune}}))
     experimental.update(c=rows2_r4["bfloat16, bf16 out"], d=spatial["mix clip"])
     print(json.dumps({"experimental": {"card": line, **experimental}}))
+    options["spatial"] = {c: spatial[c] for c in SPATIAL26_CASES}
+    print(json.dumps({"options": {"card": line, **options}}, default=str))
     print(json.dumps({"phase_seconds": {"card": line, **phase_secs,
                                         "total": sum(phase_secs.values())}}))
 
@@ -5823,6 +6117,39 @@ def main() -> int:
          "spatial_launches": spatial["m small"]["backward_launches"],
          "spatial_launches_in": "phase 24 (m), each of two gloo ranks on one card, height "
                                 "sharded: one 64^2 RAFT-small fine-tune step, f32"},
+        *[{"name": f"corr_level_lookup_r{r}_l{nl}", "route": "cuda",
+           "source": "accflow_tpu_torch/csrc/corr_level_lookup.cu",
+           "replaces": "accflow_tpu/ops/corr_pallas.py:466",
+           "build": " ".join(corr_level_cuda.defines(r, nl)), "radius": r, "levels": nl,
+           **option_launches(options, spatial, (r, nl)),
+           **options["kernels"][f"r{r} l{nl}"]["bfloat16, bf16 out"],
+           "levels_dtype": "bfloat16", "out_dtype": "bfloat16",
+           "shape": f"Q = 22*64*64, maps 64^2 .. {64 >> (nl - 1)}^2",
+           "bf16_in_f32_out": options["kernels"][f"r{r} l{nl}"]["bfloat16"]}
+          for r, nl in OPTION_BUILDS],
+        {"name": "corr_y_contract_num7", "route": "cuda",
+         "source": "accflow_tpu_torch/csrc/corr_y_contract.cu",
+         "replaces": "accflow_tpu/ops/corr_pallas.py:343", "build": "-DCORR_NUM=7",
+         "launches": options["small_clips"]["raft (3, 3) experimental:fused_bd"]["launches"],
+         "launches_in": "phase 26 (a), the f32 small clip with RAFT at (3, 3) and "
+                        "experimental:fused_bd (its level 0; f32 in and out)",
+         **options["kernels"]["y_contract 7"]["bfloat16, bf16 out"],
+         "shape": "level 0 of the clip path, bfloat16 in, 7 taps", "out_dtype": "bfloat16",
+         "bf16_in_f32_out": options["kernels"]["y_contract 7"]["bfloat16"]},
+        {"name": "corr_level_lookup_backward_r3_l3", "route": "cuda",
+         "source": "accflow_tpu_torch/csrc/corr_lookup_backward.cu",
+         "replaces": "accflow_tpu/ops/corr.py:997",
+         "replaces_note": "no TPU kernel: the gradient XLA derives for the lookup at "
+                          "corr_levels 3, corr_radius 3 in JAX's fine-tune step",
+         "build": "-DCORR_RADIUS=3 -DCORR_LEVELS=3",
+         "launches": options["training"]["raft_yml"]["launches"]["corr_level_lookup_backward"],
+         "launches_in": "phase 26 (d), RAFT.yml with corr_levels 3, corr_radius 3, 6 graphed "
+                        "steps: 2 eager steps and the capture counted, replays not",
+         "launches_per_replay": options["training"]["raft_yml"]["replay"]["backward_launches"],
+         **options["kernels"]["backward r3 l3"]["float32 levels, bfloat16 grad"],
+         "levels_dtype": "float32", "grad_dtype": "bfloat16", "radius": 3, "levels": 3,
+         "shape": "Q = 6*32*32, maps 32^2 .. 8^2",
+         "bfloat16_levels": options["kernels"]["backward r3 l3"]["bfloat16 levels, bfloat16 grad"]},
         *probe_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -14,10 +14,12 @@ from accflow_tpu.convert.store import _flatten, load_params
 from accflow_tpu.convert.torch_weights import convert_state_dict
 from accflow_tpu.models.accflow import AccFlowConfig as JAccFlowConfig
 from accflow_tpu.models.accflow import init_accflow as j_init_accflow
+from accflow_tpu.models import encoders as j_enc
 from accflow_tpu.models.raft import RAFTConfig as JRAFTConfig
 from accflow_tpu.models.raft import init_raft as j_init_raft
 from accflow_tpu_torch.convert import load_jax_params, load_npz_tree, to_jax_params
 from accflow_tpu_torch.models import AccFlowConfig, RAFTConfig, init_accflow, init_raft
+from accflow_tpu_torch.models.encoders import BasicEncoder, SmallEncoder
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -49,6 +51,14 @@ def _case(name):
     if name == "accflow":
         return j_init_accflow(jax.random.PRNGKey(1), JAccFlowConfig()), init_accflow(
             AccFlowConfig(), device="cpu")
+    if name in ("basic_encoder_group", "small_encoder_group"):
+        # Group norms' scale and bias drawn away from their ones and zeros.
+        small = name.startswith("small")
+        init = j_enc.init_small_encoder if small else j_enc.init_basic_encoder
+        tree = init(jax.random.PRNGKey(2), *(() if small else (3,)), 48, "group")
+        rng = np.random.default_rng(2)
+        tree = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(np.float32), tree)
+        return tree, (SmallEncoder if small else BasicEncoder)(48, "group")
     return load_params(FIXTURE_ACC), init_accflow(AccFlowConfig(hidden=64), device="cpu")
 
 
@@ -60,7 +70,8 @@ def _assert_same_tree(a, b):
 
 
 @pytest.mark.parametrize("name", ["raft", "raft_small", "raft_small_fixture", "accflow",
-                                  "accflow_fixture"])
+                                  "accflow_fixture", "basic_encoder_group",
+                                  "small_encoder_group"])
 def test_round_trip_exact(name):
     tree, module = _case(name)
     load_jax_params(module, tree)

@@ -151,10 +151,8 @@ def test_level_wrapper_rejects_what_the_kernel_does_not_take(rng):
     _, levels, coords = _inputs(rng, 1, 8, 8, 8, 20)
     c = torch.from_numpy(coords.reshape(-1, 2))
     bad = [
-        (levels, c, 2),                                   # radius
-        (levels, c, 5),
-        (levels[:2], c, 3),                               # level count
-        (levels * 3, c, 3),
+        (levels, c, -1),                                  # radius
+        (levels * 5, c, 3),                               # level count: 20 > MAX_LEVELS
         ([], c, 3),                                       # no level
         (levels, c.double(), 3),                          # coords dtype
         (levels, c.t().contiguous().t(), 3),              # non-contiguous coords

@@ -22,7 +22,11 @@ clip and pushes with a one-rank spatial handle over NCCL against eager
 profiler trace on the card, and full
 RAFT height-sharded over two gloo ranks on the card (this file run as a
 script, `_spatial_child`) against one process, with kernel #1's launches
-on each rank.
+on each rank; and the estimator options: kernel #2, its backward and
+kernel #3 built for other (radius, levels) and tap counts against their
+plain versions, the model options GPU against CPU through their builds,
+a fine-tune step at corr_levels 3, corr_radius 3, the group-norm
+encoders.
 Marked `cuda`; each test skips where there is no GPU (no
 kernel can run there). This file imports neither JAX nor the JAX package,
 so it runs on a machine with only torch:
@@ -1522,6 +1526,225 @@ def test_device_prefetch_copies_to_the_card(dev):
         assert b["a"].is_cuda and torch.equal(b["a"].cpu(), want)
         assert torch.equal(double(b["a"]).cpu(), 2 * want)
     assert double.captures == 1
+
+
+# ---------------------------------------------------------------------------
+# The estimator options: corr_levels and corr_radius at any level count and
+# radius (kernel #2's, the backward kernel's and kernel #3's builds for them)
+# ---------------------------------------------------------------------------
+
+# (radius, levels) builds of kernel #2 and its backward: JAX's examples (3, 3),
+# (2, 2), (5, 6) and RAFT-small at 3 levels (3, 3), radius 4 over 3 levels,
+# and (12, 6), whose block fits shared memory at 4 queries, not 8.
+OPTION_BUILDS = [(3, 3), (2, 2), (6, 5), (4, 3), (12, 6)]
+
+
+def _levels_case(dev, b, h, w, levels, spread, dtype=torch.float32, seed=0):
+    """_case at `levels` levels: level 0 h x w, each next one pooled (to 0 x 0
+    where a map runs out)."""
+    gen = torch.Generator().manual_seed(seed)
+    q = b * h * w
+    maps = [torch.randn((q, h >> l, w >> l), generator=gen).to(dtype).to(dev)
+            for l in range(levels)]
+    ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    grid = torch.stack([xs, ys], -1).float().expand(b, h, w, 2).reshape(q, 2)
+    coords = grid + (torch.rand((q, 2), generator=gen) * 2 - 1) * spread
+    return maps, coords.contiguous().to(dev)
+
+
+@pytest.mark.parametrize("radius,levels", OPTION_BUILDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 16), (3, 8, 12)])
+def test_level_kernel_at_any_radius_and_levels(dev, radius, levels, dtype, shape):
+    """Kernel #2 built for (radius, levels) (corr_level_cuda.defines) against
+    the plain lookup, float32 and bfloat16 output (the bfloat16 one the
+    float32 one cast bit for bit); 8 x 12 over 5 or 6 levels pools to 1 x 1
+    and 0 x 0, which give zeros; one launch counted for its build."""
+    maps, coords = _levels_case(dev, *shape, levels, spread=20, dtype=dtype)
+    ref = lookup_corr_plain(maps, coords, radius)
+    before = corr_level_cuda.build_launches.get((radius, levels), 0)
+    got32 = corr_level_cuda.lookup_corr_level(maps, coords, radius)
+    got = corr_level_cuda.lookup_corr_level(maps, coords, radius, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert corr_level_cuda.build_launches[radius, levels] == before + 2
+    assert got32.shape == (coords.shape[0], levels * (2 * radius + 1) ** 2)
+    np.testing.assert_allclose(got32.cpu().numpy(), ref.cpu().numpy(), **TOL)
+    assert torch.equal(got.view(torch.int16), got32.to(torch.bfloat16).view(torch.int16))
+    taps = (2 * radius + 1) ** 2
+    for l, m in enumerate(maps):
+        if m.shape[1] == 0 or m.shape[2] == 0:
+            assert not got32[:, l * taps:(l + 1) * taps].any()
+
+
+def test_level_kernel_refuses_what_no_block_holds(dev):
+    """A radius whose patches outgrow shared memory at one query a block
+    raises by name, with the limit, before any build; a library built for
+    one radius refuses another."""
+    with pytest.raises(ValueError, match=f"beyond the {corr_level_cuda.SMEM_LIMIT} B"):
+        corr_level_cuda.defines(30, 16)
+    maps, coords = _levels_case(dev, 1, 8, 8, 3, spread=2)
+    with pytest.raises(ValueError, match="built for radius 3"):
+        corr_level_cuda.launch(corr_level_cuda.library(3, 3), maps, coords, 2)
+
+
+@pytest.mark.parametrize("radius,levels", OPTION_BUILDS[:3])
+@pytest.mark.parametrize("level_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_at_any_radius_and_levels(dev, radius, levels, level_dtype, grad_dtype):
+    """The backward kernel's build for (radius, levels) against the plain
+    backward at test_backward_kernel_matches_plain's bars, coords on a 1/256
+    grid, 37 queries: an odd level count makes each query's window gradient
+    an odd number of values (4-byte pieces of float32, a register-staged copy
+    of bfloat16), and an odd Q starts odd rows mid-vector; one launch
+    counted for its build."""
+    gen = torch.Generator().manual_seed(3)
+    q = 37
+    shapes = [(34 >> l, 36 >> l) for l in range(levels)]
+    coords = torch.round((torch.rand((q, 2), generator=gen) * 48 - 6) * 256).div(256).to(dev)
+    grad = torch.randn((q, levels * (2 * radius + 1) ** 2), generator=gen).to(grad_dtype).to(dev)
+    hw = [d for s in shapes for d in s]
+    op = corr_backward_cuda.corr_level_lookup_backward_op
+    before = corr_backward_cuda.level_build_launches.get((radius, levels), 0)
+    ref = lookup_corr_plain_backward(grad, coords, shapes, radius)
+    got32 = op(grad, coords, hw, radius, torch.float32)
+    got = op(grad, coords, hw, radius, level_dtype)
+    torch.cuda.synchronize()
+    assert corr_backward_cuda.level_build_launches[radius, levels] == before + 2
+    scale = max(float(r.abs().max()) for r in ref if r.numel())
+    for g, g32, r in zip(got, got32, ref):
+        assert g.dtype == level_dtype and g.shape == r.shape
+        if level_dtype == torch.float32:
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6 * scale)
+        else:
+            assert torch.equal(g.view(torch.int16), g32.to(torch.bfloat16).view(torch.int16))
+            assert bool(((g.float() - r).abs() <= 1e-6 * scale + 2 ** -8 * r.abs()).all())
+
+
+@pytest.mark.parametrize("num", [5, 7, 13, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(37, 16, 16), (9, 64, 64), (5, 70, 33)])
+def test_y_contract_at_any_taps(dev, num, dtype, shape):
+    """Kernel #3 built for `num` taps (2r+1; corr_bd_cuda.defines) against
+    its plain twin, float32 and bfloat16 output: bfloat16 maps 16 and 64
+    wide take the MMA path up to 16 taps (17: narrow), the rest narrow."""
+    q, hl, wl = shape
+    gen = torch.Generator().manual_seed(num)
+    corr3 = torch.randn(shape, generator=gen).to(dtype).to(dev)
+    wy = torch.rand((q, num, hl), generator=gen).to(dtype).to(dev)
+    lib = corr_bd_cuda.library(num)
+    mma = dtype == torch.bfloat16 and wl in (16, 64) and num <= 16
+    assert corr_bd_cuda.path(lib, corr3) == ("mma" if mma else "narrow")
+    before = corr_bd_cuda.build_launches.get(num, 0)
+    got32 = corr_bd_cuda.y_contract(corr3, wy)
+    got = corr_bd_cuda.y_contract(corr3, wy, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert corr_bd_cuda.build_launches[num] == before + 2
+    ref = corr_bd_cuda.y_contract_plain(corr3, wy)
+    assert got32.shape == (q, num, wl)
+    np.testing.assert_allclose(got32.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(got.view(torch.int16), got32.to(torch.bfloat16).view(torch.int16))
+
+
+# Estimators at the options JAX takes (its build_flow_estimator gave a finite
+# flow for each at 64^2): (name, overrides, kernel module, its build's key).
+OPTION_MODELS = {
+    "raft (3, 3)": ("raft", dict(corr_levels=3, corr_radius=3), corr_level_cuda, (3, 3)),
+    "raft (2, 2)": ("raft", dict(corr_levels=2, corr_radius=2), corr_level_cuda, (2, 2)),
+    "raft (5, 6)": ("raft", dict(corr_levels=5, corr_radius=6), corr_level_cuda, (6, 5)),
+    "raft-small 3 levels": ("raft", dict(small=True, corr_levels=3), corr_level_cuda, (3, 3)),
+    "gma (3, 3)": ("gma", dict(corr_levels=3, corr_radius=3), corr_level_cuda, (3, 3)),
+    "raft (3, 3) fused_bd": ("raft", dict(corr_levels=3, corr_radius=3,
+                                          corr_lookup="experimental:fused_bd"), corr_bd_cuda, 7),
+    "raft (3, 3) ondemand:16": ("raft", dict(corr_levels=3, corr_radius=3,
+                                             corr_lookup="ondemand:16"), corr_level_cuda, (3, 3)),
+}
+
+
+def _option_flow(where, name, kw):
+    est = build_flow_estimator(name, compute_dtype="float32", iters=3, device=where, **kw)
+    if name == "gma":
+        with torch.no_grad():
+            est.model.update_block.aggregator.gamma.fill_(3.0)
+    rng = np.random.default_rng(7)
+    i1, i2 = (rng.uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32) for _ in range(2))
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        return est.forward(i1, i2)["flow_up"].cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("case", list(OPTION_MODELS))
+def test_estimator_options_gpu_match_cpu_through_their_build(dev, case):
+    """Each option's f32 forward (3 iterations, 64^2) on the card against
+    the CPU (plain versions) within 1e-3 of the largest |flow| (chip_smoke's
+    CLIP_REL), reaching its build's kernel: 3 launches of kernel #2's
+    (radius, levels) build (12 for ondemand:16's four chunks of the 8 x 8
+    queries), 3 of kernel #3 at 7 taps for fused_bd, and none of kernel
+    #1."""
+    name, kw, module, key = OPTION_MODELS[case]
+    counts = module.build_launches
+    before = (counts.get(key, 0), corr_cuda.launches)
+    got = _option_flow(dev, name, kw)
+    want = 12 if "ondemand" in case else 3
+    assert (counts.get(key, 0) - before[0], corr_cuda.launches - before[1]) == (want, 0)
+    ref = _option_flow("cpu", name, kw)
+    assert np.isfinite(got).all() and float(np.abs(ref).max()) > 0
+    assert float(np.abs(got - ref).max()) <= 1e-3 * float(np.abs(ref).max())
+
+
+def test_finetune_step_at_3_levels_radius_3_gpu_matches_cpu(dev, monkeypatch):
+    """test_finetune_step_gpu_matches_cpu at corr_levels 3, corr_radius 3:
+    kernel #2's (3, 3) build and its backward build, 12 launches each, none
+    of kernel #1's; the same bars."""
+    real = build_flow_estimator
+    monkeypatch.setitem(globals(), "build_flow_estimator",
+                        lambda *a, **k: real(*a, corr_levels=3, corr_radius=3, **k))
+    out = {}
+    recorded = None
+    for where in (dev, "cpu"):
+        est, train_step, batch, grads = _finetune_case(where)
+        assert est.model.cfg.corr_planes == 3 * 49
+        recorded = tie_hooks(est.model, recorded)[0]
+        before = (corr_level_cuda.build_launches.get((3, 3), 0),
+                  corr_backward_cuda.level_build_launches.get((3, 3), 0), corr_cuda.launches)
+        loss, _ = train_step(*batch)
+        after = (corr_level_cuda.build_launches.get((3, 3), 0),
+                 corr_backward_cuda.level_build_launches.get((3, 3), 0), corr_cuda.launches)
+        want = [12, 12, 0] if where == dev else [0, 0, 0]
+        assert [a - b for a, b in zip(after, before)] == want
+        out[str(where)] = float(loss), grads
+    (loss_g, g), (loss_c, c) = out[str(dev)], out["cpu"]
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for part in ("fnet.", "cnet.", "update_block."):
+        keys = [k for k in c if k.startswith(part)]
+        num = sum(float(((g[k] - c[k]) ** 2).sum()) for k in keys)
+        assert (num / sum(float((c[k] ** 2).sum()) for k in keys)) ** 0.5 <= 1e-4, part
+
+
+@pytest.mark.parametrize("encoder", ["basic", "small"])
+def test_group_norm_encoders_gpu_match_cpu(dev, encoder):
+    """The encoders with norm_fn "group" on the card against the CPU, f32
+    (TF32 off), within 1e-5 of the largest |output| (cuDNN's convs against
+    the CPU's, summation order apart), and one bfloat16 call finite."""
+    from accflow_tpu_torch.models.encoders import BasicEncoder, SmallEncoder
+    from accflow_tpu_torch.nn.layers import init_weights, tf32
+
+    enc = init_weights((BasicEncoder if encoder == "basic" else SmallEncoder)(64, "group"), 0)
+    with torch.no_grad():
+        for m in enc.modules():
+            if hasattr(m, "num_groups"):
+                m.weight.uniform_(0.5, 1.5)
+                m.bias.normal_(0, 0.1)
+    x = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, (2, 3, 64, 48)).astype(np.float32))
+    with torch.no_grad(), tf32(False):
+        ref = enc(x)
+        got = enc.to(dev)(x.to(dev)).cpu()
+        bf = enc(x.to(dev).to(torch.bfloat16))
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert bf.dtype == torch.bfloat16 and bool(torch.isfinite(bf).all())
 
 
 # ---------------------------------------------------------------------------

@@ -149,6 +149,27 @@ def test_batch_norm_frozen(rng):
     _close(out.permute(0, 2, 3, 1), ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm(rng, dtype):
+    """layers.group_norm against JAX's group_norm: 12 channels in 4 groups,
+    a non-trivial affine map; float32 statistics whatever x's dtype (a
+    bfloat16 input: JAX's result on the same bfloat16 values, both rounded
+    once to bfloat16, within one bfloat16 rounding)."""
+    x = rng.normal(1.5, 2.0, (2, 6, 7, 12)).astype(np.float32)
+    scale = rng.uniform(0.5, 2, 12).astype(np.float32)
+    bias = rng.standard_normal(12).astype(np.float32)
+    xt = _nchw(x).to(dtype)
+    ref = j_layers.group_norm({"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
+                              jnp.asarray(xt.float().permute(0, 2, 3, 1).numpy()), 4)
+    out = layers.group_norm(xt, _t(scale), _t(bias), 4)
+    assert out.dtype == dtype
+    if dtype == torch.float32:
+        _close(out.permute(0, 2, 3, 1), ref)
+    else:
+        ref = np.asarray(ref)
+        _close(out.float().permute(0, 2, 3, 1), ref, rtol=2 ** -8, atol=1e-5)
+
+
 def test_zero_conv2d(rng):
     x = rng.standard_normal((2, 6, 5, 4)).astype(np.float32)
     wt = rng.standard_normal((3, 3, 4, 7)).astype(np.float32) * 0.3
@@ -161,10 +182,10 @@ def test_zero_conv2d(rng):
     _close(out.permute(0, 2, 3, 1), ref)
 
 
-@pytest.mark.parametrize("norm_fn", ["instance", "batch", "none"])
+@pytest.mark.parametrize("norm_fn", ["instance", "batch", "none", "group"])
 def test_basic_encoder(rng, norm_fn):
     params = j_enc.init_basic_encoder(jax.random.PRNGKey(3), 3, 32, norm_fn)
-    if norm_fn == "batch":  # non-trivial running statistics
+    if norm_fn in ("batch", "group"):  # non-trivial affine maps (and running statistics)
         params = jax.tree_util.tree_map_with_path(
             lambda path, v: jnp.asarray(rng.uniform(0.5, 1.5, v.shape), jnp.float32)
             if path[-1].key in ("var", "scale") else
@@ -181,7 +202,7 @@ def test_basic_encoder(rng, norm_fn):
 
 
 @pytest.mark.parametrize("stride", [1, 2])
-@pytest.mark.parametrize("norm_fn", ["instance", "none"])
+@pytest.mark.parametrize("norm_fn", ["instance", "none", "group"])
 def test_bottleneck_block(rng, norm_fn, stride):
     """A strided block projects its input (16 -> 32 channels); a stride-1
     block keeps the width, as every one in SmallEncoder does."""
@@ -195,9 +216,10 @@ def test_bottleneck_block(rng, norm_fn, stride):
     _close(out.permute(0, 2, 3, 1), ref)
 
 
-@pytest.mark.parametrize("norm_fn", ["instance", "none"])
+@pytest.mark.parametrize("norm_fn", ["instance", "none", "group"])
 def test_small_encoder(rng, norm_fn):
-    """RAFT-small's fnet (instance norm) and cnet (no norm)."""
+    """RAFT-small's fnet (instance norm) and cnet (no norm), and group norm
+    (JAX's 8 groups at the stem, planes // 8 in the blocks)."""
     params = j_enc.init_small_encoder(jax.random.PRNGKey(4), 40, norm_fn)
     x = rng.uniform(-1, 1, (2, 32, 24, 3)).astype(np.float32)
     ref = j_enc.small_encoder(params, jnp.asarray(x), norm_fn)

@@ -106,19 +106,19 @@ def test_bf16_lookup_writes_the_compute_dtype(monkeypatch):
     est = build_flow_estimator("raft", compute_dtype="bfloat16", device="cpu", seed=0)
     frames = np.random.default_rng(1).uniform(-1, 1, (2, 1, 32, 32, 3)).astype(np.float32)
     asked = []
-    fused = raft_mod.lookup_corr_fused
+    fused = raft_mod.lookup_corr_kernel
 
     def spy(levels, coords, radius, out_dtype=torch.float32):
         asked.append(out_dtype)
         return fused(levels, coords, radius, out_dtype)
 
-    monkeypatch.setattr(raft_mod, "lookup_corr_fused", spy)
+    monkeypatch.setattr(raft_mod, "lookup_corr_kernel", spy)
     got = est.forward(frames[0], frames[1], iters=2, final_only=True)["flow_up"]
     assert asked == [torch.bfloat16] * 2
 
     def cast_after(levels, coords, radius, out_dtype=torch.float32):
         return fused(levels, coords, radius).to(out_dtype)
 
-    monkeypatch.setattr(raft_mod, "lookup_corr_fused", cast_after)
+    monkeypatch.setattr(raft_mod, "lookup_corr_kernel", cast_after)
     ref = est.forward(frames[0], frames[1], iters=2, final_only=True)["flow_up"]
     assert torch.equal(got, ref)

@@ -61,7 +61,7 @@ def small():
 def test_config():
     est = build_flow_estimator("raft", compute_dtype="float32", device="cpu", small=True)
     cfg, jcfg = est.model.cfg, JRAFTConfig(small=True)
-    assert (cfg.hidden_dim, cfg.context_dim, cfg.corr_radius, cfg.corr_planes) == (
+    assert (cfg.hidden_dim, cfg.context_dim, cfg.radius, cfg.corr_planes) == (
         jcfg.hidden_dim, jcfg.context_dim, jcfg.radius, jcfg.corr_planes) == (96, 64, 3, 196)
     assert not hasattr(est.model.update_block, "mask")
 
@@ -127,19 +127,19 @@ def test_bf16_lookup_writes_the_compute_dtype(monkeypatch):
                                small=True)
     frames = np.random.default_rng(1).uniform(-1, 1, (2, 1, 32, 32, 3)).astype(np.float32)
     asked = []
-    level = raft_mod.lookup_corr_level
+    level = raft_mod.lookup_corr_kernel
 
     def spy(levels, coords, radius, out_dtype=torch.float32):
         asked.append((radius, out_dtype))
         return level(levels, coords, radius, out_dtype)
 
-    monkeypatch.setattr(raft_mod, "lookup_corr_level", spy)
+    monkeypatch.setattr(raft_mod, "lookup_corr_kernel", spy)
     got = est.forward(frames[0], frames[1], iters=2, final_only=True)["flow_up"]
     assert asked == [(3, torch.bfloat16)] * 2
 
     def cast_after(levels, coords, radius, out_dtype=torch.float32):
         return level(levels, coords, radius).to(out_dtype)
 
-    monkeypatch.setattr(raft_mod, "lookup_corr_level", cast_after)
+    monkeypatch.setattr(raft_mod, "lookup_corr_kernel", cast_after)
     ref = est.forward(frames[0], frames[1], iters=2, final_only=True)["flow_up"]
     assert torch.equal(got, ref)

@@ -67,6 +67,14 @@ one process and against the JAX package's unsharded runs.
     clip's and the stream's flows are ~0.1 px, so the AccFlow bar alone
     passes a run whose coordinates start every rank at row 0) and of the
     port's run in one process;
+  - the estimator options: full RAFT at corr_levels 3, corr_radius 3 (its
+    pair at 128^2, each rank's queries against the gathered keys through
+    kernel #2's (3, 3) lookup's plain version) against JAX's unsharded
+    forward (FLOW_TOL, FLOW_REL) and one process; a basic encoder with
+    norm_fn "group" on a 40x48 frame at 24 + 16 rows (the group statistics
+    combined over the ranks) against JAX's basic_encoder (rtol / atol
+    1e-4, tests/test_torch_ops.py's encoder bar) and one process (1e-5 x
+    its largest |value|);
   - each rank's handle, and the collectives it counted.
 - One launch of four gloo ranks: the primitives again on a (1, 4) mesh (1
   to 16 rows a rank: a 7x7 conv's halo then comes from three ranks up;
@@ -111,6 +119,7 @@ from accflow_tpu_torch.models import (
     build_flow_estimator,
     init_accflow,
 )
+from accflow_tpu_torch.models.encoders import BasicEncoder
 from accflow_tpu_torch.nn import layers
 from accflow_tpu_torch.ops.deform import deform_conv3x3
 from accflow_tpu_torch.ops.grids import downflow8, upflow8
@@ -185,6 +194,8 @@ ACC_TOL = dict(rtol=2e-3, atol=2e-2)  # the AccFlow and stream bar (tests/test_t
 # order, ~3e-6 x max |flow| at these shapes.
 FLOW_REL = 1e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RAFT33 = dict(corr_levels=3, corr_radius=3)  # the estimator options' RAFT
+GROUP_OUT = 64  # the group-norm basic encoder's output channels
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -436,6 +447,19 @@ def _small(work: str, lookup: str):
     return est
 
 
+def _raft33(work: str):
+    """Full RAFT at corr_levels 3, corr_radius 3 (convc1 takes 3 x 49
+    channels), from the launch's weights."""
+    est = build_flow_estimator("raft", compute_dtype="float32", iters=ITERS, device="cpu",
+                               **RAFT33)
+    load_jax_params(est.model, load_npz_tree(f"{work}/ofe33.npz"))
+    return est
+
+
+def _group_encoder(work: str):
+    return load_jax_params(BasicEncoder(GROUP_OUT, "group"), load_npz_tree(f"{work}/group.npz"))
+
+
 def _drift_models():
     """The drift fixture's trained RAFT-small (6 iterations) and hidden-64
     warm-start accumulator (tests/test_torch_stream.py)."""
@@ -515,6 +539,20 @@ def _models(sp, work: str) -> dict:
         _small(work, "fused"), _accumulator(work, warm_start=True), spatial=sp), stream))
     case("drift", lambda: run_stream(StreamAccumulator(*_drift_models(), spatial=sp),
                                      torch.from_numpy(data["drift"])))
+
+    # The estimator options: RAFT (3, 3)'s pair, a group-norm basic encoder
+    # at 24 + 16 rows (its NCHW output gathered along the height).
+    est33 = _raft33(work)
+    i1, i2 = (mesh.shard_rows(torch.from_numpy(data[k]), sp) for k in ("i1", "i2"))
+    case("raft 33", lambda: mesh.gather_rows(est33.forward(i1, i2, spatial=sp)["flow_up"], sp))
+    enc = _group_encoder(work)
+    frame = mesh.shard_rows(torch.from_numpy(data["clip40"][0]), sp40).permute(0, 3, 1, 2)
+
+    def encode():
+        with torch.no_grad(), layers.spatial_sharding(enc, sp40):
+            return mesh.gather_rows(enc(frame), sp40, 2)
+
+    case("group encoder", encode)
     return out
 
 
@@ -923,6 +961,12 @@ def _write_inputs(work: str) -> None:
         build_flow_estimator("raft", compute_dtype="float32", device="cpu").model))
     save_npz_tree(f"{work}/small.npz", to_jax_params(
         build_flow_estimator("raft", compute_dtype="float32", device="cpu", small=True).model))
+    save_npz_tree(f"{work}/ofe33.npz", to_jax_params(
+        build_flow_estimator("raft", compute_dtype="float32", device="cpu", **RAFT33).model))
+    group = to_jax_params(layers.init_weights(BasicEncoder(GROUP_OUT, "group"), 0))
+    rng = np.random.default_rng(11)  # the group norms' scale and bias away from 1 and 0
+    _draw_group_affine(group, rng)
+    save_npz_tree(f"{work}/group.npz", group)
     for branch in ("content", "positional"):  # the tables' size follows max_pos_size
         gma = to_jax_params(build_flow_estimator(
             "gma", compute_dtype="float32", device="cpu", **_branch_cfg(branch)).model)
@@ -949,6 +993,16 @@ def _write_inputs(work: str) -> None:
              stream=frames(4, (5, 1, SIZE, SIZE, 3)),
              gma_clip=frames(6, (5, 1, GMA_SIZE, GMA_SIZE, 3)), clip40=frames(7, CLIP40),
              drift=(2.0 * (seq.astype(np.float32) / 255.0) - 1.0)[:, None])
+
+
+def _draw_group_affine(tree, rng) -> None:
+    """Each group norm's scale in [0.5, 1.5] and bias N(0, 0.1), in place."""
+    for k, v in tree.items():
+        if isinstance(v, dict) and set(v) == {"scale", "bias"}:
+            v["scale"] = rng.uniform(0.5, 1.5, v["scale"].shape).astype(np.float32)
+            v["bias"] = (0.1 * rng.standard_normal(v["bias"].shape)).astype(np.float32)
+        elif isinstance(v, dict):
+            _draw_group_affine(v, rng)
 
 
 def _write_train_inputs(work: str) -> None:
@@ -1080,6 +1134,7 @@ def refs(launch):
     import jax.numpy as jnp
 
     from accflow_tpu.models import build_flow_estimator as j_build
+    from accflow_tpu.models import encoders as j_enc
     from accflow_tpu.models.accflow import AccFlowConfig as JAccFlowConfig
     from accflow_tpu.models.accflow import accflow_forward as j_accflow_forward
     from accflow_tpu.streaming import make_streaming_fns as j_make_streaming_fns
@@ -1130,6 +1185,11 @@ def refs(launch):
             out["gma stream"] = stream(j_gma, gma, acc, data["gma_clip"], warm)
     j_small = j_build("raft", compute_dtype="float32", small=True, iters=ITERS)
     out["small"] = pair(j_small, small, (data["i1"], data["i2"]))
+    j33 = j_build("raft", compute_dtype="float32", corr_lookup="mm", iters=ITERS, **RAFT33)
+    out["raft 33"] = pair(j33, load_npz_tree(f"{work}/ofe33.npz"), (data["i1"], data["i2"]))
+    out["group encoder"] = np.moveaxis(np.asarray(jax.jit(
+        lambda p, x: j_enc.basic_encoder(p, x, "group"))(
+            load_npz_tree(f"{work}/group.npz"), data["clip40"][0])), -1, 1)
     out["small stream"] = stream(j_small, small, acc, data["stream"], warm)
     out["drift"] = stream(
         j_build("raft", compute_dtype="float32", small=True, iters=6),
@@ -1150,6 +1210,7 @@ def _jax_train_step(work: str, ofe) -> dict:
     from test_torch_train import _keep_grads
 
     from accflow_tpu.models import build_flow_estimator as j_build
+    from accflow_tpu.models import encoders as j_enc
     from accflow_tpu.models.accflow import AccFlowConfig as JAccFlowConfig
     from accflow_tpu.train import engine as j_engine
     from accflow_tpu.train import optim as j_optim
@@ -1243,9 +1304,10 @@ def test_spatial_handles(launch):
     r0, r1 = launch.ranks()
     assert r0["axis"].tolist() == [0, 2] and r1["axis"].tolist() == [1, 2]
     cases = [k[:-len("/collectives")] for k in r0 if k.endswith("/collectives")]
-    # clip, clip 40, clip mix and stream beside the lookups' pairs and the paths
+    # clip, clip 40, clip mix and stream beside the lookups' pairs and the
+    # paths; the estimator options' RAFT (3, 3) pair and group-norm encoder
     assert len(cases) == (len(LOOKUPS) + 4 + len(CLIP_PATHS) + 2 * len(GMA_VARIANTS) + 1
-                          + len(SMALL_LOOKUPS) + 2 + len(FT_PATHS))
+                          + len(SMALL_LOOKUPS) + 2 + len(FT_PATHS) + 2)
     for case in cases:
         assert int(r0[f"{case}/collectives"]) == int(r1[f"{case}/collectives"]) > 0
         assert int(r0[f"{case}/bytes"]) == int(r1[f"{case}/bytes"]) > 0
@@ -1365,6 +1427,29 @@ def test_spatial_mix_clip_matches_one_process(launch, refs):
     assert got.shape == (2, 1, GMA_SIZE, GMA_SIZE, 2) and np.isfinite(got).all()
     assert np.abs(got - one).max() <= FLOW_REL * np.abs(one).max() and np.abs(one).max() > 0
     np.testing.assert_array_equal(r1["clip mix"], got)
+
+
+def test_spatial_raft_estimator_options_match_jax(launch, refs):
+    """Full RAFT at corr_levels 3, corr_radius 3 on two ranks (each rank's
+    queries against the gathered keys, 3 levels at radius 3) against JAX's
+    unsharded forward at the same fields and the port's one process; both
+    ranks' outputs equal."""
+    r0, r1 = launch.ranks()
+    _holds(r0["raft 33"], refs["raft 33"], refs["port"]["raft 33"], FLOW_TOL)
+    np.testing.assert_array_equal(r1["raft 33"], r0["raft 33"])
+
+
+def test_spatial_group_norm_encoder_matches_jax(launch, refs):
+    """The group-norm basic encoder on a 40x48 frame at 24 + 16 rows (each
+    group's statistics those of the whole image) against JAX's unsharded
+    basic_encoder (tests/test_torch_ops.py's encoder bar) and the port's
+    one process (1e-5 x its largest |value|)."""
+    r0, r1 = launch.ranks()
+    got, one = r0["group encoder"], refs["port"]["group encoder"]
+    assert got.shape == (1, GROUP_OUT, 5, 6) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, refs["group encoder"], rtol=1e-4, atol=1e-4)
+    assert np.abs(got - one).max() <= 1e-5 * np.abs(one).max()
+    np.testing.assert_array_equal(r1["group encoder"], got)
 
 
 def test_spatial_drift_prefix_matches_jax(launch, refs):
