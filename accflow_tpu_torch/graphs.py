@@ -36,7 +36,11 @@ no host copy. mesh's `collectives` and `bytes_sent` are counted in
 Python, which a replay does not run: each graph keeps what its capture
 counted and adds it on every replay, so a graphed call counts what an
 eager one does (the capture call: one call's worth; CudaGraphed's
-warm-ups are eager calls and count as such).
+warm-ups are eager calls and count as such). Spans (utils/profiling.py)
+the same way: a graph captured with spans on keeps the calls its capture
+recorded, whose CUDA events are event-record nodes of the graph, and
+queues them on every replay; a capture is the host span
+"graphs.capture", a replay the profiler range "graphs.replay".
 
 A capture checks only its own thread's CUDA calls (capture_error_mode
 "thread_local"), and holds CAPTURE_LOCK, which data/prefetch.py's copies
@@ -54,6 +58,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from accflow_tpu_torch.parallel import mesh
+from accflow_tpu_torch.utils import profiling
 
 WARMUP = 2  # eager runs on the capture stream before a capture
 # Held by each capture and by data/prefetch.py's copies to the card, so
@@ -83,16 +88,18 @@ def _on_capture_stream(fn, args):
 
 class _Graph:
     """One captured signature: static inputs, the graph, its outputs, and
-    the mesh collectives and bytes its capture counted (`counts`: added
-    on each replay, taken back from the capture). The leaves that are not
-    tensors (torch.Generators, None) are static: the graph is captured
-    with them, each generator registered with it."""
+    what its capture counted, which each replay adds again: the mesh
+    collectives and bytes (`counts`: added on each replay, taken back from
+    the capture) and the spans (`spans`: the calls whose events the
+    capture recorded, queued on each replay; utils/profiling.py). The
+    leaves that are not tensors (torch.Generators, None) are static: the
+    graph is captured with them, each generator registered with it."""
 
     def __init__(self, fn, leaves, spec, warmup: int):
         self.inputs = [torch.empty_like(x).copy_(x) if isinstance(x, torch.Tensor) else x
                        for x in leaves]
         args = pytree.tree_unflatten(self.inputs, spec)
-        with torch.cuda.device(_device(leaves)):
+        with profiling.span("graphs.capture", "host"), torch.cuda.device(_device(leaves)):
             for _ in range(warmup):
                 _on_capture_stream(fn, args)
             self.graph = torch.cuda.CUDAGraph()
@@ -100,22 +107,27 @@ class _Graph:
                 if isinstance(gen, torch.Generator):
                     self.graph.register_generator_state(gen)
             before = mesh.counts()
+            profiling.take_captured()  # what an aborted capture left: no graph's
             with CAPTURE_LOCK, torch.cuda.graph(self.graph, stream=_capture_stream(),
                                                 capture_error_mode="thread_local"):
                 out = fn(*args)
         self.counts = tuple(a - b for a, b in zip(mesh.counts(), before))
         mesh.add_counts(*(-c for c in self.counts))
+        self.spans = profiling.take_captured()
         self.outputs, self.out_spec = pytree.tree_flatten(out)
         if not all(isinstance(o, torch.Tensor) for o in self.outputs):
             raise TypeError("a graphed function returns tensors only")
 
     def __call__(self, leaves):
-        for buf, x in zip(self.inputs, leaves):
-            if isinstance(x, torch.Tensor):
-                buf.copy_(x)
-        self.graph.replay()
-        mesh.add_counts(*self.counts)
-        return pytree.tree_unflatten([o.clone() for o in self.outputs], self.out_spec)
+        with profiling.span("graphs.replay", "none"):
+            for buf, x in zip(self.inputs, leaves):
+                if isinstance(x, torch.Tensor):
+                    buf.copy_(x)
+            if self.spans:
+                profiling.replaying(self.spans)
+            self.graph.replay()
+            mesh.add_counts(*self.counts)
+            return pytree.tree_unflatten([o.clone() for o in self.outputs], self.out_spec)
 
 
 def _indexed(dev: torch.device) -> torch.device:

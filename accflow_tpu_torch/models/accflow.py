@@ -75,6 +75,7 @@ from accflow_tpu_torch.ops.occlusion import photometric_occ
 from accflow_tpu_torch.ops.upsample import convex_upsample
 from accflow_tpu_torch.ops.warmstart import forward_splat_flow
 from accflow_tpu_torch.parallel import mesh
+from accflow_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,13 +254,16 @@ def _accflow_forward_stepwise(model: AccFlow, ofe, images: torch.Tensor,
     carry, outs = None, []
     for i in range(2, images.shape[0]):
         i1, i2 = images[i], images[i - 1]
-        if carry is None:
-            flows = downflow8(ofe(torch.cat([i1, i1, i2]), torch.cat([i2, i_n, i_n])), spatial)
-            dflow, flow_ini, carry = flows.detach().chunk(3)
-        else:
-            flows = downflow8(ofe(torch.cat([i1, i1]), torch.cat([i2, i_n])), spatial)
-            dflow, flow_ini = flows.detach().chunk(2)
-        carry, out = cell(dflow, flow_ini, carry.detach(), i1, i2, i_n)
+        with span("acc.ofe"):
+            if carry is None:
+                flows = downflow8(ofe(torch.cat([i1, i1, i2]), torch.cat([i2, i_n, i_n])),
+                                  spatial)
+                dflow, flow_ini, carry = flows.detach().chunk(3)
+            else:
+                flows = downflow8(ofe(torch.cat([i1, i1]), torch.cat([i2, i_n])), spatial)
+                dflow, flow_ini = flows.detach().chunk(2)
+        with span("acc.cells"):
+            carry, out = cell(dflow, flow_ini, carry.detach(), i1, i2, i_n)
         outs.append(out)
     return torch.stack(outs)
 
@@ -275,17 +279,21 @@ def _accflow_forward_f0n(model: AccFlow, ofe, images: torch.Tensor,
     operand), frames (0, i-1, i). The first step's OFE call also seeds the
     carry F_{0,1}. `ofe` is FlowEstimator.flow_fn()."""
     i0 = images[0]
-    flows = downflow8(ofe(torch.cat([i0, i0, images[1]]),
-                          torch.cat([images[1], images[2], images[2]])), spatial)
-    seed, direct, local = flows.detach().chunk(3)
-    carry, out = _cell_modules(model, seed, direct, local, i0, images[1], images[2], spatial)
+    with span("acc.ofe"):
+        flows = downflow8(ofe(torch.cat([i0, i0, images[1]]),
+                              torch.cat([images[1], images[2], images[2]])), spatial)
+        seed, direct, local = flows.detach().chunk(3)
+    with span("acc.cells"):
+        carry, out = _cell_modules(model, seed, direct, local, i0, images[1], images[2], spatial)
     outs = [out]
     cell = remat_wrap(functools.partial(_cell_modules, model, spatial=spatial), model.cfg.remat)
     for i in range(3, images.shape[0]):
         i2, i_n = images[i - 1], images[i]
-        flows = downflow8(ofe(torch.cat([i0, i2]), torch.cat([i_n, i_n])), spatial)
-        direct, local = flows.detach().chunk(2)
-        carry, out = cell(carry.detach(), direct, local, i0, i2, i_n)
+        with span("acc.ofe"):
+            flows = downflow8(ofe(torch.cat([i0, i2]), torch.cat([i_n, i_n])), spatial)
+            direct, local = flows.detach().chunk(2)
+        with span("acc.cells"):
+            carry, out = cell(carry.detach(), direct, local, i0, i2, i_n)
         outs.append(out)
     return torch.stack(outs)
 
@@ -308,19 +316,23 @@ def _accflow_forward_warmstart(model: AccFlow, ofe, images: torch.Tensor,
     t = images.shape[0]
     i_n = images[0]
     i1, i2 = images[2], images[1]
-    flows = downflow8(ofe(torch.cat([i1, i1, i2]), torch.cat([i2, i_n, i_n])), spatial)
-    dflow, flow_ini, seed = flows.chunk(3)
-    carry, out = _cell_modules(model, dflow, flow_ini, seed, i1, i2, i_n, spatial)
+    with span("acc.ofe"):
+        flows = downflow8(ofe(torch.cat([i1, i1, i2]), torch.cat([i2, i_n, i_n])), spatial)
+        dflow, flow_ini, seed = flows.chunk(3)
+    with span("acc.cells"):
+        carry, out = _cell_modules(model, dflow, flow_ini, seed, i1, i2, i_n, spatial)
     outs = [out]
     for i in range(3, t):
         i1, i2 = images[i], images[i - 1]
-        advect = -dflow
-        init = torch.cat([forward_splat_flow(dflow, advect, spatial),
-                          forward_splat_flow(flow_ini, advect, spatial)])
-        flows = downflow8(ofe(torch.cat([i1, i1]), torch.cat([i2, i_n]), flow_init=init),
-                          spatial)
-        dflow, flow_ini = flows.chunk(2)
-        carry, out = _cell_modules(model, dflow, flow_ini, carry, i1, i2, i_n, spatial)
+        with span("acc.ofe"):  # the warm start's advection, then the query
+            advect = -dflow
+            init = torch.cat([forward_splat_flow(dflow, advect, spatial),
+                              forward_splat_flow(flow_ini, advect, spatial)])
+            flows = downflow8(ofe(torch.cat([i1, i1]), torch.cat([i2, i_n]), flow_init=init),
+                              spatial)
+            dflow, flow_ini = flows.chunk(2)
+        with span("acc.cells"):
+            carry, out = _cell_modules(model, dflow, flow_ini, carry, i1, i2, i_n, spatial)
         outs.append(out)
     return torch.stack(outs)
 
@@ -337,7 +349,16 @@ def _dispatch(model: AccFlow, images: torch.Tensor, ofe_pairs, ofe,
               spatial=None) -> torch.Tensor:
     """The path of model.cfg (direction, warm_start, fused_ofe), given the
     OFE closure it takes (accflow_tpu/models/accflow.py:644-697), on this
-    rank's rows under a spatial handle."""
+    rank's rows under a spatial handle: the span "acc.clip", holding
+    "acc.ofe" (the estimator's queries, with the 1/8 downsampling of their
+    flows) and "acc.cells" (the context encoder, the maps, the flow
+    encoder and the cells) once each on the fused paths, once a step on
+    the stepwise ones (utils/profiling.py)."""
+    with span("acc.clip"):
+        return _path(model, images, ofe_pairs, ofe, spatial)
+
+
+def _path(model: AccFlow, images: torch.Tensor, ofe_pairs, ofe, spatial):
     cfg = model.cfg
     forward = cfg.direction == "forward"
     mesh.check_rows(images.shape[2], spatial)
@@ -405,10 +426,11 @@ def _accflow_forward_fused(model: AccFlow, ofe_pairs, images: torch.Tensor,
     # | seed] (accflow.py:574-575).
     src_idx = tuple(range(2, t)) + tuple(range(2, t)) + (1,)
     dst_idx = tuple(range(1, t - 1)) + (0,) * s + (0,)
-    flows = downflow8(ofe_pairs(images, src_idx, dst_idx), spatial).detach()
+    with span("acc.ofe"):
+        flows = downflow8(ofe_pairs(images, src_idx, dst_idx), spatial).detach()
     dflows, inis, seed = flows[: s * n], flows[s * n: 2 * s * n], flows[2 * s * n:]
 
-    with tf32(False), spatial_sharding(model, spatial):
+    with span("acc.cells"), tf32(False), spatial_sharding(model, spatial):
         ctx = model.context(to_nchw(images.reshape(t * n, h, w, 3), cd))
         ctx = ctx.view(t, n, *ctx.shape[1:])  # (T, N, C, h8, w8)
         ctx32 = ctx.float().permute(0, 1, 3, 4, 2)  # (T, N, h8, w8, C)
@@ -464,10 +486,11 @@ def _accflow_forward_f0n_fused(model: AccFlow, ofe_pairs, images: torch.Tensor,
     # (accflow.py:478-479).
     src_idx = (0,) * s + tuple(range(1, t - 1)) + (0,)
     dst_idx = tuple(range(2, t)) + tuple(range(2, t)) + (1,)
-    flows = downflow8(ofe_pairs(images, src_idx, dst_idx), spatial).detach()
+    with span("acc.ofe"):
+        flows = downflow8(ofe_pairs(images, src_idx, dst_idx), spatial).detach()
     directs, locals_, seed = flows[: s * n], flows[s * n: 2 * s * n], flows[2 * s * n:]
 
-    with tf32(False), spatial_sharding(model, spatial):
+    with span("acc.cells"), tf32(False), spatial_sharding(model, spatial):
         ctx = model.context(to_nchw(images.reshape(t * n, h, w, 3), cd))
         ctx = ctx.view(t, n, *ctx.shape[1:])  # (T, N, C, h8, w8)
         ctx32 = ctx.float().permute(0, 1, 3, 4, 2)  # (T, N, h8, w8, C)

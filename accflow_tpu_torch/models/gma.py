@@ -85,6 +85,7 @@ from accflow_tpu_torch.ops.corr import (
     stored_volume_bytes,
 )
 from accflow_tpu_torch.parallel import mesh
+from accflow_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,7 +287,12 @@ def attention(model: GMA, inp: torch.Tensor, chunk: int = 0, spatial=None):
     the dense softmaxed (N, heads, HW, HW) matrix in the compute dtype, or
     AttnOperands for chunk > 0. spatial: inp is this rank's rows; the keys
     are gathered (the whole height), and the matrix holds this rank's query
-    rows against every key."""
+    rows against every key. The span "gma.attention" (utils/profiling.py)."""
+    with span("gma.attention"):
+        return _attention(model, inp, chunk, spatial)
+
+
+def _attention(model: GMA, inp: torch.Tensor, chunk: int, spatial):
     cfg = model.cfg
     n, _, h, w = inp.shape
     heads, dh = cfg.num_heads, cfg.dim_head
@@ -325,7 +331,13 @@ def _aggregate_chunked(attn: AttnOperands, v: torch.Tensor) -> torch.Tensor:
 def aggregate(agg: Aggregate, attn, motion: torch.Tensor, spatial=None) -> torch.Tensor:
     """motion (N, 128, H, W) + gamma * (attention applied to v = to_v(motion)),
     in motion's dtype. attn: attention()'s dense matrix or AttnOperands.
-    spatial: motion and the result are this rank's rows, v is gathered."""
+    spatial: motion and the result are this rank's rows, v is gathered.
+    The span "gma.aggregate" (utils/profiling.py)."""
+    with span("gma.aggregate"):
+        return _aggregate(agg, attn, motion, spatial)
+
+
+def _aggregate(agg: Aggregate, attn, motion: torch.Tensor, spatial) -> torch.Tensor:
     n, _, h, w = motion.shape
     v = _heads(mesh.gather_rows(agg.to_v(motion), spatial, dim=2), agg.num_heads)
     with _float32_reduction():

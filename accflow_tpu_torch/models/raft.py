@@ -111,6 +111,7 @@ from accflow_tpu_torch.ops.corr import (
 from accflow_tpu_torch.ops.grids import coords_grid, upflow8
 from accflow_tpu_torch.ops.upsample import convex_upsample
 from accflow_tpu_torch.parallel import mesh
+from accflow_tpu_torch.utils.profiling import span
 
 
 VOLUME_DTYPES = (None, "float32", "bfloat16")  # corr_volume_dtype's values
@@ -442,7 +443,8 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
     stop_gradient). remat ("none", "dots" or "full", nn.remat.remat_wrap)
     checkpoints each iteration under autograd. spatial: net, inp, flow_init
     and the flows are this rank's rows (the update block's layers take the
-    handle from spatial_sharding), the coordinates global.
+    handle from spatial_sharding), the coordinates global. Each iteration
+    is the span "est.update" (utils/profiling.py).
     Returns {"flow_up", "flow_low"[, "predictions"]}."""
     cfg, ub = model.cfg, model.update_block
     cd = cfg.dtype
@@ -487,7 +489,8 @@ def raft_iterate(model: RAFT, levels, net, inp, iters: int, final_only: bool,
     step = remat_wrap(sharded, remat)
     preds = []
     for _ in range(iters):
-        net, coords1, *pred = step(net, coords1.detach())
+        with span("est.update"):
+            net, coords1, *pred = step(net, coords1.detach())
         preds += pred
     out = {"flow_low": coords1 - coords0}
     if final_only:

@@ -77,6 +77,7 @@ from accflow_tpu_torch.nn.layers import tf32
 from accflow_tpu_torch.nn.remat import remat_wrap
 from accflow_tpu_torch.ops.corr_bd_cuda import y_contract
 from accflow_tpu_torch.ops.sampling import bilinear_sample, bilinear_sample_backward
+from accflow_tpu_torch.utils.profiling import span
 
 # corr_lookup spellings (accflow_tpu/ops/corr.py:116-134): the live ones the
 # all-levels lookup serves; the experimental ones behind the "experimental:"
@@ -356,11 +357,14 @@ def build_corr_operands(fmap1, fmap2, num_levels: int, spelling: str, dtype=torc
     lookup's operands with their chunk set (OnDemandCorr) for
     "ondemand[:chunk]", the stored pyramid (a list of levels) for every
     other. `dtype` is the levels' type, or the rows' before the
-    lookup."""
+    lookup. The pyramid's build is the span "corr.build"
+    (utils/profiling.py); the volume-free lookup's rows are that span in
+    each chunk of each lookup (lookup_corr_on_demand)."""
     if is_ondemand(spelling):
         return prepare_ondemand_chunks(build_corr_on_demand(fmap1, fmap2, num_levels, dtype),
                                        ondemand_chunk(spelling))
-    return build_corr_pyramid(fmap1, fmap2, num_levels, dtype)
+    with span("corr.build"):
+        return build_corr_pyramid(fmap1, fmap2, num_levels, dtype)
 
 
 def lookup_corr_kernel(levels, coords: torch.Tensor, radius: int,
@@ -410,7 +414,7 @@ def lookup_corr_on_demand(od, coords: torch.Tensor, radius: int = 4, chunk: int 
     inv_sqrt_c = 1.0 / math.sqrt(c)
 
     def one_chunk(f1c, cc):
-        with tf32(od.tf32):
+        with span("corr.build"), tf32(od.tf32):
             rows = [_corr_rows(f1c, f2, inv_sqrt_c, od.dtype) for f2 in od.f2_levels]
         return lookup_corr_kernel(rows, cc, radius, out_dtype=out_dtype)
 

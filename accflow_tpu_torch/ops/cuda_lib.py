@@ -19,6 +19,8 @@ from pathlib import Path
 
 import torch
 
+from accflow_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
@@ -40,22 +42,24 @@ def _nvcc() -> str:
 def build(source: Path, *defines: str) -> tuple[str, str]:
     """Compile `source` (with extra `defines`, e.g. "-DCORR_QT=16") unless
     this source and these flags were built before. Returns (library path,
-    compiler output; empty when cached)."""
-    flags = (*NVCC_FLAGS, *defines)
-    src = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{source.stem}-{tag}.so"
-    if lib.exists():
-        return str(lib), ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(source)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent process never loads a partial file
-    return str(lib), proc.stdout + proc.stderr
+    compiler output; empty when cached). The nvcc run or the cache hit is
+    the host span "cuda_lib.build" (utils/profiling.py)."""
+    with profiling.span("cuda_lib.build", "host"):
+        flags = (*NVCC_FLAGS, *defines)
+        src = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+        lib = BUILD_DIR / f"{source.stem}-{tag}.so"
+        if lib.exists():
+            return str(lib), ""
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
+        proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(source)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)  # atomic: a concurrent process never loads a partial file
+        return str(lib), proc.stdout + proc.stderr
 
 
 def check_lookup_operands(levels, coords: torch.Tensor) -> None:

@@ -209,7 +209,7 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 20. the host tools: a convert_ckpt round trip of the full-width acc+raft
    (the clip forward bit-equal), the native CVOR core's decode of a
    CVO-test-sized flow column against numpy, profiling.trace naming kernel
-   #1, profiling.device_step_time of the graphed clip beside phase 5b's;
+   #1, the graphed clip's spans under profiling.trace beside phase 5b's;
 21. the mesh's spatial axis (height sharding) for inference: two gloo
    ranks on the one card with CUDA tensors (the script runs itself twice
    with --spatial-child), n_spatial 2, each on its rows of the frames,
@@ -5329,9 +5329,10 @@ def host_tools_phase(tmp: str, graphed_clip_ms: float) -> dict:
     flow column the size of CVO's test bflows (536 clips of 512^2 x 10
     uint16) bit-equal to numpy's, both timed, and both timed at the sizes
     the readers decode per call (a 256^2 training crop, a 512^2 sample). (c) profiling.trace of an
-    eager 64^2 pair: its Chrome trace names kernel #1. (d)
-    profiling.device_step_time of the graphed clip (K = 8 against 16
-    chained replays) beside phase 5b's median."""
+    eager 64^2 pair: its Chrome trace names kernel #1. (d) the spans of
+    the graphed clip, captured and replayed twice under profiling.trace:
+    two replays' acc.clip on the trace's span track, the children of each
+    within it, beside phase 5b's median."""
     out = {}
     est = models.build_flow_estimator("raft", compute_dtype="bfloat16", seed=0)
     acc, images = clip_inputs()
@@ -5435,10 +5436,26 @@ def host_tools_phase(tmp: str, graphed_clip_ms: float) -> dict:
                         kernel_1_events=sum(e.count for e in rows))
 
     run = graphs.CudaGraphed(serving.build_serving_fn(est, acc))
-    step_s = profiling.device_step_time(run, (images,), iters=8)
-    print(f"host tools device_step_time: graphed clip (7x512^2, batch 2) {step_s * 1e3:.2f} ms "
-          f"per call (K = 8 vs 16 chained replays), phase 5b's median {graphed_clip_ms:.2f} ms")
-    out["device_step_time"] = dict(ms=step_s * 1e3, phase5b_median_ms=graphed_clip_ms)
+    with profiling.trace(str(Path(tmp) / "spans")):
+        run(images)  # warm-ups, capture, the first replay
+        run(images)
+    recs = [r for r in profiling.drain() if r.graph]
+    doc = json.loads((Path(tmp) / "spans" / "trace.json").read_text())
+    track = [e for e in (doc["traceEvents"] if isinstance(doc, dict) else doc)
+             if e.get("cat") == "span"]
+    clips = [r for r in recs if r.name == "acc.clip"]
+    kids = [sum(r.ms for r in recs if r.parent == c.id) for c in clips]
+    names = sorted({r.name for r in recs})
+    print(f"host tools spans: graphed clip (7x512^2, batch 2) under profiling.trace, 2 replays: "
+          f"acc.clip {[round(c.ms, 3) for c in clips]} ms, its children {[round(k, 3) for k in kids]} "
+          f"ms (phase 5b's median {graphed_clip_ms:.2f} ms); spans {names}; "
+          f"{sum(e['name'] == 'acc.clip' for e in track)} acc.clip on the trace's span track")
+    if len(clips) != 2 or not any(e["name"] == "acc.clip" for e in track):
+        fail("profiling.trace: the graphed clip's spans are not in the trace")
+    if any(k > c.ms for k, c in zip(kids, clips)):
+        fail("profiling spans: the children of acc.clip outlast it")
+    out["spans"] = dict(clip_ms=[c.ms for c in clips], children_ms=kids, names=names,
+                        phase5b_median_ms=graphed_clip_ms)
     del run, est, acc, images, small
     gc.collect()
     torch.cuda.empty_cache()

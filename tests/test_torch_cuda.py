@@ -19,7 +19,8 @@ against the CPU, a graphed train step in a world of one over NCCL against
 the step without a process group, the graphed train and fine-tune steps,
 clip and pushes with a one-rank spatial handle over NCCL against eager
 (and their counted collectives), graphs refusing gloo on the card, a
-profiler trace on the card, and full
+profiler trace on the card, the spans of a graphed clip (CUDA events
+captured in its graph) and the same kernels captured without them, and full
 RAFT height-sharded over two gloo ranks on the card (this file run as a
 script, `_spatial_child`) against one process, with kernel #1's launches
 on each rank; and the estimator options: kernel #2, its backward and
@@ -1511,6 +1512,71 @@ def test_profiling_trace_on_the_card(dev, tmp_path):
     rows = [e for e in prof.key_averages() if "corr_window" in e.key]
     assert sum(e.count for e in rows) == 3
     assert sum(getattr(e, "self_device_time_total", 0) for e in rows) > 0
+
+
+def _replay_activities(run, x):
+    """The profile of one call of `run` (a replay), and the names of the
+    device activities in it in order (kernels, copies, sets)."""
+    from torch.autograd import DeviceType
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run(x)
+        torch.cuda.synchronize()
+    acts = sorted((e.time_range.start, e.name) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                  and not e.name.startswith("graphs."))
+    return prof, [name for _, name in acts]
+
+
+def test_spans_in_a_graphed_clip(dev):
+    """A 64^2 AccRAFT clip graphed with spans on and replayed twice: two
+    calls' records of the whole span set, each time positive and inside
+    its call's acc.clip, the children's sum under it; align puts both
+    calls on the profile's clock, each origin under a ms before its
+    replay's first kernel (the launch's latency). A graph
+    captured with spans off replays the same device activities, kernel
+    for kernel, as the one with spans (events are no kernels)."""
+    from accflow_tpu_torch.utils import profiling
+
+    est = build_flow_estimator("raft", compute_dtype="bfloat16", iters=3, device=dev)
+    acc = init_accflow(AccFlowConfig(hidden=32, compute_dtype="bfloat16"), device=dev)
+    clip = torch.rand((4, 1, 64, 64, 3), device=dev) * 2 - 1
+    serve = serving.build_serving_fn(est, acc)
+    off = graphs.CudaGraphed(serve)
+    off(clip)
+    _, want = _replay_activities(off, clip)
+    profiling.spans(True)
+    try:
+        on = graphs.CudaGraphed(serve)
+        on(clip)
+        profiling.reset()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            on(clip)
+            on(clip)
+            torch.cuda.synchronize()
+        recs = profiling.drain()
+        _, got = _replay_activities(on, clip)
+        profiling.drain()
+    finally:
+        profiling.spans(False)
+        profiling.reset()
+    assert got == want and len(want) > 100
+    assert len({r.call for r in recs}) == 2 and all(r.graph for r in recs)
+    names = [r.name for r in recs]
+    assert names.count("acc.clip") == 2 and names.count("est.update") == 6
+    assert names.count("corr.build") == names.count("acc.ofe") == names.count("acc.cells") == 2
+    for root in (r for r in recs if r.name == "acc.clip"):
+        mine = [r for r in recs if r.call == root.call]
+        assert root.start_ms == 0.0 and root.ms > 0
+        assert all(0.0 <= r.start_ms < r.end_ms <= root.end_ms for r in mine[1:])
+        assert sum(r.ms for r in mine if r.parent == root.id) <= root.ms
+    aligned, residuals, dropped = profiling.align(prof, recs)
+    assert len(aligned) == len(recs) and not dropped
+    assert all(-5.0 < r < 1000.0 for r in residuals.values())
+    att = profiling.attribute(prof, aligned)
+    assert "est.update" in att["kernels"] and "corr.build" in att["kernels"]
 
 
 def test_device_prefetch_copies_to_the_card(dev):

@@ -15,8 +15,7 @@ utils/logging.py::ScopeTimer.
   without g++; its image normalisation and cropped batch gather (plain and
   with the flow decode) against JAX's accflow_tpu.native, bit for bit,
   native and numpy's path alike (tests/test_native.py:21-45's cases);
-- timed_pair_median's discard of degenerate pairs and its raise;
-  device_step_time, trace and ScopeTimer on the CPU.
+- trace and ScopeTimer on the CPU (the spans: test_torch_profiling.py).
 """
 
 import os
@@ -242,44 +241,10 @@ def test_gather_crop_matches_jax(monkeypatch, path, decode_flow):
         native.gather_crop(col, idx, y0 + 1, x0 + 9, (8, 8), decode_flow=decode_flow)
 
 
-def test_timed_pair_median_discards_and_raises(capsys):
-    """A pair whose 2K leg is not slower is discarded and retried (never
-    floored); when every pair is degenerate the measurement raises."""
-    clock = iter([0.0, 1.0, 1.5, 10.0, 11.0, 13.0, 20.0, 21.0, 23.5, 30.0, 31.0, 33.0])
-    real = profiling.time.perf_counter
-    profiling.time.perf_counter = lambda: next(clock)
-    try:
-        dt = profiling.timed_pair_median(lambda: 0.0, lambda: 0.0, (), k=2, repeats=3)
-    finally:
-        profiling.time.perf_counter = real
-    assert dt == pytest.approx(0.5)  # pairs (2-1)/2, (2.5-1)/2, (2-1)/2 after the bad one
-    assert "discarding degenerate" in capsys.readouterr().err
-    clock = iter([0.0, 1.0, 1.0] * 9)
-    profiling.time.perf_counter = lambda: next(clock)
-    try:
-        with pytest.raises(RuntimeError, match="measurement failed"):
-            profiling.timed_pair_median(lambda: 0.0, lambda: 0.0, (), k=2, repeats=3)
-    finally:
-        profiling.time.perf_counter = real
-
-
-def test_device_step_time_trace_and_scope_timer(tmp_path, capsys):
-    """On the CPU: device_step_time chains K and 2K calls, each reading the
-    last output, and gives a positive time; trace writes a Chrome trace that
-    names the ops run; ScopeTimer prints and keeps its elapsed time."""
+def test_trace_and_scope_timer(tmp_path, capsys):
+    """On the CPU: trace writes a Chrome trace that names the ops run;
+    ScopeTimer prints and keeps its elapsed time."""
     x = torch.randn(96, 96)
-    calls = []
-
-    def step(a):
-        calls.append(a)
-        return a @ a.T
-
-    dt = profiling.device_step_time(step, (x,), iters=3)
-    assert dt > 0 and len(calls) >= 2 * (3 + 6)
-    assert calls[0] is x and calls[1] is not x  # computed from the first call's output
-    calls.clear()
-    profiling.device_step_time(step, (x,), iters=1, chain=lambda out, args, s: (out / s,))
-    np.testing.assert_allclose(calls[2], (x @ x.T) / (x @ x.T).sum(), rtol=1e-5)  # 2K run
     with profiling.trace(str(tmp_path / "tr")) as prof:
         torch.mm(x, x)
     text = (tmp_path / "tr" / "trace.json").read_text()
